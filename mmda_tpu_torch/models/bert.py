@@ -1,0 +1,206 @@
+"""BERT encoder (bert-base-uncased architecture), deterministic forward.
+
+Counterpart of `mmda_tpu/models/bert.py` (`bert_encode` on its plain
+attention path).  The parameter layout follows the JAX tree (separate q/k/v
+denses, HF-compatible names) with PyTorch (out, in) weights; the forward
+fuses q/k/v into one product per layer.  Rounding points as in the JAX
+package:
+
+* `apply_dense`: f32 accumulation, cast to the compute dtype, then the bias
+  added in the compute dtype;
+* LayerNorm (eps 1e-12) with f32 statistics, cast back to the input dtype;
+* attention logits and softmax in f32 with an additive -1e9 key bias,
+  probs cast to the compute dtype for the product with v;
+* erf GELU in f32.
+
+Dropout, MoE FFNs, int8 weights and the fused/flash attention kernels are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mmda_tpu_torch.models.common import LayerNorm, layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    gelu_exact: bool = True       # erf GELU (HF parity); False = tanh approx
+
+    @staticmethod
+    def base() -> "BertConfig":
+        return BertConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 128) -> "BertConfig":
+        """Small config for unit tests."""
+        return BertConfig(vocab_size=vocab_size, hidden_size=32, num_layers=2,
+                          num_heads=2, intermediate_size=64,
+                          max_position_embeddings=64)
+
+
+def bert_config_for(cfg) -> Optional[BertConfig]:
+    """BertConfig.base() for a config that uses the BERT tower."""
+    if not cfg.use_bert:
+        return None
+    if getattr(cfg, "moe_experts", 0) > 0:
+        raise NotImplementedError("moe_experts > 0 is not ported yet")
+    return BertConfig.base()
+
+
+def apply_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """x @ weight.T accumulated in f32 and rounded to compute_dtype, then
+    + bias in compute_dtype.  A matmul whose operands are both in
+    compute_dtype accumulates in f32 and rounds its output once."""
+    y = torch.matmul(x, weight.to(compute_dtype).t())
+    return y + bias.to(compute_dtype)
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+
+    def reset_parameters(self, std: float, generator: torch.Generator) -> None:
+        _trunc_normal_(self.weight, std, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        H = cfg.hidden_size
+        self.word = nn.Parameter(torch.empty(cfg.vocab_size, H, device=device))
+        self.position = nn.Parameter(
+            torch.empty(cfg.max_position_embeddings, H, device=device))
+        self.token_type = nn.Parameter(
+            torch.empty(cfg.type_vocab_size, H, device=device))
+        self.ln = LayerNorm(H, cfg.layer_norm_eps, device)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.q = Dense(H, H, device)
+        self.k = Dense(H, H, device)
+        self.v = Dense(H, H, device)
+        self.attn_out = Dense(H, H, device)
+        self.ffn_in = Dense(H, I, device)
+        self.ffn_out = Dense(I, H, device)
+        self.attn_ln = LayerNorm(H, cfg.layer_norm_eps, device)
+        self.ffn_ln = LayerNorm(H, cfg.layer_norm_eps, device)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg, device)
+        self.layers = nn.ModuleList(BertLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """BERT initializer: truncated normal (+-2 std, std 0.02) for the
+        tables and dense weights, zero biases, unit LayerNorms."""
+        std = self.cfg.initializer_range
+        emb = self.embeddings
+        for t in (emb.word, emb.position, emb.token_type):
+            _trunc_normal_(t, std, generator)
+        emb.ln.reset_parameters()
+        self.pooler.reset_parameters(std, generator)
+        for lp in self.layers:
+            for d in (lp.q, lp.k, lp.v, lp.attn_out, lp.ffn_in, lp.ffn_out):
+                d.reset_parameters(std, generator)
+            lp.attn_ln.reset_parameters()
+            lp.ffn_ln.reset_parameters()
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        return bert_encode(self, input_ids, attention_mask, token_type_ids,
+                           compute_dtype)
+
+
+def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
+               token_type_ids: torch.Tensor, eps: float,
+               compute_dtype: torch.dtype) -> torch.Tensor:
+    S = input_ids.shape[1]
+    emb = p.word[input_ids] + p.position[:S][None] + p.token_type[token_type_ids]
+    return layer_norm(emb, p.ln.weight, p.ln.bias, eps).to(compute_dtype)
+
+
+def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
+               key_bias: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """One post-norm encoder layer; key_bias (B * nh, 1, S) additive."""
+    B, S, H = x.shape
+    nh = cfg.num_heads
+    hd = H // nh
+    cd = compute_dtype
+    eps = cfg.layer_norm_eps
+    qkv_w = torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0)
+    qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
+    q, k, v = apply_dense(x, qkv_w, qkv_b, cd).split(H, dim=-1)
+
+    def heads(t):
+        return t.reshape(B, S, nh, hd).transpose(1, 2).reshape(B * nh, S, hd)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(logits + key_bias, dim=-1)
+    ctx = torch.matmul(probs.to(cd), v)
+    ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
+    attn = apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd)
+    x = layer_norm(x + attn, lp.attn_ln.weight, lp.attn_ln.bias, eps).to(cd)
+
+    h = apply_dense(x, lp.ffn_in.weight, lp.ffn_in.bias, cd)
+    if cfg.gelu_exact:
+        h = F.gelu(h.float(), approximate="none")
+    else:
+        h = F.gelu(h, approximate="tanh")
+    h = apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd)
+    return layer_norm(x + h, lp.ffn_ln.weight, lp.ffn_ln.bias, eps).to(cd)
+
+
+def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Last hidden state (B, S, H) of the encoder."""
+    cfg = p.cfg
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(input_ids)
+    x = bert_embed(p.embeddings, input_ids, token_type_ids, cfg.layer_norm_eps,
+                   compute_dtype)
+    key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
+    key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
+    for lp in p.layers:
+        x = bert_layer(x, lp, cfg, key_bias, compute_dtype)
+    return x

@@ -1,0 +1,131 @@
+"""Masked bidirectional LSTM with packed-sequence semantics.
+
+Counterpart of `mmda_tpu/models/bilstm.py` (LSTM cell).  Fixed-length padded
+batches with a length mask stand in for `pack_padded_sequence`:
+
+* a masked step holds the carry, so the forward direction's final state is
+  the state at each sequence's true length, and the reverse direction starts
+  at each sequence's last valid token (its pads keep the zero carry);
+* the input projection x @ W_ih^T is hoisted out of the recurrence into one
+  matmul, with b_ih and b_hh folded into x_proj;
+* outputs are zeroed at pads, as pad_packed_sequence does;
+* `extract_features`: rnn1 -> LayerNorm -> rnn2, utterance vector
+  [h1_f, h2_f, h1_b, h2_b] (B, 4H).
+
+Every directional recurrence goes through `recurrence`, by default the
+kernel wrapper `ops.kernels.lstm.lstm_recurrence` (the CUDA kernel for CUDA
+tensors).  Callers may pass `lstm_recurrence_reference` explicitly to run the
+plain version instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from mmda_tpu_torch.models.common import LayerNorm, uniform_
+from mmda_tpu_torch.ops.functions import length_mask
+from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
+
+Recurrence = Callable[..., tuple]
+
+
+class LSTMDirection(nn.Module):
+    """torch nn.LSTM layout: w_ih (4H, F), w_hh (4H, H), gates i, f, g, o."""
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        G = 4 * hidden_size
+        self.w_ih = nn.Parameter(torch.empty(G, input_size, device=device))
+        self.w_hh = nn.Parameter(torch.empty(G, hidden_size, device=device))
+        self.b_ih = nn.Parameter(torch.empty(G, device=device))
+        self.b_hh = nn.Parameter(torch.empty(G, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch nn.LSTM default (uniform +-1/sqrt(H)), then w_hh orthogonal
+        as the reference solver re-initializes it."""
+        k = 1.0 / math.sqrt(self.w_hh.shape[1])
+        uniform_(self.w_ih, k, generator)
+        uniform_(self.b_ih, k, generator)
+        uniform_(self.b_hh, k, generator)
+        with torch.no_grad():
+            nn.init.orthogonal_(self.w_hh, generator=generator)
+
+
+def scan_direction(p: LSTMDirection, x: torch.Tensor, mask: torch.Tensor,
+                   reverse: bool, recurrence: Optional[Recurrence] = None):
+    """One direction over (B, T, F) input with (B, T) mask.
+    Returns (outputs (B, T, H), final h (B, H))."""
+    recurrence = recurrence or lstm_recurrence
+    B, T, F = x.shape
+    # x_bf16 @ w_ih.astype(bf16) with f32 accumulation: both operands are
+    # upcast exactly, then multiplied in f32
+    x_proj = torch.matmul(x.reshape(B * T, F).float(),
+                          p.w_ih.to(x.dtype).float().t()).reshape(B, T, -1)
+    x_proj = x_proj + p.b_ih.float()
+    x_proj = x_proj + p.b_hh.float()
+    ys, _, h_fin, _ = recurrence(
+        x_proj.transpose(0, 1).contiguous(),
+        p.w_hh.float().t().contiguous(),
+        mask.t().contiguous().float(),
+        reverse)
+    return ys.transpose(0, 1), h_fin
+
+
+class BiLSTM(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        self.fwd = LSTMDirection(input_size, hidden_size, device)
+        self.bwd = LSTMDirection(input_size, hidden_size, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.fwd.reset_parameters(generator)
+        self.bwd.reset_parameters(generator)
+
+
+def birnn(p: BiLSTM, x: torch.Tensor, lengths: torch.Tensor,
+          recurrence: Optional[Recurrence] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional masked LSTM over (B, T, F) with (B,) lengths.
+    Returns outputs (B, T, 2H) [fwd; bwd], zero at pads, and the final
+    states (B, 2H) [fwd_final; bwd_final]."""
+    T = x.shape[1]
+    mask = length_mask(lengths, T)
+    ys_f, h_f = scan_direction(p.fwd, x, mask, False, recurrence)
+    ys_b, h_b = scan_direction(p.bwd, x, mask, True, recurrence)
+    ys = torch.cat([ys_f, ys_b], dim=-1) * mask[..., None]
+    return ys, torch.cat([h_f, h_b], dim=-1)
+
+
+class LSTMExtractor(nn.Module):
+    """Two stacked bi-LSTMs with a LayerNorm between them."""
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        self.rnn1 = BiLSTM(input_size, hidden_size, device)
+        self.rnn2 = BiLSTM(2 * hidden_size, hidden_size, device)
+        self.ln = LayerNorm(2 * hidden_size, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.rnn1.reset_parameters(generator)
+        self.rnn2.reset_parameters(generator)
+        self.ln.reset_parameters()
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                recurrence: Optional[Recurrence] = None) -> torch.Tensor:
+        return extract_features(self, x, lengths, recurrence)
+
+
+def extract_features(p: LSTMExtractor, x: torch.Tensor, lengths: torch.Tensor,
+                     recurrence: Optional[Recurrence] = None) -> torch.Tensor:
+    """rnn1 -> LayerNorm(padded outputs) -> rnn2; returns the utterance
+    vector [h1_f, h2_f, h1_b, h2_b] (B, 4H).  The LayerNorm turns the zeroed
+    pad rows into its bias; rnn2 still ignores them through the mask."""
+    ys1, h1 = birnn(p.rnn1, x, lengths, recurrence)
+    ys1 = p.ln(ys1)
+    _, h2 = birnn(p.rnn2, ys1, lengths, recurrence)
+    H = h1.shape[-1] // 2
+    return torch.cat([h1[:, :H], h2[:, :H], h1[:, H:], h2[:, H:]], dim=-1)

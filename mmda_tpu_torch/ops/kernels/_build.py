@@ -1,0 +1,87 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
+C interface, `mmda_tpu_torch/build/<name>-<digest>.so`; the digest covers
+the source and the flags, so an edited source never loads a stale library.
+Builds happen at first use (or all at once through `build_all`, which starts
+one nvcc per source in parallel) and only from the sources in the checkout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
+                       "CUDA kernels cannot be built on this machine")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no library yet, one nvcc process
+    each, all started together.  Raises with nvcc's output if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    paths = {}
+    for name in names:
+        out = library_path(name)
+        paths[name] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        if log.strip():
+            print(f"[nvcc {name}] {log.strip()}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,112 @@
+"""The port stands alone: `mmda_tpu_torch` and `chip_smoke.py` import no JAX
+and nothing of `mmda_tpu`, entry points never run on the CPU unless asked,
+and the kernel wrapper has no fallback from a CUDA tensor to the plain
+version."""
+
+import ast
+import inspect
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import mmda_tpu_torch
+from mmda_tpu_torch.ops.kernels import lstm as klstm
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(mmda_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmda_tpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        name = ".".join(rel.parts)
+        yield name[: -len(".__init__")] if name.endswith(".__init__") else name
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_import_in_source(path):
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path}: imports {mod}"
+
+
+def test_every_module_imports_with_jax_and_mmda_tpu_blocked():
+    """A fresh interpreter where importing jax, flax, optax or mmda_tpu
+    fails imports every module of the port and chip_smoke.py."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None        # any import of it raises
+        for name in {list(_modules())!r}:
+            importlib.import_module(name)
+        sys.path.insert(0, {str(ROOT)!r})
+        import chip_smoke
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+def test_entry_points_raise_without_cuda_instead_of_using_the_cpu(monkeypatch):
+    from mmda_tpu_torch.config import Config, resolve_device
+    from mmda_tpu_torch.serving import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert Config().device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(Config(use_bert=False, hidden_size=8), params=None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_cuda():
+    """No card: a non-zero exit and no result line."""
+    code = ("import torch; torch.cuda.is_available = lambda: False; "
+            "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    (tmp_path / "chip_smoke.py").write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_kernel_wrapper_has_no_fallback():
+    """lstm_recurrence takes the plain version only for a CPU tensor: its
+    source holds no try/except, and every other device either launches the
+    kernel or raises."""
+    assert "environ" not in inspect.getsource(klstm)      # no routing switch
+    src = inspect.getsource(klstm.lstm_recurrence)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "lstm_recurrence_reference"]
+    assert len(calls) == 1
+    x = torch.zeros(2, 2, 8, device="meta")
+    w = torch.zeros(2, 8, device="meta")
+    m = torch.zeros(2, 2, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        klstm.lstm_recurrence(x, w, m)
