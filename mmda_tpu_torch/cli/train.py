@@ -1,0 +1,97 @@
+"""Training entry: `python -m mmda_tpu_torch.cli.train`.
+
+Counterpart of `mmda_tpu/cli/train.py`, with the same flags (the fields of
+`mmda_tpu_torch.config.Config`).  It runs on the card by default; `--device
+cpu` is the only way onto the CPU, and `--device cuda` without a card
+raises.  The best-on-dev parameters land in `{ckpt_dir}/best_model_*.msgpack`
+in the JAX package's format, so `python -m mmda_tpu_torch.cli.serve` and the
+JAX package's `load_checkpoint` both read them; the summary goes to
+`{ckpt_dir}/summary_{name}.json`.
+
+Usage:
+  python -m mmda_tpu_torch.cli.train --data mosei
+  python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 2      # no data files
+  python -m mmda_tpu_torch.cli.train --data synthetic --device cpu --use_bert False
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+SPLITS = ("train", "dev", "test")
+
+
+def load_splits(data_dir: str) -> dict:
+    """{split: dict of arrays} from the ETL's `{data_dir}/{split}.npz`."""
+    out = {}
+    for name in SPLITS:
+        path = os.path.join(data_dir, f"{name}.npz")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path} not found - run the JAX package's ETL "
+                                    "(python -m mmda_tpu.cli.etl) or use --data synthetic")
+        with np.load(path) as z:
+            out[name] = {k: z[k] for k in z.files}
+    return out
+
+
+def load_data(cfg):
+    """(splits, pretrained GloVe table or None) for cfg.data."""
+    from mmda_tpu_torch.data.synthetic import make_dataset
+
+    if cfg.data == "synthetic":
+        return make_dataset(num_train=512, num_dev=128, num_test=128,
+                            max_len=cfg.max_seq_len), None
+    data_dir = os.path.join(cfg.data_dir, cfg.data.upper())
+    emb_path = os.path.join(data_dir, "glove_emb.npy")
+    emb = np.load(emb_path) if os.path.exists(emb_path) else None
+    return load_splits(data_dir), emb
+
+
+def main(argv=None) -> dict:
+    from mmda_tpu_torch.config import get_config
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.utils.logging import MetricLogger
+
+    cfg = get_config(argv=argv)
+    if cfg.use_wandb and "wandb" not in cfg.log_sinks:
+        cfg = cfg.replace(log_sinks=tuple(cfg.log_sinks) + ("wandb",))
+    print(cfg)
+    data, pretrained_emb = load_data(cfg)
+
+    summaries = []
+    n_runs = max(cfg.runs, 1) if cfg.mode == "multirun" else 1
+    for i in range(n_runs):
+        run_cfg = cfg if n_runs == 1 else cfg.replace(seed=cfg.seed + i,
+                                                      name=f"{cfg.name}_r{i}")
+        logger = MetricLogger(run_cfg.log_sinks, run_name=run_cfg.name)
+        trainer = Trainer(run_cfg, data, pretrained_emb=pretrained_emb, logger=logger)
+        summaries.append(trainer.train())
+        logger.close()
+    summary = summaries[-1]
+    if n_runs > 1:
+        keys = [k for k in summary
+                if k.startswith("test_") and isinstance(summary[k], (int, float))]
+        agg = {f"mean_{k}": float(np.mean([s[k] for s in summaries])) for k in keys}
+        agg.update({f"std_{k}": float(np.std([s[k] for s in summaries])) for k in keys})
+        print(json.dumps(agg, indent=2))
+        summary = {**summary, **agg}
+
+    print("=" * 50)
+    print(f"Best epoch: {summary['best_epoch']}")
+    for label, key in (("Accuracy", "test_acc"), ("F1 score", "test_f1"),
+                       ("Precision", "test_precision"), ("Recall", "test_recall"),
+                       ("MAE", "test_mae"), ("Corr", "test_corr"), ("Acc2", "test_acc2")):
+        if key in summary:
+            print(f"{label}: {summary[key]}")
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    with open(os.path.join(cfg.ckpt_dir, f"summary_{cfg.name}.json"), "w") as f:
+        json.dump({k: v for k, v in summary.items() if k != "history"}, f,
+                  indent=2, default=float)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -185,6 +185,22 @@ class Config:
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
+    def resolved_attn_impl(self, training: bool = False,
+                           seq_len: Optional[int] = None) -> str:
+        """The BERT attention core the JAX package picks: with "auto",
+        flash for training at S >= 256 and for inference at S > 1024, else
+        plain ("xla").  The port has the plain core only."""
+        if self.attn_impl == "auto":
+            if self.use_flash_attention:
+                return "flash"
+            s = self.max_seq_len if seq_len is None else seq_len
+            if (training and s >= 256) or (not training and s > 1024):
+                return "flash"
+            return "xla"
+        if self.attn_impl == "xla" and self.use_flash_attention:
+            return "flash"
+        return self.attn_impl
+
     def resolved_task(self) -> str:
         if self.task != "auto":
             return self.task

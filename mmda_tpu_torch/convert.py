@@ -12,7 +12,8 @@ parameter names:
 
 Lists (BERT layers) flatten by index; a fastser file's '0', '1', ... keys
 flatten the same way.  Any leaf the port has no parameter for, any port
-parameter left unfilled, and any shape mismatch raise.
+parameter left unfilled, and any shape mismatch raise.  `to_jax_tree` is
+the inverse, for the checkpoints the port's trainer writes.
 """
 
 from __future__ import annotations
@@ -84,3 +85,38 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
     """Copy a JAX parameter tree into `model` (cast to its dtypes); returns it."""
     model.load_state_dict(convert_params(tree, model), strict=True)
     return model
+
+
+def jax_name(model: nn.Module, name: str) -> str:
+    """The JAX leaf path of port parameter `name`: a linear layer's weight
+    is its `kernel`, a LayerNorm's its `scale`; other names are kept."""
+    from mmda_tpu_torch.models.bert import Dense
+    from mmda_tpu_torch.models.common import LayerNorm, Linear
+
+    head, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        owner = model.get_submodule(head)
+        if isinstance(owner, (Linear, Dense)):
+            return head + ".kernel"
+        if isinstance(owner, LayerNorm):
+            return head + ".scale"
+    return name
+
+
+def to_jax_tree(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of `convert_params`: the model's parameters as the JAX
+    package's nested tree (kernels transposed back to (in, out)), tensors
+    on the CPU.  List entries (BERT layers) are dicts keyed '0', '1', ...,
+    the form a fastser checkpoint stores them in."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        path = jax_name(model, name)
+        value = p.detach().to("cpu")
+        if path.endswith(".kernel"):
+            value = value.t()
+        parts = path.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value.contiguous()
+    return tree

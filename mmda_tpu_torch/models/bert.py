@@ -1,4 +1,4 @@
-"""BERT encoder (bert-base-uncased architecture), deterministic forward.
+"""BERT encoder (bert-base-uncased architecture).
 
 Counterpart of `mmda_tpu/models/bert.py` (`bert_encode` on its plain
 attention path).  The parameter layout follows the JAX tree (separate q/k/v
@@ -13,8 +13,12 @@ package:
   probs cast to the compute dtype for the product with v;
 * erf GELU in f32.
 
-Dropout, MoE FFNs, int8 weights and the fused/flash attention kernels are
-not ported yet.
+Training dropout sits where the JAX package's plain path has it: the
+embedding output and both residual branches (`hidden_dropout`), and the f32
+attention probs (`attention_dropout`).  `freeze_layers` is `frozen_mask`
+(encoder layers <= 8 stop training; embeddings and pooler train, so the
+backward still runs through every layer).  MoE FFNs, int8 weights and the
+fused/flash attention kernels are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mmda_tpu_torch.models.common import LayerNorm, layer_norm
+from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,9 +148,18 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return bert_encode(self, input_ids, attention_mask, token_type_ids,
-                           compute_dtype)
+                           compute_dtype, training, generator)
+
+
+def freeze_layers(p: BertEncoder, max_frozen_layer: int = 8) -> None:
+    """Stop training encoder layers 0..max_frozen_layer (the reference's
+    freeze rule; `mmda_tpu.models.bert.frozen_mask`)."""
+    for i, lp in enumerate(p.layers):
+        if i <= max_frozen_layer:
+            lp.requires_grad_(False)
 
 
 def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
@@ -158,13 +171,18 @@ def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
 
 
 def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
-               key_bias: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+               key_bias: torch.Tensor, compute_dtype: torch.dtype,
+               training: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One post-norm encoder layer; key_bias (B * nh, 1, S) additive."""
     B, S, H = x.shape
     nh = cfg.num_heads
     hd = H // nh
     cd = compute_dtype
     eps = cfg.layer_norm_eps
+
+    def drop(t, rate):
+        return dropout(t, rate, training, generator)
     qkv_w = torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0)
     qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
     q, k, v = apply_dense(x, qkv_w, qkv_b, cd).split(H, dim=-1)
@@ -174,10 +192,11 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
 
     q, k, v = heads(q), heads(k), heads(v)
     logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
-    probs = torch.softmax(logits + key_bias, dim=-1)
+    probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
     ctx = torch.matmul(probs.to(cd), v)
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
-    attn = apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd)
+    attn = drop(apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd),
+                cfg.hidden_dropout)
     x = layer_norm(x + attn, lp.attn_ln.weight, lp.attn_ln.bias, eps).to(cd)
 
     h = apply_dense(x, lp.ffn_in.weight, lp.ffn_in.bias, cd)
@@ -185,22 +204,25 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
         h = F.gelu(h.float(), approximate="none")
     else:
         h = F.gelu(h, approximate="tanh")
-    h = apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd)
+    h = drop(apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd),
+             cfg.hidden_dropout)
     return layer_norm(x + h, lp.ffn_ln.weight, lp.ffn_ln.bias, eps).to(cd)
 
 
 def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Last hidden state (B, S, H) of the encoder."""
+                compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Last hidden state (B, S, H) of the encoder; dropout when training."""
     cfg = p.cfg
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
     x = bert_embed(p.embeddings, input_ids, token_type_ids, cfg.layer_norm_eps,
                    compute_dtype)
+    x = dropout(x, cfg.hidden_dropout, training, generator)
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
     key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
     for lp in p.layers:
-        x = bert_layer(x, lp, cfg, key_bias, compute_dtype)
+        x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator)
     return x

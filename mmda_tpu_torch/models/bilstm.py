@@ -12,10 +12,12 @@ batches with a length mask stand in for `pack_padded_sequence`:
 * `extract_features`: rnn1 -> LayerNorm -> rnn2, utterance vector
   [h1_f, h2_f, h1_b, h2_b] (B, 4H).
 
-Every directional recurrence goes through `recurrence`, by default the
-kernel wrapper `ops.kernels.lstm.lstm_recurrence` (the CUDA kernel for CUDA
-tensors).  Callers may pass `lstm_recurrence_reference` explicitly to run the
-plain version instead.
+Every directional recurrence goes through the kernels by default: when a
+gradient is wanted (x_proj or w_hh needs one, so grad is enabled) through
+`lstm_scan` (forward kernel with cs saved, BPTT kernel as its backward),
+otherwise through `lstm_recurrence` alone without cs.  Callers
+may pass `recurrence=lstm_recurrence_reference` to run the plain version
+instead, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch.nn as nn
 
 from mmda_tpu_torch.models.common import LayerNorm, uniform_
 from mmda_tpu_torch.ops.functions import length_mask
-from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
+from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence, lstm_scan
 
 Recurrence = Callable[..., tuple]
 
@@ -59,7 +61,6 @@ def scan_direction(p: LSTMDirection, x: torch.Tensor, mask: torch.Tensor,
                    reverse: bool, recurrence: Optional[Recurrence] = None):
     """One direction over (B, T, F) input with (B, T) mask.
     Returns (outputs (B, T, H), final h (B, H))."""
-    recurrence = recurrence or lstm_recurrence
     B, T, F = x.shape
     # x_bf16 @ w_ih.astype(bf16) with f32 accumulation: both operands are
     # upcast exactly, then multiplied in f32
@@ -67,11 +68,14 @@ def scan_direction(p: LSTMDirection, x: torch.Tensor, mask: torch.Tensor,
                           p.w_ih.to(x.dtype).float().t()).reshape(B, T, -1)
     x_proj = x_proj + p.b_ih.float()
     x_proj = x_proj + p.b_hh.float()
-    ys, _, h_fin, _ = recurrence(
-        x_proj.transpose(0, 1).contiguous(),
-        p.w_hh.float().t().contiguous(),
-        mask.t().contiguous().float(),
-        reverse)
+    args = (x_proj.transpose(0, 1).contiguous(), p.w_hh.float().t().contiguous(),
+            mask.t().contiguous().float(), reverse)
+    if recurrence is not None:
+        ys, _, h_fin, _ = recurrence(*args)
+    elif args[0].requires_grad or args[1].requires_grad:   # a gradient is wanted
+        ys, h_fin = lstm_scan(*args)
+    else:
+        ys, _, h_fin, _ = lstm_recurrence(*args)
     return ys.transpose(0, 1), h_fin
 
 

@@ -1,4 +1,5 @@
-"""Shared layer primitives: linear, LayerNorm and the fusion transformer layer.
+"""Shared layer primitives: linear, LayerNorm, dropout and the fusion
+transformer layer.
 
 Counterpart of `mmda_tpu/models/common.py`.  Parameters live in
 `nn.Module`s with PyTorch layouts (a linear weight is (out, in)); the math
@@ -6,7 +7,10 @@ keeps the JAX package's rounding points:
 
 * `linear`: the product accumulates in f32 from operands rounded to the
   input's dtype, the f32 bias is added, then the sum is cast back;
-* `layer_norm`: f32 statistics, eps 1e-5, output in the input's dtype.
+* `layer_norm`: f32 statistics, eps 1e-5, output in the input's dtype;
+* `dropout`: inverted, one float draw per element (keep where u < 1 - rate),
+  from a `torch.Generator` instead of a JAX key, so the masks differ from the
+  JAX package's while their law is the same.
 
 Initializers take an explicit `torch.Generator` and draw from the JAX
 package's distributions (torch-default linear init, xavier in_proj); the
@@ -36,6 +40,16 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x / (1 - rate) where a uniform draw is below 1 - rate, else 0, in
+    x's dtype; the identity unless training and rate > 0."""
+    if not training or rate == 0.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -77,8 +91,9 @@ class LayerNorm(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Post-norm encoder layer (torch nn.TransformerEncoderLayer semantics):
-    MHA -> add -> LN -> FFN(relu) -> add -> LN.  Deterministic forward; the
-    dropout sites come with the training path."""
+    MHA -> dropout -> add -> LN -> FFN(relu, dropout) -> dropout -> add -> LN,
+    with dropout on the attention probs too (four sites, all at
+    `dropout_rate`)."""
 
     def __init__(self, d_model: int, dim_feedforward: int = 2048, device=None):
         super().__init__()
@@ -103,9 +118,14 @@ class TransformerLayer(nn.Module):
         self.ln2.reset_parameters()
 
     def forward(self, x: torch.Tensor, num_heads: int,
-                attn_bias: Optional[torch.Tensor] = None):
+                attn_bias: Optional[torch.Tensor] = None, dropout_rate: float = 0.1,
+                training: bool = False, generator: Optional[torch.Generator] = None):
         """x (B, S, D); attn_bias (B, S) additive key bias.
-        Returns (out (B, S, D), attention probs (B, nh, S, S))."""
+        Returns (out (B, S, D), attention probs (B, nh, S, S), after their
+        dropout when training)."""
+        def drop(t):
+            return dropout(t, dropout_rate, training, generator)
+
         B, S, D = x.shape
         hd = D // num_heads
         q, k, v = self.in_proj(x).split(D, dim=-1)
@@ -117,9 +137,9 @@ class TransformerLayer(nn.Module):
                               heads(k).float().transpose(-1, -2)) / math.sqrt(hd)
         if attn_bias is not None:
             logits = logits + attn_bias[:, None, None, :]
-        probs = torch.softmax(logits, dim=-1)
+        probs = drop(torch.softmax(logits, dim=-1))
         ctx = torch.matmul(probs.to(x.dtype).float(), heads(v).float()).to(x.dtype)
-        attn = self.out_proj(ctx.transpose(1, 2).reshape(B, S, D))
+        attn = drop(self.out_proj(ctx.transpose(1, 2).reshape(B, S, D)))
         x = self.ln1(x + attn)
-        h = self.ffn2(F.relu(self.ffn1(x)))
+        h = drop(self.ffn2(drop(F.relu(self.ffn1(x)))))
         return self.ln2(x + h), probs

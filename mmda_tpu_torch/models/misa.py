@@ -1,10 +1,16 @@
-"""MISA model (shared/private multimodal factorization), deterministic forward.
+"""MISA model (shared/private multimodal factorization).
 
 Counterpart of `mmda_tpu/models/misa.py::misa_forward`: the same graph and
 the same `MISAOutput` fields, as an `nn.Module` whose parameter names follow
 the JAX tree (see `mmda_tpu_torch.convert`).  `modality_keep` (B, 3) zeroes
-the text/visual/acoustic streams per example.  Dropout sites come with the
-training path.
+the text/visual/acoustic streams per example.
+
+Dropout follows the module's mode: off under `eval()` (the JAX package's
+deterministic=True), on under `train()`, drawn from the `generator` the
+caller passes (the trainer's, on the device, seeded from cfg.seed).  Its
+sites are the JAX package's: BERT (its config's rates), the fusion layer
+(a fixed 0.1), the discriminator's hidden layer and the logits
+(cfg.dropout).
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
-from mmda_tpu_torch.models.common import LayerNorm, Linear, TransformerLayer
+from mmda_tpu_torch.models.common import LayerNorm, Linear, TransformerLayer, dropout
 from mmda_tpu_torch.models.extractors import make_tower
 from mmda_tpu_torch.ops.functions import binarize, get_activation, masked_mean, reverse_grad
 
@@ -154,13 +160,18 @@ class MISA(nn.Module):
                 self.embed.normal_(generator=generator)
 
     def forward(self, batch: Batch, modality_keep: Optional[torch.Tensor] = None,
-                recurrence=None) -> MISAOutput:
+                recurrence=None, generator: Optional[torch.Generator] = None
+                ) -> MISAOutput:
         """recurrence: the LSTM recurrence the towers use (default: the
-        kernel wrapper `lstm_recurrence`)."""
+        kernels); generator: the dropout draws' source in train()."""
         cfg = self.cfg
         act = get_activation(cfg.activation)
         cd = getattr(torch, cfg.compute_dtype)
         H = cfg.hidden_size
+        training = self.training
+
+        def drop(x, rate):
+            return dropout(x, rate, training, generator)
 
         visual = batch.visual.to(cd)
         acoustic = batch.acoustic.to(cd)
@@ -170,7 +181,8 @@ class MISA(nn.Module):
             acoustic = acoustic * mk[:, 2][:, None, None]
 
         if cfg.use_bert:
-            hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd)
+            hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd,
+                               training, generator)
             utt_text = masked_mean(hidden.float(), batch.bert_mask)
         else:
             emb = self.embed[batch.text].to(cd)
@@ -200,7 +212,8 @@ class MISA(nn.Module):
         if not cfg.use_cmd_sim:
             def disc(x):
                 d = self.discriminator
-                return d.l2(act(d.l1(reverse_grad(x, cfg.reverse_grad_weight))))
+                h = act(d.l1(reverse_grad(x, cfg.reverse_grad_weight)))
+                return d.l2(drop(h, cfg.dropout))
 
             domain_t, domain_v, domain_a = disc(shared_t), disc(shared_v), disc(shared_a)
         else:
@@ -216,7 +229,8 @@ class MISA(nn.Module):
 
         h = torch.stack([private_t, private_v, private_a,
                          shared_t, shared_v, shared_a], dim=1)     # (B, 6, H)
-        h_tokens, fusion_attn = self.fusion(h, num_heads=2)
+        h_tokens, fusion_attn = self.fusion(h, num_heads=2, dropout_rate=0.1,
+                                            training=training, generator=generator)
         h = h_tokens.reshape(h_tokens.shape[0], 6 * H)
 
         tcp = torch.sigmoid(self.confidence(h))
@@ -228,6 +242,7 @@ class MISA(nn.Module):
             logits = (ctx * ld.out_w).sum(-1) + ld.out_b
         else:
             logits = self.classifier(h)
+        logits = drop(logits, cfg.dropout)
         if cfg.resolved_task() == "regression":
             scores = logits.float()
             labels = scores
@@ -258,7 +273,8 @@ def init_misa(cfg, seed: int, device="cpu", **sizes) -> MISA:
 
 def misa_forward(model: MISA, batch: Batch,
                  modality_keep: Optional[torch.Tensor] = None,
-                 recurrence=None) -> MISAOutput:
-    """Deterministic forward (`mmda_tpu.models.misa.misa_forward` with
-    deterministic=True)."""
-    return model(batch, modality_keep, recurrence)
+                 recurrence=None, generator: Optional[torch.Generator] = None
+                 ) -> MISAOutput:
+    """`mmda_tpu.models.misa.misa_forward`; deterministic=True is the
+    model's eval() mode."""
+    return model(batch, modality_keep, recurrence, generator)

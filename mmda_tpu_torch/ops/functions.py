@@ -1,4 +1,4 @@
-"""Core pure ops: activation registry, gradient reversal, binarizer, masked mean.
+"""Core ops: activation registry, gradient reversal, binarizer, masked mean.
 
 Counterpart of `mmda_tpu/ops/functions.py`, with the same PyTorch-default
 hyper-parameters (LeakyReLU slope 0.01, ELU alpha 1.0; PReLU/RReLU in their
@@ -40,11 +40,21 @@ def get_activation(name: str):
         raise KeyError(f"unknown activation {name!r}; known: {sorted(ACTIVATION_FNS)}")
 
 
+class _ReverseGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.p * g, None
+
+
 def reverse_grad(x: torch.Tensor, p: float) -> torch.Tensor:
-    """Gradient reversal.  The forward is the identity; the backward (-p * g)
-    comes with the training path."""
-    del p
-    return x
+    """Gradient reversal (domain-adversarial training): the identity
+    forward, -p * g backward."""
+    return _ReverseGrad.apply(x, p)
 
 
 def binarize(scores: torch.Tensor, threshold: float = 0.35) -> torch.Tensor:

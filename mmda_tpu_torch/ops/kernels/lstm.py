@@ -1,11 +1,20 @@
-"""Masked LSTM forward recurrence: the CUDA kernel's wrapper and its plain version.
+"""Masked LSTM recurrence, forward and backward: the CUDA kernels' wrappers
+and their plain versions.
 
-Counterpart of `mmda_tpu/ops/pallas/lstm.py` (forward: `_fwd_kernel` and
-`_stream_fwd_kernel`); the kernel is `mmda_tpu_torch/csrc/lstm_fwd.cu`.
+Counterpart of `mmda_tpu/ops/pallas/lstm.py`: the forward (`_fwd_kernel`,
+`_stream_fwd_kernel`) is `mmda_tpu_torch/csrc/lstm_fwd.cu`, the BPTT
+backward (`_bwd_kernel`, `_stream_bwd_kernel`) `csrc/lstm_bwd.cu`, and
+`LSTMRecurrence` is the `autograd.Function` that joins them, as `lstm_scan`'s
+`custom_vjp` does.
 
-`lstm_recurrence` takes a CUDA tensor to the kernel and a CPU tensor to
-`lstm_recurrence_reference`, the same math as a Python loop over t.  There is
-no other route: a CUDA input that the kernel cannot take raises.
+`lstm_recurrence` and `lstm_recurrence_bwd` take a CUDA tensor to the kernel
+and a CPU tensor to the plain version (`lstm_recurrence_reference`,
+`lstm_recurrence_bwd_reference`: the same math as a Python loop over t).
+There is no other route: a CUDA input that a kernel cannot take raises.
+
+Launch counts (`launch_count(name)`): one per wrapper call that launches,
+per source; a `lstm_bwd` call launches the BPTT kernel and the two passes
+of the dW_hh reduction of that source and counts once.
 """
 
 from __future__ import annotations
@@ -17,20 +26,22 @@ import torch
 
 from mmda_tpu_torch.ops.kernels import _build
 
-SOURCE = "lstm_fwd"
+SOURCES = ("lstm_fwd", "lstm_bwd")
 MAX_THREADS = 1024
+DW_TILE = (16, 64)        # lstm_bwd.cu's dW tile: hidden units x gate columns
 
-_launches = 0
+_launches = dict.fromkeys(SOURCES, 0)
 
 
-def launch_count() -> int:
-    """Kernel launches made by `lstm_recurrence` since the last reset."""
-    return _launches
+def launch_count(name: str = "lstm_fwd") -> int:
+    """Launches of the `name` kernel (`lstm_fwd` by `lstm_recurrence`,
+    `lstm_bwd` by `lstm_recurrence_bwd`) since the last reset."""
+    return _launches[name]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]
@@ -61,16 +72,22 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return ys, cs, h, c
 
 
+def _check_tensor(name: str, t, device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x_proj on {device}")
+
+
 def _check(x_proj, w_hh_t, mask) -> None:
+    if not isinstance(x_proj, torch.Tensor):
+        raise TypeError(f"x_proj must be a tensor, got {type(x_proj).__name__}")
     for name, t in (("x_proj", x_proj), ("w_hh_t", w_hh_t), ("mask", mask)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != x_proj.device:
-            raise ValueError(f"{name} is on {t.device}, x_proj on {x_proj.device}")
+        _check_tensor(name, t, x_proj.device)
     if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be (T, B, 4H), got {tuple(x_proj.shape)}")
     T, B, G = x_proj.shape
@@ -90,13 +107,36 @@ def rows_per_block(B: int, H: int, n_sm: int) -> int:
     return max(1, min(-(-B // n_sm), MAX_THREADS // H))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    fn = lib.mmda_lstm_fwd
+def _lib(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu with `mmda_<name>`'s signature:
+    n_ptrs pointers, n_ints ints, the stream."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"mmda_{name}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def dw_splits(T: int, H: int, n_sm: int) -> int:
+    """Runs of steps the dW_hh reduction is cut into: enough blocks of
+    (DW_TILE) outputs for two per SM, at most one run per step that adds."""
+    tiles = -(-H // DW_TILE[0]) * -(-4 * H // DW_TILE[1])
+    return max(1, min(T - 1, -(-2 * n_sm // tiles)))
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _launches[name] += 1
+
+
+def _device(x: torch.Tensor) -> torch.device:
+    dev = x.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the LSTM kernels run on cuda or cpu tensors, got {dev}")
+    return dev
 
 
 def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -109,18 +149,15 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     Returns ys (T, B, H) (carry held at masked steps), cs (T, B, H) when
     need_cs else None, and the final h, c (B, H).
     """
-    global _launches
     _check(x_proj, w_hh_t, mask)
-    dev = x_proj.device
+    dev = _device(x_proj)
     if dev.type == "cpu":
         return lstm_recurrence_reference(x_proj, w_hh_t, mask, reverse, need_cs)
-    if dev.type != "cuda":
-        raise ValueError(f"lstm_recurrence runs on cuda or cpu tensors, got {dev}")
     T, B, G = x_proj.shape
     H = G // 4
     if H > MAX_THREADS:
         raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
-    lib = _lib()
+    lib = _lib("lstm_fwd", 7, 5)
     ys = torch.empty(T, B, H, device=dev)
     cs = torch.empty(T, B, H, device=dev) if need_cs else None
     h_fin = torch.empty(B, H, device=dev)
@@ -128,12 +165,128 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mmda_lstm_fwd(
-            x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
-            ys.data_ptr(), cs.data_ptr() if cs is not None else None,
-            h_fin.data_ptr(), c_fin.data_ptr(),
-            T, B, H, rows_per_block(B, H, n_sm), int(reverse), stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_fwd kernel launch failed: cudaError {err}")
-    _launches += 1
+        _launch("lstm_fwd", lib.mmda_lstm_fwd,
+                x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
+                ys.data_ptr(), cs.data_ptr() if cs is not None else None,
+                h_fin.data_ptr(), c_fin.data_ptr(),
+                T, B, H, rows_per_block(B, H, n_sm), int(reverse), stream)
     return ys, cs, h_fin, c_fin
+
+
+# ------------------------------------------------------------------ backward
+
+BwdResult = Tuple[torch.Tensor, torch.Tensor]
+
+
+def lstm_recurrence_bwd_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                                  mask: torch.Tensor, ys: torch.Tensor,
+                                  cs: torch.Tensor, dys: torch.Tensor,
+                                  dh_fin: torch.Tensor,
+                                  dc_fin: Optional[torch.Tensor] = None,
+                                  reverse: bool = False) -> BwdResult:
+    """Plain PyTorch version of the backward kernel (mmda_tpu/ops/pallas/
+    lstm.py::_cell_bwd over the steps of _bwd_kernel).  Returns (dx_proj
+    (T, B, 4H), dw_hh_t (H, 4H)).  dW_hh^T is summed in f64 and rounded
+    once, as the kernel sums it: the T * B products then agree whatever
+    the summation order."""
+    T, B, G = x_proj.shape
+    H = G // 4
+    dh = dh_fin
+    dc = torch.zeros_like(dh_fin) if dc_fin is None else dc_fin
+    dx = x_proj.new_empty(T, B, G)
+    dw = x_proj.new_zeros(H, G, dtype=torch.float64)
+    zero = x_proj.new_zeros(B, H)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        first = t == (T - 1 if reverse else 0)
+        prev_t = t + 1 if reverse else t - 1
+        h_prev = zero if first else ys[prev_t]
+        c_prev = zero if first else cs[prev_t]
+        dh = dh + dys[t]
+        gates = x_proj[t] + torch.matmul(h_prev, w_hh_t)
+        i, f, g, o = gates.split(H, dim=-1)
+        ig, fg, gg, og = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        tanh_c = torch.tanh(fg * c_prev + ig * gg)
+        m = mask[t][:, None]
+        dh_new, dc_new = m * dh, m * dc
+        dh_pass, dc_pass = (1.0 - m) * dh, (1.0 - m) * dc
+        dc_new = dc_new + dh_new * og * (1.0 - tanh_c * tanh_c)
+        dgates = torch.cat([dc_new * gg * ig * (1.0 - ig),
+                            dc_new * c_prev * fg * (1.0 - fg),
+                            dc_new * ig * (1.0 - gg * gg),
+                            dh_new * tanh_c * og * (1.0 - og)], dim=-1)
+        dc = dc_new * fg + dc_pass
+        dh = torch.matmul(dgates, w_hh_t.t()) + dh_pass
+        dx[t] = dgates
+        dw = dw + torch.matmul(h_prev.t().double(), dgates.double())
+    return dx, dw.float()
+
+
+def lstm_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                        mask: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
+                        dys: torch.Tensor, dh_fin: torch.Tensor,
+                        dc_fin: Optional[torch.Tensor] = None,
+                        reverse: bool = False) -> BwdResult:
+    """Gradient of `lstm_recurrence` (BPTT with the gates recomputed from
+    the saved ys, cs).  dys (T, B, H), dh_fin and dc_fin (B, H) are the
+    incoming gradients; dc_fin None means zeros.  Returns dx_proj
+    (T, B, 4H) and dw_hh_t (H, 4H), all f32."""
+    _check(x_proj, w_hh_t, mask)
+    T, B, G = x_proj.shape
+    H = G // 4
+    state = [("ys", ys, (T, B, H)), ("cs", cs, (T, B, H)), ("dys", dys, (T, B, H)),
+             ("dh_fin", dh_fin, (B, H))]
+    if dc_fin is not None:
+        state.append(("dc_fin", dc_fin, (B, H)))
+    for name, t, shape in state:
+        _check_tensor(name, t, x_proj.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    dev = _device(x_proj)
+    if dev.type == "cpu":
+        return lstm_recurrence_bwd_reference(x_proj, w_hh_t, mask, ys, cs, dys,
+                                             dh_fin, dc_fin, reverse)
+    if H > MAX_THREADS:
+        raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
+    lib = _lib("lstm_bwd", 11, 6)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dw_splits(T, H, n_sm)
+    dx = torch.empty(T, B, G, device=dev)
+    dw = torch.empty(H, G, device=dev)
+    dw_partial = torch.empty(splits, H, G, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("lstm_bwd", lib.mmda_lstm_bwd,
+                x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
+                ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dh_fin.data_ptr(),
+                dc_fin.data_ptr() if dc_fin is not None else None,
+                dx.data_ptr(), dw.data_ptr(), dw_partial.data_ptr(),
+                T, B, H, rows_per_block(B, H, n_sm), int(reverse), splits, stream)
+    return dx, dw
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """(ys, h_fin) of the masked recurrence with the BPTT kernel as its
+    backward (`lstm_scan`'s custom_vjp): the forward saves ys and cs, the
+    backward feeds dc_fin = 0.  mask and reverse get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t, mask, reverse: bool = False):
+        ys, cs, h_fin, _ = lstm_recurrence(x_proj, w_hh_t, mask, reverse, need_cs=True)
+        ctx.save_for_backward(x_proj, w_hh_t, mask, ys, cs)
+        ctx.reverse = reverse
+        return ys, h_fin
+
+    @staticmethod
+    def backward(ctx, dys, dh_fin):
+        x_proj, w_hh_t, mask, ys, cs = ctx.saved_tensors
+        dx, dw = lstm_recurrence_bwd(x_proj, w_hh_t, mask, ys, cs,
+                                     dys.contiguous(), dh_fin.contiguous(),
+                                     None, ctx.reverse)
+        return dx, dw, None, None
+
+
+def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor, mask: torch.Tensor,
+              reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ys, h_fin), differentiable through the kernels
+    (`mmda_tpu.ops.pallas.lstm.lstm_scan`; mask here is (T, B))."""
+    return LSTMRecurrence.apply(x_proj, w_hh_t, mask, reverse)

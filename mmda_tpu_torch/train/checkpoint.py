@@ -1,26 +1,32 @@
-"""Read side of the JAX package's checkpoints (best-on-dev exports).
+"""Best-on-dev checkpoints in the JAX package's format, read and written.
 
 `mmda_tpu/train/checkpoint.py::save_checkpoint` writes
 `{ckpt_dir}/{name}.msgpack` in the fastser codec (`mmda_tpu/train/
-fastser.py`):
+fastser.py`), with the run's metadata beside it in `{name}.json`:
 
     MMDAFSR1 | header length (8 bytes, little-endian) | JSON header | leaf bytes
 
 The header lists every leaf with its '/'-joined path and either an inline
 value or {dtype, shape, offset, nbytes} into the leaf bytes.  This module
-parses it with json and numpy alone; bfloat16 leaves are read as uint16 and
-viewed as torch.bfloat16.  Legacy flax-msgpack payloads are refused.  The
-writer comes with the training path.
+parses and writes it with json and numpy alone; bfloat16 leaves are read
+as their uint16 bits.  Legacy flax-msgpack payloads are refused.
+
+`save_checkpoint` writes a model's parameters as the JAX parameter tree
+(`convert.to_jax_tree`), so the JAX package's `load_checkpoint` and the
+port's `Predictor` both load what the port's trainer saves.  Writes go to a
+temporary file in the same directory and are renamed into place.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+import tempfile
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 MAGIC = b"MMDAFSR1"
 
@@ -71,6 +77,58 @@ def load_checkpoint(ckpt_dir: str, name: str) -> Dict[str, Any]:
     """The parameter tree saved as {ckpt_dir}/{name}.msgpack."""
     with open(os.path.join(ckpt_dir, f"{name}.msgpack"), "rb") as f:
         return from_bytes(f.read())
+
+
+def _leaves(tree: Dict[str, Any], prefix: str, out: List) -> None:
+    """(path, tensor) in fastser order: keys sorted at every level."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            _leaves(tree[k], f"{prefix}/{k}", out)
+        else:
+            out.append((f"{prefix}/{k}", tree[k]))
+
+
+def to_chunks(tree: Dict[str, Any]) -> List[bytes]:
+    """[header, leaf bytes, ...] of a nested dict of tensors."""
+    leaves: List = []
+    _leaves(tree, "", leaves)
+    header, buffers, offset = [], [], 0
+    for path, leaf in leaves:
+        arr = leaf.detach().to("cpu").contiguous().numpy()
+        data = arr.tobytes()
+        header.append({"path": path, "dtype": arr.dtype.name, "shape": list(arr.shape),
+                       "offset": offset, "nbytes": len(data)})
+        buffers.append(data)
+        offset += len(data)
+    hdr = json.dumps(header).encode()
+    return [MAGIC + len(hdr).to_bytes(8, "little") + hdr, *buffers]
+
+
+def _atomic_write(path: str, chunks: List[bytes]) -> None:
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path) + ".tmp.")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            for chunk in chunks:
+                f.write(chunk)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def save_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
+                    metadata: Optional[Dict] = None) -> str:
+    """Write `model`'s parameters as {ckpt_dir}/{name}.msgpack (the JAX
+    tree layout) and `metadata` as {name}.json; returns the .msgpack path."""
+    from mmda_tpu_torch.convert import to_jax_tree
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{name}.msgpack")
+    _atomic_write(path, to_chunks(to_jax_tree(model)))
+    _atomic_write(os.path.join(ckpt_dir, f"{name}.json"),
+                  [json.dumps(dict(metadata or {}), indent=2, default=str).encode()])
+    return path
 
 
 def best_model_name(cfg) -> str:

@@ -50,3 +50,51 @@ def test_lstm_kernel_rejects_cpu_mixed_inputs(cuda_device):
     x, w, m = _inputs(4, 3, 5, seed=0, device=cuda_device)
     with pytest.raises(ValueError):
         klstm.lstm_recurrence(x, w.cpu(), m)
+
+
+def _grads(T, B, H, seed, device):
+    rng = np.random.default_rng(seed + 1)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+                 for s in ((T, B, H), (B, H), (B, H)))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(48, 64, 35), (48, 64, 74), (48, 64, 300), (7, 5, 33),
+                                   (256, 32, 74)])
+def test_lstm_bwd_kernel_matches_plain_version(cuda_device, T, B, H, reverse):
+    """The BPTT kernel against its plain version on the card, dc_fin given
+    and dc_fin None (zeros); dW_hh is summed in f64 on both sides."""
+    x, w, m = _inputs(T, B, H, seed=H, device=cuda_device)
+    ys, cs, _, _ = klstm.lstm_recurrence_reference(x, w, m, reverse, need_cs=True)
+    dys, dh, dc = _grads(T, B, H, H, cuda_device)
+    for dc_fin in (dc, None):
+        before = klstm.launch_count("lstm_bwd")
+        got = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh, dc_fin, reverse)
+        assert klstm.launch_count("lstm_bwd") == before + 1
+        want = klstm.lstm_recurrence_bwd_reference(x, w, m, ys, cs, dys, dh, dc_fin, reverse)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, **TOL)
+
+
+def test_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
+    """LSTMRecurrence through both kernels on the card against the same
+    Function on the CPU (plain versions)."""
+    cpu = _inputs(16, 9, 20, seed=3, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        x, w, m = (t.to(dev) for t in cpu)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        ys, h = klstm.lstm_scan(x, w, m, reverse=True)
+        g = torch.autograd.grad((ys * ys).sum() + h.sum(), [x, w])
+        outs[str(dev)] = [t.detach().cpu() for t in (ys, h, *g)]
+    for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def test_lstm_bwd_kernel_rejects_cpu_mixed_inputs(cuda_device):
+    x, w, m = _inputs(4, 3, 5, seed=0, device=cuda_device)
+    ys, cs, _, _ = klstm.lstm_recurrence(x, w, m, need_cs=True)
+    dys, dh, _ = _grads(4, 3, 5, 0, cuda_device)
+    with pytest.raises(ValueError):
+        klstm.lstm_recurrence_bwd(x, w, m, ys, cs.cpu(), dys, dh)

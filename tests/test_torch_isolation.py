@@ -1,6 +1,6 @@
 """The port stands alone: `mmda_tpu_torch` and `chip_smoke.py` import no JAX
 and nothing of `mmda_tpu`, entry points never run on the CPU unless asked,
-and the kernel wrapper has no fallback from a CUDA tensor to the plain
+and the kernel wrappers have no fallback from a CUDA tensor to the plain
 version."""
 
 import ast
@@ -110,3 +110,35 @@ def test_kernel_wrapper_has_no_fallback():
     m = torch.zeros(2, 2, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         klstm.lstm_recurrence(x, w, m)
+
+
+def test_bwd_kernel_wrapper_has_no_fallback():
+    """The same for lstm_recurrence_bwd, the BPTT kernel's wrapper (and so
+    for the LSTMRecurrence backward that calls it)."""
+    src = inspect.getsource(klstm.lstm_recurrence_bwd)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "lstm_recurrence_bwd_reference"]
+    assert len(calls) == 1
+    assert "lstm_recurrence_bwd(" in inspect.getsource(klstm.LSTMRecurrence.backward)
+    T, B, H = 2, 2, 2
+    args = [torch.zeros(s, device="meta") for s in
+            [(T, B, 4 * H), (H, 4 * H), (T, B), (T, B, H), (T, B, H), (T, B, H), (B, H)]]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        klstm.lstm_recurrence_bwd(*args)
+
+
+def test_train_cli_raises_without_cuda(monkeypatch):
+    """The training entry point runs on the card unless --device cpu: with
+    no card it raises before any training."""
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cli_train, "load_data", lambda cfg: ({"train": {}}, None))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(Config(use_bert=False), {"train": {}})
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_train.main(["--data", "synthetic", "--use_bert", "False"])

@@ -65,7 +65,7 @@ def _both(use_bert, use_cmd_sim, dtype, modality_keep=None, seed=0, **extra):
         tree, jcfg, jmisa.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()}),
         bert_cfg=jbert.BertConfig.tiny() if use_bert else None, deterministic=True,
         modality_keep=None if mk is None else jnp.asarray(mk))
-    model = load_jax_params(MISA(cfg, bert_cfg=tiny), tree)
+    model = load_jax_params(MISA(cfg, bert_cfg=tiny), tree).eval()   # deterministic
     batch = Batch(**{k: torch.from_numpy(v) for k, v in arrays.items()})
     for k in ("text", "bert_ids", "bert_type"):
         batch = batch._replace(**{k: getattr(batch, k).long()})
