@@ -8,13 +8,18 @@ the result):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; the card must be compute capability 9.0;
-2. build: every CUDA kernel of the serving and training paths from
-   `mmda_tpu_torch/csrc` (one nvcc per source, all started together);
+2. build: every CUDA kernel of the package from `mmda_tpu_torch/csrc` (one
+   nvcc per source, all started together);
 3. kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes and beyond (f32, |err| <= 1e-5 + 1e-5 |ref|: summation order
-   only): the LSTM forward recurrence and its BPTT backward, with CUDA-event
-   times of each kernel, its plain version and one cuDNN `nn.LSTM` call (its
-   forward, or its backward) on the same inputs, beside the kernel's bound;
+   paths' shapes and beyond.  The LSTM and GRU forward recurrences and their
+   BPTT backwards (f32, |err| <= 1e-5 + 1e-5 |ref|: summation order only),
+   with CUDA-event times of each kernel, its plain version and one cuDNN
+   `nn.LSTM` / `nn.GRU` call (its forward, or its backward) on the same
+   inputs, beside the kernel's bound.  The fused residual + dropout +
+   LayerNorm forward and backward in f32 and bf16: the keep mask equal bit
+   for bit to the plain hash, outputs within 1e-5 (f32) or one bf16 ulp,
+   dscale and dbias within 1e-4; timed beside the composition
+   `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`;
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -37,7 +42,17 @@ the result):
 6. train -> serve: `python -m mmda_tpu_torch.cli.train --data synthetic
    --n_epoch 1` at the default widths writes a best-on-dev checkpoint, and a
    `Predictor` loaded from it answers a few requests with finite scores;
-7. a `kernels` JSON line, the card's name and power limit, and as the last
+7. the GRU configuration (`rnncell=gru`, `fused_ln_dropout=True`) at the
+   flagship shape: `Trainer.train()` as in phase 5, every step making 8
+   `gru_fwd`, 8 `gru_bwd`, 24 `ln_dropout_fwd` and 24 `ln_dropout_bwd`
+   launches (2 fused sites in each of the 12 BERT layers) and no LSTM
+   launch; timed steps and a profile; one step's gradients with dropout on,
+   the four kernels against their plain versions under the same seeds
+   (1e-3); a small f32 GRU model's gradients on the card against the CPU;
+   then a `Predictor` on the checkpoint that run wrote, behind the HTTP front
+   end (8 `gru_fwd` launches per call), and `cli.train --rnncell gru
+   --fused_ln_dropout True` -> `Predictor`;
+8. a `kernels` JSON line (all six kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -48,6 +63,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import itertools
 import json
 import pathlib
 import statistics
@@ -77,8 +93,37 @@ TIMED_SHAPES = [(48, 64, 35), (64, 64, 35), (16, 64, 74), (48, 64, 74), (64, 64,
 REPORT_SHAPE = (64, 64, 74)       # the kernels line: largest bucket, wider tower
 REPORT_BWD_SHAPE = (48, 64, 74)   # the training step's wider tower
 LAUNCHES_PER_CALL = 8             # 2 towers x 2 layers x 2 directions
+LN_SITES = 24                     # 12 BERT layers x (attention, FFN) residual LayerNorms
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 64, 48, 20
-TRAIN_TOL = 1e-3                  # kernel vs plain recurrence, step gradients
+TRAIN_TOL = 1e-3                  # kernels vs plain versions, step gradients: this, plus one
+                                  # bf16 ulp of the gradient (BERT's gradients are bf16
+                                  # values, and one on a rounding boundary may round the
+                                  # other way)
+# the two training configurations: extra Config options, launches per step
+# and per eval batch, the kernel names the profile sums
+TRAIN_CONFIGS = {
+    "lstm": {"options": {},
+             "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
+             "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL},
+             "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw")},
+    "gru": {"options": {"rnncell": "gru", "fused_ln_dropout": True},
+            "per_step": {"gru_fwd": LAUNCHES_PER_CALL, "gru_bwd": LAUNCHES_PER_CALL,
+                         "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES},
+            "per_eval": {"gru_fwd": LAUNCHES_PER_CALL},
+            "profile": ("gru_fwd", "gru_bptt", "gru_dwb", "ln_dropout_fwd",
+                        "ln_dropout_bwd", "ln_dropout_dgb")},
+}
+# (N, H, dtype) of the fused LayerNorm checks: the flagship step's sites
+# (N = B * S = 64 * 50) in bf16 and f32, and two row counts that are no
+# multiple of the TPU kernel's 128-row blocks
+LN_SHAPES = [(3200, 768, "bfloat16"), (3200, 768, "float32"),
+             (200, 128, "float32"), (300, 128, "float32")]
+LN_TIMED = LN_SHAPES[:2]
+LN_REPORT = LN_SHAPES[0]
+LN_RATE = 0.1
+LN_SEEDS = (7, 2 ** 31 - 2)
+BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
+LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
 BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 and 6
 
 
@@ -110,6 +155,46 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10):
+    """Device time of one fn() call in ms: the summed durations of the
+    device ops it launches, from torch.profiler over reps calls (the median
+    call where every call shows the same number of ops, else the mean); None
+    where the profiler shows no device op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not on_card:
+        return None
+    per_call, rest = divmod(len(on_card), reps)
+    if rest:
+        return sum(us for _, us in on_card) / 1e3 / reps
+    return statistics.median(sum(us for _, us in on_card[i * per_call:(i + 1) * per_call])
+                             for i in range(reps)) / 1e3
+
+
+def kernel_times(kernel, plain, library, plain_reps: int = 5, plain_warmup: int = 3) -> dict:
+    """The times of one row.  `call_ms`, `plain_ms` and `library_ms` are
+    CUDA-event times of one call of the wrapper, the plain version and the
+    library yardstick: with the card idle before it, a call's time includes
+    the host's work ahead of the launch (tens of microseconds: checks,
+    allocations, ctypes), which is most of a call of a few microseconds.
+    `ms` is the kernel's device time alone (`ms_by` profiler; the event time
+    where the profiler shows nothing), `library_device_ms` the same for the
+    library call.  Every call here finds its inputs in the L2 cache, as the
+    main paths' calls mostly do (the op before wrote them)."""
+    call, dev = cuda_ms(kernel), device_ms(kernel)
+    return {"ms": call if dev is None else dev, "ms_by": "events" if dev is None else "profiler",
+            "call_ms": call, "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=plain_warmup),
+            "library_ms": cuda_ms(library), "library_device_ms": device_ms(library)}
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -136,32 +221,48 @@ def lstm_bound(T, B, H, mask) -> dict:
             "bytes": nbytes, "flops": flops, "serial_steps": T}
 
 
-def cudnn_like(w_hh_t):
-    """A cuDNN nn.LSTM computing the kernels' function: identity input
-    weights, zero biases (x_proj already holds them), the same w_hh."""
+def cudnn_like(w_hh_t, b_hh=None):
+    """A cuDNN nn.LSTM (G = 4H) or nn.GRU (G = 3H) computing the kernels'
+    function: identity input weights, a zero input bias (x_proj already holds
+    it), the same w_hh, and b_hh where the cell keeps it apart (the GRU)."""
     H, G = w_hh_t.shape
-    lstm = torch.nn.LSTM(G, H).to(w_hh_t.device)
+    rnn = (torch.nn.LSTM if G == 4 * H else torch.nn.GRU)(G, H).to(w_hh_t.device)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(torch.eye(G, device=w_hh_t.device))
-        lstm.bias_ih_l0.zero_()
-        lstm.bias_hh_l0.zero_()
-        lstm.weight_hh_l0.copy_(w_hh_t.t())
-    return lstm
+        rnn.weight_ih_l0.copy_(torch.eye(G, device=w_hh_t.device))
+        rnn.bias_ih_l0.zero_()
+        rnn.bias_hh_l0.copy_(torch.zeros(G, device=w_hh_t.device) if b_hh is None else b_hh)
+        rnn.weight_hh_l0.copy_(w_hh_t.t())
+    return rnn
 
 
-def cudnn_lstm(x_proj, w_hh_t, lengths):
-    """One cuDNN nn.LSTM call on a packed sequence computing the same
-    forward function.  Returns (call, h_fin)."""
-    lstm = cudnn_like(w_hh_t)
+def cudnn_fwd(x_proj, w_hh_t, lengths, b_hh=None):
+    """One cuDNN nn.LSTM / nn.GRU call on a packed sequence computing the
+    same forward function.  Returns (call, h_fin)."""
+    rnn = cudnn_like(w_hh_t, b_hh)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x_proj, torch.as_tensor(lengths), enforce_sorted=False)
 
     def call():
         with torch.no_grad():
-            return lstm(packed)
+            return rnn(packed)
 
-    _, (h, _) = call()
-    return call, h[0]
+    state = call()[1]                   # (h, c) of the LSTM, h of the GRU
+    return call, (state[0] if isinstance(state, tuple) else state)[0]
+
+
+def max_err(pairs, tol: float, where: str) -> float:
+    """Largest |got - want| over (name, got, want) pairs; raises where a
+    value is not finite or |got - want| > tol * (1 + |want|)."""
+    worst = 0.0
+    for name, g, r in pairs:
+        g, r = g.float(), r.float()
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} or non-finite values at {where}")
+        if ((g - r).abs() - tol * (1 + r.abs())).max().item() > 0:
+            raise AssertionError(f"kernel output {name} disagrees with the plain version "
+                                 f"at {where} (tol {tol})")
+        worst = max(worst, (g - r).abs().max().item())
+    return worst
 
 
 def check_lstm_kernel(klstm, device) -> dict:
@@ -175,16 +276,11 @@ def check_lstm_kernel(klstm, device) -> dict:
             torch.cuda.synchronize()
             if serving[1] is not None:
                 raise AssertionError("need_cs=False returned cs")
-            err = 0.0
-            for g, r in zip(list(got) + [serving[0], serving[2], serving[3]],
-                            list(want) + [want[0], want[2], want[3]]):
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"non-finite kernel output at {(T, B, H)}")
-                excess = ((g - r).abs() - KERNEL_TOL * (1 + r.abs())).max().item()
-                if excess > 0:
-                    raise AssertionError(f"kernel disagrees with plain version at "
-                                         f"(T,B,H)={(T, B, H)} reverse={reverse}")
-                err = max(err, (g - r).abs().max().item())
+            names = ("ys", "cs", "h_fin", "c_fin", "ys (no cs)", "h_fin (no cs)",
+                     "c_fin (no cs)")
+            err = max_err(zip(names, list(got) + [serving[0], serving[2], serving[3]],
+                              list(want) + [want[0], want[2], want[3]]), KERNEL_TOL,
+                          f"lstm_fwd (T,B,H)={(T, B, H)} reverse={reverse}")
             worst = max(worst, err)
             rows.append({"T": T, "B": B, "H": H, "reverse": reverse, "max_abs_err": err})
     log("3 kernel-vs-plain", shapes=len(rows), max_abs_err=worst, tol=KERNEL_TOL)
@@ -192,12 +288,11 @@ def check_lstm_kernel(klstm, device) -> dict:
     timed = []
     for T, B, H in TIMED_SHAPES:
         x, w, m, lengths = lstm_inputs(T, B, H, seed=T * 1000 + H, device=device)
-        call, h_lib = cudnn_lstm(x, w, lengths)
+        call, h_lib = cudnn_fwd(x, w, lengths)
         h_k = klstm.lstm_recurrence(x, w, m)[2]
         row = {"T": T, "B": B, "H": H,
-               "ms": cuda_ms(lambda: klstm.lstm_recurrence(x, w, m)),
-               "plain_ms": cuda_ms(lambda: klstm.lstm_recurrence_reference(x, w, m), reps=5),
-               "library_ms": cuda_ms(call),
+               **kernel_times(lambda: klstm.lstm_recurrence(x, w, m),
+                              lambda: klstm.lstm_recurrence_reference(x, w, m), call),
                "library_max_abs_err": (h_lib - h_k).abs().max().item(),
                **lstm_bound(T, B, H, m)}
         timed.append(row)
@@ -230,20 +325,21 @@ def lstm_bwd_bound(T, B, H, mask) -> dict:
             "bytes": nbytes, "flops": flops, "serial_steps": T}
 
 
-def cudnn_lstm_bwd(x_proj, w_hh_t, lengths, dys, dh):
-    """The backward of one cuDNN nn.LSTM call on a packed sequence computing
-    the same forward: autograd.grad of its outputs w.r.t. its input and
-    w_hh, the forward run once outside the timed call.  Returns (call,
-    dw_hh_t)."""
-    lstm = cudnn_like(w_hh_t)
+def cudnn_bwd(x_proj, w_hh_t, lengths, dys, dh, b_hh=None):
+    """The backward of one cuDNN nn.LSTM / nn.GRU call on a packed sequence
+    computing the same forward: autograd.grad of its outputs w.r.t. its
+    input, w_hh and (for the GRU) b_hh, the forward run once outside the
+    timed call.  Returns (call, dw_hh_t)."""
+    rnn = cudnn_like(w_hh_t, b_hh)
     x = x_proj.clone().requires_grad_(True)
     lens = torch.as_tensor(lengths)
-    out, (h, _) = lstm(torch.nn.utils.rnn.pack_padded_sequence(x, lens, enforce_sorted=False))
+    out, state = rnn(torch.nn.utils.rnn.pack_padded_sequence(x, lens, enforce_sorted=False))
+    h = state[0] if isinstance(state, tuple) else state
     d_out = torch.nn.utils.rnn.pack_padded_sequence(dys, lens, enforce_sorted=False).data
+    wrt = [x, rnn.weight_hh_l0] + ([] if b_hh is None else [rnn.bias_hh_l0])
 
     def call():
-        return torch.autograd.grad([out.data, h], [x, lstm.weight_hh_l0],
-                                   [d_out, dh[None]], retain_graph=True)
+        return torch.autograd.grad([out.data, h], wrt, [d_out, dh[None]], retain_graph=True)
 
     return call, call()[1].t()
 
@@ -258,15 +354,8 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
                                                        None, reverse)
             got = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh, None, reverse)
             torch.cuda.synchronize()
-            err = 0.0
-            for name, g, r in zip(("dx_proj", "dw_hh_t"), got, want):
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"non-finite {name} at {(T, B, H)}")
-                excess = ((g - r).abs() - KERNEL_TOL * (1 + r.abs())).max().item()
-                if excess > 0:
-                    raise AssertionError(f"backward kernel {name} disagrees with the plain "
-                                         f"version at (T,B,H)={(T, B, H)} reverse={reverse}")
-                err = max(err, (g - r).abs().max().item())
+            err = max_err(zip(("dx_proj", "dw_hh_t"), got, want), KERNEL_TOL,
+                          f"lstm_bwd (T,B,H)={(T, B, H)} reverse={reverse}")
             worst = max(worst, err)
             rows.append({"T": T, "B": B, "H": H, "reverse": reverse, "max_abs_err": err})
     log("3 bwd-kernel-vs-plain", shapes=len(rows), max_abs_err=worst, tol=KERNEL_TOL)
@@ -276,13 +365,12 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
         x, w, m, lengths, ys, cs, dys, dh = lstm_bwd_inputs(T, B, H, T * 1000 + H + 7,
                                                             device, klstm)
         dys = (dys * m[..., None]).contiguous()   # a packed sequence has no padded outputs
-        call, dw_lib = cudnn_lstm_bwd(x, w, lengths, dys, dh)
+        call, dw_lib = cudnn_bwd(x, w, lengths, dys, dh)
         dw_k = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh)[1]
         row = {"T": T, "B": B, "H": H,
-               "ms": cuda_ms(lambda: klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh)),
-               "plain_ms": cuda_ms(lambda: klstm.lstm_recurrence_bwd_reference(
-                   x, w, m, ys, cs, dys, dh), reps=3, warmup=1),
-               "library_ms": cuda_ms(call),
+               **kernel_times(lambda: klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh),
+                              lambda: klstm.lstm_recurrence_bwd_reference(
+                                  x, w, m, ys, cs, dys, dh), call, 3, 1),
                "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(),
                **lstm_bwd_bound(T, B, H, m)}
         timed.append(row)
@@ -291,7 +379,249 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
     return {"checks": rows, "timed": timed, "max_abs_err": worst, "report": report}
 
 
+def gru_inputs(T, B, H, seed, device):
+    """x_proj, w_hh_t, b_hh, mask (lengths 1 and T among them), and random
+    incoming gradients dys (at padded steps too) and dh_fin."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, T + 1, size=B)
+    lengths[0], lengths[-1] = 1, T
+    arrays = (rng.normal(size=(T, B, 3 * H)), rng.normal(size=(H, 3 * H)) / np.sqrt(H),
+              rng.normal(size=3 * H), np.arange(T)[:, None] < lengths[None, :],
+              rng.normal(size=(T, B, H)), rng.normal(size=(B, H)))
+    return (*(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays), lengths)
+
+
+def gru_bounds(T, B, H, mask) -> tuple:
+    """Least times for the GRU forward and backward: every input read once
+    and every output written once over HBM (forward: x_proj, w_hh_t, b_hh,
+    mask -> ys, h_fin; backward: those, ys, dys, dh_fin -> dx_proj, dw_hh_t,
+    db_hh); the operations the valid steps need over the f32 peak (6H^2 for
+    h @ w_hh_t, and in the backward as much again for dh_prev and for dW_hh;
+    about 15H and 40H for the cell)."""
+    valid = float(mask.sum())
+    out = []
+    for nbytes, flops in (
+            (4 * (T * B * 3 * H + H * 3 * H + 3 * H + T * B + T * B * H + B * H),
+             valid * (6 * H * H + 15 * H)),
+            (4 * (2 * T * B * 3 * H + 2 * H * 3 * H + 6 * H + T * B + 2 * T * B * H + B * H),
+             valid * (18 * H * H + 40 * H))):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        out.append({"bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "flops": flops, "serial_steps": T})
+    return tuple(out)
+
+
+def check_gru_kernels(kgru, device) -> tuple:
+    """`gru_fwd` and `gru_bwd` against their plain versions at the LSTM
+    checks' shapes, then their times.  Returns (forward, backward) results."""
+    rows = {"fwd": [], "bwd": []}
+    for T, B, H in CHECK_SHAPES:
+        x, w, b, m, dys, dh, _ = gru_inputs(T, B, H, T * 1000 + H + 3, device)
+        for reverse in (False, True):
+            where = f"(T,B,H)={(T, B, H)} reverse={reverse}"
+            want = kgru.gru_recurrence_reference(x, w, b, m, reverse)
+            got = kgru.gru_recurrence(x, w, b, m, reverse)
+            want_b = kgru.gru_recurrence_bwd_reference(x, w, b, m, want[0], dys, dh, reverse)
+            got_b = kgru.gru_recurrence_bwd(x, w, b, m, want[0], dys, dh, reverse)
+            torch.cuda.synchronize()
+            shape = {"T": T, "B": B, "H": H, "reverse": reverse}
+            rows["fwd"].append({**shape, "max_abs_err": max_err(
+                zip(("ys", "h_fin"), got, want), KERNEL_TOL, "gru_fwd " + where)})
+            rows["bwd"].append({**shape, "max_abs_err": max_err(
+                zip(("dx_proj", "dw_hh_t", "db_hh"), got_b, want_b), KERNEL_TOL,
+                "gru_bwd " + where)})
+    worst = {k: max(r["max_abs_err"] for r in v) for k, v in rows.items()}
+    log("3 gru-kernels-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL)
+
+    timed = {"fwd": [], "bwd": []}
+    for T, B, H in TIMED_SHAPES:
+        x, w, b, m, dys, dh, lengths = gru_inputs(T, B, H, T * 1000 + H + 3, device)
+        ys, h_k = kgru.gru_recurrence(x, w, b, m)
+        dys = (dys * m[..., None]).contiguous()   # a packed sequence has no padded outputs
+        call, h_lib = cudnn_fwd(x, w, lengths, b)
+        call_b, dw_lib = cudnn_bwd(x, w, lengths, dys, dh, b)
+        dw_k = kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh)[1]
+        bound_f, bound_b = gru_bounds(T, B, H, m)
+        shape = {"T": T, "B": B, "H": H}
+        timed["fwd"].append({
+            **shape, **kernel_times(lambda: kgru.gru_recurrence(x, w, b, m),
+                                    lambda: kgru.gru_recurrence_reference(x, w, b, m), call),
+            "library_max_abs_err": (h_lib - h_k).abs().max().item(), **bound_f})
+        timed["bwd"].append({
+            **shape, **kernel_times(
+                lambda: kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh),
+                lambda: kgru.gru_recurrence_bwd_reference(x, w, b, m, ys, dys, dh), call_b, 3, 1),
+            "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(), **bound_b})
+        log("3 gru-fwd-time", **timed["fwd"][-1])
+        log("3 gru-bwd-time", **timed["bwd"][-1])
+
+    def result(k, report_shape):
+        report = next(r for r in timed[k] if (r["T"], r["B"], r["H"]) == report_shape)
+        return {"checks": rows[k], "timed": timed[k], "max_abs_err": worst[k], "report": report}
+
+    return result("fwd", REPORT_SHAPE), result("bwd", REPORT_BWD_SHAPE)
+
+
+def ln_inputs(N, H, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    x, y, dout = (torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(device, dtype)
+                  for _ in range(3))
+    g, b = (torch.from_numpy(rng.normal(size=H).astype(np.float32)).to(device) for _ in range(2))
+    return x, y, g, b, dout
+
+
+def ln_bounds(N, H, dtype) -> tuple:
+    """Least times for the fused LayerNorm forward (x, y, scale, bias, seed
+    read, out written: 3 passes over N * H) and backward (x, y, dout, scale,
+    seed read, dx, dy, dscale, dbias written: 5 passes) over HBM; about 40
+    and 60 operations per element (the hash is 12 integer ones) over the f32
+    peak."""
+    width = torch.finfo(dtype).bits // 8
+    out = []
+    for nbytes, flops in ((3 * N * H * width + 8 * H + 4, 40 * N * H),
+                          (5 * N * H * width + 12 * H + 4, 60 * N * H)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        out.append({"bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "flops": flops})
+    return tuple(out)
+
+
+def check_ln_mask(kln, keep_mask, N, H, dtype, seed, device) -> None:
+    """The kernels' keep mask against the plain hash, bit for bit.  With
+    x = 0, y = 1, scale = 1 the forward's z is keep / (1 - rate), so a kept
+    element lies above its row's mean (in rows that hold both kinds); the
+    backward's dy is zero exactly where an element was dropped."""
+    x = torch.zeros(N, H, dtype=dtype, device=device)
+    y = torch.ones_like(x)
+    g, b = torch.ones(H, device=device), torch.zeros(H, device=device)
+    s = torch.tensor([seed], dtype=torch.int32, device=device)
+    want = keep_mask((N, H), LN_RATE, s)
+    out = kln.residual_dropout_layernorm_fwd(x, y, g, b, s, LN_RATE).float()
+    mixed = want.min(1).values != want.max(1).values
+    dout = ln_inputs(N, H, dtype, seed % 1000, device)[4]
+    dx, dy, _, _ = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, LN_RATE)
+    moved = dx.float() != 0
+    torch.cuda.synchronize()
+    if not (0 < want.mean().item() < 1 and mixed.any() and moved.any()):
+        raise AssertionError(f"degenerate mask check at {(N, H, dtype, seed)}")
+    if not torch.equal((out > 0).float()[mixed], want[mixed]):
+        raise AssertionError(f"forward keep mask differs from the hash at {(N, H, dtype, seed)}")
+    if not torch.equal((dy.float() != 0)[moved], want.bool()[moved]):
+        raise AssertionError(f"backward keep mask differs from the hash at {(N, H, dtype, seed)}")
+
+
+def check_ln_kernels(kln, keep_mask, device) -> tuple:
+    """`ln_dropout_fwd` and `ln_dropout_bwd` against their plain versions
+    (mask, outputs, gradients), then their times.  Returns (forward,
+    backward) results; max_abs_err is over the f32 shapes, max_abs_err_bf16
+    over the bf16 ones (one ulp of values up to about 5)."""
+    import torch.nn.functional as F
+
+    rows = {"fwd": [], "bwd": []}
+    for N, H, dtype_name in LN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        tol = KERNEL_TOL if dtype == torch.float32 else BF16_ULP
+        for seed in LN_SEEDS:
+            check_ln_mask(kln, keep_mask, N, H, dtype, seed, device)
+            x, y, g, b, dout = ln_inputs(N, H, dtype, N + H + seed % 1000, device)
+            s = torch.tensor([seed], dtype=torch.int32, device=device)
+            for rate in (0.0, LN_RATE):
+                where = f"(N,H)={(N, H)} {dtype_name} seed={seed} rate={rate}"
+                got = kln.residual_dropout_layernorm_fwd(x, y, g, b, s, rate)
+                want = kln.residual_dropout_layernorm_reference(x, y, g, b, s, rate)
+                got_b = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, rate)
+                want_b = kln.residual_dropout_layernorm_bwd_reference(x, y, g, dout, s, rate)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or any(t.dtype != dtype for t in got_b[:2]):
+                    raise AssertionError(f"output dtype at {where}")
+                shape = {"N": N, "H": H, "dtype": dtype_name, "seed": seed, "rate": rate}
+                rows["fwd"].append({**shape, "max_abs_err": max_err(
+                    [("out", got, want)], tol, "ln_dropout_fwd " + where)})
+                rows["bwd"].append({
+                    **shape,
+                    "max_abs_err": max_err(zip(("dx", "dy"), got_b[:2], want_b[:2]), tol,
+                                           "ln_dropout_bwd " + where),
+                    "sums_max_abs_err": max_err(zip(("dscale", "dbias"), got_b[2:], want_b[2:]),
+                                                LN_SUM_TOL, "ln_dropout_bwd " + where)})
+
+    def worst(k, name, key="max_abs_err"):
+        return max(r[key] for r in rows[k] if r["dtype"] == name)
+
+    errs = {k: {"float32": worst(k, "float32"), "bfloat16": worst(k, "bfloat16")} for k in rows}
+    errs["bwd"]["sums"] = max(r["sums_max_abs_err"] for r in rows["bwd"])
+    log("3 ln-kernels-vs-plain", checks=len(rows["fwd"]), mask="equal bit for bit",
+        max_abs_err=errs, tol={"float32": KERNEL_TOL, "bfloat16": BF16_ULP, "sums": LN_SUM_TOL})
+
+    timed = {"fwd": [], "bwd": []}
+    for N, H, dtype_name in LN_TIMED:
+        dtype = getattr(torch, dtype_name)
+        x, y, g, b, dout = ln_inputs(N, H, dtype, N + H, device)
+        s = torch.tensor([LN_SEEDS[0]], dtype=torch.int32, device=device)
+        eps = 1e-12
+
+        def composed():                 # F.layer_norm(x + F.dropout(y, p)), f32 statistics
+            return F.layer_norm(x.float() + F.dropout(y.float(), LN_RATE), (H,), g, b,
+                                eps).to(dtype)
+
+        leaves = [t.requires_grad_(True) for t in (x.clone(), y.clone(), g.clone(), b.clone())]
+        lib_out = F.layer_norm(leaves[0].float() + F.dropout(leaves[1].float(), LN_RATE), (H,),
+                               leaves[2], leaves[3], eps).to(dtype)
+        bound_f, bound_b = ln_bounds(N, H, dtype)
+        shape = {"N": N, "H": H, "dtype": dtype_name, "rate": LN_RATE}
+        # copies of the inputs that together exceed the 50 MB L2 several times,
+        # taken in turn: the kernels' device time with every input read from HBM
+        copies = -(-200 * 2 ** 20 // (3 * x.numel() * x.element_size()))
+        cold = itertools.cycle([tuple(t.clone() for t in (x, y, dout)) for _ in range(copies)])
+
+        def cold_fwd():
+            xc, yc, _ = next(cold)
+            kln.residual_dropout_layernorm_fwd(xc, yc, g, b, s, LN_RATE, eps)
+
+        def cold_bwd():
+            xc, yc, dc = next(cold)
+            kln.residual_dropout_layernorm_bwd(xc, yc, g, dc, s, LN_RATE, eps)
+
+        timed["fwd"].append({
+            **shape,
+            **kernel_times(
+                lambda: kln.residual_dropout_layernorm_fwd(x, y, g, b, s, LN_RATE, eps),
+                lambda: kln.residual_dropout_layernorm_reference(x, y, g, b, s, LN_RATE, eps),
+                composed),
+            "cold_ms": device_ms(cold_fwd, reps=2 * copies),
+            "library": "F.layer_norm(x + F.dropout(y, p)) in f32, cast back", **bound_f})
+        timed["bwd"].append({
+            **shape,
+            **kernel_times(
+                lambda: kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, LN_RATE, eps),
+                lambda: kln.residual_dropout_layernorm_bwd_reference(
+                    x, y, g, dout, s, LN_RATE, eps),
+                lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)),
+            "cold_ms": device_ms(cold_bwd, reps=2 * copies),
+            "library": "autograd.grad of that composition", **bound_b})
+        log("3 ln-fwd-time", **timed["fwd"][-1])
+        log("3 ln-bwd-time", **timed["bwd"][-1])
+
+    def result(k):
+        report = next(r for r in timed[k]
+                      if (r["N"], r["H"], r["dtype"]) == LN_REPORT)
+        return {"checks": rows[k], "timed": timed[k], "max_abs_err": errs[k]["float32"],
+                "max_abs_err_bf16": errs[k]["bfloat16"], "report": report}
+
+    return result("fwd"), result("bwd")
+
+
 # ---------------------------------------------------------------- serving
+
+
+def all_launches(counts) -> dict:
+    return {name: counts.launch_count(name) for name in counts.KERNELS}
+
+
+def expected_launches(counts, some: dict) -> dict:
+    """`some` and zero for every other kernel."""
+    return {name: some.get(name, 0) for name in counts.KERNELS}
 
 
 def spread_lengths(n, buckets, seed):
@@ -338,10 +668,11 @@ def post(url, req):
         return json.loads(r.read())
 
 
-def serve_over_http(cfg, pred, requests, klstm) -> dict:
+def serve_over_http(cfg, pred, requests, counts, kernel="lstm_fwd") -> dict:
     """The main path: requests from concurrent clients through the HTTP front
-    end, the micro-batching server and the Predictor; the LSTM launch count
-    read around exactly this window."""
+    end, the micro-batching server and the Predictor; the launch counts
+    (`kernel`: the towers' forward recurrence) read around exactly this
+    window."""
     from mmda_tpu_torch.cli.serve import serve
 
     httpd, psrv = serve(cfg, port=0, predictor=pred, timeout_s=300)
@@ -350,12 +681,12 @@ def serve_over_http(cfg, pred, requests, klstm) -> dict:
     url = f"http://{httpd.server_address[0]}:{httpd.server_address[1]}"
     try:
         calls0 = pred.stats["requests"]
-        klstm.reset_launch_count()
+        counts.reset_launch_count()
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(16) as ex:
             replies = list(ex.map(lambda r: post(url, r), requests))
         wall = time.perf_counter() - t0
-        launches = klstm.launch_count()
+        launches = all_launches(counts)
         calls = pred.stats["requests"] - calls0
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -366,10 +697,10 @@ def serve_over_http(cfg, pred, requests, klstm) -> dict:
     for rep in replies:
         check_outputs([rep["scores"]], [rep["labels"]], [rep["tcp"]], 1,
                       cfg.num_classes, cfg.threshold)
-    if calls < 1 or launches != LAUNCHES_PER_CALL * calls:
-        raise AssertionError(f"{launches} LSTM kernel launches for {calls} Predictor "
-                             f"calls; expected {LAUNCHES_PER_CALL} per call")
-    return {"requests": len(requests), "predictor_calls": calls, "launches": launches,
+    if calls < 1 or launches != expected_launches(counts, {kernel: LAUNCHES_PER_CALL * calls}):
+        raise AssertionError(f"kernel launches {launches} for {calls} Predictor calls; "
+                             f"expected {LAUNCHES_PER_CALL} of {kernel} per call, no other")
+    return {"requests": len(requests), "predictor_calls": calls, "launches": launches[kernel],
             "wall_s": wall, "requests_per_s": len(requests) / wall, "healthz": health["ok"]}
 
 
@@ -411,12 +742,12 @@ def profile_serving(cfg, pred, device) -> dict:
             **device_profile(run, calls, device)}
 
 
-def kernel_vs_plain_recurrence(cfg, pred, klstm) -> float:
+def kernel_vs_plain_recurrence(cfg, pred, reference) -> float:
     """The same batch through the same weights with the recurrence forced to
-    the plain version by the `recurrence` argument."""
+    the plain version (`reference`) by the `recurrence` argument."""
     reqs = make_requests(spread_lengths(40, cfg.bucket_sizes, 123), cfg, seed=123)
     got = pred(reqs)
-    want = pred(reqs, recurrence=klstm.lstm_recurrence_reference)
+    want = pred(reqs, recurrence=reference)
     check_outputs(got["scores"], got["labels"], got["tcp"], 40, cfg.num_classes,
                   cfg.threshold)
     if got["hidden"].shape != (40, 6 * cfg.hidden_size):
@@ -470,34 +801,36 @@ def finite_losses(losses: dict, where: str) -> None:
         raise AssertionError(f"{where}: non-finite losses {bad}")
 
 
-def train_main_path(klstm) -> tuple:
+def train_main_path(counts, kind: str) -> tuple:
     """The main path: `Trainer.train()` for one epoch of TRAIN_STEPS
-    full-length batches on the flagship config, with dev eval, the
-    best-on-dev export and test eval; the launch counts read around exactly
-    this call.  Returns (trainer, result)."""
+    full-length batches on the flagship config (with TRAIN_CONFIGS[kind]'s
+    options), with dev eval, the best-on-dev export and test eval; the launch
+    counts read around exactly this call.  Returns (trainer, result)."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.train.loop import Trainer
     from mmda_tpu_torch.utils.logging import MetricLogger
 
+    spec = TRAIN_CONFIGS[kind]
+    name = f"chip_smoke_train_{kind}"
     cfg = Config(use_bert=True, data="mosei", batch_size=TRAIN_B, max_seq_len=TRAIN_T,
                  bucket_sizes=(TRAIN_T,), compute_dtype="bfloat16", attn_impl="xla",
-                 n_epoch=1, seed=0, name="chip_smoke_train",
-                 ckpt_dir=str(BUILD / "chip_smoke_train"))
+                 n_epoch=1, seed=0, name=name, ckpt_dir=str(BUILD / name), **spec["options"])
     data = {"train": full_length_split(TRAIN_B * TRAIN_STEPS, 0),
             "dev": full_length_split(TRAIN_B, 1), "test": full_length_split(TRAIN_B, 2)}
     t0 = time.perf_counter()
     trainer = Trainer(cfg, data, logger=MetricLogger(("stdout",), run_name=cfg.name))
     build_s = time.perf_counter() - t0
     eval_batches = 2                                   # one dev, one test
-    klstm.reset_launch_count()
+    counts.reset_launch_count()
     t0 = time.perf_counter()
     summary = trainer.train()
     wall = time.perf_counter() - t0
-    launches = {name: klstm.launch_count(name) for name in klstm.SOURCES}
-    want = {"lstm_fwd": LAUNCHES_PER_CALL * (TRAIN_STEPS + eval_batches),
-            "lstm_bwd": LAUNCHES_PER_CALL * TRAIN_STEPS}
+    launches = all_launches(counts)
+    want = expected_launches(counts, {
+        k: n * TRAIN_STEPS + spec["per_eval"].get(k, 0) * eval_batches
+        for k, n in spec["per_step"].items()})
     if launches != want:
-        raise AssertionError(f"train(): LSTM kernel launches {launches}, expected {want}")
+        raise AssertionError(f"train(): kernel launches {launches}, expected {want}")
     epoch = summary["history"][0]
     finite_losses({k: v for k, v in epoch.items() if k.startswith("train_")}, "train()")
     counts = {"params_total": sum(p.numel() for p in trainer.model.parameters()),
@@ -508,7 +841,7 @@ def train_main_path(klstm) -> tuple:
                      **counts}
 
 
-def train_timing(trainer, klstm, device) -> dict:
+def train_timing(trainer, counts, kind: str, device) -> dict:
     """Host wall time of TRAIN_STEPS more steps, each ending in a
     synchronize; launches per step; peak device memory."""
     from mmda_tpu_torch.data.loader import ArrayLoader
@@ -519,7 +852,7 @@ def train_timing(trainer, klstm, device) -> dict:
                                bucket_sizes=cfg.bucket_sizes, device=device))
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    klstm.reset_launch_count()
+    counts.reset_launch_count()
     times = []
     for batch in batches:
         t0 = time.perf_counter()
@@ -528,10 +861,10 @@ def train_timing(trainer, klstm, device) -> dict:
         torch.cuda.synchronize(device)
         times.append((time.perf_counter() - t0) * 1e3)
         finite_losses(losses, "train_step")
-    per_step = {name: klstm.launch_count(name) / len(batches) for name in klstm.SOURCES}
-    if per_step != {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL}:
-        raise AssertionError(f"launches per train step {per_step}, expected "
-                             f"{LAUNCHES_PER_CALL} of each")
+    per_step = {k: n / len(batches) for k, n in all_launches(counts).items()}
+    want = expected_launches(counts, TRAIN_CONFIGS[kind]["per_step"])
+    if per_step != want:
+        raise AssertionError(f"launches per train step {per_step}, expected {want}")
     ms = statistics.median(times)
     return {"steps": len(times), "ms_per_step": ms, "ms_min": min(times),
             "ms_max": max(times), "utterances_per_s": cfg.batch_size / ms * 1e3,
@@ -570,7 +903,7 @@ def device_profile(run, wall_calls: int, device,
             "top_ms_per_call": [[k[:80], v / wall_calls] for k, v in top]}
 
 
-def profile_training(trainer, device) -> dict:
+def profile_training(trainer, kind: str, device) -> dict:
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.train.step import train_step
 
@@ -585,37 +918,60 @@ def profile_training(trainer, device) -> dict:
                        trainer.ema)
 
     run()
-    return device_profile(run, steps, device)
+    return device_profile(run, steps, device, TRAIN_CONFIGS[kind]["profile"])
 
 
-def grads_kernel_vs_plain(trainer, klstm, device) -> float:
-    """One step's gradients on the flagship model, dropout off, with the
-    kernels against the plain recurrence (autograd through its loop)."""
+def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> float:
+    """One step's gradients on the flagship model with the kernels against
+    their plain versions: the towers' recurrence replaced by `reference`
+    (autograd through its loop) and, for the GRU configuration, the fused
+    LayerNorm sites by their plain function.  The LSTM configuration runs
+    with dropout off; the GRU one with dropout on (the fused sites exist only
+    then), both passes drawing from the same generator state, so the seeds
+    and every other dropout mask are the same."""
     from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.models import bert
+    from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm_reference
     from mmda_tpu_torch.train.step import loss_and_grads
 
     cfg, model = trainer.cfg, trainer.model
     batch = next(iter(ArrayLoader(trainer.data["dev"], cfg.batch_size, shuffle=False,
                                   bucket_sizes=cfg.bucket_sizes, device=device)))
-    model.eval()
+    model.train(cfg.fused_ln_dropout)
     params = trainer.optimizer.params
-    klstm.reset_launch_count()
-    got_l, got = loss_and_grads(model, batch, cfg, params)
-    if klstm.launch_count("lstm_bwd") != LAUNCHES_PER_CALL:
-        raise AssertionError("the kernel-path gradient did not run the backward kernel")
-    want_l, want = loss_and_grads(model, batch, cfg, params,
-                                  recurrence=klstm.lstm_recurrence_reference)
+    state = trainer.generator.get_state()
+    counts.reset_launch_count()
+    got_l, got = loss_and_grads(model, batch, cfg, params, generator=trainer.generator)
+    if all_launches(counts) != expected_launches(counts, TRAIN_CONFIGS[kind]["per_step"]):
+        raise AssertionError(f"the kernel-path gradient made {all_launches(counts)} launches")
+    trainer.generator.set_state(state)
+    fused = bert.residual_dropout_layernorm
+    bert.residual_dropout_layernorm = residual_dropout_layernorm_reference
+    try:
+        counts.reset_launch_count()
+        _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
+                                      generator=trainer.generator)
+        if any(all_launches(counts).values()):
+            raise AssertionError(f"the plain path made {all_launches(counts)} launches")
+    finally:
+        bert.residual_dropout_layernorm = fused
     finite_losses(got_l, "kernel-path step")
-    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    if err > TRAIN_TOL:
-        raise AssertionError(f"step gradients, kernel vs plain recurrence: {err} > {TRAIN_TOL}")
+    err, excess = 0.0, 0.0
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - BF16_ULP * w.float().abs()).max().item())
+    if excess > TRAIN_TOL:
+        raise AssertionError(f"step gradients, kernels vs plain versions: max |err| {err}, "
+                             f"{excess} beyond one bf16 ulp > {TRAIN_TOL}")
     return err
 
 
-def train_card_vs_cpu(device) -> float:
-    """A small f32 model (tiny BERT, hidden 32) and one batch with ragged
-    lengths: the step's gradients (dropout off) on the card, through the
-    kernels, against the CPU, through the plain versions."""
+def train_card_vs_cpu(device, **options) -> float:
+    """A small f32 model (tiny BERT, hidden 32; `options`: the towers' cell)
+    and one batch with ragged lengths: the step's gradients (dropout off) on
+    the card, through the kernels, against the CPU, through the plain
+    versions."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
@@ -624,7 +980,7 @@ def train_card_vs_cpu(device) -> float:
     from mmda_tpu_torch.train.step import loss_and_grads
 
     cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
-                 device="cpu")
+                 device="cpu", **options)
     split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3))
     model = init_misa(cfg, seed=1, bert_cfg=BertConfig.tiny(vocab_size=30522)).eval()
     grads = {}
@@ -640,15 +996,17 @@ def train_card_vs_cpu(device) -> float:
     return err
 
 
-def train_then_serve(device) -> dict:
-    """`python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 1` at
-    the default widths (on the card, its default), then a Predictor loaded
-    from the checkpoint it wrote answers a few requests."""
+def train_then_serve(device, counts, kernel="lstm_fwd", options=()) -> dict:
+    """`python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 1` (and
+    `options`) at the default widths (on the card, its default), then a
+    Predictor loaded from the checkpoint it wrote answers a few requests in
+    one call that launches `kernel` LAUNCHES_PER_CALL times and no other."""
     from mmda_tpu_torch.config import get_config
     from mmda_tpu_torch.serving import Predictor
 
-    ckpt_dir = BUILD / "chip_smoke_cli"
-    args = ["--data", "synthetic", "--ckpt_dir", str(ckpt_dir), "--name", "chip_smoke_cli"]
+    name = "chip_smoke_cli_" + kernel
+    ckpt_dir = BUILD / name
+    args = ["--data", "synthetic", "--ckpt_dir", str(ckpt_dir), "--name", name, *options]
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "mmda_tpu_torch.cli.train", *args,
                           "--n_epoch", "1"], cwd=ROOT, capture_output=True, text=True,
@@ -657,11 +1015,15 @@ def train_then_serve(device) -> dict:
     if out.returncode != 0:
         raise RuntimeError(f"cli.train exit {out.returncode}:\n{out.stdout[-3000:]}\n"
                            f"{out.stderr[-3000:]}")
-    summary = json.loads((ckpt_dir / "summary_chip_smoke_cli.json").read_text())
+    summary = json.loads((ckpt_dir / f"summary_{name}.json").read_text())
     cfg = get_config(argv=args)
     pred = Predictor(cfg, visual_size=35, acoustic_size=74, max_batch=8, device=str(device))
     reqs = make_requests(spread_lengths(8, cfg.bucket_sizes, 9), cfg, seed=9)
+    counts.reset_launch_count()
     got = pred(reqs)
+    if all_launches(counts) != expected_launches(counts, {kernel: LAUNCHES_PER_CALL}):
+        raise AssertionError(f"Predictor call on the {name} checkpoint: launches "
+                             f"{all_launches(counts)}")
     check_outputs(got["scores"], got["labels"], got["tcp"], 8, cfg.num_classes,
                   cfg.threshold)
     return {"train_s": train_s, "best_epoch": summary["best_epoch"],
@@ -685,7 +1047,11 @@ def main() -> int:
     from mmda_tpu_torch.config import Config, set_reference_numerics
     from mmda_tpu_torch.models import init_misa
     from mmda_tpu_torch.ops.kernels import _build
+    from mmda_tpu_torch.ops.kernels import _launch as counts
+    from mmda_tpu_torch.ops.kernels import gru as kgru
+    from mmda_tpu_torch.ops.kernels import layernorm as kln
     from mmda_tpu_torch.ops.kernels import lstm as klstm
+    from mmda_tpu_torch.ops.kernels.hash_dropout import keep_mask
     from mmda_tpu_torch.serving import Predictor
 
     device = torch.device("cuda", 0)
@@ -699,11 +1065,13 @@ def main() -> int:
         raise RuntimeError(f"compute capability {cap}; the kernels are built for sm_90a")
 
     t0 = time.perf_counter()
-    _build.build_all(klstm.SOURCES)
-    log("2 build", sources=list(klstm.SOURCES), seconds=time.perf_counter() - t0)
+    _build.build_all(counts.KERNELS)
+    log("2 build", sources=list(counts.KERNELS), seconds=time.perf_counter() - t0)
 
-    lstm = check_lstm_kernel(klstm, device)
-    lstm_bwd = check_lstm_bwd_kernel(klstm, device)
+    checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
+              "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
+    checks["gru_fwd"], checks["gru_bwd"] = check_gru_kernels(kgru, device)
+    checks["ln_dropout_fwd"], checks["ln_dropout_bwd"] = check_ln_kernels(kln, keep_mask, device)
 
     cfg = Config()                       # the serving default, on cuda
     t0 = time.perf_counter()
@@ -716,7 +1084,7 @@ def main() -> int:
         compute_dtype=cfg.compute_dtype)
     torch.cuda.reset_peak_memory_stats(device)
     requests = make_requests(spread_lengths(48, cfg.bucket_sizes, 0), cfg, 0)
-    main_path = serve_over_http(cfg, pred, requests, klstm)
+    main_path = serve_over_http(cfg, pred, requests, counts)
     main_path["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     log("4 serve-http", **main_path)
     latency = bucket_latency(cfg, pred, device)
@@ -724,57 +1092,83 @@ def main() -> int:
         log("4 latency", **row)
     profile = profile_serving(cfg, pred, device)
     log("4 profile", **profile)
-    serve_err = kernel_vs_plain_recurrence(cfg, pred, klstm)
+    serve_err = kernel_vs_plain_recurrence(cfg, pred, klstm.lstm_recurrence_reference)
     log("4 kernel-vs-plain-serving", max_abs_err=serve_err, tol=SERVE_TOL)
     device_err = card_vs_cpu(device)
     log("4 card-vs-cpu", max_abs_err=device_err, tol=DEVICE_TOL)
     del model, pred
 
-    trainer, train_path = train_main_path(klstm)
-    log("5 train-main-path", **train_path)
-    train_time = train_timing(trainer, klstm, device)
-    log("5 train-steps", **train_time)
-    train_profile = profile_training(trainer, device)
-    busy = train_profile["device_busy_ms_per_call"]
-    if isinstance(busy, float):         # the profiler slows the host, not the card
-        train_profile["idle_share_of_unprofiled_step"] = 1.0 - busy / train_time["ms_per_step"]
-    log("5 train-profile", **train_profile)
-    train_err = grads_kernel_vs_plain(trainer, klstm, device)
-    log("5 train-kernel-vs-plain", max_abs_err=train_err, tol=TRAIN_TOL)
-    train_device_err = train_card_vs_cpu(device)
-    log("5 train-card-vs-cpu", max_abs_err=train_device_err, tol=DEVICE_TOL)
-    del trainer
-    torch.cuda.empty_cache()
+    def train_phases(phase, kind, reference, **small_options):
+        """Phase 5 (LSTM towers) or 7 (GRU towers, fused LayerNorm sites)."""
+        trainer, path = train_main_path(counts, kind)
+        log(f"{phase} train-main-path", **path)
+        steps = train_timing(trainer, counts, kind, device)
+        log(f"{phase} train-steps", **steps)
+        prof = profile_training(trainer, kind, device)
+        busy = prof["device_busy_ms_per_call"]
+        if isinstance(busy, float):     # the profiler slows the host, not the card
+            prof["idle_share_of_unprofiled_step"] = 1.0 - busy / steps["ms_per_step"]
+        log(f"{phase} train-profile", **prof)
+        err = grads_kernel_vs_plain(trainer, counts, kind, reference, device)
+        log(f"{phase} train-kernel-vs-plain", max_abs_err=err, tol=TRAIN_TOL)
+        small_err = train_card_vs_cpu(device, **small_options)
+        log(f"{phase} train-card-vs-cpu", max_abs_err=small_err, tol=DEVICE_TOL)
+        return trainer.cfg, {"main_path": path, "steps": steps, "profile": prof,
+                             "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err}
 
-    train_serve = train_then_serve(device)
+    _, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference)
+    torch.cuda.empty_cache()
+    train_serve = train_then_serve(device, counts)
     log("6 train-then-serve", **train_serve)
 
-    def kernel_row(name, check, launches, replaces):
-        rep = check["report"]
-        return {"name": name, "route": "cuda", "source": f"mmda_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": check["max_abs_err"], "ms": rep["ms"],
-                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-                "shape": [rep["T"], rep["B"], rep["H"]]}
+    gru_cfg, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference, rnncell="gru")
+    torch.cuda.empty_cache()
+    # serve the checkpoint that run wrote (the flagship widths, GRU towers)
+    gru_pred = Predictor(gru_cfg, max_batch=64)
+    gru_requests = make_requests(spread_lengths(48, gru_cfg.bucket_sizes, 1), gru_cfg, 1)
+    gru_serve = serve_over_http(gru_cfg, gru_pred, gru_requests, counts, "gru_fwd")
+    gru_serve["kernel_vs_plain_err"] = kernel_vs_plain_recurrence(
+        gru_cfg, gru_pred, kgru.gru_recurrence_reference)
+    gru_serve["latency"] = bucket_latency(gru_cfg, gru_pred, device)
+    log("7 gru-serve-http", **gru_serve, tol=SERVE_TOL)
+    del gru_pred
+    torch.cuda.empty_cache()
+    gru_train_serve = train_then_serve(device, counts, "gru_fwd",
+                                       ("--rnncell", "gru", "--fused_ln_dropout", "True"))
+    log("7 gru-train-then-serve", **gru_train_serve)
 
-    # launches: the serving main path's and the training main path's runs
-    kernels = [
-        kernel_row("lstm_fwd", lstm,
-                   main_path["launches"] + train_path["launches"]["lstm_fwd"],
-                   "mmda_tpu/ops/pallas/lstm.py:97"),
-        kernel_row("lstm_bwd", lstm_bwd, train_path["launches"]["lstm_bwd"],
-                   "mmda_tpu/ops/pallas/lstm.py:285"),
-    ]
+    # launches: the main paths' runs (HTTP serving windows and Trainer.train())
+    launches = {name: train["main_path"]["launches"][name]
+                + gru_train["main_path"]["launches"][name] for name in counts.KERNELS}
+    launches["lstm_fwd"] += main_path["launches"]
+    launches["gru_fwd"] += gru_serve["launches"]
+    replaces = {"lstm_fwd": "lstm.py:97", "lstm_bwd": "lstm.py:285", "gru_fwd": "gru.py:142",
+                "gru_bwd": "gru.py:194", "ln_dropout_fwd": "layernorm.py:58",
+                "ln_dropout_bwd": "layernorm.py:74"}
+    kernels = []
+    for name in counts.KERNELS:
+        rep = checks[name]["report"]
+        shape = ([rep["T"], rep["B"], rep["H"]] if "T" in rep
+                 else [rep["N"], rep["H"], rep["dtype"]])
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"mmda_tpu_torch/csrc/{name}.cu",
+            "replaces": "mmda_tpu/ops/pallas/" + replaces[name], "launches": launches[name],
+            "max_abs_err": checks[name]["max_abs_err"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "ms_by": rep["ms_by"], "call_ms": rep["call_ms"],
+            "library_device_ms": rep["library_device_ms"], "shape": shape,
+            **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {})})
+        if launches[name] < 1:
+            raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "lstm": lstm, "lstm_bwd": lstm_bwd, "main_path": main_path, "latency": latency,
+        "checks": checks, "main_path": main_path, "latency": latency,
         "profile": profile, "serve_err": serve_err, "device_err": device_err,
-        "train_main_path": train_path, "train_steps": train_time,
-        "train_profile": train_profile, "train_err": train_err,
-        "train_device_err": train_device_err, "train_then_serve": train_serve,
+        "train": train, "train_then_serve": train_serve, "gru_train": gru_train,
+        "gru_serve": gru_serve, "gru_train_then_serve": gru_train_serve,
         "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

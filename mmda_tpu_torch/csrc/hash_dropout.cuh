@@ -1,0 +1,41 @@
+// The positional hash that draws dropout masks inside the kernels.
+//
+// Replaces mmda_tpu/ops/pallas/layernorm.py::_keep_mask (:40) and the same
+// avalanche in short_attention.py and attention.py.  A pure function of
+// (seed, absolute row, column): a backward kernel regenerates the mask
+// instead of reading it, and the mask does not depend on how rows are cut
+// into blocks.  uint32 arithmetic wraps, as the TPU kernels' does; the plain
+// PyTorch version is mmda_tpu_torch/ops/kernels/hash_dropout.py::keep_mask,
+// and the two agree bit for bit.
+
+#pragma once
+
+#include <cstdint>
+
+namespace mmda {
+
+// The avalanche every kernel's hash ends in (the attention kernels mix their
+// position into x in their own way): uniform in [0, 1) with 24 bits, exact
+// in f32.
+__device__ __forceinline__ float hash_avalanche(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return (float)(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// The LayerNorm kernels' position mix.
+__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t row,
+                                              uint32_t col) {
+  return hash_avalanche(row * 2654435761u + col * 0x9E3779B9u + seed * 40503u);
+}
+
+// 1 where the element is kept: u >= rate, rate already rounded to f32.
+__device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t row,
+                                          uint32_t col, float rate) {
+  return hash_uniform(seed, row, col) >= rate;
+}
+
+}  // namespace mmda

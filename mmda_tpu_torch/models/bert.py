@@ -17,8 +17,13 @@ Training dropout sits where the JAX package's plain path has it: the
 embedding output and both residual branches (`hidden_dropout`), and the f32
 attention probs (`attention_dropout`).  `freeze_layers` is `frozen_mask`
 (encoder layers <= 8 stop training; embeddings and pooler train, so the
-backward still runs through every layer).  MoE FFNs, int8 weights and the
-fused/flash attention kernels are not ported yet.
+backward still runs through every layer).  With
+`BertConfig.fused_ln_dropout` the two per-layer `LN(x + dropout(h))` sites
+run as one kernel each when training (`ops/kernels/layernorm.py`: the keep
+mask drawn in the kernel from a positional hash under a seed drawn on the
+device, regenerated in the backward); the embedding site (dropout after its
+LayerNorm) is not one of them.  MoE FFNs, int8 weights and the fused/flash
+attention kernels are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
+from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +54,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     gelu_exact: bool = True       # erf GELU (HF parity); False = tanh approx
+    fused_ln_dropout: bool = False  # the 24 per-layer LN(x + dropout(h)) sites
+                                    # through the fused kernel when training
 
     @staticmethod
     def base() -> "BertConfig":
@@ -62,12 +70,13 @@ class BertConfig:
 
 
 def bert_config_for(cfg) -> Optional[BertConfig]:
-    """BertConfig.base() for a config that uses the BERT tower."""
+    """BertConfig.base() with the main config's BERT-tower options applied
+    (`fused_ln_dropout`), for a config that uses the BERT tower."""
     if not cfg.use_bert:
         return None
     if getattr(cfg, "moe_experts", 0) > 0:
         raise NotImplementedError("moe_experts > 0 is not ported yet")
-    return BertConfig.base()
+    return BertConfig(fused_ln_dropout=bool(getattr(cfg, "fused_ln_dropout", False)))
 
 
 def apply_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -183,6 +192,20 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
 
     def drop(t, rate):
         return dropout(t, rate, training, generator)
+
+    def residual_ln(x, h, ln):
+        """LN(x + dropout(h)): the fused kernel site under fused_ln_dropout
+        when training with hidden dropout (LayerNorm statistics are always
+        f32 here), else dropout then layer_norm."""
+        if cfg.fused_ln_dropout and training and cfg.hidden_dropout > 0.0:
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=x.device, dtype=torch.int32)
+            out = residual_dropout_layernorm(
+                x.reshape(B * S, H), h.reshape(B * S, H), ln.weight, ln.bias, seed,
+                cfg.hidden_dropout, eps)
+            return out.reshape(B, S, H).to(cd)
+        return layer_norm(x + drop(h, cfg.hidden_dropout), ln.weight, ln.bias, eps).to(cd)
+
     qkv_w = torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0)
     qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
     q, k, v = apply_dense(x, qkv_w, qkv_b, cd).split(H, dim=-1)
@@ -195,18 +218,16 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
     probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
     ctx = torch.matmul(probs.to(cd), v)
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
-    attn = drop(apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd),
-                cfg.hidden_dropout)
-    x = layer_norm(x + attn, lp.attn_ln.weight, lp.attn_ln.bias, eps).to(cd)
+    x = residual_ln(x, apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd),
+                    lp.attn_ln)
 
     h = apply_dense(x, lp.ffn_in.weight, lp.ffn_in.bias, cd)
     if cfg.gelu_exact:
         h = F.gelu(h.float(), approximate="none")
     else:
         h = F.gelu(h, approximate="tanh")
-    h = drop(apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd),
-             cfg.hidden_dropout)
-    return layer_norm(x + h, lp.ffn_ln.weight, lp.ffn_ln.bias, eps).to(cd)
+    return residual_ln(x, apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd),
+                       lp.ffn_ln)
 
 
 def bert_encode(p: BertEncoder, input_ids: torch.Tensor,

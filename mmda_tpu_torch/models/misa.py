@@ -162,8 +162,9 @@ class MISA(nn.Module):
     def forward(self, batch: Batch, modality_keep: Optional[torch.Tensor] = None,
                 recurrence=None, generator: Optional[torch.Generator] = None
                 ) -> MISAOutput:
-        """recurrence: the LSTM recurrence the towers use (default: the
-        kernels); generator: the dropout draws' source in train()."""
+        """recurrence: the recurrence the RNN towers use in place of the
+        kernels (the plain version of cfg.rnncell's cell); generator: the
+        dropout draws' source in train()."""
         cfg = self.cfg
         act = get_activation(cfg.activation)
         cd = getattr(torch, cfg.compute_dtype)

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface, `mmda_tpu_torch/build/<name>-<digest>.so`; the digest covers
-the source and the flags, so an edited source never loads a stale library.
+the source, the headers beside it (`csrc/*.cuh`) and the flags, so an edited
+source never loads a stale library.
 Builds happen at first use (or all at once through `build_all`, which starts
 one nvcc per source in parallel) and only from the sources in the checkout.
 """
@@ -42,6 +43,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,62 @@
+"""The positional hash that draws dropout masks inside kernels: the plain
+PyTorch version of `csrc/hash_dropout.cuh`.
+
+Counterpart of `mmda_tpu/ops/pallas/layernorm.py::_keep_mask` (the same
+avalanche as the attention kernels').  The mask is a pure function of
+(seed, absolute row, column), so a backward kernel regenerates it instead of
+reading it, and it does not depend on how rows are cut into blocks.  Bit for
+bit:
+
+    x = row * 2654435761 + col * 0x9E3779B9 + seed * 40503     (uint32, wraps)
+    x ^= x >> 16;  x *= 0x7FEB352D;  x ^= x >> 15;  x *= 0x846CA68B;  x ^= x >> 16
+    u = float(x >> 8) * 2^-24                                   (24 bits, exact)
+    keep = u >= float32(rate);   kept values scale by float32(1 / (1 - rate))
+
+Here the uint32 arithmetic is int64 masked to 32 bits after every step that
+can carry past them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+
+
+def keep_scale(rate: float) -> float:
+    """float32(1 / (1 - rate)), what a kept value is multiplied by."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def avalanche(x: torch.Tensor) -> torch.Tensor:
+    """The avalanche every kernel's hash ends in (`hash_avalanche` of the
+    header): int64 values below 2^32 -> float32 uniforms in [0, 1) with 24
+    bits.  The attention kernels mix their position into x in their own way."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & M32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & M32
+    x = x ^ (x >> 16)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def keep_mask(shape: Tuple[int, int], rate: float, seed: Union[int, torch.Tensor],
+              row0: int = 0, device=None) -> torch.Tensor:
+    """float32 (rows, cols) mask, 1.0 where the element at absolute position
+    (row0 + r, c) is kept under `seed`.  seed: an int or a one-element integer
+    tensor (it is read on its device, with no copy to the host); the mask lies
+    on `device`, by default the seed's (the CPU for an int)."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        seed = seed.reshape(()).to(device=device, dtype=torch.int64) & M32
+    else:
+        seed = int(seed) & M32
+    n_rows, n_cols = shape
+    rows = (torch.arange(n_rows, dtype=torch.int64, device=device) + int(row0)) & M32
+    cols = torch.arange(n_cols, dtype=torch.int64, device=device)
+    x = ((rows * 2654435761) & M32)[:, None] + ((cols * 0x9E3779B9) & M32)[None, :]
+    u = avalanche((x + ((seed * 40503) & M32)) & M32)
+    return (u >= float(np.float32(rate))).to(torch.float32)

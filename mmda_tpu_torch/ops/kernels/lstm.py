@@ -12,36 +12,27 @@ and a CPU tensor to the plain version (`lstm_recurrence_reference`,
 `lstm_recurrence_bwd_reference`: the same math as a Python loop over t).
 There is no other route: a CUDA input that a kernel cannot take raises.
 
-Launch counts (`launch_count(name)`): one per wrapper call that launches,
-per source; a `lstm_bwd` call launches the BPTT kernel and the two passes
-of the dW_hh reduction of that source and counts once.
+Launch counts (`launch_count(name)`, shared by all the package's kernels):
+`lstm_fwd` by `lstm_recurrence`, `lstm_bwd` by `lstm_recurrence_bwd`, one per
+wrapper call that launches; a `lstm_bwd` call launches the BPTT kernel and
+the two passes of the dW_hh reduction of that source and counts once.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from mmda_tpu_torch.ops.kernels import _build
+from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, check_tensor,
+                                                device_of, launch, launch_count, lib,
+                                                reset_launch_count, rows_per_block,
+                                                sm_count)
 
 SOURCES = ("lstm_fwd", "lstm_bwd")
-MAX_THREADS = 1024
-DW_TILE = (16, 64)        # lstm_bwd.cu's dW tile: hidden units x gate columns
-
-_launches = dict.fromkeys(SOURCES, 0)
-
-
-def launch_count(name: str = "lstm_fwd") -> int:
-    """Launches of the `name` kernel (`lstm_fwd` by `lstm_recurrence`,
-    `lstm_bwd` by `lstm_recurrence_bwd`) since the last reset."""
-    return _launches[name]
-
-
-def reset_launch_count() -> None:
-    for name in _launches:
-        _launches[name] = 0
+__all__ = ["SOURCES", "launch_count", "reset_launch_count", "rows_per_block", "dw_splits",
+           "lstm_recurrence", "lstm_recurrence_reference", "lstm_recurrence_bwd",
+           "lstm_recurrence_bwd_reference", "LSTMRecurrence", "lstm_scan"]
 
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]
@@ -72,22 +63,11 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return ys, cs, h, c
 
 
-def _check_tensor(name: str, t, device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x_proj on {device}")
-
-
 def _check(x_proj, w_hh_t, mask) -> None:
     if not isinstance(x_proj, torch.Tensor):
         raise TypeError(f"x_proj must be a tensor, got {type(x_proj).__name__}")
     for name, t in (("x_proj", x_proj), ("w_hh_t", w_hh_t), ("mask", mask)):
-        _check_tensor(name, t, x_proj.device)
+        check_tensor(name, t, x_proj.device)
     if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be (T, B, 4H), got {tuple(x_proj.shape)}")
     T, B, G = x_proj.shape
@@ -100,43 +80,11 @@ def _check(x_proj, w_hh_t, mask) -> None:
         raise ValueError(f"mask must be ({T}, {B}), got {tuple(mask.shape)}")
 
 
-def rows_per_block(B: int, H: int, n_sm: int) -> int:
-    """Batch rows per thread block: spread B over the SMs (the recurrence is
-    latency-bound, so short blocks on many SMs beat long blocks), within the
-    1024-thread limit of one thread per (row, hidden unit)."""
-    return max(1, min(-(-B // n_sm), MAX_THREADS // H))
-
-
-def _lib(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu with `mmda_<name>`'s signature:
-    n_ptrs pointers, n_ints ints, the stream."""
-    lib = _build.load(name)
-    fn = getattr(lib, f"mmda_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def dw_splits(T: int, H: int, n_sm: int) -> int:
     """Runs of steps the dW_hh reduction is cut into: enough blocks of
     (DW_TILE) outputs for two per SM, at most one run per step that adds."""
     tiles = -(-H // DW_TILE[0]) * -(-4 * H // DW_TILE[1])
     return max(1, min(T - 1, -(-2 * n_sm // tiles)))
-
-
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _launches[name] += 1
-
-
-def _device(x: torch.Tensor) -> torch.device:
-    dev = x.device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the LSTM kernels run on cuda or cpu tensors, got {dev}")
-    return dev
 
 
 def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -150,26 +98,26 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     need_cs else None, and the final h, c (B, H).
     """
     _check(x_proj, w_hh_t, mask)
-    dev = _device(x_proj)
+    dev = device_of(x_proj)
     if dev.type == "cpu":
         return lstm_recurrence_reference(x_proj, w_hh_t, mask, reverse, need_cs)
     T, B, G = x_proj.shape
     H = G // 4
     if H > MAX_THREADS:
         raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
-    lib = _lib("lstm_fwd", 7, 5)
+    so = lib("lstm_fwd", 7, 5)
     ys = torch.empty(T, B, H, device=dev)
     cs = torch.empty(T, B, H, device=dev) if need_cs else None
     h_fin = torch.empty(B, H, device=dev)
     c_fin = torch.empty(B, H, device=dev)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sm = sm_count(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("lstm_fwd", lib.mmda_lstm_fwd,
-                x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
-                ys.data_ptr(), cs.data_ptr() if cs is not None else None,
-                h_fin.data_ptr(), c_fin.data_ptr(),
-                T, B, H, rows_per_block(B, H, n_sm), int(reverse), stream)
+        launch("lstm_fwd", so.mmda_lstm_fwd,
+               x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
+               ys.data_ptr(), cs.data_ptr() if cs is not None else None,
+               h_fin.data_ptr(), c_fin.data_ptr(),
+               T, B, H, rows_per_block(B, H, n_sm), int(reverse), stream)
     return ys, cs, h_fin, c_fin
 
 
@@ -238,29 +186,29 @@ def lstm_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     if dc_fin is not None:
         state.append(("dc_fin", dc_fin, (B, H)))
     for name, t, shape in state:
-        _check_tensor(name, t, x_proj.device)
+        check_tensor(name, t, x_proj.device)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    dev = _device(x_proj)
+    dev = device_of(x_proj)
     if dev.type == "cpu":
         return lstm_recurrence_bwd_reference(x_proj, w_hh_t, mask, ys, cs, dys,
                                              dh_fin, dc_fin, reverse)
     if H > MAX_THREADS:
         raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
-    lib = _lib("lstm_bwd", 11, 6)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    so = lib("lstm_bwd", 11, 6)
+    n_sm = sm_count(dev)
     splits = dw_splits(T, H, n_sm)
     dx = torch.empty(T, B, G, device=dev)
     dw = torch.empty(H, G, device=dev)
     dw_partial = torch.empty(splits, H, G, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("lstm_bwd", lib.mmda_lstm_bwd,
-                x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
-                ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dh_fin.data_ptr(),
-                dc_fin.data_ptr() if dc_fin is not None else None,
-                dx.data_ptr(), dw.data_ptr(), dw_partial.data_ptr(),
-                T, B, H, rows_per_block(B, H, n_sm), int(reverse), splits, stream)
+        launch("lstm_bwd", so.mmda_lstm_bwd,
+               x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
+               ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dh_fin.data_ptr(),
+               dc_fin.data_ptr() if dc_fin is not None else None,
+               dx.data_ptr(), dw.data_ptr(), dw_partial.data_ptr(),
+               T, B, H, rows_per_block(B, H, n_sm), int(reverse), splits, stream)
     return dx, dw
 
 

@@ -226,8 +226,9 @@ class Predictor:
         `{"text": "a string"}` rows when a tokenizer was given.  Returns the
         stacked results trimmed to len(requests).
 
-        recurrence: the LSTM recurrence for the towers; None runs the kernel
-        wrapper `lstm_recurrence`, `lstm_recurrence_reference` its plain
+        recurrence: the recurrence for the RNN towers; None runs the kernel
+        wrapper of cfg.rnncell's cell (`lstm_recurrence`, `gru_recurrence`),
+        `lstm_recurrence_reference` / `gru_recurrence_reference` its plain
         version (a yardstick for the kernel)."""
         t0 = time.perf_counter()
         batch, n = self.batch_arrays(requests)

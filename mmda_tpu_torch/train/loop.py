@@ -36,7 +36,7 @@ from mmda_tpu_torch.config import resolve_device
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.data.loader import ArrayLoader, auto_bucket_sizes, to_device
 from mmda_tpu_torch.models import get_model
-from mmda_tpu_torch.models.bert import BertConfig, freeze_layers
+from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, freeze_layers
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
 from mmda_tpu_torch.train.step import eval_step, train_step
@@ -70,12 +70,8 @@ def unsupported(cfg) -> List[str]:
         (cfg.resume, f"resume ({q}: resume and incremental checkpoints)"),
         (cfg.grad_accum_steps > 1, f"grad_accum_steps > 1 ({q}: grad_accum_steps)"),
         (cfg.confid_two_stage, f"confid_two_stage ({q}: ConfidNet stage 2)"),
-        (cfg.rnncell != "lstm", f"rnncell={cfg.rnncell} ({q}: GRU and transformer towers; "
-                                "ROADMAP Queue 2 rows 5-8)"),
-        (cfg.extractor != "lstm", f"extractor={cfg.extractor} ({q}: GRU and transformer towers)"),
         (cfg.use_bert and attn != "xla", f"attn_impl={cfg.attn_impl} resolving to {attn} "
                                          "(ROADMAP Queue 2 rows 9-16)"),
-        (cfg.fused_ln_dropout, "fused_ln_dropout (ROADMAP Queue 2 rows 17-18)"),
         (cfg.bert_model_dir is not None, f"bert_model_dir (HF weight loading; {q})"),
         (cfg.profile_dir is not None, f"profile_dir ({q}: profiler hook)"),
     ]
@@ -103,7 +99,9 @@ class Trainer:
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(cfg.device)
-        self.bert_cfg = bert_cfg or (BertConfig.base() if cfg.use_bert else None)
+        self.bert_cfg = bert_cfg or bert_config_for(cfg)
+        if cfg.fused_ln_dropout and self.bert_cfg is not None:
+            self.bert_cfg = dataclasses.replace(self.bert_cfg, fused_ln_dropout=True)
         self.logger = logger or MetricLogger(cfg.log_sinks, run_name=cfg.name)
 
         train = data["train"]

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from mmda_tpu_torch.ops.kernels import gru as kgru
+from mmda_tpu_torch.ops.kernels import hash_dropout
+from mmda_tpu_torch.ops.kernels import layernorm as kln
 from mmda_tpu_torch.ops.kernels import lstm as klstm
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +101,144 @@ def test_lstm_bwd_kernel_rejects_cpu_mixed_inputs(cuda_device):
     dys, dh, _ = _grads(4, 3, 5, 0, cuda_device)
     with pytest.raises(ValueError):
         klstm.lstm_recurrence_bwd(x, w, m, ys, cs.cpu(), dys, dh)
+
+
+# ------------------------------------------------------------------- GRU
+
+
+def _gru_inputs(T, B, H, seed, device):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, T + 1, size=B)
+    lengths[0], lengths[-1] = 1, T
+    arrays = (rng.normal(size=(T, B, 3 * H)), rng.normal(size=(H, 3 * H)) / np.sqrt(H),
+              rng.normal(size=3 * H), np.arange(T)[:, None] < lengths[None, :],
+              rng.normal(size=(T, B, H)), rng.normal(size=(B, H)))     # dys random at pads
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(48, 64, 35), (48, 64, 74), (16, 64, 74), (48, 64, 300),
+                                   (7, 5, 33), (1, 3, 5), (256, 32, 74)])
+def test_gru_kernels_match_plain_versions(cuda_device, T, B, H, reverse):
+    """Forward and BPTT kernels against their plain versions on the card
+    (w_hh_t in shared memory at H <= 74, in global memory at H = 300);
+    dW_hh and db_hh are summed in f64 on both sides."""
+    x, w, b, m, dys, dh = _gru_inputs(T, B, H, seed=H, device=cuda_device)
+    before = kgru.launch_count("gru_fwd"), kgru.launch_count("gru_bwd")
+    ys, h_fin = kgru.gru_recurrence(x, w, b, m, reverse)
+    got = kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh, reverse)
+    assert (kgru.launch_count("gru_fwd"), kgru.launch_count("gru_bwd")) == (before[0] + 1,
+                                                                           before[1] + 1)
+    ys_r, h_r = kgru.gru_recurrence_reference(x, w, b, m, reverse)
+    torch.testing.assert_close(ys, ys_r, **TOL)
+    torch.testing.assert_close(h_fin, h_r, **TOL)
+    want = kgru.gru_recurrence_bwd_reference(x, w, b, m, ys_r, dys, dh, reverse)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, **TOL)
+
+
+def test_gru_scan_gradients_on_the_card_match_the_cpu(cuda_device):
+    cpu = _gru_inputs(16, 9, 20, seed=3, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        x, w, b, m = (t.to(dev) for t in cpu[:4])
+        for t in (x, w, b):
+            t.requires_grad_(True)
+        ys, h = kgru.gru_scan(x, w, b, m, reverse=True)
+        g = torch.autograd.grad((ys * ys).sum() + h.sum(), [x, w, b])
+        outs[str(dev)] = [t.detach().cpu() for t in (ys, h, *g)]
+    for a, b_ in zip(outs["cpu"], outs[str(cuda_device)]):
+        torch.testing.assert_close(a, b_, **TOL)
+
+
+def test_gru_kernels_reject_cpu_mixed_inputs(cuda_device):
+    x, w, b, m, dys, dh = _gru_inputs(4, 3, 5, seed=0, device=cuda_device)
+    with pytest.raises(ValueError):
+        kgru.gru_recurrence(x, w, b.cpu(), m)
+    ys, _ = kgru.gru_recurrence(x, w, b, m)
+    with pytest.raises(ValueError):
+        kgru.gru_recurrence_bwd(x, w, b, m, ys.cpu(), dys, dh)
+
+
+# ------------------------------------------- residual + dropout + LayerNorm
+
+
+def _ln_inputs(N, H, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    x, y, dout = (torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(device, dtype)
+                  for _ in range(3))
+    g, b = (torch.from_numpy(rng.normal(size=H).astype(np.float32)).to(device) for _ in range(2))
+    return x, y, g, b, dout
+
+
+@pytest.mark.parametrize("seed", [7, 2 ** 31 - 2])
+@pytest.mark.parametrize("N,H,dtype", [(3200, 768, torch.bfloat16), (3200, 768, torch.float32),
+                                       (200, 128, torch.float32), (300, 128, torch.bfloat16),
+                                       (13, 30, torch.float32)])
+def test_ln_dropout_mask_is_the_hash_bit_for_bit(cuda_device, N, H, dtype, seed):
+    """x = 0, y = 1, scale = 1: the forward's z is keep / (1 - rate), so the
+    kept positions are where the output lies above the row mean (in rows
+    that hold both kinds); the backward's dy is zero exactly where an
+    element was dropped, in every row.  (13, 30): H not a multiple of 4,
+    the kernel's one-value-per-access path."""
+    rate = 0.1
+    x = torch.zeros(N, H, dtype=dtype, device=cuda_device)
+    y = torch.ones_like(x)
+    g, b = torch.ones(H, device=cuda_device), torch.zeros(H, device=cuda_device)
+    s = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
+    want = hash_dropout.keep_mask((N, H), rate, s)
+    assert 0 < want.mean().item() < 1
+    out = kln.residual_dropout_layernorm_fwd(x, y, g, b, s, rate).float()
+    mixed = want.min(1).values != want.max(1).values
+    assert mixed.any() and torch.equal((out > 0).float()[mixed], want[mixed])
+    dout = torch.randn(N, H, device=cuda_device).to(dtype)
+    dx, dy, _, _ = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, rate)
+    moved = dx.float() != 0
+    assert torch.equal((dy.float() != 0)[moved], want.bool()[moved])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("N,H,dtype", [(3200, 768, torch.bfloat16), (3200, 768, torch.float32),
+                                       (200, 128, torch.float32), (300, 128, torch.float32),
+                                       (13, 30, torch.float32)])
+def test_ln_dropout_kernels_match_plain_versions(cuda_device, N, H, dtype, rate):
+    """f32: 1e-5 abs/rel; bf16: one bf16 ulp (2^-7 relative: a value on a
+    rounding boundary may round the other way); dscale, dbias 1e-4."""
+    x, y, g, b, dout = _ln_inputs(N, H, dtype, seed=N + H, device=cuda_device)
+    s = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    before = kln.launch_count("ln_dropout_fwd"), kln.launch_count("ln_dropout_bwd")
+    out = kln.residual_dropout_layernorm_fwd(x, y, g, b, s, rate, 1e-12)
+    got = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, rate, 1e-12)
+    assert (kln.launch_count("ln_dropout_fwd"), kln.launch_count("ln_dropout_bwd")) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, kln.residual_dropout_layernorm_reference(
+        x, y, g, b, s, rate, 1e-12), **tol)
+    want = kln.residual_dropout_layernorm_bwd_reference(x, y, g, dout, s, rate, 1e-12)
+    for g_, w_, t in zip(got, want, (tol, tol, dict(rtol=1e-4, atol=1e-4),
+                                    dict(rtol=1e-4, atol=1e-4))):
+        assert g_.dtype == w_.dtype
+        torch.testing.assert_close(g_, w_, **t)
+
+
+def test_ln_dropout_autograd_on_the_card_matches_the_cpu(cuda_device):
+    cpu = _ln_inputs(50, 64, torch.float32, seed=1, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        x, y, g, b, dout = (t.to(dev) for t in cpu)
+        leaves = [t.requires_grad_(True) for t in (x, y, g, b)]
+        s = torch.tensor([9], dtype=torch.int32, device=dev)
+        out = kln.residual_dropout_layernorm(*leaves, s, 0.2, 1e-5)
+        grads = torch.autograd.grad(out, leaves, dout)
+        outs[str(dev)] = [t.detach().cpu() for t in (out, *grads)]
+    for a, b_ in zip(outs["cpu"], outs[str(cuda_device)]):
+        torch.testing.assert_close(a, b_, **TOL)
+
+
+def test_ln_dropout_kernels_reject_cpu_mixed_inputs(cuda_device):
+    x, y, g, b, dout = _ln_inputs(6, 8, torch.float32, seed=0, device=cuda_device)
+    s = torch.tensor([1], dtype=torch.int32)          # on the CPU
+    with pytest.raises(ValueError):
+        kln.residual_dropout_layernorm_fwd(x, y, g, b, s, 0.1)
+    with pytest.raises(ValueError):
+        kln.residual_dropout_layernorm_bwd(x, y.cpu(), g, dout, None, 0.0)

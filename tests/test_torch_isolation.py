@@ -14,6 +14,10 @@ import pytest
 import torch
 
 import mmda_tpu_torch
+from mmda_tpu_torch.ops.kernels import _launch
+from mmda_tpu_torch.ops.kernels import gru as kgru
+from mmda_tpu_torch.ops.kernels import hash_dropout
+from mmda_tpu_torch.ops.kernels import layernorm as kln
 from mmda_tpu_torch.ops.kernels import lstm as klstm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -127,6 +131,68 @@ def test_bwd_kernel_wrapper_has_no_fallback():
             [(T, B, 4 * H), (H, 4 * H), (T, B), (T, B, H), (T, B, H), (T, B, H), (B, H)]]
     with pytest.raises(ValueError, match="cuda or cpu"):
         klstm.lstm_recurrence_bwd(*args)
+
+
+def _meta(*shapes, dtype=torch.float32):
+    return [torch.zeros(s, device="meta", dtype=dtype) for s in shapes]
+
+
+T_, B_, H_ = 2, 2, 2
+NEW_WRAPPERS = {
+    "gru_recurrence": (kgru, "gru_recurrence_reference",
+                       lambda: _meta((T_, B_, 3 * H_), (H_, 3 * H_), (3 * H_,), (T_, B_))),
+    "gru_recurrence_bwd": (kgru, "gru_recurrence_bwd_reference",
+                           lambda: _meta((T_, B_, 3 * H_), (H_, 3 * H_), (3 * H_,), (T_, B_),
+                                         (T_, B_, H_), (T_, B_, H_), (B_, H_))),
+    "residual_dropout_layernorm_fwd": (kln, "residual_dropout_layernorm_reference",
+                                       lambda: _meta((4, 8), (4, 8), (8,), (8,)) + [None]),
+    "residual_dropout_layernorm_bwd": (kln, "residual_dropout_layernorm_bwd_reference",
+                                       lambda: _meta((4, 8), (4, 8), (8,), (4, 8)) + [None]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_WRAPPERS))
+def test_gru_and_layernorm_wrappers_have_no_fallback(name):
+    """Each takes its plain version only for a CPU tensor: no try/except, no
+    routing switch, one call of the plain version, and any other device
+    either launches the kernel or raises."""
+    module, reference, make_args = NEW_WRAPPERS[name]
+    assert "environ" not in inspect.getsource(module)
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, name))))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == reference]
+    assert len(calls) == 1
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        getattr(module, name)(*make_args())
+    assert "gru_recurrence_bwd(" in inspect.getsource(kgru.GRURecurrence.backward)
+    assert "residual_dropout_layernorm_bwd(" in inspect.getsource(
+        kln.ResidualDropoutLayerNorm.backward)
+
+
+def test_every_cuda_source_has_one_launch_count_and_one_entry_point():
+    """`_launch.KERNELS` is the list of csrc/*.cu; each defines its plain C
+    entry `mmda_<name>`; the modules' SOURCES partition it; one count each,
+    shared by all the modules."""
+    csrc = PKG / "csrc"
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_launch.KERNELS)
+    for name in _launch.KERNELS:
+        assert f"int mmda_{name}(" in (csrc / f"{name}.cu").read_text()
+    assert sorted(klstm.SOURCES + kgru.SOURCES + kln.SOURCES) == sorted(_launch.KERNELS)
+    assert klstm.launch_count is kgru.launch_count is kln.launch_count is _launch.launch_count
+    _launch.reset_launch_count()
+    assert [_launch.launch_count(n) for n in _launch.KERNELS] == [0] * len(_launch.KERNELS)
+    with pytest.raises(KeyError):
+        _launch.launch_count("no_such_kernel")
+
+
+def test_hash_constants_are_the_same_in_the_header_and_the_plain_version():
+    header = (PKG / "csrc" / "hash_dropout.cuh").read_text()
+    plain = inspect.getsource(hash_dropout)
+    for const in ("2654435761", "0x9E3779B9", "40503", "0x7FEB352D", "0x846CA68B"):
+        assert const in header and const in plain, const
+    for kernel in ("ln_dropout_fwd", "ln_dropout_bwd"):
+        assert '#include "hash_dropout.cuh"' in (PKG / "csrc" / f"{kernel}.cu").read_text()
 
 
 def test_train_cli_raises_without_cuda(monkeypatch):

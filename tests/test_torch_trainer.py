@@ -2,8 +2,9 @@
 CPU at small sizes: the synthetic data and the loader (the same arrays and
 batches for a seed), the numpy metrics against the scikit-learn-based JAX
 ones, the metric logger, the trainer (its loss falls, frozen layers stay,
-its best-on-dev export loads in both packages), the options it refuses,
-the training CLI, and the parameter conversion's round trip.
+its best-on-dev export loads in both packages), the options it refuses
+and the ones it no longer does (GRU and transformer towers, the fused
+LayerNorm sites), the training CLI, and the parameter conversion's round trip.
 
 Exact equality where both packages compute the same numpy arithmetic
 (data, loader, checkpoint leaves); 1e-12 for the metrics (float64 on both
@@ -209,12 +210,63 @@ def test_trainer_with_ema_exports_the_shadow(tmp_path):
 @pytest.mark.parametrize("option", [
     dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(moe_experts=4), dict(zero1=True),
     dict(fsdp=True), dict(ckpt_backend="orbax"), dict(compiled_epoch=True), dict(resume=True),
-    dict(grad_accum_steps=2), dict(rnncell="gru"), dict(extractor="transformer"),
+    dict(grad_accum_steps=2), dict(confid_two_stage=True), dict(profile_dir="/tmp/p"),
     dict(attn_impl="flash"), dict(attn_impl="auto", max_seq_len=300)])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     cfg = _tiny_cfg(tmp_path, **option)
     with pytest.raises(ValueError, match="ROADMAP"):
         Trainer(cfg, _tiny_data())
+
+
+@pytest.mark.parametrize("option", [
+    dict(rnncell="gru"), dict(extractor="transformer"), dict(fused_ln_dropout=True),
+    dict(rnncell="gru", fused_ln_dropout=True)],
+    ids=["gru", "transformer", "fused_ln", "gru+fused_ln"])
+def test_trainer_trains_with_the_towers_and_the_fused_sites(tmp_path, option, monkeypatch):
+    """The options the trainer used to refuse: it builds the towers, trains
+    (finite, falling loss), and its best-on-dev export loads in the JAX
+    package's `load_checkpoint` and in the port's `Predictor`.  With
+    fused_ln_dropout every training step goes through the fused function
+    twice per BERT layer, and eval through none."""
+    from mmda_tpu_torch.models import bert as pbert
+    from mmda_tpu_torch.serving import Predictor
+
+    calls = []
+    real = pbert.residual_dropout_layernorm
+    monkeypatch.setattr(pbert, "residual_dropout_layernorm",
+                        lambda *a: (calls.append(a[5]), real(*a))[1])
+    cfg = _tiny_cfg(tmp_path, n_epoch=2, **option)
+    trainer = Trainer(cfg, _tiny_data(), bert_cfg=BertConfig.tiny())
+    assert trainer.bert_cfg.fused_ln_dropout == bool(option.get("fused_ln_dropout"))
+    summary = trainer.train()
+    hist = summary["history"]
+    assert len(hist) == 2 and hist[-1]["train_loss"] < hist[0]["train_loss"]
+    assert np.isfinite(summary["test_loss"])
+    steps = 2 * 3                                   # 96 rows / 32 per batch, 2 epochs
+    assert len(calls) == (steps * 2 * 2 if option.get("fused_ln_dropout") else 0)
+    assert all(rate == 0.1 for rate in calls)
+
+    name = pckpt.best_model_name(cfg)
+    jcfg = JConfig(use_bert=True, data="mosei", hidden_size=16, embedding_size=8,
+                   **{k: v for k, v in option.items() if k != "fused_ln_dropout"})
+    template = jmisa.init_misa_params(jax.random.PRNGKey(0), jcfg,
+                                      bert_cfg=jbert.BertConfig.tiny(), **trainer.sizes)
+    loaded = jckpt.load_checkpoint(str(tmp_path), name, template)
+    best = trainer._load_best(name, MISA(cfg, bert_cfg=BertConfig.tiny(), **trainer.sizes))
+    _assert_same_tree(loaded, to_jax_tree(best))
+
+    pred = Predictor(cfg, bert_cfg=BertConfig.tiny(), max_batch=4,
+                     visual_size=trainer.sizes["visual_size"],
+                     acoustic_size=trainer.sizes["acoustic_size"])
+    rng = np.random.default_rng(0)
+    reqs = [{"text": rng.integers(2, 40, size=L).astype(np.int32),
+             "visual": rng.normal(size=(L, trainer.sizes["visual_size"])).astype(np.float32),
+             "acoustic": rng.normal(size=(L, trainer.sizes["acoustic_size"])).astype(np.float32),
+             "bert_ids": rng.integers(1, 128, size=L + 2).astype(np.int32),
+             "bert_type": np.zeros(L + 2, np.int32), "bert_mask": np.ones(L + 2, np.int32)}
+            for L in (3, 8)]
+    out = pred(reqs)
+    assert out["scores"].shape == (2, 6) and np.isfinite(out["scores"]).all()
 
 
 def test_train_cli_on_the_cpu_writes_a_checkpoint_both_packages_serve(tmp_path):
