@@ -19,7 +19,13 @@ the result):
    LayerNorm forward and backward in f32 and bf16: the keep mask equal bit
    for bit to the plain hash, outputs within 1e-5 (f32) or one bf16 ulp,
    dscale and dbias within 1e-4; timed beside the composition
-   `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`;
+   `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`.  The three
+   blockwise attention kernels (forward, dq, dk/dv) at S = 130, 514 and 1026
+   and at D = 16, in f32 (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus
+   one bf16 ulp on the gradients), at dropout rate 0 and 0.1 with masked
+   tails; their keep mask equal bit for bit to the plain hash; timed at the
+   long step's (384, 514, 64) beside `F.scaled_dot_product_attention` with
+   the same additive mask and dropout_p and its `autograd.grad`;
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -52,7 +58,21 @@ the result):
    then a `Predictor` on the checkpoint that run wrote, behind the HTTP front
    end (8 `gru_fwd` launches per call), and `cli.train --rnncell gru
    --fused_ln_dropout True` -> `Predictor`;
-8. a `kernels` JSON line (all six kernels), the card's name and power limit, and as the last
+8. long sequences: bert-base at B=32, T=512 (S=514), bf16, the mosei freeze
+   rule, dropout on, `attn_impl="auto"`, which resolves to the attention
+   kernels for the training steps and to the dense core for eval.
+   `Trainer.train()` for one epoch of 6 full-length batches: every step makes
+   12 `flash_fwd`, 12 `flash_bwd_dq`, 12 `flash_bwd_dkv`, 8 `lstm_fwd` and 8
+   `lstm_bwd` launches (the recurrences at T=512), an eval batch none of the
+   attention kernels; 10 timed steps and a profile; the same 10 steps with
+   the dense core (`attn_impl="xla"`); one step's gradients with dropout on,
+   kernels against plain versions under the same seeds; a small f32 model
+   with `attn_impl="flash"` on the card against the CPU; then a
+   `Predictor(attn_impl="flash")` on that run's checkpoint behind the HTTP
+   front end (one bucket of 512, 32 rows a call: 12 `flash_fwd` per call, no
+   backward kernel) against the dense core (2e-2), and
+   `mmda_tpu_torch.cli.infer` on it;
+9. a `kernels` JSON line (all nine kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -94,25 +114,52 @@ REPORT_SHAPE = (64, 64, 74)       # the kernels line: largest bucket, wider towe
 REPORT_BWD_SHAPE = (48, 64, 74)   # the training step's wider tower
 LAUNCHES_PER_CALL = 8             # 2 towers x 2 layers x 2 directions
 LN_SITES = 24                     # 12 BERT layers x (attention, FFN) residual LayerNorms
+BERT_LAYERS = 12                  # one attention core per layer
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 64, 48, 20
+LONG_B, LONG_T, LONG_STEPS, LONG_TIMED = 32, 512, 6, 10   # the long-sequence step (S = 514)
 TRAIN_TOL = 1e-3                  # kernels vs plain versions, step gradients: this, plus one
                                   # bf16 ulp of the gradient (BERT's gradients are bf16
                                   # values, and one on a rounding boundary may round the
                                   # other way)
-# the two training configurations: extra Config options, launches per step
-# and per eval batch, the kernel names the profile sums
+# the training configurations: extra Config options, launches per step and
+# per eval batch, the kernel names the profile sums; "long" also its batch,
+# length and step counts (the others: TRAIN_B, TRAIN_T, TRAIN_STEPS) and
+# whether the kernels-against-plain gradient check runs with dropout on
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_CONFIGS = {
-    "lstm": {"options": {},
+    "lstm": {"options": {"attn_impl": "xla"},
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
              "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL},
              "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw")},
-    "gru": {"options": {"rnncell": "gru", "fused_ln_dropout": True},
+    "gru": {"options": {"attn_impl": "xla", "rnncell": "gru", "fused_ln_dropout": True},
+            "dropout_on": True,
             "per_step": {"gru_fwd": LAUNCHES_PER_CALL, "gru_bwd": LAUNCHES_PER_CALL,
                          "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES},
             "per_eval": {"gru_fwd": LAUNCHES_PER_CALL},
             "profile": ("gru_fwd", "gru_bptt", "gru_dwb", "ln_dropout_fwd",
                         "ln_dropout_bwd", "ln_dropout_dgb")},
+    # attn_impl "auto" resolves to flash for the training steps (S = 514 >= 256)
+    # and to the dense core for the eval batches (S <= 1024); the towers run
+    # the recurrences at T = 512
+    "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
+             "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
+             "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
+                          **dict.fromkeys(FLASH, BERT_LAYERS)},
+             "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL},
+             "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw", "flash_fwd", "flash_bwd_dq",
+                         "flash_bwd_dkv")},
 }
+# (BH, S, D) of the attention checks: S no multiple of the 64-wide tiles, the
+# long step's S = 514, S > 1024 (where inference resolves to flash), and the
+# tiny config's D = 16; each in f32 and bf16, at rate 0 and 0.1
+ATTN_SHAPES = [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16)]
+ATTN_REPORT = (LONG_B * 12, LONG_T + 2, 64)      # the long step's call, bf16
+ATTN_RATE = 0.1
+ATTN_F32_TOL = (1e-5, 1e-4)       # |err| <= 1e-5 + 1e-4 |ref|: summation order only
+ATTN_BF16_TOL = (2e-2, 2.0 ** -7)  # a probability on a rounding boundary may round the
+                                  # other way (one bf16 ulp of a value up to 1, times v)
+PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
+FLASH_SERVE_TOL = 2e-2            # flash Predictor against the dense core, bf16
 # (N, H, dtype) of the fused LayerNorm checks: the flagship step's sites
 # (N = B * S = 64 * 50) in bf16 and f32, and two row counts that are no
 # multiple of the TPU kernel's 128-row blocks
@@ -124,7 +171,7 @@ LN_RATE = 0.1
 LN_SEEDS = (7, 2 ** 31 - 2)
 BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
 LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
-BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 and 6
+BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 8
 
 
 def log(phase: str, **kw) -> None:
@@ -156,10 +203,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 10):
-    """Device time of one fn() call in ms: the summed durations of the
-    device ops it launches, from torch.profiler over reps calls (the median
-    call where every call shows the same number of ops, else the mean); None
-    where the profiler shows no device op."""
+    """Device time of one fn() call in ms from torch.profiler over reps
+    calls: for every device op name, the median duration of its events times
+    its launches per call (its event count over reps, rounded, at least 1),
+    summed.  The profiler can lose events of a window (seen on the card: 6 of
+    10 kernel events, once 1 of 10), and launches of one name take the same
+    time, so medians by name survive that where a sum over all events does
+    not.  None where the profiler shows no device op."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -168,15 +218,45 @@ def device_ms(fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    on_card = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not on_card:
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
         return None
-    per_call, rest = divmod(len(on_card), reps)
-    if rest:
-        return sum(us for _, us in on_card) / 1e3 / reps
-    return statistics.median(sum(us for _, us in on_card[i * per_call:(i + 1) * per_call])
-                             for i in range(reps)) / 1e3
+    return sum(statistics.median(us) * max(1, round(len(us) / reps))
+               for us in by_name.values()) / 1e3
+
+
+def queue_ms(fn, reps: int = 20) -> tuple:
+    """(device span, host enqueue time) per call in ms of reps calls queued
+    back to back: one CUDA-event pair around all of them, and the host clock
+    until the last is enqueued.  Where the span is well above the enqueue
+    time the card never waits for the host, and the span is the calls'
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host / reps
+
+
+def device_time(fn, call_ms: float) -> tuple:
+    """(ms, how) of one fn() call's device time: the back-to-back span where
+    the queue is device-bound (span > 1.5 x the host's enqueue time), else
+    the profiler's medians by kernel name, else the call's event time."""
+    span, host = queue_ms(fn)
+    if span > 1.5 * host:
+        return span, "events, back to back"
+    dev = device_ms(fn)
+    return (call_ms, "events") if dev is None else (min(dev, span), "profiler")
 
 
 def kernel_times(kernel, plain, library, plain_reps: int = 5, plain_warmup: int = 3) -> dict:
@@ -185,14 +265,16 @@ def kernel_times(kernel, plain, library, plain_reps: int = 5, plain_warmup: int 
     library yardstick: with the card idle before it, a call's time includes
     the host's work ahead of the launch (tens of microseconds: checks,
     allocations, ctypes), which is most of a call of a few microseconds.
-    `ms` is the kernel's device time alone (`ms_by` profiler; the event time
-    where the profiler shows nothing), `library_device_ms` the same for the
-    library call.  Every call here finds its inputs in the L2 cache, as the
-    main paths' calls mostly do (the op before wrote them)."""
-    call, dev = cuda_ms(kernel), device_ms(kernel)
-    return {"ms": call if dev is None else dev, "ms_by": "events" if dev is None else "profiler",
-            "call_ms": call, "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=plain_warmup),
-            "library_ms": cuda_ms(library), "library_device_ms": device_ms(library)}
+    `ms` is the kernel's device time alone (`ms_by` says how, see
+    `device_time`), `library_device_ms` the same for the library call.  Every
+    call here finds its inputs in the L2 cache where they fit, as the main
+    paths' calls mostly do (the op before wrote them)."""
+    call, lib_call = cuda_ms(kernel), cuda_ms(library)
+    ms, how = device_time(kernel, call)
+    lib_ms, lib_how = device_time(library, lib_call)
+    return {"ms": ms, "ms_by": how, "call_ms": call,
+            "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=plain_warmup),
+            "library_ms": lib_call, "library_device_ms": lib_ms, "library_ms_by": lib_how}
 
 
 # ---------------------------------------------------------------- kernels
@@ -250,15 +332,19 @@ def cudnn_fwd(x_proj, w_hh_t, lengths, b_hh=None):
     return call, (state[0] if isinstance(state, tuple) else state)[0]
 
 
-def max_err(pairs, tol: float, where: str) -> float:
+def max_err(pairs, tol, where: str) -> float:
     """Largest |got - want| over (name, got, want) pairs; raises where a
-    value is not finite or |got - want| > tol * (1 + |want|)."""
+    value is not finite, the reference is all zero (the comparison would say
+    nothing), or |got - want| > atol + rtol |want|.  tol: (atol, rtol), or
+    one number for both."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     worst = 0.0
     for name, g, r in pairs:
         g, r = g.float(), r.float()
-        if g.shape != r.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: shape {tuple(g.shape)} or non-finite values at {where}")
-        if ((g - r).abs() - tol * (1 + r.abs())).max().item() > 0:
+        if g.shape != r.shape or not torch.isfinite(g).all() or not r.abs().max() > 0:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)}, non-finite values or an "
+                                 f"all-zero reference at {where}")
+        if ((g - r).abs() - atol - rtol * r.abs()).max().item() > 0:
             raise AssertionError(f"kernel output {name} disagrees with the plain version "
                                  f"at {where} (tol {tol})")
         worst = max(worst, (g - r).abs().max().item())
@@ -612,6 +698,181 @@ def check_ln_kernels(kln, keep_mask, device) -> tuple:
     return result("fwd"), result("bwd")
 
 
+def attn_inputs(BH, S, D, dtype, seed, device):
+    """q, k, v in `dtype`, an f32 incoming gradient, and a key bias with a
+    masked tail of another length in every (batch, head) but the first."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(BH, S, D)).astype(np.float32)).to(device)
+                  for _ in range(4))
+    mask = np.ones((BH, S), np.float32)
+    for b in range(1, BH):
+        mask[b, S - (b * S) // (2 * BH) - 1:] = 0.0
+    bias = torch.from_numpy((1.0 - mask) * -1e9).float().to(device)
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias, g
+
+
+def attn_bounds(BH, S, D, dtype) -> dict:
+    """Least times for the three attention kernels: every input read once and
+    every output written once over HBM (q, k, v, bias -> o f32, lse; those,
+    the f32 do, lse, dsum -> dq; -> dk, dv), against the operations of the 2,
+    3 and 4 S x S x D products (2 S^2 D each) over the card's dense bf16
+    tensor-core peak for bf16 operands (the TPU kernel's products take bf16
+    operands) and over its f32 peak for f32 operands."""
+    w = torch.finfo(dtype).bits // 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    n, vec = BH * S * D, BH * S * 4
+    work = {"flash_fwd": (3 * n * w + vec + n * 4 + vec, 4),
+            "flash_bwd_dq": (3 * n * w + n * 4 + 3 * vec + n * w, 6),
+            "flash_bwd_dkv": (3 * n * w + n * 4 + 3 * vec + 2 * n * w, 8)}
+    out = {}
+    for name, (nbytes, products) in work.items():
+        flops = float(products) * BH * S * S * D
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+        out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops, "peak_flops": peak}
+    return out
+
+
+def check_attn_mask(kattn, hashes, BH, S, D, seed, device) -> None:
+    """The three kernels' keep mask against the plain hash, bit for bit, in
+    f32, D columns of the S x S mask at a time.  With q = 0 and no bias every
+    probability is 1 / S (forward) or, with lse = 0, exactly 1 (backward).
+    Forward: v a shifted identity, so o S (1 - rate) is the mask's columns
+    off .. off + D.  dk/dv: do a shifted identity, so dv (1 - rate) is the
+    mask's rows off .. off + D, transposed.  dq: do = 1, v = 1 / D, dsum = 0,
+    so ds is the scaled mask, and k a shifted identity picks its columns."""
+    rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
+    s = torch.tensor([seed], dtype=torch.int32, device=device)
+    want = hashes.attention_keep_mask((BH, S, S), rate, s)
+    if not 0 < want.mean().item() < 1:
+        raise AssertionError(f"degenerate attention mask at {(BH, S, D, seed)}")
+    zeros = torch.zeros(BH, S, D, device=device)
+    ones = torch.ones(BH, S, D, device=device)
+    vec0 = torch.zeros(BH, S, device=device)
+    scale = kattn.softmax_scale(D)
+    idx = torch.arange(D, device=device)
+    for off in range(0, S, D):
+        n = min(D, S - off)
+        shifted = torch.zeros(BH, S, D, device=device)
+        shifted[:, off + idx[:n], idx[:n]] = 1.0
+        o, _ = kattn.flash_attention_fwd(zeros, zeros, shifted, vec0, s, rate)
+        _, dv = kattn.flash_attention_bwd_dkv(zeros, zeros, zeros, vec0, s, shifted, vec0,
+                                              vec0, rate)
+        dq = kattn.flash_attention_bwd_dq(zeros, shifted, ones / D, vec0, s, ones, vec0, vec0,
+                                          rate)
+        torch.cuda.synchronize()
+        got = {"flash_fwd": (o * S / ks).round()[:, :, :n],
+               "flash_bwd_dkv": (dv / ks).round()[:, :, :n].transpose(1, 2),
+               "flash_bwd_dq": (dq / (scale * ks)).round()[:, :, :n]}
+        for name, mask in got.items():
+            block = want[:, off:off + n, :] if name == "flash_bwd_dkv" else want[:, :, off:off + n]
+            if not torch.equal(mask, block):
+                raise AssertionError(f"{name}: keep mask differs from the hash at "
+                                     f"{(BH, S, D, seed)}, offset {off}")
+
+
+def check_attn_kernels(kattn, hashes, device) -> dict:
+    """`flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` against their plain
+    versions (mask bit for bit, outputs, gradients), then their times at the
+    long step's shape beside `F.scaled_dot_product_attention` with the same
+    additive mask and dropout_p (forward) and its `autograd.grad` (dq, dk and
+    dv together: the library time of both backward rows).  Returns
+    {kernel: result}."""
+    import torch.nn.functional as F
+
+    for BH, S, D, seed in [(3, 130, 64, 7), (2, 514, 64, 2 ** 31 - 2), (2, 130, 16, -5)]:
+        check_attn_mask(kattn, hashes, BH, S, D, seed, device)
+    rows = {k: [] for k in FLASH}
+    seed = torch.tensor([12345], dtype=torch.int32, device=device)
+    for BH, S, D in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+            q, k, v, bias, g = attn_inputs(BH, S, D, dtype, S + D, device)
+            for rate in (0.0, ATTN_RATE):
+                where = f"(BH,S,D)={(BH, S, D)} {dtype} rate={rate}"
+                o, lse = kattn.flash_attention_fwd(q, k, v, bias, seed, rate)
+                o_w, lse_w = kattn.flash_attention_fwd_reference(q, k, v, bias, seed, rate)
+                dsum = kattn.row_dsum(g, o_w)
+                args = (q, k, v, bias, seed, g, lse_w, dsum, rate)
+                dq = kattn.flash_attention_bwd_dq(*args)
+                dk, dv = kattn.flash_attention_bwd_dkv(*args)
+                dq_w = kattn.flash_attention_bwd_dq_reference(*args)
+                dk_w, dv_w = kattn.flash_attention_bwd_dkv_reference(*args)
+                torch.cuda.synchronize()
+                if o.dtype != torch.float32 or any(t.dtype != dtype for t in (dq, dk, dv)):
+                    raise AssertionError(f"output dtype at {where}")
+                shape = {"BH": BH, "S": S, "D": D, "dtype": str(dtype)[6:], "rate": rate}
+                rows["flash_fwd"].append({**shape, "max_abs_err": max_err(
+                    [("o", o, o_w), ("lse", lse, lse_w)],
+                    ATTN_F32_TOL if dtype == torch.float32 else (ATTN_BF16_TOL[0], 0.0),
+                    "flash_fwd " + where)})
+                rows["flash_bwd_dq"].append({**shape, "max_abs_err": max_err(
+                    [("dq", dq, dq_w)], tol, "flash_bwd_dq " + where)})
+                rows["flash_bwd_dkv"].append({**shape, "max_abs_err": max_err(
+                    [("dk", dk, dk_w), ("dv", dv, dv_w)], tol, "flash_bwd_dkv " + where)})
+            del q, k, v, bias, g
+
+    def worst(name, dtype):
+        return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
+
+    errs = {k: {d: worst(k, d) for d in ("float32", "bfloat16")} for k in FLASH}
+    log("3 attn-kernels-vs-plain", checks=len(rows["flash_fwd"]), mask="equal bit for bit",
+        max_abs_err=errs, tol={"float32": ATTN_F32_TOL, "bfloat16": ATTN_BF16_TOL})
+
+    BH, S, D = ATTN_REPORT
+    B, nh = BH // 12, 12
+    timed = {k: [] for k in FLASH}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias, g = attn_inputs(BH, S, D, dtype, 1, device)
+        o, lse = kattn.flash_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
+        dsum = kattn.row_dsum(g, o)
+        args = (q, k, v, bias, seed, g, lse, dsum, ATTN_RATE)
+        # the library yardstick: (B, nh, S, D) views, the key bias as an additive mask
+        lq, lk, lv = (t.view(B, nh, S, D).clone().requires_grad_(True) for t in (q, k, v))
+        lmask = bias.view(B, nh, 1, S).to(dtype)
+        lg = g.view(B, nh, S, D).to(dtype)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
+                                                  dropout_p=ATTN_RATE)
+
+        lib_out = sdpa()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, [lq, lk, lv], lg, retain_graph=True)
+
+        with torch.no_grad():
+            lib_err = (F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask).float()
+                       - kattn.flash_attention_fwd(q, k, v, bias, seed, 0.0)[0]
+                       .view(B, nh, S, D)).abs().max().item()
+        bounds = attn_bounds(BH, S, D, dtype)
+        shape = {"BH": BH, "S": S, "D": D, "dtype": str(dtype)[6:], "rate": ATTN_RATE}
+        calls = {
+            "flash_fwd": (lambda: kattn.flash_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
+                          lambda: kattn.flash_attention_fwd_reference(q, k, v, bias, seed,
+                                                                      ATTN_RATE),
+                          lambda: torch.no_grad()(sdpa)(),
+                          "F.scaled_dot_product_attention(attn_mask, dropout_p)"),
+            "flash_bwd_dq": (lambda: kattn.flash_attention_bwd_dq(*args),
+                             lambda: kattn.flash_attention_bwd_dq_reference(*args), sdpa_bwd,
+                             "autograd.grad of that call: dq, dk and dv together"),
+            "flash_bwd_dkv": (lambda: kattn.flash_attention_bwd_dkv(*args),
+                              lambda: kattn.flash_attention_bwd_dkv_reference(*args), sdpa_bwd,
+                              "autograd.grad of that call: dq, dk and dv together")}
+        for name, (kernel, plain, library, what) in calls.items():
+            timed[name].append({**shape, **kernel_times(kernel, plain, library, 3, 1),
+                                "library": what, "library_rate0_max_abs_err": lib_err,
+                                **bounds[name]})
+            log(f"3 {name}-time", **timed[name][-1])
+        del q, k, v, bias, g, o, lse, dsum, args, lq, lk, lv, lg, lib_out
+        torch.cuda.empty_cache()
+    return {name: {"checks": rows[name], "timed": timed[name],
+                   "max_abs_err": errs[name]["float32"],
+                   "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0]}
+            for name in FLASH}
+
+
 # ---------------------------------------------------------------- serving
 
 
@@ -668,11 +929,12 @@ def post(url, req):
         return json.loads(r.read())
 
 
-def serve_over_http(cfg, pred, requests, counts, kernel="lstm_fwd") -> dict:
+def serve_over_http(cfg, pred, requests, counts, kernel="lstm_fwd", per_call=None) -> dict:
     """The main path: requests from concurrent clients through the HTTP front
     end, the micro-batching server and the Predictor; the launch counts
-    (`kernel`: the towers' forward recurrence) read around exactly this
-    window."""
+    (`kernel`: the towers' forward recurrence; `per_call`: every kernel a
+    Predictor call launches, by default LAUNCHES_PER_CALL of `kernel`) read
+    around exactly this window."""
     from mmda_tpu_torch.cli.serve import serve
 
     httpd, psrv = serve(cfg, port=0, predictor=pred, timeout_s=300)
@@ -697,10 +959,13 @@ def serve_over_http(cfg, pred, requests, counts, kernel="lstm_fwd") -> dict:
     for rep in replies:
         check_outputs([rep["scores"]], [rep["labels"]], [rep["tcp"]], 1,
                       cfg.num_classes, cfg.threshold)
-    if calls < 1 or launches != expected_launches(counts, {kernel: LAUNCHES_PER_CALL * calls}):
+    per_call = per_call or {kernel: LAUNCHES_PER_CALL}
+    if calls < 1 or launches != expected_launches(
+            counts, {k: n * calls for k, n in per_call.items()}):
         raise AssertionError(f"kernel launches {launches} for {calls} Predictor calls; "
-                             f"expected {LAUNCHES_PER_CALL} of {kernel} per call, no other")
+                             f"expected {per_call} per call, no other")
     return {"requests": len(requests), "predictor_calls": calls, "launches": launches[kernel],
+            "launches_by_kernel": launches,
             "wall_s": wall, "requests_per_s": len(requests) / wall, "healthz": health["ok"]}
 
 
@@ -784,13 +1049,13 @@ def card_vs_cpu(device) -> float:
 # --------------------------------------------------------------- training
 
 
-def full_length_split(n, seed) -> dict:
-    """n synthetic MOSEI-shaped rows, every one TRAIN_T words long (the
+def full_length_split(n, seed, T=TRAIN_T) -> dict:
+    """n synthetic MOSEI-shaped rows, every one T words long (the
     steady-state shape: the whole bucket is used)."""
     from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
 
-    split = make_split(SyntheticSpec(num_examples=n, max_len=TRAIN_T, seed=seed))
-    split["lengths"][:] = TRAIN_T
+    split = make_split(SyntheticSpec(num_examples=n, max_len=T, seed=seed))
+    split["lengths"][:] = T
     split["bert_mask"][:] = 1
     return split
 
@@ -802,21 +1067,23 @@ def finite_losses(losses: dict, where: str) -> None:
 
 
 def train_main_path(counts, kind: str) -> tuple:
-    """The main path: `Trainer.train()` for one epoch of TRAIN_STEPS
-    full-length batches on the flagship config (with TRAIN_CONFIGS[kind]'s
-    options), with dev eval, the best-on-dev export and test eval; the launch
-    counts read around exactly this call.  Returns (trainer, result)."""
+    """The main path: `Trainer.train()` for one epoch of full-length batches
+    on the flagship config (with TRAIN_CONFIGS[kind]'s options, batch, length
+    and step count), with dev eval, the best-on-dev export and test eval; the
+    launch counts read around exactly this call.  Returns (trainer, result)."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.train.loop import Trainer
     from mmda_tpu_torch.utils.logging import MetricLogger
 
     spec = TRAIN_CONFIGS[kind]
     name = f"chip_smoke_train_{kind}"
-    cfg = Config(use_bert=True, data="mosei", batch_size=TRAIN_B, max_seq_len=TRAIN_T,
-                 bucket_sizes=(TRAIN_T,), compute_dtype="bfloat16", attn_impl="xla",
+    B, T, n_steps = (spec.get("batch", TRAIN_B), spec.get("T", TRAIN_T),
+                     spec.get("steps", TRAIN_STEPS))
+    cfg = Config(use_bert=True, data="mosei", batch_size=B, max_seq_len=T,
+                 bucket_sizes=(T,), compute_dtype="bfloat16",
                  n_epoch=1, seed=0, name=name, ckpt_dir=str(BUILD / name), **spec["options"])
-    data = {"train": full_length_split(TRAIN_B * TRAIN_STEPS, 0),
-            "dev": full_length_split(TRAIN_B, 1), "test": full_length_split(TRAIN_B, 2)}
+    data = {"train": full_length_split(B * n_steps, 0, T),
+            "dev": full_length_split(B, 1, T), "test": full_length_split(B, 2, T)}
     t0 = time.perf_counter()
     trainer = Trainer(cfg, data, logger=MetricLogger(("stdout",), run_name=cfg.name))
     build_s = time.perf_counter() - t0
@@ -827,7 +1094,7 @@ def train_main_path(counts, kind: str) -> tuple:
     wall = time.perf_counter() - t0
     launches = all_launches(counts)
     want = expected_launches(counts, {
-        k: n * TRAIN_STEPS + spec["per_eval"].get(k, 0) * eval_batches
+        k: n * n_steps + spec["per_eval"].get(k, 0) * eval_batches
         for k, n in spec["per_step"].items()})
     if launches != want:
         raise AssertionError(f"train(): kernel launches {launches}, expected {want}")
@@ -836,20 +1103,26 @@ def train_main_path(counts, kind: str) -> tuple:
     counts = {"params_total": sum(p.numel() for p in trainer.model.parameters()),
               "params_trainable": sum(p.numel() for p in trainer.optimizer.params)}
     return trainer, {"build_s": build_s, "train_wall_s": wall, "launches": launches,
-                     "steps": TRAIN_STEPS, "epoch_time_s": epoch["epoch_time_s"],
+                     "steps": n_steps, "batch": B, "T": T, "epoch_time_s": epoch["epoch_time_s"],
                      "train_loss": epoch["train_loss"], "test_loss": summary["test_loss"],
                      **counts}
 
 
-def train_timing(trainer, counts, kind: str, device) -> dict:
-    """Host wall time of TRAIN_STEPS more steps, each ending in a
-    synchronize; launches per step; peak device memory."""
+def train_timing(trainer, counts, kind: str, device, without=()) -> dict:
+    """Host wall time of more steps (the configuration's "timed" count, by
+    default one more epoch), each ending in a synchronize; launches per step;
+    peak device memory.  without: kernels this run must not launch (the
+    long-sequence step again with the dense attention core)."""
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.train.step import train_step
 
     cfg = trainer.cfg
     batches = list(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
                                bucket_sizes=cfg.bucket_sizes, device=device))
+    n_timed = TRAIN_CONFIGS[kind].get("timed", len(batches))
+    batches = [batches[i % len(batches)] for i in range(n_timed)]
+    train_step(trainer.model, trainer.optimizer, batches[0], cfg, trainer.generator,
+               trainer.ema)                       # warm-up: allocator, autotuned GEMMs
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     counts.reset_launch_count()
@@ -862,7 +1135,8 @@ def train_timing(trainer, counts, kind: str, device) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         finite_losses(losses, "train_step")
     per_step = {k: n / len(batches) for k, n in all_launches(counts).items()}
-    want = expected_launches(counts, TRAIN_CONFIGS[kind]["per_step"])
+    want = expected_launches(counts, {k: n for k, n in TRAIN_CONFIGS[kind]["per_step"].items()
+                                      if k not in without})
     if per_step != want:
         raise AssertionError(f"launches per train step {per_step}, expected {want}")
     ms = statistics.median(times)
@@ -924,20 +1198,23 @@ def profile_training(trainer, kind: str, device) -> dict:
 def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> float:
     """One step's gradients on the flagship model with the kernels against
     their plain versions: the towers' recurrence replaced by `reference`
-    (autograd through its loop) and, for the GRU configuration, the fused
-    LayerNorm sites by their plain function.  The LSTM configuration runs
-    with dropout off; the GRU one with dropout on (the fused sites exist only
-    then), both passes drawing from the same generator state, so the seeds
-    and every other dropout mask are the same."""
+    (autograd through its loop), the fused LayerNorm sites by their plain
+    function and the attention kernels by their plain forward and explicit
+    backward.  The LSTM configuration runs with dropout off; the GRU and the
+    long-sequence one with dropout on (the fused sites exist only then, and
+    the attention kernels draw their mask only then), both passes drawing
+    from the same generator state, so the seeds and every other dropout mask
+    are the same."""
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.models import bert
+    from mmda_tpu_torch.ops.kernels import attention as kattn
     from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm_reference
     from mmda_tpu_torch.train.step import loss_and_grads
 
     cfg, model = trainer.cfg, trainer.model
     batch = next(iter(ArrayLoader(trainer.data["dev"], cfg.batch_size, shuffle=False,
                                   bucket_sizes=cfg.bucket_sizes, device=device)))
-    model.train(cfg.fused_ln_dropout)
+    model.train(TRAIN_CONFIGS[kind].get("dropout_on", False))
     params = trainer.optimizer.params
     state = trainer.generator.get_state()
     counts.reset_launch_count()
@@ -946,7 +1223,10 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
         raise AssertionError(f"the kernel-path gradient made {all_launches(counts)} launches")
     trainer.generator.set_state(state)
     fused = bert.residual_dropout_layernorm
+    attn_fwd, attn_bwd = kattn.flash_attention_fwd, kattn.flash_attention_bwd
     bert.residual_dropout_layernorm = residual_dropout_layernorm_reference
+    kattn.flash_attention_fwd = kattn.flash_attention_fwd_reference
+    kattn.flash_attention_bwd = kattn.flash_attention_bwd_reference
     try:
         counts.reset_launch_count()
         _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
@@ -955,6 +1235,7 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
             raise AssertionError(f"the plain path made {all_launches(counts)} launches")
     finally:
         bert.residual_dropout_layernorm = fused
+        kattn.flash_attention_fwd, kattn.flash_attention_bwd = attn_fwd, attn_bwd
     finite_losses(got_l, "kernel-path step")
     err, excess = 0.0, 0.0
     for g, w in zip(got, want):
@@ -1031,6 +1312,93 @@ def train_then_serve(device, counts, kernel="lstm_fwd", options=()) -> dict:
             "score_mean": float(np.mean(got["scores"]))}
 
 
+def serve_long(cfg, counts, device) -> dict:
+    """A `Predictor` with attn_impl="flash" on the checkpoint the
+    long-sequence run wrote (one bucket of LONG_T, LONG_B rows a call) behind
+    the HTTP front end: BERT_LAYERS `flash_fwd` and LAUNCHES_PER_CALL
+    `lstm_fwd` launches per call, no backward kernel; then the same requests
+    through the same weights with the dense core."""
+    from mmda_tpu_torch.serving import Predictor
+
+    flash_cfg = cfg.replace(attn_impl="flash")
+    pred = Predictor(flash_cfg, max_batch=LONG_B)
+    rng = np.random.default_rng(3)
+    lengths = [LONG_T, 1] + [int(n) for n in rng.integers(LONG_T // 4, LONG_T + 1, size=46)]
+    requests = make_requests(lengths, flash_cfg, 3)
+    out = serve_over_http(flash_cfg, pred, requests, counts,
+                          per_call={"lstm_fwd": LAUNCHES_PER_CALL, "flash_fwd": BERT_LAYERS})
+    batch = requests[:LONG_B]
+    counts.reset_launch_count()
+    got = pred(batch)
+    if counts.launch_count("flash_fwd") != BERT_LAYERS:
+        raise AssertionError(f"flash Predictor call: {all_launches(counts)}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        pred(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["flash_ms_per_call"] = statistics.median(times)
+    del pred
+    torch.cuda.empty_cache()
+    dense = Predictor(cfg.replace(attn_impl="xla"), max_batch=LONG_B)
+    counts.reset_launch_count()
+    want = dense(batch)
+    if any(counts.launch_count(k) for k in FLASH):
+        raise AssertionError(f"dense-core Predictor call: {all_launches(counts)}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dense(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["dense_ms_per_call"] = statistics.median(times)
+    check_outputs(got["scores"], got["labels"], got["tcp"], LONG_B, cfg.num_classes,
+                  cfg.threshold)
+    err = max(float(np.abs(got[k] - want[k]).max()) for k in ("scores", "tcp", "hidden"))
+    if err > FLASH_SERVE_TOL:
+        raise AssertionError(f"flash Predictor vs the dense core: {err} > {FLASH_SERVE_TOL}")
+    out["flash_vs_dense_err"] = err
+    return out
+
+
+def infer_long(cfg, counts) -> dict:
+    """`mmda_tpu_torch.cli.infer` on the long-sequence run's checkpoint (copied
+    to the name `--data synthetic` looks for), attn_impl="flash", the 128
+    ragged rows of the synthetic test split in batches of LONG_B."""
+    import shutil
+
+    from mmda_tpu_torch.cli import infer
+    from mmda_tpu_torch.train import checkpoint as ckpt
+
+    synth = cfg.replace(data="synthetic")
+    shutil.copyfile(pathlib.Path(cfg.ckpt_dir) / f"{ckpt.best_model_name(cfg)}.msgpack",
+                    pathlib.Path(cfg.ckpt_dir) / f"{ckpt.best_model_name(synth)}.msgpack")
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    metrics = infer.main(["--data", "synthetic", "--mode", "test", "--attn_impl", "flash",
+                          "--max_seq_len", str(LONG_T), "--batch_size", str(LONG_B),
+                          "--ckpt_dir", cfg.ckpt_dir, "--name", cfg.name])
+    wall = time.perf_counter() - t0
+    launches = all_launches(counts)
+    batches = 128 // LONG_B
+    want = expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL * batches,
+                                      "flash_fwd": BERT_LAYERS * batches})
+    if launches != want:
+        raise AssertionError(f"cli.infer: kernel launches {launches}, expected {want}")
+    with np.load(pathlib.Path(cfg.ckpt_dir) / f"predictions_{cfg.name}_test.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    if set(arrays) != {"scores", "labels", "truths", "tcp", "hidden"}:
+        raise AssertionError(f"cli.infer wrote {sorted(arrays)}")
+    check_outputs(arrays["scores"], arrays["labels"], arrays["tcp"], 128, cfg.num_classes,
+                  cfg.threshold)
+    if arrays["hidden"].shape != (128, 6 * cfg.hidden_size) or not np.isfinite(
+            arrays["hidden"]).all():
+        raise AssertionError(f"cli.infer hidden {arrays['hidden'].shape}")
+    return {"rows": 128, "batches": batches, "wall_s": wall, "launches": launches,
+            "f1": float(metrics["f1"]), "acc": float(metrics["acc"])}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1048,10 +1416,11 @@ def main() -> int:
     from mmda_tpu_torch.models import init_misa
     from mmda_tpu_torch.ops.kernels import _build
     from mmda_tpu_torch.ops.kernels import _launch as counts
+    from mmda_tpu_torch.ops.kernels import attention as kattn
     from mmda_tpu_torch.ops.kernels import gru as kgru
+    from mmda_tpu_torch.ops.kernels import hash_dropout as hashes
     from mmda_tpu_torch.ops.kernels import layernorm as kln
     from mmda_tpu_torch.ops.kernels import lstm as klstm
-    from mmda_tpu_torch.ops.kernels.hash_dropout import keep_mask
     from mmda_tpu_torch.serving import Predictor
 
     device = torch.device("cuda", 0)
@@ -1066,12 +1435,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(counts.KERNELS)
-    log("2 build", sources=list(counts.KERNELS), seconds=time.perf_counter() - t0)
+    build_s = time.perf_counter() - t0
+    log("2 build", sources=list(counts.KERNELS), seconds=build_s)
 
     checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
               "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
     checks["gru_fwd"], checks["gru_bwd"] = check_gru_kernels(kgru, device)
-    checks["ln_dropout_fwd"], checks["ln_dropout_bwd"] = check_ln_kernels(kln, keep_mask, device)
+    checks["ln_dropout_fwd"], checks["ln_dropout_bwd"] = check_ln_kernels(
+        kln, hashes.keep_mask, device)
+    checks.update(check_attn_kernels(kattn, hashes, device))
 
     cfg = Config()                       # the serving default, on cuda
     t0 = time.perf_counter()
@@ -1099,7 +1471,8 @@ def main() -> int:
     del model, pred
 
     def train_phases(phase, kind, reference, **small_options):
-        """Phase 5 (LSTM towers) or 7 (GRU towers, fused LayerNorm sites)."""
+        """Phase 5 (LSTM towers), 7 (GRU towers, fused LayerNorm sites) or 8
+        (the long-sequence step with the attention kernels)."""
         trainer, path = train_main_path(counts, kind)
         log(f"{phase} train-main-path", **path)
         steps = train_timing(trainer, counts, kind, device)
@@ -1113,15 +1486,19 @@ def main() -> int:
         log(f"{phase} train-kernel-vs-plain", max_abs_err=err, tol=TRAIN_TOL)
         small_err = train_card_vs_cpu(device, **small_options)
         log(f"{phase} train-card-vs-cpu", max_abs_err=small_err, tol=DEVICE_TOL)
-        return trainer.cfg, {"main_path": path, "steps": steps, "profile": prof,
-                             "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err}
+        return trainer, {"main_path": path, "steps": steps, "profile": prof,
+                         "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err}
 
-    _, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference)
+    lstm_trainer, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference)
+    del lstm_trainer
     torch.cuda.empty_cache()
     train_serve = train_then_serve(device, counts)
     log("6 train-then-serve", **train_serve)
 
-    gru_cfg, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference, rnncell="gru")
+    gru_trainer, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference,
+                                          rnncell="gru")
+    gru_cfg = gru_trainer.cfg
+    del gru_trainer
     torch.cuda.empty_cache()
     # serve the checkpoint that run wrote (the flagship widths, GRU towers)
     gru_pred = Predictor(gru_cfg, max_batch=64)
@@ -1137,18 +1514,43 @@ def main() -> int:
                                        ("--rnncell", "gru", "--fused_ln_dropout", "True"))
     log("7 gru-train-then-serve", **gru_train_serve)
 
-    # launches: the main paths' runs (HTTP serving windows and Trainer.train())
+    # phase 8: the long-sequence configuration, train -> timed steps with the
+    # attention kernels and with the dense core -> serve -> score
+    long_trainer, long_train = train_phases(8, "long", klstm.lstm_recurrence_reference,
+                                            attn_impl="flash")
+    long_cfg = long_trainer.cfg
+    long_trainer.model.cfg = long_cfg.replace(attn_impl="xla")
+    try:
+        long_train["steps_dense"] = train_timing(long_trainer, counts, "long", device,
+                                                 without=FLASH)
+    finally:
+        long_trainer.model.cfg = long_cfg
+    log("8 train-steps-dense-core", **long_train["steps_dense"])
+    del long_trainer
+    torch.cuda.empty_cache()
+    long_serve = serve_long(long_cfg, counts, device)
+    log("8 flash-serve-http", **long_serve, tol=FLASH_SERVE_TOL)
+    torch.cuda.empty_cache()
+    long_infer = infer_long(long_cfg, counts)
+    log("8 flash-infer", **long_infer)
+
+    # launches: the main paths' runs (HTTP serving windows, Trainer.train(), cli.infer)
     launches = {name: train["main_path"]["launches"][name]
-                + gru_train["main_path"]["launches"][name] for name in counts.KERNELS}
+                + gru_train["main_path"]["launches"][name]
+                + long_train["main_path"]["launches"][name]
+                + long_serve["launches_by_kernel"][name] + long_infer["launches"][name]
+                for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
     replaces = {"lstm_fwd": "lstm.py:97", "lstm_bwd": "lstm.py:285", "gru_fwd": "gru.py:142",
                 "gru_bwd": "gru.py:194", "ln_dropout_fwd": "layernorm.py:58",
-                "ln_dropout_bwd": "layernorm.py:74"}
+                "ln_dropout_bwd": "layernorm.py:74", "flash_fwd": "attention.py:72",
+                "flash_bwd_dq": "attention.py:136", "flash_bwd_dkv": "attention.py:172"}
     kernels = []
     for name in counts.KERNELS:
         rep = checks[name]["report"]
         shape = ([rep["T"], rep["B"], rep["H"]] if "T" in rep
+                 else [rep["BH"], rep["S"], rep["D"], rep["dtype"]] if "BH" in rep
                  else [rep["N"], rep["H"], rep["dtype"]])
         kernels.append({
             "name": name, "route": "cuda", "source": f"mmda_tpu_torch/csrc/{name}.cu",
@@ -1165,10 +1567,12 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "build_s": build_s,
         "checks": checks, "main_path": main_path, "latency": latency,
         "profile": profile, "serve_err": serve_err, "device_err": device_err,
         "train": train, "train_then_serve": train_serve, "gru_train": gru_train,
         "gru_serve": gru_serve, "gru_train_then_serve": gru_train_serve,
+        "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
         "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

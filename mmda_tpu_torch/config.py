@@ -189,7 +189,9 @@ class Config:
                            seq_len: Optional[int] = None) -> str:
         """The BERT attention core the JAX package picks: with "auto",
         flash for training at S >= 256 and for inference at S > 1024, else
-        plain ("xla").  The port has the plain core only."""
+        plain ("xla"); `use_flash_attention` is the older name of
+        attn_impl="flash".  `seq_len` defaults to `max_seq_len`; the model
+        passes the token length of the batch it was given."""
         if self.attn_impl == "auto":
             if self.use_flash_attention:
                 return "flash"

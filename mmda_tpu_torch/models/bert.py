@@ -1,9 +1,9 @@
 """BERT encoder (bert-base-uncased architecture).
 
-Counterpart of `mmda_tpu/models/bert.py` (`bert_encode` on its plain
-attention path).  The parameter layout follows the JAX tree (separate q/k/v
-denses, HF-compatible names) with PyTorch (out, in) weights; the forward
-fuses q/k/v into one product per layer.  Rounding points as in the JAX
+Counterpart of `mmda_tpu/models/bert.py` (`bert_encode` with its plain and
+its flash attention core).  The parameter layout follows the JAX tree
+(separate q/k/v denses, HF-compatible names) with PyTorch (out, in) weights;
+the forward fuses q/k/v into one product per layer.  Rounding points as in the JAX
 package:
 
 * `apply_dense`: f32 accumulation, cast to the compute dtype, then the bias
@@ -22,8 +22,15 @@ backward still runs through every layer).  With
 run as one kernel each when training (`ops/kernels/layernorm.py`: the keep
 mask drawn in the kernel from a positional hash under a seed drawn on the
 device, regenerated in the backward); the embedding site (dropout after its
-LayerNorm) is not one of them.  MoE FFNs, int8 weights and the fused/flash
-attention kernels are not ported yet.
+LayerNorm) is not one of them.
+
+`attn_impl="flash"` runs the attention core of every layer through the
+blockwise kernels of `ops/kernels/attention.py` (q, k, v in the compute
+dtype, the key bias per (batch, head), the probs dropout drawn in the kernel
+under a per-layer seed drawn on the device, the f32 result rounded to the
+compute dtype); "xla" (the default) is the dense S x S core.  MoE FFNs, int8
+weights and the per-batch fused attention kernel (`attn_impl="fused"`) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
+from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 
 
@@ -158,9 +166,10 @@ class BertEncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_impl: str = "xla") -> torch.Tensor:
         return bert_encode(self, input_ids, attention_mask, token_type_ids,
-                           compute_dtype, training, generator)
+                           compute_dtype, training, generator, attn_impl)
 
 
 def freeze_layers(p: BertEncoder, max_frozen_layer: int = 8) -> None:
@@ -174,16 +183,21 @@ def freeze_layers(p: BertEncoder, max_frozen_layer: int = 8) -> None:
 def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
                token_type_ids: torch.Tensor, eps: float,
                compute_dtype: torch.dtype) -> torch.Tensor:
-    S = input_ids.shape[1]
-    emb = p.word[input_ids] + p.position[:S][None] + p.token_type[token_type_ids]
+    # positions beyond the table read its last row, as the JAX package's
+    # gather (which clamps an out-of-range index) does at S > max_position
+    positions = torch.arange(input_ids.shape[1], device=input_ids.device).clamp(
+        max=p.position.shape[0] - 1)
+    emb = p.word[input_ids] + p.position[positions][None] + p.token_type[token_type_ids]
     return layer_norm(emb, p.ln.weight, p.ln.bias, eps).to(compute_dtype)
 
 
 def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                key_bias: torch.Tensor, compute_dtype: torch.dtype,
                training: bool = False,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One post-norm encoder layer; key_bias (B * nh, 1, S) additive."""
+               generator: Optional[torch.Generator] = None,
+               attn_impl: str = "xla") -> torch.Tensor:
+    """One post-norm encoder layer; key_bias (B * nh, 1, S) additive;
+    attn_impl "xla" (the dense core) or "flash" (the blockwise kernels)."""
     B, S, H = x.shape
     nh = cfg.num_heads
     hd = H // nh
@@ -193,15 +207,18 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
     def drop(t, rate):
         return dropout(t, rate, training, generator)
 
+    def device_seed():
+        """A kernel's dropout seed, drawn on the device: no host sync."""
+        return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=x.device, dtype=torch.int32)
+
     def residual_ln(x, h, ln):
         """LN(x + dropout(h)): the fused kernel site under fused_ln_dropout
         when training with hidden dropout (LayerNorm statistics are always
         f32 here), else dropout then layer_norm."""
         if cfg.fused_ln_dropout and training and cfg.hidden_dropout > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=x.device, dtype=torch.int32)
             out = residual_dropout_layernorm(
-                x.reshape(B * S, H), h.reshape(B * S, H), ln.weight, ln.bias, seed,
+                x.reshape(B * S, H), h.reshape(B * S, H), ln.weight, ln.bias, device_seed(),
                 cfg.hidden_dropout, eps)
             return out.reshape(B, S, H).to(cd)
         return layer_norm(x + drop(h, cfg.hidden_dropout), ln.weight, ln.bias, eps).to(cd)
@@ -214,9 +231,20 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
         return t.reshape(B, S, nh, hd).transpose(1, 2).reshape(B * nh, S, hd)
 
     q, k, v = heads(q), heads(k), heads(v)
-    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
-    probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
-    ctx = torch.matmul(probs.to(cd), v)
+    if attn_impl == "flash":
+        rate = cfg.attention_dropout if training else 0.0
+        ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              key_bias[:, 0].contiguous(),
+                              device_seed() if rate > 0.0 else None, rate).to(cd)
+    elif attn_impl == "xla":
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
+        probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
+        ctx = torch.matmul(probs.to(cd), v)
+    elif attn_impl == "fused":
+        raise NotImplementedError('attn_impl="fused" (the per-batch all-heads attention '
+                                  "kernel) is not ported yet: ROADMAP Queue 2 rows 15-16")
+    else:
+        raise ValueError(f"attn_impl must be xla|flash|fused, got {attn_impl!r}")
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
     x = residual_ln(x, apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd),
                     lp.attn_ln)
@@ -234,8 +262,11 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Last hidden state (B, S, H) of the encoder; dropout when training."""
+                generator: Optional[torch.Generator] = None,
+                attn_impl: str = "xla") -> torch.Tensor:
+    """Last hidden state (B, S, H) of the encoder; dropout when training.
+    attn_impl: "xla" or "flash", what `Config.resolved_attn_impl` gave for
+    this call."""
     cfg = p.cfg
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
@@ -245,5 +276,5 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
     key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
     for lp in p.layers:
-        x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator)
+        x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl)
     return x

@@ -183,7 +183,9 @@ class MISA(nn.Module):
 
         if cfg.use_bert:
             hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd,
-                               training, generator)
+                               training, generator,
+                               cfg.resolved_attn_impl(training=training,
+                                                      seq_len=batch.bert_ids.shape[1]))
             utt_text = masked_mean(hidden.float(), batch.bert_mask)
         else:
             emb = self.embed[batch.text].to(cd)

@@ -12,6 +12,14 @@ bit:
     u = float(x >> 8) * 2^-24                                   (24 bits, exact)
     keep = u >= float32(rate);   kept values scale by float32(1 / (1 - rate))
 
+The attention kernels (`mmda_tpu/ops/pallas/attention.py::_keep_mask`) mix
+their position in their own way and share the rest:
+
+    x = row * 2654435761 + col * 0x9E3779B9 + seed * 40503 + bh * 51329
+
+with (row, col) the absolute position in the S x S score matrix and bh the
+flattened (batch, head) index: `attention_keep_mask`.
+
 Here the uint32 arithmetic is int64 masked to 32 bits after every step that
 can carry past them.
 """
@@ -43,20 +51,45 @@ def avalanche(x: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def keep_mask(shape: Tuple[int, int], rate: float, seed: Union[int, torch.Tensor],
-              row0: int = 0, device=None) -> torch.Tensor:
-    """float32 (rows, cols) mask, 1.0 where the element at absolute position
-    (row0 + r, c) is kept under `seed`.  seed: an int or a one-element integer
-    tensor (it is read on its device, with no copy to the host); the mask lies
-    on `device`, by default the seed's (the CPU for an int)."""
+def _seed_term(seed: Union[int, torch.Tensor], device):
+    """(seed as uint32) * 40503 mod 2^32 and the device the mask lies on: by
+    default the seed's (the CPU for an int).  A tensor seed is read on its
+    device, with no copy to the host; a negative seed wraps."""
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
         seed = seed.reshape(()).to(device=device, dtype=torch.int64) & M32
     else:
         seed = int(seed) & M32
+    return (seed * 40503) & M32, device
+
+
+def keep_mask(shape: Tuple[int, int], rate: float, seed: Union[int, torch.Tensor],
+              row0: int = 0, device=None) -> torch.Tensor:
+    """float32 (rows, cols) mask, 1.0 where the element at absolute position
+    (row0 + r, c) is kept under `seed`.  seed: an int or a one-element integer
+    tensor; the mask lies on `device`, by default the seed's."""
+    seed_term, device = _seed_term(seed, device)
     n_rows, n_cols = shape
     rows = (torch.arange(n_rows, dtype=torch.int64, device=device) + int(row0)) & M32
     cols = torch.arange(n_cols, dtype=torch.int64, device=device)
     x = ((rows * 2654435761) & M32)[:, None] + ((cols * 0x9E3779B9) & M32)[None, :]
-    u = avalanche((x + ((seed * 40503) & M32)) & M32)
+    u = avalanche((x + seed_term) & M32)
     return (u >= float(np.float32(rate))).to(torch.float32)
+
+
+def attention_keep_mask(shape: Tuple[int, int, int], rate: float,
+                        seed: Union[int, torch.Tensor], bh0: int = 0, row0: int = 0,
+                        col0: int = 0, device=None) -> torch.Tensor:
+    """float32 (BH, rows, cols) mask of the attention kernels, 1.0 where the
+    probability of query row0 + r and key col0 + c in (batch, head) bh0 + b
+    is kept under `seed`."""
+    seed_term, device = _seed_term(seed, device)
+    n_bh, n_rows, n_cols = shape
+
+    def term(n, start, factor):
+        index = (torch.arange(n, dtype=torch.int64, device=device) + int(start)) & M32
+        return (index * factor) & M32
+
+    x = term(n_rows, row0, 2654435761)[:, None] + term(n_cols, col0, 0x9E3779B9)[None, :]
+    x = (x & M32)[None] + ((term(n_bh, bh0, 51329) + seed_term) & M32)[:, None, None]
+    return (avalanche(x & M32) >= float(np.float32(rate))).to(torch.float32)

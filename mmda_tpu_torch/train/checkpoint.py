@@ -79,6 +79,10 @@ def load_checkpoint(ckpt_dir: str, name: str) -> Dict[str, Any]:
         return from_bytes(f.read())
 
 
+def checkpoint_exists(ckpt_dir: str, name: str) -> bool:
+    return os.path.exists(os.path.join(ckpt_dir, f"{name}.msgpack"))
+
+
 def _leaves(tree: Dict[str, Any], prefix: str, out: List) -> None:
     """(path, tensor) in fastser order: keys sorted at every level."""
     for k in sorted(tree):

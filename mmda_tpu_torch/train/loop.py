@@ -57,7 +57,6 @@ def unsupported(cfg) -> List[str]:
     """The options of `cfg` the port's trainer cannot run yet, each with
     the ROADMAP item that brings it."""
     q = "ROADMAP Queue 1"
-    attn = cfg.resolved_attn_impl(training=True, seq_len=cfg.max_seq_len + 2)
     checks = [
         (cfg.dp_size > 1 or cfg.tp_size > 1, f"dp_size/tp_size > 1 (mesh; {q}: parallel modes)"),
         (cfg.pp_size > 1, f"pp_size > 1 ({q}: parallel modes)"),
@@ -70,8 +69,8 @@ def unsupported(cfg) -> List[str]:
         (cfg.resume, f"resume ({q}: resume and incremental checkpoints)"),
         (cfg.grad_accum_steps > 1, f"grad_accum_steps > 1 ({q}: grad_accum_steps)"),
         (cfg.confid_two_stage, f"confid_two_stage ({q}: ConfidNet stage 2)"),
-        (cfg.use_bert and attn != "xla", f"attn_impl={cfg.attn_impl} resolving to {attn} "
-                                         "(ROADMAP Queue 2 rows 9-16)"),
+        (cfg.use_bert and cfg.resolved_attn_impl() == "fused",
+         "attn_impl=fused (ROADMAP Queue 2 rows 15-16)"),
         (cfg.bert_model_dir is not None, f"bert_model_dir (HF weight loading; {q})"),
         (cfg.profile_dir is not None, f"profile_dir ({q}: profiler hook)"),
     ]

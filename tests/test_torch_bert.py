@@ -88,3 +88,99 @@ def test_seeded_init_draws_bert_distributions():
     assert float(w.abs().max()) <= 0.04 + 1e-6
     assert torch.all(enc.layers[0].q.bias == 0)
     assert torch.all(enc.layers[0].attn_ln.weight == 1)
+
+
+@pytest.fixture
+def flash_interpreted():
+    """The JAX package's flash kernels in interpret mode (off the TPU its
+    bert_encode takes the dense core unless a test forces them)."""
+    from mmda_tpu.ops.pallas import attention as jattn
+
+    calls, forward = [], jattn._flash_forward
+    jattn._flash_forward = lambda *a, **k: calls.append(1) or forward(*a, **k)
+    jattn.set_force_interpret(True)
+    yield
+    jattn.set_force_interpret(False)
+    jattn._flash_forward = forward
+    assert calls, "the JAX side never reached its flash kernel"
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_tiny_encoder_flash_matches_jax(dtype, tol, flash_interpreted):
+    """attn_impl="flash", deterministic: the JAX encoder through its Pallas
+    kernels, the port through the plain version of its kernels.  f32 2e-4:
+    the online softmax and the whole-row softmax differ in summation order,
+    carried through two layers."""
+    bc = bert.BertConfig.tiny()
+    tree = jbert.init_bert_params(jax.random.PRNGKey(1), jbert.BertConfig.tiny())
+    ids, types, mask = _inputs(S=21)
+    want = jbert.bert_encode(tree, jbert.BertConfig.tiny(), jnp.asarray(ids),
+                             jnp.asarray(mask), jnp.asarray(types),
+                             compute_dtype=jnp.dtype(dtype), attn_impl="flash")
+    enc = load_jax_params(bert.BertEncoder(bc), tree)
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(mask),
+            torch.from_numpy(types).long(), getattr(torch, dtype))
+    got = bert.bert_encode(enc, *args, attn_impl="flash")
+    assert got.dtype == getattr(torch, dtype) and got.shape == (3, 21, bc.hidden_size)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    # and the module's forward passes the argument on
+    assert torch.equal(enc(*args, attn_impl="flash"), got)
+    dense = bert.bert_encode(enc, *args)
+    assert not torch.equal(dense, got)
+    np.testing.assert_allclose(dense.float().numpy(), got.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_positions_beyond_the_table_read_its_last_row(attn_impl, request):
+    """S > max_position_embeddings: the JAX package's gather clamps the
+    index, so the rows beyond the table take its last position embedding."""
+    if attn_impl == "flash":
+        request.getfixturevalue("flash_interpreted")
+    jbc = jbert.BertConfig(vocab_size=128, hidden_size=32, num_layers=1, num_heads=2,
+                           intermediate_size=64, max_position_embeddings=8)
+    bc = bert.BertConfig(vocab_size=128, hidden_size=32, num_layers=1, num_heads=2,
+                         intermediate_size=64, max_position_embeddings=8)
+    tree = jbert.init_bert_params(jax.random.PRNGKey(3), jbc)
+    ids, types, mask = _inputs(S=11)
+    mask[0] = 1                                   # the rows beyond the table are real tokens
+    want = jbert.bert_encode(tree, jbc, jnp.asarray(ids), jnp.asarray(mask),
+                             jnp.asarray(types), compute_dtype=jnp.float32,
+                             attn_impl=attn_impl)
+    enc = load_jax_params(bert.BertEncoder(bc), tree)
+    got = bert.bert_encode(enc, torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                           torch.from_numpy(types).long(), torch.float32,
+                           attn_impl=attn_impl)
+    assert got.shape == (3, 11, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_dropout_draws_its_seed_from_the_generator():
+    """Training with attn_impl="flash": the probs dropout is the kernel's
+    (a per-layer seed drawn from the step's generator), so the same
+    generator state gives the same output and another state another."""
+    bc = bert.BertConfig.tiny()
+    enc = bert.BertEncoder(bc)
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    ids, types, mask = _inputs(S=12)
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(mask),
+            torch.from_numpy(types).long(), torch.float32)
+
+    def run(seed):
+        return bert.bert_encode(enc, *args, training=True, attn_impl="flash",
+                                generator=torch.Generator().manual_seed(seed))
+
+    assert torch.equal(run(5), run(5))
+    assert not torch.equal(run(5), run(6))
+    assert torch.isfinite(run(5)).all()
+
+
+def test_fused_attention_is_refused_by_name():
+    enc = bert.BertEncoder(bert.BertConfig.tiny())
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    ids, types, mask = _inputs()
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(mask), torch.from_numpy(types).long())
+    with pytest.raises(NotImplementedError, match="rows 15-16"):
+        bert.bert_encode(enc, *args, attn_impl="fused")
+    with pytest.raises(ValueError):
+        bert.bert_encode(enc, *args, attn_impl="nope")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmda_tpu_torch.ops.kernels import attention as kattn
 from mmda_tpu_torch.ops.kernels import gru as kgru
 from mmda_tpu_torch.ops.kernels import hash_dropout
 from mmda_tpu_torch.ops.kernels import layernorm as kln
@@ -242,3 +243,92 @@ def test_ln_dropout_kernels_reject_cpu_mixed_inputs(cuda_device):
         kln.residual_dropout_layernorm_fwd(x, y, g, b, s, 0.1)
     with pytest.raises(ValueError):
         kln.residual_dropout_layernorm_bwd(x, y.cpu(), g, dout, None, 0.0)
+
+
+def _attn_inputs(BH, S, D, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(BH, S, D)).astype(np.float32)).to(device)
+                  for _ in range(4))
+    mask = np.ones((BH, S), np.float32)
+    for b in range(1, BH):                        # masked tails of different lengths
+        mask[b, S - (b * S) // (2 * BH) - 1:] = 0.0
+    bias = torch.from_numpy((1.0 - mask) * -1e9).float().to(device)
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias, g
+
+
+def _close(got, want, atol, rtol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert ((got - want).abs() - atol - rtol * want.abs()).max().item() <= 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D", [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16),
+                                    (4, 70, 32), (2, 200, 128), (3, 5, 16)])
+def test_flash_kernels_match_plain_versions(cuda_device, BH, S, D, dtype, rate):
+    """The three attention kernels against their plain versions on the card,
+    each launched once.  f32: 1e-5 + 1e-4 |ref| (summation order only); bf16:
+    2e-2 on o, 2e-2 plus one bf16 ulp on the gradients (a probability on a
+    rounding boundary may round the other way)."""
+    q, k, v, bias, g = _attn_inputs(BH, S, D, dtype, S + D, cuda_device)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_device)
+    before = [kattn.launch_count(n) for n in kattn.SOURCES]
+    o, lse = kattn.flash_attention_fwd(q, k, v, bias, seed, rate)
+    o_w, lse_w = kattn.flash_attention_fwd_reference(q, k, v, bias, seed, rate)
+    dsum = kattn.row_dsum(g, o_w)
+    args = (q, k, v, bias, seed, g, lse_w, dsum, rate)
+    dq = kattn.flash_attention_bwd_dq(*args)
+    dk, dv = kattn.flash_attention_bwd_dkv(*args)
+    assert [kattn.launch_count(n) for n in kattn.SOURCES] == [b + 1 for b in before]
+    assert o.dtype == torch.float32 and dq.dtype == dk.dtype == dv.dtype == dtype
+    f32 = dtype == torch.float32
+    _close(o, o_w, *((1e-5, 1e-4) if f32 else (2e-2, 0.0)))
+    _close(lse, lse_w, 1e-5, 1e-4)
+    tol = (1e-5, 1e-4) if f32 else (2e-2, 2.0 ** -7)
+    _close(dq, kattn.flash_attention_bwd_dq_reference(*args), *tol)
+    for got, want in zip((dk, dv), kattn.flash_attention_bwd_dkv_reference(*args)):
+        _close(got, want, *tol)
+
+
+@pytest.mark.parametrize("BH,S,D,seed", [(3, 130, 64, 7), (2, 130, 16, -5)])
+def test_flash_forward_keep_mask_is_the_hash_bit_for_bit(cuda_device, BH, S, D, seed):
+    """q = k = 0, no bias, v a shifted identity: o S (1 - rate) is D columns
+    of the S x S keep mask at a time."""
+    rate = 0.1
+    s = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
+    want = hash_dropout.attention_keep_mask((BH, S, S), rate, s)
+    zeros = torch.zeros(BH, S, D, device=cuda_device)
+    idx = torch.arange(D, device=cuda_device)
+    for off in range(0, S, D):
+        n = min(D, S - off)
+        v = torch.zeros(BH, S, D, device=cuda_device)
+        v[:, off + idx[:n], idx[:n]] = 1.0
+        o, _ = kattn.flash_attention_fwd(zeros, zeros, v, torch.zeros(BH, S, device=cuda_device),
+                                         s, rate)
+        got = (o * S / hash_dropout.keep_scale(rate)).round()[:, :, :n]
+        assert torch.equal(got, want[:, :, off:off + n])
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
+    cpu = _attn_inputs(3, 70, 16, torch.float32, seed=1, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v, bias, g = (t.to(dev) for t in cpu)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        s = torch.tensor([9], dtype=torch.int32, device=dev)
+        o = kattn.flash_attention(*leaves, bias, s, 0.2)
+        outs[str(dev)] = [t.detach().cpu() for t in (o, *torch.autograd.grad(o, leaves, g))]
+    for a, b_ in zip(outs["cpu"], outs[str(cuda_device)]):
+        _close(b_, a, 1e-5, 1e-4)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    q, k, v, bias, g = _attn_inputs(2, 9, 16, torch.float32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError):
+        kattn.flash_attention_fwd(q, k.cpu(), v, bias, None)
+    with pytest.raises(ValueError):                         # the seed on the CPU
+        kattn.flash_attention_fwd(q, k, v, bias, torch.tensor([1], dtype=torch.int32), 0.1)
+    with pytest.raises(ValueError, match="D in"):
+        kattn.flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                                  v[..., :8].contiguous(), bias, None)

@@ -15,6 +15,7 @@ import torch
 
 import mmda_tpu_torch
 from mmda_tpu_torch.ops.kernels import _launch
+from mmda_tpu_torch.ops.kernels import attention as kattn
 from mmda_tpu_torch.ops.kernels import gru as kgru
 from mmda_tpu_torch.ops.kernels import hash_dropout
 from mmda_tpu_torch.ops.kernels import layernorm as kln
@@ -178,8 +179,10 @@ def test_every_cuda_source_has_one_launch_count_and_one_entry_point():
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_launch.KERNELS)
     for name in _launch.KERNELS:
         assert f"int mmda_{name}(" in (csrc / f"{name}.cu").read_text()
-    assert sorted(klstm.SOURCES + kgru.SOURCES + kln.SOURCES) == sorted(_launch.KERNELS)
-    assert klstm.launch_count is kgru.launch_count is kln.launch_count is _launch.launch_count
+    assert (sorted(klstm.SOURCES + kgru.SOURCES + kln.SOURCES + kattn.SOURCES)
+            == sorted(_launch.KERNELS))
+    assert (klstm.launch_count is kgru.launch_count is kln.launch_count
+            is kattn.launch_count is _launch.launch_count)
     _launch.reset_launch_count()
     assert [_launch.launch_count(n) for n in _launch.KERNELS] == [0] * len(_launch.KERNELS)
     with pytest.raises(KeyError):
@@ -193,6 +196,79 @@ def test_hash_constants_are_the_same_in_the_header_and_the_plain_version():
         assert const in header and const in plain, const
     for kernel in ("ln_dropout_fwd", "ln_dropout_bwd"):
         assert '#include "hash_dropout.cuh"' in (PKG / "csrc" / f"{kernel}.cu").read_text()
+
+
+BH_, S_, D_ = 2, 8, 16
+FLASH_WRAPPERS = {
+    "flash_attention_fwd": ("flash_attention_fwd_reference",
+                            lambda: _meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
+                                          (BH_, S_)) + [None]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd_dq_reference",
+                               lambda: _meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
+                                             (BH_, S_)) + [None]
+                               + _meta((BH_, S_, D_), (BH_, S_), (BH_, S_))),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv_reference",
+                                lambda: _meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
+                                              (BH_, S_)) + [None]
+                                + _meta((BH_, S_, D_), (BH_, S_), (BH_, S_))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_WRAPPERS))
+def test_attention_wrappers_have_no_fallback(name):
+    """Each takes its plain version only for a CPU tensor: no try/except, no
+    routing switch, one call of the plain version, and any other device
+    either launches the kernel or raises.  The autograd function's backward
+    goes through the two backward wrappers, and no wrapper or plain version
+    calls a library's attention."""
+    reference, make_args = FLASH_WRAPPERS[name]
+    source = inspect.getsource(kattn)
+    assert "environ" not in source and "scaled_dot_product_attention" not in source
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(kattn, name))))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == reference]
+    assert len(calls) == 1
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        getattr(kattn, name)(*make_args())
+    assert "flash_attention_bwd(" in inspect.getsource(kattn.FlashAttention.backward)
+    whole = inspect.getsource(kattn.flash_attention_bwd)
+    assert "flash_attention_bwd_dq(" in whole and "flash_attention_bwd_dkv(" in whole
+
+
+def test_cuda_sources_include_only_the_repo_and_the_toolkit():
+    """Every #include of csrc/ names a header beside it or one of the CUDA
+    toolkit's / the C library's: no PyTorch, CUTLASS or other package."""
+    import re
+
+    csrc = PKG / "csrc"
+    local = {p.name for p in csrc.glob("*.cuh")}
+    toolkit = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "cstdint", "cstddef",
+               "math.h", "cmath", "stdint.h"}
+    seen = set()
+    for path in sorted(csrc.iterdir()):
+        for quote, header in re.findall(r'#include\s*([<"])([^>"]+)[>"]', path.read_text()):
+            assert header in (local if quote == '"' else toolkit), f"{path.name}: {header}"
+            seen.add(header)
+    assert "flash_common.cuh" in seen and "hash_dropout.cuh" in seen
+    for kernel in kattn.SOURCES:
+        assert '#include "flash_common.cuh"' in (csrc / f"{kernel}.cu").read_text()
+    common = (csrc / "flash_common.cuh").read_text()
+    plain = inspect.getsource(hash_dropout)
+    for const in ("2654435761", "0x9E3779B9", "40503", "51329"):
+        assert const in common and const in plain, const
+    assert "hash_avalanche(" in common          # the shared avalanche, not a copy
+
+
+def test_infer_cli_raises_without_cuda(monkeypatch, tmp_path):
+    """The scoring entry point runs on the card unless --device cpu: with no
+    card it raises before it loads anything."""
+    from mmda_tpu_torch.cli import infer as cli_infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_infer.main(["--data", "synthetic", "--use_bert", "False",
+                        "--ckpt_dir", str(tmp_path)])
 
 
 def test_train_cli_raises_without_cuda(monkeypatch):

@@ -123,3 +123,51 @@ def test_registry_and_seeded_init():
     w_hh = a.visual_extractor.rnn1.fwd.w_hh                 # (4H, H), orthogonal
     torch.testing.assert_close(w_hh.t() @ w_hh, torch.eye(5), atol=1e-5, rtol=0)
     assert not torch.equal(init_misa(cfg, seed=8).embed, a.embed)
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "xla", "flash", "fused"])
+@pytest.mark.parametrize("use_flash_attention", [False, True])
+@pytest.mark.parametrize("training", [False, True])
+def test_resolved_attn_impl_matches_jax(attn_impl, use_flash_attention, training):
+    """The rule that picks the attention core, over a grid of sequence
+    lengths around both thresholds, and with the default (max_seq_len)."""
+    kw = dict(attn_impl=attn_impl, use_flash_attention=use_flash_attention, max_seq_len=300)
+    jcfg, cfg = JConfig(**kw), Config(device="cpu", **kw)
+    for S in (None, 50, 255, 256, 257, 514, 1024, 1025, 1026, 4098):
+        assert (cfg.resolved_attn_impl(training=training, seq_len=S)
+                == jcfg.resolved_attn_impl(training=training, seq_len=S)), S
+    assert cfg.resolved_attn_impl() == jcfg.resolved_attn_impl()
+
+
+def test_every_output_matches_jax_with_flash_attention():
+    """attn_impl="flash": the model resolves it at the call and hands it to
+    the encoder; the JAX side runs its Pallas kernels in interpret mode."""
+    from mmda_tpu.ops.pallas import attention as jattn
+
+    jattn.set_force_interpret(True)
+    try:
+        got, want = _both(True, True, "float32", seed=4, attn_impl="flash")
+    finally:
+        jattn.set_force_interpret(False)
+    assert _compare(got, want, 2e-4) == 20
+    dense, _ = _both(True, True, "float32", seed=4)
+    assert not torch.equal(dense.orig_t, got.orig_t)         # another core ran
+
+
+def test_model_resolves_the_attention_core_from_the_batch_length(monkeypatch):
+    """auto: flash when training at S >= 256, the dense core in eval()."""
+    seen = []
+    from mmda_tpu_torch.models import bert as pbert
+
+    encode = pbert.bert_encode
+    monkeypatch.setattr(pbert, "bert_encode",
+                        lambda *a: seen.append(a[-1]) or encode(*a))
+    cfg = Config(device="cpu", use_bert=True, compute_dtype="float32", **SMALL)
+    model = init_misa(cfg, seed=0, bert_cfg=BertConfig.tiny())
+    arrays = _batch(T=254)
+    batch = Batch(**{k: torch.from_numpy(v) for k, v in arrays.items()})
+    for k in ("text", "bert_ids", "bert_type"):
+        batch = batch._replace(**{k: getattr(batch, k).long()})
+    model.train()(batch, generator=torch.Generator().manual_seed(0))
+    model.eval()(batch)
+    assert seen == ["flash", "xla"]

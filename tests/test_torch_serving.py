@@ -89,6 +89,37 @@ def test_predictor_matches_jax_in_every_bucket(models, lengths):
     assert set(np.unique(got["labels"])) <= {0.0, 1.0}
 
 
+@pytest.mark.parametrize("lengths", [[1, 3, 4], [2, 2, 7, 8, 3]])
+def test_flash_predictor_matches_jax(models, lengths):
+    """A Predictor built from a config with attn_impl="flash" scores through
+    the blockwise attention (the JAX one through its Pallas kernels in
+    interpret mode, the port through their plain versions).  2e-4: the
+    online and the whole-row softmax differ in summation order."""
+    from mmda_tpu.ops.pallas import attention as jattn
+    from mmda_tpu_torch.models import bert as pbert
+
+    tree, _, dense, cfg = models
+    rng = np.random.default_rng(sum(lengths))
+    reqs = [_request(L, rng) for L in lengths]
+    calls, real = [], pbert.flash_attention
+    pbert.flash_attention = lambda *a: (calls.append(a[5]), real(*a))[1]
+    jattn.set_force_interpret(True)
+    try:
+        want = JPredictor(JConfig(use_pallas=False, attn_impl="flash", **KW), params=tree,
+                          bert_cfg=jbert.BertConfig.tiny(), max_batch=MAX_BATCH)(reqs)
+        got = Predictor(cfg.replace(attn_impl="flash"), params=tree, bert_cfg=BertConfig.tiny(),
+                        max_batch=MAX_BATCH)(reqs)
+    finally:
+        jattn.set_force_interpret(False)
+        pbert.flash_attention = real
+    assert calls == [0.0, 0.0]                    # once per BERT layer, no dropout
+    for k in ("scores", "tcp", "hidden"):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=2e-4, atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(got[k], dense(reqs)[k], rtol=2e-4, atol=2e-4, err_msg=k)
+    clear = np.abs(np.asarray(want["scores"]) - cfg.threshold) > 2e-4
+    np.testing.assert_array_equal(got["labels"][clear], np.asarray(want["labels"])[clear])
+
+
 def test_pad_rows_follow_the_jax_batcher(models):
     _, _, pred, _ = models
     batch, n = pred.batch_arrays([_request(3, np.random.default_rng(0))])

@@ -144,8 +144,35 @@ def test_step_gradients_match_jax_grad(dtype, use_bert, use_cmd_sim, tol):
     pooler train): jax.grad of compute_losses(misa_forward(_stop_frozen(p)))
     against the port's loss_and_grads over its trainable parameters; the
     JAX gradients of frozen leaves are zero."""
+    _step_gradients(dtype, use_bert, use_cmd_sim, tol)
+
+
+@pytest.fixture
+def flash_interpreted():
+    """The JAX package's flash kernels in interpret mode (off the TPU its
+    bert_encode takes the dense core unless a test forces them)."""
+    from mmda_tpu.ops.pallas import attention as jattn
+
+    calls, forward = [], jattn._flash_forward
+    jattn._flash_forward = lambda *a, **k: calls.append(1) or forward(*a, **k)
+    jattn.set_force_interpret(True)
+    yield
+    jattn.set_force_interpret(False)
+    jattn._flash_forward = forward
+    assert calls, "the JAX side never reached its flash kernel"
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_flash_step_gradients_match_jax_grad(dtype, tol, flash_interpreted):
+    """The same step with attn_impl="flash": the JAX side through its Pallas
+    kernels (interpret mode) and their blockwise backward, the port through
+    its plain versions; the backward crosses the frozen layers' attention."""
+    _step_gradients(dtype, True, False, tol, attn_impl="flash")
+
+
+def _step_gradients(dtype, use_bert, use_cmd_sim, tol, **extra):
     kw = dict(use_bert=use_bert, use_cmd_sim=use_cmd_sim, compute_dtype=dtype,
-              data="mosei", **SMALL)
+              data="mosei", **SMALL, **extra)
     jcfg = JConfig(use_pallas=False, **kw)
     cfg = Config(device="cpu", **kw)
     jbert_cfg = jbert.BertConfig.tiny() if use_bert else None

@@ -211,7 +211,7 @@ def test_trainer_with_ema_exports_the_shadow(tmp_path):
     dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(moe_experts=4), dict(zero1=True),
     dict(fsdp=True), dict(ckpt_backend="orbax"), dict(compiled_epoch=True), dict(resume=True),
     dict(grad_accum_steps=2), dict(confid_two_stage=True), dict(profile_dir="/tmp/p"),
-    dict(attn_impl="flash"), dict(attn_impl="auto", max_seq_len=300)])
+    dict(attn_impl="fused"), dict(bert_model_dir="/tmp/b")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     cfg = _tiny_cfg(tmp_path, **option)
     with pytest.raises(ValueError, match="ROADMAP"):
