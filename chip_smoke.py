@@ -25,7 +25,14 @@ the result):
    one bf16 ulp on the gradients), at dropout rate 0 and 0.1 with masked
    tails; their keep mask equal bit for bit to the plain hash; timed at the
    long step's (384, 514, 64) beside `F.scaled_dot_product_attention` with
-   the same additive mask and dropout_p and its `autograd.grad`;
+   the same additive mask and dropout_p and its `autograd.grad`.  The two
+   short attention kernels at (B, nh, S, hd) = (64, 12, S, 64) for S = 18,
+   34, 50, 66 and at (3, 4, 10, 8), f32 (1e-5 + 1e-5 |ref|) and bf16 (one
+   bf16 ulp), rate 0 and 0.1, masked tails, their keep mask bit for bit, S =
+   130 and 514 refused; timed at (64, 12, 50, 64) bf16 beside SDPA.  The two
+   multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
+   35, 35, 74, 74 against their plain versions and four single-direction
+   calls (1e-5 + 1e-5 |ref|), timed beside those four calls and cuDNN;
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -72,7 +79,24 @@ the result):
    front end (one bucket of 512, 32 rows a call: 12 `flash_fwd` per call, no
    backward kernel) against the dense core (2e-2), and
    `mmda_tpu_torch.cli.infer` on it;
-9. a `kernels` JSON line (all nine kernels), the card's name and power limit, and as the last
+9. the fused configuration: the flagship step of phase 5 with
+   `attn_impl="fused"`, `Trainer.train()` for one epoch of 8 full-length
+   batches, every step making 12 `short_attn_fwd`, 12 `short_attn_bwd`, 8
+   `lstm_fwd` and 8 `lstm_bwd` launches and every eval batch 12
+   `short_attn_fwd` and 8 `lstm_fwd`; 20 timed steps (beside phase 5's
+   dense-core steps) and a profile; one step's gradients with dropout on,
+   kernels against plain versions under the same seeds; a small f32 model
+   with `attn_impl="fused"` on the card against the CPU; then a
+   `Predictor(attn_impl="fused")` on that run's checkpoint at buckets
+   16/32/64 behind the HTTP front end (12 `short_attn_fwd` and 8 `lstm_fwd`
+   per call, no backward kernel) against the dense core (2e-2), with
+   per-bucket latency; and `cli.train --attn_impl fused` -> `Predictor`;
+10. the tower pair: `extract_features_pair(use_pallas_multi=True)` at the
+   towers' widths (35, 74), forward and backward, at B=64, T=48 and B=32,
+   T=512: 2 `lstm_multi_fwd` and 2 `lstm_multi_bwd` launches per call and no
+   single-direction launch; values and gradients against the per-direction
+   path within 1e-5 + 1e-5 |ref|; both paths' times;
+11. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -141,6 +165,15 @@ TRAIN_CONFIGS = {
     # attn_impl "auto" resolves to flash for the training steps (S = 514 >= 256)
     # and to the dense core for the eval batches (S <= 1024); the towers run
     # the recurrences at T = 512
+    # attn_impl "fused": the short-sequence kernels in every training step
+    # (with dropout) and every eval batch (rate 0)
+    "fused": {"options": {"attn_impl": "fused"}, "dropout_on": True, "steps": 8,
+              "timed": TRAIN_STEPS,
+              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
+                           "short_attn_fwd": BERT_LAYERS, "short_attn_bwd": BERT_LAYERS},
+              "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS},
+              "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw", "short_attn_fwd",
+                          "short_attn_bwd")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
@@ -171,7 +204,25 @@ LN_RATE = 0.1
 LN_SEEDS = (7, 2 ** 31 - 2)
 BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
 LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
-BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 8
+# (B, nh, S, hd) of the short attention checks: the flagship step's S = 50 and the
+# serving buckets' S = 18, 34, 66 at bert-base's 12 heads of 64, and a small odd
+# shape; each in f32 and bf16, at rate 0 and 0.1.  S = 130 and 514 go to the
+# flash kernels: the wrapper must refuse them.
+SHORT_SHAPES = [(64, 12, 18, 64), (64, 12, 34, 64), (64, 12, 50, 64), (64, 12, 66, 64),
+                (3, 4, 10, 8)]
+SHORT_REFUSED = [(2, 12, 130, 64), (2, 12, 514, 64)]
+SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 0.1
+SHORT_F32_TOL = (1e-5, 1e-5)       # f32 on both sides, summation order only
+SHORT_BF16_TOL = (1e-6, 2.0 ** -7)  # all math f32, each output rounded once: one bf16 ulp
+SHORT_MASKS = [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)]
+# (T, B) of the multi-direction LSTM checks, with the tower pair's four
+# directions at their true H (visual 35 forward and reverse, acoustic 74)
+MULTI_SHAPES = [(48, 64), (512, 32)]
+MULTI_HS = (35, 35, 74, 74)
+MULTI_REVERSE = (False, True, False, True)
+MULTI_REPORT = (48, 64)
+MULTI_LAUNCHES = 2                 # one per stacked layer
+BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 9
 
 
 def log(phase: str, **kw) -> None:
@@ -873,6 +924,281 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
             for name in FLASH}
 
 
+def short_inputs(B, nh, S, hd, dtype, seed, device):
+    """q, k, v and the incoming gradient in `dtype`, and a (B, S) key bias
+    with a masked tail of another length in every batch item but the first."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, nh, S, hd)).astype(np.float32))
+                  .to(device, dtype) for _ in range(4))
+    mask = np.ones((B, S), np.float32)
+    for b in range(1, B):
+        mask[b, S - 1 - (b * S) // (2 * B):] = 0.0
+    return q, k, v, g, torch.from_numpy((1.0 - mask) * -1e9).float().to(device)
+
+
+def short_bounds(B, nh, S, hd, dtype) -> dict:
+    """Least times of the two short attention kernels: q, k, v (and do)
+    read once, o (dq, dk, dv) written once, the bias once, over HBM; against
+    the 2 and 5 S x S x hd products (2 S^2 hd operations each) over the f32
+    peak: the TPU kernel widens q, k, v to f32 before its products."""
+    w = torch.finfo(dtype).bits // 8
+    n, bias = B * nh * S * hd, B * S * 4
+    out = {}
+    for name, (nbytes, products) in {"short_attn_fwd": (4 * n * w + bias, 2),
+                                     "short_attn_bwd": (7 * n * w + bias, 5)}.items():
+        flops = 2.0 * products * B * nh * S * S * hd
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops, "peak_flops": PEAK_F32_FLOPS}
+    return out
+
+
+def check_short_mask(kshort, hashes, B, nh, S, seed, device) -> None:
+    """Both kernels' keep mask against the plain hash, bit for bit: q = k = 0
+    and no bias make every probability 1 / S; with v the identity (hd = S)
+    o S (1 - rate) is the mask, and with do the identity dv S (1 - rate) is
+    the mask transposed."""
+    rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
+    s = torch.tensor([seed], dtype=torch.int32, device=device)
+    b = torch.arange(B, device=device).reshape(B, 1, 1, 1)
+    h = torch.arange(nh, device=device).reshape(1, nh, 1, 1)
+    want = hashes.short_attention_keep_mask(S, rate, s, b, h)
+    if not 0 < want.mean().item() < 1:
+        raise AssertionError(f"degenerate short attention mask at {(B, nh, S, seed)}")
+    zeros = torch.zeros(B, nh, S, S, device=device)
+    eye = torch.eye(S, device=device).expand(B, nh, S, S).contiguous()
+    bias = torch.zeros(B, S, device=device)
+    o = kshort.short_attention_fwd(zeros, zeros, eye, bias, s, rate)
+    _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, eye, rate)
+    torch.cuda.synchronize()
+    if not torch.equal((o * S / ks).round(), want):
+        raise AssertionError(f"short_attn_fwd: keep mask differs from the hash at {(B, nh, S, seed)}")
+    if not torch.equal((dv * S / ks).round(), want.transpose(-1, -2)):
+        raise AssertionError(f"short_attn_bwd: keep mask differs from the hash at {(B, nh, S, seed)}")
+
+
+def check_short_kernels(kshort, hashes, device) -> dict:
+    """`short_attn_fwd` and `short_attn_bwd` against their plain versions
+    (mask bit for bit, outputs, gradients), the refusal of the S the flash
+    kernels take, then their times at the fused step's shape beside
+    `F.scaled_dot_product_attention` with the same additive mask and
+    dropout_p (forward) and its `autograd.grad` (backward).  Returns
+    {kernel: result}."""
+    import torch.nn.functional as F
+
+    names = kshort.SOURCES
+    for B, nh, S, seed in SHORT_MASKS:
+        check_short_mask(kshort, hashes, B, nh, S, seed, device)
+    rows = {k: [] for k in names}
+    seed = torch.tensor([12345], dtype=torch.int32, device=device)
+    for B, nh, S, hd in SHORT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = SHORT_F32_TOL if dtype == torch.float32 else SHORT_BF16_TOL
+            q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, S + hd, device)
+            for rate in (0.0, ATTN_RATE):
+                where = f"(B,nh,S,hd)={(B, nh, S, hd)} {dtype} rate={rate}"
+                o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+                grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
+                o_w = kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate)
+                grads_w = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)
+                torch.cuda.synchronize()
+                if any(t.dtype != dtype for t in (o, *grads)):
+                    raise AssertionError(f"output dtype at {where}")
+                shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:],
+                         "rate": rate}
+                rows["short_attn_fwd"].append({**shape, "max_abs_err": max_err(
+                    [("o", o, o_w)], tol, "short_attn_fwd " + where)})
+                rows["short_attn_bwd"].append({**shape, "max_abs_err": max_err(
+                    zip(("dq", "dk", "dv"), grads, grads_w), tol, "short_attn_bwd " + where)})
+    refused = []
+    for B, nh, S, hd in SHORT_REFUSED:
+        q, k, v, _, bias = short_inputs(B, nh, S, hd, torch.bfloat16, 0, device)
+        try:
+            kshort.short_attention_fwd(q, k, v, bias, None)
+        except ValueError as e:
+            refused.append({"S": S, "error": str(e)[:120]})
+        else:
+            raise AssertionError(f"short attention took S = {S} beyond one block")
+
+    def worst(name, dtype):
+        return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
+
+    errs = {k: {d: worst(k, d) for d in ("float32", "bfloat16")} for k in names}
+    log("3 short-kernels-vs-plain", checks=len(rows["short_attn_fwd"]), mask="equal bit for bit",
+        max_abs_err=errs, tol={"float32": SHORT_F32_TOL, "bfloat16": SHORT_BF16_TOL},
+        refused=[r["S"] for r in refused])
+
+    B, nh, S, hd = SHORT_REPORT
+    timed = {k: [] for k in names}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, 1, device)
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lmask = bias.view(B, 1, 1, S).to(dtype)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
+                                                  dropout_p=ATTN_RATE)
+
+        lib_out = sdpa()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, [lq, lk, lv], g, retain_graph=True)
+
+        with torch.no_grad():
+            lib_err = (F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask).float()
+                       - kshort.short_attention_fwd(q, k, v, bias, None).float()).abs().max().item()
+        bounds = short_bounds(B, nh, S, hd, dtype)
+        shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:], "rate": ATTN_RATE}
+        calls = {
+            "short_attn_fwd": (lambda: kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
+                               lambda: kshort.short_attention_fwd_reference(q, k, v, bias, seed,
+                                                                            ATTN_RATE),
+                               lambda: torch.no_grad()(sdpa)(),
+                               "F.scaled_dot_product_attention(attn_mask, dropout_p)"),
+            "short_attn_bwd": (lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g,
+                                                                  ATTN_RATE),
+                               lambda: kshort.short_attention_bwd_reference(q, k, v, bias, seed,
+                                                                            g, ATTN_RATE),
+                               sdpa_bwd, "autograd.grad of that call: dq, dk and dv")}
+        for name, (kernel, plain, library, what) in calls.items():
+            timed[name].append({**shape, **kernel_times(kernel, plain, library),
+                                "library": what, "library_rate0_max_abs_err": lib_err,
+                                **bounds[name]})
+            log(f"3 {name}-time", **timed[name][-1])
+    return {name: {"checks": rows[name], "timed": timed[name], "refused": refused,
+                   "max_abs_err": errs[name]["float32"],
+                   "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0]}
+            for name in names}
+
+
+def multi_inputs(T, B, seed, device, klstm):
+    """The four directions' x_proj, w_hh_t, masks (each tower its own
+    lengths, 1 and T among them), their saved ys and cs (plain version),
+    and random incoming gradients dys and dh_fin."""
+    x, w, m, lengths, dys, dh = [], [], [], [], [], []
+    for d, H in enumerate(MULTI_HS):
+        xd, wd, md, ld = lstm_inputs(T, B, H, seed + d, device)
+        rng = np.random.default_rng(seed + 100 + d)
+        x.append(xd)
+        w.append(wd)
+        m.append(md if d % 2 == 0 else m[-1])          # a tower's two directions share it
+        lengths.append(ld if d % 2 == 0 else lengths[-1])
+        dys.append(torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(device))
+        dh.append(torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(device))
+    saved = [klstm.lstm_recurrence_reference(x[d], w[d], m[d], MULTI_REVERSE[d], need_cs=True)
+             for d in range(len(MULTI_HS))]
+    return x, w, m, lengths, [s[0] for s in saved], [s[1] for s in saved], dys, dh
+
+
+def multi_bounds(T, B, masks) -> tuple:
+    """Least times of the two multi kernels: the sums over the four
+    directions of the single-direction bounds (the forward writing cs too,
+    as on the training path)."""
+    out = []
+    for fwd in (True, False):
+        nbytes = flops = 0.0
+        for H, m in zip(MULTI_HS, masks):
+            if fwd:
+                nbytes += 4 * (T * B * 4 * H + H * 4 * H + T * B + 2 * T * B * H + B * H)
+                flops += float(m.sum()) * (8 * H * H + 19 * H)
+            else:
+                b = lstm_bwd_bound(T, B, H, m)
+                nbytes, flops = nbytes + b["bytes"], flops + b["flops"]
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        out.append({"bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "flops": flops, "serial_steps": T})
+    return tuple(out)
+
+
+def check_multi_kernels(kmulti, klstm, device) -> tuple:
+    """`lstm_multi_fwd` and `lstm_multi_bwd` against their plain versions
+    and against four calls of `lstm_fwd` / `lstm_bwd`, at the tower pair's
+    four directions (H = 35, 35, 74, 74), then their times beside those four
+    calls and four cuDNN `nn.LSTM` calls (forward, or autograd.grad; no one
+    PyTorch call computes the four directions, so `library_ms` is None).
+    Returns (forward, backward) results."""
+    rows = {"fwd": [], "bwd": []}
+    timed = {"fwd": [], "bwd": []}
+    rev = list(MULTI_REVERSE)
+    for T, B in MULTI_SHAPES:
+        x, w, m, lengths, ys_w, cs_w, dys, dh = multi_inputs(T, B, T, device, klstm)
+        ys, cs, h_fin = kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True)
+        dx, dw = kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w, dys, dh)
+        want_f = kmulti.lstm_multi_recurrence_reference(x, w, m, rev, need_cs=True)
+        want_b = kmulti.lstm_multi_recurrence_bwd_reference(x, w, m, rev, ys_w, cs_w, dys, dh)
+        single_f = [klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
+                    for d in range(4)]
+        single_b = [klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys_w[d], cs_w[d], dys[d], dh[d],
+                                              None, rev[d]) for d in range(4)]
+        torch.cuda.synchronize()
+        where = f"(T,B)={(T, B)} H={MULTI_HS}"
+        pairs_f = [(f"{n}[{d}]", got[d], ref[d]) for n, got, ref in
+                   (("ys", ys, want_f[0]), ("cs", cs, want_f[1]), ("h_fin", h_fin, want_f[2]))
+                   for d in range(4)]
+        pairs_b = [(f"{n}[{d}]", got[d], ref[d]) for n, got, ref in
+                   (("dx_proj", dx, want_b[0]), ("dw_hh_t", dw, want_b[1])) for d in range(4)]
+        one_f = [(f"{n}[{d}] vs lstm_fwd", got[d], single_f[d][i]) for i, (n, got) in
+                 enumerate((("ys", ys), ("cs", cs), ("h_fin", h_fin))) for d in range(4)]
+        one_b = [(f"{n}[{d}] vs lstm_bwd", got[d], single_b[d][i]) for i, (n, got) in
+                 enumerate((("dx_proj", dx), ("dw_hh_t", dw))) for d in range(4)]
+        shape = {"T": T, "B": B, "H": list(MULTI_HS)}
+        rows["fwd"].append({**shape, "max_abs_err": max_err(pairs_f, KERNEL_TOL,
+                                                            "lstm_multi_fwd " + where),
+                            "vs_single_kernels": max_err(one_f, KERNEL_TOL, where)})
+        rows["bwd"].append({**shape, "max_abs_err": max_err(pairs_b, KERNEL_TOL,
+                                                            "lstm_multi_bwd " + where),
+                            "vs_single_kernels": max_err(one_b, KERNEL_TOL, where)})
+
+        packed = [dys[d] * m[d][..., None] for d in range(4)]   # no padded outputs in cuDNN's
+        lib_f = [cudnn_fwd(x[d], w[d], lengths[d])[0] for d in range(4)]
+        lib_b = [cudnn_bwd(x[d], w[d], lengths[d], packed[d].contiguous(), dh[d])[0]
+                 for d in range(4)]
+        bound_f, bound_b = multi_bounds(T, B, m)
+        four_f = lambda: [klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
+                          for d in range(4)]
+        four_b = lambda: [klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys_w[d], cs_w[d], dys[d],
+                                                    dh[d], None, rev[d]) for d in range(4)]
+        # the plain versions loop over T in Python (up to 2 s a call at T=512): one call each
+        rows_f = kernel_times(lambda: kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True),
+                              lambda: kmulti.lstm_multi_recurrence_reference(x, w, m, rev, True),
+                              lambda: [c() for c in lib_f], 1, 0)
+        rows_b = kernel_times(lambda: kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w,
+                                                                       dys, dh),
+                              lambda: kmulti.lstm_multi_recurrence_bwd_reference(
+                                  x, w, m, rev, ys_w, cs_w, dys, dh),
+                              lambda: [c() for c in lib_b], 1, 0)
+        for row in (rows_f, rows_b):      # no one PyTorch call computes the four directions
+            row["four_cudnn_ms"] = row.pop("library_ms")
+            row["four_cudnn_device_ms"] = row.pop("library_device_ms")
+            row["library_ms"] = row["library_device_ms"] = None
+        four = {}
+        for k, fn in (("fwd", four_f), ("bwd", four_b)):
+            call = cuda_ms(fn)
+            four[f"four_lstm_{k}_ms"] = device_time(fn, call)[0]
+            four[f"four_lstm_{k}_call_ms"] = call
+        timed["fwd"].append({**shape, **rows_f, "four_lstm_fwd_ms": four["four_lstm_fwd_ms"],
+                             "four_lstm_fwd_call_ms": four["four_lstm_fwd_call_ms"],
+                             "four_cudnn": "four cuDNN nn.LSTM calls, one per direction",
+                             **bound_f})
+        timed["bwd"].append({**shape, **rows_b, "four_lstm_bwd_ms": four["four_lstm_bwd_ms"],
+                             "four_lstm_bwd_call_ms": four["four_lstm_bwd_call_ms"],
+                             "four_cudnn": "autograd.grad of four cuDNN nn.LSTM calls",
+                             **bound_b})
+        log("3 lstm-multi-fwd-time", **timed["fwd"][-1])
+        log("3 lstm-multi-bwd-time", **timed["bwd"][-1])
+    worst = {k: max(r["max_abs_err"] for r in v) for k, v in rows.items()}
+    log("3 lstm-multi-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL,
+        vs_single_kernels={k: max(r["vs_single_kernels"] for r in v) for k, v in rows.items()})
+
+    def result(k):
+        report = next(r for r in timed[k] if (r["T"], r["B"]) == MULTI_REPORT)
+        return {"checks": rows[k], "timed": timed[k], "max_abs_err": worst[k], "report": report}
+
+    return result("fwd"), result("bwd")
+
+
 # ---------------------------------------------------------------- serving
 
 
@@ -1200,14 +1526,15 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     their plain versions: the towers' recurrence replaced by `reference`
     (autograd through its loop), the fused LayerNorm sites by their plain
     function and the attention kernels by their plain forward and explicit
-    backward.  The LSTM configuration runs with dropout off; the GRU and the
-    long-sequence one with dropout on (the fused sites exist only then, and
+    backward (flash and short).  The LSTM configuration runs with dropout
+    off; the others with dropout on (the fused sites exist only then, and
     the attention kernels draw their mask only then), both passes drawing
     from the same generator state, so the seeds and every other dropout mask
     are the same."""
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.models import bert
     from mmda_tpu_torch.ops.kernels import attention as kattn
+    from mmda_tpu_torch.ops.kernels import short_attention as kshort
     from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm_reference
     from mmda_tpu_torch.train.step import loss_and_grads
 
@@ -1224,9 +1551,12 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     trainer.generator.set_state(state)
     fused = bert.residual_dropout_layernorm
     attn_fwd, attn_bwd = kattn.flash_attention_fwd, kattn.flash_attention_bwd
+    short_fwd, short_bwd = kshort.short_attention_fwd, kshort.short_attention_bwd
     bert.residual_dropout_layernorm = residual_dropout_layernorm_reference
     kattn.flash_attention_fwd = kattn.flash_attention_fwd_reference
     kattn.flash_attention_bwd = kattn.flash_attention_bwd_reference
+    kshort.short_attention_fwd = kshort.short_attention_fwd_reference
+    kshort.short_attention_bwd = kshort.short_attention_bwd_reference
     try:
         counts.reset_launch_count()
         _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
@@ -1236,6 +1566,7 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     finally:
         bert.residual_dropout_layernorm = fused
         kattn.flash_attention_fwd, kattn.flash_attention_bwd = attn_fwd, attn_bwd
+        kshort.short_attention_fwd, kshort.short_attention_bwd = short_fwd, short_bwd
     finite_losses(got_l, "kernel-path step")
     err, excess = 0.0, 0.0
     for g, w in zip(got, want):
@@ -1277,15 +1608,17 @@ def train_card_vs_cpu(device, **options) -> float:
     return err
 
 
-def train_then_serve(device, counts, kernel="lstm_fwd", options=()) -> dict:
+def train_then_serve(device, counts, kernel="lstm_fwd", options=(), per_call=None) -> dict:
     """`python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 1` (and
     `options`) at the default widths (on the card, its default), then a
     Predictor loaded from the checkpoint it wrote answers a few requests in
-    one call that launches `kernel` LAUNCHES_PER_CALL times and no other."""
+    one call that launches `kernel` LAUNCHES_PER_CALL times and no other
+    (`per_call`: every kernel it launches, by name)."""
     from mmda_tpu_torch.config import get_config
     from mmda_tpu_torch.serving import Predictor
 
-    name = "chip_smoke_cli_" + kernel
+    per_call = per_call or {kernel: LAUNCHES_PER_CALL}
+    name = "chip_smoke_cli_" + "_".join(sorted(per_call))
     ckpt_dir = BUILD / name
     args = ["--data", "synthetic", "--ckpt_dir", str(ckpt_dir), "--name", name, *options]
     t0 = time.perf_counter()
@@ -1302,7 +1635,7 @@ def train_then_serve(device, counts, kernel="lstm_fwd", options=()) -> dict:
     reqs = make_requests(spread_lengths(8, cfg.bucket_sizes, 9), cfg, seed=9)
     counts.reset_launch_count()
     got = pred(reqs)
-    if all_launches(counts) != expected_launches(counts, {kernel: LAUNCHES_PER_CALL}):
+    if all_launches(counts) != expected_launches(counts, per_call):
         raise AssertionError(f"Predictor call on the {name} checkpoint: launches "
                              f"{all_launches(counts)}")
     check_outputs(got["scores"], got["labels"], got["tcp"], 8, cfg.num_classes,
@@ -1360,6 +1693,101 @@ def serve_long(cfg, counts, device) -> dict:
         raise AssertionError(f"flash Predictor vs the dense core: {err} > {FLASH_SERVE_TOL}")
     out["flash_vs_dense_err"] = err
     return out
+
+
+def serve_fused(cfg, counts, device) -> dict:
+    """A `Predictor` with attn_impl="fused" on the checkpoint the fused run
+    wrote, at the serving buckets 16/32/64 (B=64), behind the HTTP front end:
+    BERT_LAYERS `short_attn_fwd` and LAUNCHES_PER_CALL `lstm_fwd` launches
+    per call, no backward kernel; per-bucket latency; then the same requests
+    through the same weights with the dense core (agreement within
+    FLASH_SERVE_TOL, bf16) and its latency."""
+    from mmda_tpu_torch.serving import Predictor
+
+    fused_cfg = cfg.replace(bucket_sizes=(16, 32, 64), max_seq_len=64)
+    pred = Predictor(fused_cfg, max_batch=64)
+    requests = make_requests(spread_lengths(48, fused_cfg.bucket_sizes, 11), fused_cfg, 11)
+    per_call = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS}
+    out = serve_over_http(fused_cfg, pred, requests, counts, per_call=per_call)
+    batch = make_requests(spread_lengths(64, fused_cfg.bucket_sizes, 12), fused_cfg, 12)
+    counts.reset_launch_count()
+    got = pred(batch)
+    if all_launches(counts) != expected_launches(counts, per_call):
+        raise AssertionError(f"fused Predictor call: {all_launches(counts)}")
+    out["latency"] = bucket_latency(fused_cfg, pred, device)
+    del pred
+    dense_cfg = fused_cfg.replace(attn_impl="xla")
+    dense = Predictor(dense_cfg, max_batch=64)
+    counts.reset_launch_count()
+    want = dense(batch)
+    if all_launches(counts) != expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL}):
+        raise AssertionError(f"dense-core Predictor call: {all_launches(counts)}")
+    out["latency_dense"] = bucket_latency(dense_cfg, dense, device)
+    check_outputs(got["scores"], got["labels"], got["tcp"], 64, cfg.num_classes, cfg.threshold)
+    err = max(float(np.abs(got[k] - want[k]).max()) for k in ("scores", "tcp", "hidden"))
+    if err > FLASH_SERVE_TOL:
+        raise AssertionError(f"fused Predictor vs the dense core: {err} > {FLASH_SERVE_TOL}")
+    out["fused_vs_dense_err"] = err
+    return out
+
+
+def tower_pair(counts, device) -> dict:
+    """The tower pair through `extract_features_pair(use_pallas_multi=True)`
+    at the towers' full width (visual 35, acoustic 74), forward and
+    backward, at B=64, T=48 and B=32, T=512: MULTI_LAUNCHES `lstm_multi_fwd`
+    and `lstm_multi_bwd` launches per call and no other; values and the
+    gradients of all four towers' parameters and both inputs against the
+    per-direction path (use_pallas_multi=False: 8 + 8 single-direction
+    launches) within KERNEL_TOL; each path's time (forward + backward)."""
+    from mmda_tpu_torch.models.bilstm import LSTMExtractor, extract_features_pair
+
+    towers = []
+    for i, F in enumerate((35, 74)):
+        t = LSTMExtractor(F, F)
+        t.reset_parameters(torch.Generator().manual_seed(i))
+        towers.append(t.to(device))
+    leaves = [p for t in towers for p in t.parameters()]
+    rows, launches = [], dict.fromkeys(counts.KERNELS, 0)
+    for T, B in MULTI_SHAPES:
+        rng = np.random.default_rng(T)
+        xv, xa = (torch.from_numpy(rng.normal(size=(B, T, F)).astype(np.float32)).to(device)
+                  .requires_grad_(True) for F in (35, 74))
+        lv, la = (torch.from_numpy(rng.integers(1, T + 1, size=B)).to(device) for _ in range(2))
+        lv[0], la[-1] = T, 1
+        gv, ga = (torch.from_numpy(rng.normal(size=(B, 4 * F)).astype(np.float32)).to(device)
+                  for F in (35, 74))
+
+        def run(multi):
+            v, a = extract_features_pair(towers[0], towers[1], xv, xa, lv, la, "lstm",
+                                         use_pallas_multi=multi)
+            grads = torch.autograd.grad((v * gv).sum() + (a * ga).sum(), leaves + [xv, xa])
+            return [v, a, *grads]
+
+        results = {}
+        for multi, want in ((True, {"lstm_multi_fwd": MULTI_LAUNCHES,
+                                    "lstm_multi_bwd": MULTI_LAUNCHES}),
+                            (False, {"lstm_fwd": LAUNCHES_PER_CALL,
+                                     "lstm_bwd": LAUNCHES_PER_CALL})):
+            counts.reset_launch_count()
+            results[multi] = run(multi)
+            torch.cuda.synchronize()
+            got = all_launches(counts)
+            if got != expected_launches(counts, want):
+                raise AssertionError(f"tower pair use_pallas_multi={multi} at (B,T)={(B, T)}: "
+                                     f"launches {got}, expected {want}")
+            if multi:
+                launches = {k: launches[k] + n for k, n in got.items()}
+        names = ["utt_v", "utt_a"] + [f"d{n}" for t in ("v", "a")
+                                      for n, _ in towers["va".index(t)].named_parameters()]
+        names += ["dxv", "dxa"]
+        err = max_err(zip(names, results[True], results[False]), KERNEL_TOL,
+                      f"tower pair (B,T)={(B, T)}")
+        row = {"B": B, "T": T, "H": [35, 74], "max_abs_err": err,
+               "multi_ms": cuda_ms(lambda: run(True), reps=10),
+               "per_direction_ms": cuda_ms(lambda: run(False), reps=10)}
+        rows.append(row)
+        log("10 tower-pair", **row, tol=KERNEL_TOL)
+    return {"rows": rows, "launches": launches}
 
 
 def infer_long(cfg, counts) -> dict:
@@ -1421,6 +1849,8 @@ def main() -> int:
     from mmda_tpu_torch.ops.kernels import hash_dropout as hashes
     from mmda_tpu_torch.ops.kernels import layernorm as kln
     from mmda_tpu_torch.ops.kernels import lstm as klstm
+    from mmda_tpu_torch.ops.kernels import lstm_multi as kmulti
+    from mmda_tpu_torch.ops.kernels import short_attention as kshort
     from mmda_tpu_torch.serving import Predictor
 
     device = torch.device("cuda", 0)
@@ -1444,6 +1874,9 @@ def main() -> int:
     checks["ln_dropout_fwd"], checks["ln_dropout_bwd"] = check_ln_kernels(
         kln, hashes.keep_mask, device)
     checks.update(check_attn_kernels(kattn, hashes, device))
+    checks.update(check_short_kernels(kshort, hashes, device))
+    checks["lstm_multi_fwd"], checks["lstm_multi_bwd"] = check_multi_kernels(kmulti, klstm,
+                                                                             device)
 
     cfg = Config()                       # the serving default, on cuda
     t0 = time.perf_counter()
@@ -1471,8 +1904,9 @@ def main() -> int:
     del model, pred
 
     def train_phases(phase, kind, reference, **small_options):
-        """Phase 5 (LSTM towers), 7 (GRU towers, fused LayerNorm sites) or 8
-        (the long-sequence step with the attention kernels)."""
+        """Phase 5 (LSTM towers), 7 (GRU towers, fused LayerNorm sites), 8
+        (the long-sequence step with the attention kernels) or 9 (the short
+        attention kernels)."""
         trainer, path = train_main_path(counts, kind)
         log(f"{phase} train-main-path", **path)
         steps = train_timing(trainer, counts, kind, device)
@@ -1534,23 +1968,49 @@ def main() -> int:
     long_infer = infer_long(long_cfg, counts)
     log("8 flash-infer", **long_infer)
 
-    # launches: the main paths' runs (HTTP serving windows, Trainer.train(), cli.infer)
+    # phase 9: attn_impl="fused" at the flagship shape, train -> timed steps
+    # (beside phase 5's dense-core steps) -> serve over HTTP -> cli.train
+    fused_trainer, fused_train = train_phases(9, "fused", klstm.lstm_recurrence_reference,
+                                              attn_impl="fused")
+    fused_train["steps_dense_core_phase5"] = train["steps"]
+    fused_cfg = fused_trainer.cfg
+    del fused_trainer
+    torch.cuda.empty_cache()
+    fused_serve = serve_fused(fused_cfg, counts, device)
+    log("9 fused-serve-http", **fused_serve, tol=FLASH_SERVE_TOL)
+    torch.cuda.empty_cache()
+    fused_train_serve = train_then_serve(
+        device, counts, options=("--attn_impl", "fused"),
+        per_call={"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS})
+    log("9 fused-train-then-serve", **fused_train_serve)
+
+    # phase 10: the tower pair with its four directions in one launch per layer
+    pair = tower_pair(counts, device)
+
+    # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
+    # cli.infer, the tower pair)
     launches = {name: train["main_path"]["launches"][name]
                 + gru_train["main_path"]["launches"][name]
                 + long_train["main_path"]["launches"][name]
                 + long_serve["launches_by_kernel"][name] + long_infer["launches"][name]
+                + fused_train["main_path"]["launches"][name]
+                + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
     replaces = {"lstm_fwd": "lstm.py:97", "lstm_bwd": "lstm.py:285", "gru_fwd": "gru.py:142",
                 "gru_bwd": "gru.py:194", "ln_dropout_fwd": "layernorm.py:58",
                 "ln_dropout_bwd": "layernorm.py:74", "flash_fwd": "attention.py:72",
-                "flash_bwd_dq": "attention.py:136", "flash_bwd_dkv": "attention.py:172"}
+                "flash_bwd_dq": "attention.py:136", "flash_bwd_dkv": "attention.py:172",
+                "short_attn_fwd": "short_attention.py:61",
+                "short_attn_bwd": "short_attention.py:82",
+                "lstm_multi_fwd": "lstm_multi.py:48", "lstm_multi_bwd": "lstm_multi.py:74"}
     kernels = []
     for name in counts.KERNELS:
         rep = checks[name]["report"]
         shape = ([rep["T"], rep["B"], rep["H"]] if "T" in rep
                  else [rep["BH"], rep["S"], rep["D"], rep["dtype"]] if "BH" in rep
+                 else [rep["B"], rep["nh"], rep["S"], rep["hd"], rep["dtype"]] if "nh" in rep
                  else [rep["N"], rep["H"], rep["dtype"]])
         kernels.append({
             "name": name, "route": "cuda", "source": f"mmda_tpu_torch/csrc/{name}.cu",
@@ -1573,6 +2033,8 @@ def main() -> int:
         "train": train, "train_then_serve": train_serve, "gru_train": gru_train,
         "gru_serve": gru_serve, "gru_train_then_serve": gru_train_serve,
         "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
+        "fused_train": fused_train, "fused_serve": fused_serve,
+        "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
         "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // The positional hash that draws dropout masks inside the kernels.
 //
 // Replaces mmda_tpu/ops/pallas/layernorm.py::_keep_mask (:40) and the same
-// avalanche in short_attention.py and attention.py.  A pure function of
+// avalanche in short_attention.py and attention.py, with the short attention
+// kernels' own position mix (short_attn_base) below.  A pure function of
 // (seed, absolute row, column): a backward kernel regenerates the mask
 // instead of reading it, and the mask does not depend on how rows are cut
 // into blocks.  uint32 arithmetic wraps, as the TPU kernels' does; the plain
@@ -36,6 +37,20 @@ __device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t row,
 __device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t row,
                                           uint32_t col, float rate) {
   return hash_uniform(seed, row, col) >= rate;
+}
+
+// The short attention kernels' position mix (short_attention.py::
+// _dropout_mask, :39): x = r * S + c + seed * 2654435761 + b * 40503
+// + h * 51329 with S the call's own length, b the batch item and h the head
+// as separate terms.  base holds the last three; pos = r * S + c.
+__device__ __forceinline__ uint32_t short_attn_base(uint32_t seed, uint32_t b,
+                                                    uint32_t h) {
+  return seed * 2654435761u + b * 40503u + h * 51329u;
+}
+
+__device__ __forceinline__ bool short_attn_keep(uint32_t base, uint32_t pos,
+                                                float rate) {
+  return hash_avalanche(pos + base) >= rate;
 }
 
 }  // namespace mmda

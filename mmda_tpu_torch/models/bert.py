@@ -28,9 +28,12 @@ LayerNorm) is not one of them.
 blockwise kernels of `ops/kernels/attention.py` (q, k, v in the compute
 dtype, the key bias per (batch, head), the probs dropout drawn in the kernel
 under a per-layer seed drawn on the device, the f32 result rounded to the
-compute dtype); "xla" (the default) is the dense S x S core.  MoE FFNs, int8
-weights and the per-batch fused attention kernel (`attn_impl="fused"`) are
-not ported yet.
+compute dtype); `attn_impl="fused"` through the short-sequence kernels of
+`ops/kernels/short_attention.py` (all of one (batch item, head) at once, q,
+k, v in the compute dtype, the (B, S) key bias, the probs dropout drawn in
+the kernel under a per-layer seed drawn on the device, the result in the
+compute dtype); "xla" (the default) is the dense S x S core.  MoE FFNs and
+int8 weights are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch.nn.functional as F
 from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
 from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
+from mmda_tpu_torch.ops.kernels.short_attention import short_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +201,8 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                generator: Optional[torch.Generator] = None,
                attn_impl: str = "xla") -> torch.Tensor:
     """One post-norm encoder layer; key_bias (B * nh, 1, S) additive;
-    attn_impl "xla" (the dense core) or "flash" (the blockwise kernels)."""
+    attn_impl "xla" (the dense core), "flash" (the blockwise kernels) or
+    "fused" (the short-sequence kernels)."""
     B, S, H = x.shape
     nh = cfg.num_heads
     hd = H // nh
@@ -241,8 +246,10 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
         probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
         ctx = torch.matmul(probs.to(cd), v)
     elif attn_impl == "fused":
-        raise NotImplementedError('attn_impl="fused" (the per-batch all-heads attention '
-                                  "kernel) is not ported yet: ROADMAP Queue 2 rows 15-16")
+        rate = cfg.attention_dropout if training else 0.0
+        q, k, v = (t.reshape(B, nh, S, hd).contiguous() for t in (q, k, v))
+        ctx = short_attention(q, k, v, key_bias[::nh, 0].contiguous(),
+                              device_seed() if rate > 0.0 else None, rate)
     else:
         raise ValueError(f"attn_impl must be xla|flash|fused, got {attn_impl!r}")
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
@@ -265,8 +272,8 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 attn_impl: str = "xla") -> torch.Tensor:
     """Last hidden state (B, S, H) of the encoder; dropout when training.
-    attn_impl: "xla" or "flash", what `Config.resolved_attn_impl` gave for
-    this call."""
+    attn_impl: "xla", "flash" or "fused", what `Config.resolved_attn_impl`
+    gave for this call."""
     cfg = p.cfg
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)

@@ -13,7 +13,12 @@ Fixed-length padded batches with a length mask stand in for
   b_hh sits inside its r product and goes to the recurrence as it is);
 * outputs are zeroed at pads, as pad_packed_sequence does;
 * `extract_features`: rnn1 -> LayerNorm -> rnn2, utterance vector
-  [h1_f, h2_f, h1_b, h2_b] (B, 4H).
+  [h1_f, h2_f, h1_b, h2_b] (B, 4H);
+* `extract_features_pair`: the visual and acoustic towers together; with
+  `use_pallas_multi` (LSTM cells, the same batch and length) all four
+  directional recurrences of a stacked layer run in one launch of the
+  multi-direction kernels (`ops/kernels/lstm_multi.py`), otherwise two
+  `extract_features` calls.
 
 Every directional recurrence goes through the kernels by default: when a
 gradient is wanted (x_proj or a recurrent parameter needs one, so grad is
@@ -37,6 +42,10 @@ from mmda_tpu_torch.models.common import LayerNorm, uniform_
 from mmda_tpu_torch.ops.functions import length_mask
 from mmda_tpu_torch.ops.kernels.gru import gru_recurrence, gru_scan
 from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence, lstm_scan
+from mmda_tpu_torch.ops.kernels.lstm_multi import (lstm_multi_recurrence,
+                                                   lstm_multi_recurrence_reference,
+                                                   lstm_scan_multi, pack_directions,
+                                                   project_inputs, unpack_outputs)
 
 Recurrence = Callable[..., tuple]
 GATES = {"lstm": 4, "gru": 3}
@@ -73,15 +82,7 @@ def scan_direction(p: LSTMDirection, x: torch.Tensor, mask: torch.Tensor,
                    reverse: bool, recurrence: Optional[Recurrence] = None):
     """One direction over (B, T, F) input with (B, T) mask.
     Returns (outputs (B, T, H), final h (B, H))."""
-    B, T, F = x.shape
-    # x_bf16 @ w_ih.astype(bf16) with f32 accumulation: both operands are
-    # upcast exactly, then multiplied in f32
-    x_proj = torch.matmul(x.reshape(B * T, F).float(),
-                          p.w_ih.to(x.dtype).float().t()).reshape(B, T, -1)
-    x_proj = x_proj + p.b_ih.float()
-    if p.cell == "lstm":
-        x_proj = x_proj + p.b_hh.float()
-    x_proj = x_proj.transpose(0, 1).contiguous()
+    x_proj = project_inputs(p.w_ih, p.b_ih, x, p.b_hh if p.cell == "lstm" else None)
     w_hh_t = p.w_hh.float().t().contiguous()
     mask_t = mask.t().contiguous().float()
     if p.cell == "gru":
@@ -159,3 +160,50 @@ def extract_features(p: LSTMExtractor, x: torch.Tensor, lengths: torch.Tensor,
     _, h2 = birnn(p.rnn2, ys1, lengths, recurrence)
     H = h1.shape[-1] // 2
     return torch.cat([h1[:, :H], h2[:, :H], h1[:, H:], h2[:, H:]], dim=-1)
+
+
+def extract_features_pair(pv: LSTMExtractor, pa: LSTMExtractor, xv: torch.Tensor,
+                          xa: torch.Tensor, lengths_v: torch.Tensor, lengths_a: torch.Tensor,
+                          cell: str = "lstm", use_pallas_multi: Optional[bool] = None,
+                          recurrence: Optional[Recurrence] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The visual and acoustic utterance vectors, (B, 4H_v) and (B, 4H_a)
+    (`mmda_tpu.models.bilstm.extract_features_pair`).
+
+    With use_pallas_multi (off by default, as in the JAX package), an LSTM
+    cell and the same (B, T) for both towers, each stacked layer runs its
+    four directional recurrences (visual forward and reverse, acoustic
+    forward and reverse) through one launch of each multi-direction kernel
+    (`lstm_scan_multi`, or `lstm_multi_recurrence` where no gradient is
+    wanted); a `recurrence` then selects their plain version
+    (`lstm_multi_recurrence_reference`, differentiated by autograd).  Else
+    two `extract_features` calls."""
+    if not use_pallas_multi or cell != "lstm" or xv.shape[:2] != xa.shape[:2]:
+        return (extract_features(pv, xv, lengths_v, recurrence),
+                extract_features(pa, xa, lengths_a, recurrence))
+    T = xv.shape[1]
+    mv, ma = length_mask(lengths_v, T), length_mask(lengths_a, T)
+
+    def run_layer(rv: BiLSTM, ra: BiLSTM, inp_v, inp_a):
+        x_proj, w_hh_t, masks, reverse = pack_directions([
+            (rv.fwd, inp_v, mv, False), (rv.bwd, inp_v, mv, True),
+            (ra.fwd, inp_a, ma, False), (ra.bwd, inp_a, ma, True)])
+        if recurrence is not None:
+            ys, _, h_fin = lstm_multi_recurrence_reference(x_proj, w_hh_t, masks, reverse)
+        elif any(t.requires_grad for t in x_proj + w_hh_t):    # a gradient is wanted
+            ys, h_fin = lstm_scan_multi(x_proj, w_hh_t, masks, reverse)
+        else:
+            ys, _, h_fin = lstm_multi_recurrence(x_proj, w_hh_t, masks, reverse)
+        outs, finals = unpack_outputs(ys, h_fin)
+        ys_v = torch.cat(outs[:2], dim=-1) * mv[..., None]
+        ys_a = torch.cat(outs[2:], dim=-1) * ma[..., None]
+        return ys_v, ys_a, torch.cat(finals[:2], dim=-1), torch.cat(finals[2:], dim=-1)
+
+    ys1_v, ys1_a, h1_v, h1_a = run_layer(pv.rnn1, pa.rnn1, xv, xa)
+    _, _, h2_v, h2_a = run_layer(pv.rnn2, pa.rnn2, pv.ln(ys1_v), pa.ln(ys1_a))
+
+    def utterance(h1, h2):
+        H = h1.shape[-1] // 2
+        return torch.cat([h1[:, :H], h2[:, :H], h1[:, H:], h2[:, H:]], dim=-1)
+
+    return utterance(h1_v, h2_v), utterance(h1_a, h2_a)

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bilstm import extract_features_pair
 from mmda_tpu_torch.models.common import LayerNorm, Linear, TransformerLayer, dropout
 from mmda_tpu_torch.models.extractors import make_tower
 from mmda_tpu_torch.ops.functions import binarize, get_activation, masked_mean, reverse_grad
@@ -195,8 +196,13 @@ class MISA(nn.Module):
 
         v_len = batch.visual_lengths if batch.visual_lengths is not None else batch.lengths
         a_len = batch.acoustic_lengths if batch.acoustic_lengths is not None else batch.lengths
-        utt_video = self.visual_extractor(visual, v_len, recurrence)
-        utt_audio = self.acoustic_extractor(acoustic, a_len, recurrence)
+        if cfg.extractor == "transformer":
+            utt_video = self.visual_extractor(visual, v_len, recurrence)
+            utt_audio = self.acoustic_extractor(acoustic, a_len, recurrence)
+        else:
+            utt_video, utt_audio = extract_features_pair(
+                self.visual_extractor, self.acoustic_extractor, visual, acoustic, v_len,
+                a_len, cfg.rnncell, recurrence=recurrence)
 
         def project(p, x):
             return p.ln(act(p.linear(x.float())))

@@ -19,7 +19,8 @@ from mmda_tpu_torch.ops.kernels import _build
 # csrc/<name>.cu, entry point mmda_<name>
 KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd",
            "ln_dropout_fwd", "ln_dropout_bwd",
-           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "short_attn_fwd", "short_attn_bwd", "lstm_multi_fwd", "lstm_multi_bwd")
 MAX_THREADS = 1024
 DW_TILE = (16, 64)     # the recurrences' dW tile: hidden units x gate columns
 

@@ -93,3 +93,31 @@ def attention_keep_mask(shape: Tuple[int, int, int], rate: float,
     x = term(n_rows, row0, 2654435761)[:, None] + term(n_cols, col0, 0x9E3779B9)[None, :]
     x = (x & M32)[None] + ((term(n_bh, bh0, 51329) + seed_term) & M32)[:, None, None]
     return (avalanche(x & M32) >= float(np.float32(rate))).to(torch.float32)
+
+
+def short_attention_keep_mask(S: int, rate: float, seed: Union[int, torch.Tensor],
+                              b=0, h=0, device=None) -> torch.Tensor:
+    """float32 (S, S) mask of the short attention kernels
+    (`mmda_tpu/ops/pallas/short_attention.py::_dropout_mask`), 1.0 where the
+    probability of query r and key c in batch item b, head h is kept under
+    `seed`.  Their own mix, with S the call's own sequence length:
+
+        x = r * S + c + seed * 2654435761 + b * 40503 + h * 51329
+
+    b and h: ints, or integer tensors that broadcast against (S, S) and add
+    their leading dims (the plain version passes (B, 1, 1, 1) and
+    (1, nh, 1, 1) aranges for the whole (B, nh, S, S) mask)."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        seed = seed.reshape(()).to(device=device, dtype=torch.int64)
+
+    def term(index, factor):
+        """(index as uint32) * factor mod 2^32, in int64 without overflow:
+        the factor's two 16-bit halves apart."""
+        index = torch.as_tensor(index, dtype=torch.int64, device=device) & M32
+        high = ((index * (factor >> 16)) & 0xFFFF) << 16
+        return (index * (factor & 0xFFFF) + high) & M32
+
+    pos = torch.arange(S * S, dtype=torch.int64, device=device).reshape(S, S)
+    x = pos + term(seed, 2654435761) + term(b, 40503) + term(h, 51329)
+    return (avalanche(x & M32) >= float(np.float32(rate))).to(torch.float32)

@@ -69,8 +69,6 @@ def unsupported(cfg) -> List[str]:
         (cfg.resume, f"resume ({q}: resume and incremental checkpoints)"),
         (cfg.grad_accum_steps > 1, f"grad_accum_steps > 1 ({q}: grad_accum_steps)"),
         (cfg.confid_two_stage, f"confid_two_stage ({q}: ConfidNet stage 2)"),
-        (cfg.use_bert and cfg.resolved_attn_impl() == "fused",
-         "attn_impl=fused (ROADMAP Queue 2 rows 15-16)"),
         (cfg.bert_model_dir is not None, f"bert_model_dir (HF weight loading; {q})"),
         (cfg.profile_dir is not None, f"profile_dir ({q}: profiler hook)"),
     ]

@@ -20,6 +20,10 @@ from mmda_tpu_torch.config import Config
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import bert
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _no_grad():
@@ -175,12 +179,56 @@ def test_flash_dropout_draws_its_seed_from_the_generator():
     assert torch.isfinite(run(5)).all()
 
 
+@pytest.fixture
+def fused_interpreted():
+    """The JAX package's short attention kernel in interpret mode (off the
+    TPU its bert_encode takes the dense core unless a test forces it)."""
+    from mmda_tpu.ops.pallas import short_attention as jsa
+
+    calls, forward = [], jsa._fwd_call
+    jsa._fwd_call = lambda *a, **k: calls.append(1) or forward(*a, **k)
+    jsa.set_force_interpret(True)
+    yield
+    jsa.set_force_interpret(False)
+    jsa._fwd_call = forward
+    assert calls, "the JAX side never reached its short attention kernel"
+
+
+def test_tiny_encoder_fused_matches_jax(fused_interpreted):
+    """attn_impl="fused", deterministic, f32: the JAX encoder through its
+    Pallas kernel, the port through the plain version of its kernels; 1e-5
+    abs/rel (the file's f32 tolerance: both take the whole-row softmax in
+    f32, summation order only)."""
+    bc = bert.BertConfig.tiny()
+    tree = jbert.init_bert_params(jax.random.PRNGKey(1), jbert.BertConfig.tiny())
+    ids, types, mask = _inputs(S=13)
+    want = jbert.bert_encode(tree, jbert.BertConfig.tiny(), jnp.asarray(ids),
+                             jnp.asarray(mask), jnp.asarray(types),
+                             compute_dtype=jnp.float32, attn_impl="fused")
+    enc = load_jax_params(bert.BertEncoder(bc), tree)
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(mask),
+            torch.from_numpy(types).long(), torch.float32)
+    got = bert.bert_encode(enc, *args, attn_impl="fused")
+    assert got.dtype == torch.float32 and got.shape == (3, 13, bc.hidden_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert torch.equal(enc(*args, attn_impl="fused"), got)
+
+
 def test_fused_attention_is_refused_by_name():
+    """`fused` runs (it raised before its kernels existed) and draws its
+    training dropout seed from the generator; a name that is none of the
+    three cores still raises."""
     enc = bert.BertEncoder(bert.BertConfig.tiny())
     enc.reset_parameters(torch.Generator().manual_seed(0))
     ids, types, mask = _inputs()
     args = (torch.from_numpy(ids).long(), torch.from_numpy(mask), torch.from_numpy(types).long())
-    with pytest.raises(NotImplementedError, match="rows 15-16"):
-        bert.bert_encode(enc, *args, attn_impl="fused")
+    out = bert.bert_encode(enc, *args, attn_impl="fused")
+    assert out.shape == (3, 9, 32) and torch.isfinite(out.float()).all()
+
+    def train(seed):
+        return bert.bert_encode(enc, *args, torch.float32, training=True, attn_impl="fused",
+                                generator=torch.Generator().manual_seed(seed))
+
+    assert torch.equal(train(5), train(5)) and not torch.equal(train(5), train(6))
     with pytest.raises(ValueError):
         bert.bert_encode(enc, *args, attn_impl="nope")

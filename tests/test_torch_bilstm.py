@@ -21,6 +21,10 @@ from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import bilstm
 from mmda_tpu_torch.models.extractors import make_tower, tower_extract as t_tower_extract
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _no_grad():

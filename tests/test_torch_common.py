@@ -17,6 +17,10 @@ from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import common
 from mmda_tpu_torch.ops import functions as fn
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(0)
 
 

@@ -15,6 +15,8 @@ from mmda_tpu_torch.ops.kernels import gru as kgru
 from mmda_tpu_torch.ops.kernels import hash_dropout
 from mmda_tpu_torch.ops.kernels import layernorm as kln
 from mmda_tpu_torch.ops.kernels import lstm as klstm
+from mmda_tpu_torch.ops.kernels import lstm_multi as kmulti
+from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -332,3 +334,143 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="D in"):
         kattn.flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
                                   v[..., :8].contiguous(), bias, None)
+
+
+# ------------------------------------------------- short attention (rows 15-16)
+
+
+def _short_inputs(B, nh, S, hd, dtype, seed, device):
+    """q, k, v, the incoming gradient (in dtype) and a (B, S) key bias with a
+    masked tail of another length in every batch item but the first."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, nh, S, hd)).astype(np.float32))
+                  .to(device, dtype) for _ in range(4))
+    mask = np.ones((B, S), np.float32)
+    for b in range(1, B):
+        mask[b, S - 1 - (b * S) // (2 * B):] = 0.0
+    return q, k, v, g, torch.from_numpy((1.0 - mask) * -1e9).float().to(device)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nh,S,hd", [(64, 12, 50, 64), (8, 12, 66, 64), (8, 12, 18, 64),
+                                       (3, 4, 10, 8), (2, 2, 128, 64), (2, 3, 33, 100)])
+def test_short_attention_kernels_match_plain_versions(cuda_device, B, nh, S, hd, dtype, rate):
+    """Both kernels against their plain versions on the card, each launched
+    once.  f32: 1e-5 + 1e-5 |ref|; bf16: one bf16 ulp (the math is f32 on
+    both sides and each output is rounded once)."""
+    q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, S + hd, cuda_device)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_device)
+    before = [kshort.launch_count(n) for n in kshort.SOURCES]
+    o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
+    assert [kshort.launch_count(n) for n in kshort.SOURCES] == [b + 1 for b in before]
+    want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
+            *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)]
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, 2.0 ** -7)
+    for got, ref in zip((o, *grads), want):
+        assert got.dtype == dtype
+        _close(got, ref, *tol)
+
+
+@pytest.mark.parametrize("B,nh,S,seed", [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)])
+def test_short_attention_keep_mask_is_the_hash_bit_for_bit(cuda_device, B, nh, S, seed):
+    """q = k = 0, no bias, v the identity (hd = S): o S (1 - rate) is the
+    whole keep mask; the backward with do the identity gives dv (1 - rate)
+    = the mask transposed."""
+    rate = 0.1
+    s = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
+    b = torch.arange(B, device=cuda_device).reshape(B, 1, 1, 1)
+    h = torch.arange(nh, device=cuda_device).reshape(1, nh, 1, 1)
+    want = hash_dropout.short_attention_keep_mask(S, rate, s, b, h)
+    zeros = torch.zeros(B, nh, S, S, device=cuda_device)
+    eye = torch.eye(S, device=cuda_device).expand(B, nh, S, S).contiguous()
+    bias = torch.zeros(B, S, device=cuda_device)
+    ks = hash_dropout.keep_scale(rate)
+    o = kshort.short_attention_fwd(zeros, zeros, eye, bias, s, rate)
+    _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, eye, rate)
+    assert torch.equal((o * S / ks).round(), want)
+    assert torch.equal((dv * S / ks).round(), want.transpose(-1, -2))
+
+
+def test_short_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
+    cpu = _short_inputs(3, 4, 21, 16, torch.float32, seed=1, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v, g, bias = (t.to(dev) for t in cpu)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        s = torch.tensor([9], dtype=torch.int32, device=dev)
+        o = kshort.short_attention(*leaves, bias, s, 0.2)
+        outs[str(dev)] = [t.detach().cpu() for t in (o, *torch.autograd.grad(o, leaves, g))]
+    for a, b_ in zip(outs["cpu"], outs[str(cuda_device)]):
+        _close(b_, a, 1e-5, 1e-5)
+
+
+def test_short_attention_kernels_reject_what_they_do_not_take(cuda_device):
+    q, k, v, g, bias = _short_inputs(2, 2, 9, 16, torch.float32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError):
+        kshort.short_attention_fwd(q, k.cpu(), v, bias, None)
+    with pytest.raises(ValueError):                         # the seed on the CPU
+        kshort.short_attention_fwd(q, k, v, bias, torch.tensor([1], dtype=torch.int32), 0.1)
+    long = _short_inputs(1, 2, 130, 64, torch.float32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="flash"):
+        kshort.short_attention_fwd(*long[:3], long[4], None)
+
+
+# ------------------------------------------- multi-direction LSTM (rows 19-20)
+
+
+def _multi_inputs(T, B, hs, seed, device):
+    """Per direction: x_proj, w_hh_t, mask (its own lengths), incoming
+    gradients dys and dh_fin; reverse flags alternate."""
+    dirs = [_inputs(T, B, H, seed + d, device) for d, H in enumerate(hs)]
+    grads = [_grads(T, B, H, seed + d, device)[:2] for d, H in enumerate(hs)]
+    return ([d[0] for d in dirs], [d[1] for d in dirs], [d[2] for d in dirs],
+            [bool(d % 2) for d in range(len(hs))], [g[0] for g in grads], [g[1] for g in grads])
+
+
+@pytest.mark.parametrize("T,B,hs", [(48, 64, (35, 35, 74, 74)), (512, 32, (35, 35, 74, 74)),
+                                    (7, 5, (33, 3, 9)), (16, 64, (300, 74))])
+def test_multi_lstm_kernels_match_plain_versions(cuda_device, T, B, hs):
+    """One launch of each kernel for all directions against `lstm.py`'s
+    plain versions per direction, and against the single-direction kernels
+    (`lstm_fwd`, `lstm_bwd`), 1e-5 abs/rel."""
+    x, w, m, rev, dys, dh = _multi_inputs(T, B, hs, T, cuda_device)
+    before = [kmulti.launch_count(n) for n in kmulti.SOURCES]
+    ys, cs, h_fin = kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True)
+    dx, dw = kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys, cs, dys, dh)
+    assert [kmulti.launch_count(n) for n in kmulti.SOURCES] == [b + 1 for b in before]
+    want_ys, want_cs, want_h = kmulti.lstm_multi_recurrence_reference(x, w, m, rev, True)
+    want_dx, want_dw = kmulti.lstm_multi_recurrence_bwd_reference(x, w, m, rev, want_ys,
+                                                                  want_cs, dys, dh)
+    for d in range(len(hs)):
+        single = klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
+        single_b = klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys[d], cs[d], dys[d], dh[d],
+                                             None, rev[d])
+        for got, ref, one in ((ys[d], want_ys[d], single[0]), (cs[d], want_cs[d], single[1]),
+                              (h_fin[d], want_h[d], single[2]), (dx[d], want_dx[d], single_b[0]),
+                              (dw[d], want_dw[d], single_b[1])):
+            torch.testing.assert_close(got, ref, **TOL)
+            torch.testing.assert_close(got, one, **TOL)
+
+
+def test_multi_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
+    cpu = _multi_inputs(9, 6, (5, 5, 9, 9), 3, "cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        x, w, m, rev, dys, dh = ([t.to(dev) for t in part] if part and torch.is_tensor(part[0])
+                                 else part for part in cpu)
+        leaves = [t.clone().requires_grad_(True) for t in x + w]
+        ys, h = kmulti.lstm_scan_multi(leaves[:4], leaves[4:], m, rev)
+        grads = torch.autograd.grad(ys + h, leaves, dys + dh)
+        outs[str(dev)] = [t.detach().cpu() for t in ys + h + list(grads)]
+    for a, b_ in zip(outs["cpu"], outs[str(cuda_device)]):
+        torch.testing.assert_close(b_, a, **TOL)
+
+
+def test_multi_lstm_kernels_reject_cpu_mixed_inputs(cuda_device):
+    x, w, m, rev, _, _ = _multi_inputs(4, 3, (5, 7), 0, cuda_device)
+    with pytest.raises(ValueError):
+        kmulti.lstm_multi_recurrence(x, [w[0].cpu(), w[1]], m, rev)
+    with pytest.raises(ValueError):
+        kmulti.lstm_multi_recurrence(x * 5, w * 5, m * 5, rev * 5)

@@ -10,10 +10,16 @@ within the tolerance of the threshold.
 
 import numpy as np
 import pytest
+import torch
 
 from mmda_tpu.cli import infer as jinfer
 from mmda_tpu_torch.cli import infer as pinfer
 from mmda_tpu_torch.cli import train as ptrain
+
+
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
 
 KEYS = {"scores", "labels", "truths", "tcp", "hidden"}
 ARGS = ["--device", "cpu", "--data", "synthetic", "--use_bert", "False", "--hidden_size", "16",
@@ -24,8 +30,10 @@ ARGS = ["--device", "cpu", "--data", "synthetic", "--use_bert", "False", "--hidd
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     ckpt_dir = str(tmp_path_factory.mktemp("infer"))
+    # two training steps of 256 rows (the last --batch_size wins): the
+    # checkpoint is what the tests score, not the training
     ptrain.main([*ARGS, "--n_epoch", "1", "--bucket_sizes", "8", "--ckpt_dir", ckpt_dir,
-                 "--name", "run"])
+                 "--name", "run", "--batch_size", "256"])
     return ckpt_dir
 
 

@@ -20,6 +20,12 @@ from mmda_tpu_torch.ops.kernels import gru as kgru
 from mmda_tpu_torch.ops.kernels import hash_dropout
 from mmda_tpu_torch.ops.kernels import layernorm as kln
 from mmda_tpu_torch.ops.kernels import lstm as klstm
+from mmda_tpu_torch.ops.kernels import lstm_multi as kmulti
+from mmda_tpu_torch.ops.kernels import short_attention as kshort
+
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(mmda_tpu_torch.__file__).parent
@@ -179,10 +185,11 @@ def test_every_cuda_source_has_one_launch_count_and_one_entry_point():
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_launch.KERNELS)
     for name in _launch.KERNELS:
         assert f"int mmda_{name}(" in (csrc / f"{name}.cu").read_text()
-    assert (sorted(klstm.SOURCES + kgru.SOURCES + kln.SOURCES + kattn.SOURCES)
-            == sorted(_launch.KERNELS))
+    assert (sorted(klstm.SOURCES + kgru.SOURCES + kln.SOURCES + kattn.SOURCES
+                   + kshort.SOURCES + kmulti.SOURCES) == sorted(_launch.KERNELS))
     assert (klstm.launch_count is kgru.launch_count is kln.launch_count
-            is kattn.launch_count is _launch.launch_count)
+            is kattn.launch_count is kshort.launch_count is kmulti.launch_count
+            is _launch.launch_count)
     _launch.reset_launch_count()
     assert [_launch.launch_count(n) for n in _launch.KERNELS] == [0] * len(_launch.KERNELS)
     with pytest.raises(KeyError):
@@ -234,6 +241,57 @@ def test_attention_wrappers_have_no_fallback(name):
     assert "flash_attention_bwd(" in inspect.getsource(kattn.FlashAttention.backward)
     whole = inspect.getsource(kattn.flash_attention_bwd)
     assert "flash_attention_bwd_dq(" in whole and "flash_attention_bwd_dkv(" in whole
+
+
+Q_ = (2, 2, 8, 16)
+SLICE5_WRAPPERS = {
+    "short_attention_fwd": (kshort, "short_attention_fwd_reference",
+                            lambda: _meta(Q_, Q_, Q_, (2, 8)) + [None]),
+    "short_attention_bwd": (kshort, "short_attention_bwd_reference",
+                            lambda: _meta(Q_, Q_, Q_, (2, 8)) + [None] + _meta(Q_)),
+    "lstm_multi_recurrence": (kmulti, "lstm_multi_recurrence_reference",
+                              lambda: [_meta((T_, B_, 4 * H_)), _meta((H_, 4 * H_)),
+                                       _meta((T_, B_)), [False]]),
+    "lstm_multi_recurrence_bwd": (kmulti, "lstm_multi_recurrence_bwd_reference",
+                                  lambda: [_meta((T_, B_, 4 * H_)), _meta((H_, 4 * H_)),
+                                           _meta((T_, B_)), [False]]
+                                  + [_meta(s) for s in ((T_, B_, H_), (T_, B_, H_),
+                                                        (T_, B_, H_), (B_, H_))]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE5_WRAPPERS))
+def test_short_attention_and_multi_lstm_wrappers_have_no_fallback(name):
+    """Each takes its plain version only for a CPU tensor: no try/except, no
+    routing switch, one call of the plain version, and any other device
+    either launches the kernel or raises.  The autograd functions' backwards
+    go through the backward wrappers, and no short attention code calls a
+    library's attention."""
+    module, reference, make_args = SLICE5_WRAPPERS[name]
+    source = inspect.getsource(module)
+    assert "environ" not in source and "scaled_dot_product_attention" not in source
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, name))))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == reference]
+    assert len(calls) == 1
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        getattr(module, name)(*make_args())
+    assert "short_attention_bwd(" in inspect.getsource(kshort.ShortAttention.backward)
+    assert "lstm_multi_recurrence_bwd(" in inspect.getsource(kmulti.LSTMMultiRecurrence.backward)
+
+
+def test_short_attention_hash_mix_is_in_the_header():
+    """The short kernels' own position mix: the same constants in
+    hash_dropout.cuh and in the plain version, and both kernels use it."""
+    header = (PKG / "csrc" / "hash_dropout.cuh").read_text()
+    mix = header[header.index("short_attn_base"):]
+    plain = inspect.getsource(hash_dropout.short_attention_keep_mask)
+    for const in ("2654435761", "40503", "51329"):
+        assert const in mix and const in plain, const
+    for kernel in kshort.SOURCES:
+        src = (PKG / "csrc" / f"{kernel}.cu").read_text()
+        assert "short_attn_base(" in src and "short_attn_keep(" in src
 
 
 def test_cuda_sources_include_only_the_repo_and_the_toolkit():

@@ -25,6 +25,10 @@ from mmda_tpu_torch.models import bert as pbert
 from mmda_tpu_torch.ops.kernels import hash_dropout
 from mmda_tpu_torch.ops.kernels import layernorm as kln
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 

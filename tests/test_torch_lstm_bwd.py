@@ -19,6 +19,10 @@ from mmda_tpu.ops.pallas import lstm as plstm
 from mmda_tpu_torch.models import bilstm
 from mmda_tpu_torch.ops.kernels import lstm as klstm
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -22,6 +22,10 @@ from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, MISA, MISAOutput, get_model, init_misa, misa_forward
 from mmda_tpu_torch.models.bert import BertConfig
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 SIZES = dict(visual_size=5, acoustic_size=7, vocab_size=40)
 SMALL = dict(hidden_size=16, embedding_size=6, num_classes=6, **SIZES)
 
@@ -152,6 +156,20 @@ def test_every_output_matches_jax_with_flash_attention():
     assert _compare(got, want, 2e-4) == 20
     dense, _ = _both(True, True, "float32", seed=4)
     assert not torch.equal(dense.orig_t, got.orig_t)         # another core ran
+
+
+def test_every_output_matches_jax_with_fused_attention():
+    """attn_impl="fused": the short-sequence core on both sides, the JAX
+    one through its Pallas kernel in interpret mode, at the f32 tolerance of
+    test_every_output_matches_jax_f32."""
+    from mmda_tpu.ops.pallas import short_attention as jsa
+
+    jsa.set_force_interpret(True)
+    try:
+        got, want = _both(True, True, "float32", seed=5, attn_impl="fused")
+    finally:
+        jsa.set_force_interpret(False)
+    assert _compare(got, want, 1e-4) == 20
 
 
 def test_model_resolves_the_attention_core_from_the_batch_length(monkeypatch):

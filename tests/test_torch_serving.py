@@ -35,6 +35,10 @@ from mmda_tpu_torch.serving import Predictor, RequestTooLongError
 from mmda_tpu_torch.serving_server import PredictionServer
 from mmda_tpu_torch.train import checkpoint as ckpt
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 KW = dict(hidden_size=16, visual_size=5, acoustic_size=7, vocab_size=40,
           embedding_size=6, compute_dtype="float32", bucket_sizes=(4, 8),

@@ -36,6 +36,10 @@ from mmda_tpu_torch.ops.kernels import gru as kgru
 from mmda_tpu_torch.serving import Predictor
 from mmda_tpu_torch.train.step import loss_and_grads
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 def _data(B, T, F, seed):
     rng = np.random.default_rng(seed)

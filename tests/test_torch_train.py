@@ -38,6 +38,10 @@ from mmda_tpu_torch.train.state import Optimizer
 from mmda_tpu_torch.train.step import (ema_update, loss_and_grads,
                                        sample_modality_keep, train_step)
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL6 = dict(rtol=1e-6, atol=1e-6)
 
 

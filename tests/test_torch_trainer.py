@@ -39,6 +39,10 @@ from mmda_tpu_torch.utils import metrics as pmetrics
 from mmda_tpu_torch.utils import sentiment_metrics as psenti
 from mmda_tpu_torch.utils.logging import MetricLogger
 
+# The suite runs in several processes at once: one intra-op thread each keeps
+# torch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_size=16, embedding_size=6, num_classes=6, visual_size=5,
              acoustic_size=7, vocab_size=40)
 
@@ -211,7 +215,7 @@ def test_trainer_with_ema_exports_the_shadow(tmp_path):
     dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(moe_experts=4), dict(zero1=True),
     dict(fsdp=True), dict(ckpt_backend="orbax"), dict(compiled_epoch=True), dict(resume=True),
     dict(grad_accum_steps=2), dict(confid_two_stage=True), dict(profile_dir="/tmp/p"),
-    dict(attn_impl="fused"), dict(bert_model_dir="/tmp/b")])
+    dict(bert_model_dir="/tmp/b")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     cfg = _tiny_cfg(tmp_path, **option)
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -267,6 +271,45 @@ def test_trainer_trains_with_the_towers_and_the_fused_sites(tmp_path, option, mo
             for L in (3, 8)]
     out = pred(reqs)
     assert out["scores"].shape == (2, 6) and np.isfinite(out["scores"]).all()
+
+
+def test_trainer_trains_with_fused_attention(tmp_path, monkeypatch):
+    """attn_impl="fused" used to be refused: every training step goes
+    through `short_attention` once per BERT layer with the probs dropout
+    rate, every eval batch at rate 0, the loss falls, and a Predictor on the
+    checkpoint reaches it at rate 0 (S <= 16 here)."""
+    from mmda_tpu_torch.models import bert as pbert
+    from mmda_tpu_torch.serving import Predictor
+
+    calls = []
+    real = pbert.short_attention
+    monkeypatch.setattr(pbert, "short_attention",
+                        lambda *a: (calls.append((a[0].shape, a[5])), real(*a))[1])
+    cfg = _tiny_cfg(tmp_path, n_epoch=2, attn_impl="fused")
+    trainer = Trainer(cfg, _tiny_data(n_train=64), bert_cfg=BertConfig.tiny())
+    summary = trainer.train()
+    hist = summary["history"]
+    assert len(hist) == 2 and hist[-1]["train_loss"] < hist[0]["train_loss"]
+    assert np.isfinite(summary["test_loss"])
+    steps, evals, layers = 2 * 2, 2 + 1, 2          # 2 epochs x 2 batches; dev x 2, test
+    rates = [rate for _, rate in calls]
+    assert rates.count(0.1) == steps * layers and rates.count(0.0) == evals * layers
+    assert len(rates) == (steps + evals) * layers
+    assert all(shape == (32, 2, 10, 16) for shape, _ in calls)   # (B, nh, S, hd)
+
+    calls.clear()
+    pred = Predictor(cfg, bert_cfg=BertConfig.tiny(), max_batch=4,
+                     visual_size=trainer.sizes["visual_size"],
+                     acoustic_size=trainer.sizes["acoustic_size"])
+    rng = np.random.default_rng(1)
+    reqs = [{"text": rng.integers(2, 40, size=5).astype(np.int32),
+             "visual": rng.normal(size=(5, trainer.sizes["visual_size"])).astype(np.float32),
+             "acoustic": rng.normal(size=(5, trainer.sizes["acoustic_size"])).astype(np.float32),
+             "bert_ids": rng.integers(1, 128, size=7).astype(np.int32),
+             "bert_type": np.zeros(7, np.int32), "bert_mask": np.ones(7, np.int32)}]
+    out = pred(reqs)
+    assert np.isfinite(out["scores"]).all()
+    assert [rate for _, rate in calls] == [0.0] * layers
 
 
 def test_train_cli_on_the_cpu_writes_a_checkpoint_both_packages_serve(tmp_path):
