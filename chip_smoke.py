@@ -23,7 +23,10 @@ the result):
    blockwise attention kernels (forward, dq, dk/dv) at S = 130, 514 and 1026
    and at D = 16, in f32 (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus
    one bf16 ulp on the gradients), at dropout rate 0 and 0.1 with masked
-   tails; their keep mask equal bit for bit to the plain hash; timed at the
+   tails; their keep mask equal bit for bit to the plain hash in f32 and in
+   bf16; two launches of each backward kernel giving the same bits; the
+   tensor-core instructions (HMMA/HGMMA) in the SASS of the backward kernels'
+   bf16 instantiations counted with cuobjdump (none fails); timed at the
    long step's (384, 514, 64) beside `F.scaled_dot_product_attention` with
    the same additive mask and dropout_p and its `autograd.grad`.  The two
    short attention kernels at (B, nh, S, hd) = (64, 12, S, 64) for S = 18,
@@ -71,10 +74,11 @@ the result):
    `Trainer.train()` for one epoch of 6 full-length batches: every step makes
    12 `flash_fwd`, 12 `flash_bwd_dq`, 12 `flash_bwd_dkv`, 8 `lstm_fwd` and 8
    `lstm_bwd` launches (the recurrences at T=512), an eval batch none of the
-   attention kernels; 10 timed steps and a profile; the same 10 steps with
-   the dense core (`attn_impl="xla"`); one step's gradients with dropout on,
-   kernels against plain versions under the same seeds; a small f32 model
-   with `attn_impl="flash"` on the card against the CPU; then a
+   attention kernels; 10 timed steps and a profile; the same 10 steps and a
+   profile with the dense core (`attn_impl="xla"`); one step's gradients
+   with dropout on, kernels against plain versions under the same seeds; a
+   small f32 model with `attn_impl="flash"` on the card against the CPU;
+   then a
    `Predictor(attn_impl="flash")` on that run's checkpoint behind the HTTP
    front end (one bucket of 512, 32 rows a call: 12 `flash_fwd` per call, no
    backward kernel) against the dense core (2e-2), and
@@ -188,6 +192,7 @@ TRAIN_CONFIGS = {
 ATTN_SHAPES = [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16)]
 ATTN_REPORT = (LONG_B * 12, LONG_T + 2, 64)      # the long step's call, bf16
 ATTN_RATE = 0.1
+ATTN_MASK_SEEDS = (7, -5, 2 ** 31 - 2, 12345)   # the bf16 mask checks at ATTN_SHAPES
 ATTN_F32_TOL = (1e-5, 1e-4)       # |err| <= 1e-5 + 1e-4 |ref|: summation order only
 ATTN_BF16_TOL = (2e-2, 2.0 ** -7)  # a probability on a rounding boundary may round the
                                   # other way (one bf16 ulp of a value up to 1, times v)
@@ -785,20 +790,22 @@ def attn_bounds(BH, S, D, dtype) -> dict:
     return out
 
 
-def check_attn_mask(kattn, hashes, BH, S, D, seed, device) -> None:
-    """The three kernels' keep mask against the plain hash, bit for bit, in
-    f32, D columns of the S x S mask at a time.  With q = 0 and no bias every
-    probability is 1 / S (forward) or, with lse = 0, exactly 1 (backward).
-    Forward: v a shifted identity, so o S (1 - rate) is the mask's columns
-    off .. off + D.  dk/dv: do a shifted identity, so dv (1 - rate) is the
-    mask's rows off .. off + D, transposed.  dq: do = 1, v = 1 / D, dsum = 0,
-    so ds is the scaled mask, and k a shifted identity picks its columns."""
+def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) -> None:
+    """The three kernels' keep mask against the plain hash, bit for bit, D
+    columns of the S x S mask at a time, with q, k, v in `dtype`.  With q = 0
+    and no bias every probability is 1 / S (forward) or, with lse = 0, exactly
+    1 (backward).  Forward: v a shifted identity, so o S (1 - rate) is the
+    mask's columns off .. off + D.  dk/dv: do a shifted identity, so dv
+    (1 - rate) is the mask's rows off .. off + D, transposed.  dq: do = 1, v =
+    1 / D, dsum = 0, so ds is the scaled mask, and k a shifted identity picks
+    its columns.  In bf16 every value is exact but the scaled keep 1 / (1 -
+    rate), which rounds to nearest: the ratio still rounds to 1 or 0."""
     rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
     s = torch.tensor([seed], dtype=torch.int32, device=device)
     want = hashes.attention_keep_mask((BH, S, S), rate, s)
     if not 0 < want.mean().item() < 1:
         raise AssertionError(f"degenerate attention mask at {(BH, S, D, seed)}")
-    zeros = torch.zeros(BH, S, D, device=device)
+    zeros = torch.zeros(BH, S, D, device=device, dtype=dtype)
     ones = torch.ones(BH, S, D, device=device)
     vec0 = torch.zeros(BH, S, device=device)
     scale = kattn.softmax_scale(D)
@@ -807,20 +814,39 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device) -> None:
         n = min(D, S - off)
         shifted = torch.zeros(BH, S, D, device=device)
         shifted[:, off + idx[:n], idx[:n]] = 1.0
-        o, _ = kattn.flash_attention_fwd(zeros, zeros, shifted, vec0, s, rate)
+        o, _ = kattn.flash_attention_fwd(zeros, zeros, shifted.to(dtype), vec0, s, rate)
         _, dv = kattn.flash_attention_bwd_dkv(zeros, zeros, zeros, vec0, s, shifted, vec0,
                                               vec0, rate)
-        dq = kattn.flash_attention_bwd_dq(zeros, shifted, ones / D, vec0, s, ones, vec0, vec0,
-                                          rate)
+        dq = kattn.flash_attention_bwd_dq(zeros, shifted.to(dtype), (ones / D).to(dtype), vec0,
+                                          s, ones, vec0, vec0, rate)
         torch.cuda.synchronize()
         got = {"flash_fwd": (o * S / ks).round()[:, :, :n],
-               "flash_bwd_dkv": (dv / ks).round()[:, :, :n].transpose(1, 2),
-               "flash_bwd_dq": (dq / (scale * ks)).round()[:, :, :n]}
+               "flash_bwd_dkv": (dv.float() / ks).round()[:, :, :n].transpose(1, 2),
+               "flash_bwd_dq": (dq.float() / (scale * ks)).round()[:, :, :n]}
         for name, mask in got.items():
             block = want[:, off:off + n, :] if name == "flash_bwd_dkv" else want[:, :, off:off + n]
             if not torch.equal(mask, block):
                 raise AssertionError(f"{name}: keep mask differs from the hash at "
-                                     f"{(BH, S, D, seed)}, offset {off}")
+                                     f"{(BH, S, D, seed)} {dtype}, offset {off}")
+
+
+def tensor_core_instructions(so_path) -> dict:
+    """HMMA / HGMMA lines of a built library's SASS (cuobjdump -sass), by
+    kernel function (the bf16 instantiations are the `*_mma_kernel<D>` ones)."""
+    from mmda_tpu_torch.ops.kernels import _build
+
+    tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts: dict = {}
+    function = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ")[1].strip()
+            counts[function] = 0
+        elif function and ("HMMA" in line or "HGMMA" in line):
+            counts[function] += 1
+    return counts
 
 
 def check_attn_kernels(kattn, hashes, device) -> dict:
@@ -832,8 +858,22 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
     {kernel: result}."""
     import torch.nn.functional as F
 
+    from mmda_tpu_torch.ops.kernels import _build
+
     for BH, S, D, seed in [(3, 130, 64, 7), (2, 514, 64, 2 ** 31 - 2), (2, 130, 16, -5)]:
         check_attn_mask(kattn, hashes, BH, S, D, seed, device)
+    for (BH, S, D), seed in zip(ATTN_SHAPES, ATTN_MASK_SEEDS):
+        check_attn_mask(kattn, hashes, BH, S, D, seed, device, torch.bfloat16)
+    # the bf16 backward runs on the tensor cores: count them in the SASS
+    sass = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        by_function = tensor_core_instructions(_build.library_path(name))
+        bf16 = sum(n for f, n in by_function.items() if "mma_kernel" in f)
+        sass[name] = {"bf16_kernels": bf16, "all": sum(by_function.values())}
+        if bf16 == 0:
+            raise AssertionError(f"{name}: no HMMA/HGMMA instruction in the SASS of its "
+                                 "bf16 kernels")
+    log("3 attn-sass", tensor_core_instructions=sass)
     rows = {k: [] for k in FLASH}
     seed = torch.tensor([12345], dtype=torch.int32, device=device)
     for BH, S, D in ATTN_SHAPES:
@@ -848,6 +888,10 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
                 args = (q, k, v, bias, seed, g, lse_w, dsum, rate)
                 dq = kattn.flash_attention_bwd_dq(*args)
                 dk, dv = kattn.flash_attention_bwd_dkv(*args)
+                again = (kattn.flash_attention_bwd_dq(*args),
+                         *kattn.flash_attention_bwd_dkv(*args))
+                if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+                    raise AssertionError(f"two backward launches differ at {where}")
                 dq_w = kattn.flash_attention_bwd_dq_reference(*args)
                 dk_w, dv_w = kattn.flash_attention_bwd_dkv_reference(*args)
                 torch.cuda.synchronize()
@@ -868,7 +912,8 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
         return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
 
     errs = {k: {d: worst(k, d) for d in ("float32", "bfloat16")} for k in FLASH}
-    log("3 attn-kernels-vs-plain", checks=len(rows["flash_fwd"]), mask="equal bit for bit",
+    log("3 attn-kernels-vs-plain", checks=len(rows["flash_fwd"]),
+        mask="equal bit for bit, f32 and bf16", backward="the same bits twice",
         max_abs_err=errs, tol={"float32": ATTN_F32_TOL, "bfloat16": ATTN_BF16_TOL})
 
     BH, S, D = ATTN_REPORT
@@ -920,7 +965,8 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
         torch.cuda.empty_cache()
     return {name: {"checks": rows[name], "timed": timed[name],
                    "max_abs_err": errs[name]["float32"],
-                   "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0]}
+                   "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0],
+                   **({"sass": sass[name]} if name in sass else {})}
             for name in FLASH}
 
 
@@ -1955,11 +2001,16 @@ def main() -> int:
     long_cfg = long_trainer.cfg
     long_trainer.model.cfg = long_cfg.replace(attn_impl="xla")
     try:
-        long_train["steps_dense"] = train_timing(long_trainer, counts, "long", device,
-                                                 without=FLASH)
+        dense = train_timing(long_trainer, counts, "long", device, without=FLASH)
+        dense_prof = profile_training(long_trainer, "long", device)
     finally:
         long_trainer.model.cfg = long_cfg
-    log("8 train-steps-dense-core", **long_train["steps_dense"])
+    if isinstance(dense_prof["device_busy_ms_per_call"], float):
+        dense_prof["idle_share_of_unprofiled_step"] = (
+            1.0 - dense_prof["device_busy_ms_per_call"] / dense["ms_per_step"])
+    long_train["steps_dense"], long_train["profile_dense"] = dense, dense_prof
+    log("8 train-steps-dense-core", **dense)
+    log("8 train-profile-dense-core", **dense_prof)
     del long_trainer
     torch.cuda.empty_cache()
     long_serve = serve_long(long_cfg, counts, device)
@@ -2020,6 +2071,10 @@ def main() -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "ms_by": rep["ms_by"], "call_ms": rep["call_ms"],
             "library_device_ms": rep["library_device_ms"], "shape": shape,
+            **({"max_abs_err_bf16": checks[name]["max_abs_err_bf16"]}
+               if "max_abs_err_bf16" in checks[name] else {}),
+            **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
+               if "sass" in checks[name] else {}),
             **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {})})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")

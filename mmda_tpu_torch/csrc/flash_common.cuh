@@ -1,6 +1,8 @@
 // Shared by flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu: the tile
-// geometry, the attention kernels' position hash, tile loads into shared
-// memory and the two register-tiled products every kernel is made of.
+// geometry, the attention kernels' position hash, and the f32 tile loads and
+// register-tiled FMA products that flash_fwd.cu and the backward kernels' f32
+// instantiations are made of (the backward kernels' bf16 instantiations run
+// on the tensor cores, flash_mma.cuh).
 //
 // A block of 256 threads (16 x 16) owns a 64 x 64 tile of the score matrix;
 // thread (ty, tx) holds the 4 x 4 scores at rows ty*4 + i and columns
@@ -42,9 +44,12 @@ __device__ __forceinline__ uint32_t hash_base(const int* seed_ptr, int bh) {
   return (uint32_t)seed_ptr[0] * 40503u + (uint32_t)bh * 51329u;
 }
 
+constexpr uint32_t kHashRow = 2654435761u;   // the row's and the column's
+constexpr uint32_t kHashCol = 0x9E3779B9u;   // multipliers in the mix
+
 __device__ __forceinline__ bool attn_keep(uint32_t base, uint32_t row,
                                           uint32_t col, float rate) {
-  return hash_avalanche(row * 2654435761u + col * 0x9E3779B9u + base) >= rate;
+  return hash_avalanche(row * kHashRow + col * kHashCol + base) >= rate;
 }
 
 // x rounded to the operand type T (f32: unchanged; bf16: to nearest even), as

@@ -16,15 +16,25 @@
 namespace mmda {
 
 // The avalanche every kernel's hash ends in (the attention kernels mix their
-// position into x in their own way): uniform in [0, 1) with 24 bits, exact
-// in f32.
-__device__ __forceinline__ float hash_avalanche(uint32_t x) {
+// position into x in their own way): 24 bits ...
+__device__ __forceinline__ uint32_t hash_bits(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
+  return x >> 8;
+}
+
+// ... as a uniform value in [0, 1), exact in f32.
+__device__ __forceinline__ float hash_avalanche(uint32_t x) {
+  return (float)hash_bits(x) * (1.0f / 16777216.0f);
+}
+
+// hash_avalanche(x) >= rate exactly when hash_bits(x) >= keep_threshold(rate):
+// rate * 2^24 is exact in f32 and hash_bits(x) is an integer.
+__device__ __forceinline__ uint32_t keep_threshold(float rate) {
+  return (uint32_t)ceilf(rate * 16777216.0f);
 }
 
 // The LayerNorm kernels' position mix.

@@ -8,7 +8,10 @@ mask drawn from the positional hash of `hash_dropout` (regenerated by the
 backward), and a blockwise backward from the saved logsumexp.  Three kernels:
 `csrc/flash_fwd.cu` (the TPU package's `_flash_kernel` and its ragged twin),
 `csrc/flash_bwd_dq.cu` (`_bwd_dq_kernel`), `csrc/flash_bwd_dkv.cu`
-(`_bwd_dkv_kernel`); one kernel each serves any S.
+(`_bwd_dkv_kernel`); one kernel each serves any S.  The two backward kernels
+run their bf16 products on the tensor cores and their f32 products as f32
+FMAs, and take do in the operand type: their wrappers round the f32 d_out to
+it once.
 
 The rounding sites, the same in the kernels and in the plain versions:
 products of operands in the input type (f32 or bf16) accumulated in f32;
@@ -195,49 +198,59 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _bwd_launch(name: str, outs, q, k, v, bias, seed, do_t, lse, dsum, rate: float):
+    """Launch the backward kernel `name` on d_out already rounded to the
+    operand type (`do_t`), writing into the preallocated `outs`."""
+    so = lib(name, 8 + len(outs), 4, 3)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        launch(name, getattr(so, f"mmda_{name}"),
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+               seed.data_ptr() if rate > 0.0 else None, do_t.data_ptr(), lse.data_ptr(),
+               dsum.data_ptr(), *(t.data_ptr() for t in outs), *_launch_args(q, rate), stream)
+    return outs
+
+
+def _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate: float) -> torch.device:
+    return _check(q, k, v, bias, seed, rate, f32_like=(("d_out", d_out),),
+                  vectors=(("lse", lse), ("dsum", dsum)))
+
+
 def flash_attention_bwd_dq(q, k, v, bias, seed, d_out, lse, dsum,
                            rate: float = 0.0) -> torch.Tensor:
     """dq from the saved lse and dsum = rowsum(do * o); d_out (BH, S, D) f32,
-    lse and dsum (BH, S) f32.  Returns dq in q's dtype."""
-    dev = _check(q, k, v, bias, seed, rate, f32_like=(("d_out", d_out),),
-                 vectors=(("lse", lse), ("dsum", dsum)))
-    if dev.type == "cpu":
+    lse and dsum (BH, S) f32.  Returns dq in q's dtype.  The kernel takes do
+    in the operand type: d_out is rounded to it once here."""
+    if _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate).type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, bias, seed, d_out, lse, dsum, rate)
-    so = lib("flash_bwd_dq", 9, 4, 3)
-    dq = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launch("flash_bwd_dq", so.mmda_flash_bwd_dq,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-               seed.data_ptr() if rate > 0.0 else None, d_out.data_ptr(), lse.data_ptr(),
-               dsum.data_ptr(), dq.data_ptr(), *_launch_args(q, rate), stream)
-    return dq
+    return _bwd_launch("flash_bwd_dq", (torch.empty_like(q),), q, k, v, bias, seed,
+                       d_out.to(q.dtype), lse, dsum, rate)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, seed, d_out, lse, dsum,
                             rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the saved lse and dsum, in the dtype of k and v."""
-    dev = _check(q, k, v, bias, seed, rate, f32_like=(("d_out", d_out),),
-                 vectors=(("lse", lse), ("dsum", dsum)))
-    if dev.type == "cpu":
+    """(dk, dv) from the saved lse and dsum, in the dtype of k and v; d_out
+    f32, rounded to the operand type once here."""
+    if _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate).type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, bias, seed, d_out, lse, dsum, rate)
-    so = lib("flash_bwd_dkv", 10, 4, 3)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launch("flash_bwd_dkv", so.mmda_flash_bwd_dkv,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-               seed.data_ptr() if rate > 0.0 else None, d_out.data_ptr(), lse.data_ptr(),
-               dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_launch_args(q, rate), stream)
-    return dk, dv
+    return _bwd_launch("flash_bwd_dkv", (torch.empty_like(k), torch.empty_like(v)), q, k, v,
+                       bias, seed, d_out.to(q.dtype), lse, dsum, rate)
 
 
 def flash_attention_bwd(q, k, v, bias, seed, lse, o, d_out, rate: float = 0.0):
     """Gradient of `flash_attention_fwd`'s o from the saved (q, k, v, bias,
-    seed, lse, o) and the f32 d_out: (dq, dk, dv)."""
+    seed, lse, o) and the f32 d_out: (dq, dk, dv).  dsum comes from the f32
+    d_out; on the card d_out is rounded to the operand type once and both
+    kernels read that copy."""
     dsum = row_dsum(d_out, o)
-    dq = flash_attention_bwd_dq(q, k, v, bias, seed, d_out, lse, dsum, rate)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, seed, d_out, lse, dsum, rate)
+    args = (q, k, v, bias, seed, d_out, lse, dsum, rate)
+    if _check_bwd(*args).type == "cpu":
+        return (flash_attention_bwd_dq_reference(*args),
+                *flash_attention_bwd_dkv_reference(*args))
+    do_t = d_out.to(q.dtype)
+    rest = (q, k, v, bias, seed, do_t, lse, dsum, rate)
+    dq, = _bwd_launch("flash_bwd_dq", (torch.empty_like(q),), *rest)
+    dk, dv = _bwd_launch("flash_bwd_dkv", (torch.empty_like(k), torch.empty_like(v)), *rest)
     return dq, dk, dv
 
 

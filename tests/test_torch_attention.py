@@ -113,6 +113,44 @@ def test_flash_attention_matches_jax_kernel_at_514():
     _compare(got, want, "float32")
 
 
+@pytest.mark.parametrize("case,dtype", [("do_rounded", "float32"), ("do_rounded", "bfloat16"),
+                                        ("dsum_from_f32_do", "bfloat16")])
+def test_backward_reads_do_in_the_operand_type(case, dtype):
+    """The backward kernels read do in the operand type: their wrappers round
+    the f32 d_out once.  do_rounded: a d_out already rounded to the operand
+    type gives the same dq, dk, dv as the f32 one (with the same dsum), so the
+    rounding in the wrapper changes no function, and both match the JAX
+    kernels.  dsum_from_f32_do: rounding this do moves dsum = rowsum(do * o),
+    so dsum must come from the f32 do, as the JAX package takes it: the
+    port's backward does, and matches the JAX gradients; dsum from the
+    rounded do would give other gradients."""
+    BH, S, D, rate = 3, 130, 16, 0.1
+    _, want = _both(BH, S, D, dtype, rate)
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(BH, S, D, seed=S + D))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    seed = torch.tensor([1234], dtype=torch.int32)
+    o, lse = tattn.flash_attention_fwd(q, k, v, bias, seed, rate)
+    g_rounded = g.to(q.dtype).float()
+    dsum = tattn.row_dsum(g, o)
+
+    def halves(d_out, dsum_):
+        args = (q, k, v, bias, seed, d_out, lse, dsum_, rate)
+        return (tattn.flash_attention_bwd_dq(*args), *tattn.flash_attention_bwd_dkv(*args))
+
+    if case == "do_rounded":
+        got = halves(g_rounded, dsum)
+        for a, b in zip(got, halves(g, dsum)):
+            assert torch.equal(a, b)
+    else:
+        dsum_rounded = tattn.row_dsum(g_rounded, o)
+        assert (dsum_rounded - dsum).abs().max() > 0
+        got = tattn.flash_attention_bwd(q, k, v, bias, seed, lse, o, g, rate)
+        for a, b in zip(got, halves(g, dsum)):
+            assert torch.equal(a, b)
+        assert not torch.equal(halves(g, dsum_rounded)[0], got[0])
+    _compare((o, *got), want, dtype)
+
+
 def test_masked_keys_get_no_probability_and_no_gradient():
     """A key under the -1e9 bias is swallowed in f32: o ignores it, and its
     dk, dv are exactly zero."""

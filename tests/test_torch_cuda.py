@@ -312,6 +312,52 @@ def test_flash_forward_keep_mask_is_the_hash_bit_for_bit(cuda_device, BH, S, D, 
         assert torch.equal(got, want[:, :, off:off + n])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D,seed", [(3, 130, 64, 7), (2, 130, 16, -5)])
+def test_flash_backward_keep_masks_are_the_hash_bit_for_bit(cuda_device, BH, S, D, seed,
+                                                            dtype):
+    """q = k = 0, no bias, lse = dsum = 0: every probability is exactly 1.
+    dk/dv: do a shifted identity, so dv (1 - rate) is D rows of the mask at a
+    time, transposed.  dq: do = 1, v = 1 / D, so ds is the scaled mask, and k
+    a shifted identity picks D of its columns.  Every value is exact in bf16
+    but the scaled keep 1 / (1 - rate), which rounds to nearest: the ratio
+    still rounds to 1 (kept) or 0 (dropped)."""
+    rate = 0.1
+    s = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
+    want = hash_dropout.attention_keep_mask((BH, S, S), rate, s)
+    ks = hash_dropout.keep_scale(rate)
+    zeros = torch.zeros(BH, S, D, device=cuda_device, dtype=dtype)
+    ones = torch.ones(BH, S, D, device=cuda_device)
+    vec0 = torch.zeros(BH, S, device=cuda_device)
+    idx = torch.arange(D, device=cuda_device)
+    for off in range(0, S, D):
+        n = min(D, S - off)
+        shifted = torch.zeros(BH, S, D, device=cuda_device)
+        shifted[:, off + idx[:n], idx[:n]] = 1.0
+        _, dv = kattn.flash_attention_bwd_dkv(zeros, zeros, zeros, vec0, s, shifted, vec0,
+                                              vec0, rate)
+        dq = kattn.flash_attention_bwd_dq(zeros, shifted.to(dtype), (ones / D).to(dtype), vec0,
+                                          s, ones, vec0, vec0, rate)
+        got_dv = (dv.float() / ks).round()[:, :, :n].transpose(1, 2)
+        got_dq = (dq.float() / (kattn.softmax_scale(D) * ks)).round()[:, :, :n]
+        assert torch.equal(got_dv, want[:, off:off + n, :])
+        assert torch.equal(got_dq, want[:, :, off:off + n])
+
+
+@pytest.mark.parametrize("BH,S,D", [(24, 514, 64), (2, 200, 128), (3, 5, 16)])
+def test_flash_backward_kernels_give_the_same_bits_twice(cuda_device, BH, S, D):
+    """No atomics: each block owns its output rows, so two launches on the
+    same bf16 inputs give identical bits."""
+    q, k, v, bias, g = _attn_inputs(BH, S, D, torch.bfloat16, 3, cuda_device)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    o, lse = kattn.flash_attention_fwd(q, k, v, bias, seed, 0.1)
+    args = (q, k, v, bias, seed, g, lse, kattn.row_dsum(g, o), 0.1)
+    first = (kattn.flash_attention_bwd_dq(*args), *kattn.flash_attention_bwd_dkv(*args))
+    second = (kattn.flash_attention_bwd_dq(*args), *kattn.flash_attention_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
     cpu = _attn_inputs(3, 70, 16, torch.float32, seed=1, device="cpu")
     outs = {}

@@ -226,8 +226,10 @@ def test_attention_wrappers_have_no_fallback(name):
     """Each takes its plain version only for a CPU tensor: no try/except, no
     routing switch, one call of the plain version, and any other device
     either launches the kernel or raises.  The autograd function's backward
-    goes through the two backward wrappers, and no wrapper or plain version
-    calls a library's attention."""
+    goes through `flash_attention_bwd`, which does the same for both halves
+    (one call of each plain version, one launch of each kernel, on d_out
+    rounded once for both), and no wrapper or plain version calls a
+    library's attention."""
     reference, make_args = FLASH_WRAPPERS[name]
     source = inspect.getsource(kattn)
     assert "environ" not in source and "scaled_dot_product_attention" not in source
@@ -239,8 +241,19 @@ def test_attention_wrappers_have_no_fallback(name):
     with pytest.raises(ValueError, match="cuda or cpu"):
         getattr(kattn, name)(*make_args())
     assert "flash_attention_bwd(" in inspect.getsource(kattn.FlashAttention.backward)
-    whole = inspect.getsource(kattn.flash_attention_bwd)
-    assert "flash_attention_bwd_dq(" in whole and "flash_attention_bwd_dkv(" in whole
+    whole = ast.parse(textwrap.dedent(inspect.getsource(kattn.flash_attention_bwd)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(whole))
+    called = [n for n in ast.walk(whole) if isinstance(n, ast.Call)]
+    names = [getattr(n.func, "id", None) for n in called]
+    assert names.count("flash_attention_bwd_dq_reference") == 1
+    assert names.count("flash_attention_bwd_dkv_reference") == 1
+    assert sorted(n.args[0].value for n in called
+                  if getattr(n.func, "id", None) == "_bwd_launch") == ["flash_bwd_dkv",
+                                                                      "flash_bwd_dq"]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kattn.flash_attention_bwd(*_meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
+                                         (BH_, S_)), None,
+                                  *_meta((BH_, S_), (BH_, S_, D_), (BH_, S_, D_)))
 
 
 Q_ = (2, 2, 8, 16)
