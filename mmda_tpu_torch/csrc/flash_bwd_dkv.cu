@@ -85,8 +85,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const bool drop = rate > 0.0f;
   const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
 
-  load_tile<float, D>(k_s, k + base, c0, S);
-  load_tile<float, D>(v_s, v + base, c0, S);
+  load_tile<D>(k_s, k + base, c0, S);
+  load_tile<D>(v_s, v + base, c0, S);
 
   float bias_r[4], dk_acc[4][DT], dv_acc[4][DT];
 #pragma unroll
@@ -101,8 +101,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 
   for (int r0 = 0; r0 < S; r0 += kTile) {
-    load_tile<float, D>(q_s, q + base, r0, S);
-    load_tile<float, D>(do_s, d_out + base, r0, S);
+    load_tile<D>(q_s, q + base, r0, S);
+    load_tile<D>(do_s, d_out + base, r0, S);
     load_row_values(lse_s, lse + vec_base, r0, S);
     load_row_values(dsum_s, dsum + vec_base, r0, S);
     __syncthreads();
@@ -141,8 +141,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
     for (int jj = 0; jj < DT; ++jj) dk_acc[i][jj] *= scale;
   }
-  store_rows<float, D>(dk + base, c0, S, ty, tx, dk_acc);
-  store_rows<float, D>(dv + base, c0, S, ty, tx, dv_acc);
+  store_rows<D>(dk + base, c0, S, ty, tx, dk_acc);
+  store_rows<D>(dv + base, c0, S, ty, tx, dv_acc);
 }
 
 // ----------------------------------------------------------------- bf16

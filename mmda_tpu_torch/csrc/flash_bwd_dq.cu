@@ -76,8 +76,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const bool drop = rate > 0.0f;
   const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
 
-  load_tile<float, D>(q_s, q + base, row0, S);
-  load_tile<float, D>(do_s, d_out + base, row0, S);
+  load_tile<D>(q_s, q + base, row0, S);
+  load_tile<D>(do_s, d_out + base, row0, S);
 
   float lse_r[4], dsum_r[4], acc[4][DT];
 #pragma unroll
@@ -90,8 +90,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 
   for (int c0 = 0; c0 < S; c0 += kTile) {
-    load_tile<float, D>(k_s, k + base, c0, S);
-    load_tile<float, D>(v_s, v + base, c0, S);
+    load_tile<D>(k_s, k + base, c0, S);
+    load_tile<D>(v_s, v + base, c0, S);
     load_row_values(bias_s, bias + vec_base, c0, S);
     __syncthreads();
 
@@ -123,7 +123,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int jj = 0; jj < DT; ++jj) acc[i][jj] *= scale;
   }
-  store_rows<float, D>(dq + base, row0, S, ty, tx, acc);
+  store_rows<D>(dq + base, row0, S, ty, tx, acc);
 }
 
 // ----------------------------------------------------------------- bf16

@@ -1,16 +1,13 @@
 // Shared by flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu: the tile
 // geometry, the attention kernels' position hash, and the f32 tile loads and
-// register-tiled FMA products that flash_fwd.cu and the backward kernels' f32
-// instantiations are made of (the backward kernels' bf16 instantiations run
-// on the tensor cores, flash_mma.cuh).
+// register-tiled FMA products that the three kernels' f32 instantiations are
+// made of (their bf16 instantiations run on the tensor cores, flash_mma.cuh).
 //
 // A block of 256 threads (16 x 16) owns a 64 x 64 tile of the score matrix;
 // thread (ty, tx) holds the 4 x 4 scores at rows ty*4 + i and columns
 // tx + 16*j.  Operand tiles lie in shared memory as f32, row-major with 4
-// floats of padding per row (bf16 inputs are widened on the way in, which is
-// exact, so a product of two bf16 operands accumulated in f32 is what the TPU
-// kernel's MXU product with an f32 accumulator computes).  All products are
-// f32 FMAs in the kernels' own code.
+// floats of padding per row.  All products are f32 FMAs in the kernels' own
+// code (a TF32 tensor-core product would not meet the f32 tolerance).
 //
 //   nt_product     acc[i][j]  = sum_d A[ty*4+i][d] * B[tx+16j][d]     (q k^T, do v^T)
 //   nn_accumulate  acc[i][jj] += sum_c P[ty*4+i][c] * B[c][col(jj)]   (p v, ds k, ...)
@@ -52,22 +49,10 @@ __device__ __forceinline__ bool attn_keep(uint32_t base, uint32_t row,
   return hash_avalanche(row * kHashRow + col * kHashCol + base) >= rate;
 }
 
-// x rounded to the operand type T (f32: unchanged; bf16: to nearest even), as
-// a cast to T and back.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (sizeof(T) == 2) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
 // Rows row0 .. row0 + 63 of the row-major (S, D) matrix `src` into `dst`
-// (stride D + kPad), widened to f32 and, where `src` is f32 and T is bf16,
-// rounded to T first; rows >= S are zero.
-template <typename T, int D, typename Src>
-__device__ __forceinline__ void load_tile(float* dst, const Src* src, int row0, int S) {
+// (stride D + kPad); rows >= S are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S) {
   constexpr int kVecs = D / 4;
   for (int g = threadIdx.x; g < kTile * kVecs; g += kThreads) {
     const int r = g / kVecs;
@@ -75,8 +60,6 @@ __device__ __forceinline__ void load_tile(float* dst, const Src* src, int row0, 
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (row0 + r < S) {
       load_vec<4>(src + (size_t)(row0 + r) * D + c, v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = round_to<T>(v[e]);
     }
     store_vec<4>(dst + r * (D + kPad) + c, v);
   }
@@ -155,16 +138,16 @@ __device__ __forceinline__ void nn_accumulate(const float* __restrict__ P,
 }
 
 // acc (the thread's 4 rows x D / 16 columns) into rows row0 + ty*4 + i < S of
-// the row-major (S, D) matrix `dst`, rounded to its type.
-template <typename Out, int D>
-__device__ __forceinline__ void store_rows(Out* dst, int row0, int S, int ty, int tx,
+// the row-major (S, D) matrix `dst`.
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, int row0, int S, int ty, int tx,
                                            const float (&acc)[4][D / 16]) {
   constexpr int DT = D / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
     if (r >= S) continue;
-    Out* row = dst + (size_t)r * D;
+    float* row = dst + (size_t)r * D;
     if constexpr (DT % 4 == 0) {
 #pragma unroll
       for (int g = 0; g < DT / 4; ++g) store_vec<4>(row + g * 64 + tx * 4, &acc[i][4 * g]);

@@ -1,7 +1,7 @@
-// Shared by the bf16 instantiations of flash_bwd_dq.cu and flash_bwd_dkv.cu:
-// bf16 operand tiles in shared memory filled by cp.async, and the tensor-core
-// product mma.sync.m16n8k16 (bf16 operands, f32 accumulators) fed by
-// ldmatrix, all as inline PTX.
+// Shared by the bf16 kernels of flash_fwd.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu and short_attn_bwd.cu: bf16 operand tiles in shared memory
+// filled by cp.async, and the tensor-core product mma.sync.m16n8k16 (bf16
+// operands, f32 accumulators) fed by ldmatrix, all as inline PTX.
 //
 // Shared-memory tiles: rows of D bf16 with kRowPad = 8 bf16 (16 bytes) of
 // padding, so a row stride of 2 D + 16 bytes.  ldmatrix has 8 lanes give the
@@ -113,8 +113,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // with row stride L bf16.  The same lane addresses, read transposed, give the
 // B fragments of two n8 tiles (columns col0 .. col0 + 15) of a product whose
 // k runs down the rows: r0, r1 for columns col0 .., r2, r3 for col0 + 8 ..
-template <int L>
-__device__ __forceinline__ uint32_t frag_addr_rows(const bf16* tile, int row0, int col0,
+__device__ __forceinline__ uint32_t frag_addr_rows(const bf16* tile, int L, int row0, int col0,
                                                    int lane) {
   return smem_u32(tile + (row0 + (lane & 15)) * L + col0 + ((lane >> 4) << 3));
 }
@@ -122,8 +121,8 @@ __device__ __forceinline__ uint32_t frag_addr_rows(const bf16* tile, int row0, i
 // The B fragments of two n8 tiles (rows n0 .. n0 + 15 of a row-major tile
 // whose rows are the product's n and columns its k) at k0 .. k0 + 15:
 // {r0, r1} for n0 .., {r2, r3} for n0 + 8 ..
-template <int L>
-__device__ __forceinline__ uint32_t frag_addr_nk(const bf16* tile, int n0, int k0, int lane) {
+__device__ __forceinline__ uint32_t frag_addr_nk(const bf16* tile, int L, int n0, int k0,
+                                                 int lane) {
   return smem_u32(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * L + k0 +
                   (((lane >> 3) & 1) << 3));
 }
@@ -138,30 +137,54 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N8][4], const bf16* a_s, in
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 16) {
     uint32_t a[4];
-    ldmatrix_x4(a, frag_addr_rows<L>(a_s, row0, k0, lane));
+    ldmatrix_x4(a, frag_addr_rows(a_s, L, row0, k0, lane));
 #pragma unroll
     for (int j = 0; j < N8; j += 2) {
       uint32_t b[4];
-      ldmatrix_x4(b, frag_addr_nk<L>(b_s, 8 * j, k0, lane));
+      ldmatrix_x4(b, frag_addr_nk(b_s, L, 8 * j, k0, lane));
       mma_bf16(acc[j], a, b[0], b[1]);
       mma_bf16(acc[j + 1], a, b[2], b[3]);
     }
   }
 }
 
+// acc[j] (j = 0 .. N8 - 1) += A times the transpose of rows 0 .. 8 N8 - 1 of
+// the row-major tile b_s, with A (16 x D) held as A fragments a[kk] (q k^T
+// with the warp's q rows kept in registers).  Pairs of n8 tiles from row
+// n_live on are skipped (their acc is left as it was).
+template <int D, int N8>
+__device__ __forceinline__ void mma_rbt(float (&acc)[N8][4], const uint32_t (&a)[D / 16][4],
+                                        const bf16* b_s, int lane, int n_live = 8 * N8) {
+  constexpr int L = D + kRowPad;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < N8; j += 2) {
+      if (8 * j >= n_live) break;
+      uint32_t b[4];
+      ldmatrix_x4(b, frag_addr_nk(b_s, L, 8 * j, 16 * kk, lane));
+      mma_bf16(acc[j], a[kk], b[0], b[1]);
+      mma_bf16(acc[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
 // acc[j] (j = 0 .. N8 - 1) += P B, P a 16 x 16 K16 operand held as A
 // fragments p[kk] and B rows 0 .. 16 K16 - 1 of the row-major tile b_s, its
-// columns col0 .. col0 + 8 N8 - 1 (pd^T do, ds^T q, ds k).
+// columns col0 .. col0 + 8 N8 - 1 (p v, pd^T do, ds^T q, ds k).  The k16
+// slices from row k_live on are skipped (P is 0 there).
 template <int D, int K16, int N8>
 __device__ __forceinline__ void mma_pb(float (&acc)[N8][4], const uint32_t (&p)[K16][4],
-                                       const bf16* b_s, int col0, int lane) {
+                                       const bf16* b_s, int col0, int lane,
+                                       int k_live = 16 * K16) {
   constexpr int L = D + kRowPad;
 #pragma unroll
   for (int kk = 0; kk < K16; ++kk) {
+    if (16 * kk >= k_live) break;
 #pragma unroll
     for (int j = 0; j < N8; j += 2) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, frag_addr_rows<L>(b_s, 16 * kk, col0 + 8 * j, lane));
+      ldmatrix_x4_trans(b, frag_addr_rows(b_s, L, 16 * kk, col0 + 8 * j, lane));
       mma_bf16(acc[j], p[kk], b[0], b[1]);
       mma_bf16(acc[j + 1], p[kk], b[2], b[3]);
     }

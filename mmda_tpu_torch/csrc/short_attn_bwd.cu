@@ -18,13 +18,43 @@
 //
 // What bounds it on the H100.  At (64, 12, 50, 64) bf16 the call reads q, k,
 // v, do and writes dq, dk, dv: 34.4 MB (10.3 us at 3.35 TB/s), and does
-// 10 B nh S^2 D = 1.23e9 f32 operations (18.3 us at 67 TFLOP/s):
-// operations.
+// 10 B nh S^2 D = 1.23e9 operations (1.2 us at the 989 TFLOP/s bf16 dense
+// tensor-core peak): bytes.  In f32 the bytes (20.5 us) still just exceed
+// the operations at the 67 TFLOP/s f32 peak (18.3 us).
 //
-// What the design does about it.  The TPU kernel loops over the heads of one
-// batch item in one program and writes dk, dv once per head.  Here one block
-// owns all S rows and keys of one (b, h), so dq, dk and dv are each written
-// once, with no atomics and no second pass:
+// The TPU kernel loops over the heads of one batch item in one program and
+// writes dk, dv once per head.  Here one block owns all S rows and keys of
+// one (b, h), so dq, dk and dv are each written once, with no atomics and no
+// second pass.
+//
+// bf16: the products on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 accumulators; flash_mma.cuh), with S padded to SP, a multiple of 16
+// (the kernel's template argument), and D to DP, a multiple of 16; the
+// padding is zero-filled.  SP / 16 warps.  q, k, v and do lie in shared
+// memory as bf16 (exact: they are the inputs).  The products of two inputs
+// go straight in: q k^T (times scale after the product, in f32) and do v^T.
+// The products of an f32 intermediate (pd, ds) with an input take the
+// intermediate as three bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid), which hold all 24 bits of x: three mma per k-step, so
+// each product is the f32 product up to the order of the f32 sums (two terms
+// keep 16 bits and miss the one-ulp tolerance near zero).
+//   A. Warp w owns queries 16 w .. 16 w + 15: s = q k^T and do v^T into
+//      accumulator fragments, the softmax with quad reductions, expf and IEEE
+//      division, the keep mask on the fragments (short_attn_keep at i S + j,
+//      the true S), ds = p (dp - r) with r = rowsum(dp p), then dq = (ds k)
+//      scale with ds split in registers; each query's max, sum and r go to
+//      shared memory.
+//   B. Warp w owns keys 16 w .. 16 w + 15 and recomputes its transposed
+//      blocks, k q^T and v do^T (the same products as in A, operands
+//      swapped), from which p (with A's max and sum), the mask, pd and ds
+//      follow as in A; then dv = pd^T do and dk = (ds^T q) scale, pd and ds
+//      split in registers.
+// Recomputing the two score blocks costs 4 S^2 D more operations than
+// passing pd and ds through shared memory, which at S = 128 and D = 128
+// would not fit beside the four operand tiles (2 x 64 KB in f32).
+//
+// f32: plain f32 FMAs (a TF32 tensor-core product would not meet the f32
+// tolerance):
 //   1. k and v are staged in shared memory as f32 (row stride D + 1);
 //   2. a warp per query row recomputes that row's scores, softmax and keep
 //      mask in registers (at most 4 keys per lane, S <= 128), and forms dpd =
@@ -34,35 +64,32 @@
 //   3. do replaces v in shared memory: dv = pd^T do and dq = ds k, a thread
 //      per output element;
 //   4. q * scale replaces do: dk = ds^T (q * scale).
-// Plain f32 FMAs, expf and IEEE division, as the forward.  Two S x S
-// matrices and two operand tiles fill the block's shared memory: S <= 128 at
-// D = 64 (the wrapper raises where a shape does not fit).
+// expf and IEEE division.  Two S x S matrices and two operand tiles fill the
+// block's shared memory: S <= 128 at D = 64 (the wrapper raises where a shape
+// does not fit either kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_mma.cuh"
 #include "hash_dropout.cuh"
 
 namespace {
+
+using mmda::flash::bf16;
+using mmda::flash::frag_addr_nk;
+using mmda::flash::frag_addr_rows;
+using mmda::flash::kRowPad;
+using mmda::flash::ldmatrix_x4;
+using mmda::flash::ldmatrix_x4_trans;
+using mmda::flash::mma_bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxS = 128;
 constexpr int kMaxD = 128;
 constexpr int kKeysPerLane = kMaxS / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -76,28 +103,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ------------------------------------------------------------------ f32
+
 size_t smem_bytes(int S, int D) {
   return (2 * (size_t)S * (D + 1) + 2 * (size_t)S * S + (size_t)kWarps * 2 * D) *
          sizeof(float);
 }
 
-// Rows of the (S, D) matrix src into dst (row stride D + 1) as f32, each
-// value times mul.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int S, int D, float mul) {
+// Rows of the (S, D) matrix src into dst (row stride D + 1), each value
+// times mul.
+__device__ __forceinline__ void stage(float* dst, const float* src, int S, int D, float mul) {
   for (int e = threadIdx.x; e < S * D; e += kThreads) {
     const int r = e / D;
-    dst[r * (D + 1) + (e - r * D)] = to_f32(src[e]) * mul;
+    dst[r * (D + 1) + (e - r * D)] = src[e] * mul;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-short_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ bias,
-                      const int* __restrict__ seed_ptr, const T* __restrict__ d_out,
-                      T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int nh,
-                      int S, int D, float scale, float rate, float keep_scale) {
+short_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
+                          float* __restrict__ dq, float* __restrict__ dk,
+                          float* __restrict__ dv, int nh, int S, int D, float scale,
+                          float rate, float keep_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* k_s = smem;                      // (S, D + 1): k
@@ -122,8 +150,8 @@ short_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bias_b = bias + (size_t)b * S;
   for (int i = warp; i < S; i += kWarps) {
     for (int c = lane; c < D; c += 32) {
-      q_row[c] = to_f32(q[base + (size_t)i * D + c]) * scale;
-      do_row[c] = to_f32(d_out[base + (size_t)i * D + c]);
+      q_row[c] = q[base + (size_t)i * D + c] * scale;
+      do_row[c] = d_out[base + (size_t)i * D + c];
     }
     __syncwarp();
     float s[kKeysPerLane], dpd[kKeysPerLane];
@@ -189,8 +217,8 @@ short_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc_v = fmaf(pd_s[i * S + j], x_s[i * ld + c], acc_v);
       acc_q = fmaf(ds_s[j * S + i], k_s[i * ld + c], acc_q);
     }
-    dv[base + e] = from_f32<T>(acc_v);
-    dq[base + e] = from_f32<T>(acc_q * scale);
+    dv[base + e] = acc_v;
+    dq[base + e] = acc_q * scale;
   }
   __syncthreads();
 
@@ -201,23 +229,312 @@ short_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = e - j * D;
     float acc = 0.0f;
     for (int i = 0; i < S; ++i) acc = fmaf(ds_s[i * S + j], x_s[i * ld + c], acc);
-    dk[base + e] = from_f32<T>(acc);
+    dk[base + e] = acc;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
-                   const int* seed, const void* d_out, void* dq, void* dk, void* dv, int BH,
-                   int nh, int S, int D, float scale, float rate, float keep_scale,
-                   cudaStream_t stream) {
+
+// ----------------------------------------------------------------- bf16
+
+// Rows < SP and columns < DP of the row-major (S, D) bf16 matrix src into dst
+// (row stride ld = DP + kRowPad), by the block's nt threads; rows >= S and
+// columns >= D are zero.  16-byte loads where D is a multiple of 8 and src is
+// 16-byte aligned, else one element at a time.
+__device__ __forceinline__ void load_operand(bf16* dst, int ld, const bf16* src, int S, int D,
+                                             int SP, int DP, int nt) {
+  if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = DP / 8;
+    for (int i = threadIdx.x; i < SP * chunks; i += nt) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < S && c < D) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < SP * DP; i += nt) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      dst[r * ld + c] = r < S && c < D ? src[(size_t)r * D + c] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// x0, x1 as three bf16 pairs hi + mid + lo (x - hi and x - hi - mid are exact
+// in f32), packed as operand registers, the lower column in the lower half.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The 16 x SP f32 block c (C fragments of SP / 8 n8 tiles) as the three bf16
+// terms of the A operand of a product over its SP columns: a[t][kk] is term t
+// of columns 16 kk .. 16 kk + 15.
+template <int K16>
+__device__ __forceinline__ void split_operand(uint32_t (&a)[3][K16][4],
+                                              const float (&c)[2 * K16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K16; ++kk) {
+    split3(c[2 * kk][0], c[2 * kk][1], a[0][kk][0], a[1][kk][0], a[2][kk][0]);
+    split3(c[2 * kk][2], c[2 * kk][3], a[0][kk][1], a[1][kk][1], a[2][kk][1]);
+    split3(c[2 * kk + 1][0], c[2 * kk + 1][1], a[0][kk][2], a[1][kk][2], a[2][kk][2]);
+    split3(c[2 * kk + 1][2], c[2 * kk + 1][3], a[0][kk][3], a[1][kk][3], a[2][kk][3]);
+  }
+}
+
+// The two 16 x SP blocks a b^T and a2 b2^T (rows row0 .. of the tiles a_s and
+// a2_s, all SP rows of b_s and b2_s; the product runs over DP columns).
+template <int N8>
+__device__ __forceinline__ void scores(float (&acc)[N8][4], float (&acc2)[N8][4],
+                                       const bf16* a_s, const bf16* b_s, const bf16* a2_s,
+                                       const bf16* b2_s, int ld, int DP, int row0, int lane) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] = 0.0f;
+      acc2[j][e] = 0.0f;
+    }
+  }
+  for (int k0 = 0; k0 < DP; k0 += 16) {
+    uint32_t a[4], a2[4];
+    ldmatrix_x4(a, frag_addr_rows(a_s, ld, row0, k0, lane));
+    ldmatrix_x4(a2, frag_addr_rows(a2_s, ld, row0, k0, lane));
+#pragma unroll
+    for (int j = 0; j < N8; j += 2) {
+      uint32_t b[4], b2[4];
+      ldmatrix_x4(b, frag_addr_nk(b_s, ld, 8 * j, k0, lane));
+      ldmatrix_x4(b2, frag_addr_nk(b2_s, ld, 8 * j, k0, lane));
+      mma_bf16(acc[j], a, b[0], b[1]);
+      mma_bf16(acc[j + 1], a, b[2], b[3]);
+      mma_bf16(acc2[j], a2, b2[0], b2[1]);
+      mma_bf16(acc2[j + 1], a2, b2[2], b2[3]);
+    }
+  }
+}
+
+// Rows row0 + g and row0 + g + 8 (< S) of the row-major (S, D) bf16 matrix
+// dst get (x a) b times mul, columns < D: x the 16 x SP f32 block held as its
+// three bf16 terms a, b all SP rows of the row-major tile b_s; 16 columns at a
+// time.
+template <int K16>
+__device__ __forceinline__ void product_out(bf16* dst, const uint32_t (&a)[3][K16][4],
+                                            const bf16* b_s, int ld, int S, int D, int DP,
+                                            int row0, float mul, int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  for (int c0 = 0; c0 < DP; c0 += 16) {
+    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kk = 0; kk < K16; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, frag_addr_rows(b_s, ld, 16 * kk, c0, lane));
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        mma_bf16(acc[0], a[t][kk], b[0], b[1]);
+        mma_bf16(acc[1], a[t][kk], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + g + 8 * half;
+      if (r >= S) continue;
+      bf16* row = dst + (size_t)r * D;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = c0 + 8 * jj + t2;
+        const float x0 = acc[jj][2 * half] * mul, x1 = acc[jj][2 * half + 1] * mul;
+        if ((D & 1) == 0 && c + 1 < D) {
+          *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < D) row[c] = __float2bfloat16_rn(x0);
+          if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+template <int SP>
+size_t mma_smem_bytes(int DP) {
+  // q, k, v, do; per query: max, sum, r; per key: the bias
+  return 4 * (size_t)SP * (DP + kRowPad) * sizeof(bf16) + 4 * SP * sizeof(float);
+}
+
+template <int SP>
+__global__ void __launch_bounds__(2 * SP)
+short_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int nh, int S, int D, int DP, float scale,
+                          float rate, float keep_scale) {
+  constexpr int NT = 2 * SP;     // SP / 16 warps
+  constexpr int N8 = SP / 8;     // n8 tiles of a 16 x SP block
+  constexpr int K16 = SP / 16;   // k16 slices of it as an operand
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = DP + kRowPad;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + SP * ld;
+  bf16* v_s = k_s + SP * ld;
+  bf16* do_s = v_s + SP * ld;
+  float* m_s = reinterpret_cast<float*>(do_s + SP * ld);   // per query: row max,
+  float* l_s = m_s + SP;                                   // row sum,
+  float* r_s = l_s + SP;                                   // rowsum(dp p)
+  float* bias_s = r_s + SP;                                // per key; -inf beyond S
+
+  const int bh = blockIdx.x;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  load_operand(q_s, ld, q + base, S, D, SP, DP, NT);
+  load_operand(k_s, ld, k + base, S, D, SP, DP, NT);
+  load_operand(v_s, ld, v + base, S, D, SP, DP, NT);
+  load_operand(do_s, ld, d_out + base, S, D, SP, DP, NT);
+  for (int j = threadIdx.x; j < SP; j += NT) bias_s[j] = j < S ? bias[(size_t)b * S + j] : -INFINITY;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);   // the warp's queries (A), keys (B)
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const bool drop = rate > 0.0f;
+  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+
+  // A. [j][e] is query row0 + g + 8 (e / 2), key 8 j + t2 + e % 2
+  {
+    float s[N8][4], dp[N8][4];
+    scores<N8>(s, dp, q_s, k_s, do_s, v_s, ld, DP, row0, lane);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bias_s[8 * j + t2 + (e & 1)]);
+        m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row0 + g + 8 * (e >> 1), jk = 8 * j + t2 + (e & 1);
+        s[j][e] = s[j][e] / l[e >> 1];   // p
+        if (drop) {
+          dp[j][e] *= mmda::short_attn_keep(hbase, (uint32_t)(i * S + jk), rate) ? keep_scale
+                                                                                  : 0.0f;
+        }
+        r[e >> 1] += dp[j][e] * s[j][e];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      r[hh] += __shfl_xor_sync(0xffffffffu, r[hh], 1);
+      r[hh] += __shfl_xor_sync(0xffffffffu, r[hh], 2);
+      if (t2 == 0) {
+        m_s[row0 + g + 8 * hh] = m[hh];
+        l_s[row0 + g + 8 * hh] = l[hh];
+        r_s[row0 + g + 8 * hh] = r[hh];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * (dp[j][e] - r[e >> 1]);   // ds
+    }
+    uint32_t ds_a[3][K16][4];
+    split_operand<K16>(ds_a, s);
+    product_out<K16>(dq + base, ds_a, k_s, ld, S, D, DP, row0, scale, lane);
+  }
+  __syncthreads();
+
+  // B. [j][e] is key row0 + g + 8 (e / 2), query 8 j + t2 + e % 2
+  float st[N8][4], dpt[N8][4];
+  scores<N8>(st, dpt, k_s, q_s, v_s, do_s, ld, DP, row0, lane);
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+    const int i = 8 * j + t2;   // the lane's queries i, i + 1
+    const float2 m2 = *reinterpret_cast<const float2*>(m_s + i);
+    const float2 l2 = *reinterpret_cast<const float2*>(l_s + i);
+    const float2 r2 = *reinterpret_cast<const float2*>(r_s + i);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = e & 1, jk = row0 + g + 8 * (e >> 1);
+      float p = 0.0f;
+      if (i + o < S) {
+        const float sv = __fadd_rn(__fmul_rn(st[j][e], scale), bias_s[jk]);
+        p = expf(sv - (o ? m2.y : m2.x)) / (o ? l2.y : l2.x);
+      }
+      float keep = 1.0f;
+      if (drop) {
+        keep = mmda::short_attn_keep(hbase, (uint32_t)((i + o) * S + jk), rate) ? keep_scale
+                                                                               : 0.0f;
+      }
+      st[j][e] = p * keep;                                      // pd
+      dpt[j][e] = p * (dpt[j][e] * keep - (o ? r2.y : r2.x));   // ds
+    }
+  }
+  {
+    uint32_t pd_a[3][K16][4];
+    split_operand<K16>(pd_a, st);
+    product_out<K16>(dv + base, pd_a, do_s, ld, S, D, DP, row0, 1.0f, lane);
+  }
+  uint32_t ds_a[3][K16][4];
+  split_operand<K16>(ds_a, dpt);
+  product_out<K16>(dk + base, ds_a, q_s, ld, S, D, DP, row0, scale, lane);
+}
+
+template <int SP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
+                       const int* seed, const void* d_out, void* dq, void* dk, void* dv, int BH,
+                       int nh, int S, int D, float scale, float rate, float keep_scale,
+                       cudaStream_t stream) {
+  const int DP = (D + 15) / 16 * 16;
+  const size_t bytes = mma_smem_bytes<SP>(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      short_attn_bwd_mma_kernel<SP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  short_attn_bwd_mma_kernel<SP><<<BH, 2 * SP, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, seed, static_cast<const bf16*>(d_out), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh, S, D, DP, scale, rate, keep_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
+                       const int* seed, const void* d_out, void* dq, void* dk, void* dv, int BH,
+                       int nh, int S, int D, float scale, float rate, float keep_scale,
+                       cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
-      short_attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      short_attn_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  short_attn_bwd_kernel<T><<<BH, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      seed, static_cast<const T*>(d_out), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), nh, S, D, scale, rate, keep_scale);
+  short_attn_bwd_f32_kernel<<<BH, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bias, seed, static_cast<const float*>(d_out), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), nh, S, D, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -227,8 +544,8 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // q, k, v, d_out, dq, dk, dv (B, nh, S, D): bf16 when is_bf16 else f32,
-// contiguous; 1 <= S <= 128, 1 <= D <= 128, and the shape's shared memory
-// within the card's opt-in limit.  scale, rate and keep_scale as for
+// contiguous; 1 <= S <= 128, 1 <= D <= 128, and (f32) the shape's shared
+// memory within the card's opt-in limit.  scale, rate and keep_scale as for
 // mmda_short_attn_fwd; seed (device int32) is read only when rate > 0.
 int mmda_short_attn_bwd(const void* q, const void* k, const void* v, const float* bias,
                         const int* seed, const void* d_out, void* dq, void* dk, void* dv,
@@ -238,12 +555,28 @@ int mmda_short_attn_bwd(const void* q, const void* k, const void* v, const float
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return (int)launch<__nv_bfloat16>(q, k, v, bias, seed, d_out, dq, dk, dv, B * nh, nh, S,
-                                      D, scale, rate, keep_scale, st);
+  const int BH = B * nh;
+  if (!is_bf16) {
+    return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D, scale, rate,
+                           keep_scale, st);
   }
-  return (int)launch<float>(q, k, v, bias, seed, d_out, dq, dk, dv, B * nh, nh, S, D, scale,
-                            rate, keep_scale, st);
+  switch ((S + 15) / 16) {
+#define MMDA_SHORT_BWD_CASE(n)                                                              \
+  case n:                                                                                   \
+    return (int)launch_mma<16 * n>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D,    \
+                                   scale, rate, keep_scale, st);
+    MMDA_SHORT_BWD_CASE(1)
+    MMDA_SHORT_BWD_CASE(2)
+    MMDA_SHORT_BWD_CASE(3)
+    MMDA_SHORT_BWD_CASE(4)
+    MMDA_SHORT_BWD_CASE(5)
+    MMDA_SHORT_BWD_CASE(6)
+    MMDA_SHORT_BWD_CASE(7)
+    MMDA_SHORT_BWD_CASE(8)
+#undef MMDA_SHORT_BWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

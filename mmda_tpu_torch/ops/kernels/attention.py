@@ -8,10 +8,11 @@ mask drawn from the positional hash of `hash_dropout` (regenerated by the
 backward), and a blockwise backward from the saved logsumexp.  Three kernels:
 `csrc/flash_fwd.cu` (the TPU package's `_flash_kernel` and its ragged twin),
 `csrc/flash_bwd_dq.cu` (`_bwd_dq_kernel`), `csrc/flash_bwd_dkv.cu`
-(`_bwd_dkv_kernel`); one kernel each serves any S.  The two backward kernels
-run their bf16 products on the tensor cores and their f32 products as f32
-FMAs, and take do in the operand type: their wrappers round the f32 d_out to
-it once.
+(`_bwd_dkv_kernel`); one kernel each serves any S.  All three run their bf16
+products on the tensor cores (`mma.sync`, bf16 operands, f32 accumulators,
+exp as `ex2.approx` in log2 units) and their f32 products as f32 FMAs (with
+`expf`).  The backward kernels take do in the operand type: their wrappers
+round the f32 d_out to it once.
 
 The rounding sites, the same in the kernels and in the plain versions:
 products of operands in the input type (f32 or bf16) accumulated in f32;

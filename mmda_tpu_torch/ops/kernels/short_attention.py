@@ -13,7 +13,15 @@ The rounding sites, the same in the kernels and in the plain versions: q, k,
 v widened to f32 and q multiplied by f32(1 / sqrt(hd)) before the product;
 every product and the softmax in f32; each output rounded once to the input
 type.  Nothing is rounded in between (the flash kernels round the dropped
-probabilities and ds to the operand type; these do not).
+probabilities and ds to the operand type; these do not).  The backward
+kernel's bf16 instantiation runs its products on the tensor cores and keeps
+that arithmetic: q k^T and do v^T straight from the bf16 inputs (exact
+products, f32 sums), `scale` after q k^T and after ds^T q instead of on q
+first, and each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo:
+all its 24 bits) times the bf16 input; `expf` and IEEE division as in f32.
+It stays within one bf16 ulp of the plain version
+(`tests/test_torch_short_attention.py` models it on the CPU).  The forward
+and the f32 backward are f32 FMAs.
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions.
 There is no other route: a CUDA input that a kernel cannot take raises (the

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 
 from mmda_tpu.ops.pallas import short_attention as jsa
 from mmda_tpu_torch.ops.kernels import short_attention as tsa
-from mmda_tpu_torch.ops.kernels.hash_dropout import short_attention_keep_mask
+from mmda_tpu_torch.ops.kernels.hash_dropout import keep_scale, short_attention_keep_mask
 
 # The suite runs in several processes at once: one intra-op thread each keeps
 # torch's CPU thread pools from oversubscribing the cores.
@@ -159,3 +159,62 @@ def test_kernel_takes_shapes_that_fit_one_block(S, hd, takes):
     fit in 227 KB; a CUDA input beyond that raises (names attn_impl="flash")
     where a CPU one takes the plain version."""
     assert tsa.kernel_takes(S, hd) == takes
+
+
+def _split3(x):
+    """x (f32) as three bf16 terms hi + mid + lo, each widened back to f32:
+    x - hi and x - hi - mid are exact in f32, and the three hold x's 24 bits."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, (x - hi - mid).bfloat16().float()
+
+
+def _split_matmul(x, b):
+    """x @ b as the tensor-core kernels form it: each bf16 term of x times the
+    bf16-exact b, every product exact and every sum in f32."""
+    return sum(torch.matmul(t, b) for t in _split3(x))
+
+
+def _tensor_core_model(q, k, v, bias, seed, g, rate):
+    """(o, dq, dk, dv) with the arithmetic of the bf16 kernels on the tensor
+    cores (csrc/short_attn_bwd.cu): products of two bf16 inputs straight in
+    f32, `scale` after q k^T and after ds^T q, the f32 intermediates pd and
+    ds split into three bf16 terms, the softmax, mask and ds in f32, each
+    output rounded once to bf16."""
+    B, nh, S, hd = q.shape
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    scale = tsa.softmax_scale(hd)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    p = p / p.sum(-1, keepdim=True)
+    keep = torch.ones_like(p)
+    if rate > 0.0:
+        b = torch.arange(B).reshape(B, 1, 1, 1)
+        h = torch.arange(nh).reshape(1, nh, 1, 1)
+        keep = short_attention_keep_mask(S, rate, seed, b, h) * keep_scale(rate)
+    pd = p * keep
+    dp = torch.matmul(gf, vf.transpose(-1, -2)) * keep
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    out = (_split_matmul(pd, vf), _split_matmul(ds, kf) * scale,
+           _split_matmul(ds.transpose(-1, -2), qf) * scale,
+           _split_matmul(pd.transpose(-1, -2), gf))
+    return tuple(t.bfloat16() for t in out)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [16, 64, 100])
+@pytest.mark.parametrize("S", [18, 50, 66, 128])
+def test_tensor_core_arithmetic_meets_the_bf16_tolerance(S, hd, rate):
+    """The bf16 kernels' design on the CPU: three bf16 terms per f32
+    intermediate and `scale` taken after the products keep o, dq, dk and dv
+    within one bf16 ulp (plus 1e-6) of the plain versions, which multiply q
+    by `scale` first and take every product on f32 operands."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(2, 3, S, hd, seed=S * hd))
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+    seed = torch.tensor([4321], dtype=torch.int32)
+    got = _tensor_core_model(q, k, v, bias, seed, g, rate)
+    want = (tsa.short_attention_fwd_reference(q, k, v, bias, seed, rate),
+            *tsa.short_attention_bwd_reference(q, k, v, bias, seed, g, rate))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), err_msg=name,
+                                   **BF16_TOL)
