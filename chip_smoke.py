@@ -2,15 +2,13 @@
 """Drive the PyTorch/CUDA port (mmda_tpu_torch) on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only [lstm gru ln attn short multi]
     python3 chip_smoke.py --first-calls
 
-With no argument, every phase below.  `--kernels-only` stops after phase 3
-(the named groups of kernel checks, all by default) and `--first-calls` after
-phase 2, calling each attention kernel once in the fresh process (f32 flash
-through autograd against the CPU, the bf16 flash kernels and both short
-backward instantiations against their plain versions): a small target for
-compute-sanitizer.  Neither prints the result lines.
+With no argument, every phase below.  `--first-calls` stops after phase 2,
+calling each attention kernel once in the fresh process (f32 flash through
+autograd against the CPU, the bf16 flash kernels and both short backward
+instantiations against their plain versions): a small target for
+compute-sanitizer.  It prints no result lines.
 
 Phases (each prints one line or more; any failure exits non-zero before
 the result):
@@ -401,14 +399,16 @@ def cudnn_fwd(x_proj, w_hh_t, lengths, b_hh=None):
 
 def steady_on_cpu(run) -> list:
     """run() (a list of CPU tensors or arrays) until two calls in a row give
-    the same bits, at most four calls.  On the card's host a process's first
-    CPU computation of a reference has been seen to differ from every later
-    one by 3.4e-5 (PERF.md section 7); a CPU reference is the CPU's steady
-    result."""
+    the same bits, at most four calls; the tests take their CPU references
+    through it too.  On the card's host a process's first CPU `torch.exp`
+    has been seen to differ from its later ones, and a reference with it by
+    3.4e-5 (PERF.md section 7, an open fault of the CPU path); a CPU
+    reference is the CPU's steady result."""
     last = run()
     for _ in range(3):
         again = run()
-        if all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(last, again)):
+        if all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+               for a, b in zip(last, again)):
             return again
         last = again
     raise AssertionError("the CPU reference gives different bits on every call")
@@ -1937,9 +1937,16 @@ def first_calls(kattn, kshort, device) -> int:
     to its second, bit for bit) against the same on the CPU (1e-5 + 1e-4
     |ref|; the case that once disagreed on a first call), the bf16 flash
     kernels and both short backward kernels against their plain versions on
-    the card.  One line, which also gives how far the CPU's first call of the
-    reference lay from its steady result; raises where a value disagrees."""
-    out = {}
+    the card.  One line, which also gives how far the process's first CPU
+    `torch.exp` lay from its second on the same input (taken first, so the
+    reference after it runs with exp warm), how far the CPU's first call of
+    the reference lay from its steady result, and the CPU capability torch
+    dispatches to; raises where a value disagrees."""
+    out = {"cpu_capability": torch.backends.cpu.get_cpu_capability()}
+    x = torch.from_numpy(-np.abs(np.random.default_rng(0).normal(size=(3, 70, 70)))
+                         .astype(np.float32))   # like scores less their row max
+    exp_first = torch.exp(x)
+    out["cpu_first_exp_vs_second"] = (exp_first - torch.exp(x)).abs().max().item()
     cpu = attn_inputs(3, 70, 16, torch.float32, 1, "cpu")
 
     def run(dev):
@@ -1980,13 +1987,9 @@ def first_calls(kattn, kshort, device) -> int:
     return 0
 
 
-KERNEL_GROUPS = ("lstm", "gru", "ln", "attn", "short", "multi")
-
-
 def main() -> int:
     args = sys.argv[1:]
-    unknown = set(args) - {"--kernels-only", "--first-calls", *KERNEL_GROUPS}
-    if unknown or (set(args) & set(KERNEL_GROUPS) and "--kernels-only" not in args):
+    if args not in ([], ["--first-calls"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -2029,22 +2032,15 @@ def main() -> int:
     if "--first-calls" in args:
         return first_calls(kattn, kshort, device)
 
-    groups = {"lstm": lambda: {"lstm_fwd": check_lstm_kernel(klstm, device),
-                               "lstm_bwd": check_lstm_bwd_kernel(klstm, device)},
-              "gru": lambda: dict(zip(kgru.SOURCES, check_gru_kernels(kgru, device))),
-              "ln": lambda: dict(zip(kln.SOURCES, check_ln_kernels(kln, hashes.keep_mask,
-                                                                    device))),
-              "attn": lambda: check_attn_kernels(kattn, hashes, device),
-              "short": lambda: check_short_kernels(kshort, hashes, device),
-              "multi": lambda: dict(zip(kmulti.SOURCES, check_multi_kernels(kmulti, klstm,
-                                                                            device)))}
-    if "--kernels-only" in args:
-        for group in [a for a in args if a in groups] or KERNEL_GROUPS:
-            groups[group]()
-        return 0
-    checks = {}
-    for check in groups.values():
-        checks.update(check())
+    checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
+              "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
+    checks["gru_fwd"], checks["gru_bwd"] = check_gru_kernels(kgru, device)
+    checks["ln_dropout_fwd"], checks["ln_dropout_bwd"] = check_ln_kernels(
+        kln, hashes.keep_mask, device)
+    checks.update(check_attn_kernels(kattn, hashes, device))
+    checks.update(check_short_kernels(kshort, hashes, device))
+    checks["lstm_multi_fwd"], checks["lstm_multi_bwd"] = check_multi_kernels(kmulti, klstm,
+                                                                             device)
 
     cfg = Config()                       # the serving default, on cuda
     t0 = time.perf_counter()

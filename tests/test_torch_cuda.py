@@ -22,6 +22,10 @@ from mmda_tpu_torch.ops.kernels import lstm as klstm
 from mmda_tpu_torch.ops.kernels import lstm_multi as kmulti
 from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import steady_on_cpu  # noqa: E402  (the script's CPU-reference policy)
+
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
 
@@ -31,20 +35,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     return torch.device("cuda")
-
-
-def _steady_on_cpu(run):
-    """run() (a list of CPU tensors) until two calls in a row give the same
-    bits, at most four calls.  On the card's host a process's first CPU
-    computation of a reference has been seen to differ from every later one
-    by 3.4e-5 (PERF.md section 7); a CPU reference is the CPU's steady result."""
-    last = run()
-    for _ in range(3):
-        again = run()
-        if all(torch.equal(a, b) for a, b in zip(last, again)):
-            return again
-        last = again
-    raise AssertionError("the CPU reference gives different bits on every call")
 
 
 def _inputs(T, B, H, seed, device):
@@ -113,7 +103,7 @@ def test_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
         g = torch.autograd.grad((ys * ys).sum() + h.sum(), [x, w])
         return [t.detach().cpu() for t in (ys, h, *g)]
 
-    for a, b in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         torch.testing.assert_close(a, b, **TOL)
 
 
@@ -170,7 +160,7 @@ def test_gru_scan_gradients_on_the_card_match_the_cpu(cuda_device):
         g = torch.autograd.grad((ys * ys).sum() + h.sum(), [x, w, b])
         return [t.detach().cpu() for t in (ys, h, *g)]
 
-    for a, b_ in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         torch.testing.assert_close(a, b_, **TOL)
 
 
@@ -255,7 +245,7 @@ def test_ln_dropout_autograd_on_the_card_matches_the_cpu(cuda_device):
         grads = torch.autograd.grad(out, leaves, dout)
         return [t.detach().cpu() for t in (out, *grads)]
 
-    for a, b_ in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         torch.testing.assert_close(a, b_, **TOL)
 
 
@@ -401,7 +391,7 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
         o = kattn.flash_attention(*leaves, bias, s, 0.2)
         return [t.detach().cpu() for t in (o, *torch.autograd.grad(o, leaves, g))]
 
-    for a, b_ in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         _close(b_, a, 1e-5, 1e-4)
 
 
@@ -500,7 +490,7 @@ def test_short_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
         o = kshort.short_attention(*leaves, bias, s, 0.2)
         return [t.detach().cpu() for t in (o, *torch.autograd.grad(o, leaves, g))]
 
-    for a, b_ in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         _close(b_, a, 1e-5, 1e-5)
 
 
@@ -521,10 +511,9 @@ def test_attention_kernels_agree_on_a_fresh_process_first_call(cuda_device):
     through autograd equal bit for bit to its second launch and within
     1e-5 + 1e-4 |ref| of the CPU's steady result; the bf16 flash kernels and
     both short backward instantiations against their plain versions)."""
-    root = pathlib.Path(__file__).resolve().parents[1]
     for _ in range(3):
-        run = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--first-calls"],
-                             cwd=root, capture_output=True, text=True, timeout=600)
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--first-calls"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
         assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
         assert "[first-calls]" in run.stdout
 
@@ -577,7 +566,7 @@ def test_multi_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
         grads = torch.autograd.grad(ys + h, leaves, dys + dh)
         return [t.detach().cpu() for t in ys + h + list(grads)]
 
-    for a, b_ in zip(_steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
+    for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         torch.testing.assert_close(b_, a, **TOL)
 
 
