@@ -6,8 +6,8 @@
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
-autograd against the CPU, the bf16 flash kernels and both short backward
-instantiations against their plain versions): a small target for
+autograd against the CPU, the bf16 flash kernels and both instantiations of
+the two short kernels against their plain versions): a small target for
 compute-sanitizer.  It prints no result lines.
 
 Phases (each prints one line or more; any failure exits non-zero before
@@ -22,10 +22,11 @@ the result):
    BPTT backwards (f32, |err| <= 1e-5 + 1e-5 |ref|: summation order only),
    with CUDA-event times of each kernel, its plain version and one cuDNN
    `nn.LSTM` / `nn.GRU` call (its forward, or its backward) on the same
-   inputs, beside the kernel's bound.  The fused residual + dropout +
-   LayerNorm forward and backward in f32 and bf16: the keep mask equal bit
-   for bit to the plain hash, outputs within 1e-5 (f32) or one bf16 ulp,
-   dscale and dbias within 1e-4; timed beside the composition
+   inputs, beside the kernel's bound; the LSTM backward's time also split
+   into its gate pass, its serial BPTT pass and its dW passes.  The fused
+   residual + dropout + LayerNorm forward and backward in f32 and bf16: the
+   keep mask equal bit for bit to the plain hash, outputs within 1e-5 (f32)
+   or one bf16 ulp, dscale and dbias within 1e-4; timed beside the composition
    `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`.  The three
    blockwise attention kernels (forward, dq, dk/dv) at S = 130, 514 and 1026
    and at D = 16, in f32 (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus
@@ -39,9 +40,9 @@ the result):
    short attention kernels at (B, nh, S, hd) = (64, 12, S, 64) for S = 18,
    34, 50, 66 and at (3, 4, 10, 8), f32 (1e-5 + 1e-5 |ref|) and bf16 (one
    bf16 ulp), rate 0 and 0.1, masked tails, their keep mask bit for bit in
-   f32 and bf16, two backward launches giving the same bits, the HMMA count
-   of the backward's bf16 kernel (none fails), S = 130 and 514 refused;
-   timed at (64, 12, 50, 64) bf16 beside SDPA.  The two
+   f32 and bf16, two launches of each giving the same bits, the HMMA count
+   of both bf16 kernels (none fails), S = 130 and 514 refused; timed at
+   (64, 12, 50, 64) bf16 beside SDPA.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
    35, 35, 74, 74 against their plain versions and four single-direction
    calls (1e-5 + 1e-5 |ref|), timed beside those four calls and cuDNN;
@@ -167,7 +168,7 @@ TRAIN_CONFIGS = {
     "lstm": {"options": {"attn_impl": "xla"},
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
              "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL},
-             "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw")},
+             "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw")},
     "gru": {"options": {"attn_impl": "xla", "rnncell": "gru", "fused_ln_dropout": True},
             "dropout_on": True,
             "per_step": {"gru_fwd": LAUNCHES_PER_CALL, "gru_bwd": LAUNCHES_PER_CALL,
@@ -185,15 +186,15 @@ TRAIN_CONFIGS = {
               "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
                            "short_attn_fwd": BERT_LAYERS, "short_attn_bwd": BERT_LAYERS},
               "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS},
-              "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw", "short_attn_fwd",
+              "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "short_attn_fwd",
                           "short_attn_bwd")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
                           **dict.fromkeys(FLASH, BERT_LAYERS)},
              "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL},
-             "profile": ("lstm_fwd", "lstm_bptt", "lstm_dw", "flash_fwd", "flash_bwd_dq",
-                         "flash_bwd_dkv")},
+             "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "flash_fwd",
+                         "flash_bwd_dq", "flash_bwd_dkv")},
 }
 # (BH, S, D) of the attention checks: S no multiple of the 64-wide tiles, the
 # long step's S = 514, S > 1024 (where inference resolves to flash), and the
@@ -267,14 +268,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10):
-    """Device time of one fn() call in ms from torch.profiler over reps
-    calls: for every device op name, the median duration of its events times
-    its launches per call (its event count over reps, rounded, at least 1),
-    summed.  The profiler can lose events of a window (seen on the card: 6 of
-    10 kernel events, once 1 of 10), and launches of one name take the same
-    time, so medians by name survive that where a sum over all events does
-    not.  None where the profiler shows no device op."""
+def device_ms_by_name(fn, reps: int = 10) -> dict:
+    """{device op name: ms per fn() call} from torch.profiler over reps calls:
+    the median duration of the name's events times its launches per call
+    (its event count over reps, rounded, at least 1).  The profiler can lose
+    events of a window (seen on the card: 6 of 10 kernel events, once 1 of
+    10), and launches of one name take the same time, so medians by name
+    survive that where a sum over all events does not.  Empty where the
+    profiler shows no device op."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -287,10 +288,15 @@ def device_ms(fn, reps: int = 10):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not by_name:
-        return None
-    return sum(statistics.median(us) * max(1, round(len(us) / reps))
-               for us in by_name.values()) / 1e3
+    return {name: statistics.median(us) * max(1, round(len(us) / reps)) / 1e3
+            for name, us in by_name.items()}
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time of one fn() call in ms: `device_ms_by_name` summed over
+    the names; None where the profiler shows no device op."""
+    by_name = device_ms_by_name(fn, reps)
+    return sum(by_name.values()) if by_name else None
 
 
 def queue_ms(fn, reps: int = 20) -> tuple:
@@ -512,6 +518,23 @@ def cudnn_bwd(x_proj, w_hh_t, lengths, dys, dh, b_hh=None):
     return call, call()[1].t()
 
 
+LSTM_BWD_PARTS = {"gate_pass": "lstm_gates", "bptt": "lstm_bptt", "dw": "lstm_dw"}
+
+
+def lstm_bwd_parts(kernel, tries: int = 3) -> dict:
+    """The device ms of one `lstm_bwd` call by its kernels: the gate pass,
+    the serial BPTT pass and the two dW passes (profiler medians by name).
+    A profiler window that lost every event of a part is taken again, at
+    most `tries` times; a part still missing is "not measured"."""
+    for _ in range(tries):
+        by_name = device_ms_by_name(kernel)
+        parts = {part: sum(ms for name, ms in by_name.items() if key in name)
+                 for part, key in LSTM_BWD_PARTS.items()}
+        if all(parts.values()):
+            return parts
+    return {part: ms or "not measured" for part, ms in parts.items()}
+
+
 def check_lstm_bwd_kernel(klstm, device) -> dict:
     rows, worst = [], 0.0
     for T, B, H in CHECK_SHAPES:
@@ -535,10 +558,14 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
         dys = (dys * m[..., None]).contiguous()   # a packed sequence has no padded outputs
         call, dw_lib = cudnn_bwd(x, w, lengths, dys, dh)
         dw_k = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh)[1]
+
+        def kernel():
+            return klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh)
+
         row = {"T": T, "B": B, "H": H,
-               **kernel_times(lambda: klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh),
-                              lambda: klstm.lstm_recurrence_bwd_reference(
-                                  x, w, m, ys, cs, dys, dh), call, 3, 1),
+               **kernel_times(kernel, lambda: klstm.lstm_recurrence_bwd_reference(
+                   x, w, m, ys, cs, dys, dh), call, 3, 1),
+               "parts_ms": lstm_bwd_parts(kernel),
                "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(),
                **lstm_bwd_bound(T, B, H, m)}
         timed.append(row)
@@ -1080,8 +1107,8 @@ def check_short_kernels(kshort, hashes, device) -> dict:
     for B, nh, S, seed in SHORT_MASKS:
         for dtype in (torch.float32, torch.bfloat16):
             check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype)
-    # the bf16 backward runs on the tensor cores: count them in the SASS
-    sass = tensor_core_counts(["short_attn_bwd"])
+    # both bf16 kernels run on the tensor cores: count them in the SASS
+    sass = tensor_core_counts(names)
     log("3 short-sass", tensor_core_instructions=sass)
     rows = {k: [] for k in names}
     seed = torch.tensor([12345], dtype=torch.int32, device=device)
@@ -1092,6 +1119,8 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             for rate in (0.0, ATTN_RATE):
                 where = f"(B,nh,S,hd)={(B, nh, S, hd)} {dtype} rate={rate}"
                 o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+                if not torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate)):
+                    raise AssertionError(f"two forward launches differ at {where}")
                 grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
                 again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
@@ -1122,7 +1151,7 @@ def check_short_kernels(kshort, hashes, device) -> dict:
 
     errs = {k: {d: worst(k, d) for d in ("float32", "bfloat16")} for k in names}
     log("3 short-kernels-vs-plain", checks=len(rows["short_attn_fwd"]),
-        mask="equal bit for bit, f32 and bf16", repeat="the same bits twice, backward",
+        mask="equal bit for bit, f32 and bf16", repeat="the same bits twice, both kernels",
         max_abs_err=errs, tol={"float32": SHORT_F32_TOL, "bfloat16": SHORT_BF16_TOL},
         refused=[r["S"] for r in refused])
 
@@ -1573,7 +1602,7 @@ def train_timing(trainer, counts, kind: str, device, without=()) -> dict:
 
 
 def device_profile(run, wall_calls: int, device,
-                   name_filter=("lstm_fwd", "lstm_bptt", "lstm_dw")):
+                   name_filter=("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw")):
     """torch.profiler over `run()` (which makes wall_calls calls): device
     busy ms per call, the card's idle share of the wall time, and the
     kernels that take the most."""
@@ -1936,12 +1965,12 @@ def first_calls(kattn, kshort, device) -> int:
     process: the f32 flash path through autograd (its first launches equal
     to its second, bit for bit) against the same on the CPU (1e-5 + 1e-4
     |ref|; the case that once disagreed on a first call), the bf16 flash
-    kernels and both short backward kernels against their plain versions on
-    the card.  One line, which also gives how far the process's first CPU
-    `torch.exp` lay from its second on the same input (taken first, so the
-    reference after it runs with exp warm), how far the CPU's first call of
-    the reference lay from its steady result, and the CPU capability torch
-    dispatches to; raises where a value disagrees."""
+    kernels and both instantiations of the two short kernels against their
+    plain versions on the card.  One line, which also gives how far the
+    process's first CPU `torch.exp` lay from its second on the same input
+    (taken first, so the reference after it runs with exp warm), how far the
+    CPU's first call of the reference lay from its steady result, and the
+    CPU capability torch dispatches to; raises where a value disagrees."""
     out = {"cpu_capability": torch.backends.cpu.get_cpu_capability()}
     x = torch.from_numpy(-np.abs(np.random.default_rng(0).normal(size=(3, 70, 70)))
                          .astype(np.float32))   # like scores less their row max
@@ -1978,6 +2007,10 @@ def first_calls(kattn, kshort, device) -> int:
         max_err(zip(("dq", "dk", "dv"), (dq, dk, dv), want), ATTN_BF16_TOL, "first call"))
     for dtype, tol in ((torch.float32, SHORT_F32_TOL), (torch.bfloat16, SHORT_BF16_TOL)):
         q, k, v, g, bias = short_inputs(4, 12, 50, 64, dtype, 3, device)
+        o = kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
+        out[f"short_fwd_{str(dtype)[6:]}"] = max_err(
+            [("o", o, kshort.short_attention_fwd_reference(q, k, v, bias, seed, ATTN_RATE))],
+            tol, "first call")
         grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE)
         want = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE)
         out[f"short_bwd_{str(dtype)[6:]}"] = max_err(zip(("dq", "dk", "dv"), grads, want), tol,
@@ -2193,7 +2226,8 @@ def main() -> int:
                if "max_abs_err_bf16" in checks[name] else {}),
             **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
                if "sass" in checks[name] else {}),
-            **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {})})
+            **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {}),
+            **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {})})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"

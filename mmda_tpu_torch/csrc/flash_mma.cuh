@@ -1,7 +1,8 @@
 // Shared by the bf16 kernels of flash_fwd.cu, flash_bwd_dq.cu,
-// flash_bwd_dkv.cu and short_attn_bwd.cu: bf16 operand tiles in shared memory
-// filled by cp.async, and the tensor-core product mma.sync.m16n8k16 (bf16
-// operands, f32 accumulators) fed by ldmatrix, all as inline PTX.
+// flash_bwd_dkv.cu, short_attn_fwd.cu and short_attn_bwd.cu: bf16 operand
+// tiles in shared memory filled by cp.async, and the tensor-core product
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulators) fed by ldmatrix, all as
+// inline PTX.
 //
 // Shared-memory tiles: rows of D bf16 with kRowPad = 8 bf16 (16 bytes) of
 // padding, so a row stride of 2 D + 16 bytes.  ldmatrix has 8 lanes give the

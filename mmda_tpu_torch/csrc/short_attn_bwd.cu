@@ -74,6 +74,7 @@
 
 #include "flash_mma.cuh"
 #include "hash_dropout.cuh"
+#include "short_mma.cuh"
 
 namespace {
 
@@ -82,8 +83,10 @@ using mmda::flash::frag_addr_nk;
 using mmda::flash::frag_addr_rows;
 using mmda::flash::kRowPad;
 using mmda::flash::ldmatrix_x4;
-using mmda::flash::ldmatrix_x4_trans;
 using mmda::flash::mma_bf16;
+using mmda::short_mma::load_operand;
+using mmda::short_mma::product_out;
+using mmda::short_mma::split_operand;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -236,58 +239,6 @@ short_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
 
 // ----------------------------------------------------------------- bf16
 
-// Rows < SP and columns < DP of the row-major (S, D) bf16 matrix src into dst
-// (row stride ld = DP + kRowPad), by the block's nt threads; rows >= S and
-// columns >= D are zero.  16-byte loads where D is a multiple of 8 and src is
-// 16-byte aligned, else one element at a time.
-__device__ __forceinline__ void load_operand(bf16* dst, int ld, const bf16* src, int S, int D,
-                                             int SP, int DP, int nt) {
-  if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int chunks = DP / 8;
-    for (int i = threadIdx.x; i < SP * chunks; i += nt) {
-      const int r = i / chunks;
-      const int c = (i - r * chunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < S && c < D) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < SP * DP; i += nt) {
-      const int r = i / DP;
-      const int c = i - r * DP;
-      dst[r * ld + c] = r < S && c < D ? src[(size_t)r * D + c] : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
-
-// x0, x1 as three bf16 pairs hi + mid + lo (x - hi and x - hi - mid are exact
-// in f32), packed as operand registers, the lower column in the lower half.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// The 16 x SP f32 block c (C fragments of SP / 8 n8 tiles) as the three bf16
-// terms of the A operand of a product over its SP columns: a[t][kk] is term t
-// of columns 16 kk .. 16 kk + 15.
-template <int K16>
-__device__ __forceinline__ void split_operand(uint32_t (&a)[3][K16][4],
-                                              const float (&c)[2 * K16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K16; ++kk) {
-    split3(c[2 * kk][0], c[2 * kk][1], a[0][kk][0], a[1][kk][0], a[2][kk][0]);
-    split3(c[2 * kk][2], c[2 * kk][3], a[0][kk][1], a[1][kk][1], a[2][kk][1]);
-    split3(c[2 * kk + 1][0], c[2 * kk + 1][1], a[0][kk][2], a[1][kk][2], a[2][kk][2]);
-    split3(c[2 * kk + 1][2], c[2 * kk + 1][3], a[0][kk][3], a[1][kk][3], a[2][kk][3]);
-  }
-}
-
 // The two 16 x SP blocks a b^T and a2 b2^T (rows row0 .. of the tiles a_s and
 // a2_s, all SP rows of b_s and b2_s; the product runs over DP columns).
 template <int N8>
@@ -315,47 +266,6 @@ __device__ __forceinline__ void scores(float (&acc)[N8][4], float (&acc2)[N8][4]
       mma_bf16(acc[j + 1], a, b[2], b[3]);
       mma_bf16(acc2[j], a2, b2[0], b2[1]);
       mma_bf16(acc2[j + 1], a2, b2[2], b2[3]);
-    }
-  }
-}
-
-// Rows row0 + g and row0 + g + 8 (< S) of the row-major (S, D) bf16 matrix
-// dst get (x a) b times mul, columns < D: x the 16 x SP f32 block held as its
-// three bf16 terms a, b all SP rows of the row-major tile b_s; 16 columns at a
-// time.
-template <int K16>
-__device__ __forceinline__ void product_out(bf16* dst, const uint32_t (&a)[3][K16][4],
-                                            const bf16* b_s, int ld, int S, int D, int DP,
-                                            int row0, float mul, int lane) {
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-  for (int c0 = 0; c0 < DP; c0 += 16) {
-    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-    for (int kk = 0; kk < K16; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, frag_addr_rows(b_s, ld, 16 * kk, c0, lane));
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        mma_bf16(acc[0], a[t][kk], b[0], b[1]);
-        mma_bf16(acc[1], a[t][kk], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + g + 8 * half;
-      if (r >= S) continue;
-      bf16* row = dst + (size_t)r * D;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = c0 + 8 * jj + t2;
-        const float x0 = acc[jj][2 * half] * mul, x1 = acc[jj][2 * half + 1] * mul;
-        if ((D & 1) == 0 && c + 1 < D) {
-          *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x0, x1);
-        } else {
-          if (c < D) row[c] = __float2bfloat16_rn(x0);
-          if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(x1);
-        }
-      }
     }
   }
 }

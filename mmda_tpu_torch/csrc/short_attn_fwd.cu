@@ -5,7 +5,7 @@
 // launched by _fwd_call :128), which holds one batch item's attention for
 // all heads in VMEM.  Per (batch item b, head h), all f32:
 //
-//   s  = (q * scale) k^T + bias[b]         scale = f32(1 / sqrt(D)) on q first
+//   s  = (q k^T) * scale + bias[b]         scale = f32(1 / sqrt(D))
 //   p  = exp(s - rowmax(s)) / rowsum(...)  (the exact softmax, no online one)
 //   p  = p * keep * f32(1 / (1 - rate))    keep from the positional hash
 //   o  = round(p v)                        once, to the input type
@@ -18,35 +18,62 @@
 //
 // What bounds it on the H100.  At the flagship shape (64, 12, 50, 64) bf16
 // the call moves 19.7 MB (5.9 us at 3.35 TB/s) and does 4 B nh S^2 D =
-// 4.9e8 f32 operations (7.3 us at 67 TFLOP/s): operations, by a little.  The
-// S x S products are tiny (50 x 50 x 64), so the real limits are the
-// latency of loading one head's k and v and the f32 FMA rate.
+// 4.9e8 operations (0.5 us at the 989 TFLOP/s bf16 tensor-core peak):
+// bytes.  The S x S products are tiny (50 x 50 x 64), so the latency of
+// loading one head's q, k and v and the element work of the softmax and the
+// hash are what a block waits on.
 //
-// What the design does about it.  The TPU kernel loops over the heads of one
-// batch item in one program, so Mosaic can overlap one head's softmax with
-// the next head's matmul.  Here one block per (b, h) (768 blocks at the
-// flagship shape, several per SM) does the same through the scheduler:
+// The TPU kernel loops over the heads of one batch item in one program, so
+// Mosaic can overlap one head's softmax with the next head's matmul.  Here
+// one block per (b, h) (768 blocks at the flagship shape, several per SM)
+// does the same through the scheduler.
+//
+// bf16 (short_attn_fwd_mma_kernel<SP>): the products on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 accumulators; flash_mma.cuh), with
+// the arithmetic of short_attn_bwd.cu's bf16 kernel (short_mma.cuh).  S is
+// padded to SP, a multiple of 16 (the template argument), and D to DP, a
+// multiple of 16, with zero fill; SP / 16 warps, warp w owning queries
+// 16 w .. 16 w + 15.  q, k and v go into shared memory as bf16 (16-byte
+// cp.async where D % 8 == 0), the q fragments by ldmatrix.
+//   * s = q k^T straight from the bf16 inputs (exact products, f32 sums),
+//     then times scale and plus the bias in f32 (scale after the product:
+//     q * scale is not a bf16 value at D = 32 or 128); keys at or beyond S
+//     have bias -inf.
+//   * The exact softmax over the whole row in f32 on the accumulator
+//     fragments: the row max and sum by quad shuffles, expf and IEEE
+//     division; the keep hash at (i S + j) on the fragments.
+//   * o = pd v with pd as three bf16 terms (hi, mid, lo: all its 24 bits),
+//     three mma per k-step with v's fragments by ldmatrix.trans; o rounded
+//     once to bf16.
+// f32 (short_attn_fwd_f32_kernel): plain f32 FMAs (a TF32 tensor-core
+// product would not meet the f32 tolerance), scale on q first:
 //   * k (row stride D + 1, so the lanes' reads of 32 keys fall in 32 banks)
 //     and v are staged in shared memory as f32;
 //   * a warp owns a query row: its lanes hold the row's scores, at most 4
 //     keys each (S <= 128), so the row max, the exponentials and the row sum
 //     are register work and two warp reductions; the probabilities go
 //     through a per-warp row of shared memory to the product with v, where
-//     the lanes own output columns (at most 4 each, D <= 128);
-//   * plain f32 FMAs, expf and IEEE division: no tensor cores (TF32 or bf16
-//     products would change the numbers the JAX package computes).
+//     the lanes own output columns (at most 4 each, D <= 128).
 // The whole (b, h) sits in one block's shared memory, so the kernel takes
-// S <= 128 (the wrapper raises above that and names attn_impl="flash").
-// Tensor-core products and a tile over query rows for longer S are later
-// work.
+// S <= 128 (the wrapper raises above that and names attn_impl="flash").  A
+// tile over query rows for longer S is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_mma.cuh"
 #include "hash_dropout.cuh"
+#include "short_mma.cuh"
 
 namespace {
+
+using mmda::flash::bf16;
+using mmda::flash::frag_addr_nk;
+using mmda::flash::frag_addr_rows;
+using mmda::flash::kRowPad;
+using mmda::flash::ldmatrix_x4;
+using mmda::flash::mma_bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -54,17 +81,7 @@ constexpr int kMaxS = 128;                 // keys of a row: 4 per lane
 constexpr int kMaxD = 128;                 // columns of a row: 4 per lane
 constexpr int kKeysPerLane = kMaxS / 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ------------------------------------------------------------------ f32
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -82,12 +99,11 @@ size_t smem_bytes(int S, int D) {
   return ((size_t)S * (D + 1) + (size_t)S * D + (size_t)kWarps * (D + S)) * sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-short_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ bias,
-                      const int* __restrict__ seed_ptr, T* __restrict__ o, int nh,
-                      int S, int D, float scale, float rate, float keep_scale) {
+short_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ seed_ptr, float* __restrict__ o, int nh,
+                          int S, int D, float scale, float rate, float keep_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* k_s = smem;                      // (S, D + 1)
@@ -103,8 +119,8 @@ short_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)bh * S * D;
   for (int e = threadIdx.x; e < S * D; e += kThreads) {
     const int r = e / D;
-    k_s[r * ld + (e - r * D)] = to_f32(k[base + e]);
-    v_s[e] = to_f32(v[base + e]);
+    k_s[r * ld + (e - r * D)] = k[base + e];
+    v_s[e] = v[base + e];
   }
   __syncthreads();
 
@@ -112,7 +128,7 @@ short_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
   const float* bias_b = bias + (size_t)b * S;
   for (int i = warp; i < S; i += kWarps) {
-    for (int c = lane; c < D; c += 32) q_row[c] = to_f32(q[base + (size_t)i * D + c]) * scale;
+    for (int c = lane; c < D; c += 32) q_row[c] = q[base + (size_t)i * D + c] * scale;
     __syncwarp();
     float s[kKeysPerLane];
     float m = -INFINITY;
@@ -151,23 +167,144 @@ short_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = lane; c < D; c += 32) {
       float acc = 0.0f;
       for (int j = 0; j < S; ++j) acc = fmaf(p_row[j], v_s[j * D + c], acc);
-      o[base + (size_t)i * D + c] = from_f32<T>(acc);
+      o[base + (size_t)i * D + c] = acc;
     }
     __syncwarp();   // the next row overwrites q_row and p_row
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
-                   const int* seed, void* o, int BH, int nh, int S, int D, float scale,
-                   float rate, float keep_scale, cudaStream_t stream) {
+// ----------------------------------------------------------------- bf16
+
+template <int SP>
+size_t mma_smem_bytes(int DP) {
+  // q, k, v; per key: the bias
+  return 3 * (size_t)SP * (DP + kRowPad) * sizeof(bf16) + SP * sizeof(float);
+}
+
+template <int SP>
+__global__ void __launch_bounds__(2 * SP)
+short_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ seed_ptr, bf16* __restrict__ o, int nh,
+                          int S, int D, int DP, float scale, float rate, float keep_scale) {
+  constexpr int NT = 2 * SP;     // SP / 16 warps
+  constexpr int N8 = SP / 8;     // n8 tiles of a 16 x SP block
+  constexpr int K16 = SP / 16;   // k16 slices of it as an operand
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = DP + kRowPad;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + SP * ld;
+  bf16* v_s = k_s + SP * ld;
+  float* bias_s = reinterpret_cast<float*>(v_s + SP * ld);   // per key; -inf beyond S
+
+  const int bh = blockIdx.x;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  mmda::short_mma::load_operand_async(q_s, ld, q + base, S, D, SP, DP, NT);
+  mmda::short_mma::load_operand_async(k_s, ld, k + base, S, D, SP, DP, NT);
+  mmda::short_mma::load_operand_async(v_s, ld, v + base, S, D, SP, DP, NT);
+  mmda::flash::cp_async_commit();
+  for (int j = threadIdx.x; j < SP; j += NT) {
+    bias_s[j] = j < S ? bias[(size_t)b * S + j] : -INFINITY;
+  }
+  mmda::flash::cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);   // the warp's queries
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+
+  // [j][e] is query row0 + g + 8 (e / 2), key 8 j + t2 + e % 2
+  float s[N8][4];
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+  }
+  for (int k0 = 0; k0 < DP; k0 += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, frag_addr_rows(q_s, ld, row0, k0, lane));
+#pragma unroll
+    for (int j = 0; j < N8; j += 2) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, frag_addr_nk(k_s, ld, 8 * j, k0, lane));
+      mma_bf16(s[j], a, bk[0], bk[1]);
+      mma_bf16(s[j + 1], a, bk[2], bk[3]);
+    }
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bias_s[8 * j + t2 + (e & 1)]);
+      m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  const bool drop = rate > 0.0f;
+  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = s[j][e] / l[e >> 1];   // p
+      if (drop) {
+        const int i = row0 + g + 8 * (e >> 1), jk = 8 * j + t2 + (e & 1);
+        s[j][e] *= mmda::short_attn_keep(hbase, (uint32_t)(i * S + jk), rate) ? keep_scale
+                                                                              : 0.0f;
+      }
+    }
+  }
+  uint32_t pd[3][K16][4];
+  mmda::short_mma::split_operand<K16>(pd, s);
+  mmda::short_mma::product_out<K16>(o + base, pd, v_s, ld, S, D, DP, row0, 1.0f, lane);
+}
+
+template <int SP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
+                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
+                       float rate, float keep_scale, cudaStream_t stream) {
+  const int DP = (D + 15) / 16 * 16;
+  const size_t bytes = mma_smem_bytes<SP>(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      short_attn_fwd_mma_kernel<SP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  short_attn_fwd_mma_kernel<SP><<<BH, 2 * SP, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, seed, static_cast<bf16*>(o), nh, S, D, DP, scale, rate, keep_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
+                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
+                       float rate, float keep_scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
-      short_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      short_attn_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  short_attn_fwd_kernel<T><<<BH, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      seed, static_cast<T*>(o), nh, S, D, scale, rate, keep_scale);
+  short_attn_fwd_f32_kernel<<<BH, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bias, seed, static_cast<float*>(o), nh, S, D, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -188,12 +325,27 @@ int mmda_short_attn_fwd(const void* q, const void* k, const void* v, const float
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return (int)launch<__nv_bfloat16>(q, k, v, bias, seed, o, B * nh, nh, S, D, scale, rate,
-                                      keep_scale, st);
+  const int BH = B * nh;
+  if (!is_bf16) {
+    return (int)launch_f32(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate, keep_scale, st);
   }
-  return (int)launch<float>(q, k, v, bias, seed, o, B * nh, nh, S, D, scale, rate,
-                            keep_scale, st);
+  switch ((S + 15) / 16) {
+#define MMDA_SHORT_FWD_CASE(n)                                                              \
+  case n:                                                                                   \
+    return (int)launch_mma<16 * n>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate,       \
+                                   keep_scale, st);
+    MMDA_SHORT_FWD_CASE(1)
+    MMDA_SHORT_FWD_CASE(2)
+    MMDA_SHORT_FWD_CASE(3)
+    MMDA_SHORT_FWD_CASE(4)
+    MMDA_SHORT_FWD_CASE(5)
+    MMDA_SHORT_FWD_CASE(6)
+    MMDA_SHORT_FWD_CASE(7)
+    MMDA_SHORT_FWD_CASE(8)
+#undef MMDA_SHORT_FWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -14,8 +14,9 @@ There is no other route: a CUDA input that a kernel cannot take raises.
 
 Launch counts (`launch_count(name)`, shared by all the package's kernels):
 `lstm_fwd` by `lstm_recurrence`, `lstm_bwd` by `lstm_recurrence_bwd`, one per
-wrapper call that launches; a `lstm_bwd` call launches the BPTT kernel and
-the two passes of the dW_hh reduction of that source and counts once.
+wrapper call that launches; a `lstm_bwd` call launches the gate pass, the
+BPTT pass and the two passes of the dW_hh reduction of that source and
+counts once.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, check_tens
                                                 sm_count)
 
 SOURCES = ("lstm_fwd", "lstm_bwd")
-__all__ = ["SOURCES", "launch_count", "reset_launch_count", "rows_per_block", "dw_splits",
+__all__ = ["SOURCES", "launch_count", "reset_launch_count", "rows_per_block",
+           "bptt_threads_per_row", "bptt_rows_per_block", "bwd_dw_splits", "dw_splits",
            "lstm_recurrence", "lstm_recurrence_reference", "lstm_recurrence_bwd",
            "lstm_recurrence_bwd_reference", "LSTMRecurrence", "lstm_scan"]
 
@@ -80,9 +82,54 @@ def _check(x_proj, w_hh_t, mask) -> None:
         raise ValueError(f"mask must be ({T}, {B}), got {tuple(mask.shape)}")
 
 
+# csrc/lstm_bwd.cu's serial pass: 4 threads per (row, group of hidden
+# units), one unit a group up to H = 80 with a thread's weights in registers
+# (11 or 21 float4s, which caps the block's threads: BPTT_REG_THREADS); above
+# that ceil(H / 256) units a group, the weights read from global memory, up to
+# 1024 threads
+BPTT_REG_H = 80
+BPTT_REG_THREADS = ((11, 640), (21, 384))   # (float4s a thread holds, threads)
+BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's dW tile: hidden units x gate columns
+BWD_DW_CHUNK = 16          # (t, b) rows a dW block stages at a time
+
+
+def _gate_stride(H: int) -> int:
+    """csrc/lstm_bwd.cu gate_stride: H rounded up to a multiple of 4 with an
+    odd count of float4s."""
+    hp = -(-H // 4) * 4
+    return hp + 4 if (hp // 4) % 2 == 0 else hp
+
+
+def bptt_threads_per_row(H: int) -> Tuple[int, int]:
+    """(threads per batch row, the block's thread limit) of the BPTT pass's
+    instantiation for H (csrc/lstm_bwd.cu)."""
+    if H > BPTT_REG_H:
+        units = -(-H // 256)
+        return 4 * -(-H // units), MAX_THREADS
+    held = _gate_stride(H) // 4
+    return 4 * H, next(t for n, t in BPTT_REG_THREADS if held <= n)
+
+
+def bptt_rows_per_block(B: int, H: int, n_sm: int) -> int:
+    """Batch rows per block of the BPTT pass: B spread over the SMs as
+    `rows_per_block` does, within the block's thread limit."""
+    per_row, cap = bptt_threads_per_row(H)
+    return max(1, min(-(-B // n_sm), cap // per_row))
+
+
+def bwd_dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
+    """Runs of (t, b) rows the backward's dW_hh reduction (csrc/lstm_bwd.cu)
+    is cut into: enough 128-thread blocks of BWD_DW_TILE outputs for four per
+    SM, at most one run per BWD_DW_CHUNK of the (T - 1) B rows that add, at
+    least one."""
+    tiles = -(-H // BWD_DW_TILE[0]) * -(-4 * H // BWD_DW_TILE[1])
+    return max(1, min(-(-(T - 1) * B // BWD_DW_CHUNK), -(-4 * n_sm // tiles)))
+
+
 def dw_splits(T: int, H: int, n_sm: int) -> int:
-    """Runs of steps the dW_hh reduction is cut into: enough blocks of
-    (DW_TILE) outputs for two per SM, at most one run per step that adds."""
+    """Runs of steps the multi-direction backward's dW_hh reduction
+    (csrc/lstm_multi_bwd.cu) is cut into: enough blocks of (DW_TILE) outputs
+    for two per SM, at most one run per step that adds."""
     tiles = -(-H // DW_TILE[0]) * -(-4 * H // DW_TILE[1])
     return max(1, min(T - 1, -(-2 * n_sm // tiles)))
 
@@ -175,9 +222,10 @@ def lstm_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                         dc_fin: Optional[torch.Tensor] = None,
                         reverse: bool = False) -> BwdResult:
     """Gradient of `lstm_recurrence` (BPTT with the gates recomputed from
-    the saved ys, cs).  dys (T, B, H), dh_fin and dc_fin (B, H) are the
-    incoming gradients; dc_fin None means zeros.  Returns dx_proj
-    (T, B, 4H) and dw_hh_t (H, 4H), all f32."""
+    the saved ys, cs; on the card in a pass of their own before the serial
+    one).  dys (T, B, H), dh_fin and dc_fin (B, H) are the incoming
+    gradients; dc_fin None means zeros.  Returns dx_proj (T, B, 4H) and
+    dw_hh_t (H, 4H), all f32."""
     _check(x_proj, w_hh_t, mask)
     T, B, G = x_proj.shape
     H = G // 4
@@ -197,7 +245,7 @@ def lstm_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
     so = lib("lstm_bwd", 11, 6)
     n_sm = sm_count(dev)
-    splits = dw_splits(T, H, n_sm)
+    splits = bwd_dw_splits(T, B, H, n_sm)
     dx = torch.empty(T, B, G, device=dev)
     dw = torch.empty(H, G, device=dev)
     dw_partial = torch.empty(splits, H, G, dtype=torch.float64, device=dev)
@@ -208,7 +256,7 @@ def lstm_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dh_fin.data_ptr(),
                dc_fin.data_ptr() if dc_fin is not None else None,
                dx.data_ptr(), dw.data_ptr(), dw_partial.data_ptr(),
-               T, B, H, rows_per_block(B, H, n_sm), int(reverse), splits, stream)
+               T, B, H, bptt_rows_per_block(B, H, n_sm), int(reverse), splits, stream)
     return dx, dw
 
 

@@ -13,15 +13,15 @@ The rounding sites, the same in the kernels and in the plain versions: q, k,
 v widened to f32 and q multiplied by f32(1 / sqrt(hd)) before the product;
 every product and the softmax in f32; each output rounded once to the input
 type.  Nothing is rounded in between (the flash kernels round the dropped
-probabilities and ds to the operand type; these do not).  The backward
-kernel's bf16 instantiation runs its products on the tensor cores and keeps
-that arithmetic: q k^T and do v^T straight from the bf16 inputs (exact
-products, f32 sums), `scale` after q k^T and after ds^T q instead of on q
-first, and each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo:
-all its 24 bits) times the bf16 input; `expf` and IEEE division as in f32.
-It stays within one bf16 ulp of the plain version
-(`tests/test_torch_short_attention.py` models it on the CPU).  The forward
-and the f32 backward are f32 FMAs.
+probabilities and ds to the operand type; these do not).  Both kernels' bf16
+instantiations run their products on the tensor cores and keep that
+arithmetic: q k^T and do v^T straight from the bf16 inputs (exact products,
+f32 sums), `scale` after q k^T and after ds^T q instead of on q first, and
+each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo: all its 24
+bits) times the bf16 input; `expf` and IEEE division as in f32.  They stay
+within one bf16 ulp of the plain versions
+(`tests/test_torch_short_attention.py` models them on the CPU).  The f32
+instantiations are f32 FMAs.
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions.
 There is no other route: a CUDA input that a kernel cannot take raises (the
@@ -58,13 +58,17 @@ def softmax_scale(hd: int) -> float:
     return float(np.float32(1.0 / np.sqrt(hd)))
 
 
-def kernel_takes(S: int, hd: int) -> bool:
-    """Whether both kernels take (S, hd): S and hd within a warp's 4 values
-    per lane, and the backward's shared memory (k, v or do or q, pd, ds and
-    the warps' rows; csrc/short_attn_bwd.cu smem_bytes), the larger of the
-    two, within the card's opt-in limit."""
-    smem = 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd)
-    return 1 <= S <= MAX_S and 1 <= hd <= MAX_HD and smem <= SMEM_LIMIT
+def kernel_takes(S: int, hd: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether both kernels take (S, hd) in `dtype`: S and hd up to 128, and
+    in f32 the backward's shared memory (k, v or do or q, pd, ds and the
+    warps' rows; csrc/short_attn_bwd.cu smem_bytes), the larger of the two,
+    within the card's opt-in limit.  The bf16 kernels hold four padded bf16
+    operand tiles at most (141,312 bytes at S = hd = 128), which always fit."""
+    if not (1 <= S <= MAX_S and 1 <= hd <= MAX_HD):
+        return False
+    if dtype == torch.bfloat16:
+        return True
+    return 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd) <= SMEM_LIMIT
 
 
 # ------------------------------------------------------------ plain versions
@@ -138,9 +142,10 @@ def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
         if seed is None:
             raise ValueError("rate > 0 needs a seed")
         check_tensor("seed", seed, q.device, torch.int32, (1,))
-    if dev.type == "cuda" and not kernel_takes(S, hd):
+    if dev.type == "cuda" and not kernel_takes(S, hd, q.dtype):
         raise ValueError(f"the short attention kernels take S <= {MAX_S} and hd <= {MAX_HD} "
-                         f"within one block's shared memory, got S={S}, hd={hd}: use "
+                         f"within one block's shared memory, got S={S}, hd={hd} in "
+                         f"{q.dtype}: use "
                          'attn_impl="flash" for longer sequences')
     return dev
 

@@ -24,7 +24,7 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import steady_on_cpu  # noqa: E402  (the script's CPU-reference policy)
+from chip_smoke import CHECK_SHAPES, SHORT_SHAPES, steady_on_cpu  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -88,6 +88,44 @@ def test_lstm_bwd_kernel_matches_plain_version(cuda_device, T, B, H, reverse):
         want = klstm.lstm_recurrence_bwd_reference(x, w, m, ys, cs, dys, dh, dc_fin, reverse)
         for g, r in zip(got, want):
             torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", CHECK_SHAPES)
+def test_lstm_bwd_kernel_matches_plain_version_at_the_check_shapes(cuda_device, T, B, H,
+                                                                   reverse):
+    """The gate pass, the serial pass and the dW passes against the plain
+    version at every shape `chip_smoke.py` checks (T = 512 included), with
+    dc_fin given; one `lstm_bwd` launch per call."""
+    x, w, m = _inputs(T, B, H, seed=T + H, device=cuda_device)
+    ys, cs, _, _ = klstm.lstm_recurrence_reference(x, w, m, reverse, need_cs=True)
+    dys, dh, dc = _grads(T, B, H, T + H, cuda_device)
+    before = klstm.launch_count("lstm_bwd")
+    got = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh, dc, reverse)
+    assert klstm.launch_count("lstm_bwd") == before + 1
+    want = klstm.lstm_recurrence_bwd_reference(x, w, m, ys, cs, dys, dh, dc, reverse)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(48, 64, 74), (512, 32, 74), (33, 7, 33), (16, 9, 300)])
+def test_lstm_bwd_kernel_passes_masked_steps_in_the_middle(cuda_device, T, B, H, reverse):
+    """A ragged mask with zeros between ones (not only padded tails): at a
+    masked step dh and dc pass straight through and the dgates are 0,
+    whatever the recomputed c_new holds."""
+    x, w, _ = _inputs(T, B, H, seed=H, device=cuda_device)
+    rng = np.random.default_rng(T * H)
+    m = torch.from_numpy((rng.random((T, B)) < 0.7).astype(np.float32)).to(cuda_device)
+    m[:, 0] = 0.0                                     # a row masked at every step
+    ys, cs, _, _ = klstm.lstm_recurrence_reference(x, w, m, reverse, need_cs=True)
+    dys, dh, dc = _grads(T, B, H, H, cuda_device)
+    for dc_fin in (dc, None):
+        got = klstm.lstm_recurrence_bwd(x, w, m, ys, cs, dys, dh, dc_fin, reverse)
+        want = klstm.lstm_recurrence_bwd_reference(x, w, m, ys, cs, dys, dh, dc_fin, reverse)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, **TOL)
+        assert torch.equal(got[0][m == 0.0], torch.zeros_like(got[0][m == 0.0]))
 
 
 def test_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
@@ -444,6 +482,25 @@ def test_short_attention_kernels_match_plain_versions(cuda_device, B, nh, S, hd,
         _close(got, ref, *tol)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,nh,S,hd", SHORT_SHAPES + [(2, 3, 33, 16), (2, 3, 40, 32),
+                                                      (2, 3, 33, 100), (2, 3, 17, 120),
+                                                      (2, 3, 66, 128), (2, 2, 128, 128)])
+def test_short_attention_bf16_forward_matches_plain_version(cuda_device, B, nh, S, hd, rate):
+    """The bf16 forward on the tensor cores (three bf16 terms for pd, scale
+    after q k^T) against its plain version: one bf16 ulp plus 1e-6, at every
+    shape `chip_smoke.py` checks, hd = 8 to 128 and S = hd = 128; two launches
+    give the same bits."""
+    q, k, v, _, bias = _short_inputs(B, nh, S, hd, torch.bfloat16, S * hd, cuda_device)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    before = kshort.launch_count("short_attn_fwd")
+    o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+    again = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+    assert kshort.launch_count("short_attn_fwd") == before + 2
+    assert o.dtype == torch.bfloat16 and torch.equal(o, again)
+    _close(o, kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate), 1e-6, 2.0 ** -7)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nh,S,seed", [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)])
 def test_short_attention_keep_mask_is_the_hash_bit_for_bit(cuda_device, B, nh, S, seed, dtype):
@@ -510,7 +567,8 @@ def test_attention_kernels_agree_on_a_fresh_process_first_call(cuda_device):
     kernel's first launch in a process agrees every time (the f32 flash path
     through autograd equal bit for bit to its second launch and within
     1e-5 + 1e-4 |ref| of the CPU's steady result; the bf16 flash kernels and
-    both short backward instantiations against their plain versions)."""
+    both instantiations of the two short kernels against their plain
+    versions)."""
     for _ in range(3):
         run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--first-calls"],
                              cwd=ROOT, capture_output=True, text=True, timeout=600)

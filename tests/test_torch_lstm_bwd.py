@@ -189,6 +189,102 @@ def test_bwd_wrapper_rejects_what_the_kernel_cannot_take(bad):
                                   t["dys"], t["dh_fin"])
 
 
+def _previous(x, reverse):
+    """x at the previous processed step of every step, 0 at the first."""
+    prev = torch.zeros_like(x)
+    if reverse:
+        prev[:-1] = x[1:]
+    else:
+        prev[1:] = x[:-1]
+    return prev
+
+
+def _strided_matmul(a, b):
+    """a @ b with the k terms split over four accumulators by k mod 4, added
+    as (a0 + a1) + (a2 + a3): a thread's float4 reads of the dgates."""
+    acc = [torch.matmul(a[:, e::4], b[e::4]) for e in range(4)]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _kernel_model(x_proj, w_hh_t, mask, ys, cs, dys, dh_fin, dc_fin, reverse):
+    """The backward as csrc/lstm_bwd.cu computes it: the gate activations of
+    every step from a pass of their own (off the serial chain), tanh(c_new)
+    recomputed from c_prev and the activations, then the serial steps, where
+    dh_prev[j] is four per-gate parts, each row j of one gate's columns of
+    w_hh_t against that gate's dgates, added in a quad as (i + f) + (g + o)."""
+    T, B, G = x_proj.shape
+    H = G // 4
+    h_prev, c_prev = _previous(ys, reverse), _previous(cs, reverse)
+    gates = x_proj + torch.matmul(h_prev, w_hh_t)                 # the gate pass
+    acts = torch.cat([torch.sigmoid(gates[..., :2 * H]), torch.tanh(gates[..., 2 * H:3 * H]),
+                      torch.sigmoid(gates[..., 3 * H:])], dim=-1)
+    dh = dh_fin
+    dc = torch.zeros_like(dh_fin) if dc_fin is None else dc_fin
+    dx = torch.empty_like(x_proj)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        ig, fg, gg, og = acts[t].split(H, dim=-1)
+        tanh_c = torch.tanh(fg * c_prev[t] + ig * gg)
+        dh = dh + dys[t]
+        m = mask[t][:, None]
+        dh_new, dc_new = m * dh, m * dc
+        dh_pass, dc_pass = (1.0 - m) * dh, (1.0 - m) * dc
+        dc_new = dc_new + dh_new * og * (1.0 - tanh_c * tanh_c)
+        dc = dc_new * fg + dc_pass
+        dg = [dc_new * gg * ig * (1.0 - ig), dc_new * c_prev[t] * fg * (1.0 - fg),
+              dc_new * ig * (1.0 - gg * gg), dh_new * tanh_c * og * (1.0 - og)]
+        part = [_strided_matmul(d, w_hh_t[:, q * H:(q + 1) * H].t()) for q, d in enumerate(dg)]
+        dh = ((part[0] + part[1]) + (part[2] + part[3])) + dh_pass
+        dx[t] = torch.cat(dg, dim=-1)
+    dw = torch.einsum("tbk,tbg->kg", h_prev.double(), dx.double())
+    return dx, dw.float()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(512, 2, 74), (7, 5, 33), (48, 3, 35)])
+def test_gate_pass_arithmetic_matches_plain_version_and_pallas(T, B, H, reverse):
+    """The card kernel's order of work, modelled on the CPU: the gates in a
+    pass of their own and dh_prev as four per-gate parts give the plain
+    version's dx_proj and dW_hh^T and the Pallas kernel's (interpret mode)
+    within 1e-5 abs/rel, at the long step's T = 512 and H = 74 and at an H
+    that is no multiple of 4, both directions."""
+    a = _inputs(T, B, H, seed=T + H, reverse=reverse)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = _kernel_model(t["x_proj"], t["w_hh_t"], t["mask"], t["ys"], t["cs"], t["dys"],
+                        t["dh_fin"], t["dc_fin"], reverse)
+    for want in (_port(a, reverse), _jax(a, reverse)):
+        for name, g, w in zip(("dx_proj", "dw_hh_t"), got, want):
+            np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+
+
+def test_bptt_rows_fill_the_block_limits():
+    """The serial pass's batch rows per block (csrc/lstm_bwd.cu): four
+    threads per hidden unit up to H = 80 (one gate each, its weights in
+    registers, which caps the block), four per group of ceil(H / 256) units
+    above; B spread over the SMs first."""
+    assert klstm.bptt_threads_per_row(74) == (296, 384)
+    assert klstm.bptt_threads_per_row(35) == (140, 640)
+    assert klstm.bptt_threads_per_row(300) == (600, 1024)     # 2 units a quad
+    assert klstm.bptt_threads_per_row(1024) == (1024, 1024)
+    assert klstm.bptt_rows_per_block(32, 74, 132) == 1
+    assert klstm.bptt_rows_per_block(512, 35, 132) == 4
+    for H in range(1, 1025):
+        per_row, cap = klstm.bptt_threads_per_row(H)
+        rows = klstm.bptt_rows_per_block(4096, H, 132)   # 32 rows wanted per block
+        assert per_row <= cap and 1 <= rows == min(32, cap // per_row), H
+
+
+def test_bwd_dw_splits_fill_the_card_and_cover_every_row():
+    """The backward's dW_hh reduction cuts the (T - 1) B rows that add into
+    runs: about four blocks per SM at the tower widths, at most one run per
+    16 rows, at least one."""
+    tiles_74 = 3 * 5                             # ceil(74 / 32) x ceil(296 / 64)
+    assert klstm.bwd_dw_splits(512, 32, 74, 132) * tiles_74 >= 4 * 132
+    assert klstm.bwd_dw_splits(48, 64, 35, 132) == 88      # 2 x 3 tiles
+    assert klstm.bwd_dw_splits(7, 5, 33, 132) == 2         # 30 rows in runs of 16
+    assert klstm.bwd_dw_splits(1, 4, 4, 132) == 1          # no row adds
+    assert klstm.bwd_dw_splits(48, 64, 300, 132) == 3      # 10 x 19 tiles
+
+
 def test_cpu_backward_does_not_count_as_a_launch():
     klstm.reset_launch_count()
     a = _inputs(3, 2, 2, seed=4)

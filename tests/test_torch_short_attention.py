@@ -161,6 +161,16 @@ def test_kernel_takes_shapes_that_fit_one_block(S, hd, takes):
     assert tsa.kernel_takes(S, hd) == takes
 
 
+@pytest.mark.parametrize("S,hd", [(128, 128), (66, 128), (1, 1), (128, 8), (33, 100)])
+def test_bf16_kernels_take_every_shape_up_to_128(S, hd):
+    """The bf16 kernels hold at most four padded bf16 operand tiles (141,312
+    bytes at S = hd = 128), so bf16 takes S = hd = 128, which the f32
+    backward's two f32 S x S tiles do not fit; beyond 128 both refuse."""
+    assert tsa.kernel_takes(S, hd, torch.bfloat16)
+    assert not tsa.kernel_takes(S + 128, hd, torch.bfloat16)
+    assert not tsa.kernel_takes(S, hd + 128, torch.bfloat16)
+
+
 def _split3(x):
     """x (f32) as three bf16 terms hi + mid + lo, each widened back to f32:
     x - hi and x - hi - mid are exact in f32, and the three hold x's 24 bits."""
@@ -177,8 +187,10 @@ def _split_matmul(x, b):
 
 def _tensor_core_model(q, k, v, bias, seed, g, rate):
     """(o, dq, dk, dv) with the arithmetic of the bf16 kernels on the tensor
-    cores (csrc/short_attn_bwd.cu): products of two bf16 inputs straight in
-    f32, `scale` after q k^T and after ds^T q, the f32 intermediates pd and
+    cores, the forward's (csrc/short_attn_fwd.cu, o) and the backward's
+    (csrc/short_attn_bwd.cu, dq, dk, dv) alike: products of two bf16 inputs
+    straight in f32, `scale` after q k^T (the forward's scores and the
+    backward's recomputed ones) and after ds^T q, the f32 intermediates pd and
     ds split into three bf16 terms, the softmax, mask and ds in f32, each
     output rounded once to bf16."""
     B, nh, S, hd = q.shape
