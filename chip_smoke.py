@@ -22,8 +22,12 @@ the result):
    BPTT backwards (f32, |err| <= 1e-5 + 1e-5 |ref|: summation order only),
    with CUDA-event times of each kernel, its plain version and one cuDNN
    `nn.LSTM` / `nn.GRU` call (its forward, or its backward) on the same
-   inputs, beside the kernel's bound; the LSTM backward's time also split
-   into its gate pass, its serial BPTT pass and its dW passes.  The fused
+   inputs, beside the kernel's bound; the LSTM and GRU backwards' times also
+   split into their gate pass, their serial BPTT pass and their dW passes,
+   and the time per serial step (us / T) of `lstm_fwd` and `gru_bwd`; the
+   checked shapes must reach all three instantiations of the serial passes
+   (weights in registers as 11 or 21 float4s, or read from global memory
+   at H = 300).  The fused
    residual + dropout + LayerNorm forward and backward in f32 and bf16: the
    keep mask equal bit for bit to the plain hash, outputs within 1e-5 (f32)
    or one bf16 ulp, dscale and dbias within 1e-4; timed beside the composition
@@ -174,7 +178,7 @@ TRAIN_CONFIGS = {
             "per_step": {"gru_fwd": LAUNCHES_PER_CALL, "gru_bwd": LAUNCHES_PER_CALL,
                          "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES},
             "per_eval": {"gru_fwd": LAUNCHES_PER_CALL},
-            "profile": ("gru_fwd", "gru_bptt", "gru_dwb", "ln_dropout_fwd",
+            "profile": ("gru_fwd", "gru_gates", "gru_bptt", "gru_dwb", "ln_dropout_fwd",
                         "ln_dropout_bwd", "ln_dropout_dgb")},
     # attn_impl "auto" resolves to flash for the training steps (S = 514 >= 256)
     # and to the dense core for the eval batches (S <= 1024); the towers run
@@ -439,6 +443,18 @@ def max_err(pairs, tol, where: str) -> float:
     return worst
 
 
+def serial_instantiations(rows) -> list:
+    """The serial-pass instantiations (`bptt_instantiation`: 11 or 21
+    float4s of weights in registers, 0 from global memory) that the check
+    rows' H went through; raises unless every one was."""
+    from mmda_tpu_torch.ops.kernels._launch import bptt_instantiation
+
+    used = sorted({bptt_instantiation(r["H"]) for r in rows})
+    if used != [0, 11, 21]:
+        raise AssertionError(f"CHECK_SHAPES reach the instantiations {used}, not 0, 11 and 21")
+    return used
+
+
 def check_lstm_kernel(klstm, device) -> dict:
     rows, worst = [], 0.0
     for T, B, H in CHECK_SHAPES:
@@ -457,7 +473,8 @@ def check_lstm_kernel(klstm, device) -> dict:
                           f"lstm_fwd (T,B,H)={(T, B, H)} reverse={reverse}")
             worst = max(worst, err)
             rows.append({"T": T, "B": B, "H": H, "reverse": reverse, "max_abs_err": err})
-    log("3 kernel-vs-plain", shapes=len(rows), max_abs_err=worst, tol=KERNEL_TOL)
+    log("3 kernel-vs-plain", shapes=len(rows), max_abs_err=worst, tol=KERNEL_TOL,
+        instantiations=serial_instantiations(rows))
 
     timed = []
     for T, B, H in TIMED_SHAPES:
@@ -469,6 +486,7 @@ def check_lstm_kernel(klstm, device) -> dict:
                               lambda: klstm.lstm_recurrence_reference(x, w, m), call),
                "library_max_abs_err": (h_lib - h_k).abs().max().item(),
                **lstm_bound(T, B, H, m)}
+        row["us_per_step"] = row["ms"] * 1e3 / T
         timed.append(row)
         log("3 kernel-time", **row)
     report = next(r for r in timed if (r["T"], r["B"], r["H"]) == REPORT_SHAPE)
@@ -519,17 +537,19 @@ def cudnn_bwd(x_proj, w_hh_t, lengths, dys, dh, b_hh=None):
 
 
 LSTM_BWD_PARTS = {"gate_pass": "lstm_gates", "bptt": "lstm_bptt", "dw": "lstm_dw"}
+GRU_BWD_PARTS = {"gate_pass": "gru_gates", "bptt": "gru_bptt", "dwb": "gru_dwb"}
 
 
-def lstm_bwd_parts(kernel, tries: int = 3) -> dict:
-    """The device ms of one `lstm_bwd` call by its kernels: the gate pass,
-    the serial BPTT pass and the two dW passes (profiler medians by name).
-    A profiler window that lost every event of a part is taken again, at
-    most `tries` times; a part still missing is "not measured"."""
+def bwd_parts(kernel, names: dict, tries: int = 3) -> dict:
+    """The device ms of one `lstm_bwd` or `gru_bwd` call by its kernels
+    (`names`: part -> kernel name substring): the gate pass, the serial BPTT
+    pass and the two dW passes (profiler medians by name).  A profiler
+    window that lost every event of a part is taken again, at most `tries`
+    times; a part still missing is "not measured"."""
     for _ in range(tries):
         by_name = device_ms_by_name(kernel)
         parts = {part: sum(ms for name, ms in by_name.items() if key in name)
-                 for part, key in LSTM_BWD_PARTS.items()}
+                 for part, key in names.items()}
         if all(parts.values()):
             return parts
     return {part: ms or "not measured" for part, ms in parts.items()}
@@ -565,7 +585,7 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
         row = {"T": T, "B": B, "H": H,
                **kernel_times(kernel, lambda: klstm.lstm_recurrence_bwd_reference(
                    x, w, m, ys, cs, dys, dh), call, 3, 1),
-               "parts_ms": lstm_bwd_parts(kernel),
+               "parts_ms": bwd_parts(kernel, LSTM_BWD_PARTS),
                "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(),
                **lstm_bwd_bound(T, B, H, m)}
         timed.append(row)
@@ -627,7 +647,8 @@ def check_gru_kernels(kgru, device) -> tuple:
                 zip(("dx_proj", "dw_hh_t", "db_hh"), got_b, want_b), KERNEL_TOL,
                 "gru_bwd " + where)})
     worst = {k: max(r["max_abs_err"] for r in v) for k, v in rows.items()}
-    log("3 gru-kernels-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL)
+    log("3 gru-kernels-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL,
+        bwd_instantiations=serial_instantiations(rows["bwd"]))
 
     timed = {"fwd": [], "bwd": []}
     for T, B, H in TIMED_SHAPES:
@@ -643,13 +664,21 @@ def check_gru_kernels(kgru, device) -> tuple:
             **shape, **kernel_times(lambda: kgru.gru_recurrence(x, w, b, m),
                                     lambda: kgru.gru_recurrence_reference(x, w, b, m), call),
             "library_max_abs_err": (h_lib - h_k).abs().max().item(), **bound_f})
-        timed["bwd"].append({
-            **shape, **kernel_times(
-                lambda: kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh),
-                lambda: kgru.gru_recurrence_bwd_reference(x, w, b, m, ys, dys, dh), call_b, 3, 1),
-            "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(), **bound_b})
+
+        def kernel():
+            return kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh)
+
+        row = {**shape, **kernel_times(
+                   kernel, lambda: kgru.gru_recurrence_bwd_reference(x, w, b, m, ys, dys, dh),
+                   call_b, 3, 1),
+               "parts_ms": bwd_parts(kernel, GRU_BWD_PARTS),
+               "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(), **bound_b}
+        row["us_per_step"] = row["ms"] * 1e3 / T
+        if isinstance(row["parts_ms"]["bptt"], float):     # the serial pass alone
+            row["bptt_us_per_step"] = row["parts_ms"]["bptt"] * 1e3 / T
+        timed["bwd"].append(row)
         log("3 gru-fwd-time", **timed["fwd"][-1])
-        log("3 gru-bwd-time", **timed["bwd"][-1])
+        log("3 gru-bwd-time", **row)
 
     def result(k, report_shape):
         report = next(r for r in timed[k] if (r["T"], r["B"], r["H"]) == report_shape)
@@ -2227,7 +2256,8 @@ def main() -> int:
             **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
                if "sass" in checks[name] else {}),
             **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {}),
-            **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {})})
+            **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
+            **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step") if k in rep}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"

@@ -65,8 +65,7 @@
 //     numbers the JAX package computes).
 // Fusing the dW reduction into the BPTT loop is later work.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "recurrence.cuh"
 
 namespace {
 
@@ -79,45 +78,6 @@ constexpr int kGateTileG = 64;   // x 64 gate columns, 256 threads of 4 x 4
 constexpr int kGateTileK = 16;   // hidden units per shared-memory pass
 constexpr int kRing = 4;         // BPTT input ring: steps s + 1 .. s + kRing - 1 in flight
 constexpr int kSlot = 8;         // floats per (step, unit): i f g o, c_prev, dys, mask, pad
-constexpr int kMaxUnits = 4;     // hidden units per quad without register weights
-constexpr int kRegH = 80;        // weights in registers up to this H
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// 4 bytes global -> shared, asynchronously; zero-filled (nothing read) when
-// !valid, src a valid address either way.
-__device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Floats from one gate's dgates to the next in shared memory: H rounded up to
-// a multiple of 4 (float4 reads) with an odd count of float4s, so that the
-// four gates a quarter-warp reads fall on four different 16-byte bank groups.
-__host__ __device__ __forceinline__ int gate_stride(int H) {
-  const int hp = (H + 3) / 4 * 4;
-  return (hp / 4) % 2 == 0 ? hp + 4 : hp;
-}
-
-// Threads a block of the serial pass may hold: a thread's weight registers
-// (NC float4s, NC > 0) must leave the block within the SM's 64K registers.
-__host__ __device__ constexpr int bptt_max_threads(int NC) {
-  return NC == 0 ? 1024 : NC <= 11 ? 640 : 384;
-}
 
 // gates[n, g] = act(x_proj[n, g] + sum over k of h_prev[n, k] w_hh_t[k, g]) for
 // the rows n = t * B + b, h_prev[n] = ys at the previous processed step (0 at
@@ -350,34 +310,16 @@ lstm_bptt_kernel(const float* __restrict__ w_hh_t,  // (H, 4H)
     const float4* d4 = reinterpret_cast<const float4*>(dg + q * HP);
 #pragma unroll
     for (int u = 0; u < UM; ++u) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+      float part = 0.0f;
       if (valid[u]) {
         if constexpr (NC > 0) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            if (c < nc) {
-              const float4 d = d4[c];
-              a0 = fmaf(d.x, wr[c].x, a0);
-              a1 = fmaf(d.y, wr[c].y, a1);
-              a2 = fmaf(d.z, wr[c].z, a2);
-              a3 = fmaf(d.w, wr[c].w, a3);
-            }
-          }
+          part = dot_regs<NC>(d4, wr, nc);
         } else {
-          const float* wrow = w_hh_t + (size_t)(jq + u * NQ) * G + q * H;
-          for (int c = 0; c < nc; ++c) {
-            const float4 d = d4[c];
-            const int i = 4 * c;
-            a0 = fmaf(d.x, i < H ? wrow[i] : 0.0f, a0);
-            a1 = fmaf(d.y, i + 1 < H ? wrow[i + 1] : 0.0f, a1);
-            a2 = fmaf(d.z, i + 2 < H ? wrow[i + 2] : 0.0f, a2);
-            a3 = fmaf(d.w, i + 3 < H ? wrow[i + 3] : 0.0f, a3);
-          }
+          part = dot_global(d4, w_hh_t + (size_t)(jq + u * NQ) * G + q * H, 1, H, nc);
         }
       }
       // the gate-q part of dh_prev[j]; the quad's four parts added by all
       // four as (i + f) + (g + o)
-      float part = (a0 + a1) + (a2 + a3);
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       if (valid[u]) dh[u] = part + pass[u];

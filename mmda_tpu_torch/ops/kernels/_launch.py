@@ -11,6 +11,7 @@ through the kernels.  `reset_launch_count()` sets every count to 0.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -22,7 +23,9 @@ KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "short_attn_fwd", "short_attn_bwd", "lstm_multi_fwd", "lstm_multi_bwd")
 MAX_THREADS = 1024
-DW_TILE = (16, 64)     # the recurrences' dW tile: hidden units x gate columns
+DW_TILE = (16, 64)     # csrc/lstm_multi_bwd.cu's dW tile: hidden units x gate columns
+BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's and gru_bwd.cu's dW tile: rows x gate columns
+BWD_DW_CHUNK = 16          # (t, b) rows such a dW block stages at a time
 
 _launches = dict.fromkeys(KERNELS, 0)
 
@@ -85,6 +88,58 @@ def rows_per_block(B: int, H: int, n_sm: int) -> int:
     long blocks), within the 1024-thread limit of one thread per (row,
     hidden unit)."""
     return max(1, min(-(-B // n_sm), MAX_THREADS // H))
+
+
+# The serial passes of csrc/lstm_fwd.cu, lstm_bwd.cu and gru_bwd.cu: 4
+# threads per (row, group of hidden units), one unit a group up to H = 80
+# with a thread's weights in registers (11 or 21 float4s by gate_stride,
+# which caps the block's threads: BPTT_REG_THREADS); above that ceil(H / 256)
+# units a group, the weights read from global memory, up to 1024 threads
+BPTT_REG_H = 80
+BPTT_REG_THREADS = ((11, 640), (21, 384))   # (float4s a thread holds, threads)
+
+
+def _gate_stride(H: int) -> int:
+    """csrc/recurrence.cuh gate_stride: H rounded up to a multiple of 4 with
+    an odd count of float4s."""
+    hp = -(-H // 4) * 4
+    return hp + 4 if (hp // 4) % 2 == 0 else hp
+
+
+def bptt_instantiation(H: int) -> int:
+    """The float4s of weights a thread of the serial passes holds for H (the
+    kernels' template argument: 11 or 21), 0 where it reads them from global
+    memory."""
+    if H > BPTT_REG_H:
+        return 0
+    held = _gate_stride(H) // 4
+    return next(n for n, _ in BPTT_REG_THREADS if held <= n)
+
+
+def bptt_threads_per_row(H: int) -> Tuple[int, int]:
+    """(threads per batch row, the block's thread limit) of the serial
+    passes' instantiation for H."""
+    held = bptt_instantiation(H)
+    if held == 0:
+        units = -(-H // 256)
+        return 4 * -(-H // units), MAX_THREADS
+    return 4 * H, dict(BPTT_REG_THREADS)[held]
+
+
+def bptt_rows_per_block(B: int, H: int, n_sm: int) -> int:
+    """Batch rows per block of a serial pass: B spread over the SMs as
+    `rows_per_block` does, within the block's thread limit."""
+    per_row, cap = bptt_threads_per_row(H)
+    return max(1, min(-(-B // n_sm), cap // per_row))
+
+
+def dw_runs(n_rows: int, out_rows: int, out_cols: int, n_sm: int) -> int:
+    """Runs of (t, b) rows a backward's dW reduction (csrc/lstm_bwd.cu,
+    gru_bwd.cu) is cut into: enough 128-thread blocks of BWD_DW_TILE outputs
+    over its (out_rows, out_cols) result for four per SM, at most one run per
+    BWD_DW_CHUNK of the n_rows rows that add, at least one."""
+    tiles = -(-out_rows // BWD_DW_TILE[0]) * -(-out_cols // BWD_DW_TILE[1])
+    return max(1, min(-(-n_rows // BWD_DW_CHUNK), -(-4 * n_sm // tiles)))
 
 
 def sm_count(dev: torch.device) -> int:

@@ -20,8 +20,8 @@ and a CPU tensor to the plain version (`gru_recurrence_reference`,
 `gru_recurrence_bwd_reference`: `_cell_fwd` / `_cell_bwd` as a Python loop
 over t).  There is no other route: a CUDA input that a kernel cannot take
 raises.  Launch counts: `launch_count("gru_fwd")`, `launch_count("gru_bwd")`
-(a `gru_bwd` call launches the BPTT kernel and the two passes of the
-dW_hh / db_hh reduction and counts once).
+(a `gru_bwd` call launches the gate pass, the BPTT pass and the two passes
+of the dW_hh / db_hh reduction and counts once).
 """
 
 from __future__ import annotations
@@ -30,10 +30,10 @@ from typing import Tuple
 
 import torch
 
-from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, check_tensor,
-                                                device_of, launch, launch_count, lib,
-                                                reset_launch_count, rows_per_block,
-                                                sm_count)
+from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, bptt_rows_per_block,
+                                                check_tensor, device_of, dw_runs, launch,
+                                                launch_count, lib, reset_launch_count,
+                                                rows_per_block, sm_count)
 
 SOURCES = ("gru_fwd", "gru_bwd")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count", "dw_splits", "gru_recurrence",
@@ -158,19 +158,18 @@ def gru_recurrence_bwd_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return dx, dw.float(), db.float()
 
 
-def dw_splits(T: int, H: int, n_sm: int) -> int:
-    """Runs of steps the dW_hh / db_hh reduction is cut into: enough blocks
-    of (DW_TILE) outputs over its (H + 1, 3H) result for two per SM, at most
-    one run per step."""
-    tiles = -(-(H + 1) // DW_TILE[0]) * -(-3 * H // DW_TILE[1])
-    return max(1, min(T, -(-2 * n_sm // tiles)))
+def dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
+    """Runs of (t, b) rows the dW_hh / db_hh reduction is cut into
+    (`dw_runs`): all T B rows, over the (H + 1, 3H) result."""
+    return dw_runs(T * B, H + 1, 3 * H, n_sm)
 
 
 def gru_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
                        mask: torch.Tensor, ys: torch.Tensor, dys: torch.Tensor,
                        dh_fin: torch.Tensor, reverse: bool = False) -> BwdResult:
     """Gradient of `gru_recurrence` (BPTT with the gates recomputed from the
-    saved ys).  dys (T, B, H) and dh_fin (B, H) are the incoming gradients.
+    saved ys; on the card in a pass of their own before the serial one).
+    dys (T, B, H) and dh_fin (B, H) are the incoming gradients.
     Returns dx_proj (T, B, 3H), dw_hh_t (H, 3H) and db_hh (3H,), all f32."""
     _check(x_proj, w_hh_t, b_hh, mask)
     T, B, G = x_proj.shape
@@ -186,7 +185,7 @@ def gru_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.T
         raise ValueError(f"hidden size {H} > {MAX_THREADS} is not supported by the kernel")
     so = lib("gru_bwd", 11, 6)
     n_sm = sm_count(dev)
-    splits = dw_splits(T, H, n_sm)
+    splits = dw_splits(T, B, H, n_sm)
     dx = torch.empty(T, B, G, device=dev)
     dhn = torch.empty(T, B, H, device=dev)          # the n lane of dgh, for the dW pass
     dwb = torch.empty(H + 1, G, device=dev)         # rows 0..H-1 dw_hh_t, row H db_hh
@@ -197,7 +196,7 @@ def gru_recurrence_bwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.T
                x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), mask.data_ptr(),
                ys.data_ptr(), dys.data_ptr(), dh_fin.data_ptr(),
                dx.data_ptr(), dhn.data_ptr(), dwb.data_ptr(), dwb_partial.data_ptr(),
-               T, B, H, rows_per_block(B, H, n_sm), int(reverse), splits, stream)
+               T, B, H, bptt_rows_per_block(B, H, n_sm), int(reverse), splits, stream)
     return dx, dwb[:H], dwb[H]
 
 

@@ -25,9 +25,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, check_tensor,
-                                                device_of, launch, launch_count, lib,
-                                                reset_launch_count, rows_per_block,
+from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, bptt_rows_per_block,
+                                                bptt_threads_per_row, check_tensor,
+                                                device_of, dw_runs, launch, launch_count,
+                                                lib, reset_launch_count, rows_per_block,
                                                 sm_count)
 
 SOURCES = ("lstm_fwd", "lstm_bwd")
@@ -82,48 +83,11 @@ def _check(x_proj, w_hh_t, mask) -> None:
         raise ValueError(f"mask must be ({T}, {B}), got {tuple(mask.shape)}")
 
 
-# csrc/lstm_bwd.cu's serial pass: 4 threads per (row, group of hidden
-# units), one unit a group up to H = 80 with a thread's weights in registers
-# (11 or 21 float4s, which caps the block's threads: BPTT_REG_THREADS); above
-# that ceil(H / 256) units a group, the weights read from global memory, up to
-# 1024 threads
-BPTT_REG_H = 80
-BPTT_REG_THREADS = ((11, 640), (21, 384))   # (float4s a thread holds, threads)
-BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's dW tile: hidden units x gate columns
-BWD_DW_CHUNK = 16          # (t, b) rows a dW block stages at a time
-
-
-def _gate_stride(H: int) -> int:
-    """csrc/lstm_bwd.cu gate_stride: H rounded up to a multiple of 4 with an
-    odd count of float4s."""
-    hp = -(-H // 4) * 4
-    return hp + 4 if (hp // 4) % 2 == 0 else hp
-
-
-def bptt_threads_per_row(H: int) -> Tuple[int, int]:
-    """(threads per batch row, the block's thread limit) of the BPTT pass's
-    instantiation for H (csrc/lstm_bwd.cu)."""
-    if H > BPTT_REG_H:
-        units = -(-H // 256)
-        return 4 * -(-H // units), MAX_THREADS
-    held = _gate_stride(H) // 4
-    return 4 * H, next(t for n, t in BPTT_REG_THREADS if held <= n)
-
-
-def bptt_rows_per_block(B: int, H: int, n_sm: int) -> int:
-    """Batch rows per block of the BPTT pass: B spread over the SMs as
-    `rows_per_block` does, within the block's thread limit."""
-    per_row, cap = bptt_threads_per_row(H)
-    return max(1, min(-(-B // n_sm), cap // per_row))
-
-
 def bwd_dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
     """Runs of (t, b) rows the backward's dW_hh reduction (csrc/lstm_bwd.cu)
-    is cut into: enough 128-thread blocks of BWD_DW_TILE outputs for four per
-    SM, at most one run per BWD_DW_CHUNK of the (T - 1) B rows that add, at
-    least one."""
-    tiles = -(-H // BWD_DW_TILE[0]) * -(-4 * H // BWD_DW_TILE[1])
-    return max(1, min(-(-(T - 1) * B // BWD_DW_CHUNK), -(-4 * n_sm // tiles)))
+    is cut into (`dw_runs`): the (T - 1) B rows that carry an h_prev, over
+    the (H, 4H) result."""
+    return dw_runs((T - 1) * B, H, 4 * H, n_sm)
 
 
 def dw_splits(T: int, H: int, n_sm: int) -> int:
@@ -164,7 +128,7 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                x_proj.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(),
                ys.data_ptr(), cs.data_ptr() if cs is not None else None,
                h_fin.data_ptr(), c_fin.data_ptr(),
-               T, B, H, rows_per_block(B, H, n_sm), int(reverse), stream)
+               T, B, H, bptt_rows_per_block(B, H, n_sm), int(reverse), stream)
     return ys, cs, h_fin, c_fin
 
 

@@ -48,16 +48,53 @@ def _inputs(T, B, H, seed, device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("T,B,H", [(48, 64, 35), (48, 64, 74), (16, 64, 74),
-                                   (48, 64, 300), (7, 5, 33)])
+@pytest.mark.parametrize("T,B,H", CHECK_SHAPES)
 def test_lstm_kernel_matches_plain_version(cuda_device, T, B, H, reverse):
+    """The forward's serial pass (quads, the x_proj ring, weights in
+    registers up to H = 80 and from global memory at H = 300) against its
+    plain version at every shape `chip_smoke.py` checks, T = 512 included,
+    with cs written and not; one launch per call."""
     x, w, m = _inputs(T, B, H, seed=H, device=cuda_device)
-    before = klstm.launch_count()
+    want = klstm.lstm_recurrence_reference(x, w, m, reverse, need_cs=True)
+    for need_cs in (True, False):
+        before = klstm.launch_count()
+        got = klstm.lstm_recurrence(x, w, m, reverse, need_cs=need_cs)
+        assert klstm.launch_count() == before + 1
+        assert (got[1] is None) == (not need_cs)
+        for g, r in zip(got, want):
+            if g is not None:
+                torch.testing.assert_close(g, r, **TOL)
+
+
+def _middle_mask(T, B, device):
+    """A ragged mask with zeros between ones (not only padded tails), and a
+    row masked at every step."""
+    rng = np.random.default_rng(T * B)
+    m = torch.from_numpy((rng.random((T, B)) < 0.7).astype(np.float32)).to(device)
+    m[:, 0] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(48, 64, 74), (512, 32, 74), (33, 7, 33), (40, 9, 35),
+                                   (16, 9, 300)])
+def test_lstm_kernel_passes_masked_steps_in_the_middle(cuda_device, T, B, H, reverse):
+    """At a masked step h and c hold: the row masked everywhere stays 0."""
+    x, w, _ = _inputs(T, B, H, seed=H, device=cuda_device)
+    m = _middle_mask(T, B, cuda_device)
     got = klstm.lstm_recurrence(x, w, m, reverse, need_cs=True)
-    assert klstm.launch_count() == before + 1
     want = klstm.lstm_recurrence_reference(x, w, m, reverse, need_cs=True)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, **TOL)
+    assert torch.equal(got[0][:, 0], torch.zeros_like(got[0][:, 0]))
+
+
+@pytest.mark.parametrize("T,B,H", [(512, 32, 74), (48, 64, 300), (7, 5, 33)])
+def test_lstm_kernel_gives_the_same_bits_twice(cuda_device, T, B, H):
+    x, w, m = _inputs(T, B, H, seed=H, device=cuda_device)
+    first = klstm.lstm_recurrence(x, w, m, need_cs=True)
+    again = klstm.lstm_recurrence(x, w, m, need_cs=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_lstm_kernel_rejects_cpu_mixed_inputs(cuda_device):
@@ -167,12 +204,12 @@ def _gru_inputs(T, B, H, seed, device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("T,B,H", [(48, 64, 35), (48, 64, 74), (16, 64, 74), (48, 64, 300),
-                                   (7, 5, 33), (1, 3, 5), (256, 32, 74)])
+@pytest.mark.parametrize("T,B,H", CHECK_SHAPES + [(1, 3, 5)])
 def test_gru_kernels_match_plain_versions(cuda_device, T, B, H, reverse):
-    """Forward and BPTT kernels against their plain versions on the card
-    (w_hh_t in shared memory at H <= 74, in global memory at H = 300);
-    dW_hh and db_hh are summed in f64 on both sides."""
+    """Forward and BPTT kernels against their plain versions on the card at
+    every shape `chip_smoke.py` checks (T = 512 included; the backward's
+    serial pass with weights in registers up to H = 80, from global memory
+    at H = 300); dW_hh and db_hh are summed in f64 on both sides."""
     x, w, b, m, dys, dh = _gru_inputs(T, B, H, seed=H, device=cuda_device)
     before = kgru.launch_count("gru_fwd"), kgru.launch_count("gru_bwd")
     ys, h_fin = kgru.gru_recurrence(x, w, b, m, reverse)
@@ -185,6 +222,30 @@ def test_gru_kernels_match_plain_versions(cuda_device, T, B, H, reverse):
     want = kgru.gru_recurrence_bwd_reference(x, w, b, m, ys_r, dys, dh, reverse)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(48, 64, 74), (512, 32, 74), (33, 7, 33), (40, 9, 35),
+                                   (16, 9, 300)])
+def test_gru_bwd_kernel_passes_masked_steps_in_the_middle(cuda_device, T, B, H, reverse):
+    """At a masked step dh passes straight through and dx_proj is 0."""
+    x, w, b, _, dys, dh = _gru_inputs(T, B, H, seed=H, device=cuda_device)
+    m = _middle_mask(T, B, cuda_device)
+    ys, _ = kgru.gru_recurrence_reference(x, w, b, m, reverse)
+    got = kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh, reverse)
+    want = kgru.gru_recurrence_bwd_reference(x, w, b, m, ys, dys, dh, reverse)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, **TOL)
+    assert torch.equal(got[0][m == 0.0], torch.zeros_like(got[0][m == 0.0]))
+
+
+@pytest.mark.parametrize("T,B,H", [(512, 32, 74), (48, 64, 300), (7, 5, 33)])
+def test_gru_bwd_kernel_gives_the_same_bits_twice(cuda_device, T, B, H):
+    x, w, b, m, dys, dh = _gru_inputs(T, B, H, seed=H, device=cuda_device)
+    ys, _ = kgru.gru_recurrence(x, w, b, m)
+    first = kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh)
+    again = kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
 
 
 def test_gru_scan_gradients_on_the_card_match_the_cpu(cuda_device):

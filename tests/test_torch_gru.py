@@ -215,12 +215,12 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_dw_splits_fill_the_card_and_cover_every_step():
-    """The dW_hh / db_hh reduction's runs of steps over its (H + 1, 3H)
-    result: about two blocks per SM at the tower widths, never more runs
-    than steps, at least one."""
-    tiles_74 = 5 * 4                             # ceil(75 / 16) x ceil(222 / 64)
-    assert kgru.dw_splits(48, 74, 132) * tiles_74 >= 2 * 132
-    assert kgru.dw_splits(48, 35, 132) == 44     # 3 x 2 tiles
-    assert kgru.dw_splits(7, 33, 132) == 7
-    assert kgru.dw_splits(1, 4, 132) == 1
-    assert kgru.dw_splits(48, 300, 132) == 1     # 19 x 15 tiles fill the card alone
+    """The dW_hh / db_hh reduction's runs of (t, b) rows over its (H + 1,
+    3H) result: about four 128-thread blocks per SM at the tower widths, at
+    most one run per 16 rows, at least one."""
+    tiles_74 = 3 * 4                             # ceil(75 / 32) x ceil(222 / 64)
+    assert kgru.dw_splits(48, 64, 74, 132) * tiles_74 >= 4 * 132
+    assert kgru.dw_splits(48, 64, 35, 132) == 132    # 2 x 2 tiles
+    assert kgru.dw_splits(7, 5, 33, 132) == 3        # 35 rows in runs of 16
+    assert kgru.dw_splits(1, 4, 4, 132) == 1
+    assert kgru.dw_splits(48, 64, 300, 132) == 4     # 10 x 15 tiles
