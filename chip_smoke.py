@@ -24,14 +24,17 @@ the result):
    `nn.LSTM` / `nn.GRU` call (its forward, or its backward) on the same
    inputs, beside the kernel's bound; the LSTM and GRU backwards' times also
    split into their gate pass, their serial BPTT pass and their dW passes,
-   and the time per serial step (us / T) of `lstm_fwd` and `gru_bwd`; the
-   checked shapes must reach all three instantiations of the serial passes
-   (weights in registers as 11 or 21 float4s, or read from global memory
-   at H = 300).  The fused
+   and the time per serial step (us / T) of `lstm_fwd`, `gru_fwd` and
+   `gru_bwd`; the checked shapes must reach all three instantiations of the
+   serial passes of `lstm_fwd`, `gru_fwd` and `gru_bwd` (weights in
+   registers, 11 or 21 float4s' worth, or read from global memory at
+   H = 300) and an H that is no multiple of 4 (H = 33, 35).  The fused
    residual + dropout + LayerNorm forward and backward in f32 and bf16: the
    keep mask equal bit for bit to the plain hash, outputs within 1e-5 (f32)
    or one bf16 ulp, dscale and dbias within 1e-4; timed beside the composition
-   `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`.  The three
+   `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`, the
+   backward also split into its rows pass and its column sums, with the
+   inputs in L2 and read from HBM.  The three
    blockwise attention kernels (forward, dq, dk/dv) at S = 130, 514 and 1026
    and at D = 16, in f32 (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus
    one bf16 ulp on the gradients), at dropout rate 0 and 0.1 with masked
@@ -446,12 +449,15 @@ def max_err(pairs, tol, where: str) -> float:
 def serial_instantiations(rows) -> list:
     """The serial-pass instantiations (`bptt_instantiation`: 11 or 21
     float4s of weights in registers, 0 from global memory) that the check
-    rows' H went through; raises unless every one was."""
+    rows' H went through; raises unless every one was, and unless an H that
+    is no multiple of 4 (a partial float4 of h and of the weights) was."""
     from mmda_tpu_torch.ops.kernels._launch import bptt_instantiation
 
     used = sorted({bptt_instantiation(r["H"]) for r in rows})
     if used != [0, 11, 21]:
         raise AssertionError(f"CHECK_SHAPES reach the instantiations {used}, not 0, 11 and 21")
+    if all(r["H"] % 4 == 0 for r in rows):
+        raise AssertionError("CHECK_SHAPES hold no H that is no multiple of 4")
     return used
 
 
@@ -538,12 +544,14 @@ def cudnn_bwd(x_proj, w_hh_t, lengths, dys, dh, b_hh=None):
 
 LSTM_BWD_PARTS = {"gate_pass": "lstm_gates", "bptt": "lstm_bptt", "dw": "lstm_dw"}
 GRU_BWD_PARTS = {"gate_pass": "gru_gates", "bptt": "gru_bptt", "dwb": "gru_dwb"}
+LN_BWD_PARTS = {"rows": "ln_dropout_bwd", "column_sums": "ln_dropout_dgb"}
 
 
 def bwd_parts(kernel, names: dict, tries: int = 3) -> dict:
-    """The device ms of one `lstm_bwd` or `gru_bwd` call by its kernels
-    (`names`: part -> kernel name substring): the gate pass, the serial BPTT
-    pass and the two dW passes (profiler medians by name).  A profiler
+    """The device ms of one `lstm_bwd`, `gru_bwd` or `ln_dropout_bwd` call by
+    its kernels (`names`: part -> kernel name substring): the gate pass, the
+    serial BPTT pass and the two dW passes; the rows pass and the column
+    sums (profiler medians by name).  A profiler
     window that lost every event of a part is taken again, at most `tries`
     times; a part still missing is "not measured"."""
     for _ in range(tries):
@@ -648,6 +656,7 @@ def check_gru_kernels(kgru, device) -> tuple:
                 "gru_bwd " + where)})
     worst = {k: max(r["max_abs_err"] for r in v) for k, v in rows.items()}
     log("3 gru-kernels-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL,
+        fwd_instantiations=serial_instantiations(rows["fwd"]),
         bwd_instantiations=serial_instantiations(rows["bwd"]))
 
     timed = {"fwd": [], "bwd": []}
@@ -664,6 +673,7 @@ def check_gru_kernels(kgru, device) -> tuple:
             **shape, **kernel_times(lambda: kgru.gru_recurrence(x, w, b, m),
                                     lambda: kgru.gru_recurrence_reference(x, w, b, m), call),
             "library_max_abs_err": (h_lib - h_k).abs().max().item(), **bound_f})
+        timed["fwd"][-1]["us_per_step"] = timed["fwd"][-1]["ms"] * 1e3 / T
 
         def kernel():
             return kgru.gru_recurrence_bwd(x, w, b, m, ys, dys, dh)
@@ -815,14 +825,19 @@ def check_ln_kernels(kln, keep_mask, device) -> tuple:
                 composed),
             "cold_ms": device_ms(cold_fwd, reps=2 * copies),
             "library": "F.layer_norm(x + F.dropout(y, p)) in f32, cast back", **bound_f})
+        def warm_bwd():
+            return kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, LN_RATE, eps)
+
         timed["bwd"].append({
             **shape,
             **kernel_times(
-                lambda: kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, LN_RATE, eps),
+                warm_bwd,
                 lambda: kln.residual_dropout_layernorm_bwd_reference(
                     x, y, g, dout, s, LN_RATE, eps),
                 lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)),
             "cold_ms": device_ms(cold_bwd, reps=2 * copies),
+            "parts_ms": bwd_parts(warm_bwd, LN_BWD_PARTS),
+            "cold_parts_ms": bwd_parts(cold_bwd, LN_BWD_PARTS),
             "library": "autograd.grad of that composition", **bound_b})
         log("3 ln-fwd-time", **timed["fwd"][-1])
         log("3 ln-bwd-time", **timed["bwd"][-1])
@@ -2255,7 +2270,7 @@ def main() -> int:
                if "max_abs_err_bf16" in checks[name] else {}),
             **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
                if "sass" in checks[name] else {}),
-            **({"cold_ms": rep["cold_ms"]} if "cold_ms" in rep else {}),
+            **{k: rep[k] for k in ("cold_ms", "cold_parts_ms") if k in rep},
             **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
             **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step") if k in rep}})
         if launches[name] < 1:

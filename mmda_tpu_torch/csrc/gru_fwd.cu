@@ -18,100 +18,182 @@
 // What bounds it on the H100.  As for the LSTM forward (lstm_fwd.cu): the
 // inputs and outputs are a few MB and the arithmetic a few MFLOP at the
 // tower shapes, about a microsecond of either; the T steps are dependent, so
-// the time is T times the latency of one step -- a (rows, H) x (H, 3H)
-// product, the gate math and a barrier.
+// the time is T times the latency of one step.
 //
-// What the design does about it.  The same as lstm_fwd.cu: one thread block
-// owns `rows` batch rows (spread over the SMs by the caller) and loops over
-// all T steps, so the TPU's time-chunked streaming kernel is not needed; one
-// thread per (row, hidden unit) computes its unit's three gate dot products
-// and keeps its own h in a register (h' = (1 - z) n + z h needs only that);
-// h is double-buffered in shared memory, one __syncthreads per step; w_hh_t
-// sits in opted-in dynamic shared memory when it fits (H=74: 65.7 KB) and
-// is read through L1/L2 otherwise (H=300: 1.08 MB).  Plain f32 FMAs, no
-// tensor cores: TF32 would change the numbers the JAX package computes.
+// What the design does about it: lstm_fwd.cu's design, so that the serial
+// chain of a step holds only the product h @ w_hh_t of the row, the three
+// activations and the cell.
+//   * Batch rows are spread over the SMs (the caller picks `rows`), four
+//     threads per (row, hidden unit j), one quad of a warp.  Thread g < 3
+//     forms gate g's product h . w_hh_t[:, gH + j] from h in shared memory
+//     (float4 reads, four accumulators strided over k, added as (a0 + a1) +
+//     (a2 + a3)) and adds b_hh; threads 0 and 1 apply their sigmoid, and
+//     three __shfl_sync hand r, z and hh_n to the whole quad, which runs the
+//     same cell, so the four keep the same h bit for bit.  Thread 3 forms
+//     no product: a quarter of k a thread for all three gates, added by an
+//     xor-butterfly, was slower on the card (PERF.md, the kernel table).
+//   * The gate's column sits in registers where H <= 80 (11 or 21 float4s),
+//     else it is read from global memory with several units per quad (H up
+//     to 1024).  b_hh sits in registers.
+//   * x_proj[t] and the mask never depend on the carry: they come from a
+//     shared-memory ring that cp.async fills kRing - 1 steps ahead, and are
+//     read into registers while the step before finishes.
+//   * h is double-buffered in shared memory by step parity (gate_stride
+//     padding, zero past H), and a ring slot is refilled only after the
+//     barrier that follows its read, so one __syncthreads per step orders
+//     both.  Thread 0 of the quad writes h to shared memory and ys.
+//   * Plain f32 FMAs, no tensor cores: TF32 or bf16 would change the
+//     numbers the JAX package computes.
 
-#include <cuda_runtime.h>
+#include "recurrence.cuh"
 
 namespace {
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+constexpr int kRing = 8;   // input ring: steps s + 1 .. s + kRing - 1 in flight
 
-template <bool kWeightsInSmem>
-__global__ void gru_fwd_kernel(const float* __restrict__ x_proj,  // (T, B, 3H)
-                               const float* __restrict__ w_hh_t,  // (H, 3H)
-                               const float* __restrict__ b_hh,    // (3H,)
-                               const float* __restrict__ mask,    // (T, B)
-                               float* __restrict__ ys,            // (T, B, H)
-                               float* __restrict__ h_fin,         // (B, H)
-                               int T, int B, int H, int rows, int reverse) {
-  extern __shared__ float smem[];
+// The serial pass (see the file's comment).  NC > 0: one unit per quad, and
+// thread (j, q < 3) holds w_hh_t[:, qH + j] as NC float4s in registers;
+// NC == 0: `units` units per quad (unit jq + u NQ), the column read from
+// global memory.
+template <int NC>
+__global__ void __launch_bounds__(bptt_max_threads(NC))
+gru_fwd_kernel(const float* __restrict__ x_proj,  // (T, B, 3H)
+               const float* __restrict__ w_hh_t,  // (H, 3H)
+               const float* __restrict__ b_hh,    // (3H,)
+               const float* __restrict__ mask,    // (T, B)
+               float* __restrict__ ys,            // (T, B, H)
+               float* __restrict__ h_fin,         // (B, H)
+               int T, int B, int H, int rows, int units, int reverse) {
+  constexpr int UM = NC > 0 ? 1 : kMaxUnits;
+  extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
-  float* h_s = smem + (kWeightsInSmem ? H * G : 0);  // (2, rows, H)
-  const float* w = kWeightsInSmem ? smem : w_hh_t;
+  const int HP = gate_stride(H);
+  const int NQ = (H + units - 1) / units;   // quads of a row
+  const int NU = NQ * units;                // unit slots of a row
+  float* h_s = smem;                             // (2, rows, HP) h, zero past H
+  float* xp_s = h_s + 2 * rows * HP;             // (kRing, rows, 3, NU) x_proj
+  float* m_s = xp_s + kRing * rows * 3 * NU;     // (kRing, rows) mask
 
-  if (kWeightsInSmem) {
-    for (int i = threadIdx.x; i < H * G; i += blockDim.x) smem[i] = w_hh_t[i];
-  }
-  for (int i = threadIdx.x; i < 2 * rows * H; i += blockDim.x) h_s[i] = 0.0f;
-  __syncthreads();
-
-  const int r = threadIdx.x / H;      // row within the block
-  const int j = threadIdx.x - r * H;  // hidden unit
+  const int r = threadIdx.x / (4 * NQ);     // row within the block
+  const int jq = (threadIdx.x >> 2) - r * NQ;
+  const int q = threadIdx.x & 3;            // gate: r, z, n (3: none)
   const int b = blockIdx.x * rows + r;
-  const bool active = r < rows && b < B;
+  const bool row_ok = r < rows && b < B;
+  bool valid[UM];
+#pragma unroll
+  for (int u = 0; u < UM; ++u) valid[u] = row_ok && u < units && jq + u * NQ < H;
 
-  float br = 0.0f, bz = 0.0f, bn = 0.0f;
-  if (active) {
-    br = b_hh[j];
-    bz = b_hh[H + j];
-    bn = b_hh[2 * H + j];
+  for (int i = threadIdx.x; i < 2 * rows * HP; i += blockDim.x) h_s[i] = 0.0f;
+
+  const int nc = q < 3 ? (H + 3) / 4 : 0;   // float4s of h this thread multiplies
+  float4 wr[NC > 0 ? NC : 1];
+  if constexpr (NC > 0) load_column<NC>(wr, w_hh_t + q * H + jq, G, H, jq < H && q < 3);
+  float bh[UM][3];
+#pragma unroll
+  for (int u = 0; u < UM; ++u) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) bh[u][g] = valid[u] ? b_hh[g * H + jq + u * NQ] : 0.0f;
   }
-  float h = 0.0f;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const float* h_cur = h_s + (s & 1) * rows * H + r * H;
-    float* h_nxt = h_s + ((s & 1) ^ 1) * rows * H + r * H;
-    if (active) {
-      float ar = 0.0f, az = 0.0f, an = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float hk = h_cur[k];
-        const float* wk = w + (size_t)k * G + j;
-        ar = fmaf(hk, wk[0], ar);
-        az = fmaf(hk, wk[H], az);
-        an = fmaf(hk, wk[2 * H], an);
-      }
+
+  // Step s's inputs into ring slot s % kRing: thread q < 3 of a unit's quad
+  // copies x_proj of gate q, thread 3 of the row's first quad the mask.  One
+  // group of copies per step, empty past T.
+  auto prefetch = [&](int s) {
+    if (s < T && row_ok) {
+      const int t = reverse ? T - 1 - s : s;
       const size_t row = (size_t)t * B + b;
-      const float* xp = x_proj + row * G + j;
-      const float rg = sigmoid_f(xp[0] + (ar + br));
-      const float zg = sigmoid_f(xp[H] + (az + bz));
-      const float ng = tanhf(xp[2 * H] + rg * (an + bn));
-      const float h_new = (1.0f - zg) * ng + zg * h;
-      const float m = mask[row];
-      h = m * h_new + (1.0f - m) * h;
-      h_nxt[j] = h;
-      ys[row * H + j] = h;
+      if (q < 3) {
+        float* xs = xp_s + (((s % kRing) * rows + r) * 3 + q) * NU;
+#pragma unroll
+        for (int u = 0; u < UM; ++u) {
+          const int j = jq + u * NQ;
+          if (valid[u]) cp_async_4(xs + j, x_proj + row * G + q * H + j, true);
+        }
+      } else if (jq == 0) {
+        cp_async_4(m_s + (s % kRing) * rows + r, mask + row, true);
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  float xp[UM][3], m = 0.0f;
+  auto read_slot = [&](int s) {
+    const float* xs = xp_s + ((s % kRing) * rows + r) * 3 * NU;
+#pragma unroll
+    for (int u = 0; u < UM; ++u) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) xp[u][g] = valid[u] ? xs[g * NU + jq + u * NQ] : 0.0f;
+    }
+    if (row_ok) m = m_s[(s % kRing) * rows + r];
+  };
+
+  for (int s = 0; s < kRing - 1; ++s) prefetch(s);
+  cp_async_wait<kRing - 2>();
+  __syncthreads();   // step 0's inputs and the zeroed h, for every thread
+  read_slot(0);
+
+  float h[UM];
+#pragma unroll
+  for (int u = 0; u < UM; ++u) h[u] = 0.0f;
+  for (int s = 0; s < T; ++s) {
+    // into the slot step s - 1 used, read before barrier s - 1
+    prefetch(s + kRing - 1);
+    const int t = reverse ? T - 1 - s : s;
+    const size_t row = (size_t)t * B + b;
+    const float4* hv = reinterpret_cast<const float4*>(h_s + ((s & 1) * rows + r) * HP);
+    float* h_nxt = h_s + (((s & 1) ^ 1) * rows + r) * HP;
+#pragma unroll
+    for (int u = 0; u < UM; ++u) {
+      const int j = jq + u * NQ;
+      float dot = 0.0f;
+      if (valid[u]) {
+        if constexpr (NC > 0) {
+          dot = dot_regs<NC>(hv, wr, nc);
+        } else {
+          dot = dot_global(hv, w_hh_t + q * H + j, G, H, nc);
+        }
+      }
+      // threads 0, 1: sigmoid(x + hh) of r, z; thread 2: hh_n
+      const float hh = dot + (q == 0 ? bh[u][0] : q == 1 ? bh[u][1] : bh[u][2]);
+      const float act = q < 2 ? sigmoid_f((q == 0 ? xp[u][0] : xp[u][1]) + hh) : hh;
+      const float rg = __shfl_sync(0xffffffffu, act, 0, 4);
+      const float zg = __shfl_sync(0xffffffffu, act, 1, 4);
+      const float hn = __shfl_sync(0xffffffffu, act, 2, 4);
+      if (valid[u]) {
+        const float ng = tanhf(xp[u][2] + rg * hn);
+        const float h_new = (1.0f - zg) * ng + zg * h[u];
+        h[u] = m * h_new + (1.0f - m) * h[u];
+        if (q == 0) {
+          h_nxt[j] = h[u];
+          ys[row * H + j] = h[u];
+        }
+      }
+    }
+    cp_async_wait<kRing - 2>();   // this thread's copies of step s + 1 landed
+    __syncthreads();              // everyone's, and this step's h is in h_nxt
+    if (s + 1 < T) read_slot(s + 1);
   }
-  if (active) h_fin[(size_t)b * H + j] = h;
+#pragma unroll
+  for (int u = 0; u < UM; ++u) {
+    if (valid[u] && q == 0) h_fin[(size_t)b * H + jq + u * NQ] = h[u];
+  }
 }
 
-template <bool kWeightsInSmem>
+template <int NC>
 cudaError_t launch(const float* x_proj, const float* w_hh_t, const float* b_hh,
-                   const float* mask, float* ys, float* h_fin, int T, int B,
-                   int H, int rows, int reverse, size_t smem_bytes,
-                   cudaStream_t stream) {
+                   const float* mask, float* ys, float* h_fin, int T, int B, int H, int rows,
+                   int units, int reverse, cudaStream_t stream) {
+  const int groups = (H + units - 1) / units;
+  const int per_row = 4 * groups;
+  if (rows < 1 || rows * per_row > bptt_max_threads(NC)) return cudaErrorInvalidValue;
+  const size_t smem_bytes = ((size_t)2 * rows * gate_stride(H) +
+                             (size_t)kRing * rows * (3 * groups * units + 1)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<kWeightsInSmem>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+      gru_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  const int threads = (rows * H + 31) / 32 * 32;
+  const int threads = (rows * per_row + 31) / 32 * 32;
   const int blocks = (B + rows - 1) / rows;
-  gru_fwd_kernel<kWeightsInSmem><<<blocks, threads, smem_bytes, stream>>>(
-      x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H, rows, reverse);
+  gru_fwd_kernel<NC><<<blocks, threads, smem_bytes, stream>>>(
+      x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H, rows, units, reverse);
   return cudaGetLastError();
 }
 
@@ -120,26 +202,26 @@ cudaError_t launch(const float* x_proj, const float* w_hh_t, const float* b_hh,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
-// The caller allocates every output.  rows * H <= 1024.
+// The caller allocates every output.  1 <= H <= 1024, and rows batch rows
+// of 4 ceil(H / units) threads each within the block limit
+// (bptt_max_threads: 640 threads where H <= 44, 384 where H <= 80, else
+// 1024; units = 1 up to H = 256, then ceil(H / 256)), as for the other
+// serial passes.
 int mmda_gru_fwd(const float* x_proj, const float* w_hh_t, const float* b_hh,
-                 const float* mask, float* ys, float* h_fin, int T, int B,
-                 int H, int rows, int reverse, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t h_bytes = 2 * (size_t)rows * H * sizeof(float);
-  const size_t w_bytes = (size_t)H * 3 * H * sizeof(float);
+                 const float* mask, float* ys, float* h_fin, int T, int B, int H, int rows,
+                 int reverse, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || H > kMaxUnits * 256) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_bytes + h_bytes <= (size_t)smem_optin) {
-    return (int)launch<true>(x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H,
-                             rows, reverse, w_bytes + h_bytes, st);
+  if (H <= kRegH && gate_stride(H) / 4 <= 11) {
+    return (int)launch<11>(x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H, rows, 1, reverse,
+                           st);
   }
-  return (int)launch<false>(x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H,
-                            rows, reverse, h_bytes, st);
+  if (H <= kRegH) {
+    return (int)launch<21>(x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H, rows, 1, reverse,
+                           st);
+  }
+  return (int)launch<0>(x_proj, w_hh_t, b_hh, mask, ys, h_fin, T, B, H, rows,
+                        (H + 255) / 256, reverse, st);
 }
 
 }  // extern "C"

@@ -37,16 +37,13 @@ __device__ __forceinline__ uint32_t keep_threshold(float rate) {
   return (uint32_t)ceilf(rate * 16777216.0f);
 }
 
-// The LayerNorm kernels' position mix.
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t row,
-                                              uint32_t col) {
-  return hash_avalanche(row * 2654435761u + col * 0x9E3779B9u + seed * 40503u);
-}
-
-// 1 where the element is kept: u >= rate, rate already rounded to f32.
+// 1 where the LayerNorm kernels keep an element: u >= rate for u the
+// avalanche of their position mix, rate already rounded to f32, taken as the
+// integer compare keep_threshold gives (always 1 at rate 0).
 __device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t row,
                                           uint32_t col, float rate) {
-  return hash_uniform(seed, row, col) >= rate;
+  return hash_bits(row * 2654435761u + col * 0x9E3779B9u + seed * 40503u) >=
+         keep_threshold(rate);
 }
 
 // The short attention kernels' position mix (short_attention.py::

@@ -1,6 +1,7 @@
 // Shared by ln_dropout_fwd.cu and ln_dropout_bwd.cu: rows of f32 or bf16
 // values read and written 1 or 4 at a time (4: one 16-byte or 8-byte access
-// per lane, neighbouring lanes on neighbouring addresses), and a warp sum.
+// per lane, neighbouring lanes on neighbouring addresses), as f32 or as
+// loaded (Raw), and a warp sum.
 
 #pragma once
 
@@ -9,7 +10,7 @@
 
 namespace mmda {
 
-constexpr int kWarpsPerBlock = 4;   // one warp per row, 4 rows per block
+constexpr int kWarpsPerBlock = 4;   // the forward: one warp per row, 4 rows per block
 
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
@@ -52,6 +53,37 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
     *reinterpret_cast<uint2*>(p) = t;
   } else {
     p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// V values of a row as one access loads them (float4 / uint2 for V = 4,
+// one value for V = 1), held until they are used: half the registers of
+// their f32 values in bf16.
+template <typename T, int V> struct RawOf;
+template <> struct RawOf<float, 4> { using type = float4; };
+template <> struct RawOf<float, 1> { using type = float; };
+template <> struct RawOf<__nv_bfloat16, 4> { using type = uint2; };
+template <> struct RawOf<__nv_bfloat16, 1> { using type = unsigned short; };
+template <typename T, int V>
+using Raw = typename RawOf<T, V>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  return *reinterpret_cast<const Raw<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void raw_to_float(const Raw<T, V>& r, float* v) {
+  if constexpr (sizeof(T) == 4 && V == 4) {
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+  } else if constexpr (sizeof(T) == 4) {
+    v[0] = r;
+  } else if constexpr (V == 4) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    v[0] = __bfloat162float(__ushort_as_bfloat16(r));
   }
 }
 

@@ -15,176 +15,277 @@
 //
 // What bounds it on the H100: bytes.  Five passes over N * H elements (x, y,
 // do read, dx, dy written): 24.6 MB in bf16 at N=3200, H=768, 7.3 us at
-// 3.35 TB/s.
+// 3.35 TB/s.  To stream at that rate an SM must keep some 20-30 KB of loads
+// in flight (Little's law at about 1 us of DRAM latency).
 //
-// What the design does about it.  One warp per row as in the forward, but a
-// block walks over many rows (the caller picks the grid, about two blocks
-// per SM) so that the column sums stay in the block: every lane owns its
-// columns of its warp's dg and db rows in shared memory, adds each row it
-// processes to them, and at the end the block adds its warps' rows in order
-// and writes one (2, H) f32 partial.  The TPU kernel accumulates dg and db
-// across a grid that runs in order; here ln_dropout_dgb_sum_kernel adds the
-// blocks' partials in block order in a second pass: deterministic, no
-// atomics.  do is read again (from L1/L2) in the last pass rather than kept.
-// Shared memory is read and written 4 values at a time like device memory: a
-// lane's four neighbouring floats taken one by one would meet the next
-// lanes' in the same banks.
+// What the design does about it.
+//   * One warp per row, kWarps rows of a block at once, the block walking
+//     over rows (the caller sizes the grid to the blocks the SMs hold at
+//     once).  A lane holds its NCH chunks of V columns of the row in
+//     registers, as loaded (Raw: 12 registers per tensor at H = 768 in
+//     bf16), and the next row's x, y and do are loaded, into a second set of
+//     registers, before the current row's first reduction: a warp keeps up
+//     to two rows (9.2 KB in bf16) in flight, 16 warps an SM (two blocks of
+//     8 in bf16) up to 147 KB.
+//   * No pass over shared memory for the row: z, then zhat, and dzhat stay
+//     in registers; do is read once; the hash is computed once per element
+//     and its keep bits kept in a register for the dy pass.
+//   * The row pass issues about as many instructions as the bytes take to
+//     stream, so it carries no branch per column: the columns of the last
+//     chunks past H are zeros that add nothing (g and the dg, db rows in
+//     shared memory are padded to the chunks' width), and only the stores
+//     are guarded.
+//   * g sits in shared memory once per block.  A lane adds each of its rows'
+//     do * zhat and do to its own columns of its warp's dg and db rows in
+//     shared memory; at the end the block adds its warps' rows in order and
+//     writes one (2, H) f32 partial.  ln_dropout_dgb_sum_kernel then adds the
+//     partials per column over 2H / 32 blocks: warp w of a block sums
+//     partials w, w + 8, ... of 32 columns, and the block adds its 8 warps'
+//     sums in order.  Deterministic, no atomics.
+// The TPU kernel instead carries dg and db across a grid that runs in order.
 
 #include "hash_dropout.cuh"
 #include "ln_dropout.cuh"
 
 namespace {
 
-using mmda::kWarpsPerBlock;
+constexpr int kWarps = 8;          // rows a block holds at once, one per warp
+constexpr int kSumWarps = 8;       // ln_dropout_dgb_sum_kernel: partial runs per column
+constexpr int kSumLoads = 36;      // partials a thread of it loads before adding them
 
+// Blocks an SM holds at once: two of kWarps warps where a lane's registers
+// fit 128 (bf16 with V = 4), else one.
 template <typename T, int V>
-__global__ void ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
-                                      const T* __restrict__ y,      // (N, H)
-                                      const float* __restrict__ g,  // (H,)
-                                      const T* __restrict__ dout,   // (N, H)
-                                      const int* __restrict__ seed_ptr,
-                                      T* __restrict__ dx,           // (N, H)
-                                      T* __restrict__ dy,           // (N, H)
-                                      float* __restrict__ partial,  // (blocks, 2, H)
-                                      int N, int H, float rate, float scale,
-                                      float eps) {
-  extern __shared__ float smem[];
+constexpr int min_blocks() {
+  return sizeof(T) == 2 && V == 4 ? 2 : 1;
+}
+
+template <typename T, int V, int NCH>
+__global__ void __launch_bounds__(32 * kWarps, (min_blocks<T, V>()))
+ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
+                      const T* __restrict__ y,      // (N, H)
+                      const float* __restrict__ g,  // (H,)
+                      const T* __restrict__ dout,   // (N, H)
+                      const int* __restrict__ seed_ptr,
+                      T* __restrict__ dx,           // (N, H)
+                      T* __restrict__ dy,           // (N, H)
+                      float* __restrict__ partial,  // (blocks, 2, H)
+                      int N, int H, float rate, float scale, float eps) {
+  using R = mmda::Raw<T, V>;
+  constexpr int HW = NCH * 32 * V;                 // the columns a warp's lanes own
+  extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* z_s = smem + warp * H;                          // z, then zhat
-  float* dg_s = smem + (kWarpsPerBlock + warp) * H;      // this warp's sums
-  float* db_s = smem + (2 * kWarpsPerBlock + warp) * H;
-  const bool drop = rate > 0.0f;
-  const uint32_t seed = drop ? (uint32_t)seed_ptr[0] : 0u;
+  float* g_s = smem;                               // (HW,), then (kWarps, 2, HW):
+  float* dg_s = smem + (1 + 2 * warp) * HW;        // this warp's sums
+  float* db_s = dg_s + HW;
+  const uint32_t seed = rate > 0.0f ? (uint32_t)seed_ptr[0] : 0u;
 
-  // every column of the warp's rows is owned by one lane: zeroed and added
-  // to by it alone, so only the block's final sum needs a barrier
-  for (int c = lane * V; c < H; c += 32 * V) {
+  // Columns H .. HW - 1 hold zeros (x, y, do, g): they add nothing to a sum
+  // and need no branch.  Every column of a warp's rows is owned by one lane:
+  // zeroed and added to by it alone, so only g and the block's final sum
+  // need a barrier.
+  for (int c = threadIdx.x; c < HW; c += blockDim.x) g_s[c] = c < H ? g[c] : 0.0f;
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
     const float zero[V] = {};
-    mmda::store_vec<V>(dg_s + c, zero);
-    mmda::store_vec<V>(db_s + c, zero);
+    mmda::store_vec<V>(dg_s + (k * 32 + lane) * V, zero);
+    mmda::store_vec<V>(db_s + (k * 32 + lane) * V, zero);
   }
-  for (int row = blockIdx.x * kWarpsPerBlock + warp; row < N;
-       row += gridDim.x * kWarpsPerBlock) {
+  __syncthreads();
+
+  // a row's x, y and do as this lane loads them, zero past H or N
+  auto load_row = [&](int row, R (&rx)[NCH], R (&ry)[NCH], R (&rd)[NCH]) {
     const size_t base = (size_t)row * H;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = (k * 32 + lane) * V;
+      rx[k] = ry[k] = rd[k] = R{};
+      if (row < N && c < H) {
+        rx[k] = mmda::load_raw<T, V>(x + base + c);
+        ry[k] = mmda::load_raw<T, V>(y + base + c);
+        rd[k] = mmda::load_raw<T, V>(dout + base + c);
+      }
+    }
+  };
+
+  // one row: dx, dy, and its terms added to this warp's dg and db
+  auto process = [&](int row, const R (&rx)[NCH], const R (&ry)[NCH], const R (&rd)[NCH]) {
+    // z = x + dropout(y), the keep bits, the mean
+    float z[NCH][V];
+    uint32_t keep = 0u;
     float sum = 0.0f;
-    for (int c = lane * V; c < H; c += 32 * V) {
-      float xv[V], yv[V], zv[V];
-      mmda::load_vec<V>(x + base + c, xv);
-      mmda::load_vec<V>(y + base + c, yv);
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = (k * 32 + lane) * V;
+      float xv[V], yv[V];
+      mmda::raw_to_float<T, V>(rx[k], xv);
+      mmda::raw_to_float<T, V>(ry[k], yv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        float yi = yv[i];
-        if (drop) {
-          yi = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate)
-                   ? yi * scale : 0.0f;
-        }
-        zv[i] = xv[i] + yi;
-        sum += zv[i];
+        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        keep |= (uint32_t)kept << (k * V + i);
+        z[k][i] = xv[i] + (kept ? yv[i] * scale : 0.0f);   // 0 past H
+        sum += z[k][i];
       }
-      mmda::store_vec<V>(z_s + c, zv);
     }
     const float mu = mmda::warp_sum(sum) / (float)H;
     float sq = 0.0f;
-    for (int c = lane * V; c < H; c += 32 * V) {
-      float zv[V];
-      mmda::load_vec<V>(z_s + c, zv);
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const bool ok = (k * 32 + lane) * V < H;   // V = 4 only where H % 4 == 0
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float d = zv[i] - mu;
-        sq += d * d;
+        const float d = z[k][i] - mu;
+        sq += ok ? d * d : 0.0f;
       }
     }
     const float rstd = rsqrtf(mmda::warp_sum(sq) / (float)H + eps);
 
+    // zhat over z, dzhat = do * g, the two row sums, this warp's dg and db
+    float dzh[NCH][V];
     float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane * V; c < H; c += 32 * V) {
-      float gv[V], dv[V], zv[V], dgv[V], dbv[V];
-      mmda::load_vec<V>(g + c, gv);
-      mmda::load_vec<V>(dout + base + c, dv);
-      mmda::load_vec<V>(z_s + c, zv);
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = (k * 32 + lane) * V;
+      float dv[V], gv[V], dgv[V], dbv[V];
+      mmda::raw_to_float<T, V>(rd[k], dv);
+      mmda::load_vec<V>(g_s + c, gv);
       mmda::load_vec<V>(dg_s + c, dgv);
       mmda::load_vec<V>(db_s + c, dbv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float zhat = (zv[i] - mu) * rstd;
-        const float dzhat = dv[i] * gv[i];
-        zv[i] = zhat;
-        s1 += dzhat;
-        s2 += dzhat * zhat;
+        const float zhat = (z[k][i] - mu) * rstd;
+        z[k][i] = zhat;
+        dzh[k][i] = dv[i] * gv[i];
+        s1 += dzh[k][i];
+        s2 += dzh[k][i] * zhat;
         dgv[i] += dv[i] * zhat;
         dbv[i] += dv[i];
       }
-      mmda::store_vec<V>(z_s + c, zv);
       mmda::store_vec<V>(dg_s + c, dgv);
       mmda::store_vec<V>(db_s + c, dbv);
     }
     const float m1 = mmda::warp_sum(s1) / (float)H;
     const float m2 = mmda::warp_sum(s2) / (float)H;
-    for (int c = lane * V; c < H; c += 32 * V) {
-      float gv[V], dv[V], zv[V], dxv[V], dyv[V];
-      mmda::load_vec<V>(g + c, gv);
-      mmda::load_vec<V>(dout + base + c, dv);
-      mmda::load_vec<V>(z_s + c, zv);
+
+    const size_t base = (size_t)row * H;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = (k * 32 + lane) * V;
+      float dxv[V], dyv[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float dz = rstd * (dv[i] * gv[i] - m1 - zv[i] * m2);
+        const float dz = rstd * (dzh[k][i] - m1 - z[k][i] * m2);
         dxv[i] = dz;
-        dyv[i] = dz;
-        if (drop) {
-          dyv[i] = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate)
-                       ? dz * scale : 0.0f;
-        }
+        dyv[i] = (keep >> (k * V + i)) & 1u ? dz * scale : 0.0f;
       }
-      mmda::store_vec<V>(dx + base + c, dxv);
-      mmda::store_vec<V>(dy + base + c, dyv);
+      if (c < H) {
+        mmda::store_vec<V>(dx + base + c, dxv);
+        mmda::store_vec<V>(dy + base + c, dyv);
+      }
     }
+  };
+
+  // rows block * kWarps + warp + k * stride, two buffers in turn: the next
+  // row's loads are in flight while this one is processed
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + warp;
+  R ax[NCH], ay[NCH], ad[NCH], bx[NCH], by[NCH], bd[NCH];
+  load_row(row, ax, ay, ad);
+  while (row < N) {
+    load_row(row + stride, bx, by, bd);
+    process(row, ax, ay, ad);
+    row += stride;
+    if (row >= N) break;
+    load_row(row + stride, ax, ay, ad);
+    process(row, bx, by, bd);
+    row += stride;
   }
   __syncthreads();
   float* out = partial + (size_t)blockIdx.x * 2 * H;
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    float sg = 0.0f, sb = 0.0f;
+  for (int c = threadIdx.x; c < 2 * H; c += blockDim.x) {
+    const int col = c < H ? c : HW + c - H;   // warp w's dg, then its db
+    float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarpsPerBlock; ++w) {
-      sg += smem[(kWarpsPerBlock + w) * H + c];
-      sb += smem[(2 * kWarpsPerBlock + w) * H + c];
+    for (int w = 0; w < kWarps; ++w) s += smem[(1 + 2 * w) * HW + col];
+    out[c] = s;
+  }
+}
+
+// dg, db = the blocks' partials added per column: block x takes columns
+// 32 x .. 32 x + 31 of the (2, H) partials, warp w the partials w, w + 8,
+// ... in order (all kSumLoads of a round loaded before the first add: one
+// round up to 288 blocks), and the block adds its warps' sums in order.
+__global__ void __launch_bounds__(32 * kSumWarps)
+ln_dropout_dgb_sum_kernel(const float* __restrict__ partial,  // (blocks, 2, H)
+                          float* __restrict__ dg, float* __restrict__ db,
+                          int blocks, int H) {
+  __shared__ float s_s[kSumWarps][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * 32 + lane;   // (which, column)
+  float s = 0.0f;
+  for (int k0 = warp; k0 < blocks; k0 += kSumWarps * kSumLoads) {
+    float v[kSumLoads];
+#pragma unroll
+    for (int l = 0; l < kSumLoads; ++l) {
+      const int k = k0 + l * kSumWarps;
+      v[l] = i < 2 * H && k < blocks ? partial[(size_t)k * 2 * H + i] : 0.0f;
     }
-    out[c] = sg;
-    out[H + c] = sb;
+#pragma unroll
+    for (int l = 0; l < kSumLoads; ++l) s += v[l];   // + 0 past the last block
   }
-}
-
-// dg, db = the blocks' partials added in block order.
-__global__ void ln_dropout_dgb_sum_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ dg,
-                                          float* __restrict__ db, int blocks,
-                                          int H) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;   // (which, column)
-  if (i >= 2 * H) return;
-  float sum = 0.0f;
-  for (int k = 0; k < blocks; ++k) sum += partial[(size_t)k * 2 * H + i];
+  s_s[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || i >= 2 * H) return;
+  float total = s_s[0][lane];
+#pragma unroll
+  for (int w = 1; w < kSumWarps; ++w) total += s_s[w][lane];
   if (i < H) {
-    dg[i] = sum;
+    dg[i] = total;
   } else {
-    db[i - H] = sum;
+    db[i - H] = total;
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const void* x, const void* y, const float* g,
-                   const void* dout, const int* seed, void* dx, void* dy,
-                   float* partial, int N, int H, int blocks, float rate,
-                   float scale, float eps, cudaStream_t stream) {
-  const size_t smem_bytes = (size_t)3 * kWarpsPerBlock * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_dropout_bwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+template <typename T, int V, int NCH>
+cudaError_t launch(const void* x, const void* y, const float* g, const void* dout,
+                   const int* seed, void* dx, void* dy, float* partial, int N, int H,
+                   int blocks, float rate, float scale, float eps, cudaStream_t stream) {
+  const size_t smem_bytes = (size_t)(1 + 2 * kWarps) * NCH * 32 * V * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_dropout_bwd_kernel<T, V, NCH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  ln_dropout_bwd_kernel<T, V><<<blocks, 32 * kWarpsPerBlock, smem_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), g,
-      static_cast<const T*>(dout), seed, static_cast<T*>(dx),
-      static_cast<T*>(dy), partial, N, H, rate, scale, eps);
+  ln_dropout_bwd_kernel<T, V, NCH><<<blocks, 32 * kWarps, smem_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), g, static_cast<const T*>(dout),
+      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, rate, scale, eps);
   return cudaGetLastError();
+}
+
+// The rows pass for a row of H values, V at a time: NCH chunks of 32 V
+// columns a warp, from the instantiations below (H <= 256, 768, 1024 for
+// V = 4; 256, 1024 for V = 1).
+template <typename T, int V>
+cudaError_t launch_rows(const void* x, const void* y, const float* g, const void* dout,
+                        const int* seed, void* dx, void* dy, float* partial, int N, int H,
+                        int blocks, float rate, float scale, float eps, cudaStream_t st) {
+  const int need = (H + 32 * V - 1) / (32 * V);
+  if constexpr (V == 4) {
+    if (need <= 2) return launch<T, 4, 2>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                          rate, scale, eps, st);
+    if (need <= 6) return launch<T, 4, 6>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                          rate, scale, eps, st);
+    if (need <= 8) return launch<T, 4, 8>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                          rate, scale, eps, st);
+  } else {
+    if (need <= 8) return launch<T, 1, 8>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                          rate, scale, eps, st);
+    if (need <= 32) return launch<T, 1, 32>(x, y, g, dout, seed, dx, dy, partial, N, H,
+                                            blocks, rate, scale, eps, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -194,34 +295,35 @@ extern "C" {
 // Launches the two kernels on `stream` (the rows' pass, then the sum of its
 // partials) and returns the first nonzero cudaError as an int (0 = ok).
 // x, y, dout, dx, dy: bf16 when is_bf16 else f32.  vec is 4 (H % 4 == 0 and
-// every pointer 16-byte aligned) or 1.  The caller allocates dx, dy, dg, db
-// and the (blocks, 2, H) f32 scratch `partial`; blocks >= 1.  rate and
-// scale = 1 / (1 - rate) already rounded to f32; seed (device int32) is read
-// only when rate > 0.
-int mmda_ln_dropout_bwd(const void* x, const void* y, const float* g,
-                        const void* dout, const int* seed, void* dx, void* dy,
-                        float* dg, float* db, float* partial, int N, int H,
-                        int is_bf16, int vec, int blocks, float rate,
-                        float scale, float eps, void* stream) {
+// every pointer 16-byte aligned) or 1; 1 <= H <= 1024.  The caller allocates
+// dx, dy, dg, db and the (blocks, 2, H) f32 scratch `partial`; blocks >= 1
+// (the grid of the rows pass).  rate and scale = 1 / (1 - rate) already
+// rounded to f32; seed (device int32) is read only when rate > 0.
+int mmda_ln_dropout_bwd(const void* x, const void* y, const float* g, const void* dout,
+                        const int* seed, void* dx, void* dy, float* dg, float* db,
+                        float* partial, int N, int H, int is_bf16, int vec, int blocks,
+                        float rate, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((vec != 1 && vec != 4) || blocks < 1) return (int)cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 4) || blocks < 1 || N < 1 || H < 1 || H > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err;
   if (is_bf16) {
     err = vec == 4
-        ? launch<__nv_bfloat16, 4>(x, y, g, dout, seed, dx, dy, partial, N, H,
-                                   blocks, rate, scale, eps, st)
-        : launch<__nv_bfloat16, 1>(x, y, g, dout, seed, dx, dy, partial, N, H,
-                                   blocks, rate, scale, eps, st);
+        ? launch_rows<__nv_bfloat16, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                        rate, scale, eps, st)
+        : launch_rows<__nv_bfloat16, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
+                                        rate, scale, eps, st);
   } else {
     err = vec == 4
-        ? launch<float, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                           rate, scale, eps, st)
-        : launch<float, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                           rate, scale, eps, st);
+        ? launch_rows<float, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate,
+                                scale, eps, st)
+        : launch_rows<float, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate,
+                                scale, eps, st);
   }
   if (err != cudaSuccess) return (int)err;
-  ln_dropout_dgb_sum_kernel<<<(2 * H + 255) / 256, 256, 0, st>>>(partial, dg, db,
-                                                                 blocks, H);
+  ln_dropout_dgb_sum_kernel<<<(2 * H + 31) / 32, 32 * kSumWarps, 0, st>>>(partial, dg, db,
+                                                                        blocks, H);
   return (int)cudaGetLastError();
 }
 

@@ -84,18 +84,7 @@ lstm_fwd_kernel(const float* __restrict__ x_proj,  // (T, B, 4H)
 
   const int nc = (H + 3) / 4;   // float4s of h
   float4 wr[NC > 0 ? NC : 1];
-  if constexpr (NC > 0) {
-    const bool unit_ok = jq < H;
-    const float* wcol = w_hh_t + q * H + jq;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int i = 4 * c;
-      wr[c].x = unit_ok && i < H ? wcol[(size_t)i * G] : 0.0f;
-      wr[c].y = unit_ok && i + 1 < H ? wcol[(size_t)(i + 1) * G] : 0.0f;
-      wr[c].z = unit_ok && i + 2 < H ? wcol[(size_t)(i + 2) * G] : 0.0f;
-      wr[c].w = unit_ok && i + 3 < H ? wcol[(size_t)(i + 3) * G] : 0.0f;
-    }
-  }
+  if constexpr (NC > 0) load_column<NC>(wr, w_hh_t + q * H + jq, G, H, jq < H);
 
   // Step s's inputs into ring slot s % kRing: thread q of a unit's quad
   // copies x_proj of gate q, the row's first thread the mask.  One group of

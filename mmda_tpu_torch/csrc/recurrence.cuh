@@ -1,7 +1,8 @@
 // What the serial passes of the recurrences share (lstm_fwd.cu, lstm_bwd.cu,
-// gru_bwd.cu): the cell's sigmoid, 4-byte cp.async into a shared-memory ring,
-// and the layout of a pass that runs four threads (a quad of a warp) per
-// hidden unit with the unit's weights in registers up to H = kRegH.
+// gru_fwd.cu, gru_bwd.cu): the cell's sigmoid, 4-byte cp.async into a
+// shared-memory ring, and the layout of a pass that runs four threads (a
+// quad of a warp) per hidden unit with the unit's weights in registers up to
+// H = kRegH.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +49,21 @@ __host__ __device__ __forceinline__ int gate_stride(int H) {
 // (NC float4s, NC > 0) must leave the block within the SM's 64K registers.
 __host__ __device__ constexpr int bptt_max_threads(int NC) {
   return NC == 0 ? 1024 : NC <= 11 ? 640 : 384;
+}
+
+// w[c] = (col[i * stride] for i = 4c .. 4c + 3), 0 where i >= n or !ok: a
+// column of a (., stride) matrix from row 0 on, as NC float4s in registers.
+template <int NC>
+__device__ __forceinline__ void load_column(float4 (&w)[NC], const float* col, size_t stride,
+                                            int n, bool ok) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int i = 4 * c;
+    w[c].x = ok && i < n ? col[i * stride] : 0.0f;
+    w[c].y = ok && i + 1 < n ? col[(i + 1) * stride] : 0.0f;
+    w[c].z = ok && i + 2 < n ? col[(i + 2) * stride] : 0.0f;
+    w[c].w = ok && i + 3 < n ? col[(i + 3) * stride] : 0.0f;
+  }
 }
 
 // sum over i < 4 nc of v[i] w[i] as four accumulators strided over i (i mod

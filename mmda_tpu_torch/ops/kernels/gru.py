@@ -33,7 +33,7 @@ import torch
 from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, bptt_rows_per_block,
                                                 check_tensor, device_of, dw_runs, launch,
                                                 launch_count, lib, reset_launch_count,
-                                                rows_per_block, sm_count)
+                                                sm_count)
 
 SOURCES = ("gru_fwd", "gru_bwd")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count", "dw_splits", "gru_recurrence",
@@ -113,7 +113,7 @@ def gru_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tenso
         launch("gru_fwd", so.mmda_gru_fwd,
                x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), mask.data_ptr(),
                ys.data_ptr(), h_fin.data_ptr(),
-               T, B, H, rows_per_block(B, H, sm_count(dev)), int(reverse), stream)
+               T, B, H, bptt_rows_per_block(B, H, sm_count(dev)), int(reverse), stream)
     return ys, h_fin
 
 

@@ -36,7 +36,9 @@ __all__ = ["SOURCES", "launch_count", "reset_launch_count",
            "residual_dropout_layernorm_reference", "residual_dropout_layernorm_bwd_reference",
            "residual_dropout_layernorm_fwd", "residual_dropout_layernorm_bwd",
            "ResidualDropoutLayerNorm", "residual_dropout_layernorm"]
-WARPS_PER_BLOCK = 4               # csrc/ln_dropout.cuh kWarpsPerBlock: rows per block
+WARPS_PER_BLOCK = 4               # csrc/ln_dropout.cuh kWarpsPerBlock: the forward's rows a block
+BWD_WARPS = 8                     # csrc/ln_dropout_bwd.cu kWarps: rows a backward block holds
+BWD_MAX_H = 1024                  # the widest row the backward holds in a warp's registers
 SMEM_OPTIN = 232448               # bytes of shared memory a Hopper block can opt in to
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -113,8 +115,9 @@ def _vec(H: int, *tensors) -> int:
     return 4 if H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
-def _check_smem(n_arrays: int, H: int) -> None:
-    if n_arrays * WARPS_PER_BLOCK * H * 4 > SMEM_OPTIN:
+def _check_smem(H: int) -> None:
+    """The forward keeps each of its rows' z in shared memory."""
+    if WARPS_PER_BLOCK * H * 4 > SMEM_OPTIN:
         raise ValueError(f"row width {H} does not fit the kernel's shared memory")
 
 
@@ -129,7 +132,7 @@ def residual_dropout_layernorm_fwd(x: torch.Tensor, y: torch.Tensor, scale: torc
     if dev.type == "cpu":
         return residual_dropout_layernorm_reference(x, y, scale, bias, seed, rate, eps)
     N, H = x.shape
-    _check_smem(1, H)
+    _check_smem(H)
     so = lib("ln_dropout_fwd", 6, 4, 3)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
@@ -142,10 +145,13 @@ def residual_dropout_layernorm_fwd(x: torch.Tensor, y: torch.Tensor, scale: torc
     return out
 
 
-def bwd_blocks(N: int, n_sm: int) -> int:
-    """Blocks of the backward's rows pass: about two per SM, so that each
-    block's dg/db partial covers many rows, and no more than the rows need."""
-    return max(1, min(-(-N // WARPS_PER_BLOCK), 2 * n_sm))
+def bwd_blocks(N: int, n_sm: int, two_per_sm: bool) -> int:
+    """Blocks of the backward's rows pass: as many as the SMs hold at once
+    (two of BWD_WARPS warps each where the kernel's registers allow it:
+    bf16 rows read 4 values at a time; else one), no more than the rows
+    need.  Each block's warps walk the rows block * BWD_WARPS + warp + k *
+    blocks * BWD_WARPS, and its dg/db partial covers them."""
+    return max(1, min(-(-N // BWD_WARPS), (2 if two_per_sm else 1) * n_sm))
 
 
 def residual_dropout_layernorm_bwd(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
@@ -157,10 +163,13 @@ def residual_dropout_layernorm_bwd(x: torch.Tensor, y: torch.Tensor, scale: torc
     if dev.type == "cpu":
         return residual_dropout_layernorm_bwd_reference(x, y, scale, dout, seed, rate, eps)
     N, H = x.shape
-    _check_smem(3, H)
+    if H > BWD_MAX_H:
+        raise ValueError(f"row width {H} > {BWD_MAX_H} is not supported by the backward kernel")
     so = lib("ln_dropout_bwd", 10, 5, 3)
-    blocks = bwd_blocks(N, sm_count(dev))
     dx, dy = torch.empty_like(x), torch.empty_like(y)
+    vec = _vec(H, x, y, scale, dout, dx, dy)
+    bf16 = x.dtype == torch.bfloat16
+    blocks = bwd_blocks(N, sm_count(dev), bf16 and vec == 4)
     dg = torch.empty(H, device=dev)
     db = torch.empty(H, device=dev)
     partial = torch.empty(blocks, 2, H, device=dev)
@@ -171,8 +180,8 @@ def residual_dropout_layernorm_bwd(x: torch.Tensor, y: torch.Tensor, scale: torc
                seed.data_ptr() if rate > 0.0 else None,
                dx.data_ptr(), dy.data_ptr(), dg.data_ptr(), db.data_ptr(),
                partial.data_ptr(),
-               N, H, int(x.dtype == torch.bfloat16), _vec(H, x, y, scale, dout, dx, dy),
-               blocks, float(np.float32(rate)), keep_scale(rate), eps, stream)
+               N, H, int(bf16), vec, blocks, float(np.float32(rate)), keep_scale(rate), eps,
+               stream)
     return dx, dy, dg, db
 
 

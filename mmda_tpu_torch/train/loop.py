@@ -40,6 +40,7 @@ from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, freeze_layer
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
 from mmda_tpu_torch.train.step import eval_step, train_step
+from mmda_tpu_torch.utils.confidence_metrics import confidence_metrics
 from mmda_tpu_torch.utils.logging import MetricLogger
 from mmda_tpu_torch.utils.metrics import get_accuracy, get_metrics, select_by_eval_mode
 from mmda_tpu_torch.utils.sentiment_metrics import eval_binary, eval_mosei_senti
@@ -95,6 +96,7 @@ class Trainer:
             cfg = cfg.replace(bucket_sizes=auto_bucket_sizes(data["train"]["lengths"], k))
         self.cfg = cfg
         self.data = data
+        self._last_eval_confidence: Optional[Dict[str, np.ndarray]] = None
         self.device = resolve_device(cfg.device)
         self.bert_cfg = bert_cfg or bert_config_for(cfg)
         if cfg.fused_ln_dropout and self.bert_cfg is not None:
@@ -255,6 +257,14 @@ class Trainer:
                    "test_loss": test_loss, "test_acc": test_acc,
                    **{f"test_{k}": v for k, v in test_metrics.items()},
                    "history": history}
+        # ConfidNet confidence quality on the test pass: TCP calibration MSE,
+        # failure-prediction AUPR and FPR@95TPR (the JAX trainer's conf_* keys)
+        if (cfg.use_confidNet and self.task == "classification"
+                and self._last_eval_confidence is not None):
+            conf = confidence_metrics(self._last_eval_confidence["scores"],
+                                      self._last_eval_confidence["tcp"],
+                                      test_preds, test_truths)
+            summary.update({f"conf_{k}": v for k, v in conf.items()})
         if eval_values:
             summary["best_dev_metrics"] = eval_values
         self.logger.log({k: v for k, v in summary.items() if k != "history"})
@@ -270,9 +280,13 @@ class Trainer:
         """(loss, accuracy, preds, truths) over a split: the loss is the mean
         over batches of the per-class BCE summed over classes, taken over
         the real rows (L1 for regression); accuracy the multilabel Jaccard
-        (sign agreement for regression).  model: default `eval_model()`."""
+        (sign agreement for regression).  model: default `eval_model()`.
+        For classification the real rows' tcp and scores are kept, joined,
+        in `_last_eval_confidence` for the ConfidNet metrics (None after a
+        regression split)."""
         model = model if model is not None else self.eval_model()
         losses, preds, truths = [], [], []
+        tcps, raw_scores = [], []
         for host in self._loader(mode, shuffle=False).host_batches():
             out = eval_step(model, to_device(host, self.device), self.cfg)
             out = {k: v.float().cpu().numpy() for k, v in out.items()}   # one sync
@@ -284,6 +298,11 @@ class Trainer:
             else:
                 preds.append(out["labels"][w])
                 truths.append(np.asarray(host["emo_label"])[w])
+                tcps.append(out["tcp"][w])
+                raw_scores.append(out["scores"][w])
+        self._last_eval_confidence = (
+            {"tcp": np.concatenate(tcps, axis=0), "scores": np.concatenate(raw_scores, axis=0)}
+            if tcps else None)
         y_pred = np.concatenate(preds, axis=0)
         y_true = np.concatenate(truths, axis=0)
         if self.task == "regression":

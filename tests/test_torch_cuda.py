@@ -248,6 +248,28 @@ def test_gru_bwd_kernel_gives_the_same_bits_twice(cuda_device, T, B, H):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", [(64, 64, 74), (512, 32, 74), (33, 7, 33), (40, 9, 35),
+                                   (16, 9, 300)])
+def test_gru_fwd_kernel_passes_masked_steps_in_the_middle(cuda_device, T, B, H, reverse):
+    """At a masked step h holds: the row masked everywhere stays 0."""
+    x, w, b, _, _, _ = _gru_inputs(T, B, H, seed=H, device=cuda_device)
+    m = _middle_mask(T, B, cuda_device)
+    got = kgru.gru_recurrence(x, w, b, m, reverse)
+    want = kgru.gru_recurrence_reference(x, w, b, m, reverse)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, **TOL)
+    assert torch.equal(got[0][:, 0], torch.zeros_like(got[0][:, 0]))
+
+
+@pytest.mark.parametrize("T,B,H", [(64, 64, 74), (512, 32, 74), (48, 64, 300), (7, 5, 33)])
+def test_gru_fwd_kernel_gives_the_same_bits_twice(cuda_device, T, B, H):
+    x, w, b, m, _, _ = _gru_inputs(T, B, H, seed=H, device=cuda_device)
+    first = kgru.gru_recurrence(x, w, b, m)
+    again = kgru.gru_recurrence(x, w, b, m, False)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
 def test_gru_scan_gradients_on_the_card_match_the_cpu(cuda_device):
     cpu = _gru_inputs(16, 9, 20, seed=3, device="cpu")
 
@@ -331,6 +353,43 @@ def test_ln_dropout_kernels_match_plain_versions(cuda_device, N, H, dtype, rate)
                                     dict(rtol=1e-4, atol=1e-4))):
         assert g_.dtype == w_.dtype
         torch.testing.assert_close(g_, w_, **t)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("N,H,dtype", [
+    (3200, 768, torch.bfloat16), (3201, 768, torch.bfloat16), (3201, 768, torch.float32),
+    (1, 768, torch.bfloat16), (1, 30, torch.float32), (50, 100, torch.float32),
+    (50, 100, torch.bfloat16), (13, 30, torch.bfloat16), (64, 770, torch.float32),
+    (64, 770, torch.bfloat16), (64, 1024, torch.bfloat16), (64, 512, torch.float32)])
+def test_ln_dropout_bwd_kernel_matches_plain_version(cuda_device, N, H, dtype, rate):
+    """Every instantiation of the rows pass (4 values an access: H = 100,
+    512, 768, 1024; one: H = 30, 770), one row and a last block that is not
+    full: dx, dy within 1e-5 (f32) or one bf16 ulp, dscale, dbias 1e-4."""
+    x, y, g, _, dout = _ln_inputs(N, H, dtype, seed=N * H, device=cuda_device)
+    s = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    got = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, rate, 1e-12)
+    want = kln.residual_dropout_layernorm_bwd_reference(x, y, g, dout, s, rate, 1e-12)
+    for g_, w_, t in zip(got, want, (tol, tol, dict(rtol=1e-4, atol=1e-4),
+                                     dict(rtol=1e-4, atol=1e-4))):
+        assert g_.dtype == w_.dtype
+        torch.testing.assert_close(g_, w_, **t)
+
+
+@pytest.mark.parametrize("N,H,dtype", [(3200, 768, torch.bfloat16), (3200, 768, torch.float32),
+                                       (13, 30, torch.bfloat16)])
+def test_ln_dropout_bwd_kernel_gives_the_same_bits_twice(cuda_device, N, H, dtype):
+    x, y, g, _, dout = _ln_inputs(N, H, dtype, seed=1, device=cuda_device)
+    s = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    first = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, 0.1)
+    again = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, 0.1)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+def test_ln_dropout_bwd_kernel_refuses_rows_wider_than_1024(cuda_device):
+    x, y, g, _, dout = _ln_inputs(4, 1025, torch.float32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="1024"):
+        kln.residual_dropout_layernorm_bwd(x, y, g, dout, None, 0.0)
 
 
 def test_ln_dropout_autograd_on_the_card_matches_the_cpu(cuda_device):

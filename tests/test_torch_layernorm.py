@@ -168,8 +168,84 @@ def test_cpu_calls_do_not_count_as_launches_and_grid_covers_the_rows():
     kln.residual_dropout_layernorm_fwd(t["x"], t["y"], t["g"], t["b"], None)
     kln.residual_dropout_layernorm_bwd(t["x"], t["y"], t["g"], t["dout"], None)
     assert kln.launch_count("ln_dropout_fwd") == 0 and kln.launch_count("ln_dropout_bwd") == 0
-    assert kln.bwd_blocks(3200, 132) == 264 and kln.bwd_blocks(6, 132) == 2
-    assert kln.bwd_blocks(1, 132) == 1
+    assert kln.bwd_blocks(3200, 132, True) == 264 and kln.bwd_blocks(3200, 132, False) == 132
+    assert kln.bwd_blocks(17, 132, True) == 3 and kln.bwd_blocks(1, 132, False) == 1
+
+
+# ------------------------------------- the backward's column sums as the card adds them
+
+H100_SMS = 132
+
+
+def _seq_sum(terms):
+    """((0 + t0) + t1) + ... over the first axis, in f32."""
+    acc = np.zeros(terms.shape[1:], np.float32)
+    for t in terms:
+        acc = acc + t
+    return acc
+
+
+def _bwd_model(x, y, g, dout, seed, rate, eps, n_sm=H100_SMS):
+    """(dx, dy, dscale, dbias) as csrc/ln_dropout_bwd.cu forms them: each row
+    by the plain formulas in f32, then the column sums in the kernel's order.
+    Warp w of block b walks the rows b * 8 + w + k * blocks * 8 and each lane
+    adds its columns' terms row by row; the block adds its 8 warps' sums in
+    order; ln_dropout_dgb_sum_kernel's warp q adds the blocks q, q + 8, ...
+    in order, and the 8 warps' sums are added in order."""
+    N, H = x.shape
+    W = kln.BWD_WARPS
+    blocks = kln.bwd_blocks(N, n_sm, x.dtype == torch.bfloat16)
+    keep = hash_dropout.keep_mask((N, H), rate, seed) * hash_dropout.keep_scale(rate)
+    xf, yf, do = x.float(), y.float(), dout.float()
+    z = xf + yf * keep
+    mu = z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True) + eps)
+    zhat = (z - mu) * rstd
+    dzhat = do * g
+    dz = rstd * (dzhat - dzhat.mean(-1, keepdim=True)
+                 - zhat * (dzhat * zhat).mean(-1, keepdim=True))
+    sums = []
+    for terms in ((do * zhat).numpy(), do.numpy()):
+        per_pass = -(-N // (blocks * W))
+        rows = np.zeros((per_pass * blocks * W, H), np.float32)
+        rows[:N] = terms
+        warp = _seq_sum(rows.reshape(per_pass, blocks * W, H))      # (blocks * W, H)
+        block = _seq_sum(warp.reshape(blocks, W, H).transpose(1, 0, 2))
+        runs = [_seq_sum(block[q::8]) for q in range(8)]
+        sums.append(torch.from_numpy(_seq_sum(np.stack(runs))))
+    return dz.to(x.dtype), (dz * keep).to(y.dtype), sums[0], sums[1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [3200, 1001])
+def test_backward_column_sums_in_the_card_order_match_plain_version_and_pallas(N, dtype):
+    """N = 3200, H = 768 (the flagship step's sites, 264 blocks of 8 warps
+    in bf16, 132 in f32) and N = 1001 (the last of 126 blocks holds one
+    row): the kernel's order of the dscale/dbias sums is within 1e-4 of the
+    plain version's f64 sums and of the Pallas kernel's (interpret mode, f32
+    inputs); dx, dy within 1e-5 (f32) or one bf16 ulp of both."""
+    H, rate, eps = 768, 0.1, 1e-12
+    dt = getattr(torch, dtype)
+    a = _inputs(N, H, seed=N)
+    x, y, dout = (torch.from_numpy(a[k]).to(dt) for k in ("x", "y", "dout"))
+    g = torch.from_numpy(a["g"])
+    seed = torch.tensor([77], dtype=torch.int32)
+    got = _bwd_model(x, y, g, dout, seed, rate, eps)
+    want = kln.residual_dropout_layernorm_bwd_reference(x, y, g, dout, seed, rate, eps)
+    tol = TOL if dt == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    sum_tol = dict(rtol=1e-4, atol=1e-4)
+    for name, g_, w_, t in zip(("dx", "dy", "dscale", "dbias"), got, want,
+                               (tol, tol, sum_tol, sum_tol)):
+        assert g_.dtype == w_.dtype, name
+        np.testing.assert_allclose(g_.float().numpy(), w_.float().numpy(), err_msg=name, **t)
+    if dt == torch.float32:
+        j = {k: jnp.asarray(v) for k, v in a.items()}
+        _, vjp = jax.vjp(lambda x_, y_, g_, b_: pln.residual_dropout_layernorm(
+            x_, y_, g_, b_, jnp.array([77], jnp.int32), rate, eps), j["x"], j["y"], j["g"],
+            j["b"])
+        for name, g_, w_, t in zip(("dx", "dy", "dscale", "dbias"), got, vjp(j["dout"]),
+                                   (tol, tol, sum_tol, sum_tol)):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), err_msg=name, **t)
 
 
 # ------------------------------------------------------- the BERT layer's sites

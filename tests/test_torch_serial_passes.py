@@ -1,6 +1,6 @@
 """The recurrences as the card runs them, modelled on the CPU: the order of
-summation of csrc/lstm_fwd.cu's serial pass and of csrc/gru_bwd.cu's gate
-pass and serial pass, held against the port's plain versions
+summation of csrc/lstm_fwd.cu's and csrc/gru_fwd.cu's serial passes and of
+csrc/gru_bwd.cu's gate pass and serial pass, held against the port's plain versions
 (mmda_tpu_torch/ops/kernels/{lstm,gru}.py) and the JAX package's Pallas
 kernels in interpret mode (whole-T and time-chunked streaming) and, for the
 GRU backward, `jax.vjp` of `gru_scan`.
@@ -114,6 +114,55 @@ def test_lstm_fwd_serial_arithmetic_matches_plain_version_and_pallas(T, B, H, re
                                      jnp.asarray(mask)[..., None], reverse))
     for want in wants:
         for name, g, w_ in zip(("ys", "cs", "h_fin", "c_fin"), got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w_), err_msg=name, **TOL)
+
+
+# ------------------------------------------------------------ GRU forward
+
+
+def _gru_fwd_model(x_proj, w_hh_t, b_hh, mask, reverse):
+    """The forward as csrc/gru_fwd.cu computes it: thread (j, g) forms gate
+    g's product h . w_hh_t[:, gH + j] over four accumulators strided over k,
+    then adds b_hh; r, z from x_proj + hh and n = tanh(x_n + r hh_n), the
+    cell update held at masked steps."""
+    T, B, G = x_proj.shape
+    H = G // 3
+    h = x_proj.new_zeros(B, H)
+    ys = torch.empty(T, B, H)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hh = _strided_matmul(h, w_hh_t) + b_hh
+        r = _sigmoid(x_proj[t, :, :H] + hh[:, :H])
+        z = _sigmoid(x_proj[t, :, H:2 * H] + hh[:, H:2 * H])
+        n = torch.tanh(x_proj[t, :, 2 * H:] + r * hh[:, 2 * H:])
+        h_new = (1.0 - z) * n + z * h
+        m = mask[t][:, None]
+        h = m * h_new + (1.0 - m) * h
+        ys[t] = h
+    return ys, h
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,H", CASES)
+def test_gru_fwd_serial_arithmetic_matches_plain_version_and_pallas(T, B, H, reverse):
+    """The card kernel's order of summation (strided accumulators over k,
+    then b_hh, then x_proj) gives the plain version's ys and h_fin and the Pallas kernels' (interpret mode:
+    whole-T, and streaming in chunks of 64 steps) within 1e-5 abs/rel at
+    T = 512, both directions."""
+    rng = np.random.default_rng(T + H + 2)
+    a = dict(x_proj=rng.normal(size=(T, B, 3 * H)).astype(np.float32),
+             w_hh_t=(rng.normal(size=(H, 3 * H)) / np.sqrt(H)).astype(np.float32),
+             b_hh=rng.normal(size=3 * H).astype(np.float32), mask=_mask(rng, T, B))
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    args = (t["x_proj"], t["w_hh_t"], t["b_hh"], t["mask"], reverse)
+    got = _gru_fwd_model(*args)
+    wants = [kgru.gru_recurrence_reference(*args)]
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    for stream in (None, (B, 64)):
+        pgru.set_force_stream(stream)
+        wants.append(pgru._fwd_call(j["x_proj"], j["w_hh_t"], j["b_hh"][None],
+                                    j["mask"][..., None], reverse))
+    for want in wants:
+        for name, g, w_ in zip(("ys", "h_fin"), got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w_), err_msg=name, **TOL)
 
 
