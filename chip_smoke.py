@@ -51,8 +51,15 @@ the result):
    of both bf16 kernels (none fails), S = 130 and 514 refused; timed at
    (64, 12, 50, 64) bf16 beside SDPA.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
-   35, 35, 74, 74 against their plain versions and four single-direction
-   calls (1e-5 + 1e-5 |ref|), timed beside those four calls and cuDNN;
+   35, 35, 74, 74, and at (16, 64) with H = 35, 74, 300 in one launch (the
+   serial passes' three instantiations, which the checks must reach),
+   against their plain versions (1e-5 + 1e-5 |ref|) and against four
+   single-direction calls, whose passes they run: ys, cs, h_fin and dx_proj
+   bit for bit, dw_hh_t too where its runs are the same; two launches
+   giving the same bits; timed beside those four calls and cuDNN, with the
+   time per serial step, the backward split into its gate pass, BPTT and dW
+   passes, and the launch geometry (registers a thread, blocks, resident
+   blocks an SM, waves);
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -127,6 +134,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import itertools
 import json
@@ -237,12 +245,18 @@ SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 
 SHORT_F32_TOL = (1e-5, 1e-5)       # f32 on both sides, summation order only
 SHORT_BF16_TOL = (1e-6, 2.0 ** -7)  # all math f32, each output rounded once: one bf16 ulp
 SHORT_MASKS = [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)]
-# (T, B) of the multi-direction LSTM checks, with the tower pair's four
-# directions at their true H (visual 35 forward and reverse, acoustic 74)
+# (T, B) of the multi-direction LSTM checks and times, with the tower pair's
+# four directions at their true H (visual 35 forward and reverse, acoustic
+# 74); the checks also launch H = 35, 74 and 300 together, so that they reach
+# the serial passes' three instantiations (11, 21, 0) in one launch
 MULTI_SHAPES = [(48, 64), (512, 32)]
 MULTI_HS = (35, 35, 74, 74)
 MULTI_REVERSE = (False, True, False, True)
+MULTI_CHECKS = [(T, B, MULTI_HS, MULTI_REVERSE) for T, B in MULTI_SHAPES] + [
+    (16, 64, (35, 74, 300), (False, True, False))]
 MULTI_REPORT = (48, 64)
+MULTI_BWD_PARTS = {"gate_pass": "lstm_multi_gates", "bptt": "lstm_multi_bptt",
+                   "dw": "lstm_multi_dw"}
 MULTI_LAUNCHES = 2                 # one per stacked layer
 BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 9
 
@@ -1243,12 +1257,12 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             for name in names}
 
 
-def multi_inputs(T, B, seed, device, klstm):
-    """The four directions' x_proj, w_hh_t, masks (each tower its own
-    lengths, 1 and T among them), their saved ys and cs (plain version),
-    and random incoming gradients dys and dh_fin."""
+def multi_inputs(T, B, seed, device, klstm, hs=MULTI_HS, reverse=MULTI_REVERSE):
+    """The directions' x_proj, w_hh_t, masks (each pair of directions, a
+    tower, its own lengths, 1 and T among them), their saved ys and cs
+    (plain version), and random incoming gradients dys and dh_fin."""
     x, w, m, lengths, dys, dh = [], [], [], [], [], []
-    for d, H in enumerate(MULTI_HS):
+    for d, H in enumerate(hs):
         xd, wd, md, ld = lstm_inputs(T, B, H, seed + d, device)
         rng = np.random.default_rng(seed + 100 + d)
         x.append(xd)
@@ -1257,9 +1271,17 @@ def multi_inputs(T, B, seed, device, klstm):
         lengths.append(ld if d % 2 == 0 else lengths[-1])
         dys.append(torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(device))
         dh.append(torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(device))
-    saved = [klstm.lstm_recurrence_reference(x[d], w[d], m[d], MULTI_REVERSE[d], need_cs=True)
-             for d in range(len(MULTI_HS))]
+    saved = [klstm.lstm_recurrence_reference(x[d], w[d], m[d], reverse[d], need_cs=True)
+             for d in range(len(hs))]
     return x, w, m, lengths, [s[0] for s in saved], [s[1] for s in saved], dys, dh
+
+
+def same_bits(pairs, where: str) -> None:
+    """Raises unless every (name, got, want) pair is equal bit for bit."""
+    for name, got, want in pairs:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs at {where}: max |diff| "
+                                 f"{(got - want).abs().max().item()}")
 
 
 def multi_bounds(T, B, masks) -> tuple:
@@ -1283,67 +1305,173 @@ def multi_bounds(T, B, masks) -> tuple:
     return tuple(out)
 
 
+@contextlib.contextmanager
+def replaced(module, name, value):
+    """module.name = value inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def compare_multi_plans(kmulti, klstm, T, B, x, w, m, rev, ys_w, cs_w, dys, dh) -> dict:
+    """The tower pair's multi kernels (MULTI_HS: two visual, then two
+    acoustic directions) under the launch plans that `lstm_multi.geometry`
+    chose among, and the dW passes under three run counts, each timed in
+    turns (candidates, then the same in reverse; the median of the two):
+    the chosen plan; one block a row of every direction (two waves at
+    B = 64); a visual row beside an acoustic one in a block (one wave, 480
+    threads); two visual rows a block; the chosen plan's groups moved 96
+    threads up, so that the build bounded at 480 threads runs the same rows;
+    and the visual pair and the acoustic pair as two launches.  Device ms of
+    the forward and the backward, and of the backward's dW passes."""
+    n_sm = torch.cuda.get_device_properties(x[0].device).multi_processor_count
+    v, a = kmulti.group_threads(MULTI_HS[0])[1], kmulti.group_threads(MULTI_HS[2])[1]
+    chosen = kmulti.geometry(MULTI_HS, B, n_sm)
+    plans = {"chosen": chosen,
+             "one block a row": ((1, 1, 2 * B, 0, v), (1, 1, 3 * B, 0, v), (1, 1, 0, 0, a),
+                                 (1, 1, B, 0, a)),
+             "visual beside acoustic": ((1, 1, 0, a, v), (1, 1, B, a, v), (1, 1, 0, 0, a),
+                                        (1, 1, B, 0, a)),
+             "two visual rows a block": ((2, 1, 2 * B, 0, 288), (2, 1, 2 * B + -(-B // 2), 0, 288),
+                                         (1, 1, 0, 0, a), (1, 1, B, 0, a))}
+    if max(g[3] + g[4] for g in chosen) + 96 <= kmulti.MULTI_THREADS:
+        plans["chosen, 480-thread build"] = tuple(g[:3] + (g[3] + 96, g[4]) for g in chosen)
+    names = [n for n, p in plans.items() if n == "chosen" or p != chosen]
+
+    def run(name, backward):
+        if name == "two launches":
+            halves = (slice(0, 2), slice(2, 4))
+            if backward:
+                return [kmulti.lstm_multi_recurrence_bwd(x[h], w[h], m[h], rev[h], ys_w[h],
+                                                         cs_w[h], dys[h], dh[h]) for h in halves]
+            return [kmulti.lstm_multi_recurrence(x[h], w[h], m[h], rev[h], True) for h in halves]
+        with replaced(kmulti, "geometry", lambda hs, B_, n: plans[name]):
+            if backward:
+                return kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w, dys, dh)
+            return kmulti.lstm_multi_recurrence(x, w, m, rev, True)
+
+    times: dict = {}
+    order = names + ["two launches"]
+    for backward in (False, True):
+        key = "bwd_ms" if backward else "fwd_ms"
+        for name in order + order[::-1]:
+            fn = lambda: run(name, backward)
+            times.setdefault(name, {}).setdefault(key, []).append(device_time(fn, cuda_ms(fn))[0])
+    splits = {"2 n_sm / D (chosen)": kmulti.dw_splits,
+              "n_sm / D": lambda T_, B_, hs, n: [klstm.bwd_dw_splits(T_, B_, H, n // len(hs))
+                                                 for H in hs],
+              "n_sm": lambda T_, B_, hs, n: [klstm.bwd_dw_splits(T_, B_, H, n) for H in hs]}
+    dw: dict = {}
+    for name in list(splits) + list(splits)[::-1]:
+        with replaced(kmulti, "dw_splits", splits[name]):
+            part = bwd_parts(lambda: run("chosen", True), MULTI_BWD_PARTS)["dw"]
+        dw.setdefault(name, {"runs": splits[name](T, B, MULTI_HS, n_sm), "dw_ms": []})
+        dw[name]["dw_ms"].append(part)
+    return {"plans": {n: {"plan": [list(g) for g in plans[n]] if n in plans else None,
+                          **{k: statistics.median(t) for k, t in times[n].items()}}
+                      for n in order},
+            "dw_runs": {n: {"runs": r["runs"], "dw_ms": statistics.median(
+                [t for t in r["dw_ms"] if isinstance(t, float)] or [float("nan")])}
+                        for n, r in dw.items()}}
+
+
 def check_multi_kernels(kmulti, klstm, device) -> tuple:
-    """`lstm_multi_fwd` and `lstm_multi_bwd` against their plain versions
-    and against four calls of `lstm_fwd` / `lstm_bwd`, at the tower pair's
-    four directions (H = 35, 35, 74, 74), then their times beside those four
+    """`lstm_multi_fwd` and `lstm_multi_bwd` at MULTI_CHECKS against their
+    plain versions (KERNEL_TOL) and against four calls of `lstm_fwd` /
+    `lstm_bwd`, whose passes every direction runs: ys, cs, h_fin and dx_proj
+    bit for bit, dw_hh_t too where its runs of rows are the same; two
+    launches give the same bits; the checks reach the serial passes' three
+    instantiations.  Then, at MULTI_SHAPES, their times beside those four
     calls and four cuDNN `nn.LSTM` calls (forward, or autograd.grad; no one
-    PyTorch call computes the four directions, so `library_ms` is None).
-    Returns (forward, backward) results."""
+    PyTorch call computes the four directions, so `library_ms` is None), the
+    time per serial step, the backward's parts, and the launch geometry
+    (registers, blocks, resident blocks an SM, waves).  Returns (forward,
+    backward) results."""
+    from mmda_tpu_torch.ops.kernels._launch import bptt_instantiation
+
     rows = {"fwd": [], "bwd": []}
     timed = {"fwd": [], "bwd": []}
-    rev = list(MULTI_REVERSE)
-    for T, B in MULTI_SHAPES:
-        x, w, m, lengths, ys_w, cs_w, dys, dh = multi_inputs(T, B, T, device, klstm)
-        ys, cs, h_fin = kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True)
-        dx, dw = kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w, dys, dh)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for T, B, hs, reverse in MULTI_CHECKS:
+        rev, D = list(reverse), len(hs)
+        x, w, m, lengths, ys_w, cs_w, dys, dh = multi_inputs(T, B, T, device, klstm, hs, rev)
+
+        def fwd():
+            return kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True)
+
+        def bwd():
+            return kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w, dys, dh)
+
+        (ys, cs, h_fin), (dx, dw) = fwd(), bwd()
+        again = [*fwd(), *bwd()]
         want_f = kmulti.lstm_multi_recurrence_reference(x, w, m, rev, need_cs=True)
         want_b = kmulti.lstm_multi_recurrence_bwd_reference(x, w, m, rev, ys_w, cs_w, dys, dh)
         single_f = [klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
-                    for d in range(4)]
+                    for d in range(D)]
         single_b = [klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys_w[d], cs_w[d], dys[d], dh[d],
-                                              None, rev[d]) for d in range(4)]
+                                              None, rev[d]) for d in range(D)]
         torch.cuda.synchronize()
-        where = f"(T,B)={(T, B)} H={MULTI_HS}"
-        pairs_f = [(f"{n}[{d}]", got[d], ref[d]) for n, got, ref in
-                   (("ys", ys, want_f[0]), ("cs", cs, want_f[1]), ("h_fin", h_fin, want_f[2]))
-                   for d in range(4)]
-        pairs_b = [(f"{n}[{d}]", got[d], ref[d]) for n, got, ref in
-                   (("dx_proj", dx, want_b[0]), ("dw_hh_t", dw, want_b[1])) for d in range(4)]
-        one_f = [(f"{n}[{d}] vs lstm_fwd", got[d], single_f[d][i]) for i, (n, got) in
-                 enumerate((("ys", ys), ("cs", cs), ("h_fin", h_fin))) for d in range(4)]
-        one_b = [(f"{n}[{d}] vs lstm_bwd", got[d], single_b[d][i]) for i, (n, got) in
-                 enumerate((("dx_proj", dx), ("dw_hh_t", dw))) for d in range(4)]
-        shape = {"T": T, "B": B, "H": list(MULTI_HS)}
+        where = f"(T,B)={(T, B)} H={hs}"
+        outs = {"ys": ys, "cs": cs, "h_fin": h_fin, "dx_proj": dx, "dw_hh_t": dw}
+        pairs_f = [(f"{n}[{d}]", outs[n][d], want_f[i][d])
+                   for i, n in enumerate(("ys", "cs", "h_fin")) for d in range(D)]
+        pairs_b = [(f"{n}[{d}]", outs[n][d], want_b[i][d])
+                   for i, n in enumerate(("dx_proj", "dw_hh_t")) for d in range(D)]
+        same_bits([(f"{n}[{d}] vs lstm_fwd", outs[n][d], single_f[d][i])
+                   for i, n in enumerate(("ys", "cs", "h_fin")) for d in range(D)]
+                  + [(f"dx_proj[{d}] vs lstm_bwd", dx[d], single_b[d][0]) for d in range(D)],
+                  where)
+        splits = kmulti.dw_splits(T, B, hs, n_sm)
+        same_runs = [d for d, H in enumerate(hs) if splits[d] == klstm.bwd_dw_splits(T, B, H, n_sm)]
+        same_bits([(f"dw_hh_t[{d}] vs lstm_bwd", dw[d], single_b[d][1]) for d in same_runs], where)
+        dw_vs_single = max_err([(f"dw_hh_t[{d}] vs lstm_bwd", dw[d], single_b[d][1])
+                                for d in range(D)], KERNEL_TOL, where)
+        same_bits([(f"{n} twice", a[d], b[d]) for n, a, b in
+                   zip(("ys", "cs", "h_fin", "dx_proj", "dw_hh_t"), (ys, cs, h_fin, dx, dw), again)
+                   for d in range(D)], where)
+        shape = {"T": T, "B": B, "H": list(hs)}
         rows["fwd"].append({**shape, "max_abs_err": max_err(pairs_f, KERNEL_TOL,
                                                             "lstm_multi_fwd " + where),
-                            "vs_single_kernels": max_err(one_f, KERNEL_TOL, where)})
+                            "vs_single_kernels": "bit-equal", "twice": "bit-equal"})
         rows["bwd"].append({**shape, "max_abs_err": max_err(pairs_b, KERNEL_TOL,
                                                             "lstm_multi_bwd " + where),
-                            "vs_single_kernels": max_err(one_b, KERNEL_TOL, where)})
+                            "vs_single_kernels": {"dx_proj": "bit-equal",
+                                                  "dw_hh_t_bit_equal": same_runs,
+                                                  "dw_hh_t_max_abs_err": dw_vs_single},
+                            "twice": "bit-equal"})
+        if (T, B) not in MULTI_SHAPES or tuple(hs) != MULTI_HS:
+            continue
 
-        packed = [dys[d] * m[d][..., None] for d in range(4)]   # no padded outputs in cuDNN's
-        lib_f = [cudnn_fwd(x[d], w[d], lengths[d])[0] for d in range(4)]
+        packed = [dys[d] * m[d][..., None] for d in range(D)]   # no padded outputs in cuDNN's
+        lib_f = [cudnn_fwd(x[d], w[d], lengths[d])[0] for d in range(D)]
         lib_b = [cudnn_bwd(x[d], w[d], lengths[d], packed[d].contiguous(), dh[d])[0]
-                 for d in range(4)]
+                 for d in range(D)]
         bound_f, bound_b = multi_bounds(T, B, m)
         four_f = lambda: [klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
-                          for d in range(4)]
+                          for d in range(D)]
         four_b = lambda: [klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys_w[d], cs_w[d], dys[d],
-                                                    dh[d], None, rev[d]) for d in range(4)]
+                                                    dh[d], None, rev[d]) for d in range(D)]
         # the plain versions loop over T in Python (up to 2 s a call at T=512): one call each
-        rows_f = kernel_times(lambda: kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True),
-                              lambda: kmulti.lstm_multi_recurrence_reference(x, w, m, rev, True),
+        rows_f = kernel_times(fwd, lambda: kmulti.lstm_multi_recurrence_reference(x, w, m, rev,
+                                                                                  True),
                               lambda: [c() for c in lib_f], 1, 0)
-        rows_b = kernel_times(lambda: kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys_w, cs_w,
-                                                                       dys, dh),
-                              lambda: kmulti.lstm_multi_recurrence_bwd_reference(
+        rows_b = kernel_times(bwd, lambda: kmulti.lstm_multi_recurrence_bwd_reference(
                                   x, w, m, rev, ys_w, cs_w, dys, dh),
                               lambda: [c() for c in lib_b], 1, 0)
+        rows_b["parts_ms"] = bwd_parts(bwd, MULTI_BWD_PARTS)
+        if isinstance(rows_b["parts_ms"]["bptt"], float):     # the serial pass alone
+            rows_b["bptt_us_per_step"] = rows_b["parts_ms"]["bptt"] * 1e3 / T
+        geometry = kmulti.launch_geometry(hs, B, device)
+        plans = compare_multi_plans(kmulti, klstm, T, B, x, w, m, rev, ys_w, cs_w, dys, dh)
+        log("3 lstm-multi-plans", T=T, B=B, **plans)
         for row in (rows_f, rows_b):      # no one PyTorch call computes the four directions
             row["four_cudnn_ms"] = row.pop("library_ms")
             row["four_cudnn_device_ms"] = row.pop("library_device_ms")
             row["library_ms"] = row["library_device_ms"] = None
+            row["us_per_step"] = row["ms"] * 1e3 / T
         four = {}
         for k, fn in (("fwd", four_f), ("bwd", four_b)):
             call = cuda_ms(fn)
@@ -1352,16 +1480,24 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
         timed["fwd"].append({**shape, **rows_f, "four_lstm_fwd_ms": four["four_lstm_fwd_ms"],
                              "four_lstm_fwd_call_ms": four["four_lstm_fwd_call_ms"],
                              "four_cudnn": "four cuDNN nn.LSTM calls, one per direction",
+                             "geometry": {"plan": geometry["plan"],
+                                          **geometry["lstm_multi_fwd"]},
                              **bound_f})
         timed["bwd"].append({**shape, **rows_b, "four_lstm_bwd_ms": four["four_lstm_bwd_ms"],
                              "four_lstm_bwd_call_ms": four["four_lstm_bwd_call_ms"],
                              "four_cudnn": "autograd.grad of four cuDNN nn.LSTM calls",
-                             **bound_b})
+                             "geometry": {"plan": geometry["plan"],
+                                          "bptt": geometry["lstm_multi_bwd"]},
+                             "plans_compared": plans, **bound_b})
         log("3 lstm-multi-fwd-time", **timed["fwd"][-1])
         log("3 lstm-multi-bwd-time", **timed["bwd"][-1])
+    used = sorted({bptt_instantiation(H) for _, _, hs, _ in MULTI_CHECKS for H in hs})
+    if used != [0, 11, 21]:
+        raise AssertionError(f"MULTI_CHECKS reach the instantiations {used}, not 0, 11 and 21")
     worst = {k: max(r["max_abs_err"] for r in v) for k, v in rows.items()}
     log("3 lstm-multi-vs-plain", shapes=len(rows["fwd"]), max_abs_err=worst, tol=KERNEL_TOL,
-        vs_single_kernels={k: max(r["vs_single_kernels"] for r in v) for k, v in rows.items()})
+        vs_single_kernels="bit-equal (dw_hh_t where its runs are the same)",
+        twice="bit-equal", instantiations=used)
 
     def result(k):
         report = next(r for r in timed[k] if (r["T"], r["B"]) == MULTI_REPORT)
@@ -2272,7 +2408,7 @@ def main() -> int:
                if "sass" in checks[name] else {}),
             **{k: rep[k] for k in ("cold_ms", "cold_parts_ms") if k in rep},
             **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
-            **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step") if k in rep}})
+            **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"

@@ -29,7 +29,7 @@
 //     the column held in registers where H <= 80 (11 or 21 float4s), else
 //     read from global memory with several units per quad (H up to 1024).
 //   * x_proj[t] and the mask never depend on the carry: they come from a
-//     shared-memory ring that cp.async fills kRing - 1 steps ahead, and are
+//     shared-memory ring that cp.async fills kFwdRing - 1 steps ahead, and are
 //     read into registers while the step before finishes, so no global-
 //     memory latency is left on the chain.
 //   * Thread q applies its gate's activation; the quad exchanges the four
@@ -41,16 +41,13 @@
 //     read, so one __syncthreads per step orders both.
 //   * Plain f32 FMAs, no tensor cores: TF32 or bf16 would change the
 //     numbers the JAX package computes.
+// The pass itself is lstm_fwd_pass in lstm_passes.cuh, which
+// lstm_multi_fwd.cu runs too.
 
-#include "recurrence.cuh"
+#include "lstm_passes.cuh"
 
 namespace {
 
-constexpr int kRing = 8;   // input ring: steps s + 1 .. s + kRing - 1 in flight
-
-// The serial pass (see the file's comment).  NC > 0: one unit per quad, and
-// thread (j, q) holds w_hh_t[:, qH + j] as NC float4s in registers; NC == 0:
-// `units` units per quad (unit jq + u NQ), the column read from global memory.
 template <int NC>
 __global__ void __launch_bounds__(bptt_max_threads(NC))
 lstm_fwd_kernel(const float* __restrict__ x_proj,  // (T, B, 4H)
@@ -61,112 +58,9 @@ lstm_fwd_kernel(const float* __restrict__ x_proj,  // (T, B, 4H)
                 float* __restrict__ h_fin,         // (B, H)
                 float* __restrict__ c_fin,         // (B, H)
                 int T, int B, int H, int rows, int units, int reverse) {
-  constexpr int UM = NC > 0 ? 1 : kMaxUnits;
   extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  const int HP = gate_stride(H);
-  const int NQ = (H + units - 1) / units;   // quads of a row
-  const int NU = NQ * units;                // unit slots of a row
-  float* h_s = smem;                             // (2, rows, HP) h, zero past H
-  float* xp_s = h_s + 2 * rows * HP;             // (kRing, rows, 4, NU) x_proj
-  float* m_s = xp_s + kRing * rows * 4 * NU;     // (kRing, rows) mask
-
-  const int r = threadIdx.x / (4 * NQ);     // row within the block
-  const int jq = (threadIdx.x >> 2) - r * NQ;
-  const int q = threadIdx.x & 3;            // gate: i, f, g, o
-  const int b = blockIdx.x * rows + r;
-  const bool row_ok = r < rows && b < B;
-  bool valid[UM];
-#pragma unroll
-  for (int u = 0; u < UM; ++u) valid[u] = row_ok && u < units && jq + u * NQ < H;
-
-  for (int i = threadIdx.x; i < 2 * rows * HP; i += blockDim.x) h_s[i] = 0.0f;
-
-  const int nc = (H + 3) / 4;   // float4s of h
-  float4 wr[NC > 0 ? NC : 1];
-  if constexpr (NC > 0) load_column<NC>(wr, w_hh_t + q * H + jq, G, H, jq < H);
-
-  // Step s's inputs into ring slot s % kRing: thread q of a unit's quad
-  // copies x_proj of gate q, the row's first thread the mask.  One group of
-  // copies per step, empty past T.
-  auto prefetch = [&](int s) {
-    if (s < T && row_ok) {
-      const int t = reverse ? T - 1 - s : s;
-      const size_t row = (size_t)t * B + b;
-      float* xs = xp_s + (((s % kRing) * rows + r) * 4 + q) * NU;
-#pragma unroll
-      for (int u = 0; u < UM; ++u) {
-        const int j = jq + u * NQ;
-        if (valid[u]) cp_async_4(xs + j, x_proj + row * G + q * H + j, true);
-      }
-      if (jq == 0 && q == 0) cp_async_4(m_s + (s % kRing) * rows + r, mask + row, true);
-    }
-    cp_async_commit();
-  };
-  float xp[UM], m = 0.0f;
-  auto read_slot = [&](int s) {
-    const float* xs = xp_s + (((s % kRing) * rows + r) * 4 + q) * NU;
-#pragma unroll
-    for (int u = 0; u < UM; ++u) xp[u] = valid[u] ? xs[jq + u * NQ] : 0.0f;
-    if (row_ok) m = m_s[(s % kRing) * rows + r];
-  };
-
-  for (int s = 0; s < kRing - 1; ++s) prefetch(s);
-  cp_async_wait<kRing - 2>();
-  __syncthreads();   // step 0's inputs and the zeroed h, for every thread
-  read_slot(0);
-
-  float h[UM], c[UM];
-#pragma unroll
-  for (int u = 0; u < UM; ++u) h[u] = c[u] = 0.0f;
-  for (int s = 0; s < T; ++s) {
-    // into the slot step s - 1 used, read before barrier s - 1
-    prefetch(s + kRing - 1);
-    const int t = reverse ? T - 1 - s : s;
-    const size_t row = (size_t)t * B + b;
-    const float4* hv = reinterpret_cast<const float4*>(h_s + ((s & 1) * rows + r) * HP);
-    float* h_nxt = h_s + (((s & 1) ^ 1) * rows + r) * HP;
-#pragma unroll
-    for (int u = 0; u < UM; ++u) {
-      const int j = jq + u * NQ;
-      float dot = 0.0f;
-      if (valid[u]) {
-        if constexpr (NC > 0) {
-          dot = dot_regs<NC>(hv, wr, nc);
-        } else {
-          dot = dot_global(hv, w_hh_t + q * H + j, G, H, nc);
-        }
-      }
-      const float pre = xp[u] + dot;
-      const float act = q == 2 ? tanhf(pre) : sigmoid_f(pre);
-      const float ig = __shfl_sync(0xffffffffu, act, 0, 4);
-      const float fg = __shfl_sync(0xffffffffu, act, 1, 4);
-      const float gg = __shfl_sync(0xffffffffu, act, 2, 4);
-      const float og = __shfl_sync(0xffffffffu, act, 3, 4);
-      if (valid[u]) {
-        const float c_new = fg * c[u] + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        h[u] = m * h_new + (1.0f - m) * h[u];
-        c[u] = m * c_new + (1.0f - m) * c[u];
-        if (q == 0) {
-          h_nxt[j] = h[u];
-          ys[row * H + j] = h[u];
-        } else if (q == 1 && cs != nullptr) {
-          cs[row * H + j] = c[u];
-        }
-      }
-    }
-    cp_async_wait<kRing - 2>();   // this thread's copies of step s + 1 landed
-    __syncthreads();              // everyone's, and this step's h is in h_nxt
-    if (s + 1 < T) read_slot(s + 1);
-  }
-#pragma unroll
-  for (int u = 0; u < UM; ++u) {
-    if (!valid[u]) continue;
-    const size_t i = (size_t)b * H + jq + u * NQ;
-    if (q == 0) h_fin[i] = h[u];
-    if (q == 1) c_fin[i] = c[u];
-  }
+  lstm_fwd_pass<NC>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows, units, reverse,
+                    blockIdx.x * rows, threadIdx.x, blockDim.x, smem, BlockSync{});
 }
 
 template <int NC>
@@ -176,8 +70,7 @@ cudaError_t launch(const float* x_proj, const float* w_hh_t, const float* mask, 
   const int groups = (H + units - 1) / units;
   const int per_row = 4 * groups;
   if (rows < 1 || rows * per_row > bptt_max_threads(NC)) return cudaErrorInvalidValue;
-  const size_t smem_bytes = ((size_t)2 * rows * gate_stride(H) +
-                             (size_t)kRing * rows * (4 * groups * units + 1)) * sizeof(float);
+  const size_t smem_bytes = (size_t)lstm_fwd_smem_floats(H, rows, groups, units) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       lstm_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return err;
@@ -203,16 +96,17 @@ int mmda_lstm_fwd(const float* x_proj, const float* w_hh_t, const float* mask,
                   int B, int H, int rows, int reverse, void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxUnits * 256) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H <= kRegH && gate_stride(H) / 4 <= 11) {
-    return (int)launch<11>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows, 1,
-                           reverse, st);
+  switch (lstm_nc(H)) {
+    case 11:
+      return (int)launch<11>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows, 1,
+                             reverse, st);
+    case 21:
+      return (int)launch<21>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows, 1,
+                             reverse, st);
+    default:
+      return (int)launch<0>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows,
+                            (H + 255) / 256, reverse, st);
   }
-  if (H <= kRegH) {
-    return (int)launch<21>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows, 1,
-                           reverse, st);
-  }
-  return (int)launch<0>(x_proj, w_hh_t, mask, ys, cs, h_fin, c_fin, T, B, H, rows,
-                        (H + 255) / 256, reverse, st);
 }
 
 }  // extern "C"

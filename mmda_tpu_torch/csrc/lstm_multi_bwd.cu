@@ -27,27 +27,25 @@
 // lstm_bwd.cu.
 //
 // What the design does about it.  The TPU kernel runs the directions as a
-// sequential grid and carries dW_hh in a VMEM accumulator.  Here three
-// kernels of this file, each one launch for all D directions:
-//   * lstm_multi_bptt_kernel: grid (batch-row block, direction), the
-//     lstm_bwd.cu loop in each block (one thread per (row, hidden unit), w_hh_t
-//     in shared memory with row stride 4H + 1, two barriers per step), sized
-//     for the largest H;
-//   * lstm_multi_dw_partial_kernel: dW_hh_d^T as a tiled (H x T*B) x
-//     (T*B x 4H) product over the dx_proj_d just written and ys_d shifted by
-//     one processed step; grid z runs over (direction, run of steps), tiles
-//     beyond a direction's H or 4H exit at once; f64 sums, no atomics;
-//   * lstm_multi_dw_sum_kernel: the runs added in order, rounded once, one
-//     grid row per direction.
+// sequential grid and carries dW_hh in a VMEM accumulator.  Here the four
+// passes of lstm_bwd.cu (lstm_passes.cuh), each one launch for all D
+// directions:
+//   * lstm_multi_gates_kernel: the gate activations of every direction's
+//     (t, b) into its dx_proj, off the serial chain; grid x over every
+//     direction's 64 x 64 tiles;
+//   * lstm_multi_bptt_kernel: the serial pass (a quad a hidden unit, the
+//     weights in registers up to H = 80, the inputs through a cp.async ring,
+//     one barrier a step) on the groups of lstm_multi.cuh's plan, as
+//     lstm_multi_fwd.cu's, so the rows of all directions run in one wave;
+//   * lstm_multi_dw_partial_kernel: dW_hh_d^T as 32 x 64 tiles, 4 x 4 f64
+//     accumulators a thread, over `splits_d` runs of d's (t, b) rows; grid z
+//     over (direction, run), tiles beyond a direction's H or 4H exit at once;
+//   * lstm_multi_dw_sum_kernel: each direction's runs added in order,
+//     rounded once, one grid row per direction.  No atomics.
 
-#include <cuda_runtime.h>
+#include "lstm_multi.cuh"
 
 namespace {
-
-constexpr int kMaxDirs = 8;
-constexpr int kDwTileK = 16;   // dW tile: 16 hidden units (rows of dW_hh^T)
-constexpr int kDwTileG = 64;   // x 64 gate columns, 256 threads
-constexpr int kDwChunk = 32;   // batch rows of one step per shared-memory pass
 
 // One launch's directions, passed by value.
 struct Dirs {
@@ -60,241 +58,118 @@ struct Dirs {
   const float* dh_fin[kMaxDirs];   // (B, H_d)
   float* dx_proj[kMaxDirs];        // (T, B, 4 H_d)
   float* dw_hh_t[kMaxDirs];        // (H_d, 4 H_d)
+  double* dw_partial[kMaxDirs];    // (splits_d, H_d, 4 H_d)
   int H[kMaxDirs];
   int reverse[kMaxDirs];
+  int splits[kMaxDirs];
+  int tile0[kMaxDirs];             // d's first block of the gate pass
+  int split0[kMaxDirs];            // d's first z of the dW partials
+  Group group[kMaxDirs];
 };
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// The last direction whose range of a grid dimension starts at or before i.
+__device__ __forceinline__ int direction_at(const int* first, int D, int i) {
+  int d = 0;
+  while (d + 1 < D && first[d + 1] <= i) ++d;
+  return d;
 }
 
-template <bool kWeightsInSmem>
-__global__ void lstm_multi_bptt_kernel(Dirs dirs, int T, int B, int rows, int h_max) {
-  extern __shared__ float smem[];
-  const int d = blockIdx.y;
+__global__ void __launch_bounds__(kGateThreads)
+lstm_multi_gates_kernel(const __grid_constant__ Dirs dirs, int D, int T, int B) {
+  const int d = direction_at(dirs.tile0, D, blockIdx.x);
   const int H = dirs.H[d];
-  const int G = 4 * H;
-  const float* __restrict__ x_proj = dirs.x_proj[d];
-  const float* __restrict__ mask = dirs.mask[d];
-  const float* __restrict__ ys = dirs.ys[d];
-  const float* __restrict__ cs = dirs.cs[d];
-  const float* __restrict__ dys = dirs.dys[d];
-  float* __restrict__ dx_proj = dirs.dx_proj[d];
-  const int reverse = dirs.reverse[d];
-  // w row stride: 4H + 1 in shared memory (bank spread for the row reads)
-  const int ws = kWeightsInSmem ? G + 1 : G;
-  float* h_s = smem + (kWeightsInSmem ? h_max * (4 * h_max + 1) : 0);   // (rows, H)
-  float* dg_s = h_s + rows * H;                                        // (rows, 4H)
-  const float* w = kWeightsInSmem ? smem : dirs.w_hh_t[d];
-
-  if (kWeightsInSmem) {
-    for (int i = threadIdx.x; i < H * G; i += blockDim.x) {
-      const int k = i / G;
-      smem[k * ws + (i - k * G)] = dirs.w_hh_t[d][i];
-    }
-  }
-
-  const int r = threadIdx.x / H;      // row within the block
-  const int j = threadIdx.x - r * H;  // hidden unit
-  const int b = blockIdx.x * rows + r;
-  const bool active = r < rows && b < B;
-
-  float dh = 0.0f;
-  float dc = 0.0f;
-  if (active) dh = dirs.dh_fin[d][(size_t)b * H + j];
-  for (int s = 0; s < T; ++s) {
-    // reverse of the forward's processing order
-    const int t = reverse ? s : T - 1 - s;
-    const bool first = reverse ? (t == T - 1) : (t == 0);
-    const int prev_t = reverse ? t + 1 : t - 1;   // read only when !first
-    const size_t row = (size_t)t * B + b;
-    float c_prev = 0.0f;
-    if (active) {
-      float h_prev = 0.0f;
-      if (!first) {
-        const size_t prow = ((size_t)prev_t * B + b) * H + j;
-        h_prev = ys[prow];
-        c_prev = cs[prow];
-      }
-      h_s[r * H + j] = h_prev;
-    }
-    __syncthreads();
-    if (active) {
-      const float* hp = h_s + r * H;
-      float ai = 0.0f, af = 0.0f, ag = 0.0f, ao = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float hk = hp[k];
-        const float* wk = w + (size_t)k * ws + j;
-        ai = fmaf(hk, wk[0], ai);
-        af = fmaf(hk, wk[H], af);
-        ag = fmaf(hk, wk[2 * H], ag);
-        ao = fmaf(hk, wk[3 * H], ao);
-      }
-      const float* xp = x_proj + row * G + j;
-      const float ig = sigmoid_f(xp[0] + ai);
-      const float fg = sigmoid_f(xp[H] + af);
-      const float gg = tanhf(xp[2 * H] + ag);
-      const float og = sigmoid_f(xp[3 * H] + ao);
-      const float c_new = fg * c_prev + ig * gg;
-      const float tanh_c = tanhf(c_new);
-
-      const float m = mask[row];
-      dh += dys[row * H + j];
-      const float dh_new = m * dh;
-      float dc_new = m * dc;
-      const float dh_pass = (1.0f - m) * dh;
-      const float dc_pass = (1.0f - m) * dc;
-      dc_new = dc_new + dh_new * og * (1.0f - tanh_c * tanh_c);
-      const float d_og = dh_new * tanh_c;
-      const float d_ig = dc_new * gg;
-      const float d_fg = dc_new * c_prev;
-      const float d_gg = dc_new * ig;
-      dc = dc_new * fg + dc_pass;
-
-      const float dgi = d_ig * ig * (1.0f - ig);
-      const float dgf = d_fg * fg * (1.0f - fg);
-      const float dgg = d_gg * (1.0f - gg * gg);
-      const float dgo = d_og * og * (1.0f - og);
-      float* dx = dx_proj + row * G + j;
-      dx[0] = dgi;
-      dx[H] = dgf;
-      dx[2 * H] = dgg;
-      dx[3 * H] = dgo;
-      float* dg = dg_s + r * G + j;
-      dg[0] = dgi;
-      dg[H] = dgf;
-      dg[2 * H] = dgg;
-      dg[3 * H] = dgo;
-      dh = dh_pass;   // dh_prev = dgates @ w_hh_t^T + dh_pass, summed below
-    }
-    __syncthreads();
-    if (active) {
-      const float* dg = dg_s + r * G;
-      const float* wj = w + (size_t)j * ws;
-      float acc = 0.0f;
-      for (int g = 0; g < G; ++g) acc = fmaf(dg[g], wj[g], acc);
-      dh += acc;
-    }
-    // the next step's first barrier orders these dg_s reads before its writes
-  }
+  const int tiles_g = (4 * H + kGateTileG - 1) / kGateTileG;
+  const int tile = blockIdx.x - dirs.tile0[d];
+  lstm_gates_tile(dirs.x_proj[d], dirs.w_hh_t[d], dirs.ys[d], dirs.dx_proj[d], T, B, H,
+                  dirs.reverse[d], tile / tiles_g, tile % tiles_g);
 }
 
-// Block (x, y, z) with z = d * splits + split sums the (16 x 64) tile (y, x)
-// of dW_hh_d^T over the split-th of `splits` equal runs of d's processed
-// steps (the first processed step adds 0), one thread per 4 outputs, and
-// writes its f64 partial to dw_partial[d][split] (row stride 4 h_max).
-__global__ void lstm_multi_dw_partial_kernel(Dirs dirs, double* __restrict__ dw_partial,
-                                             int T, int B, int h_max, int splits) {
-  __shared__ float h_s[kDwChunk][kDwTileK];
-  __shared__ float d_s[kDwChunk][kDwTileG];
-  const int d = blockIdx.z / splits;
-  const int split = blockIdx.z - d * splits;
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+lstm_multi_bptt_kernel(const __grid_constant__ Dirs dirs, int D, int T, int B) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = find_group(dirs.group, D);
+  if (d < 0) return;
+  const Group& g = dirs.group[d];
   const int H = dirs.H[d];
-  const int G = 4 * H;
-  const int g0 = blockIdx.x * kDwTileG;
-  const int k0 = blockIdx.y * kDwTileK;
-  if (g0 >= G || k0 >= H) return;     // a tile of a larger direction
-  const float* __restrict__ ys = dirs.ys[d];
-  const float* __restrict__ dx_proj = dirs.dx_proj[d];
-  const int reverse = dirs.reverse[d];
-  const int tx = threadIdx.x;                 // 0..63: gate column in the tile
-  const int ty = threadIdx.y;                 // 0..3
-  const int tid = ty * kDwTileG + tx;
-  const int per_split = (T - 1 + splits - 1) / splits;
-  const int s_begin = split * per_split;
-  const int s_end = min(T - 1, s_begin + per_split);
-  double acc[kDwTileK / 4] = {0.0, 0.0, 0.0, 0.0};
-
-  for (int s = s_begin; s < s_end; ++s) {
-    const int t = reverse ? s : T - 1 - s;
-    const int prev_t = reverse ? t + 1 : t - 1;
-    for (int b0 = 0; b0 < B; b0 += kDwChunk) {
-      for (int i = tid; i < kDwChunk * kDwTileG; i += 4 * kDwTileG) {
-        const int b = b0 + i / kDwTileG;
-        const int g = g0 + i % kDwTileG;
-        d_s[i / kDwTileG][i % kDwTileG] =
-            (b < B && g < G) ? dx_proj[((size_t)t * B + b) * G + g] : 0.0f;
-      }
-      for (int i = tid; i < kDwChunk * kDwTileK; i += 4 * kDwTileG) {
-        const int b = b0 + i / kDwTileK;
-        const int k = k0 + i % kDwTileK;
-        h_s[i / kDwTileK][i % kDwTileK] =
-            (b < B && k < H) ? ys[((size_t)prev_t * B + b) * H + k] : 0.0f;
-      }
-      __syncthreads();
-      const int n_b = min(kDwChunk, B - b0);
-      for (int n = 0; n < n_b; ++n) {
-        const double dv = d_s[n][tx];
-#pragma unroll
-        for (int q = 0; q < kDwTileK / 4; ++q) {
-          acc[q] = fma((double)h_s[n][ty + 4 * q], dv, acc[q]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const int g = g0 + tx;
-  if (g < G) {
-    double* out = dw_partial + (size_t)blockIdx.z * h_max * 4 * h_max;
-#pragma unroll
-    for (int q = 0; q < kDwTileK / 4; ++q) {
-      const int k = k0 + ty + 4 * q;
-      if (k < H) out[(size_t)k * G + g] = acc[q];
-    }
+  const int row0 = ((int)blockIdx.x - g.block0) * g.rows;
+  const int tid = (int)threadIdx.x - g.thread0;
+  const NamedSync sync{1 + d, g.threads};
+  switch (lstm_nc(H)) {
+    case 11:
+      lstm_bptt_pass<11>(dirs.w_hh_t[d], dirs.mask[d], dirs.cs[d], dirs.dys[d], dirs.dh_fin[d],
+                         nullptr, dirs.dx_proj[d], T, B, H, g.rows, g.units, dirs.reverse[d],
+                         row0, tid, g.threads, smem + g.smem0, sync);
+      break;
+    case 21:
+      lstm_bptt_pass<21>(dirs.w_hh_t[d], dirs.mask[d], dirs.cs[d], dirs.dys[d], dirs.dh_fin[d],
+                         nullptr, dirs.dx_proj[d], T, B, H, g.rows, g.units, dirs.reverse[d],
+                         row0, tid, g.threads, smem + g.smem0, sync);
+      break;
+    default:
+      lstm_bptt_pass<0>(dirs.w_hh_t[d], dirs.mask[d], dirs.cs[d], dirs.dys[d], dirs.dh_fin[d],
+                        nullptr, dirs.dx_proj[d], T, B, H, g.rows, g.units, dirs.reverse[d],
+                        row0, tid, g.threads, smem + g.smem0, sync);
   }
 }
 
-// dw_hh_t_d = d's partials summed in split order, rounded once to f32.
-__global__ void lstm_multi_dw_sum_kernel(Dirs dirs, const double* __restrict__ dw_partial,
-                                         int h_max, int splits) {
+// Block (x, y, z), z = split0[d] + split: the (32 x 64) tile (y, x) of
+// dW_hh_d^T over run `split` of d's rows.
+__global__ void __launch_bounds__(kDwThreads)
+lstm_multi_dw_partial_kernel(const __grid_constant__ Dirs dirs, int D, int T, int B) {
+  const int d = direction_at(dirs.split0, D, blockIdx.z);
+  const int H = dirs.H[d];
+  if ((int)blockIdx.x * kDwTileG >= 4 * H || (int)blockIdx.y * kDwTileK >= H) return;
+  const int split = blockIdx.z - dirs.split0[d];
+  lstm_dw_partial_tile(dirs.ys[d], dirs.dx_proj[d],
+                       dirs.dw_partial[d] + (size_t)split * H * 4 * H, T, B, H, dirs.reverse[d],
+                       blockIdx.x, blockIdx.y, split, dirs.splits[d]);
+}
+
+__global__ void lstm_multi_dw_sum_kernel(const __grid_constant__ Dirs dirs) {
   const int d = blockIdx.y;
   const int n = dirs.H[d] * 4 * dirs.H[d];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t stride = (size_t)h_max * 4 * h_max;
-  const double* part = dw_partial + (size_t)d * splits * stride;
-  double sum = 0.0;
-  for (int z = 0; z < splits; ++z) sum += part[(size_t)z * stride + i];
-  dirs.dw_hh_t[d][i] = (float)sum;
+  if (i < n) lstm_dw_sum_at(dirs.dw_partial[d], dirs.dw_hh_t[d], n, dirs.splits[d], i);
 }
 
-template <bool kWeightsInSmem>
-cudaError_t launch_bptt(const Dirs& dirs, int D, int T, int B, int rows, int h_max,
-                        size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(lstm_multi_bptt_kernel<kWeightsInSmem>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes);
-  if (err != cudaSuccess) return err;
-  const int threads = (rows * h_max + 31) / 32 * 32;
-  const dim3 grid((B + rows - 1) / rows, D);
-  lstm_multi_bptt_kernel<kWeightsInSmem><<<grid, threads, smem_bytes, stream>>>(
-      dirs, T, B, rows, h_max);
-  return cudaGetLastError();
+// The BPTT instantiation for blocks of `threads` threads.
+auto bptt_kernel_for(int threads) {
+  return threads <= kLeanThreads ? lstm_multi_bptt_kernel<kLeanThreads>
+                                 : lstm_multi_bptt_kernel<kMultiThreads>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the three kernels on `stream` (BPTT, then the dW partials, which
-// read the dx_proj the first one wrote, then their sums) and returns the
-// first nonzero cudaError as an int (0 = ok).  x_proj .. dw_hh_t: host
-// arrays of D device pointers; H, reverse: host arrays of D ints;
-// dw_partial: device f64 scratch of D * splits * max(H) * 4 max(H).
-// 1 <= D <= 8, rows * max(H) <= 1024, splits >= 1.
+// Launches the four kernels on `stream` (the gate pass into dx_proj, the
+// BPTT pass over it, then the dW partials, which read the dgates the BPTT
+// pass left in dx_proj, then their sums) and returns the first nonzero
+// cudaError as an int (0 = ok).  x_proj .. dw_hh_t: host arrays of D device
+// pointers; H, reverse, splits: host arrays of D ints (splits >= 1);
+// dw_partial: device f64 scratch of sum over d of splits_d H_d 4 H_d,
+// direction after direction; plan: kPlanInts ints a direction
+// (lstm_multi.cuh).  1 <= D <= 8.
 int mmda_lstm_multi_bwd(const float* const* x_proj, const float* const* w_hh_t,
                         const float* const* mask, const float* const* ys,
                         const float* const* cs, const float* const* dys,
                         const float* const* dh_fin, float* const* dx_proj,
                         float* const* dw_hh_t, double* dw_partial, const int* H,
-                        const int* reverse, int D, int T, int B, int rows, int splits,
-                        void* stream) {
-  if (D < 1 || D > kMaxDirs || T < 1 || B < 1 || rows < 1 || splits < 1) {
+                        const int* reverse, const int* splits, const int* plan, int D, int T,
+                        int B, void* stream) {
+  Dirs dirs = {};
+  int grid = 0, threads = 0;
+  size_t smem_bytes = 0;
+  if (T < 1 ||
+      !make_groups(H, plan, D, B, lstm_bptt_smem_floats, dirs.group, &grid, &threads,
+                   &smem_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
-  Dirs dirs = {};
-  int h_max = 0;
+  int gate_tiles = 0, runs = 0, n_max = 0, h_max = 0;
+  size_t partial = 0;
   for (int d = 0; d < D; ++d) {
+    if (splits[d] < 1) return (int)cudaErrorInvalidValue;
     dirs.x_proj[d] = x_proj[d];
     dirs.w_hh_t[d] = w_hh_t[d];
     dirs.mask[d] = mask[d];
@@ -304,37 +179,49 @@ int mmda_lstm_multi_bwd(const float* const* x_proj, const float* const* w_hh_t,
     dirs.dh_fin[d] = dh_fin[d];
     dirs.dx_proj[d] = dx_proj[d];
     dirs.dw_hh_t[d] = dw_hh_t[d];
+    dirs.dw_partial[d] = dw_partial + partial;
     dirs.H[d] = H[d];
     dirs.reverse[d] = reverse[d];
-    if (H[d] < 1) return (int)cudaErrorInvalidValue;
-    h_max = H[d] > h_max ? H[d] : h_max;
+    dirs.splits[d] = splits[d];
+    dirs.tile0[d] = gate_tiles;
+    dirs.split0[d] = runs;
+    const int G = 4 * H[d];
+    gate_tiles += (T * B + kGateTileN - 1) / kGateTileN * ((G + kGateTileG - 1) / kGateTileG);
+    runs += splits[d];
+    partial += (size_t)splits[d] * H[d] * G;
+    n_max = imax(n_max, H[d] * G);
+    h_max = imax(h_max, H[d]);
   }
-  if (rows * h_max > 1024) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int g_max = 4 * h_max;
-  const size_t buf_bytes = (size_t)rows * (h_max + g_max) * sizeof(float);
-  const size_t w_bytes = (size_t)h_max * (g_max + 1) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_bytes + buf_bytes <= (size_t)smem_optin) {
-    err = launch_bptt<true>(dirs, D, T, B, rows, h_max, w_bytes + buf_bytes, st);
-  } else {
-    err = launch_bptt<false>(dirs, D, T, B, rows, h_max, buf_bytes, st);
-  }
+  lstm_multi_gates_kernel<<<gate_tiles, kGateThreads, 0, st>>>(dirs, D, T, B);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g_max + kDwTileG - 1) / kDwTileG, (h_max + kDwTileK - 1) / kDwTileK,
-                  D * splits);
-  lstm_multi_dw_partial_kernel<<<grid, dim3(kDwTileG, 4), 0, st>>>(dirs, dw_partial, T, B,
-                                                                    h_max, splits);
+  const auto bptt = bptt_kernel_for(threads);
+  err = cudaFuncSetAttribute(bptt, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  bptt<<<grid, threads, smem_bytes, st>>>(dirs, D, T, B);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 sum_grid((h_max * g_max + 255) / 256, D);
-  lstm_multi_dw_sum_kernel<<<sum_grid, 256, 0, st>>>(dirs, dw_partial, h_max, splits);
+  const dim3 dw_grid((4 * h_max + kDwTileG - 1) / kDwTileG, (h_max + kDwTileK - 1) / kDwTileK,
+                     runs);
+  lstm_multi_dw_partial_kernel<<<dw_grid, kDwThreads, 0, st>>>(dirs, D, T, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_multi_dw_sum_kernel<<<dim3((n_max + 255) / 256, D), 256, 0, st>>>(dirs);
   return (int)cudaGetLastError();
+}
+
+// The BPTT launch a plan makes, launching nothing (lstm_multi.cuh's
+// occupancy into out[0 .. 5]); 0 = ok.
+int mmda_lstm_multi_bwd_geometry(const int* H, const int* plan, int D, int B, int* out) {
+  Dirs dirs = {};
+  int grid = 0, threads = 0;
+  size_t smem_bytes = 0;
+  if (!make_groups(H, plan, D, B, lstm_bptt_smem_floats, dirs.group, &grid, &threads,
+                   &smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return occupancy(bptt_kernel_for(threads), grid, threads, smem_bytes, out);
 }
 
 }  // extern "C"

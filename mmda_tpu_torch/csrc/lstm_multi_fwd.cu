@@ -20,26 +20,25 @@
 // H = 35, 35, 74, 74) the operands are under 10 MB (3 us at 3.35 TB/s) and
 // the arithmetic about 40 MFLOP (0.6 us at 67 TFLOP/s); neither is the
 // limit.  The T steps of a direction are dependent, so the time is T times
-// one step's latency, as for lstm_fwd.cu; what one launch saves is the
-// launches and the tails of three of the four.
+// one step's latency, as for lstm_fwd.cu: the launch has to hold every
+// direction's rows on the SMs at once, in one wave.
 //
-// What the design does about it.  A 2-D grid: y is the direction, x a block
-// of `rows` batch rows (the caller spreads B over the SMs the directions
-// share).  Inside a block the loop is lstm_fwd.cu's: one thread per (row,
-// hidden unit) computes its four gate dot products and the cell update, h
-// double-buffered in shared memory (one barrier per step), c in a register,
-// w_hh_t_d in dynamic shared memory sized for the largest H (H=74: 87.6 KB)
-// or read from global memory where that does not fit.  The block is sized
-// for the largest H; a direction with a smaller H leaves the spare threads
-// idle (they still take the barriers).  Plain f32 FMAs, no tensor cores.
+// What the design does about it.  Every row runs lstm_fwd.cu's serial pass
+// (lstm_fwd_pass in lstm_passes.cuh: a quad a hidden unit, the gate column in
+// registers up to H = 80, x_proj and the mask through a cp.async ring, one
+// barrier a step), at the instantiation of its direction's H (11 or 21
+// float4s of weights, 0: from global memory).  Where one row a block of
+// each direction would take more blocks than the card has SMs (B = 64: 256),
+// the caller packs a narrow direction's row beside a wide one's in one block
+// (35 + 74: 160 + 320 threads), each group on its own named barrier, so the
+// launch stays one wave (lstm_multi.cuh; the plan is lstm_multi.py's
+// `geometry`).
 
-#include <cuda_runtime.h>
+#include "lstm_multi.cuh"
 
 namespace {
 
-constexpr int kMaxDirs = 8;
-
-// One launch's directions, passed by value.
+// One launch's directions and where their rows run, passed by value.
 struct Dirs {
   const float* x_proj[kMaxDirs];   // (T, B, 4 H_d)
   const float* w_hh_t[kMaxDirs];   // (H_d, 4 H_d)
@@ -49,85 +48,42 @@ struct Dirs {
   float* h_fin[kMaxDirs];          // (B, H_d)
   int H[kMaxDirs];
   int reverse[kMaxDirs];
+  Group group[kMaxDirs];
 };
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <bool kWeightsInSmem>
-__global__ void lstm_multi_fwd_kernel(Dirs dirs, int T, int B, int rows, int h_max) {
-  extern __shared__ float smem[];
-  const int d = blockIdx.y;
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+lstm_multi_fwd_kernel(const __grid_constant__ Dirs dirs, int D, int T, int B) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = find_group(dirs.group, D);
+  if (d < 0) return;
+  const Group& g = dirs.group[d];
   const int H = dirs.H[d];
-  const int G = 4 * H;
-  const float* __restrict__ x_proj = dirs.x_proj[d];
-  const float* __restrict__ mask = dirs.mask[d];
-  float* __restrict__ ys = dirs.ys[d];
-  float* __restrict__ cs = dirs.cs[d];
-  const int reverse = dirs.reverse[d];
-  float* h_s = smem + (kWeightsInSmem ? 4 * h_max * h_max : 0);   // (2, rows, H)
-  const float* w = kWeightsInSmem ? smem : dirs.w_hh_t[d];
-
-  if (kWeightsInSmem) {
-    for (int i = threadIdx.x; i < H * G; i += blockDim.x) smem[i] = dirs.w_hh_t[d][i];
+  const int row0 = ((int)blockIdx.x - g.block0) * g.rows;
+  const int tid = (int)threadIdx.x - g.thread0;
+  const NamedSync sync{1 + d, g.threads};
+  switch (lstm_nc(H)) {
+    case 11:
+      lstm_fwd_pass<11>(dirs.x_proj[d], dirs.w_hh_t[d], dirs.mask[d], dirs.ys[d], dirs.cs[d],
+                        dirs.h_fin[d], nullptr, T, B, H, g.rows, g.units, dirs.reverse[d],
+                        row0, tid, g.threads, smem + g.smem0, sync);
+      break;
+    case 21:
+      lstm_fwd_pass<21>(dirs.x_proj[d], dirs.w_hh_t[d], dirs.mask[d], dirs.ys[d], dirs.cs[d],
+                        dirs.h_fin[d], nullptr, T, B, H, g.rows, g.units, dirs.reverse[d],
+                        row0, tid, g.threads, smem + g.smem0, sync);
+      break;
+    default:
+      lstm_fwd_pass<0>(dirs.x_proj[d], dirs.w_hh_t[d], dirs.mask[d], dirs.ys[d], dirs.cs[d],
+                       dirs.h_fin[d], nullptr, T, B, H, g.rows, g.units, dirs.reverse[d],
+                       row0, tid, g.threads, smem + g.smem0, sync);
   }
-  for (int i = threadIdx.x; i < 2 * rows * H; i += blockDim.x) h_s[i] = 0.0f;
-  __syncthreads();
-
-  const int r = threadIdx.x / H;      // row within the block
-  const int j = threadIdx.x - r * H;  // hidden unit
-  const int b = blockIdx.x * rows + r;
-  const bool active = r < rows && b < B;
-
-  float h = 0.0f;
-  float c = 0.0f;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const float* h_cur = h_s + (s & 1) * rows * H + r * H;
-    float* h_nxt = h_s + ((s & 1) ^ 1) * rows * H + r * H;
-    if (active) {
-      float ai = 0.0f, af = 0.0f, ag = 0.0f, ao = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float hk = h_cur[k];
-        const float* wk = w + (size_t)k * G + j;
-        ai = fmaf(hk, wk[0], ai);
-        af = fmaf(hk, wk[H], af);
-        ag = fmaf(hk, wk[2 * H], ag);
-        ao = fmaf(hk, wk[3 * H], ao);
-      }
-      const size_t row = (size_t)t * B + b;
-      const float* xp = x_proj + row * G + j;
-      const float ig = sigmoid_f(xp[0] + ai);
-      const float fg = sigmoid_f(xp[H] + af);
-      const float gg = tanhf(xp[2 * H] + ag);
-      const float og = sigmoid_f(xp[3 * H] + ao);
-      const float c_new = fg * c + ig * gg;
-      const float h_new = og * tanhf(c_new);
-      const float m = mask[row];
-      h = m * h_new + (1.0f - m) * h;
-      c = m * c_new + (1.0f - m) * c;
-      h_nxt[j] = h;
-      ys[row * H + j] = h;
-      if (cs != nullptr) cs[row * H + j] = c;
-    }
-    __syncthreads();
-  }
-  if (active) dirs.h_fin[d][(size_t)b * H + j] = h;
 }
 
-template <bool kWeightsInSmem>
-cudaError_t launch(const Dirs& dirs, int D, int T, int B, int rows, int h_max,
-                   size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(lstm_multi_fwd_kernel<kWeightsInSmem>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes);
-  if (err != cudaSuccess) return err;
-  const int threads = (rows * h_max + 31) / 32 * 32;
-  const dim3 grid((B + rows - 1) / rows, D);
-  lstm_multi_fwd_kernel<kWeightsInSmem><<<grid, threads, smem_bytes, stream>>>(
-      dirs, T, B, rows, h_max);
-  return cudaGetLastError();
+// The instantiation for blocks of `threads` threads.
+auto kernel_for(int threads) {
+  return threads <= kLeanThreads ? lstm_multi_fwd_kernel<kLeanThreads>
+                                 : lstm_multi_fwd_kernel<kMultiThreads>;
 }
 
 }  // namespace
@@ -137,15 +93,19 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // x_proj, w_hh_t, mask, ys, cs, h_fin: host arrays of D device pointers (an
 // entry of cs may be null: that direction's cs is not written); H, reverse:
-// host arrays of D ints.  1 <= D <= 8, rows * max(H) <= 1024.  The caller
-// allocates every output.
+// host arrays of D ints; plan: kPlanInts ints a direction (lstm_multi.cuh).
+// 1 <= D <= 8.  The caller allocates every output.
 int mmda_lstm_multi_fwd(const float* const* x_proj, const float* const* w_hh_t,
                         const float* const* mask, float* const* ys, float* const* cs,
-                        float* const* h_fin, const int* H, const int* reverse, int D, int T,
-                        int B, int rows, void* stream) {
-  if (D < 1 || D > kMaxDirs || T < 1 || B < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+                        float* const* h_fin, const int* H, const int* reverse, const int* plan,
+                        int D, int T, int B, void* stream) {
   Dirs dirs = {};
-  int h_max = 0;
+  int grid = 0, threads = 0;
+  size_t smem_bytes = 0;
+  if (T < 1 ||
+      !make_groups(H, plan, D, B, lstm_fwd_smem_floats, dirs.group, &grid, &threads, &smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
   for (int d = 0; d < D; ++d) {
     dirs.x_proj[d] = x_proj[d];
     dirs.w_hh_t[d] = w_hh_t[d];
@@ -155,23 +115,26 @@ int mmda_lstm_multi_fwd(const float* const* x_proj, const float* const* w_hh_t,
     dirs.h_fin[d] = h_fin[d];
     dirs.H[d] = H[d];
     dirs.reverse[d] = reverse[d];
-    if (H[d] < 1) return (int)cudaErrorInvalidValue;
-    h_max = H[d] > h_max ? H[d] : h_max;
   }
-  if (rows * h_max > 1024) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const auto kernel = kernel_for(threads);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t h_bytes = 2 * (size_t)rows * h_max * sizeof(float);
-  const size_t w_bytes = (size_t)h_max * 4 * h_max * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_bytes + h_bytes <= (size_t)smem_optin) {
-    return (int)launch<true>(dirs, D, T, B, rows, h_max, w_bytes + h_bytes, st);
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(dirs, D, T, B);
+  return (int)cudaGetLastError();
+}
+
+// The launch a plan makes, launching nothing (lstm_multi.cuh's occupancy:
+// registers, local memory, blocks, threads, shared memory, resident blocks
+// an SM into out[0 .. 5]); 0 = ok.
+int mmda_lstm_multi_fwd_geometry(const int* H, const int* plan, int D, int B, int* out) {
+  Dirs dirs = {};
+  int grid = 0, threads = 0;
+  size_t smem_bytes = 0;
+  if (!make_groups(H, plan, D, B, lstm_fwd_smem_floats, dirs.group, &grid, &threads, &smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)launch<false>(dirs, D, T, B, rows, h_max, h_bytes, st);
+  return occupancy(kernel_for(threads), grid, threads, smem_bytes, out);
 }
 
 }  // extern "C"

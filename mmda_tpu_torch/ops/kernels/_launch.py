@@ -23,7 +23,6 @@ KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "short_attn_fwd", "short_attn_bwd", "lstm_multi_fwd", "lstm_multi_bwd")
 MAX_THREADS = 1024
-DW_TILE = (16, 64)     # csrc/lstm_multi_bwd.cu's dW tile: hidden units x gate columns
 BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's and gru_bwd.cu's dW tile: rows x gate columns
 BWD_DW_CHUNK = 16          # (t, b) rows such a dW block stages at a time
 
@@ -82,14 +81,6 @@ def check_tensor(name: str, t, device: torch.device,
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def rows_per_block(B: int, H: int, n_sm: int) -> int:
-    """Batch rows per thread block of a recurrence kernel: spread B over the
-    SMs (the recurrence is latency-bound, so short blocks on many SMs beat
-    long blocks), within the 1024-thread limit of one thread per (row,
-    hidden unit)."""
-    return max(1, min(-(-B // n_sm), MAX_THREADS // H))
-
-
 # The serial passes of csrc/lstm_fwd.cu, lstm_bwd.cu and gru_bwd.cu: 4
 # threads per (row, group of hidden units), one unit a group up to H = 80
 # with a thread's weights in registers (11 or 21 float4s by gate_stride,
@@ -127,8 +118,9 @@ def bptt_threads_per_row(H: int) -> Tuple[int, int]:
 
 
 def bptt_rows_per_block(B: int, H: int, n_sm: int) -> int:
-    """Batch rows per block of a serial pass: B spread over the SMs as
-    `rows_per_block` does, within the block's thread limit."""
+    """Batch rows per block of a serial pass: B spread over the SMs (the
+    recurrence is latency-bound, so short blocks on many SMs beat long
+    blocks), within the block's thread limit."""
     per_row, cap = bptt_threads_per_row(H)
     return max(1, min(-(-B // n_sm), cap // per_row))
 

@@ -25,15 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from mmda_tpu_torch.ops.kernels._launch import (DW_TILE, MAX_THREADS, bptt_rows_per_block,
+from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, bptt_rows_per_block,
                                                 bptt_threads_per_row, check_tensor,
                                                 device_of, dw_runs, launch, launch_count,
-                                                lib, reset_launch_count, rows_per_block,
-                                                sm_count)
+                                                lib, reset_launch_count, sm_count)
 
 SOURCES = ("lstm_fwd", "lstm_bwd")
-__all__ = ["SOURCES", "launch_count", "reset_launch_count", "rows_per_block",
-           "bptt_threads_per_row", "bptt_rows_per_block", "bwd_dw_splits", "dw_splits",
+__all__ = ["SOURCES", "launch_count", "reset_launch_count",
+           "bptt_threads_per_row", "bptt_rows_per_block", "bwd_dw_splits",
            "lstm_recurrence", "lstm_recurrence_reference", "lstm_recurrence_bwd",
            "lstm_recurrence_bwd_reference", "LSTMRecurrence", "lstm_scan"]
 
@@ -88,14 +87,6 @@ def bwd_dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
     is cut into (`dw_runs`): the (T - 1) B rows that carry an h_prev, over
     the (H, 4H) result."""
     return dw_runs((T - 1) * B, H, 4 * H, n_sm)
-
-
-def dw_splits(T: int, H: int, n_sm: int) -> int:
-    """Runs of steps the multi-direction backward's dW_hh reduction
-    (csrc/lstm_multi_bwd.cu) is cut into: enough blocks of (DW_TILE) outputs
-    for two per SM, at most one run per step that adds."""
-    tiles = -(-H // DW_TILE[0]) * -(-4 * H // DW_TILE[1])
-    return max(1, min(T - 1, -(-2 * n_sm // tiles)))
 
 
 def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,

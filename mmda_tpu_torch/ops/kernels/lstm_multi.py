@@ -6,11 +6,13 @@ Counterpart of `mmda_tpu/ops/pallas/lstm_multi.py`: D independent
 directions (the two towers' forward and reverse scans of one stacked
 layer) in one forward launch (`csrc/lstm_multi_fwd.cu`, the TPU package's
 `_fwd_kernel`) and one backward launch (`csrc/lstm_multi_bwd.cu`,
-`_bwd_kernel`: BPTT and dW_hh for all D).  Each direction keeps its true
-hidden size: the TPU kernel pads every direction to 128 lanes (its matrix
-unit's tile) and time-flips the reverse ones; here a direction is a list
-entry at its own H with a reverse flag, as `lstm.py`'s kernels take it, and
-the numbers are the same.
+`_bwd_kernel`: gate pass, BPTT and dW_hh for all D).  Each direction keeps
+its true hidden size: the TPU kernel pads every direction to 128 lanes (its
+matrix unit's tile) and time-flips the reverse ones; here a direction is a
+list entry at its own H with a reverse flag, as `lstm.py`'s kernels take it,
+and every row runs the passes of `lstm.py`'s kernels (`csrc/lstm_passes.cuh`),
+so a direction's outputs are theirs bit for bit (dW_hh where its runs are
+the same).
 
 `lstm_multi_recurrence` and `lstm_multi_recurrence_bwd` take CUDA tensors to
 the kernels and CPU tensors to the plain versions (each direction through
@@ -22,24 +24,26 @@ kernel cannot take raises.  Launch counts: `launch_count("lstm_multi_fwd")`,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, check_tensor, device_of,
-                                                launch, launch_count, lib,
-                                                reset_launch_count, rows_per_block,
+from mmda_tpu_torch.ops.kernels._launch import (BPTT_REG_H, check_tensor, device_of, launch,
+                                                launch_count, lib, reset_launch_count,
                                                 sm_count)
-from mmda_tpu_torch.ops.kernels.lstm import (dw_splits, lstm_recurrence_bwd_reference,
+from mmda_tpu_torch.ops.kernels.lstm import (bwd_dw_splits, lstm_recurrence_bwd_reference,
                                              lstm_recurrence_reference)
 
 SOURCES = ("lstm_multi_fwd", "lstm_multi_bwd")
-__all__ = ["SOURCES", "launch_count", "reset_launch_count", "MAX_DIRS",
-           "lstm_multi_recurrence", "lstm_multi_recurrence_reference",
-           "lstm_multi_recurrence_bwd", "lstm_multi_recurrence_bwd_reference",
-           "LSTMMultiRecurrence", "lstm_scan_multi", "project_inputs", "pack_directions",
-           "unpack_outputs"]
-MAX_DIRS = 8                      # csrc/lstm_multi_*.cu kMaxDirs
+__all__ = ["SOURCES", "launch_count", "reset_launch_count", "MAX_DIRS", "MULTI_THREADS",
+           "group_threads", "geometry", "dw_splits", "launch_geometry", "lstm_multi_recurrence",
+           "lstm_multi_recurrence_reference", "lstm_multi_recurrence_bwd",
+           "lstm_multi_recurrence_bwd_reference", "LSTMMultiRecurrence", "lstm_scan_multi",
+           "project_inputs", "pack_directions", "unpack_outputs"]
+MAX_DIRS = 8                      # csrc/lstm_multi.cuh kMaxDirs
+MULTI_THREADS = 480               # csrc/lstm_multi.cuh kMultiThreads: a block's threads
+MAX_UNITS = 4                     # csrc/recurrence.cuh kMaxUnits: hidden units a quad
 
 Tensors = List[torch.Tensor]
 
@@ -80,16 +84,85 @@ def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
 
 
-def _geometry(x_proj, dev) -> Tuple[List[int], int, int]:
-    """(H per direction, rows per block, h_max): the block is sized for the
-    largest H, and the B rows are spread over the SMs the directions share."""
-    hs = [x.shape[-1] // 4 for x in x_proj]
-    h_max = max(hs)
-    if h_max > MAX_THREADS:
-        raise ValueError(f"hidden size {h_max} > {MAX_THREADS} is not supported by the kernel")
-    B = x_proj[0].shape[1]
-    rows = rows_per_block(B, h_max, max(1, sm_count(dev) // len(x_proj)))
-    return hs, rows, h_max
+def group_threads(H: int) -> Tuple[int, int]:
+    """(hidden units a quad, threads of one row) of the multi kernels' serial
+    passes for H: a quad a unit up to H = 80 (the weights in registers), else
+    the fewest units a quad that keep a row within MULTI_THREADS (weights from
+    global memory), whole warps."""
+    units = 1 if H <= BPTT_REG_H else -(-4 * H // MULTI_THREADS)
+    if units > MAX_UNITS:
+        raise ValueError(f"hidden size {H} > {MAX_UNITS * MULTI_THREADS // 4} is not "
+                         "supported by the multi-direction kernels")
+    return units, -(-4 * -(-H // units) // 32) * 32
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(hs: Tuple[int, ...], B: int, n_sm: int) -> Tuple[Tuple[int, ...], ...]:
+    """Where each direction's rows run in a launch of the serial passes
+    (`csrc/lstm_multi.cuh`): per direction (rows, units, first block, first
+    thread, threads), one row a block.  Where a block a row of every
+    direction fits on the n_sm SMs, each direction has B blocks of its own;
+    else the directions are packed into slots of B blocks, the widest first,
+    each beside those already in a slot while the block stays within
+    MULTI_THREADS, so that the launch stays one wave where it can (the tower
+    pair at B = 64: a visual row, 160 threads, beside an acoustic one, 320)."""
+    sizes = [group_threads(H) for H in hs]
+    pack = len(hs) * B > n_sm
+    used: List[int] = []          # threads taken in each slot
+    plan: List[Tuple[int, ...]] = [()] * len(hs)
+    for d in sorted(range(len(hs)), key=lambda d: -sizes[d][1]):
+        units, threads = sizes[d]
+        slot = next((i for i, u in enumerate(used) if pack and u + threads <= MULTI_THREADS),
+                    len(used))
+        if slot == len(used):
+            used.append(0)
+        plan[d] = (1, units, slot * B, used[slot], threads)
+        used[slot] += threads
+    return tuple(plan)
+
+
+def dw_splits(T: int, B: int, hs: Sequence[int], n_sm: int) -> List[int]:
+    """Runs of (t, b) rows each direction's dW_hh reduction is cut into:
+    `lstm.py`'s (`bwd_dw_splits`, the same tiles) as if each direction had
+    2 n_sm / D SMs, so the D directions' blocks come in about two rounds of
+    what the card holds at once: shorter runs in two rounds beat long ones
+    in one (PERF.md, the kernel table's row 20)."""
+    share = max(1, 2 * n_sm // len(hs))
+    return [bwd_dw_splits(T, B, H, share) for H in hs]
+
+
+def _plan_ints(plan) -> ctypes.Array:
+    return _ints([v for group in plan for v in group])
+
+
+def launch_geometry(hs: Sequence[int], B: int, dev: torch.device) -> dict:
+    """The serial passes' launches for these directions and B on the card,
+    without launching: per kernel (`lstm_multi_fwd`, and `lstm_multi_bwd`'s
+    BPTT pass) its registers a thread, local memory bytes a thread (stack
+    and spills), blocks, threads a block, shared memory bytes, resident
+    blocks an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and
+    waves."""
+    n_sm = sm_count(dev)
+    plan = geometry(tuple(hs), B, n_sm)
+    out = {}
+    for name, n_ptrs, n_ints in (("lstm_multi_fwd", 9, 3), ("lstm_multi_bwd", 14, 3)):
+        fn = getattr(lib(name, n_ptrs, n_ints), f"mmda_{name}_geometry")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        got = (ctypes.c_int * 6)()
+        hs_c, plan_c = _ints(hs), _plan_ints(plan)
+        with torch.cuda.device(dev):
+            err = fn(ctypes.addressof(hs_c), ctypes.addressof(plan_c), len(hs), B,
+                     ctypes.addressof(got))
+        if err != 0:
+            raise RuntimeError(f"{name} geometry: cudaError {err}")
+        row = dict(zip(("registers", "local_bytes", "blocks", "threads", "smem_bytes",
+                        "resident_per_sm"), got))
+        row["waves"] = -(-row["blocks"] // (n_sm * max(1, row["resident_per_sm"])))
+        out[name] = row
+    out["plan"] = [list(g) for g in plan]
+    return out
 
 
 # ------------------------------------------------------------------ forward
@@ -121,18 +194,19 @@ def lstm_multi_recurrence(x_proj: Sequence[torch.Tensor], w_hh_t: Sequence[torch
     if dev.type == "cpu":
         return lstm_multi_recurrence_reference(x_proj, w_hh_t, mask, reverse, need_cs)
     T, B, _ = x_proj[0].shape
-    hs, rows, _ = _geometry(x_proj, dev)
+    hs = [x.shape[-1] // 4 for x in x_proj]
+    plan = geometry(tuple(hs), B, sm_count(dev))
     ys = [torch.empty(T, B, H, device=dev) for H in hs]
     cs = [torch.empty(T, B, H, device=dev) for H in hs] if need_cs else None
     h_fin = [torch.empty(B, H, device=dev) for H in hs]
     arrays = [_ptrs(x_proj), _ptrs(w_hh_t), _ptrs(mask), _ptrs(ys),
               _ptrs(cs if need_cs else [None] * len(hs)), _ptrs(h_fin), _ints(hs),
-              _ints(reverse)]
-    so = lib("lstm_multi_fwd", 8, 4)
+              _ints(reverse), _plan_ints(plan)]
+    so = lib("lstm_multi_fwd", 9, 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch("lstm_multi_fwd", so.mmda_lstm_multi_fwd,
-               *[ctypes.addressof(a) for a in arrays], len(hs), T, B, rows, stream)
+               *[ctypes.addressof(a) for a in arrays], len(hs), T, B, stream)
     return ys, cs, h_fin
 
 
@@ -167,21 +241,23 @@ def lstm_multi_recurrence_bwd(x_proj: Sequence[torch.Tensor], w_hh_t: Sequence[t
     if dev.type == "cpu":
         return lstm_multi_recurrence_bwd_reference(x_proj, w_hh_t, mask, reverse, ys, cs,
                                                    dys, dh_fin)
-    hs, rows, h_max = _geometry(x_proj, dev)
-    splits = dw_splits(T, h_max, max(1, sm_count(dev) // len(hs)))
+    hs = [x.shape[-1] // 4 for x in x_proj]
+    n_sm = sm_count(dev)
+    plan = geometry(tuple(hs), B, n_sm)
+    splits = dw_splits(T, B, hs, n_sm)
     dx = [torch.empty(T, B, 4 * H, device=dev) for H in hs]
     dw = [torch.empty(H, 4 * H, device=dev) for H in hs]
-    dw_partial = torch.empty(len(hs) * splits, h_max, 4 * h_max, dtype=torch.float64,
-                             device=dev)
+    dw_partial = torch.empty(sum(s * H * 4 * H for s, H in zip(splits, hs)),
+                             dtype=torch.float64, device=dev)
     arrays = [_ptrs(x_proj), _ptrs(w_hh_t), _ptrs(mask), _ptrs(ys), _ptrs(cs), _ptrs(dys),
               _ptrs(dh_fin), _ptrs(dx), _ptrs(dw)]
-    ints = [_ints(hs), _ints(reverse)]
-    so = lib("lstm_multi_bwd", 12, 5)
+    ints = [_ints(hs), _ints(reverse), _ints(splits), _plan_ints(plan)]
+    so = lib("lstm_multi_bwd", 14, 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch("lstm_multi_bwd", so.mmda_lstm_multi_bwd,
                *[ctypes.addressof(a) for a in arrays], dw_partial.data_ptr(),
-               *[ctypes.addressof(a) for a in ints], len(hs), T, B, rows, splits, stream)
+               *[ctypes.addressof(a) for a in ints], len(hs), T, B, stream)
     return dx, dw
 
 

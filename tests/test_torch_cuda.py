@@ -708,29 +708,57 @@ def _multi_inputs(T, B, hs, seed, device):
             [bool(d % 2) for d in range(len(hs))], [g[0] for g in grads], [g[1] for g in grads])
 
 
-@pytest.mark.parametrize("T,B,hs", [(48, 64, (35, 35, 74, 74)), (512, 32, (35, 35, 74, 74)),
-                                    (7, 5, (33, 3, 9)), (16, 64, (300, 74))])
-def test_multi_lstm_kernels_match_plain_versions(cuda_device, T, B, hs):
-    """One launch of each kernel for all directions against `lstm.py`'s
-    plain versions per direction, and against the single-direction kernels
-    (`lstm_fwd`, `lstm_bwd`), 1e-5 abs/rel."""
-    x, w, m, rev, dys, dh = _multi_inputs(T, B, hs, T, cuda_device)
+def _multi_run(T, B, hs, device):
+    """One launch of each multi kernel for all directions, their inputs,
+    and the single-direction kernels' outputs on the same operands."""
+    x, w, m, rev, dys, dh = _multi_inputs(T, B, hs, T, device)
     before = [kmulti.launch_count(n) for n in kmulti.SOURCES]
     ys, cs, h_fin = kmulti.lstm_multi_recurrence(x, w, m, rev, need_cs=True)
     dx, dw = kmulti.lstm_multi_recurrence_bwd(x, w, m, rev, ys, cs, dys, dh)
     assert [kmulti.launch_count(n) for n in kmulti.SOURCES] == [b + 1 for b in before]
+    single = [klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)[:3]
+              + klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys[d], cs[d], dys[d], dh[d],
+                                          None, rev[d]) for d in range(len(hs))]
+    return (x, w, m, rev, dys, dh), (ys, cs, h_fin, dx, dw), single
+
+
+MULTI_CASES = [(48, 64, (35, 35, 74, 74)), (512, 32, (35, 35, 74, 74)), (7, 5, (33, 3, 9)),
+               (16, 64, (300, 74)), (24, 40, (35, 74, 300, 35))]
+
+
+@pytest.mark.parametrize("T,B,hs", MULTI_CASES)
+def test_multi_lstm_kernels_match_plain_versions(cuda_device, T, B, hs):
+    """One launch of each kernel for all directions (H = 35, 74 and 300 in
+    one launch reach the serial passes' instantiations 11, 21 and 0) against
+    `lstm.py`'s plain versions per direction (1e-5 abs/rel), and against the
+    single-direction kernels (`lstm_fwd`, `lstm_bwd`), whose passes every
+    direction runs: ys, cs, h_fin and dx_proj bit for bit, dw_hh_t too where
+    its runs of rows are the same (else 1e-5 abs/rel)."""
+    (x, w, m, rev, dys, dh), got, single = _multi_run(T, B, hs, cuda_device)
     want_ys, want_cs, want_h = kmulti.lstm_multi_recurrence_reference(x, w, m, rev, True)
     want_dx, want_dw = kmulti.lstm_multi_recurrence_bwd_reference(x, w, m, rev, want_ys,
                                                                   want_cs, dys, dh)
-    for d in range(len(hs)):
-        single = klstm.lstm_recurrence(x[d], w[d], m[d], rev[d], need_cs=True)
-        single_b = klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys[d], cs[d], dys[d], dh[d],
-                                             None, rev[d])
-        for got, ref, one in ((ys[d], want_ys[d], single[0]), (cs[d], want_cs[d], single[1]),
-                              (h_fin[d], want_h[d], single[2]), (dx[d], want_dx[d], single_b[0]),
-                              (dw[d], want_dw[d], single_b[1])):
-            torch.testing.assert_close(got, ref, **TOL)
-            torch.testing.assert_close(got, one, **TOL)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = kmulti.dw_splits(T, B, hs, n_sm)
+    for d, H in enumerate(hs):
+        for name, g, ref, one in zip(("ys", "cs", "h_fin", "dx_proj", "dw_hh_t"),
+                                     [o[d] for o in got],
+                                     (want_ys[d], want_cs[d], want_h[d], want_dx[d], want_dw[d]),
+                                     single[d]):
+            torch.testing.assert_close(g, ref, **TOL)
+            if name != "dw_hh_t" or splits[d] == klstm.bwd_dw_splits(T, B, H, n_sm):
+                assert torch.equal(g, one), f"{name}[{d}] differs from the single kernel's"
+            else:
+                torch.testing.assert_close(g, one, **TOL)
+
+
+@pytest.mark.parametrize("T,B,hs", MULTI_CASES[:2] + MULTI_CASES[-1:])
+def test_multi_lstm_kernels_give_the_same_bits_twice(cuda_device, T, B, hs):
+    _, first, _ = _multi_run(T, B, hs, cuda_device)
+    _, again, _ = _multi_run(T, B, hs, cuda_device)
+    for a, b_ in zip(first, again):
+        for d in range(len(hs)):
+            assert torch.equal(a[d], b_[d])
 
 
 def test_multi_lstm_scan_gradients_on_the_card_match_the_cpu(cuda_device):
@@ -754,3 +782,6 @@ def test_multi_lstm_kernels_reject_cpu_mixed_inputs(cuda_device):
         kmulti.lstm_multi_recurrence(x, [w[0].cpu(), w[1]], m, rev)
     with pytest.raises(ValueError):
         kmulti.lstm_multi_recurrence(x * 5, w * 5, m * 5, rev * 5)
+    wide = _multi_inputs(4, 3, (481, 7), 0, cuda_device)       # more than 4 units a quad
+    with pytest.raises(ValueError):
+        kmulti.lstm_multi_recurrence(*wide[:4])

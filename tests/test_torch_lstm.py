@@ -117,8 +117,11 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_rows_per_block_spreads_the_batch_over_the_sms():
-    assert klstm.rows_per_block(64, 74, 132) == 1
-    assert klstm.rows_per_block(512, 74, 132) == 4
-    assert klstm.rows_per_block(512, 300, 132) == 3     # 1024-thread cap
-    assert klstm.rows_per_block(1, 35, 132) == 1
-
+    """Batch rows per block of the forward's serial pass: B spread over the
+    SMs first, within the block's thread limit (384 threads at H = 74, 640
+    at H = 35, 1024 at H = 300 with 2 units a quad)."""
+    assert klstm.bptt_rows_per_block(64, 74, 132) == 1
+    assert klstm.bptt_rows_per_block(512, 74, 132) == 1
+    assert klstm.bptt_rows_per_block(512, 35, 132) == 4
+    assert klstm.bptt_rows_per_block(512, 300, 132) == 1
+    assert klstm.bptt_rows_per_block(1, 35, 132) == 1

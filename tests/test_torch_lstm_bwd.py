@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from mmda_tpu.ops.pallas import lstm as plstm
 from mmda_tpu_torch.models import bilstm
 from mmda_tpu_torch.ops.kernels import lstm as klstm
+from mmda_tpu_torch.ops.kernels import lstm_multi as kmulti
 
 # The suite runs in several processes at once: one intra-op thread each keeps
 # torch's CPU thread pools from oversubscribing the cores.
@@ -293,11 +294,13 @@ def test_cpu_backward_does_not_count_as_a_launch():
 
 
 def test_dw_splits_fill_the_card_and_cover_every_step():
-    """The dW_hh reduction's runs of steps: about two blocks per SM at the
-    tower widths, never more runs than steps that add, at least one."""
-    tiles_74 = 5 * 5                             # ceil(74 / 16) x ceil(296 / 64)
-    assert klstm.dw_splits(48, 74, 132) * tiles_74 >= 2 * 132
-    assert klstm.dw_splits(48, 35, 132) == 30
-    assert klstm.dw_splits(7, 33, 132) == 6      # T - 1 steps carry an h_prev
-    assert klstm.dw_splits(1, 4, 132) == 1
-    assert klstm.dw_splits(48, 300, 132) == 1    # 361 tiles fill the card alone
+    """The multi-direction backward's dW_hh reductions (csrc/lstm_multi_bwd.cu,
+    with this backward's 32 x 64 tiles): each direction's runs sized as
+    `bwd_dw_splits` over 2 n_sm / D SMs, never more runs than 16-row chunks
+    that add, at least one."""
+    hs = (35, 35, 74, 74)
+    assert kmulti.dw_splits(48, 64, hs, 132) == [klstm.bwd_dw_splits(48, 64, H, 66) for H in hs]
+    assert kmulti.dw_splits(48, 64, hs, 132) == [44, 44, 18, 18]
+    assert kmulti.dw_splits(7, 5, (33,), 132) == [2]          # 30 rows in runs of 16
+    assert kmulti.dw_splits(1, 4, (4, 4), 132) == [1, 1]      # no row adds
+    assert kmulti.dw_splits(48, 64, (300, 74), 132) == [3, 36]
