@@ -124,7 +124,23 @@ the result):
    T=512: 2 `lstm_multi_fwd` and 2 `lstm_multi_bwd` launches per call and no
    single-direction launch; values and gradients against the per-direction
    path within 1e-5 + 1e-5 |ref|; both paths' times;
-11. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+11. captured: for each training configuration (lstm, gru, fused, long), on
+   the trainer its phase built: three eager steps from one state twice,
+   bit for bit (the losses, grad_norm, every parameter, both moments); three
+   replays of a training graph (`make_train_graph`) from that state against
+   those eager steps, bit for bit (a tensor that differs is named and held
+   at TRAIN_TOL plus one bf16 ulp); the launches a replay counts equal the
+   configuration's per-step launches; no host read-back in a warm eager
+   step or a replay (`set_sync_debug_mode("error")`); 20 timed replays (10
+   at the long shape) beside as many eager steps, with the idle share and
+   peak memory; `Trainer.train()` again with compiled_epoch=True, its dev
+   eval replaying an eval graph, whose outputs equal the eager eval's bit
+   for bit.  For serving, the Predictors of phases 4 (dense, buckets
+   16/32/64), 8 (flash, 512) and 9 (fused, 16/32/64), captured per bucket by
+   their HTTP runs: a replay against an eager call through the same kernels
+   on the same batch, bit for bit, and both latencies at a full batch and at
+   one request; phase 4 also profiles an eager call beside the captured one;
+12. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -1602,39 +1618,36 @@ def serve_over_http(cfg, pred, requests, counts, kernel="lstm_fwd", per_call=Non
             "wall_s": wall, "requests_per_s": len(requests) / wall, "healthz": health["ok"]}
 
 
-def bucket_latency(cfg, pred, device) -> list:
+def bucket_latency(cfg, pred, device, recurrence=None) -> list:
     """Host wall time of Predictor calls (ending in the device-to-host copy)
     for a full batch of max_batch rows and for one request, per bucket, every
-    request as long as the bucket."""
+    request as long as the bucket: the median (min, max) of 10 calls.
+    recurrence: None times the captured call, the kernel wrapper an eager
+    one."""
     rows = []
     for b in sorted(cfg.bucket_sizes):
         reqs = make_requests([b] * pred.max_batch, cfg, seed=b)
         for n in (pred.max_batch, 1):
-            pred(reqs[:n])
-            times = []
-            for _ in range(10):
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                t0 = time.perf_counter()
-                pred(reqs[:n])
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms = statistics.median(times)
-            rows.append({"bucket": b, "batch": n, "ms": ms,
-                         "utterances_per_s": n / ms * 1e3})
+            pred(reqs[:n], recurrence=recurrence)
+            t = host_ms(lambda i: pred(reqs[:n], recurrence=recurrence), 10)
+            rows.append({"bucket": b, "batch": n, "ms": t["ms"], "ms_min": t["ms_min"],
+                         "ms_max": t["ms_max"], "utterances_per_s": n / t["ms"] * 1e3})
     return rows
 
 
-def profile_serving(cfg, pred, device) -> dict:
+def profile_serving(cfg, pred, device, recurrence=None) -> dict:
     """Where a Predictor call's time goes (torch.profiler, 5 calls at the
     largest bucket, full batch): device busy time per call, the share of the
-    wall time the card sits idle, and the kernels that take the most."""
+    wall time the card sits idle, and the kernels that take the most.
+    recurrence: None profiles the captured call, the kernel wrapper an eager
+    one."""
     reqs = make_requests([max(cfg.bucket_sizes)] * pred.max_batch, cfg, seed=7)
-    pred(reqs)
+    pred(reqs, recurrence=recurrence)
     calls = 5
 
     def run():
         for _ in range(calls):
-            pred(reqs)
+            pred(reqs, recurrence=recurrence)
 
     return {"bucket": max(cfg.bucket_sizes), "batch": pred.max_batch,
             **device_profile(run, calls, device)}
@@ -1961,6 +1974,7 @@ def serve_long(cfg, counts, device) -> dict:
     the HTTP front end: BERT_LAYERS `flash_fwd` and LAUNCHES_PER_CALL
     `lstm_fwd` launches per call, no backward kernel; then the same requests
     through the same weights with the dense core."""
+    from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
     from mmda_tpu_torch.serving import Predictor
 
     flash_cfg = cfg.replace(attn_impl="flash")
@@ -1982,6 +1996,7 @@ def serve_long(cfg, counts, device) -> dict:
         pred(batch)
         times.append((time.perf_counter() - t0) * 1e3)
     out["flash_ms_per_call"] = statistics.median(times)
+    out["captured"] = serve_captured_vs_eager(flash_cfg, pred, lstm_recurrence, device)
     del pred
     torch.cuda.empty_cache()
     dense = Predictor(cfg.replace(attn_impl="xla"), max_batch=LONG_B)
@@ -2012,6 +2027,7 @@ def serve_fused(cfg, counts, device) -> dict:
     per call, no backward kernel; per-bucket latency; then the same requests
     through the same weights with the dense core (agreement within
     FLASH_SERVE_TOL, bf16) and its latency."""
+    from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
     from mmda_tpu_torch.serving import Predictor
 
     fused_cfg = cfg.replace(bucket_sizes=(16, 32, 64), max_seq_len=64)
@@ -2025,6 +2041,7 @@ def serve_fused(cfg, counts, device) -> dict:
     if all_launches(counts) != expected_launches(counts, per_call):
         raise AssertionError(f"fused Predictor call: {all_launches(counts)}")
     out["latency"] = bucket_latency(fused_cfg, pred, device)
+    out["captured"] = serve_captured_vs_eager(fused_cfg, pred, lstm_recurrence, device)
     del pred
     dense_cfg = fused_cfg.replace(attn_impl="xla")
     dense = Predictor(dense_cfg, max_batch=64)
@@ -2135,6 +2152,231 @@ def infer_long(cfg, counts) -> dict:
         raise AssertionError(f"cli.infer hidden {arrays['hidden'].shape}")
     return {"rows": 128, "batches": batches, "wall_s": wall, "launches": launches,
             "f1": float(metrics["f1"]), "acc": float(metrics["acc"])}
+
+
+# ------------------------------------------------- captured steps and calls
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and values, NaN where the other has NaN."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
+def bit_diffs(want: dict, got: dict) -> dict:
+    """{name: max |got - want|} of the tensors that are not bit-equal."""
+    return {k: (got[k].float() - w.float()).abs().nan_to_num().max().item()
+            for k, w in want.items() if not bits_equal(got[k], w)}
+
+
+def host_ms(fn, n: int) -> dict:
+    """Host wall time of n calls, each ended by a synchronize (median, min,
+    max), and the peak device memory (allocated, and reserved: a graph's pool
+    is reserved, its replays allocate nothing) over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"n": n, "ms": statistics.median(times), "ms_min": min(times),
+            "ms_max": max(times), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def train_state(trainer) -> dict:
+    """Clones of what a training step changes, by name: every parameter, both
+    moments, the EMA shadow; and the optimizer's count and rate and the
+    generator's state."""
+    model, opt = trainer.model, trainer.optimizer
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
+    for k in ("mu", "nu"):
+        out.update({f"{k} {names[id(p)]}": t.clone()
+                    for p, t in zip(opt.params, getattr(opt, k))})
+    out.update({f"ema {n}": t.clone()
+                for (n, _), t in zip(model.named_parameters(), trainer.ema or [])})
+    return {"tensors": out, "count": opt.count, "lr": opt.lr,
+            "generator": trainer.generator.get_state()}
+
+
+def restore_train_state(trainer, snap: dict) -> None:
+    """Back to `snap` (`train_state`), in place: a graph reads these
+    tensors where they live."""
+    model, opt = trainer.model, trainer.optimizer
+    names = {id(p): n for n, p in model.named_parameters()}
+    held = snap["tensors"]
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(held[f"param {n}"])
+        for k in ("mu", "nu"):
+            for p, t in zip(opt.params, getattr(opt, k)):
+                t.copy_(held[f"{k} {names[id(p)]}"])
+        for (n, _), t in zip(model.named_parameters(), trainer.ema or []):
+            t.copy_(held[f"ema {n}"])
+    opt.count, opt.lr = snap["count"], snap["lr"]
+    trainer.generator.set_state(snap["generator"])
+
+
+def captured_steps(trainer, counts, kind: str, device, per_step=None, timed=None) -> dict:
+    """Phase 11 for one training configuration, on the trainer its phase
+    built, over the first three batches of its train split (one shape):
+    (a) three eager steps from one state, twice: the same bits (the losses,
+    grad_norm, every parameter, both moments, the EMA shadow); (b) three
+    replays of a training graph (`make_train_graph`, warmed and captured
+    by a first call) from that state against the first three eager steps: the same
+    bits, or, for a tensor named in `captured_diffs`, within TRAIN_TOL plus
+    one bf16 ulp; (c) the launches a replay counts equal `per_step` (default
+    the configuration's); no host read-back in a warm eager step or in a
+    replay (`torch.cuda.set_sync_debug_mode("error")`); (d) `timed` (default
+    the configuration's count) eager steps, then as many replays: host ms
+    per step (each step copies its host batch in), peak memory, and a
+    profile of 3 replays (device busy ms, idle share); the memory the
+    capture reserved (the graph's pool, as reserved after the warm-up and
+    the capture less reserved before, the cache emptied)."""
+    from mmda_tpu_torch.data.loader import ArrayLoader, to_device
+    from mmda_tpu_torch.train.step import make_train_graph, train_step
+
+    spec = TRAIN_CONFIGS.get(kind, {})
+    per_step = per_step or spec["per_step"]
+    cfg, model, opt = trainer.cfg, trainer.model, trainer.optimizer
+    gen, ema = trainer.generator, trainer.ema
+    hosts = list(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
+                             bucket_sizes=cfg.bucket_sizes).host_batches())
+    snap = train_state(trainer)
+
+    def three(step) -> dict:
+        restore_train_state(trainer, snap)
+        out = {f"step {i} {k}": v.clone() for i, h in enumerate(hosts[:3])
+               for k, v in step(h).items()}
+        return {**out, **train_state(trainer)["tensors"]}
+
+    def eager(h):
+        return train_step(model, opt, to_device(h, device), cfg, gen, ema)
+
+    first, second = three(eager), three(eager)
+    eager_diffs = bit_diffs(first, second)
+    graphs = make_train_graph(model, opt, cfg, device, gen, ema, trainer.pool)
+    restore_train_state(trainer, snap)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    graphs(hosts[0])                        # the warm-up, eager, then the capture
+    torch.cuda.synchronize(device)
+    capture_s = time.perf_counter() - t0
+    pool_gb = (torch.cuda.memory_reserved(device) - reserved) / 1e9
+    counts.reset_launch_count()
+    replayed = three(graphs)
+    torch.cuda.synchronize(device)
+    launches = all_launches(counts)
+    (_, _, per_replay), = graphs.graphs.values()
+    want = expected_launches(counts, per_step)
+    if per_replay != want or launches != {k: 3 * n for k, n in want.items()}:
+        raise AssertionError(f"{kind}: a replay records {per_replay}, three counted "
+                             f"{launches}; expected {want} a step")
+    captured_diffs = bit_diffs(first, replayed)
+    for k in captured_diffs:
+        excess = ((replayed[k].float() - first[k].float()).abs()
+                  - BF16_ULP * first[k].float().abs()).max().item()
+        if not excess <= TRAIN_TOL:
+            raise AssertionError(f"{kind}: captured {k} differs from the eager step by "
+                                 f"{captured_diffs[k]} ({excess} beyond one bf16 ulp)")
+    compared = len(first)
+    del first, second, replayed, snap
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(hosts[2])
+        graphs(hosts[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    n = timed or spec.get("timed", TRAIN_STEPS)
+    eager_t = host_ms(lambda i: eager(hosts[i % len(hosts)]), n)
+    captured_t = host_ms(lambda i: graphs(hosts[i % len(hosts)]), n)
+    prof = device_profile(lambda: [graphs(hosts[i]) for i in range(3)], 3, device,
+                          spec.get("profile", ()))
+    busy = prof["device_busy_ms_per_call"]
+    if isinstance(busy, float):
+        for t in (eager_t, captured_t):
+            t["idle_share"] = 1.0 - busy / t["ms"]
+    return {"kind": kind, "batch": cfg.batch_size, "T": hosts[0]["text"].shape[1],
+            "compared": compared, "eager_twice_diffs": eager_diffs,
+            "captured_diffs": captured_diffs, "tol_for_named": TRAIN_TOL,
+            "launches_per_replay": {k: v for k, v in per_replay.items() if v},
+            "warmup_and_capture_s": capture_s, "graph_pool_reserved_gb": pool_gb,
+            "sync_free": True,
+            "eager": eager_t, "captured": captured_t,
+            "captured_profile": {k: v for k, v in prof.items() if k != "top_ms_per_call"},
+            "captured_top_ms_per_step": prof.get("top_ms_per_call")}
+
+
+def compiled_train(trainer, counts, kind: str, device) -> dict:
+    """Phase 11 (e): `Trainer.train()` again on that trainer with
+    compiled_epoch=True, one epoch: the first batch is its warm-up (then the
+    capture), the rest replays; the dev eval replays the eval graph the
+    first run's eval captured (compiled_eval, the default), the test eval
+    on the best-on-dev copy warms and captures a graph of its own.  The launch counts read around exactly this call (the
+    same per step and per eval batch as the eager run); then that dev eval
+    graph against `eval_step` on the same parameters and batch, bit for bit."""
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.train.step import eval_step
+
+    spec = TRAIN_CONFIGS[kind]
+    n_steps = spec.get("steps", TRAIN_STEPS)
+    trainer.cfg = trainer.cfg.replace(compiled_epoch=True)
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    summary = trainer.train()
+    wall = time.perf_counter() - t0
+    launches = all_launches(counts)
+    want = expected_launches(counts, {
+        k: n * n_steps + spec["per_eval"].get(k, 0) * 2 for k, n in spec["per_step"].items()})
+    if launches != want:
+        raise AssertionError(f"{kind} compiled train(): launches {launches}, expected {want}")
+    epoch = summary["history"][0]
+    finite_losses({k: v for k, v in epoch.items() if k.startswith("train_")}, "compiled train()")
+    host = next(trainer._loader("dev", shuffle=False).host_batches())
+    model = trainer.eval_model()
+    graph = trainer._eval_graph(model)
+    if not graph.graphs:
+        raise AssertionError(f"{kind}: the dev eval was never captured")
+    counts.reset_launch_count()
+    got = {k: v.clone() for k, v in graph(host).items()}
+    if all_launches(counts) != expected_launches(counts, spec["per_eval"]):
+        raise AssertionError(f"{kind}: an eval replay counted {all_launches(counts)}")
+    want_out = eval_step(model, to_device(host, device), trainer.cfg)
+    diffs = bit_diffs(want_out, got)
+    if diffs:
+        raise AssertionError(f"{kind}: captured eval vs eager eval: {diffs}")
+    if not trainer.train_graph.graphs:
+        raise AssertionError(f"{kind}: compiled train() captured no training graph")
+    return {"kind": kind, "train_wall_s": wall, "epoch_time_s": epoch["epoch_time_s"],
+            "eval_time_s": epoch["eval_time_s"], "train_loss": epoch["train_loss"],
+            "steps": n_steps, "launches": launches, "eval_bit_equal": True}
+
+
+def serve_captured_vs_eager(cfg, pred, recurrence, device) -> dict:
+    """Phase 11 (f) for a Predictor whose buckets are captured (its HTTP run
+    called each): at each bucket, a full batch and one request, a replay
+    against an eager call through the same kernels (`recurrence=` the
+    kernel wrapper) on the same batch, all four outputs bit for bit; then
+    both latencies (`bucket_latency`)."""
+    checked = []
+    for b in sorted(cfg.bucket_sizes):
+        reqs = make_requests([b] * pred.max_batch, cfg, seed=b + 1)
+        for n in (pred.max_batch, 1):
+            got, want = pred(reqs[:n]), pred(reqs[:n], recurrence=recurrence)
+            diffs = [k for k in want if not np.array_equal(got[k], want[k])]
+            if diffs:
+                raise AssertionError(f"captured Predictor at bucket {b}, B={n}: {diffs} "
+                                     "differ from the eager call")
+            checked.append([b, n])
+    return {"bit_equal_at": checked, "captured": bucket_latency(cfg, pred, device),
+            "eager": bucket_latency(cfg, pred, device, recurrence)}
 
 
 # ------------------------------------------------------------------- main
@@ -2274,6 +2516,10 @@ def main() -> int:
         log("4 latency", **row)
     profile = profile_serving(cfg, pred, device)
     log("4 profile", **profile)
+    captured_serve = {"dense": {
+        **serve_captured_vs_eager(cfg, pred, klstm.lstm_recurrence, device),
+        "profile_eager": profile_serving(cfg, pred, device, klstm.lstm_recurrence)}}
+    log("11 captured-serve", kind="dense", **captured_serve["dense"])
     serve_err = kernel_vs_plain_recurrence(cfg, pred, klstm.lstm_recurrence_reference)
     log("4 kernel-vs-plain-serving", max_abs_err=serve_err, tol=SERVE_TOL)
     device_err = card_vs_cpu(device)
@@ -2297,8 +2543,15 @@ def main() -> int:
         log(f"{phase} train-kernel-vs-plain", max_abs_err=err, tol=TRAIN_TOL)
         small_err = train_card_vs_cpu(device, **small_options)
         log(f"{phase} train-card-vs-cpu", max_abs_err=small_err, tol=DEVICE_TOL)
+        captured = captured_steps(trainer, counts, kind, device)
+        if isinstance(busy, float):
+            captured["eager_idle_share_from_phase_profile"] = 1.0 - busy / steps["ms_per_step"]
+        log("11 captured-steps", **captured)
+        compiled = compiled_train(trainer, counts, kind, device)
+        log("11 captured-train", **compiled)
         return trainer, {"main_path": path, "steps": steps, "profile": prof,
-                         "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err}
+                         "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err,
+                         "captured": captured, "compiled_train": compiled}
 
     lstm_trainer, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference)
     del lstm_trainer
@@ -2345,7 +2598,10 @@ def main() -> int:
     del long_trainer
     torch.cuda.empty_cache()
     long_serve = serve_long(long_cfg, counts, device)
-    log("8 flash-serve-http", **long_serve, tol=FLASH_SERVE_TOL)
+    log("8 flash-serve-http", **{k: v for k, v in long_serve.items() if k != "captured"},
+        tol=FLASH_SERVE_TOL)
+    captured_serve["flash"] = long_serve["captured"]
+    log("11 captured-serve", kind="flash", **captured_serve["flash"])
     torch.cuda.empty_cache()
     long_infer = infer_long(long_cfg, counts)
     log("8 flash-infer", **long_infer)
@@ -2359,7 +2615,10 @@ def main() -> int:
     del fused_trainer
     torch.cuda.empty_cache()
     fused_serve = serve_fused(fused_cfg, counts, device)
-    log("9 fused-serve-http", **fused_serve, tol=FLASH_SERVE_TOL)
+    log("9 fused-serve-http", **{k: v for k, v in fused_serve.items() if k != "captured"},
+        tol=FLASH_SERVE_TOL)
+    captured_serve["fused"] = fused_serve["captured"]
+    log("11 captured-serve", kind="fused", **captured_serve["fused"])
     torch.cuda.empty_cache()
     fused_train_serve = train_then_serve(
         device, counts, options=("--attn_impl", "fused"),
@@ -2371,11 +2630,10 @@ def main() -> int:
 
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
     # cli.infer, the tower pair)
-    launches = {name: train["main_path"]["launches"][name]
-                + gru_train["main_path"]["launches"][name]
-                + long_train["main_path"]["launches"][name]
+    trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
+    launches = {name: sum(t["main_path"]["launches"][name]
+                          + t["compiled_train"]["launches"][name] for t in trains.values())
                 + long_serve["launches_by_kernel"][name] + long_infer["launches"][name]
-                + fused_train["main_path"]["launches"][name]
                 + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
@@ -2408,7 +2666,10 @@ def main() -> int:
                if "sass" in checks[name] else {}),
             **{k: rep[k] for k in ("cold_ms", "cold_parts_ms") if k in rep},
             **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
-            **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep}})
+            **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep},
+            "launches_per_replay": {
+                kind: t["captured"]["launches_per_replay"].get(name, 0)
+                for kind, t in trains.items()}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"
@@ -2423,7 +2684,7 @@ def main() -> int:
         "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
-        "kernels": kernels},
+        "captured_serve": captured_serve, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,9 +8,14 @@ in the JAX package's format, so `python -m mmda_tpu_torch.cli.serve` and the
 JAX package's `load_checkpoint` both read them; the summary goes to
 `{ckpt_dir}/summary_{name}.json`.
 
+`--compiled_epoch True` trains through CUDA-graph replays of the step and
+`--compiled_eval` (default True) evaluates through them, as the JAX CLI's
+flags do; `--scan_chunk` is accepted and inert (a replay is one step).
+
 Usage:
   python -m mmda_tpu_torch.cli.train --data mosei
   python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 2      # no data files
+  python -m mmda_tpu_torch.cli.train --data synthetic --compiled_epoch True
   python -m mmda_tpu_torch.cli.train --data synthetic --device cpu --use_bert False
 """
 

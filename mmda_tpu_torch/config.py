@@ -166,10 +166,12 @@ class Config:
     log_every: int = 50
     log_sinks: Tuple[str, ...] = ("stdout",)
     profile_dir: Optional[str] = None
-    # TPU-only knobs of the JAX package, inert here
+    # the scanned epoch and eval of the JAX package: here CUDA-graph replays of
+    # the step (train/step.py); scan_chunk is inert (a replay is one step)
     compiled_epoch: bool = False
     scan_chunk: int = 8
     compiled_eval: bool = True
+    # TPU-only knobs of the JAX package, inert here
     use_pallas: bool = True
     use_flash_attention: bool = False
     attn_impl: str = "auto"

@@ -14,6 +14,8 @@ is the same code, so a seed gives the same batches in the same order:
 Iteration yields `Batch`es on `device`: each array is copied from pinned
 host memory with `non_blocking`, so the copy overlaps the host's work.  Id
 arrays (text, bert_ids, bert_type) become int64 for the embedding lookups.
+`StaticBatch` makes the same copies into device buffers kept for one batch
+shape, which a captured step reads at every replay.
 """
 
 from __future__ import annotations
@@ -93,22 +95,54 @@ def auto_bucket_sizes(lengths, n_buckets: int = 3) -> tuple:
     return tuple(sorted(set(bounds)))
 
 
+def _host_tensors(arrays: Dict[str, Optional[np.ndarray]], device: torch.device) -> Dict:
+    """Each Batch field of a host batch as a CPU tensor (id arrays int64),
+    pinned when it is bound for the card; None where the batch has none."""
+    pin = device.type == "cuda"
+    out = {}
+    for k in ARRAY_KEYS:
+        a = arrays.get(k)
+        if a is not None:
+            a = torch.from_numpy(np.ascontiguousarray(a))
+            if k in ID_KEYS:
+                a = a.long()
+            if pin:
+                a = a.pin_memory()
+        out[k] = a
+    return out
+
+
 def to_device(arrays: Dict[str, Optional[np.ndarray]], device: torch.device) -> Batch:
     """A host batch as a `Batch` on `device` (pinned, non-blocking copies)."""
-    pin = device.type == "cuda"
+    return Batch(**{k: None if t is None else t.to(device, non_blocking=True)
+                    for k, t in _host_tensors(arrays, device).items()})
 
-    def move(k):
-        a = arrays.get(k)
-        if a is None:
-            return None
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if k in ID_KEYS:
-            t = t.long()
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
 
-    return Batch(**{k: move(k) for k in ARRAY_KEYS})
+def batch_shape(arrays: Dict[str, Optional[np.ndarray]]) -> tuple:
+    """What one set of static buffers holds: each field's shape and dtype."""
+    return tuple((k, None if arrays.get(k) is None else
+                  (np.shape(arrays[k]), np.asarray(arrays[k]).dtype.str)) for k in ARRAY_KEYS)
+
+
+class StaticBatch:
+    """Device buffers for the host batches of one `batch_shape`: `load`
+    copies a batch into them in place (pinned, non-blocking copies, as
+    `to_device` makes them) and returns `batch`, the same tensors every
+    time."""
+
+    def __init__(self, arrays: Dict[str, Optional[np.ndarray]], device: torch.device):
+        self.device = torch.device(device)
+        self.shape = batch_shape(arrays)
+        self.batch = Batch(**{k: None if t is None else torch.empty_like(t, device=self.device)
+                              for k, t in _host_tensors(arrays, torch.device("cpu")).items()})
+
+    def load(self, arrays: Dict[str, Optional[np.ndarray]]) -> Batch:
+        if batch_shape(arrays) != self.shape:
+            raise ValueError(f"batch of shape {batch_shape(arrays)} for buffers of {self.shape}")
+        for buf, t in zip(self.batch, _host_tensors(arrays, self.device).values()):
+            if buf is not None:
+                buf.copy_(t, non_blocking=True)
+        return self.batch
 
 
 class ArrayLoader:

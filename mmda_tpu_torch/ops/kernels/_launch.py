@@ -5,13 +5,18 @@ and the checks on the tensors handed to a kernel.
 One count per source (`launch_count(name)`): a wrapper adds one where it
 launches its kernel (a source with several `__global__` passes counts once
 per wrapper call) and nowhere else, so a run can show that its path went
-through the kernels.  `reset_launch_count()` sets every count to 0.
+through the kernels.  `reset_launch_count()` sets every count to 0.  The
+counts are launches the card ran: a launch made while a CUDA graph is
+captured runs only when the graph is replayed, so inside `recording()` it
+goes to the recorded dict instead, and `add_launches(recorded)` adds it at
+every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -27,6 +32,7 @@ BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's and gru_bwd.cu's dW tile: rows x
 BWD_DW_CHUNK = 16          # (t, b) rows such a dW block stages at a time
 
 _launches = dict.fromkeys(KERNELS, 0)
+_recorded: Optional[Dict[str, int]] = None      # the launches of a graph being captured
 
 
 def launch_count(name: str = "lstm_fwd") -> int:
@@ -37,6 +43,26 @@ def launch_count(name: str = "lstm_fwd") -> int:
 def reset_launch_count() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Launches made inside (a graph's capture) go to the yielded dict, by
+    name, and not to the counts."""
+    global _recorded
+    if _recorded is not None:
+        raise RuntimeError("launches are already being recorded (one capture at a time)")
+    _recorded = dict.fromkeys(KERNELS, 0)
+    try:
+        yield _recorded
+    finally:
+        _recorded = None
+
+
+def add_launches(recorded: Dict[str, int]) -> None:
+    """Count a replay of a graph whose capture recorded `recorded`."""
+    for name, n in recorded.items():
+        _launches[name] += n
 
 
 def lib(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0) -> ctypes.CDLL:
@@ -57,7 +83,7 @@ def launch(name: str, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _launches[name] += 1
+    (_launches if _recorded is None else _recorded)[name] += 1
 
 
 def device_of(x: torch.Tensor) -> torch.device:

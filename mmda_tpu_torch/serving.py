@@ -16,10 +16,20 @@ more dimensions are stored in bf16 (the JAX package does so on the TPU):
 every BERT product computes in bf16 anyway, so f32 storage would only double
 the weight bytes read per call.  Sharded (`mesh`) and int8 serving are not
 ported.
+
+On CUDA a call runs as a CUDA graph, one per bucket shape (the counterpart
+of the JAX package's jit per bucket): the padded batch is copied into device
+buffers kept for that shape, the graph replays the forward and writes the
+four outputs into one packed tensor, and one device-to-host copy reads it.
+A bucket's first call runs the forward eagerly over those buffers and then
+captures it, so `PredictionServer.warmup()`, which calls every bucket,
+leaves every graph captured.  An explicit `recurrence=` runs eagerly (the
+plain-version yardstick); on the CPU every call is eager.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Optional, Sequence
 
@@ -32,6 +42,7 @@ from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for
 from mmda_tpu_torch.train import checkpoint as ckpt
+from mmda_tpu_torch.train.step import StepGraphs, graph_pool
 
 
 class RequestTooLongError(ValueError):
@@ -118,6 +129,11 @@ class Predictor:
                 if p.dim() >= 2 and p.dtype == torch.float32:
                     p.data = p.data.to(wdt)
         self._stats = {"requests": 0, "utterances": 0, "seconds": 0.0}
+        # the bucket shapes' graphs (CUDA only); one call at a time owns them
+        self._graphs = (StepGraphs(lambda b: {"packed": self._forward(b)}, self.device,
+                                   pool=graph_pool(self.device))
+                        if self.device.type == "cuda" else None)
+        self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:
         for b in sorted(self.cfg.bucket_sizes):
@@ -233,21 +249,32 @@ class Predictor:
         t0 = time.perf_counter()
         batch, n = self.batch_arrays(requests)
         with torch.inference_mode():
-            out = self.model(batch.to(self.device), recurrence=recurrence)
-            parts = {"scores": out.scores, "labels": out.labels, "tcp": out.tcp,
-                     "hidden": torch.cat(
-                         [out.private_t, out.private_v, out.private_a,
-                          out.shared_t, out.shared_v, out.shared_a], dim=1)}
-            widths = [v.shape[1] for v in parts.values()]
             # one device-to-host copy for all four outputs
-            packed = torch.cat([v.float() for v in parts.values()], dim=1).cpu().numpy()
-        cols = np.cumsum([0] + widths)
-        result = {k: packed[:n, cols[i]:cols[i + 1]] for i, k in enumerate(parts)}
+            if recurrence is not None or self._graphs is None:
+                packed = self._forward(batch.to(self.device), recurrence).cpu().numpy()
+            else:
+                with self._lock:
+                    packed = self._graphs(batch._asdict())["packed"].cpu().numpy()
+        cols = np.cumsum([0] + self._widths())
+        result = {k: packed[:n, cols[i]:cols[i + 1]]
+                  for i, k in enumerate(("scores", "labels", "tcp", "hidden"))}
         dt = time.perf_counter() - t0
         self._stats["requests"] += 1
         self._stats["utterances"] += n
         self._stats["seconds"] += dt
         return result
+
+    def _widths(self) -> list:
+        C = self.cfg.num_classes
+        return [C, C, C, 6 * self.cfg.hidden_size]
+
+    def _forward(self, batch: Batch, recurrence=None) -> torch.Tensor:
+        """scores, labels, tcp and the fused hidden representation, packed
+        side by side as f32 (`_widths`)."""
+        out = self.model(batch, recurrence=recurrence)
+        parts = (out.scores, out.labels, out.tcp, out.private_t, out.private_v,
+                 out.private_a, out.shared_t, out.shared_v, out.shared_a)
+        return torch.cat([v.float() for v in parts], dim=1)
 
     @property
     def stats(self) -> Dict[str, float]:

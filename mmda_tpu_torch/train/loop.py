@@ -9,12 +9,17 @@ optimizer built over the trainable parameters.  Dropout draws come from one
 `torch.Generator` on the device seeded from cfg.seed.
 
 Each epoch runs `train_step` over the shuffled, length-bucketed train split
-(drop_last) and reads the epoch's losses back in one copy, evaluates the
+(drop_last), or with `compiled_epoch` the same steps through a training
+graph (`make_train_graph`: per batch shape, an eager warm-up, then CUDA-graph
+replays; on the CPU the same body without a graph), and reads the epoch's
+losses back in one copy, evaluates the
 dev split, lowers the learning rate on a dev-loss plateau
 (lr_schedule="plateau"), saves the best-on-dev parameters (the EMA shadow
 when ema_decay > 0) as the JAX-format export `best_model_*`, and logs the
 JAX trainer's payload.  `train()` then evaluates the test split with the
-best-on-dev parameters and returns the summary dict.
+best-on-dev parameters and returns the summary dict.  Eval runs through an
+eval graph under `compiled_eval` (the default, as in the JAX package), one
+per set of parameters it reads.  `scan_chunk` is inert: a replay is one step.
 
 Options that need what the port does not have yet raise `ValueError` at
 construction, naming their ROADMAP item (`unsupported`).
@@ -39,7 +44,8 @@ from mmda_tpu_torch.models import get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, freeze_layers
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
-from mmda_tpu_torch.train.step import eval_step, train_step
+from mmda_tpu_torch.train.step import (eval_step, graph_pool, make_eval_graph,
+                                       make_train_graph, train_step)
 from mmda_tpu_torch.utils.confidence_metrics import confidence_metrics
 from mmda_tpu_torch.utils.logging import MetricLogger
 from mmda_tpu_torch.utils.metrics import get_accuracy, get_metrics, select_by_eval_mode
@@ -66,7 +72,6 @@ def unsupported(cfg) -> List[str]:
         (cfg.zero1, f"zero1 ({q}: parallel modes)"),
         (cfg.fsdp, f"fsdp ({q}: parallel modes)"),
         (cfg.ckpt_backend != "msgpack", f"ckpt_backend={cfg.ckpt_backend} ({q}: parallel modes)"),
-        (cfg.compiled_epoch, f"compiled_epoch ({q}: compiled epoch / CUDA graphs)"),
         (cfg.resume, f"resume ({q}: resume and incremental checkpoints)"),
         (cfg.grad_accum_steps > 1, f"grad_accum_steps > 1 ({q}: grad_accum_steps)"),
         (cfg.confid_two_stage, f"confid_two_stage ({q}: ConfidNet stage 2)"),
@@ -126,6 +131,9 @@ class Trainer:
         self.ema = ([p.detach().clone() for p in self.model.parameters()]
                     if cfg.ema_decay > 0 else None)
         self.step = 0
+        self.pool = graph_pool(self.device)             # every graph of this trainer
+        self.train_graph = None                         # made by the first compiled epoch
+        self.eval_graphs: Dict[tuple, Any] = {}         # by the parameters they read
 
         counts = trainable_param_count(self.model)
         self.logger.log({"params_total": counts["total"],
@@ -180,10 +188,20 @@ class Trainer:
         for e in range(cfg.n_epoch):
             t0 = time.perf_counter()
             epoch_losses = []
-            for batch in train_loader:
-                epoch_losses.append(train_step(self.model, self.optimizer, batch, cfg,
-                                               self.generator, self.ema))
-                self.step += 1
+            if cfg.compiled_epoch:
+                if self.train_graph is None:
+                    self.train_graph = make_train_graph(self.model, self.optimizer, cfg,
+                                                        self.device, self.generator,
+                                                        self.ema, self.pool)
+                for host in train_loader.host_batches():
+                    losses = self.train_graph(host)
+                    epoch_losses.append({k: v.clone() for k, v in losses.items()})
+                    self.step += 1
+            else:
+                for batch in train_loader:
+                    epoch_losses.append(train_step(self.model, self.optimizer, batch, cfg,
+                                                   self.generator, self.ema))
+                    self.step += 1
             if not epoch_losses:
                 raise ValueError(
                     f"epoch {e} produced no batches: the train split has "
@@ -252,6 +270,8 @@ class Trainer:
         if best_epoch >= 0:
             best = self._load_best(best_name, copy.deepcopy(self.model))
         test_loss, test_acc, test_preds, test_truths = self.evaluate("test", best)
+        if best is not None:                 # the copy is gone after this call
+            self.eval_graphs.pop(self._params_key(best), None)
         test_metrics = task_metrics(self.task, test_truths, test_preds)
         summary = {"best_epoch": best_epoch, "best_valid_loss": best_valid_loss,
                    "test_loss": test_loss, "test_acc": test_acc,
@@ -276,6 +296,20 @@ class Trainer:
         trainer restores it."""
         return load_jax_params(model, ckpt.load_checkpoint(self.cfg.ckpt_dir, name))
 
+    @staticmethod
+    def _params_key(model: torch.nn.Module) -> tuple:
+        return tuple(p.data_ptr() for p in model.parameters())
+
+    def _eval_graph(self, model: torch.nn.Module):
+        """The eval graph over `model`'s parameters.  It is keyed by where
+        they live, not by the module: `eval_model()` builds a new module over
+        the same EMA tensors at every call, and a parameter set at the same
+        addresses is read the same way by any module that holds it."""
+        key = self._params_key(model)
+        if key not in self.eval_graphs:
+            self.eval_graphs[key] = make_eval_graph(model, self.cfg, self.device, self.pool)
+        return self.eval_graphs[key]
+
     def evaluate(self, mode: str, model: Optional[torch.nn.Module] = None) -> tuple:
         """(loss, accuracy, preds, truths) over a split: the loss is the mean
         over batches of the per-class BCE summed over classes, taken over
@@ -285,10 +319,12 @@ class Trainer:
         in `_last_eval_confidence` for the ConfidNet metrics (None after a
         regression split)."""
         model = model if model is not None else self.eval_model()
+        graph = self._eval_graph(model) if self.cfg.compiled_eval else None
         losses, preds, truths = [], [], []
         tcps, raw_scores = [], []
         for host in self._loader(mode, shuffle=False).host_batches():
-            out = eval_step(model, to_device(host, self.device), self.cfg)
+            out = (graph(host) if graph is not None
+                   else eval_step(model, to_device(host, self.device), self.cfg))
             out = {k: v.float().cpu().numpy() for k, v in out.items()}   # one sync
             w = np.asarray(host["sample_weight"]) > 0
             losses.append(float(np.sum(np.mean(out["bce"][w], axis=0))))

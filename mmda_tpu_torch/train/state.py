@@ -21,6 +21,15 @@ Only the parameters handed in are updated, and only they carry state: the
 trainer passes the trainable ones, so frozen parameters get no moments and
 no update (optax `set_to_zero` under `multi_transform`).  Updates are in
 place, with multi-tensor (`torch._foreach_*`) operations.
+
+An update is two halves, so that a CUDA graph can hold the second:
+`advance()` on the host counts the update and writes its scalars (-lr and
+Adam's bias corrections 1 - b ** count, each rounded to f32 as a Python
+scalar of an f32 operation is) into the small device tensor `scalars`, in
+place; `apply(grads)` is device work only and reads them there.  `step` is
+the two in turn, so an eager update and a replayed one share their
+arithmetic, and a schedule or `set_learning_rate` takes effect at the next
+update either way.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ class Optimizer:
         self.steps_per_epoch = steps_per_epoch
         self.count = 0                        # updates applied so far
         self.lr = cfg.learning_rate           # the plateau schedule's value
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.scalars = torch.zeros(3, device=device)    # -lr, 1 - B1**n, 1 - B2**n
         zeros = [torch.zeros_like(p) for p in self.params]
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
@@ -83,22 +94,37 @@ class Optimizer:
     def set_learning_rate(self, lr: float) -> None:
         self.lr = lr
 
-    @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """One update of every parameter from its gradient (same order)."""
+        self.advance()
+        self.apply(grads)
+
+    def advance(self) -> None:
+        """The host half of the next update: count it and write its scalars
+        into `scalars` (launches, no read back)."""
+        lr = self.learning_rate()
+        self.count += 1
+        if not self.params:
+            return
+        self.scalars[0].fill_(-lr)
+        if self.mu:
+            self.scalars[1].fill_(1.0 - B1 ** self.count)
+            self.scalars[2].fill_(1.0 - B2 ** self.count)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor]) -> None:
+        """The device half: the update `advance` prepared, from each
+        parameter's gradient (same order)."""
         cfg = self.cfg
         g = [x.float() for x in grads]
         if len(g) != len(self.params):
             raise ValueError(f"{len(g)} gradients for {len(self.params)} parameters")
         if not g:
-            self.count += 1
             return
         torch._foreach_clamp_min_(g, -cfg.clip)
         torch._foreach_clamp_max_(g, cfg.clip)
         if cfg.apply_weight_decay and cfg.optimizer != "AdamW":
             torch._foreach_add_(g, self.params, alpha=cfg.weight_decay)
-        lr = self.learning_rate()
-        self.count += 1
         if cfg.optimizer in ("Adam", "AdamW"):
             update = self._adam(g)
             if cfg.optimizer == "AdamW":
@@ -110,7 +136,8 @@ class Optimizer:
                 torch._foreach_add(self.nu, RMS_EPS)))
         else:
             update = g
-        torch._foreach_add_(self.params, update, alpha=-lr)
+        torch._foreach_mul_(update, self.scalars[0])       # optax: -lr * u, then p + u
+        torch._foreach_add_(self.params, update)
 
     def _adam(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
         f32 = self.mu[0].dtype == torch.float32
@@ -123,11 +150,9 @@ class Optimizer:
         torch._foreach_add_(mu, g, alpha=1.0 - B1)
         torch._foreach_mul_(self.nu, B2)
         torch._foreach_addcmul_(self.nu, g, g, value=1.0 - B2)
-        c1 = 1.0 - B1 ** self.count
-        c2 = 1.0 - B2 ** self.count
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, c2))
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, self.scalars[2]))
         torch._foreach_add_(denom, ADAM_EPS)
-        update = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+        update = torch._foreach_div(torch._foreach_div(mu, self.scalars[1]), denom)
         if not f32:
             for stored, m in zip(self.mu, mu):
                 stored.copy_(m)

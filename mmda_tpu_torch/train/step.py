@@ -1,10 +1,10 @@
-"""One training step and one eval step.
+"""One training step and one eval step, eager or captured.
 
 Counterpart of `mmda_tpu/train/step.py` (`make_train_step`,
-`_make_eval_body`).  PyTorch runs eagerly, so a step is a function over the
-model, the optimizer and a batch already on the device; its results stay on
-the device until the caller reads them (the trainer reads an epoch's losses
-in one copy).
+`_make_eval_body`, `make_train_epoch`, `make_eval_epoch`).  A step is a
+function over the model, the optimizer and a batch already on the device;
+its results stay on the device until the caller reads them (the trainer
+reads an epoch's losses in one copy).
 
 * `train_step`: modality-keep sampling (train-time random modality dropout
   on top of the static `missing_modality` setting), the forward with
@@ -14,15 +14,34 @@ in one copy).
   those gradients before the clip, the optimizer update, the EMA shadow.
 * `eval_step`: the deterministic forward with the static modality setting,
   and the same outputs as `_make_eval_body`.
+
+`make_train_graph` and `make_eval_graph` are the counterparts of the JAX
+package's scanned epoch and eval (`compiled_epoch`, `compiled_eval`): one
+`StepGraphs` each, which runs the same body over device buffers kept for
+each batch shape.  On CUDA the first batch of a shape runs it eagerly (the
+warm-up: kernels built, allocator, autograd and cuBLAS warm), and the body
+is then captured over those buffers as a CUDA graph (a capture runs
+nothing); every later batch is copied into the buffers and replayed, one
+launch for some 3,700 device ops.  The graph reads
+every value that changes between steps from device memory: the parameters,
+moments and EMA shadow updated in place, the optimizer's scalars
+(`Optimizer.advance`, on the host before each replay), and the trainer's
+generator (registered with the graph, so a replay draws what an eager step
+from the same state draws).  A capture that fails raises: nothing falls
+back.  `scan_chunk` has no counterpart: a replay is one step.  On the CPU
+there is no graph: the body runs over the same buffers every time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from mmda_tpu_torch.data.loader import StaticBatch, batch_shape
 from mmda_tpu_torch.ops import losses as L
+from mmda_tpu_torch.ops.kernels import _launch
 from mmda_tpu_torch.train.objective import compute_losses
 
 
@@ -83,6 +102,16 @@ def train_step(model, optimizer, batch, cfg,
                recurrence=None) -> Dict[str, torch.Tensor]:
     """One update; returns the loss dict plus grad_norm, as 0-dim device
     tensors.  `ema` is the shadow of `model.parameters()` (same order)."""
+    optimizer.advance()
+    return train_body(model, optimizer, batch, cfg, generator, ema, recurrence)
+
+
+def train_body(model, optimizer, batch, cfg,
+               generator: Optional[torch.Generator] = None,
+               ema: Optional[List[torch.Tensor]] = None,
+               recurrence=None) -> Dict[str, torch.Tensor]:
+    """The device work of `train_step`, after `optimizer.advance()`: what a
+    training graph captures."""
     model.train()
     keep = sample_modality_keep(cfg, batch.emo_label.shape[0], batch.emo_label.device,
                                 generator)
@@ -90,7 +119,7 @@ def train_step(model, optimizer, batch, cfg,
                                    recurrence, generator)
     grad_norm = torch.linalg.vector_norm(
         torch.stack(torch._foreach_norm([g.float() for g in grads])))
-    optimizer.step(grads)
+    optimizer.apply(grads)
     if ema:
         ema_update(ema, [p.detach() for p in model.parameters()], cfg.ema_decay)
     result = {k: v.detach() for k, v in losses.items()}
@@ -115,3 +144,77 @@ def eval_step(model, batch, cfg) -> Dict[str, torch.Tensor]:
         bce = -(t * L.log_clamped(p) + (1.0 - t) * L.log_clamped(1.0 - p))
     return {"scores": out.scores, "labels": out.labels, "tcp": out.tcp,
             "cls_loss": cls_loss, "bce": bce}
+
+
+Outputs = Dict[str, torch.Tensor]
+
+
+class StepGraphs:
+    """`body(batch) -> dict of tensors` over `StaticBatch` buffers, one set
+    per batch shape, captured and replayed on CUDA (module docstring).
+    `prepare()` is the host work that precedes every run of the body (the
+    optimizer's `advance`); `generators` are the generators the body draws
+    from; `pool` a memory pool the graphs share (`graph_pool`; None: one of
+    their own).  A call returns the body's outputs: on CUDA a replay's are
+    the graph's own tensors, overwritten by the next replay (of any graph in
+    the pool), so read or clone them first."""
+
+    def __init__(self, body: Callable[[object], Outputs], device,
+                 prepare: Optional[Callable[[], None]] = None,
+                 generators: Sequence[torch.Generator] = (), pool=None):
+        self.body = body
+        self.device = torch.device(device)
+        self.prepare = prepare or (lambda: None)
+        self.generators = tuple(g for g in generators if g is not None)
+        self.pool = pool
+        self.buffers: Dict[tuple, StaticBatch] = {}
+        self.graphs: Dict[tuple, tuple] = {}   # shape -> (graph, outputs, launches)
+
+    def __call__(self, arrays: Dict[str, Optional[np.ndarray]]) -> Outputs:
+        shape = batch_shape(arrays)
+        static = self.buffers.get(shape)
+        if static is None:
+            static = self.buffers[shape] = StaticBatch(arrays, self.device)
+        batch = static.load(arrays)
+        self.prepare()
+        if self.device.type != "cuda":
+            return self.body(batch)
+        if shape not in self.graphs:            # the warm-up, then the capture
+            outputs = self.body(batch)
+            self.graphs[shape] = self._capture(batch)
+            return outputs
+        graph, outputs, launches = self.graphs[shape]
+        graph.replay()
+        _launch.add_launches(launches)
+        return outputs
+
+    def _capture(self, batch) -> tuple:
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        with _launch.recording() as launches:
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs = self.body(batch)
+        return graph, outputs, dict(launches)
+
+
+def graph_pool(device):
+    """One memory pool for every graph of a trainer or a Predictor (their
+    replays never overlap and each one's outputs are read before the next);
+    None off CUDA."""
+    return torch.cuda.graph_pool_handle() if torch.device(device).type == "cuda" else None
+
+
+def make_train_graph(model, optimizer, cfg, device,
+                     generator: Optional[torch.Generator] = None,
+                     ema: Optional[List[torch.Tensor]] = None, pool=None) -> StepGraphs:
+    """Training steps as `StepGraphs` over `train_body`: each call takes a
+    host batch and returns `train_step`'s dict."""
+    return StepGraphs(lambda b: train_body(model, optimizer, b, cfg, generator, ema),
+                      device, optimizer.advance, (generator,), pool)
+
+
+def make_eval_graph(model, cfg, device, pool=None) -> StepGraphs:
+    """Eval steps as `StepGraphs` over `eval_step`: each call takes a host
+    batch and returns its dict."""
+    return StepGraphs(lambda b: eval_step(model, b, cfg), device, pool=pool)

@@ -785,3 +785,127 @@ def test_multi_lstm_kernels_reject_cpu_mixed_inputs(cuda_device):
     wide = _multi_inputs(4, 3, (481, 7), 0, cuda_device)       # more than 4 units a quad
     with pytest.raises(ValueError):
         kmulti.lstm_multi_recurrence(*wide[:4])
+
+
+# ------------------------------------- captured steps and calls (CUDA graphs)
+
+SMALL_MODEL = dict(use_bert=True, data="mosei", hidden_size=16, embedding_size=8,
+                   batch_size=8, max_seq_len=8, bucket_sizes=(8,), compute_dtype="bfloat16",
+                   n_epoch=1, seed=1)
+TOWERS = {"lstm_fwd": 8, "lstm_bwd": 8}          # 2 towers x 2 layers x 2 directions
+CAPTURED_PATHS = {                               # options, launches per step (tiny BERT: 2 layers)
+    "dense": (dict(attn_impl="xla"), TOWERS),
+    "fused": (dict(attn_impl="fused"), {**TOWERS, "short_attn_fwd": 2, "short_attn_bwd": 2}),
+    "flash": (dict(attn_impl="flash"),
+              {**TOWERS, "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}),
+    "gru+fused_ln": (dict(attn_impl="xla", rnncell="gru", fused_ln_dropout=True),
+                     {"gru_fwd": 8, "gru_bwd": 8, "ln_dropout_fwd": 4, "ln_dropout_bwd": 4}),
+}
+
+
+def _small_trainer(tmp_path, **options):
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.data.synthetic import make_dataset
+    from mmda_tpu_torch.models.bert import BertConfig
+    from mmda_tpu_torch.train.loop import Trainer
+
+    cfg = Config(device="cuda", ckpt_dir=str(tmp_path), name="graphs",
+                 **{**SMALL_MODEL, **options})
+    data = make_dataset(48, 16, 16, max_len=8, bert_vocab_size=128)
+    return Trainer(cfg, data, bert_cfg=BertConfig.tiny())
+
+
+@pytest.mark.parametrize("path", sorted(CAPTURED_PATHS))
+def test_captured_steps_equal_eager_steps_bit_for_bit(cuda_device, tmp_path, path):
+    """`chip_smoke.captured_steps` at a small width, dropout on: three eager
+    steps from one state twice, and three replays of the training graph
+    from that state, give the same bits (losses, grad_norm, parameters,
+    moments); each replay counts the step's launches; a warm eager step and
+    a replay read nothing back to the host."""
+    from chip_smoke import captured_steps
+    from mmda_tpu_torch.ops.kernels import _launch
+
+    options, per_step = CAPTURED_PATHS[path]
+    trainer = _small_trainer(tmp_path, **options)
+    out = captured_steps(trainer, _launch, path, cuda_device, per_step=per_step, timed=2)
+    assert out["eager_twice_diffs"] == {} and out["captured_diffs"] == {}
+    assert out["launches_per_replay"] == per_step and out["sync_free"]
+
+
+def test_replay_after_set_learning_rate_uses_the_new_rate(cuda_device, tmp_path):
+    """Plateau: a new rate set between replays reaches the next replay with
+    no recapture (the same graph), and that replay equals an eager step at
+    the new rate from the same state, bit for bit; each replay adds its
+    launches to the counts."""
+    from chip_smoke import bit_diffs, restore_train_state, train_state
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.train.step import make_train_graph, train_step
+
+    trainer = _small_trainer(tmp_path, lr_schedule="plateau", learning_rate=1e-3)
+    hosts = list(trainer._loader("train", shuffle=False).host_batches())
+    graphs = make_train_graph(trainer.model, trainer.optimizer, trainer.cfg, cuda_device,
+                              trainer.generator, trainer.ema, trainer.pool)
+    graphs(hosts[0])                                 # eager, then captured
+    graphs(hosts[1])
+    (graph, _, recorded), = graphs.graphs.values()
+    trainer.optimizer.set_learning_rate(3e-2)
+    snap = train_state(trainer)
+    before = _launch.launch_count("lstm_bwd")
+    got = {k: v.clone() for k, v in graphs(hosts[2]).items()}
+    assert _launch.launch_count("lstm_bwd") == before + recorded["lstm_bwd"] == before + 8
+    assert list(graphs.graphs.values())[0][0] is graph and len(graphs.graphs) == 1
+    got.update(train_state(trainer)["tensors"])
+    restore_train_state(trainer, snap)
+    want = train_step(trainer.model, trainer.optimizer, to_device(hosts[2], cuda_device),
+                      trainer.cfg, trainer.generator, trainer.ema)
+    want = {**{k: v.clone() for k, v in want.items()}, **train_state(trainer)["tensors"]}
+    assert bit_diffs(want, got) == {}
+    assert trainer.optimizer.scalars[0].item() == pytest.approx(-3e-2)
+
+
+def test_captured_predictor_equals_the_eager_call_per_bucket(cuda_device):
+    """A Predictor on the card captures each bucket at its first call; later
+    calls replay it and count its 8 `lstm_fwd` launches; at each bucket, a
+    full batch and one request, the replay's four outputs equal an eager call
+    through the same kernel (`recurrence=`) bit for bit."""
+    from chip_smoke import make_requests, serve_captured_vs_eager
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.models.bert import BertConfig
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.serving import Predictor
+
+    cfg = Config(device="cuda", use_bert=True, hidden_size=16, bucket_sizes=(4, 8),
+                 max_seq_len=8, visual_size=5, acoustic_size=7, vocab_size=40)
+    model = init_misa(cfg, seed=0, bert_cfg=BertConfig.tiny(vocab_size=30522))
+    pred = Predictor(cfg, params=model, max_batch=6)
+    for b in cfg.bucket_sizes:
+        reqs = make_requests([b] * 3, cfg, seed=b)
+        pred(reqs)                                   # eager, then captured
+        _launch.reset_launch_count()
+        pred(reqs)
+        assert _launch.launch_count("lstm_fwd") == 8
+    assert len(pred._graphs.graphs) == 2
+    out = serve_captured_vs_eager(cfg, pred, klstm.lstm_recurrence, cuda_device)
+    assert out["bit_equal_at"] == [[4, 6], [4, 1], [8, 6], [8, 1]]
+    assert len(out["captured"]) == len(out["eager"]) == 4
+    assert len(pred._graphs.graphs) == 2
+
+
+def test_a_capture_that_fails_raises(cuda_device):
+    """A body that reads back to the host cannot be captured: its first call
+    runs the warm-up, then the capture raises (no eager fallback), and so
+    does the next call; the launch recording is closed and the card still
+    runs."""
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.train.step import StepGraphs
+
+    host = {"lengths": np.arange(1, 5, dtype=np.int32), "text": np.zeros((4, 3), np.int32)}
+    graphs = StepGraphs(lambda b: {"n": b.lengths.sum() * b.lengths.float().max().item()},
+                        cuda_device)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            graphs(host)
+        assert not graphs.graphs and _launch._recorded is None
+    assert (torch.ones(3, device=cuda_device) * 2).sum().item() == 6.0
