@@ -140,7 +140,22 @@ the result):
    their HTTP runs: a replay against an eager call through the same kernels
    on the same batch, bit for bit, and both latencies at a full batch and at
    one request; phase 4 also profiles an eager call beside the captured one;
-12. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+12. the rest of the one-card Trainer and the data path, at full width (bert-base, the
+   default towers, bf16): ConfidNet stage 2 through `cli.train --data synthetic
+   --use_confidNet True --confid_two_stage True --n_epoch 2 --n_epoch_stage2 2` in this
+   process (8 `lstm_fwd` and no `lstm_bwd` a stage-2 step; the export changed from the
+   stage-1 best export in the `confidence` leaves only, every other leaf bit-equal; a
+   `Predictor` on it; stage-2 steps at B=64, T=48 timed and profiled beside phase 5's and
+   11's steps); `grad_accum_steps=2` at B=32, T=48 (four eager mini-steps and four
+   replays of the two graphs a shape gets, accumulate and apply, bit for bit; ms per
+   mini-step; a small f32 model's mini-steps on the card against the CPU, 1e-4);
+   `last_*` and resume (a `Trainer(compiled_epoch=True)` at B=64, T=48 that sends itself
+   SIGTERM after epoch 0 stops with the incremental snapshot written; a
+   `Trainer(resume=True)` holds its state bit for bit, and one step from each is the
+   same bits; the bytes and seconds of the frozen base, a delta and a full snapshot);
+   the ETL (`cli.etl --data ur_funny` on SDK pickles written here, then `cli.train` on
+   its splits for an epoch: 8 + 8 LSTM launches a step, 8 `lstm_fwd` an eval batch);
+13. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -2188,17 +2203,17 @@ def host_ms(fn, n: int) -> dict:
 
 def train_state(trainer) -> dict:
     """Clones of what a training step changes, by name: every parameter, both
-    moments, the EMA shadow; and the optimizer's count and rate and the
-    generator's state."""
+    moments, the accumulators (grad_accum_steps > 1), the EMA shadow; and the
+    optimizer's count, mini-step and rate and the generator's state."""
     model, opt = trainer.model, trainer.optimizer
     names = {id(p): n for n, p in model.named_parameters()}
     out = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
-    for k in ("mu", "nu"):
+    for k in ("mu", "nu", "acc"):
         out.update({f"{k} {names[id(p)]}": t.clone()
                     for p, t in zip(opt.params, getattr(opt, k))})
     out.update({f"ema {n}": t.clone()
                 for (n, _), t in zip(model.named_parameters(), trainer.ema or [])})
-    return {"tensors": out, "count": opt.count, "lr": opt.lr,
+    return {"tensors": out, "count": opt.count, "mini_step": opt.mini_step, "lr": opt.lr,
             "generator": trainer.generator.get_state()}
 
 
@@ -2211,13 +2226,23 @@ def restore_train_state(trainer, snap: dict) -> None:
     with torch.no_grad():
         for n, p in model.named_parameters():
             p.copy_(held[f"param {n}"])
-        for k in ("mu", "nu"):
+        for k in ("mu", "nu", "acc"):
             for p, t in zip(opt.params, getattr(opt, k)):
                 t.copy_(held[f"{k} {names[id(p)]}"])
         for (n, _), t in zip(model.named_parameters(), trainer.ema or []):
             t.copy_(held[f"ema {n}"])
-    opt.count, opt.lr = snap["count"], snap["lr"]
+    opt.count, opt.mini_step, opt.lr = snap["count"], snap["mini_step"], snap["lr"]
     trainer.generator.set_state(snap["generator"])
+
+
+def same_state(want, got, where: str) -> None:
+    """Two `train_state`s the same bits: every tensor, count, mini-step,
+    rate and generator state."""
+    diffs = bit_diffs(want["tensors"], got["tensors"])
+    scalars = {k: (want[k], got[k]) for k in ("count", "mini_step", "lr") if want[k] != got[k]}
+    if diffs or scalars or not torch.equal(want["generator"], got["generator"]):
+        raise AssertionError(f"{where}: tensors {diffs}, scalars {scalars}, generator "
+                             f"{torch.equal(want['generator'], got['generator'])}")
 
 
 def captured_steps(trainer, counts, kind: str, device, per_step=None, timed=None) -> dict:
@@ -2328,6 +2353,7 @@ def compiled_train(trainer, counts, kind: str, device) -> dict:
     spec = TRAIN_CONFIGS[kind]
     n_steps = spec.get("steps", TRAIN_STEPS)
     trainer.cfg = trainer.cfg.replace(compiled_epoch=True)
+    trainer.step = 0          # train() starts at epoch step // len(train_loader): from 0 again
     counts.reset_launch_count()
     t0 = time.perf_counter()
     summary = trainer.train()
@@ -2377,6 +2403,405 @@ def serve_captured_vs_eager(cfg, pred, recurrence, device) -> dict:
             checked.append([b, n])
     return {"bit_equal_at": checked, "captured": bucket_latency(cfg, pred, device),
             "eager": bucket_latency(cfg, pred, device, recurrence)}
+
+
+# ------------------------------------------------- phase 12: the rest of the Trainer
+
+
+ACCUM_B, ACCUM_K = 32, 2          # grad_accum_steps=2 at B=32: an update per 64 rows
+RESUME_STEPS = 10                 # batches an epoch in the snapshot-and-resume run
+ETL_ROWS = (512, 128, 128)        # UR_FUNNY utterances written for the ETL phase
+ETL_WIDTHS = (75, 81)             # OpenFace and COVAREP feature widths
+
+
+def stage_two(counts, device, stage1: dict) -> dict:
+    """Phase 12, ConfidNet stage 2: `cli.train --data synthetic
+    --use_confidNet True --confid_two_stage True --n_epoch 2
+    --n_epoch_stage2 2` in this process, the counts read around it and,
+    inside it, around stage 2, which must launch `lstm_fwd` 8 times a step
+    and `lstm_bwd` never; the stage-2 export against the stage-1 best export
+    (read as stage 2 starts): the `confidence` leaves changed, every other
+    leaf bit-equal; a Predictor on the export; then stage-2 steps at the
+    flagship shape (B=64, T=48) on that trainer, timed and profiled, beside
+    `stage1` (phase 5's eager and phase 11's captured steps)."""
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import get_config
+    from mmda_tpu_torch.convert import flatten_tree
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.train import checkpoint as ckpt
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.train.step import train_step
+
+    name = "chip_smoke_stage2"
+    ckpt_dir = BUILD / name
+    args = ["--data", "synthetic", "--use_confidNet", "True", "--confid_two_stage", "True",
+            "--n_epoch", "2", "--n_epoch_stage2", "2", "--ckpt_dir", str(ckpt_dir),
+            "--name", name]
+    cfg = get_config(argv=args)
+    best = ckpt.best_model_name(cfg)
+    seen: dict = {}
+    real = Trainer._train_confidnet_stage2
+
+    def watched(self, loader):
+        seen.update(trainer=self, stage1=ckpt.load_checkpoint(str(ckpt_dir), best),
+                    steps=self.cfg.n_epoch_stage2 * len(loader), before=all_launches(counts))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        real(self, loader)
+        torch.cuda.synchronize(device)
+        seen["s"] = time.perf_counter() - t0
+        seen["launches"] = {k: n - seen["before"][k] for k, n in all_launches(counts).items()}
+
+    Trainer._train_confidnet_stage2 = watched
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        summary = cli_train.main(args)
+    finally:
+        Trainer._train_confidnet_stage2 = real
+    wall = time.perf_counter() - t0
+    launches = all_launches(counts)
+    if "launches" not in seen:
+        raise AssertionError("cli.train never ran stage 2")
+    want = expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL * seen["steps"]})
+    if seen["launches"] != want:
+        raise AssertionError(f"stage 2: launches {seen['launches']}, expected {want}")
+    flat1 = flatten_tree(seen["stage1"])
+    flat2 = flatten_tree(ckpt.load_checkpoint(str(ckpt_dir), best))
+    changed = sorted(k for k in flat1 if not bits_equal(flat1[k], flat2[k]))
+    if flat1.keys() != flat2.keys() or changed != ["confidence.bias", "confidence.kernel"]:
+        raise AssertionError(f"stage 2 changed {changed} of the stage-1 export")
+    finite_losses({k: summary[k] for k in ("test_loss", "conf_tcp_mse")}, "stage 2 summary")
+
+    pred = Predictor(cfg, visual_size=35, acoustic_size=74, max_batch=8, device=str(device))
+    reqs = make_requests(spread_lengths(8, cfg.bucket_sizes, 12), cfg, seed=12)
+    counts.reset_launch_count()
+    got = pred(reqs)
+    serve_launches = all_launches(counts)
+    if serve_launches != expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL}):
+        raise AssertionError(f"Predictor on the stage-2 export: launches {serve_launches}")
+    check_outputs(got["scores"], got["labels"], got["tcp"], 8, cfg.num_classes, cfg.threshold)
+    del pred
+
+    tr = seen["trainer"]
+    batch = next(iter(ArrayLoader(full_length_split(TRAIN_B, 7), TRAIN_B, shuffle=False,
+                                  bucket_sizes=(TRAIN_T,), device=device)))
+
+    def step(_=None):
+        return train_step(tr.model, tr.optimizer, batch, tr.cfg, tr.generator, tr.ema,
+                          conf_only=True)
+
+    step()
+    counts.reset_launch_count()
+    finite_losses(step(), "stage-2 step")
+    per_step = all_launches(counts)
+    if per_step != expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL}):
+        raise AssertionError(f"a stage-2 step launched {per_step}")
+    timed = host_ms(step, TRAIN_STEPS)
+    prof = device_profile(lambda: [step() for _ in range(3)], 3, device)
+    busy = prof["device_busy_ms_per_call"]
+    if isinstance(busy, float):
+        timed["idle_share"] = 1.0 - busy / timed["ms"]
+    return {"wall_s": wall, "launches": launches, "stage2_steps": seen["steps"],
+            "stage2_s": seen["s"], "stage2_launches": {k: v for k, v in seen["launches"].items()
+                                                       if v},
+            "changed_leaves": changed, "test_loss": summary["test_loss"],
+            "conf_tcp_mse": summary["conf_tcp_mse"], "serve_launches": serve_launches,
+            "score_mean": float(np.mean(got["scores"])),
+            "step_B_T": [TRAIN_B, TRAIN_T], "stage2_step": timed,
+            "stage2_profile": {k: v for k, v in prof.items() if k != "top_ms_per_call"},
+            "stage2_top_ms_per_step": prof.get("top_ms_per_call"),
+            "stage1_eager_ms": stage1["steps"]["ms_per_step"],
+            "stage1_captured_ms": stage1["captured"]["captured"]["ms"],
+            "stage1_busy_ms": stage1["profile"]["device_busy_ms_per_call"]}
+
+
+def accumulation(counts, device) -> dict:
+    """Phase 12, grad_accum_steps=2 at B=32, T=48 at full width (bert-base,
+    the mosei freeze rule, bf16): four eager mini-steps from one state (two
+    updates), then the training graph, warmed and captured for both kinds of
+    mini-step (accumulate; accumulate and apply), replayed four times from
+    that state: the same bits (losses, grad_norm, parameters, moments,
+    accumulators, count, mini-step); 8 + 8 LSTM launches each; ms per
+    mini-step eager and replayed."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.data.loader import ArrayLoader, to_device
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.train.step import make_train_graph, train_step
+    from mmda_tpu_torch.utils.logging import MetricLogger
+
+    name = "chip_smoke_accum"
+    cfg = Config(use_bert=True, data="mosei", batch_size=ACCUM_B, max_seq_len=TRAIN_T,
+                 bucket_sizes=(TRAIN_T,), compute_dtype="bfloat16", grad_accum_steps=ACCUM_K,
+                 n_epoch=1, seed=0, name=name, ckpt_dir=str(BUILD / name))
+    data = {"train": full_length_split(4 * ACCUM_B, 0), "dev": full_length_split(ACCUM_B, 1),
+            "test": full_length_split(ACCUM_B, 2)}
+    trainer = Trainer(cfg, data, logger=MetricLogger(("stdout",), run_name=name))
+    model, opt, gen, ema = trainer.model, trainer.optimizer, trainer.generator, trainer.ema
+    hosts = list(ArrayLoader(data["train"], ACCUM_B, shuffle=False,
+                             bucket_sizes=(TRAIN_T,)).host_batches())
+    per_step = expected_launches(counts, TRAIN_CONFIGS["lstm"]["per_step"])
+    snap = train_state(trainer)
+
+    counted = []
+
+    def four(step) -> dict:
+        restore_train_state(trainer, snap)
+        counts.reset_launch_count()
+        out = {f"mini-step {i} {k}": v.clone() for i, h in enumerate(hosts)
+               for k, v in step(h).items()}
+        torch.cuda.synchronize(device)
+        counted.append(all_launches(counts))
+        if counted[-1] != {k: 4 * n for k, n in per_step.items()}:
+            raise AssertionError(f"four mini-steps launched {counted[-1]}")
+        state = train_state(trainer)
+        if (state["count"], state["mini_step"]) != (2, 0):
+            raise AssertionError(f"four mini-steps left count {state['count']}, "
+                                 f"mini_step {state['mini_step']}")
+        return {**out, **state["tensors"]}
+
+    def eager(h):
+        return train_step(model, opt, to_device(h, device), cfg, gen, ema)
+
+    first = four(eager)
+    graphs = make_train_graph(model, opt, cfg, device, gen, ema, trainer.pool)
+    restore_train_state(trainer, snap)
+    graphs(hosts[0])                       # accumulate: warm-up, then capture
+    graphs(hosts[1])                       # accumulate and apply: warm-up, then capture
+    if len(graphs.graphs) != 2:
+        raise AssertionError(f"{len(graphs.graphs)} graphs for one shape, expected 2")
+    replayed = four(graphs)
+    diffs = bit_diffs(first, replayed)
+    if diffs:
+        raise AssertionError(f"accumulating replays against eager mini-steps: {diffs}")
+    per_replay = {("apply" if emit else "accumulate"): {k: v for k, v in rec.items() if v}
+                  for (_, emit), (_, _, rec) in graphs.graphs.items()}
+    eager_t = host_ms(lambda i: eager(hosts[i % 4]), TRAIN_STEPS)
+    captured_t = host_ms(lambda i: graphs(hosts[i % 4]), TRAIN_STEPS)
+    return {"batch": ACCUM_B, "T": TRAIN_T, "grad_accum_steps": ACCUM_K,
+            "compared": len(first), "bit_equal": True, "launches_per_replay": per_replay,
+            "eager_ms_per_mini_step": eager_t, "captured_ms_per_mini_step": captured_t,
+            "launches": {k: sum(c[k] for c in counted) for k in counted[0]}}
+
+
+def accumulation_card_vs_cpu(device) -> float:
+    """A small f32 model (tiny BERT, hidden 32), grad_accum_steps=2, three
+    mini-steps (an update, then a held mini-batch): the parameters, moments
+    and accumulators on the card, through the kernels, against the CPU's
+    plain versions.  The rate is 1e-5, so that Adam's unit step on a leaf
+    whose gradient is rounding noise (the fusion key bias) stays below the
+    tolerance."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
+    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.models.bert import BertConfig
+    from mmda_tpu_torch.train.state import Optimizer
+    from mmda_tpu_torch.train.step import loss_and_grads
+
+    cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
+                 grad_accum_steps=2, learning_rate=1e-5, device="cpu")
+    split = make_split(SyntheticSpec(num_examples=24, max_len=16, seed=3))
+    model = init_misa(cfg, seed=1, bert_cfg=BertConfig.tiny(vocab_size=30522)).eval()
+
+    def run(dev):
+        m = copy.deepcopy(model).to(dev)
+        opt = Optimizer(cfg, list(m.parameters()))
+        for batch in ArrayLoader(split, 8, shuffle=False, bucket_sizes=(16,), device=dev):
+            _, g = loss_and_grads(m, batch, cfg, opt.params)
+            opt.step(g)
+        return [t.detach().cpu() for t in [*m.parameters(), *opt.mu, *opt.nu, *opt.acc]]
+
+    cpu = steady_on_cpu(lambda: run("cpu"))
+    err = max((a - b).abs().max().item() for a, b in zip(cpu, run(device)))
+    if err > DEVICE_TOL:
+        raise AssertionError(f"accumulating mini-steps, card vs CPU: {err} > {DEVICE_TOL}")
+    return err
+
+
+def snapshot_and_resume(counts, device) -> dict:
+    """Phase 12, `last_*` and resume at the flagship shape: `Trainer.train()`
+    with compiled_epoch=True and n_epoch=3 sends itself SIGTERM after epoch
+    0's log line (the JAX test's logger hook) and must stop there with the
+    incremental snapshot written (a frozen base, a delta); a new
+    `Trainer(resume=True)` must hold the first one's parameters, moments,
+    count and generator state bit for bit; one step from each on the same
+    batch gives the same bits; then the bytes and seconds of the frozen
+    base, a delta and a full snapshot, each written synchronously, and the
+    host time an epoch pays to dispatch its asynchronous delta (the copies
+    to the host; the thread writes the file)."""
+    import os
+    import shutil
+    import signal
+
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.data.loader import ArrayLoader, to_device
+    from mmda_tpu_torch.train import checkpoint as ckpt
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.train.step import train_step
+    from mmda_tpu_torch.utils.logging import MetricLogger
+
+    name = "chip_smoke_resume"
+    ckpt_dir = BUILD / name
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = Config(use_bert=True, data="mosei", batch_size=TRAIN_B, max_seq_len=TRAIN_T,
+                 bucket_sizes=(TRAIN_T,), compute_dtype="bfloat16", n_epoch=3, seed=0,
+                 name=name, ckpt_dir=str(ckpt_dir), compiled_epoch=True)
+    data = {"train": full_length_split(TRAIN_B * RESUME_STEPS, 0),
+            "dev": full_length_split(TRAIN_B, 1), "test": full_length_split(TRAIN_B, 2)}
+    logger = MetricLogger(("stdout",), run_name=name)
+    trainer = Trainer(cfg, data, logger=logger)
+    log = logger.log
+
+    def hooked(metrics, step=None):
+        log(metrics, step)
+        if "train_loss" in metrics:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    logger.log = hooked
+    handler = signal.getsignal(signal.SIGTERM)
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    summary = trainer.train()
+    wall = time.perf_counter() - t0
+    launches = all_launches(counts)
+    want = expected_launches(counts, {k: n * RESUME_STEPS + TRAIN_CONFIGS["lstm"]["per_eval"]
+                                      .get(k, 0) * 2
+                                      for k, n in TRAIN_CONFIGS["lstm"]["per_step"].items()})
+    if launches != want:
+        raise AssertionError(f"preempted train(): launches {launches}, expected {want}")
+    if len(summary["history"]) != 1 or not ckpt.incremental_checkpoint_exists(
+            str(ckpt_dir), f"last_{name}"):
+        raise AssertionError(f"SIGTERM after epoch 0: {len(summary['history'])} epochs ran, "
+                             f"files {sorted(os.listdir(ckpt_dir))}")
+    if signal.getsignal(signal.SIGTERM) is not handler:
+        raise AssertionError("train() left its SIGTERM handler installed")
+    held = train_state(trainer)
+    resumed = Trainer(cfg.replace(resume=True), data,
+                      logger=MetricLogger(("stdout",), run_name=name + "_resumed"))
+    same_state(held, train_state(resumed), "resumed trainer vs its snapshot")
+    if resumed.step != RESUME_STEPS:
+        raise AssertionError(f"resumed at step {resumed.step}, expected {RESUME_STEPS}")
+    host = next(ArrayLoader(data["dev"], TRAIN_B, shuffle=False,
+                            bucket_sizes=(TRAIN_T,)).host_batches())
+    outs = []
+    for t in (trainer, resumed):
+        out = train_step(t.model, t.optimizer, to_device(host, device), t.cfg, t.generator,
+                         t.ema)
+        outs.append({**{k: v.clone() for k, v in out.items()}, **train_state(t)["tensors"]})
+    diffs = bit_diffs(*outs)
+    if diffs:
+        raise AssertionError(f"a step from the loaded state vs from memory: {diffs}")
+    del resumed, outs
+
+    t0 = time.perf_counter()             # what an epoch pays for its asynchronous snapshot
+    writer = trainer._save_resume_ckpt(0, 0.0)
+    dispatch_s = time.perf_counter() - t0
+    writer.join()
+    sizes_dir = BUILD / "chip_smoke_snapshot_sizes"
+    shutil.rmtree(sizes_dir, ignore_errors=True)
+    state = trainer.train_state()
+    timings = {}
+    for label, save, nm in (("base_and_delta", ckpt.save_checkpoint_incremental, "inc"),
+                            ("delta", ckpt.save_checkpoint_incremental, "inc"),
+                            ("full", ckpt.save_train_state, "full")):
+        t0 = time.perf_counter()
+        save(str(sizes_dir), nm, state)
+        timings[f"{label}_s"] = time.perf_counter() - t0
+    files = {f: (sizes_dir / f).stat().st_size for f in os.listdir(sizes_dir)}
+    base = [n for f, n in files.items() if f.startswith("frozen_base_")]
+    epoch = summary["history"][0]
+    return {"launches": launches, "train_wall_s": wall, "epochs_run": 1,
+            "resumed_at_step": RESUME_STEPS, "compared": len(held["tensors"]),
+            "bit_equal": True, "next_step_bit_equal": True,
+            "frozen_base_bytes": base[0] if base else 0,
+            "delta_bytes": files["inc.inc.msgpack"], "full_bytes": files["full.msgpack"],
+            **timings, "async_delta_dispatch_s": dispatch_s,
+            "post_eval_time_s": epoch["post_eval_time_s"],
+            "epoch_time_s": epoch["epoch_time_s"], "eval_time_s": epoch["eval_time_s"]}
+
+
+def write_urfunny(path, rows=ETL_ROWS, widths=ETL_WIDTHS, words=None, max_words=40,
+                  seed=0) -> None:
+    """UR_FUNNY's SDK pickles (data_folds, openface / covarep features of
+    `widths`, word indexes, the word list, humor labels) for `rows`
+    (train, dev, test) utterances of 2 to `max_words` words from `words`
+    (default 2000 made-up ones)."""
+    import os
+    import pickle
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    words = words or [f"w{i}" for i in range(2000)]
+    keys = [f"utt{i}" for i in range(sum(rows))]
+    folds = {"train": keys[:rows[0]], "dev": keys[rows[0]:rows[0] + rows[1]],
+             "test": keys[rows[0] + rows[1]:]}
+    idx, openface, covarep, humor = {}, {}, {}, {}
+    for k in keys:
+        L = int(rng.integers(2, max_words + 1))
+        idx[k] = {"punchline_embedding_indexes": rng.integers(0, len(words), L)}
+        openface[k] = {"punchline_features": rng.normal(size=(L, widths[0]))}
+        covarep[k] = {"punchline_features": rng.normal(size=(L, widths[1]))}
+        humor[k] = int(rng.integers(0, 2))
+    for name, obj in (("data_folds", folds), ("openface_features_sdk", openface),
+                      ("covarep_features_sdk", covarep), ("word_embedding_indexes_sdk", idx),
+                      ("word_list", words), ("humor_label_sdk", humor)):
+        with open(os.path.join(path, f"{name}.pkl"), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def etl_then_train(counts, device) -> dict:
+    """Phase 12, the data path: `python -m mmda_tpu_torch.cli.etl --data
+    ur_funny` on pickles written here (no h5py needed), then `cli.train
+    --data ur_funny` on those splits for one epoch on the card, in this
+    process, the counts read around it: 8 + 8 LSTM launches a training
+    step and 8 `lstm_fwd` an eval batch."""
+    import shutil
+
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import get_config
+    from mmda_tpu_torch.data import load_splits
+    from mmda_tpu_torch.data.loader import ArrayLoader
+
+    data_dir = BUILD / "chip_smoke_etl"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    write_urfunny(data_dir / "UR_FUNNY")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mmda_tpu_torch.cli.etl", "--data", "ur_funny",
+                          "--data_dir", str(data_dir)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    etl_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"cli.etl exit {out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-2000:]}")
+    splits = load_splits(str(data_dir / "UR_FUNNY"))
+    rows = {k: len(v["lengths"]) for k, v in splits.items()}
+    if tuple(rows[k] for k in ("train", "dev", "test")) != ETL_ROWS:
+        raise AssertionError(f"cli.etl wrote {rows} rows, expected {ETL_ROWS}")
+    name = "chip_smoke_etl"
+    args = ["--data", "ur_funny", "--data_dir", str(data_dir), "--n_epoch", "1",
+            "--ckpt_dir", str(BUILD / name), "--name", name]
+    cfg = get_config(argv=args)
+    loaders = {k: ArrayLoader(v, cfg.batch_size, shuffle=False, drop_last=(k == "train"),
+                              bucket_sizes=cfg.bucket_sizes) for k, v in splits.items()}
+    steps, evals = len(loaders["train"]), len(loaders["dev"]) + len(loaders["test"])
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    summary = cli_train.main(args)
+    train_s = time.perf_counter() - t0
+    launches = all_launches(counts)
+    want = expected_launches(counts, {"lstm_fwd": LAUNCHES_PER_CALL * (steps + evals),
+                                      "lstm_bwd": LAUNCHES_PER_CALL * steps})
+    if launches != want:
+        raise AssertionError(f"cli.train on the ETL splits: launches {launches}, expected {want}")
+    finite_losses({"test_loss": summary["test_loss"],
+                   **{k: v for k, v in summary["history"][0].items()
+                      if k.startswith("train_")}}, "cli.train on the ETL splits")
+    return {"etl_s": etl_s, "rows": rows, "widths": list(ETL_WIDTHS),
+            "T": int(splits["train"]["text"].shape[1]), "train_s": train_s, "steps": steps,
+            "eval_batches": evals, "launches": launches, "test_loss": summary["test_loss"],
+            "test_acc": summary["test_acc"], "epoch_time_s": summary["history"][0]["epoch_time_s"]}
 
 
 # ------------------------------------------------------------------- main
@@ -2628,13 +3053,31 @@ def main() -> int:
     # phase 10: the tower pair with its four directions in one launch per layer
     pair = tower_pair(counts, device)
 
+    # phase 12: the rest of the one-card Trainer and the data path
+    torch.cuda.empty_cache()
+    stage2 = stage_two(counts, device, train)
+    log("12 stage2", **{k: v for k, v in stage2.items() if k != "stage2_top_ms_per_step"})
+    torch.cuda.empty_cache()
+    accum = accumulation(counts, device)
+    accum["card_vs_cpu_err"] = accumulation_card_vs_cpu(device)
+    log("12 grad-accum", **accum, tol=DEVICE_TOL)
+    torch.cuda.empty_cache()
+    resume = snapshot_and_resume(counts, device)
+    log("12 snapshot-resume", **resume)
+    torch.cuda.empty_cache()
+    etl = etl_then_train(counts, device)
+    log("12 etl-train", **etl)
+    phase12 = {"stage2": stage2, "grad_accum": accum, "resume": resume, "etl": etl}
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
-    # cli.infer, the tower pair)
+    # cli.infer, the tower pair, phase 12's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
     launches = {name: sum(t["main_path"]["launches"][name]
                           + t["compiled_train"]["launches"][name] for t in trains.values())
                 + long_serve["launches_by_kernel"][name] + long_infer["launches"][name]
                 + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
+                + stage2["launches"][name] + stage2["serve_launches"][name]
+                + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -2684,7 +3127,7 @@ def main() -> int:
         "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
-        "captured_serve": captured_serve, "kernels": kernels},
+        "captured_serve": captured_serve, "phase12": phase12, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,9 +11,18 @@ JAX package's `load_checkpoint` both read them; the summary goes to
 `--compiled_epoch True` trains through CUDA-graph replays of the step and
 `--compiled_eval` (default True) evaluates through them, as the JAX CLI's
 flags do; `--scan_chunk` is accepted and inert (a replay is one step).
+`--grad_accum_steps K` applies an update every K batches; `--use_confidNet
+True --confid_two_stage True [--n_epoch_stage2 N]` retrains the confidence
+head alone after the main run (the ConfidNet recipe); the `last_{name}`
+snapshot lands every `--ckpt_interval` epochs and on SIGTERM/SIGINT, and
+`--resume True` carries on from it.
 
 Usage:
-  python -m mmda_tpu_torch.cli.train --data mosei
+  python -m mmda_tpu_torch.cli.etl --data mosei --data_dir DIR       # the splits, once
+  python -m mmda_tpu_torch.cli.train --data mosei --data_dir DIR
+  python -m mmda_tpu_torch.cli.train --data mosei --data_dir DIR --resume True
+  python -m mmda_tpu_torch.cli.train --data mosei --data_dir DIR --use_confidNet True \
+      --confid_two_stage True
   python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 2      # no data files
   python -m mmda_tpu_torch.cli.train --data synthetic --compiled_epoch True
   python -m mmda_tpu_torch.cli.train --data synthetic --device cpu --use_bert False
@@ -26,24 +35,12 @@ import os
 
 import numpy as np
 
-SPLITS = ("train", "dev", "test")
-
-
-def load_splits(data_dir: str) -> dict:
-    """{split: dict of arrays} from the ETL's `{data_dir}/{split}.npz`."""
-    out = {}
-    for name in SPLITS:
-        path = os.path.join(data_dir, f"{name}.npz")
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"{path} not found - run the JAX package's ETL "
-                                    "(python -m mmda_tpu.cli.etl) or use --data synthetic")
-        with np.load(path) as z:
-            out[name] = {k: z[k] for k in z.files}
-    return out
-
 
 def load_data(cfg):
-    """(splits, pretrained GloVe table or None) for cfg.data."""
+    """(splits, pretrained GloVe table or None) for cfg.data: the synthetic
+    splits, or what `python -m mmda_tpu_torch.cli.etl` wrote under
+    `{data_dir}/{DATA}`."""
+    from mmda_tpu_torch.data import load_splits
     from mmda_tpu_torch.data.synthetic import make_dataset
 
     if cfg.data == "synthetic":

@@ -18,7 +18,7 @@ the inverse, for the checkpoints the port's trainer writes.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,20 +103,32 @@ def jax_name(model: nn.Module, name: str) -> str:
     return name
 
 
-def to_jax_tree(model: nn.Module) -> Dict[str, Any]:
-    """The inverse of `convert_params`: the model's parameters as the JAX
-    package's nested tree (kernels transposed back to (in, out)), tensors
-    on the CPU.  List entries (BERT layers) are dicts keyed '0', '1', ...,
-    the form a fastser checkpoint stores them in."""
-    tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
+def jax_leaves(model: nn.Module, tensors: Optional[List[torch.Tensor]] = None
+               ) -> List[Tuple[str, torch.Tensor]]:
+    """(JAX leaf path, host copy) of each of `model`'s parameters, or of
+    `tensors` in their place (same order: the EMA shadow), a linear layer's
+    weight transposed back to the JAX (in, out) kernel."""
+    out = []
+    for i, (name, p) in enumerate(model.named_parameters()):
         path = jax_name(model, name)
-        value = p.detach().to("cpu")
+        value = (p if tensors is None else tensors[i]).detach().to("cpu", copy=True)
         if path.endswith(".kernel"):
-            value = value.t()
+            value = value.t().contiguous()
+        out.append((path, value))
+    return out
+
+
+def to_jax_tree(model: nn.Module, tensors: Optional[List[torch.Tensor]] = None
+                ) -> Dict[str, Any]:
+    """The inverse of `convert_params`: the model's parameters (or
+    `tensors`, as `jax_leaves`) as the JAX package's nested tree, copies on
+    the CPU.  List entries (BERT layers) are dicts keyed '0', '1', ..., the
+    form a fastser checkpoint stores them in."""
+    tree: Dict[str, Any] = {}
+    for path, value in jax_leaves(model, tensors):
         parts = path.split(".")
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = value.contiguous()
+        node[parts[-1]] = value
     return tree

@@ -5,7 +5,8 @@ The port's own copy of the pure-Python path of
 punctuation split, CJK spacing) + WordPiece greedy longest-match with '##'
 continuations, then [CLS] ... [SEP] + pad.  Needs only a vocab.txt.  The
 C++ batch encoder behind the JAX package's `native_bridge` is not ported
-yet; `encode_batch` runs the Python path row by row.
+yet; `encode_batch` runs the Python path row by row.  `HashTokenizer` is
+the ETL's stand-in when no BERT vocab file is given.
 """
 
 from __future__ import annotations
@@ -142,3 +143,27 @@ class WordPieceTokenizer:
         for i, t in enumerate(texts):
             out_ids[i], _, out_mask[i] = self.encode(t, max_length)
         return out_ids, np.zeros((len(texts), max_length), np.int32), out_mask
+
+
+class HashTokenizer:
+    """Deterministic stand-in when no BERT vocab file is available: each
+    whitespace token hashed into the BERT id space with Python's `hash`,
+    which is salted per process unless PYTHONHASHSEED is set (as in the JAX
+    package's copy).  Not semantically meaningful: it lets the pipeline run
+    without a vocab; training with real text needs vocab.txt."""
+
+    def __init__(self, vocab_size: int = 30522):
+        self.vocab_size = vocab_size
+        self.cls, self.sep, self.pad = 101, 102, 0
+
+    def encode_batch(self, texts: List[str], max_length: int):
+        ids = np.zeros((len(texts), max_length), np.int32)
+        mask = np.zeros((len(texts), max_length), np.int32)
+        for i, text in enumerate(texts):
+            toks = text.lower().split()[: max_length - 2]
+            row = [self.cls] + [
+                1000 + (hash(t) % (self.vocab_size - 1010)) for t in toks
+            ] + [self.sep]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+        return ids, np.zeros_like(ids), mask

@@ -21,6 +21,27 @@ best-on-dev parameters and returns the summary dict.  Eval runs through an
 eval graph under `compiled_eval` (the default, as in the JAX package), one
 per set of parameters it reads.  `scan_chunk` is inert: a replay is one step.
 
+Resilience, as the JAX trainer: a `last_{name}` train-state snapshot
+(`train/checkpoint.py`) every `ckpt_interval` epochs and at every exit of
+the loop (the last epoch, early stop, preemption), written on a thread;
+incremental (a frozen base once, then deltas) when the run has a frozen
+mask (use_bert, or a frozen GloVe table) and `ckpt_incremental` is set.
+SIGTERM and SIGINT set a flag that ends the loop at the next epoch boundary,
+after the snapshot.  `resume=True` loads the snapshot in place at
+construction (the captured graphs read the same tensors) and `train()`
+starts at epoch step // len(train_loader), with the loader's generator
+restarted from the seed, as the JAX loader's is.  `grad_accum_steps` makes
+every step a mini-step of the optimizer (`train/state.py`).
+
+ConfidNet stage 2 (`confid_two_stage` under `use_confidNet`): after the
+test eval, the best-on-dev export is loaded into the model, every module
+but `confidence` is frozen, a fresh optimizer (count 0, its schedules sized
+by the train loader) and, when ema_decay > 0, a fresh EMA shadow of the
+loaded parameters train `losses["conf"]` alone for n_epoch_stage2 epochs of
+eager steps (no graph, as JAX runs its stage 2 by the per-step jit), the
+trainer's generator going on; the result replaces the best export and the
+test split is evaluated again (through the shadow when there is one).
+
 Options that need what the port does not have yet raise `ValueError` at
 construction, naming their ROADMAP item (`unsupported`).
 """
@@ -31,6 +52,7 @@ import copy
 import dataclasses
 import json
 import os
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
@@ -72,9 +94,6 @@ def unsupported(cfg) -> List[str]:
         (cfg.zero1, f"zero1 ({q}: parallel modes)"),
         (cfg.fsdp, f"fsdp ({q}: parallel modes)"),
         (cfg.ckpt_backend != "msgpack", f"ckpt_backend={cfg.ckpt_backend} ({q}: parallel modes)"),
-        (cfg.resume, f"resume ({q}: resume and incremental checkpoints)"),
-        (cfg.grad_accum_steps > 1, f"grad_accum_steps > 1 ({q}: grad_accum_steps)"),
-        (cfg.confid_two_stage, f"confid_two_stage ({q}: ConfidNet stage 2)"),
         (cfg.bert_model_dir is not None, f"bert_model_dir (HF weight loading; {q})"),
         (cfg.profile_dir is not None, f"profile_dir ({q}: profiler hook)"),
     ]
@@ -121,6 +140,10 @@ class Trainer:
                 model.embed.copy_(torch.as_tensor(pretrained_emb))
         self.model = model.to(self.device)
         self._freeze(pretrained_emb is not None)
+        # the JAX trainer builds a frozen mask (and snapshots incrementally)
+        # for every BERT run and for a frozen GloVe table
+        self.has_frozen_mask = cfg.use_bert or (pretrained_emb is not None
+                                                and cfg.freeze_embeddings)
 
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         steps_per_epoch = None
@@ -144,6 +167,11 @@ class Trainer:
                 json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         except OSError:
             pass
+        if cfg.resume:
+            step = self._load_resume_ckpt()
+            if step is not None:
+                self.step = step
+                self.logger.log({"resumed_at_step": step})
 
     def _freeze(self, has_pretrained_emb: bool) -> None:
         cfg, model = self.cfg, self.model
@@ -156,6 +184,31 @@ class Trainer:
                 model.bert.requires_grad_(False)
         elif has_pretrained_emb and cfg.freeze_embeddings:
             model.embed.requires_grad_(False)
+
+    def train_state(self) -> ckpt.TrainState:
+        return ckpt.TrainState(self.step, self.model, self.optimizer, self.generator,
+                               self.ema)
+
+    def _save_resume_ckpt(self, epoch: int, valid_loss: float):
+        """The `last_{name}` snapshot, written on a thread (returned)."""
+        cfg = self.cfg
+        meta = {"epoch": epoch, "valid_loss": valid_loss}
+        name = f"last_{cfg.name}"
+        if cfg.ckpt_incremental and self.has_frozen_mask:
+            return ckpt.save_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state(),
+                                                    meta, async_write=True)
+        return ckpt.save_train_state(cfg.ckpt_dir, name, self.train_state(), meta,
+                                     async_write=True)
+
+    def _load_resume_ckpt(self) -> Optional[int]:
+        """Load `last_{name}` in place, if there is one; its step or None."""
+        cfg = self.cfg
+        name = f"last_{cfg.name}"
+        if self.has_frozen_mask and ckpt.incremental_checkpoint_exists(cfg.ckpt_dir, name):
+            return ckpt.load_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state())
+        if ckpt.checkpoint_exists(cfg.ckpt_dir, name):
+            return ckpt.load_train_state(cfg.ckpt_dir, name, self.train_state())
+        return None
 
     def _loader(self, split: str, shuffle: bool) -> ArrayLoader:
         return ArrayLoader(self.data[split], batch_size=self.cfg.batch_size,
@@ -184,87 +237,109 @@ class Trainer:
         history: List[Dict] = []
         eval_values: Dict[str, float] = {}
         best_name = ckpt.best_model_name(cfg)
+        pending: List = []                      # the snapshots' writer threads
+        last_saved = [-1]
 
-        for e in range(cfg.n_epoch):
-            t0 = time.perf_counter()
-            epoch_losses = []
-            if cfg.compiled_epoch:
-                if self.train_graph is None:
-                    self.train_graph = make_train_graph(self.model, self.optimizer, cfg,
-                                                        self.device, self.generator,
-                                                        self.ema, self.pool)
-                for host in train_loader.host_batches():
-                    losses = self.train_graph(host)
-                    epoch_losses.append({k: v.clone() for k, v in losses.items()})
-                    self.step += 1
-            else:
-                for batch in train_loader:
-                    epoch_losses.append(train_step(self.model, self.optimizer, batch, cfg,
-                                                   self.generator, self.ema))
-                    self.step += 1
-            if not epoch_losses:
-                raise ValueError(
-                    f"epoch {e} produced no batches: the train split has "
-                    f"{self.num_train} rows but batch_size={cfg.batch_size} with "
-                    "drop_last; shrink batch_size or grow the dataset")
-            keys = sorted(epoch_losses[0])
-            stacked = torch.stack([torch.stack([l[k].float() for k in keys])
-                                   for l in epoch_losses]).cpu().numpy()   # one copy
-            epoch_time = time.perf_counter() - t0
-            means = {k: float(np.mean(stacked[:, i])) for i, k in enumerate(keys)}
-            train_avg_loss = round(means["total"], 4)
+        def save_last(epoch: int, valid_loss: float) -> None:
+            last_saved[0] = epoch
+            pending.append(self._save_resume_ckpt(epoch, valid_loss))
 
-            t_eval0 = time.perf_counter()
-            valid_loss, valid_acc, preds, truths = self.evaluate("dev")
-            eval_time = time.perf_counter() - t_eval0
-            t_ckpt0 = time.perf_counter()
+        preempted = [False]
 
-            if cfg.lr_schedule == "plateau":
-                if valid_loss <= best_valid_loss:
-                    plateau_wait = 0
-                else:
-                    plateau_wait += 1
-                    if plateau_wait > cfg.lr_plateau_patience:
-                        new_lr = max(self.optimizer.lr * cfg.lr_decay_rate, cfg.min_lr)
-                        self.optimizer.set_learning_rate(new_lr)
-                        self.logger.log({"lr_reduced_to": new_lr, "epoch": e})
+        def on_signal(signum, frame):
+            preempted[0] = True
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, on_signal)
+            except ValueError:                  # not the main thread
+                pass
+        start_epoch = self.step // max(len(train_loader), 1)
+        try:
+            for e in range(start_epoch, cfg.n_epoch):
+                t0 = time.perf_counter()
+                epoch_losses = self._train_epoch(train_loader)
+                if not epoch_losses:
+                    raise ValueError(
+                        f"epoch {e} produced no batches: the train split has "
+                        f"{self.num_train} rows but batch_size={cfg.batch_size} with "
+                        "drop_last; shrink batch_size or grow the dataset")
+                keys = sorted(epoch_losses[0])
+                stacked = torch.stack([torch.stack([l[k].float() for k in keys])
+                                       for l in epoch_losses]).cpu().numpy()   # one copy
+                epoch_time = time.perf_counter() - t0
+                means = {k: float(np.mean(stacked[:, i])) for i, k in enumerate(keys)}
+                train_avg_loss = round(means["total"], 4)
+
+                t_eval0 = time.perf_counter()
+                valid_loss, valid_acc, preds, truths = self.evaluate("dev")
+                eval_time = time.perf_counter() - t_eval0
+                t_ckpt0 = time.perf_counter()
+
+                if (e + 1) % cfg.ckpt_interval == 0 or e == cfg.n_epoch - 1:
+                    save_last(e, valid_loss)
+
+                if cfg.lr_schedule == "plateau":
+                    if valid_loss <= best_valid_loss:
                         plateau_wait = 0
+                    else:
+                        plateau_wait += 1
+                        if plateau_wait > cfg.lr_plateau_patience:
+                            new_lr = max(self.optimizer.lr * cfg.lr_decay_rate, cfg.min_lr)
+                            self.optimizer.set_learning_rate(new_lr)
+                            self.logger.log({"lr_reduced_to": new_lr, "epoch": e})
+                            plateau_wait = 0
 
-            if valid_loss <= best_valid_loss:
-                best_valid_loss = valid_loss
-                best_results, best_truths, best_epoch = preds, truths, e
-                ckpt.save_checkpoint(cfg.ckpt_dir, best_name, self.eval_model(),
-                                     {"epoch": e, "valid_loss": valid_loss})
-                eval_values = task_metrics(self.task, best_truths, best_results)
-                curr_patience = cfg.patience
-            elif cfg.enable_early_stop:
-                curr_patience -= 1
-                if curr_patience <= -1:
-                    num_trials -= 1
+                if valid_loss <= best_valid_loss:
+                    best_valid_loss = valid_loss
+                    best_results, best_truths, best_epoch = preds, truths, e
+                    ckpt.save_checkpoint(cfg.ckpt_dir, best_name, self.eval_model(),
+                                         {"epoch": e, "valid_loss": valid_loss})
+                    eval_values = task_metrics(self.task, best_truths, best_results)
                     curr_patience = cfg.patience
-                    if ckpt.checkpoint_exists(cfg.ckpt_dir, best_name):
-                        self._load_best(best_name, self.model)
-                    if num_trials <= 0:
-                        self.logger.log({"early_stop_epoch": e})
-                        break
+                elif cfg.enable_early_stop:
+                    curr_patience -= 1
+                    if curr_patience <= -1:
+                        num_trials -= 1
+                        curr_patience = cfg.patience
+                        if ckpt.checkpoint_exists(cfg.ckpt_dir, best_name):
+                            self._load_best(best_name, self.model)
+                        if num_trials <= 0:
+                            self.logger.log({"early_stop_epoch": e})
+                            if last_saved[0] != e:
+                                save_last(e, valid_loss)
+                            break
 
-            epoch_total = time.perf_counter() - t0
-            payload = {
-                "epoch": e, "train_loss": train_avg_loss, "valid_loss": valid_loss,
-                "valid_acc": valid_acc, "epoch_time_s": round(epoch_time, 3),
-                "epoch_total_time_s": round(epoch_total, 3),
-                "eval_time_s": round(eval_time, 3),
-                "post_eval_time_s": round(time.perf_counter() - t_ckpt0, 3),
-                "utterances_per_s": round(
-                    len(epoch_losses) * cfg.batch_size / max(epoch_time, 1e-9), 1),
-                **{f"train_{k}": v for k, v in means.items() if k != "total"},
-            }
-            if eval_values and self.task == "classification":
-                payload.update(select_by_eval_mode(eval_values, cfg.eval_mode))
-            elif eval_values:
-                payload.update({f"dev_{k}": v for k, v in eval_values.items()})
-            self.logger.log(payload, step=self.step)
-            history.append(payload)
+                epoch_total = time.perf_counter() - t0
+                payload = {
+                    "epoch": e, "train_loss": train_avg_loss, "valid_loss": valid_loss,
+                    "valid_acc": valid_acc, "epoch_time_s": round(epoch_time, 3),
+                    "epoch_total_time_s": round(epoch_total, 3),
+                    "eval_time_s": round(eval_time, 3),
+                    "post_eval_time_s": round(time.perf_counter() - t_ckpt0, 3),
+                    "utterances_per_s": round(
+                        len(epoch_losses) * cfg.batch_size / max(epoch_time, 1e-9), 1),
+                    **{f"train_{k}": v for k, v in means.items() if k != "total"},
+                }
+                if eval_values and self.task == "classification":
+                    payload.update(select_by_eval_mode(eval_values, cfg.eval_mode))
+                elif eval_values:
+                    payload.update({f"dev_{k}": v for k, v in eval_values.items()})
+                self.logger.log(payload, step=self.step)
+                history.append(payload)
+
+                if preempted[0]:
+                    self.logger.log({"preempted_at_epoch": e})
+                    if last_saved[0] != e:
+                        save_last(e, valid_loss)
+                    break
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+            for thread in pending:
+                if thread is not None:
+                    thread.join()
 
         best = None
         if best_epoch >= 0:
@@ -273,6 +348,10 @@ class Trainer:
         if best is not None:                 # the copy is gone after this call
             self.eval_graphs.pop(self._params_key(best), None)
         test_metrics = task_metrics(self.task, test_truths, test_preds)
+        if cfg.use_confidNet and cfg.confid_two_stage and best_epoch >= 0:
+            self._train_confidnet_stage2(train_loader)
+            test_loss, test_acc, test_preds, test_truths = self.evaluate("test")
+            test_metrics = task_metrics(self.task, test_truths, test_preds)
         summary = {"best_epoch": best_epoch, "best_valid_loss": best_valid_loss,
                    "test_loss": test_loss, "test_acc": test_acc,
                    **{f"test_{k}": v for k, v in test_metrics.items()},
@@ -289,6 +368,52 @@ class Trainer:
             summary["best_dev_metrics"] = eval_values
         self.logger.log({k: v for k, v in summary.items() if k != "history"})
         return summary
+
+    def _train_epoch(self, train_loader: ArrayLoader) -> List[Dict[str, torch.Tensor]]:
+        """One epoch of steps (eager, or through the training graph under
+        compiled_epoch); the loss dicts, on the device."""
+        cfg = self.cfg
+        epoch_losses = []
+        if cfg.compiled_epoch:
+            if self.train_graph is None:
+                self.train_graph = make_train_graph(self.model, self.optimizer, cfg,
+                                                    self.device, self.generator,
+                                                    self.ema, self.pool)
+            for host in train_loader.host_batches():
+                losses = self.train_graph(host)
+                epoch_losses.append({k: v.clone() for k, v in losses.items()})
+                self.step += 1
+        else:
+            for batch in train_loader:
+                epoch_losses.append(train_step(self.model, self.optimizer, batch, cfg,
+                                               self.generator, self.ema))
+                self.step += 1
+        return epoch_losses
+
+    def _train_confidnet_stage2(self, train_loader: ArrayLoader) -> None:
+        """ConfidNet stage 2 (module docstring): the confidence head alone,
+        on the frozen best-on-dev model, then exported as the best model."""
+        cfg = self.cfg
+        name = ckpt.best_model_name(cfg)
+        self._load_best(name, self.model)                 # in place
+        for n, p in self.model.named_parameters():
+            p.requires_grad_(n.startswith("confidence."))
+        self.optimizer = Optimizer(cfg, [p for p in self.model.parameters() if p.requires_grad],
+                                   steps_per_epoch=max(len(train_loader), 1))
+        self.ema = ([p.detach().clone() for p in self.model.parameters()]
+                    if cfg.ema_decay > 0 else None)
+        self.step = 0
+        for e in range(cfg.n_epoch_stage2):
+            conf = []
+            for batch in train_loader:
+                losses = train_step(self.model, self.optimizer, batch, cfg, self.generator,
+                                    self.ema, conf_only=True)
+                conf.append(losses["conf"])
+                self.step += 1
+            self.logger.log({"stage2_epoch": e, "stage2_conf_loss": float(
+                np.mean(torch.stack(conf).float().cpu().numpy()))})
+        ckpt.save_checkpoint(cfg.ckpt_dir, name, self.model,
+                             {"stage2_epochs": cfg.n_epoch_stage2})
 
     def _load_best(self, name: str, model: torch.nn.Module) -> torch.nn.Module:
         """Load the best-on-dev export into `model`: the live model on early

@@ -30,6 +30,23 @@ place; `apply(grads)` is device work only and reads them there.  `step` is
 the two in turn, so an eager update and a replayed one share their
 arithmetic, and a schedule or `set_learning_rate` takes effect at the next
 update either way.
+
+`grad_accum_steps` = k > 1 is `optax.MultiSteps` around that chain: every
+call of `apply` folds its gradient into a running mean kept in f32,
+`acc <- acc + (g - acc) / (n + 1)` for the n-th mini-step of an update
+(n = 0 .. k-1), and only the k-th passes the mean through the clip and the
+rule, then zeroes `acc`; the other mini-steps leave the parameters as they
+are.  `count`, and with it Adam's bias corrections and every schedule,
+advances on the k-th mini-step only, so `exponential`'s per-epoch decay is
+counted in updates (one every k epochs), as in the JAX package.  `advance()`
+writes the divisor n + 1 into `scalars` and returns whether the mini-step
+applies (`emit`); `apply` branches on that host flag, so a captured step
+needs two graphs per batch shape, one that accumulates and one that also
+applies (`train/step.py::StepGraphs`).
+
+`state_dict()` / `load_state_dict()` carry everything an update reads
+besides the parameters (the moments, the accumulators, count, mini_step
+and the plateau rate), loading into the existing tensors in place.
 """
 
 from __future__ import annotations
@@ -57,8 +74,15 @@ class Optimizer:
         self.steps_per_epoch = steps_per_epoch
         self.count = 0                        # updates applied so far
         self.lr = cfg.learning_rate           # the plateau schedule's value
+        self.k = max(int(cfg.grad_accum_steps), 1)
+        self.mini_step = 0                    # mini-steps folded into acc so far
+        self.emit = True                      # whether the prepared mini-step applies
         device = self.params[0].device if self.params else torch.device("cpu")
-        self.scalars = torch.zeros(3, device=device)    # -lr, 1 - B1**n, 1 - B2**n
+        # -lr, 1 - B1**n, 1 - B2**n, the running mean's divisor n + 1
+        self.scalars = torch.zeros(4, device=device)
+        self.acc: List[torch.Tensor] = (
+            [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            if self.k > 1 else [])
         zeros = [torch.zeros_like(p) for p in self.params]
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
@@ -95,25 +119,35 @@ class Optimizer:
         self.lr = lr
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """One update of every parameter from its gradient (same order)."""
+        """One mini-step from every parameter's gradient (same order): an
+        update, or with grad_accum_steps > 1 a fold into the running mean."""
         self.advance()
         self.apply(grads)
 
-    def advance(self) -> None:
-        """The host half of the next update: count it and write its scalars
-        into `scalars` (launches, no read back)."""
+    def advance(self) -> bool:
+        """The host half of the next mini-step: write its scalars into
+        `scalars` (launches, no read back) and, when it applies the update,
+        count the update.  Returns `emit`, whether it applies."""
+        n = self.mini_step
+        self.emit = n == self.k - 1
+        self.mini_step = (n + 1) % self.k
+        if self.k > 1 and self.params:
+            self.scalars[3].fill_(float(n + 1))
+        if not self.emit:
+            return False
         lr = self.learning_rate()
         self.count += 1
         if not self.params:
-            return
+            return True
         self.scalars[0].fill_(-lr)
         if self.mu:
             self.scalars[1].fill_(1.0 - B1 ** self.count)
             self.scalars[2].fill_(1.0 - B2 ** self.count)
+        return True
 
     @torch.no_grad()
     def apply(self, grads: Sequence[torch.Tensor]) -> None:
-        """The device half: the update `advance` prepared, from each
+        """The device half: the mini-step `advance` prepared, from each
         parameter's gradient (same order)."""
         cfg = self.cfg
         g = [x.float() for x in grads]
@@ -121,6 +155,14 @@ class Optimizer:
             raise ValueError(f"{len(g)} gradients for {len(self.params)} parameters")
         if not g:
             return
+        if self.acc:                    # optax MultiSteps: acc + (g - acc) / (n + 1)
+            delta = torch._foreach_sub(g, self.acc)
+            torch._foreach_div_(delta, self.scalars[3])
+            torch._foreach_add_(self.acc, delta)
+            if not self.emit:
+                return
+            g = [a.clone() for a in self.acc]
+            torch._foreach_zero_(self.acc)
         torch._foreach_clamp_min_(g, -cfg.clip)
         torch._foreach_clamp_max_(g, cfg.clip)
         if cfg.apply_weight_decay and cfg.optimizer != "AdamW":
@@ -144,9 +186,11 @@ class Optimizer:
         if f32:
             mu = self.mu
             torch._foreach_mul_(mu, B1)
-        else:   # optax: b1 (rounded to mu's dtype) * mu in mu's dtype, then the f32 sum
+        else:   # optax as XLA runs it: b1 rounded to mu's dtype, its product
+            # with mu and the sum in f32, one rounding to mu's dtype at the store
             b1 = torch.tensor(B1, dtype=self.mu[0].dtype).item()
-            mu = [m.float() for m in torch._foreach_mul(self.mu, b1)]
+            mu = [m.float() for m in self.mu]
+            torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1.0 - B1)
         torch._foreach_mul_(self.nu, B2)
         torch._foreach_addcmul_(self.nu, g, g, value=1.0 - B2)
@@ -157,6 +201,30 @@ class Optimizer:
             for stored, m in zip(self.mu, mu):
                 stored.copy_(m)
         return update
+
+
+    def state_dict(self) -> dict:
+        """The optimizer's state besides the parameters: host scalars and
+        device tensors (the moments and accumulators, in `params` order)."""
+        return {"count": self.count, "lr": self.lr, "mini_step": self.mini_step,
+                "mu": list(self.mu), "nu": list(self.nu), "acc": list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s values into this optimizer's own tensors
+        (copy_, so a captured graph that reads them stays valid)."""
+        for key in ("mu", "nu", "acc"):
+            mine, theirs = getattr(self, key), state[key]
+            if len(mine) != len(theirs):
+                raise ValueError(f"optimizer state {key!r}: {len(theirs)} tensors for "
+                                 f"{len(mine)}")
+            for t, v in zip(mine, theirs):
+                if tuple(t.shape) != tuple(v.shape):
+                    raise ValueError(f"optimizer state {key!r}: shape {tuple(v.shape)} "
+                                     f"for {tuple(t.shape)}")
+                t.copy_(v)
+        self.count, self.lr = int(state["count"]), float(state["lr"])
+        self.mini_step = int(state["mini_step"]) % self.k
 
 
 def trainable_param_count(model: torch.nn.Module) -> dict:

@@ -15,10 +15,21 @@ reads an epoch's losses in one copy).
 * `eval_step`: the deterministic forward with the static modality setting,
   and the same outputs as `_make_eval_body`.
 
+`conf_only=True` is `make_train_step(conf_only=True)`, ConfidNet's stage 2:
+the gradient of `losses["conf"]` alone, over the optimizer's parameters (the
+trainer hands it the confidence head's; every other parameter has
+requires_grad False, so autograd builds no backward through the backbone and
+the recurrences take their forward-only path).  With grad_accum_steps > 1 a
+step is a mini-step (`Optimizer.advance` says whether it applies); grad_norm
+is the mini-batch gradient's and the EMA shadow moves every mini-step, as
+in the JAX step.
+
 `make_train_graph` and `make_eval_graph` are the counterparts of the JAX
 package's scanned epoch and eval (`compiled_epoch`, `compiled_eval`): one
 `StepGraphs` each, which runs the same body over device buffers kept for
-each batch shape.  On CUDA the first batch of a shape runs it eagerly (the
+each batch shape (and, for training with grad_accum_steps > 1, for each
+of the optimizer's two kinds of mini-step).  On CUDA the first batch of a
+shape runs it eagerly (the
 warm-up: kernels built, allocator, autograd and cuBLAS warm), and the body
 is then captured over those buffers as a CUDA graph (a capture runs
 nothing); every later batch is copied into the buffers and replayed, one
@@ -84,39 +95,41 @@ def ema_update(ema: Optional[List[torch.Tensor]], params: List[torch.Tensor],
 
 def loss_and_grads(model, batch, cfg, params: List[torch.Tensor],
                    modality_keep: Optional[torch.Tensor] = None, recurrence=None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, conf_only: bool = False):
     """The objective of one forward in the model's current mode (dropout
-    only under train()) and its gradients w.r.t. `params`.  A parameter no
+    only under train()) and its gradients w.r.t. `params`: of
+    losses["total"], or of losses["conf"] under conf_only.  A parameter no
     loss reaches (the sp discriminator) gets a zero gradient, as jax.grad
     gives it."""
     out = model(batch, modality_keep, recurrence, generator)
     losses = compute_losses(cfg, out, batch)
-    grads = torch.autograd.grad(losses["total"], params, allow_unused=True,
-                                materialize_grads=True)
+    grads = torch.autograd.grad(losses["conf" if conf_only else "total"], params,
+                                allow_unused=True, materialize_grads=True)
     return losses, grads
 
 
 def train_step(model, optimizer, batch, cfg,
                generator: Optional[torch.Generator] = None,
                ema: Optional[List[torch.Tensor]] = None,
-               recurrence=None) -> Dict[str, torch.Tensor]:
-    """One update; returns the loss dict plus grad_norm, as 0-dim device
-    tensors.  `ema` is the shadow of `model.parameters()` (same order)."""
+               recurrence=None, conf_only: bool = False) -> Dict[str, torch.Tensor]:
+    """One update (a mini-step under grad_accum_steps > 1); returns the
+    loss dict plus grad_norm, as 0-dim device tensors.  `ema` is the shadow
+    of `model.parameters()` (same order)."""
     optimizer.advance()
-    return train_body(model, optimizer, batch, cfg, generator, ema, recurrence)
+    return train_body(model, optimizer, batch, cfg, generator, ema, recurrence, conf_only)
 
 
 def train_body(model, optimizer, batch, cfg,
                generator: Optional[torch.Generator] = None,
                ema: Optional[List[torch.Tensor]] = None,
-               recurrence=None) -> Dict[str, torch.Tensor]:
+               recurrence=None, conf_only: bool = False) -> Dict[str, torch.Tensor]:
     """The device work of `train_step`, after `optimizer.advance()`: what a
     training graph captures."""
     model.train()
     keep = sample_modality_keep(cfg, batch.emo_label.shape[0], batch.emo_label.device,
                                 generator)
     losses, grads = loss_and_grads(model, batch, cfg, optimizer.params, keep,
-                                   recurrence, generator)
+                                   recurrence, generator, conf_only)
     grad_norm = torch.linalg.vector_norm(
         torch.stack(torch._foreach_norm([g.float() for g in grads])))
     optimizer.apply(grads)
@@ -153,14 +166,17 @@ class StepGraphs:
     """`body(batch) -> dict of tensors` over `StaticBatch` buffers, one set
     per batch shape, captured and replayed on CUDA (module docstring).
     `prepare()` is the host work that precedes every run of the body (the
-    optimizer's `advance`); `generators` are the generators the body draws
+    optimizer's `advance`); what it returns joins the batch shape in the
+    key of a graph (the optimizer's `emit`: whether the body applies the
+    update or only accumulates), so each kind of run is warmed up and
+    captured on its own; `generators` are the generators the body draws
     from; `pool` a memory pool the graphs share (`graph_pool`; None: one of
     their own).  A call returns the body's outputs: on CUDA a replay's are
     the graph's own tensors, overwritten by the next replay (of any graph in
     the pool), so read or clone them first."""
 
     def __init__(self, body: Callable[[object], Outputs], device,
-                 prepare: Optional[Callable[[], None]] = None,
+                 prepare: Optional[Callable[[], object]] = None,
                  generators: Sequence[torch.Generator] = (), pool=None):
         self.body = body
         self.device = torch.device(device)
@@ -168,7 +184,8 @@ class StepGraphs:
         self.generators = tuple(g for g in generators if g is not None)
         self.pool = pool
         self.buffers: Dict[tuple, StaticBatch] = {}
-        self.graphs: Dict[tuple, tuple] = {}   # shape -> (graph, outputs, launches)
+        # (shape, prepare's result) -> (graph, outputs, launches)
+        self.graphs: Dict[tuple, tuple] = {}
 
     def __call__(self, arrays: Dict[str, Optional[np.ndarray]]) -> Outputs:
         shape = batch_shape(arrays)
@@ -176,14 +193,14 @@ class StepGraphs:
         if static is None:
             static = self.buffers[shape] = StaticBatch(arrays, self.device)
         batch = static.load(arrays)
-        self.prepare()
+        key = (shape, self.prepare())
         if self.device.type != "cuda":
             return self.body(batch)
-        if shape not in self.graphs:            # the warm-up, then the capture
+        if key not in self.graphs:              # the warm-up, then the capture
             outputs = self.body(batch)
-            self.graphs[shape] = self._capture(batch)
+            self.graphs[key] = self._capture(batch)
             return outputs
-        graph, outputs, launches = self.graphs[shape]
+        graph, outputs, launches = self.graphs[key]
         graph.replay()
         _launch.add_launches(launches)
         return outputs

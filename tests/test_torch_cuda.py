@@ -909,3 +909,100 @@ def test_a_capture_that_fails_raises(cuda_device):
             graphs(host)
         assert not graphs.graphs and _launch._recorded is None
     assert (torch.ones(3, device=cuda_device) * 2).sum().item() == 6.0
+
+
+# ------------------------- accumulation, resume, ConfidNet stage 2 on the card
+
+
+def test_accumulating_replays_equal_eager_mini_steps(cuda_device, tmp_path):
+    """grad_accum_steps=2 at a small width: four eager mini-steps from one
+    state, then the training graph's two graphs for the shape (accumulate;
+    accumulate and apply), warmed and captured, replayed four times from
+    that state: the same bits (losses, grad_norm, parameters, moments,
+    accumulators), count 2 and mini-step 0 after both."""
+    from chip_smoke import bit_diffs, restore_train_state, train_state
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.train.step import make_train_graph, train_step
+
+    trainer = _small_trainer(tmp_path, grad_accum_steps=2, attn_impl="xla")
+    hosts = list(trainer._loader("train", shuffle=False).host_batches())[:4]
+    snap = train_state(trainer)
+
+    def four(step):
+        restore_train_state(trainer, snap)
+        out = {f"{i} {k}": v.clone() for i, h in enumerate(hosts) for k, v in step(h).items()}
+        state = train_state(trainer)
+        assert (state["count"], state["mini_step"]) == (2, 0)
+        return {**out, **state["tensors"]}
+
+    eager = four(lambda h: train_step(trainer.model, trainer.optimizer,
+                                      to_device(h, cuda_device), trainer.cfg,
+                                      trainer.generator, trainer.ema))
+    graphs = make_train_graph(trainer.model, trainer.optimizer, trainer.cfg, cuda_device,
+                              trainer.generator, trainer.ema, trainer.pool)
+    restore_train_state(trainer, snap)
+    graphs(hosts[0])
+    graphs(hosts[1])
+    assert sorted(emit for _, emit in graphs.graphs) == [False, True]
+    assert all(rec == {**{k: 0 for k in rec}, **TOWERS} for _, _, rec in graphs.graphs.values())
+    assert bit_diffs(eager, four(graphs)) == {}
+
+
+def test_resumed_state_equals_its_snapshot(cuda_device, tmp_path):
+    """A compiled-epoch run writes `last_*` (incremental: tiny BERT under the
+    freeze rule); a `Trainer(resume=True)` on the card holds its parameters,
+    moments, count and generator state bit for bit, and one step from each
+    on the same batch gives the same bits."""
+    from chip_smoke import bit_diffs, same_state, train_state
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.data.synthetic import make_dataset
+    from mmda_tpu_torch.models.bert import BertConfig
+    from mmda_tpu_torch.train import checkpoint as ckpt
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.train.step import train_step
+
+    trainer = _small_trainer(tmp_path, compiled_epoch=True)
+    trainer.train()
+    assert ckpt.incremental_checkpoint_exists(str(tmp_path), "last_graphs")
+    cfg = Config(device="cuda", ckpt_dir=str(tmp_path), name="graphs", resume=True,
+                 compiled_epoch=True, **SMALL_MODEL)
+    data = make_dataset(48, 16, 16, max_len=8, bert_vocab_size=128)
+    resumed = Trainer(cfg, data, bert_cfg=BertConfig.tiny())
+    same_state(train_state(trainer), train_state(resumed), "resumed")
+    host = next(trainer._loader("dev", shuffle=False).host_batches())
+    outs = []
+    for t in (trainer, resumed):
+        out = train_step(t.model, t.optimizer, to_device(host, cuda_device), t.cfg,
+                         t.generator, t.ema)
+        outs.append({**{k: v.clone() for k, v in out.items()}, **train_state(t)["tensors"]})
+    assert bit_diffs(*outs) == {}
+
+
+def test_confidnet_stage2_launches_no_lstm_backward(cuda_device, tmp_path):
+    """Two-stage ConfidNet on the card: stage 2 (the confidence head alone)
+    launches `lstm_fwd` 8 times a step and `lstm_bwd` never, and changes
+    only the `confidence` leaves of the best export."""
+    from mmda_tpu_torch.convert import flatten_tree
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.train import checkpoint as ckpt
+
+    trainer = _small_trainer(tmp_path, use_confidNet=True, fix_conf_loss=True,
+                             confid_two_stage=True, n_epoch_stage2=1, attn_impl="xla")
+    name = ckpt.best_model_name(trainer.cfg)
+    real, seen = trainer._train_confidnet_stage2, {}
+
+    def watched(loader):
+        seen["stage1"] = ckpt.load_checkpoint(str(tmp_path), name)
+        seen["steps"] = len(loader)
+        _launch.reset_launch_count()
+        real(loader)
+        seen["launches"] = {k: _launch.launch_count(k) for k in ("lstm_fwd", "lstm_bwd")}
+
+    trainer._train_confidnet_stage2 = watched
+    trainer.train()
+    assert seen["launches"] == {"lstm_fwd": 8 * seen["steps"], "lstm_bwd": 0}
+    before = flatten_tree(seen["stage1"])
+    after = flatten_tree(ckpt.load_checkpoint(str(tmp_path), name))
+    changed = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    assert changed == ["confidence.bias", "confidence.kernel"]

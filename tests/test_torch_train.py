@@ -239,8 +239,9 @@ OPT_CASES = [
 @pytest.mark.parametrize("case", OPT_CASES, ids=lambda c: "-".join(map(str, c.values())))
 def test_optimizer_matches_optax(case):
     """Value clip then the rule, over 4 updates with gradients beyond the
-    clip, against make_optimizer(cfg, frozen).update; the frozen leaf is
-    never touched and carries no state."""
+    clip, against make_optimizer(cfg, frozen).update, jitted as the JAX
+    training step runs it (XLA keeps bf16 mu's product with b1 in f32); the
+    frozen leaf is never touched and carries no state."""
     kw = {"clip": 0.5, "learning_rate": 1e-2, **case}
     jcfg, cfg = JConfig(**kw), Config(device="cpu", **kw)
     rng = np.random.default_rng(0)
@@ -250,6 +251,7 @@ def test_optimizer_matches_optax(case):
     frozen = {"a": False, "b": False, "z_frozen": True}
     spe = 2
     tx = jstate.make_optimizer(jcfg, frozen, steps_per_epoch=spe)
+    update = jax.jit(tx.update)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = {k: _t(v.copy()) for k, v in params.items()}
@@ -260,7 +262,7 @@ def test_optimizer_matches_optax(case):
             opt.set_learning_rate(3e-3)
         grads = {k: (2 * rng.normal(size=v.shape)).astype(np.float32)
                  for k, v in params.items()}
-        updates, state = tx.update({k: jnp.asarray(v) for k, v in grads.items()}, state, jp)
+        updates, state = update({k: jnp.asarray(v) for k, v in grads.items()}, state, jp)
         jp = jax.tree_util.tree_map(lambda p, u: p + u, jp, updates)
         opt.step([_t(grads["a"]), _t(grads["b"])])
         for k in ("a", "b"):
