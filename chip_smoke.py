@@ -28,7 +28,7 @@ the result):
    `gru_bwd`; the checked shapes must reach all three instantiations of the
    serial passes of `lstm_fwd`, `gru_fwd` and `gru_bwd` (weights in
    registers, 11 or 21 float4s' worth, or read from global memory at
-   H = 300) and an H that is no multiple of 4 (H = 33, 35).  The fused
+   H = 128 (EF_LSTM's step) and 300) and an H that is no multiple of 4 (H = 33, 35).  The fused
    residual + dropout + LayerNorm forward and backward in f32 and bf16: the
    keep mask equal bit for bit to the plain hash, outputs within 1e-5 (f32)
    or one bf16 ulp, dscale and dbias within 1e-4; timed beside the composition
@@ -155,7 +155,34 @@ the result):
    same bits; the bytes and seconds of the frozen base, a delta and a full snapshot);
    the ETL (`cli.etl --data ur_funny` on SDK pickles written here, then `cli.train` on
    its splits for an epoch: 8 + 8 LSTM launches a step, 8 `lstm_fwd` an eval batch);
-13. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+13. HF BERT, int8 serving, the zoo and the native host library, at full width: a seeded
+   bert-base written in HF's names (`bert.` prefix) as `model.safetensors` (a writer here)
+   and `pytorch_model.bin`, both read back by `load_hf_weights` bit for bit; the flagship
+   step from it (`bert_model_dir`, the mosei freeze rule, `attn_impl="fused"`) through
+   `Trainer.train()`, 8 + 8 LSTM and 12 + 12 short-attention launches a step, encoder
+   layers <= 8 still the file's bits after it and a trained layer moved, and the host-side
+   ops of an eager step (`utils.timing.profile`: ATen, autograd's engine, the CUDA runtime,
+   the untraced Python); `cli.train --data synthetic --bert_model_dir --attn_impl fused
+   --profile_dir --compiled_epoch True` in this process (its launches, its Chrome trace
+   naming the LSTM and short-attention kernels, replays included), a `Predictor` on its
+   export; fused-attention `Predictor`s with `bert_weights_dtype` int8, bfloat16 and None
+   on one seeded model (8 `lstm_fwd` + 12 `short_attn_fwd` a call, BERT weight bytes,
+   captured latency at buckets 16/32/64 for B=64 and B=1, the score difference from f32
+   weights, int8's replays bit-equal to eager calls), a small f32 int8 model on the card
+   against the CPU (1e-4), and the bf16 int8 product's one rounding: each bert-base dense
+   on the card against the CPU (one bf16 ulp + 2^-8) and against a float64 product scaled
+   and rounded once (at most 1e-3 of the outputs not bit-equal), and a two-layer bf16 int8
+   encoder on the card against the CPU, no further apart than the same encoder with bf16
+   weights plus one bf16 ulp; EF_LSTM (GloVe 300 + 35 + 74,
+   hidden 128: 4 `lstm_fwd` + 4 `lstm_bwd` a step, 4 `lstm_fwd` an eval batch and a
+   `Predictor` call), LF_DNN, LMF and TFN with bert-base and `attn_impl="fused"` (12 + 12
+   short attention a step, 12 forward a call; TFN also `fused_ln_dropout`: 24 + 24
+   LayerNorm a step), each `Trainer.train()` for 4 steps at B=64, T=48, then phase 11's
+   eager and captured steps (replays bit-equal), a `Predictor` on its export and a small f32
+   model's gradients on the card against the CPU (1e-4); `cli.etl --data ur_funny` with a
+   GloVe file and a WordPiece vocab through the native library (its build must succeed and
+   its GloVe scan print its line), the native `encode_batch` byte-equal to the Python one;
+14. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -187,13 +214,14 @@ KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-3                  # kernel vs plain recurrence, whole model
 DEVICE_TOL = 1e-4                 # card vs CPU, small f32 model
 # (T, B, H): serving shapes (buckets 16/32/64, batch 64, towers H=35/74),
-# the GloVe tower's H=300 (w_hh_t in global memory), and long T, where the
-# TPU package used its time-chunked streaming kernel
+# the GloVe tower's H=300 (w_hh_t in global memory), long T, where the TPU
+# package used its time-chunked streaming kernel, and EF_LSTM's step (hidden
+# 128 over inputs of 409 and 256: w_hh_t in global memory too)
 CHECK_SHAPES = [(16, 64, 35), (32, 64, 35), (48, 64, 35), (64, 64, 35),
                 (16, 64, 74), (32, 64, 74), (48, 64, 74), (64, 64, 74),
-                (48, 64, 300), (256, 32, 74), (512, 32, 74), (7, 5, 33)]
+                (48, 64, 300), (256, 32, 74), (512, 32, 74), (7, 5, 33), (48, 64, 128)]
 TIMED_SHAPES = [(48, 64, 35), (64, 64, 35), (16, 64, 74), (48, 64, 74), (64, 64, 74),
-                (256, 32, 74), (512, 32, 74)]
+                (256, 32, 74), (512, 32, 74), (48, 64, 128)]
 REPORT_SHAPE = (64, 64, 74)       # the kernels line: largest bucket, wider tower
 REPORT_BWD_SHAPE = (48, 64, 74)   # the training step's wider tower
 LAUNCHES_PER_CALL = 8             # 2 towers x 2 layers x 2 directions
@@ -289,7 +317,38 @@ MULTI_REPORT = (48, 64)
 MULTI_BWD_PARTS = {"gate_pass": "lstm_multi_gates", "bptt": "lstm_multi_bptt",
                    "dw": "lstm_multi_dw"}
 MULTI_LAUNCHES = 2                 # one per stacked layer
-BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 9
+BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 13
+# phase 13: a seeded bert-base checkpoint in HF's names, the zoo's families
+HF_DIR = BUILD / "chip_smoke_hf_bert"
+ZOO_STEPS, ZOO_TIMED = 4, 10
+EF_LAUNCHES = 4                   # one bi-LSTM stack: 2 layers x 2 directions
+SHORT_STEP = {"short_attn_fwd": BERT_LAYERS, "short_attn_bwd": BERT_LAYERS}
+SHORT_PROFILE = ("short_attn_fwd", "short_attn_bwd")
+TRAIN_CONFIGS.update({
+    # the flagship step from the HF checkpoint (the mosei freeze rule), with the
+    # short-attention kernels as phase 9's
+    "hf": {"options": {"attn_impl": "fused", "bert_model_dir": str(HF_DIR / "safetensors")},
+           "steps": ZOO_STEPS, "per_step": TRAIN_CONFIGS["fused"]["per_step"],
+           "per_eval": TRAIN_CONFIGS["fused"]["per_eval"],
+           "profile": TRAIN_CONFIGS["fused"]["profile"]},
+    "ef_lstm": {"options": {"model": "EF_LSTM", "use_bert": False}, "steps": ZOO_STEPS,
+                "timed": ZOO_TIMED,
+                "per_step": {"lstm_fwd": EF_LAUNCHES, "lstm_bwd": EF_LAUNCHES},
+                "per_eval": {"lstm_fwd": EF_LAUNCHES},
+                "profile": TRAIN_CONFIGS["lstm"]["profile"]},
+    "lf_dnn": {"options": {"model": "LF_DNN", "attn_impl": "fused"}, "steps": ZOO_STEPS,
+               "timed": ZOO_TIMED, "per_step": SHORT_STEP,
+               "per_eval": {"short_attn_fwd": BERT_LAYERS}, "profile": SHORT_PROFILE},
+    "lmf": {"options": {"model": "LMF", "attn_impl": "fused"}, "steps": ZOO_STEPS,
+            "timed": ZOO_TIMED, "per_step": SHORT_STEP,
+            "per_eval": {"short_attn_fwd": BERT_LAYERS}, "profile": SHORT_PROFILE},
+    "tfn": {"options": {"model": "TFN", "attn_impl": "fused", "fused_ln_dropout": True},
+            "steps": ZOO_STEPS, "timed": ZOO_TIMED,
+            "per_step": {**SHORT_STEP, "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES},
+            "per_eval": {"short_attn_fwd": BERT_LAYERS},
+            "profile": SHORT_PROFILE + ("ln_dropout_fwd", "ln_dropout_bwd", "ln_dropout_dgb")},
+})
+ZOO = ("ef_lstm", "lf_dnn", "lmf", "tfn")
 
 
 def log(phase: str, **kw) -> None:
@@ -641,6 +700,8 @@ def check_lstm_bwd_kernel(klstm, device) -> dict:
                "parts_ms": bwd_parts(kernel, LSTM_BWD_PARTS),
                "library_dw_max_abs_err": (dw_lib - dw_k).abs().max().item(),
                **lstm_bwd_bound(T, B, H, m)}
+        if isinstance(row["parts_ms"]["bptt"], float):
+            row["bptt_us_per_step"] = row["parts_ms"]["bptt"] * 1e3 / T
         timed.append(row)
         log("3 bwd-kernel-time", **row)
     report = next(r for r in timed if (r["T"], r["B"], r["H"]) == REPORT_BWD_SHAPE)
@@ -1684,10 +1745,11 @@ def kernel_vs_plain_recurrence(cfg, pred, reference) -> float:
     return err
 
 
-def card_vs_cpu(device) -> float:
+def card_vs_cpu(device, **predictor_options) -> float:
     """A small f32 model (tiny BERT, narrow towers) gives the same outputs
     on the card, through the kernels, as on the CPU through the plain
-    versions."""
+    versions; `predictor_options` go to both Predictors (phase 13: int8
+    BERT weights)."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.models import init_misa
     from mmda_tpu_torch.models.bert import BertConfig
@@ -1697,14 +1759,15 @@ def card_vs_cpu(device) -> float:
                  compute_dtype="float32", bucket_sizes=(8, 16), device="cpu")
     model = init_misa(cfg, seed=1, bert_cfg=BertConfig.tiny(vocab_size=30522))
     preds = {d: Predictor(cfg, params=copy.deepcopy(model), bert_cfg=BertConfig.tiny(30522),
-                          max_batch=8, device=d) for d in ("cpu", str(device))}
+                          max_batch=8, device=d, **predictor_options)
+             for d in ("cpu", str(device))}
     reqs = make_requests(spread_lengths(6, cfg.bucket_sizes, 5), cfg, seed=5)
     keys = ("scores", "tcp", "hidden")
     cpu = steady_on_cpu(lambda: [preds["cpu"](reqs)[k] for k in keys])
     card = preds[str(device)](reqs)
     err = max(float(np.abs(a - card[k]).max()) for a, k in zip(cpu, keys))
     if err > DEVICE_TOL:
-        raise AssertionError(f"card vs CPU: {err} > {DEVICE_TOL}")
+        raise AssertionError(f"card vs CPU {predictor_options}: {err} > {DEVICE_TOL}")
     return err
 
 
@@ -1741,9 +1804,9 @@ def train_main_path(counts, kind: str) -> tuple:
     name = f"chip_smoke_train_{kind}"
     B, T, n_steps = (spec.get("batch", TRAIN_B), spec.get("T", TRAIN_T),
                      spec.get("steps", TRAIN_STEPS))
-    cfg = Config(use_bert=True, data="mosei", batch_size=B, max_seq_len=T,
-                 bucket_sizes=(T,), compute_dtype="bfloat16",
-                 n_epoch=1, seed=0, name=name, ckpt_dir=str(BUILD / name), **spec["options"])
+    cfg = Config(**{**dict(use_bert=True, data="mosei", batch_size=B, max_seq_len=T,
+                           bucket_sizes=(T,), compute_dtype="bfloat16", n_epoch=1, seed=0,
+                           name=name, ckpt_dir=str(BUILD / name)), **spec["options"]})
     data = {"train": full_length_split(B * n_steps, 0, T),
             "dev": full_length_split(B, 1, T), "test": full_length_split(B, 2, T)}
     t0 = time.perf_counter()
@@ -1916,21 +1979,23 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
 
 
 def train_card_vs_cpu(device, **options) -> float:
-    """A small f32 model (tiny BERT, hidden 32; `options`: the towers' cell)
-    and one batch with ragged lengths: the step's gradients (dropout off) on
-    the card, through the kernels, against the CPU, through the plain
-    versions."""
+    """A small f32 model (tiny BERT, hidden 32; `options`: the towers' cell,
+    the attention core, the model family) and one batch with ragged
+    lengths: the step's gradients (dropout off) on the card, through the
+    kernels, against the CPU, through the plain versions."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
-    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.models import get_model
     from mmda_tpu_torch.models.bert import BertConfig
     from mmda_tpu_torch.train.step import loss_and_grads
 
     cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
                  device="cpu", **options)
     split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3))
-    model = init_misa(cfg, seed=1, bert_cfg=BertConfig.tiny(vocab_size=30522)).eval()
+    model = get_model(cfg.model)(cfg, bert_cfg=BertConfig.tiny(vocab_size=30522))
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.eval()
 
     def run(dev):
         m = copy.deepcopy(model).to(dev)
@@ -1942,7 +2007,7 @@ def train_card_vs_cpu(device, **options) -> float:
     cpu = steady_on_cpu(lambda: run("cpu"))
     err = max((a - b).abs().max().item() for a, b in zip(cpu, run(device)))
     if err > DEVICE_TOL:
-        raise AssertionError(f"step gradients, card vs CPU: {err} > {DEVICE_TOL}")
+        raise AssertionError(f"step gradients, card vs CPU {options}: {err} > {DEVICE_TOL}")
     return err
 
 
@@ -2804,6 +2869,513 @@ def etl_then_train(counts, device) -> dict:
             "test_acc": summary["test_acc"], "epoch_time_s": summary["history"][0]["epoch_time_s"]}
 
 
+
+# ------------------------------------ phase 13: HF BERT, int8 serving, the zoo, native
+
+
+HF_LAYER = {"q": "attention.self.query", "k": "attention.self.key",
+            "v": "attention.self.value", "attn_out": "attention.output.dense",
+            "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
+            "attn_ln": "attention.output.LayerNorm", "ffn_ln": "output.LayerNorm"}
+HF_EMBEDDINGS = {"word": "word_embeddings.weight", "position": "position_embeddings.weight",
+                 "token_type": "token_type_embeddings.weight"}
+SAFETENSORS_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+                      torch.int64: "I64"}
+
+
+def hf_name(name: str) -> str:
+    """HuggingFace's name of a port `BertEncoder` tensor."""
+    parts = name.split(".")
+    if parts[0] == "embeddings":
+        return "embeddings." + HF_EMBEDDINGS.get(parts[1], f"LayerNorm.{parts[-1]}")
+    if parts[0] == "pooler":
+        return "pooler.dense." + parts[1]
+    _, i, sub, leaf = parts
+    return f"encoder.layer.{i}.{HF_LAYER[sub]}.{leaf}"
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """A `.safetensors` file: the header's length as 8 little-endian bytes,
+    the JSON header (dtype, shape, byte offsets), the raw bytes."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def hf_checkpoint(seed: int = 0) -> dict:
+    """A seeded random bert-base in HF's names with the `bert.` prefix,
+    written under HF_DIR as `safetensors/model.safetensors` and
+    `bin/pytorch_model.bin`; both read back by `load_hf_weights` and held
+    against the written tensors leaf for leaf."""
+    from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, load_hf_weights
+
+    enc = BertEncoder(BertConfig.base())
+    enc.reset_parameters(torch.Generator().manual_seed(seed))
+    port = {n: t.detach().clone() for n, t in enc.state_dict().items()}
+    hf = {"bert." + hf_name(n): t for n, t in port.items()}
+    t0 = time.perf_counter()
+    for sub in ("safetensors", "bin"):
+        (HF_DIR / sub).mkdir(parents=True, exist_ok=True)
+    write_safetensors(HF_DIR / "safetensors" / "model.safetensors", hf)
+    torch.save(hf, HF_DIR / "bin" / "pytorch_model.bin")
+    write_s = time.perf_counter() - t0
+    loaded = {}
+    for sub in ("safetensors", "bin"):
+        t0 = time.perf_counter()
+        got = load_hf_weights(str(HF_DIR / sub))
+        loaded[sub] = time.perf_counter() - t0
+        bad = [n for n, t in port.items() if not bits_equal(got[n], t)]
+        if set(got) != set(port) or bad:
+            raise AssertionError(f"{sub}: loaded tensors differ from the file: {bad[:5]}")
+    return {"tensors": len(port), "parameters": sum(t.numel() for t in port.values()),
+            "bytes": {sub: (HF_DIR / sub / f).stat().st_size for sub, f in (
+                ("safetensors", "model.safetensors"), ("bin", "pytorch_model.bin"))},
+            "write_s": write_s, "load_s": loaded, "port_tensors": port}
+
+
+def eager_step_host_ops(trainer, device, steps: int = 3) -> dict:
+    """Where an eager flagship step's host time goes: `utils.timing.profile`
+    (torch.profiler, its Chrome trace under build/) over `steps` eager
+    steps; per step the wall ms, the self CPU ms of the traced ops by group
+    (ATen ops, autograd's engine nodes, CUDA runtime calls, the port's
+    kernel wrappers and the rest) and the untraced remainder (Python between
+    ops), and the top ops by self CPU time."""
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.train.step import train_step
+    from mmda_tpu_torch.utils.timing import profile
+
+    cfg = trainer.cfg
+    batch = next(iter(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
+                                  bucket_sizes=cfg.bucket_sizes, device=device)))
+
+    def step():
+        train_step(trainer.model, trainer.optimizer, batch, cfg, trainer.generator, trainer.ema)
+
+    step()
+    torch.cuda.synchronize(device)
+    with profile(str(BUILD / "chip_smoke_eager_profile")) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = [(e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0]
+
+    def group(key):
+        if key.startswith("autograd::engine") or key.endswith("Backward0") or \
+                key.endswith("Backward1"):
+            return "autograd_engine"
+        if key.startswith("aten::"):
+            return "aten"
+        if key.startswith("cuda"):
+            return "cuda_runtime"
+        return "other"
+
+    groups: dict = {}
+    for key, ms, _ in rows:
+        groups[group(key)] = groups.get(group(key), 0.0) + ms
+    traced = sum(groups.values())
+    launches = sum(n for key, _, n in rows if key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                       "cudaLaunchKernelExC"))
+    top = sorted(rows, key=lambda r: -r[1])[:15]
+    return {"steps": steps, "wall_ms_per_step_profiled": wall,
+            "self_cpu_ms_per_step_by_group": groups,
+            "untraced_ms_per_step": wall - traced,
+            "kernel_launch_calls_per_step": launches,
+            "cuda_malloc_calls_per_step": sum(n for key, _, n in rows if key == "cudaMalloc"),
+            "top_self_cpu_ms_per_step": [[k[:70], ms, n] for k, ms, n in top]}
+
+
+def hf_train(counts, device, port_tensors: dict) -> tuple:
+    """The flagship step from the HF checkpoint (`bert_model_dir`, mosei
+    freeze rule, attn_impl "fused"), `Trainer.train()` for ZOO_STEPS steps:
+    8 + 8 LSTM and 12 + 12 short-attention launches a step; encoder layers <= 8 still the file's bits after the
+    epoch, a trained layer moved; then the host-side ops of an eager step."""
+    trainer, path = train_main_path(counts, "hf")
+    layers = trainer.model.bert.layers
+    frozen_kept = all(bits_equal(p.detach().cpu(), port_tensors[f"layers.{n}"])
+                      for n, p in layers.named_parameters() if int(n.split(".")[0]) <= 8)
+    moved = [i for i in range(9, len(layers)) if not all(
+        bits_equal(p.detach().cpu(), port_tensors[f"layers.{i}.{n}"])
+        for n, p in layers[i].named_parameters())]
+    if not frozen_kept or not moved:
+        raise AssertionError(f"HF run: layers <= 8 kept the file's values: {frozen_kept}; "
+                             f"trained layers that moved: {moved}")
+    host = eager_step_host_ops(trainer, device)
+    del trainer
+    torch.cuda.empty_cache()
+    return path, {"frozen_layers_kept": True, "trained_layers_moved": moved,
+                  "eager_step_host": host}
+
+
+def hf_cli_train(counts, device) -> dict:
+    """`python -m mmda_tpu_torch.cli.train --data synthetic --bert_model_dir
+    DIR --attn_impl fused --n_epoch 1 --profile_dir P --compiled_epoch True`
+    in this process, the counts read around it (8 + 8 LSTM and 12 + 12
+    short-attention launches a step, 8 `lstm_fwd` and 12 `short_attn_fwd`
+    an eval batch); its Chrome trace names both kernels, counted against
+    the launches (the replays' kernels included); a `Predictor` on its
+    checkpoint answers with finite scores, with one eval batch's launches a
+    call."""
+    import glob
+    import shutil
+
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import get_config
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.serving import Predictor
+
+    name = "chip_smoke_hf_cli"
+    prof_dir = BUILD / "chip_smoke_hf_profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    spec = TRAIN_CONFIGS["fused"]
+    args = ["--data", "synthetic", "--bert_model_dir", str(HF_DIR / "bin"), "--n_epoch", "1",
+            "--attn_impl", "fused", "--profile_dir", str(prof_dir), "--compiled_epoch", "True",
+            "--ckpt_dir", str(BUILD / name), "--name", name]
+    cfg = get_config(argv=args)
+    data, _ = cli_train.load_data(cfg)
+    loaders = {k: ArrayLoader(v, cfg.batch_size, shuffle=False, drop_last=(k == "train"),
+                              bucket_sizes=cfg.bucket_sizes) for k, v in data.items()}
+    steps, evals = len(loaders["train"]), len(loaders["dev"]) + len(loaders["test"])
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    summary = cli_train.main(args)
+    train_s = time.perf_counter() - t0
+    launches = all_launches(counts)
+    want = expected_launches(counts, {k: n * steps + spec["per_eval"].get(k, 0) * evals
+                                      for k, n in spec["per_step"].items()})
+    if launches != want:
+        raise AssertionError(f"cli.train --bert_model_dir: launches {launches}, expected {want}")
+    traces = glob.glob(str(prof_dir / "trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    events = json.loads(pathlib.Path(traces[0]).read_text())["traceEvents"]
+    named = {k: sum(1 for e in events if e.get("cat") == "kernel" and k in e.get("name", ""))
+             for k in ("lstm_fwd_kernel", "lstm_bptt_kernel", "short_attn_fwd",
+                       "short_attn_bwd")}
+    if not all(named.values()):
+        raise AssertionError(f"the trace misses a kernel of the path: {named}")
+    pred = Predictor(cfg, visual_size=35, acoustic_size=74, max_batch=8, device=str(device))
+    reqs = make_requests(spread_lengths(8, cfg.bucket_sizes, 13), cfg, seed=13)
+    counts.reset_launch_count()
+    got = pred(reqs)
+    serve_launches = all_launches(counts)
+    if serve_launches != expected_launches(counts, spec["per_eval"]):
+        raise AssertionError(f"Predictor on the HF run's checkpoint: launches {serve_launches}")
+    check_outputs(got["scores"], got["labels"], got["tcp"], 8, cfg.num_classes, cfg.threshold)
+    for k in launches:
+        launches[k] += serve_launches[k]
+    return {"train_s": train_s, "steps": steps, "eval_batches": evals,
+            "launches": launches, "test_loss": summary["test_loss"],
+            "trace_bytes": pathlib.Path(traces[0]).stat().st_size,
+            "trace_kernel_events": named,
+            "profiler_sees_every_launch": (named["lstm_fwd_kernel"] == want["lstm_fwd"] and
+                                           named["short_attn_fwd"] == want["short_attn_fwd"]),
+            "score_mean": float(np.mean(got["scores"]))}
+
+
+def bert_weight_bytes(pred) -> dict:
+    """Bytes at rest of the Predictor's BERT tower: all of it, and the six
+    encoder denses' weights (int8 `weight_q` or the stored `weight`)."""
+    bert = pred.model.bert
+    dense = 0
+    for lp in bert.layers:
+        for sub in ("q", "k", "v", "attn_out", "ffn_in", "ffn_out"):
+            w = getattr(getattr(lp, sub), "weight_q", None)
+            w = getattr(lp, sub).weight if w is None else w
+            dense += w.numel() * w.element_size()
+    total = sum(t.numel() * t.element_size()
+                for t in itertools.chain(bert.parameters(), bert.buffers()))
+    return {"bert_bytes": total, "encoder_dense_weight_bytes": dense}
+
+
+# the int8 denses of bert-base: the fused QKV, the attention output, the FFN's two
+INT8_DENSES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+INT8_ROWS = TRAIN_B * (TRAIN_T + 2)        # the flagship step's B * S tokens
+INT8_MISMATCH_TOL = 1e-3    # share of outputs not bit-equal to the one-rounding reference:
+                            # f32 summation order flips about 2e-5 of them, a second
+                            # rounding (the product rounded to bf16, then scaled) about 0.24
+INT8_ENCODE_ULPS = 1        # the int8 encoder's card-vs-CPU difference beyond the bf16 one's
+
+
+def int8_dense_bf16(device, d_in: int, d_out: int, rows: int = INT8_ROWS,
+                    seed: int = 0) -> dict:
+    """A bf16 `dense()` on a `QuantizedDense` (random weights and bias, N(0,
+    1) inputs) on the card against the same call on the CPU and against the
+    float64 product scaled and rounded to bf16 once, + bias: at most one bf16
+    ulp + 2^-8 apart, and at most INT8_MISMATCH_TOL of the outputs not
+    bit-equal to that reference.  The product rounded to bf16 before the
+    scale (two roundings) is scored the same way, to show the gate sees it."""
+    from mmda_tpu_torch.models.bert import Dense, dense, quantize_dense
+
+    g = torch.Generator().manual_seed(seed)
+    d = Dense(d_in, d_out)
+    d.reset_parameters(0.02, g)
+    with torch.no_grad():
+        d.bias.normal_(0.0, 0.02, generator=g)
+    q = quantize_dense(d)
+    x = torch.randn(rows, d_in, generator=g).to(torch.bfloat16)
+    bf = torch.bfloat16
+    card = dense(x.to(device), copy.deepcopy(q).to(device), bf).cpu()
+    cpu = steady_on_cpu(lambda: [dense(x, q, bf)])[0]
+    ref = ((x.double() @ q.weight_q.double().t()) * q.scale.double()).to(bf) + q.bias.to(bf)
+    twice = ((x @ q.weight_q.to(bf).t()).float() * q.scale).to(bf) + q.bias.to(bf)
+    err = (card.float() - cpu.float()).abs()
+    over = float((err - (2.0 ** -8 + BF16_ULP * cpu.float().abs())).max())
+    out = {"shape": [rows, d_in, d_out], "max_abs_err_vs_cpu": float(err.max()),
+           "mismatch_vs_cpu": float((card != cpu).float().mean()),
+           "mismatch_vs_one_rounding": float((card != ref).float().mean()),
+           "cpu_mismatch_vs_one_rounding": float((cpu != ref).float().mean()),
+           "two_roundings_mismatch": float((twice != ref).float().mean())}
+    if (over > 0 or out["mismatch_vs_one_rounding"] > INT8_MISMATCH_TOL
+            or out["two_roundings_mismatch"] <= INT8_MISMATCH_TOL):
+        raise AssertionError(f"bf16 int8 dense on the card: {out}")
+    return out
+
+
+def int8_encode_bf16(counts, device, seed: int = 0) -> dict:
+    """A bf16 int8 `bert_encode` at bert-base width, two layers, B=8, S=50,
+    attn_impl "fused" (2 `short_attn_fwd` launches), on the card against
+    the CPU on the same weights and ids, every real row; beside it the same
+    encoder with its bf16 weights unquantized, card against CPU.  bf16 on
+    two devices already parts by a few ulps through two layers (a value on
+    a rounding boundary rounds the other way and LayerNorm carries it on),
+    so int8 is held to that: its largest difference at most the bf16
+    encoder's plus one bf16 ulp of the largest output (INT8_ENCODE_ULPS)."""
+    from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, bert_encode, \
+        quantize_bert_int8
+
+    bcfg = BertConfig(num_layers=2)
+    dense_enc = BertEncoder(bcfg)
+    dense_enc.reset_parameters(torch.Generator().manual_seed(seed))
+    int8_enc = quantize_bert_int8(copy.deepcopy(dense_enc))
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(5, bcfg.vocab_size, size=(8, TRAIN_T + 2)))
+    mask = torch.ones_like(ids)
+    mask[3, 20:] = 0
+    real = mask.bool()
+
+    def run(e, dev):
+        with torch.no_grad():
+            return bert_encode(e, ids.to(dev), mask.to(dev), None, torch.bfloat16,
+                               attn_impl="fused").float().cpu()
+
+    out = {}
+    for name, enc in (("int8", int8_enc), ("bf16", dense_enc)):
+        cpu = steady_on_cpu(lambda: [run(enc, "cpu")])[0]
+        card_enc = copy.deepcopy(enc).to(device)
+        counts.reset_launch_count()
+        card = run(card_enc, device)
+        out[name] = {"max_abs_err": float((card - cpu).abs()[real].max()),
+                     "mismatch": float((card != cpu)[real].float().mean()),
+                     "max_abs_out": float(cpu.abs()[real].max()),
+                     "short_attn_fwd": counts.launch_count("short_attn_fwd")}
+    tol = out["bf16"]["max_abs_err"] + INT8_ENCODE_ULPS * BF16_ULP * out["int8"]["max_abs_out"]
+    out["tol"] = tol
+    if out["int8"]["max_abs_err"] > tol or out["int8"]["short_attn_fwd"] != bcfg.num_layers:
+        raise AssertionError(f"bf16 int8 bert_encode, card vs CPU: {out}")
+    return out
+
+
+def int8_serving(counts, klstm, device) -> dict:
+    """Full-width `Predictor`s on one seeded MISA with attn_impl "fused"
+    and bert_weights_dtype "int8", "bfloat16" and None: 8 `lstm_fwd` and 12
+    `short_attn_fwd` a call; the weight bytes; captured latency at buckets
+    16/32/64, B=64 and B=1; int8's and bf16's max |score difference| from
+    the f32-weight Predictor on the same requests; for int8 each bucket's
+    replay against an eager call, bit for bit, and the eager latencies; then
+    a small f32 int8 model on the card against the CPU (1e-4), and the bf16
+    int8 path's rounding point: each bert-base dense shape on the card
+    against the CPU and a one-rounding reference (`int8_dense_bf16`), and a
+    two-layer bf16 int8 encoder on the card against the CPU."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.serving import Predictor
+
+    cfg = Config(attn_impl="fused")
+    model = init_misa(cfg, seed=0)
+    reqs = make_requests(spread_lengths(40, cfg.bucket_sizes, 321), cfg, seed=321)
+    out, scores = {}, {}
+    launches = expected_launches(counts, {})
+    per_call = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS}
+    for dtype in ("int8", "bfloat16", None):
+        pred = Predictor(cfg, params=copy.deepcopy(model), max_batch=64,
+                         bert_weights_dtype=dtype)
+        counts.reset_launch_count()
+        got = pred(reqs)
+        if all_launches(counts) != expected_launches(counts, per_call):
+            raise AssertionError(f"int8 phase, {dtype}: launches {all_launches(counts)}")
+        for k, n in per_call.items():
+            launches[k] += n
+        check_outputs(got["scores"], got["labels"], got["tcp"], 40, cfg.num_classes,
+                      cfg.threshold)
+        scores[str(dtype)] = got["scores"]
+        row = bert_weight_bytes(pred)
+        if dtype == "int8":
+            row.update(serve_captured_vs_eager(cfg, pred, klstm.lstm_recurrence, device))
+        else:
+            row["captured"] = bucket_latency(cfg, pred, device)
+        out[str(dtype)] = row
+        del pred
+        torch.cuda.empty_cache()
+    for dtype in ("int8", "bfloat16"):
+        out[dtype]["max_abs_score_diff_vs_f32_weights"] = float(
+            np.abs(scores[dtype] - scores["None"]).max())
+    out["card_vs_cpu_int8_err"] = card_vs_cpu(device, bert_weights_dtype="int8")
+    out["dense_bf16"] = [int8_dense_bf16(device, *shape) for shape in INT8_DENSES]
+    out["encode_bf16"] = int8_encode_bf16(counts, device)
+    out["launches"] = launches
+    return out
+
+
+def zoo_family(counts, kind: str, device) -> dict:
+    """One zoo family at full width: `Trainer.train()` for ZOO_STEPS steps
+    at B=64, T=48 (its launches a step and an eval batch), then phase 11's
+    eager and captured steps on that trainer (replays bit-equal, launches a
+    replay, ZOO_TIMED timed each), a `Predictor` on its best-on-dev export
+    (the family's forward launches a call), and a small f32 model's
+    gradients on the card against the CPU."""
+    from mmda_tpu_torch.serving import Predictor
+
+    spec = TRAIN_CONFIGS[kind]
+    trainer, path = train_main_path(counts, kind)
+    captured = captured_steps(trainer, counts, kind, device)
+    cfg, sizes = trainer.cfg, trainer.sizes
+    del trainer
+    torch.cuda.empty_cache()
+    pred = Predictor(cfg, max_batch=64, **sizes)
+    reqs = make_requests(spread_lengths(24, cfg.bucket_sizes, 17), cfg, seed=17)
+    counts.reset_launch_count()
+    got = pred(reqs)
+    serve = all_launches(counts)
+    if serve != expected_launches(counts, spec["per_eval"]):
+        raise AssertionError(f"{kind}: a Predictor call launched {serve}, "
+                             f"expected {spec['per_eval']}")
+    check_outputs(got["scores"], got["labels"], got["tcp"], 24, cfg.num_classes, cfg.threshold)
+    if got["hidden"].shape != (24, cfg.num_classes):
+        raise AssertionError(f"{kind}: hidden output {got['hidden'].shape}")
+    del pred
+    torch.cuda.empty_cache()
+    err = train_card_vs_cpu(device, **{k: v for k, v in spec["options"].items()
+                                       if k != "fused_ln_dropout"})
+    launches = {k: path["launches"][k] + serve[k] for k in path["launches"]}
+    return {"main_path": path, "captured": captured, "serve_launches": serve,
+            "card_vs_cpu_err": err, "launches": launches}
+
+
+def native_etl() -> dict:
+    """The native host library on the ETL path: it builds (`make -C
+    native`: a failure fails here, nothing falls back), `cli.etl --data
+    ur_funny` with a GloVe file and a WordPiece vocab prints the native
+    GloVe scan's line and writes the splits and the table; the native
+    `encode_batch` equals the Python one byte for byte on the corpus's
+    texts and on non-ASCII rows, each timed."""
+    import shutil
+
+    from mmda_tpu_torch.data import load_splits
+    from mmda_tpu_torch.data.etl import native_bridge
+    from mmda_tpu_torch.data.etl.tokenizer import WordPieceTokenizer
+
+    t0 = time.perf_counter()
+    lib = native_bridge.load()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise RuntimeError("the native host library did not build (make -C native)")
+    data_dir = BUILD / "chip_smoke_native"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    words = [f"w{i}" for i in range(2000)]
+    write_urfunny(data_dir / "UR_FUNNY", words=words, seed=1)
+    rng = np.random.default_rng(2)
+    with open(data_dir / "glove.txt", "w") as f:
+        for w in words[::2]:
+            f.write(w + " " + " ".join(f"{v:.5f}" for v in rng.normal(size=300)) + "\n")
+    pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "w"] + [f"##{d}" for d in range(10)] + \
+        words[:100]
+    (data_dir / "vocab.txt").write_text("\n".join(pieces) + "\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mmda_tpu_torch.cli.etl", "--data", "ur_funny",
+                          "--data_dir", str(data_dir), "--word_emb_path",
+                          str(data_dir / "glove.txt"), "--bert_vocab",
+                          str(data_dir / "vocab.txt")], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    etl_s = time.perf_counter() - t0
+    if out.returncode != 0 or "(native scan)" not in out.stdout:
+        raise RuntimeError(f"cli.etl exit {out.returncode}, no native scan line:\n"
+                           f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    scan = next(line for line in out.stdout.splitlines() if "(native scan)" in line)
+    splits = load_splits(str(data_dir / "UR_FUNNY"))
+    emb = np.load(data_dir / "UR_FUNNY" / "glove_emb.npy")
+    tok = WordPieceTokenizer.from_vocab_file(str(data_dir / "vocab.txt"))
+    if tok._native_handle() is None:
+        raise RuntimeError("the WordPiece tokenizer holds no native handle")
+    py = WordPieceTokenizer(tok.vocab, use_native=False)
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(2, 40)))) for _ in range(768)]
+    texts += ["naïve w12 café", "w3 模型 w4", "Ünïcödé"]
+    t0 = time.perf_counter()
+    nat = tok.encode_batch(texts, 66)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = py.encode_batch(texts, 66)
+    python_s = time.perf_counter() - t0
+    if any(a.dtype != b.dtype or a.tobytes() != b.tobytes() for a, b in zip(nat, ref)):
+        raise AssertionError("native encode_batch differs from the Python one")
+    return {"build_or_load_s": build_s, "etl_s": etl_s, "glove_scan_line": scan,
+            "rows": {k: len(v["lengths"]) for k, v in splits.items()},
+            "glove_table": list(emb.shape), "texts": len(texts),
+            "encode_native_s": native_s, "encode_python_s": python_s, "byte_equal": True}
+
+
+def phase13(counts, klstm, device) -> dict:
+    """HF BERT, int8 serving, the zoo's first four families and the native
+    host library (module docstring, phase 13); each part's launches."""
+    t0 = time.perf_counter()
+    ckpt = hf_checkpoint()
+    port_tensors = ckpt.pop("port_tensors")
+    log("13 hf-checkpoint", **ckpt)
+    path, hf = hf_train(counts, device, port_tensors)
+    del port_tensors
+    hf["main_path"] = path
+    log("13 hf-train", **{k: v for k, v in hf.items() if k != "eager_step_host"})
+    log("13 eager-step-host", **hf["eager_step_host"])
+    cli = hf_cli_train(counts, device)
+    log("13 hf-cli-train", **cli)
+    torch.cuda.empty_cache()
+    int8 = int8_serving(counts, klstm, device)
+    for dtype in ("int8", "bfloat16", "None"):
+        log("13 int8-serving", bert_weights_dtype=dtype, **int8[dtype])
+    log("13 int8-card-vs-cpu", max_abs_err=int8["card_vs_cpu_int8_err"], tol=DEVICE_TOL)
+    for row in int8["dense_bf16"]:
+        log("13 int8-dense-bf16", **row)
+    log("13 int8-encode-bf16", **int8["encode_bf16"])
+    zoo = {}
+    for kind in ZOO:
+        torch.cuda.empty_cache()
+        zoo[kind] = zoo_family(counts, kind, device)
+        log("13 zoo", kind=kind, **{k: v for k, v in zoo[kind].items() if k != "captured"})
+        log("13 zoo-captured", **zoo[kind]["captured"])
+    native = native_etl()
+    log("13 native", **native)
+    launches = {name: (hf["main_path"]["launches"][name] + cli["launches"][name]
+                       + int8["launches"][name]
+                       + sum(z["launches"][name] for z in zoo.values()))
+                for name in counts.KERNELS}
+    return {"hf_checkpoint": ckpt, "hf_train": hf, "hf_cli": cli, "int8": int8, "zoo": zoo,
+            "native": native, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3069,8 +3641,13 @@ def main() -> int:
     log("12 etl-train", **etl)
     phase12 = {"stage2": stage2, "grad_accum": accum, "resume": resume, "etl": etl}
 
+    # phase 13: HF BERT, int8 serving, the zoo's first four families, the native library
+    torch.cuda.empty_cache()
+    p13 = phase13(counts, klstm, device)
+    log("13 seconds", seconds=p13["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
-    # cli.infer, the tower pair, phase 12's runs)
+    # cli.infer, the tower pair, phase 12's and 13's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
     launches = {name: sum(t["main_path"]["launches"][name]
                           + t["compiled_train"]["launches"][name] for t in trains.values())
@@ -3078,6 +3655,7 @@ def main() -> int:
                 + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
+                + p13["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -3127,7 +3705,8 @@ def main() -> int:
         "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
-        "captured_serve": captured_serve, "phase12": phase12, "kernels": kernels},
+        "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
+        "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,8 @@ trainer), scores a split in batches of `--batch_size` rows in file order,
 prints the emotion metrics and writes
 `{ckpt_dir}/predictions_{name}_{mode}.npz` with the arrays `scores`,
 `labels`, `truths`, `tcp` and `hidden` (the fused [private_t, private_v,
-private_a, shared_t, shared_v, shared_a] vectors), one row per real example.
+private_a, shared_t, shared_v, shared_a] vectors; the scores for a family
+without them), one row per real example.  Any registered `--model`.
 It runs on the card by default; `--device cpu` is the only way onto the CPU.
 
 Usage:
@@ -65,10 +66,12 @@ def main(argv=None) -> dict:
         keep = static_modality_keep(cfg, batch.emo_label.shape[0], device)
         with torch.inference_mode():
             out = model(batch, keep)
-            # the hidden export sees every modality, as the JAX package's does
+            # the hidden export sees every modality, as the JAX package's does;
+            # a family without the shared/private factorization exports its scores
             full = out if keep is None else model(batch)
-            hidden = torch.cat([full.private_t, full.private_v, full.private_a,
-                                full.shared_t, full.shared_v, full.shared_a], dim=1)
+            hidden = (full.scores if full.shared_t is None else
+                      torch.cat([full.private_t, full.private_v, full.private_a,
+                                 full.shared_t, full.shared_v, full.shared_a], dim=1))
             found = {"scores": out.scores, "labels": out.labels, "tcp": out.tcp,
                      "hidden": hidden}
             widths = [v.shape[1] for v in found.values()]

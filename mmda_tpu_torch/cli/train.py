@@ -15,7 +15,13 @@ flags do; `--scan_chunk` is accepted and inert (a replay is one step).
 True --confid_two_stage True [--n_epoch_stage2 N]` retrains the confidence
 head alone after the main run (the ConfidNet recipe); the `last_{name}`
 snapshot lands every `--ckpt_interval` epochs and on SIGTERM/SIGINT, and
-`--resume True` carries on from it.
+`--resume True` carries on from it.  `--bert_model_dir DIR` starts the BERT
+tower from a HuggingFace checkpoint (`model.safetensors` or
+`pytorch_model.bin`); `--profile_dir DIR` traces each run's `train()` with
+torch.profiler into a Chrome trace there; `--debug_nans True` raises on the
+op that makes a NaN (`utils/timing.py::debug_mode`), and it and
+`--disable_jit True` run the steps and evals eager (no CUDA graph), as JAX
+runs them op by op.
 
 Usage:
   python -m mmda_tpu_torch.cli.etl --data mosei --data_dir DIR       # the splits, once
@@ -25,11 +31,13 @@ Usage:
       --confid_two_stage True
   python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 2      # no data files
   python -m mmda_tpu_torch.cli.train --data synthetic --compiled_epoch True
+  python -m mmda_tpu_torch.cli.train --data synthetic --bert_model_dir DIR --profile_dir P
   python -m mmda_tpu_torch.cli.train --data synthetic --device cpu --use_bert False
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
@@ -56,10 +64,15 @@ def main(argv=None) -> dict:
     from mmda_tpu_torch.config import get_config
     from mmda_tpu_torch.train.loop import Trainer
     from mmda_tpu_torch.utils.logging import MetricLogger
+    from mmda_tpu_torch.utils.timing import debug_mode, profile
 
     cfg = get_config(argv=argv)
     if cfg.use_wandb and "wandb" not in cfg.log_sinks:
         cfg = cfg.replace(log_sinks=tuple(cfg.log_sinks) + ("wandb",))
+    if (cfg.debug_nans or cfg.disable_jit) and (cfg.compiled_epoch or cfg.compiled_eval):
+        print("debug_nans / disable_jit: steps and evals run eager "
+              "(compiled_epoch=False, compiled_eval=False)")
+        cfg = cfg.replace(compiled_epoch=False, compiled_eval=False)
     print(cfg)
     data, pretrained_emb = load_data(cfg)
 
@@ -70,7 +83,9 @@ def main(argv=None) -> dict:
                                                       name=f"{cfg.name}_r{i}")
         logger = MetricLogger(run_cfg.log_sinks, run_name=run_cfg.name)
         trainer = Trainer(run_cfg, data, pretrained_emb=pretrained_emb, logger=logger)
-        summaries.append(trainer.train())
+        debug = debug_mode() if cfg.debug_nans else contextlib.nullcontext()
+        with debug, profile(run_cfg.profile_dir):
+            summaries.append(trainer.train())
         logger.close()
     summary = summaries[-1]
     if n_runs > 1:

@@ -1,14 +1,17 @@
 """Carry the JAX package's parameters across into the port's modules.
 
-The JAX tree (`mmda_tpu.models.misa.init_misa_params`, or a best-on-dev
-export read by `train/checkpoint.py`) maps leaf by leaf onto the port's
-parameter names:
+The JAX tree of any registered family (`mmda_tpu.models.misa.init_misa_params`,
+the zoo's `init_*_params`: EF_LSTM's `fused_extractor` and heads, the pooled
+families' `enc_t`/`enc_v`/`enc_a`, LMF's factors and fusion bias, TFN's
+`post_*` and `fusion`; or a best-on-dev export read by
+`train/checkpoint.py`) maps leaf by leaf onto the port's parameter names:
 
 * `.../kernel` (in, out)   -> `.../weight` (out, in), transposed
   (linear layers, BERT denses, the fusion layer's in/out projections);
 * `.../scale`              -> `.../weight` (LayerNorms);
 * every other leaf keeps its name: biases, LSTM `w_ih`/`w_hh`/`b_ih`/`b_hh`
-  (already in torch layout), BERT embedding tables, the GloVe table.
+  (already in torch layout), BERT embedding tables, the GloVe table, LMF's
+  (R, H+1, H) factors.
 
 Lists (BERT layers) flatten by index; a fastser file's '0', '1', ... keys
 flatten the same way.  Any leaf the port has no parameter for, any port

@@ -1,8 +1,9 @@
 """Segment-level ETL core shared by all dataset builders.
 
-The port's own copy of `mmda_tpu/data/etl/segments.py`, numpy only (the
-packing loops the JAX package can hand to its C++ library run in Python
-here, with the same result).
+The port's own copy of `mmda_tpu/data/etl/segments.py`: `pack_split` packs
+the word ids and the feature streams in the repository's C++ library
+(`native_bridge.pack_tokens` / `pack_floats`), else (`use_native=False`, or
+a host without make or a C++ compiler) in Python, with the same result.
 
 Reproduces the reference per-segment pipeline (src/create_dataset.py:157-199 /
 :339-394) on generic records, with mmsdk needed only by the collectors:
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from mmda_tpu_torch.data.etl import native_bridge
 from mmda_tpu_torch.data.etl.vocab import PAD, Vocab
 
 EPS = 1e-6
@@ -139,6 +141,7 @@ def pack_split(
     max_len: int,
     tokenizer,
     num_classes: int = 6,
+    use_native: bool = True,
     aligned: bool = True,
     max_len_visual: Optional[int] = None,
     max_len_acoustic: Optional[int] = None,
@@ -150,19 +153,27 @@ def pack_split(
     mlv = (max_len_visual or max_len) if not aligned else max_len
     mla = (max_len_acoustic or max_len) if not aligned else max_len
 
+    lib = native_bridge.load() if use_native else None
+
     def pack_f(feats, ml):
+        if lib is not None:
+            return native_bridge.pack_floats(lib, feats, ml, znorm=False)
         out = np.zeros((n, ml, feats[0].shape[1]), np.float32)
         for i, f in enumerate(feats):
             L = min(len(f), ml)
             out[i, :L] = f[:L]
         return out
 
-    text = np.full((n, max_len), PAD, np.int32)
-    lengths = np.zeros(n, np.int32)
-    for i, s in enumerate(segments):
-        L = min(len(s.words), max_len)
-        text[i, :L] = s.words[:L]
-        lengths[i] = L
+    if lib is not None:
+        text, lengths = native_bridge.pack_tokens(
+            lib, [s.words for s in segments], max_len, PAD)
+    else:
+        text = np.full((n, max_len), PAD, np.int32)
+        lengths = np.zeros(n, np.int32)
+        for i, s in enumerate(segments):
+            L = min(len(s.words), max_len)
+            text[i, :L] = s.words[:L]
+            lengths[i] = L
 
     visual = pack_f([s.visual for s in segments], mlv)
     acoustic = pack_f([s.acoustic for s in segments], mla)

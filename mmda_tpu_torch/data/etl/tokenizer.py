@@ -3,10 +3,13 @@
 The port's own copy of the pure-Python path of
 `mmda_tpu/data/etl/tokenizer.py`: BasicTokenizer (lowercase, accent-strip,
 punctuation split, CJK spacing) + WordPiece greedy longest-match with '##'
-continuations, then [CLS] ... [SEP] + pad.  Needs only a vocab.txt.  The
-C++ batch encoder behind the JAX package's `native_bridge` is not ported
-yet; `encode_batch` runs the Python path row by row.  `HashTokenizer` is
-the ETL's stand-in when no BERT vocab file is given.
+continuations, then [CLS] ... [SEP] + pad.  Needs only a vocab.txt.
+`encode_batch` runs the ASCII rows through the repository's C++ batch
+encoder (`native_bridge.WordPieceHandle`, built at first use, the same
+bytes) and every row with non-ASCII text through the Python path, row by
+row, as the JAX package does; `use_native=False`, or a host without
+make or a C++ compiler, runs every row in Python.  `HashTokenizer` is the
+ETL's stand-in when no BERT vocab file is given.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import unicodedata
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from mmda_tpu_torch.data.etl import native_bridge
 
 
 def _is_punct(ch: str) -> bool:
@@ -46,10 +51,12 @@ def _clean(text: str) -> str:
 
 class WordPieceTokenizer:
     def __init__(self, vocab: Dict[str, int], lowercase: bool = True,
-                 max_chars_per_word: int = 100):
+                 max_chars_per_word: int = 100, use_native: bool = True):
         self.vocab = vocab
         self.lowercase = lowercase
         self.max_chars = max_chars_per_word
+        self.use_native = use_native
+        self._native = None       # the C++ vocab handle, built at first use
         self.unk = vocab.get("[UNK]", 100)
         self.cls = vocab.get("[CLS]", 101)
         self.sep = vocab.get("[SEP]", 102)
@@ -135,14 +142,32 @@ class WordPieceTokenizer:
         types = np.zeros(max_length, np.int32)
         return input_ids, types, mask
 
+    def _native_handle(self):
+        if self._native is None and self.use_native and self.max_chars == 100:
+            lib = native_bridge.load()
+            if lib is not None:
+                self._native = native_bridge.WordPieceHandle(lib, self.vocab)
+            else:
+                self.use_native = False
+        return self._native
+
     def encode_batch(self, texts: List[str], max_length: int):
         """Encode rows; returns (input_ids, token_type_ids, attention_mask),
-        each (len(texts), max_length) int32."""
+        each (len(texts), max_length) int32.  ASCII rows go through the C++
+        encoder; a row it flags (non-ASCII text) through `encode`."""
+        out_types = np.zeros((len(texts), max_length), np.int32)
+        handle = self._native_handle()
+        if handle is not None and texts:
+            out_ids, out_mask, fallback = handle.encode_batch(
+                texts, max_length, self.lowercase, self.unk, self.cls, self.sep, self.pad)
+            for i in np.nonzero(fallback)[0]:
+                out_ids[i], _, out_mask[i] = self.encode(texts[i], max_length)
+            return out_ids, out_types, out_mask
         out_ids = np.empty((len(texts), max_length), np.int32)
         out_mask = np.empty((len(texts), max_length), np.int32)
         for i, t in enumerate(texts):
             out_ids[i], _, out_mask[i] = self.encode(t, max_length)
-        return out_ids, np.zeros((len(texts), max_length), np.int32), out_mask
+        return out_ids, out_types, out_mask
 
 
 class HashTokenizer:

@@ -1,8 +1,9 @@
 """Vocabulary + GloVe embedding matrix.
 
-The port's own copy of `mmda_tpu/data/etl/vocab.py`, numpy only: the GloVe
-scan is the Python loop (the JAX package's C++ scan behind `native_bridge`
-gives the same matrix and is not ported).
+The port's own copy of `mmda_tpu/data/etl/vocab.py`: the GloVe scan runs in
+the repository's C++ library (`native_bridge.glove_scan`), else
+(`use_native=False`, or a host without make or a C++ compiler) in the
+Python loop, with the same matrix.
 
 Reference semantics (src/create_dataset.py:25-51):
   * growing word->id map with <unk>=0, <pad>=1, frozen to UNK after build;
@@ -17,6 +18,8 @@ import os
 from typing import Dict
 
 import numpy as np
+
+from mmda_tpu_torch.data.etl import native_bridge
 
 UNK = 0
 PAD = 1
@@ -70,6 +73,7 @@ def load_glove(
     path: str,
     embedding_size: int = 300,
     seed: int = 0,
+    use_native: bool = True,
 ) -> np.ndarray:
     """Fill a (len(vocab), embedding_size) matrix from a GloVe text file.
 
@@ -78,6 +82,12 @@ def load_glove(
     """
     rng = np.random.default_rng(seed)
     emb = rng.standard_normal((len(vocab), embedding_size)).astype(np.float64)
+
+    lib = native_bridge.load() if use_native else None
+    if lib is not None:
+        found = native_bridge.glove_scan(lib, vocab.word2id, path, emb)
+        print(f"Found {found} words in the embedding file (native scan).")
+        return emb.astype(np.float32)
 
     found = 0
     with open(path, "r", encoding="utf-8", errors="ignore") as f:

@@ -32,15 +32,23 @@ compute dtype); `attn_impl="fused"` through the short-sequence kernels of
 `ops/kernels/short_attention.py` (all of one (batch item, head) at once, q,
 k, v in the compute dtype, the (B, S) key bias, the probs dropout drawn in
 the kernel under a per-layer seed drawn on the device, the result in the
-compute dtype); "xla" (the default) is the dense S x S core.  MoE FFNs and
-int8 weights are not ported yet.
+compute dtype); "xla" (the default) is the dense S x S core.
+
+`load_hf_weights` reads a HuggingFace bert checkpoint directory
+(`model.safetensors`, read by `utils/safetensors_io.py`, or
+`pytorch_model.bin`) into the encoder's state dict: HF's (out, in) dense
+weights are already the port's layout, so nothing is transposed (the JAX
+package stores their transpose).  `quantize_bert_int8` turns the six encoder
+denses of every layer into `QuantizedDense` (weight-only int8, one f32 scale
+per output channel) for serving.  MoE FFNs are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+import os
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -50,6 +58,7 @@ from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
 from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 from mmda_tpu_torch.ops.kernels.short_attention import short_attention
+from mmda_tpu_torch.utils import safetensors_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +109,22 @@ def apply_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y + bias.to(compute_dtype)
 
 
+def apply_quantized_dense(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 dense, as the JAX package's `_apply_dense` computes it:
+    x @ weight_q.T with the int8 values in compute_dtype (exact) and f32
+    accumulation, kept in f32; times the per-output-channel scale in f32;
+    one rounding to compute_dtype; + bias in compute_dtype.  On the card a
+    16-bit product keeps its f32 result (`out_dtype`); elsewhere the f32
+    product of the same operands (exact in f32) is the same sum."""
+    if x.is_cuda and compute_dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), weight_q.to(compute_dtype).t(),
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = torch.matmul(x.float(), weight_q.float().t())
+    return (y * scale.float()).to(compute_dtype) + bias.to(compute_dtype)
+
+
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     with torch.no_grad():
         nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
@@ -115,6 +140,33 @@ class Dense(nn.Module):
         _trunc_normal_(self.weight, std, generator)
         with torch.no_grad():
             self.bias.zero_()
+
+
+class QuantizedDense(nn.Module):
+    """A `Dense` with weight-only int8 storage (`quantize_dense`): buffers
+    `weight_q` (out, in) int8 and `scale` (out,) f32, the bias as loaded."""
+
+    def __init__(self, weight_q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("scale", scale)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+
+
+def quantize_dense(d: Dense) -> QuantizedDense:
+    """Per output channel, symmetric: s = max(max |w| over the inputs / 127,
+    1e-8), w_q = clip(round(w / s), -127, 127) (round half to even, as
+    `jnp.round`), in f32 from the loaded weight."""
+    w = d.weight.detach().float()
+    s = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-8)
+    wq = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    return QuantizedDense(wq, s, d.bias.detach().clone())
+
+
+def dense(x: torch.Tensor, d: nn.Module, compute_dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(d, QuantizedDense):
+        return apply_quantized_dense(x, d.weight_q, d.scale, d.bias, compute_dtype)
+    return apply_dense(x, d.weight, d.bias, compute_dtype)
 
 
 class BertEmbeddings(nn.Module):
@@ -176,6 +228,82 @@ class BertEncoder(nn.Module):
                            compute_dtype, training, generator, attn_impl)
 
 
+_QUANT_DENSE_NAMES = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
+
+
+def quantize_bert_int8(p: BertEncoder) -> BertEncoder:
+    """Weight-only int8 for serving (`mmda_tpu.models.bert.quantize_bert_int8`):
+    the six denses of every encoder layer become `QuantizedDense`, in place;
+    the embeddings, LayerNorms and pooler stay as loaded.  Returns `p`."""
+    for lp in p.layers:
+        for name in _QUANT_DENSE_NAMES:
+            d = getattr(lp, name)
+            if isinstance(d, Dense):
+                setattr(lp, name, quantize_dense(d))
+    return p
+
+
+_HF_LAYER_MAP = {
+    "q": "attention.self.query",
+    "k": "attention.self.key",
+    "v": "attention.self.value",
+    "attn_out": "attention.output.dense",
+    "ffn_in": "intermediate.dense",
+    "ffn_out": "output.dense",
+}
+
+
+def load_hf_weights(model_dir: str, cfg: Optional[BertConfig] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The state dict of a `BertEncoder(cfg)` from a local HuggingFace bert
+    checkpoint: `model_dir` holds `model.safetensors` or `pytorch_model.bin`
+    (read with `weights_only=True`: the file is a pickle), its names with or
+    without the `bert.` prefix.  The tensors keep the file's dtype.  Raises
+    FileNotFoundError without either file and KeyError for a missing
+    tensor."""
+    cfg = cfg or BertConfig.base()
+    st_path = os.path.join(model_dir, "model.safetensors")
+    pt_path = os.path.join(model_dir, "pytorch_model.bin")
+    if os.path.exists(st_path):
+        sd = safetensors_io.load_file(st_path)
+    elif os.path.exists(pt_path):
+        sd = torch.load(pt_path, map_location="cpu", weights_only=True)
+    else:
+        raise FileNotFoundError(f"no bert weights under {model_dir}")
+
+    def g(name):
+        for prefix in ("bert.", ""):
+            if prefix + name in sd:
+                return sd[prefix + name]
+        raise KeyError(name)
+
+    out = {"embeddings.word": g("embeddings.word_embeddings.weight"),
+           "embeddings.position": g("embeddings.position_embeddings.weight"),
+           "embeddings.token_type": g("embeddings.token_type_embeddings.weight"),
+           "embeddings.ln.weight": g("embeddings.LayerNorm.weight"),
+           "embeddings.ln.bias": g("embeddings.LayerNorm.bias"),
+           "pooler.weight": g("pooler.dense.weight"),
+           "pooler.bias": g("pooler.dense.bias")}
+    for i in range(cfg.num_layers):
+        base = f"encoder.layer.{i}."
+        for ours, theirs in _HF_LAYER_MAP.items():
+            out[f"layers.{i}.{ours}.weight"] = g(base + theirs + ".weight")
+            out[f"layers.{i}.{ours}.bias"] = g(base + theirs + ".bias")
+        for ours, theirs in (("attn_ln", "attention.output.LayerNorm"),
+                             ("ffn_ln", "output.LayerNorm")):
+            out[f"layers.{i}.{ours}.weight"] = g(base + theirs + ".weight")
+            out[f"layers.{i}.{ours}.bias"] = g(base + theirs + ".bias")
+    return out
+
+
+def load_hf_encoder(p: BertEncoder, model_dir: str) -> BertEncoder:
+    """Copy the checkpoint in `model_dir` into `p` (cast to its dtypes); a
+    tensor of the wrong shape, or one missing, raises.  Returns `p`."""
+    with torch.no_grad():
+        p.load_state_dict(load_hf_weights(model_dir, p.cfg), strict=True)
+    return p
+
+
 def freeze_layers(p: BertEncoder, max_frozen_layer: int = 8) -> None:
     """Stop training encoder layers 0..max_frozen_layer (the reference's
     freeze rule; `mmda_tpu.models.bert.frozen_mask`)."""
@@ -228,9 +356,15 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
             return out.reshape(B, S, H).to(cd)
         return layer_norm(x + drop(h, cfg.hidden_dropout), ln.weight, ln.bias, eps).to(cd)
 
-    qkv_w = torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0)
     qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
-    q, k, v = apply_dense(x, qkv_w, qkv_b, cd).split(H, dim=-1)
+    if isinstance(lp.q, QuantizedDense):      # the per-channel scales concatenate too
+        qkv = apply_quantized_dense(
+            x, torch.cat([lp.q.weight_q, lp.k.weight_q, lp.v.weight_q], dim=0),
+            torch.cat([lp.q.scale, lp.k.scale, lp.v.scale]), qkv_b, cd)
+    else:
+        qkv = apply_dense(x, torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0),
+                          qkv_b, cd)
+    q, k, v = qkv.split(H, dim=-1)
 
     def heads(t):
         return t.reshape(B, S, nh, hd).transpose(1, 2).reshape(B * nh, S, hd)
@@ -253,16 +387,14 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
     else:
         raise ValueError(f"attn_impl must be xla|flash|fused, got {attn_impl!r}")
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
-    x = residual_ln(x, apply_dense(ctx, lp.attn_out.weight, lp.attn_out.bias, cd),
-                    lp.attn_ln)
+    x = residual_ln(x, dense(ctx, lp.attn_out, cd), lp.attn_ln)
 
-    h = apply_dense(x, lp.ffn_in.weight, lp.ffn_in.bias, cd)
+    h = dense(x, lp.ffn_in, cd)
     if cfg.gelu_exact:
         h = F.gelu(h.float(), approximate="none")
     else:
         h = F.gelu(h, approximate="tanh")
-    return residual_ln(x, apply_dense(h.to(cd), lp.ffn_out.weight, lp.ffn_out.bias, cd),
-                       lp.ffn_ln)
+    return residual_ln(x, dense(h.to(cd), lp.ffn_out, cd), lp.ffn_ln)
 
 
 def bert_encode(p: BertEncoder, input_ids: torch.Tensor,

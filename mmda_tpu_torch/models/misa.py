@@ -25,7 +25,8 @@ from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
 from mmda_tpu_torch.models.bilstm import extract_features_pair
 from mmda_tpu_torch.models.common import LayerNorm, Linear, TransformerLayer, dropout
 from mmda_tpu_torch.models.extractors import make_tower
-from mmda_tpu_torch.ops.functions import binarize, get_activation, masked_mean, reverse_grad
+from mmda_tpu_torch.ops.functions import (binarize, get_activation, lookup, masked_mean,
+                                          reverse_grad)
 
 
 class MISAOutput(NamedTuple):
@@ -54,6 +55,19 @@ class MISAOutput(NamedTuple):
     fusion_attn: Optional[torch.Tensor] = None   # (B, nh, 6, 6)
     moe_aux: Optional[Dict] = None
     model_aux: Optional[Dict] = None
+
+
+def classifier_output(cfg, logits: torch.Tensor, tcp: torch.Tensor) -> MISAOutput:
+    """The `MISAOutput` of a family without MISA's shared/private
+    factorization (EF_LSTM, LF_DNN, LMF, TFN): scores, labels and tcp, every
+    other field None (the objective then drops diff, sim and recon)."""
+    if cfg.resolved_task() == "regression":
+        scores = logits.float()
+        labels = scores
+    else:
+        scores = torch.sigmoid(logits)
+        labels = binarize(scores, cfg.threshold)
+    return MISAOutput(scores, labels, tcp, *[None] * 19)
 
 
 class Batch(NamedTuple):
@@ -189,7 +203,7 @@ class MISA(nn.Module):
                                                       seq_len=batch.bert_ids.shape[1]))
             utt_text = masked_mean(hidden.float(), batch.bert_mask)
         else:
-            emb = self.embed[batch.text].to(cd)
+            emb = lookup(self.embed, batch.text).to(cd)
             if modality_keep is not None:
                 emb = emb * modality_keep.to(cd)[:, 0][:, None, None]
             utt_text = self.text_extractor(emb, batch.lengths, recurrence)

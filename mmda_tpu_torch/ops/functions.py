@@ -62,6 +62,14 @@ def binarize(scores: torch.Tensor, threshold: float = 0.35) -> torch.Tensor:
     return (scores > threshold).to(scores.dtype)
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] with each id clamped into the table, as the JAX package's
+    gather reads an out-of-range id: the last row (or the first).  A word id
+    of a dev or test split can lie beyond a GloVe table sized from the train
+    split."""
+    return table[ids.clamp(0, table.shape[0] - 1)]
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """sum(mask * x, dim) / sum(mask, dim) -- no epsilon: the BERT mask always
     holds the CLS/SEP tokens."""

@@ -8,14 +8,19 @@ padding and outputs:
     the real rows;
   * returns scores, binarized labels, ConfidNet confidence and the fused
     hidden representation [private_t, private_v, private_a, shared_t,
-    shared_v, shared_a] per utterance, trimmed to the request count, with one
-    device-to-host copy per call.
+    shared_v, shared_a] per utterance (the scores again for a family
+    without that factorization), trimmed to the request count, with one
+    device-to-host copy per call;
+  * any registered family (`get_model(cfg.model)`).
 
 With `compute_dtype="bfloat16"` on CUDA the BERT tower's weights of two or
 more dimensions are stored in bf16 (the JAX package does so on the TPU):
 every BERT product computes in bf16 anyway, so f32 storage would only double
-the weight bytes read per call.  Sharded (`mesh`) and int8 serving are not
-ported.
+the weight bytes read per call.  `bert_weights_dtype="int8"` quantizes the
+six denses of every encoder layer from the loaded weights
+(`models/bert.py::quantize_bert_int8`: int8 buffers, one f32 scale per
+output channel) and, as in the JAX package, leaves every other BERT weight
+as loaded.  Sharded (`mesh`) serving is not ported.
 
 On CUDA a call runs as a CUDA graph, one per bucket shape (the counterpart
 of the JAX package's jit per bucket): the padded batch is copied into device
@@ -40,7 +45,7 @@ import torch.nn as nn
 from mmda_tpu_torch.config import Config, resolve_device, set_reference_numerics
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
-from mmda_tpu_torch.models.bert import BertConfig, bert_config_for
+from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, quantize_bert_int8
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.step import StepGraphs, graph_pool
 
@@ -94,7 +99,8 @@ class Predictor:
         raises.  overflow: 'error' raises RequestTooLongError for a request
         longer than the largest bucket, 'truncate' keeps its first tokens.
         bert_weights_dtype: 'auto' stores BERT in bf16 on CUDA when the
-        compute dtype is bf16; None keeps the loaded dtypes."""
+        compute dtype is bf16; 'int8' quantizes the encoder denses (in
+        place, on a model passed in); None keeps the loaded dtypes."""
         if overflow not in ("error", "truncate"):
             raise ValueError(f"overflow must be 'error'|'truncate', got {overflow!r}")
         self.device = resolve_device(device or cfg.device)
@@ -121,13 +127,18 @@ class Predictor:
             bert_weights_dtype = (
                 "bfloat16" if (self.device.type == "cuda"
                                and cfg.compute_dtype == "bfloat16") else None)
-        if bert_weights_dtype == "int8":
-            raise NotImplementedError("int8 BERT serving is not ported yet")
-        if bert_weights_dtype and getattr(self.model, "bert", None) is not None:
+        bert = getattr(self.model, "bert", None)
+        if bert_weights_dtype == "int8" and bert is not None:
+            quantize_bert_int8(bert)                # from the loaded (f32) weights
+            bert_weights_dtype = None
+        if bert_weights_dtype and bert is not None:
             wdt = getattr(torch, bert_weights_dtype)
             for p in self.model.bert.parameters():
                 if p.dim() >= 2 and p.dtype == torch.float32:
                     p.data = p.data.to(wdt)
+        # MISA returns the shared/private representations; the zoo's
+        # families return None there and serve their scores as `hidden`
+        self._factorized = hasattr(self.model, "shared")
         self._stats = {"requests": 0, "utterances": 0, "seconds": 0.0}
         # the bucket shapes' graphs (CUDA only); one call at a time owns them
         self._graphs = (StepGraphs(lambda b: {"packed": self._forward(b)}, self.device,
@@ -266,15 +277,16 @@ class Predictor:
 
     def _widths(self) -> list:
         C = self.cfg.num_classes
-        return [C, C, C, 6 * self.cfg.hidden_size]
+        return [C, C, C, 6 * self.cfg.hidden_size if self._factorized else C]
 
     def _forward(self, batch: Batch, recurrence=None) -> torch.Tensor:
-        """scores, labels, tcp and the fused hidden representation, packed
-        side by side as f32 (`_widths`)."""
+        """scores, labels, tcp and the hidden representation, packed side by
+        side as f32 (`_widths`)."""
         out = self.model(batch, recurrence=recurrence)
-        parts = (out.scores, out.labels, out.tcp, out.private_t, out.private_v,
-                 out.private_a, out.shared_t, out.shared_v, out.shared_a)
-        return torch.cat([v.float() for v in parts], dim=1)
+        hidden = ((out.private_t, out.private_v, out.private_a, out.shared_t, out.shared_v,
+                   out.shared_a) if self._factorized else (out.scores,))
+        return torch.cat([v.float() for v in (out.scores, out.labels, out.tcp, *hidden)],
+                         dim=1)
 
     @property
     def stats(self) -> Dict[str, float]:

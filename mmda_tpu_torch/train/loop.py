@@ -42,8 +42,13 @@ eager steps (no graph, as JAX runs its stage 2 by the per-step jit), the
 trainer's generator going on; the result replaces the best export and the
 test split is evaluated again (through the shadow when there is one).
 
-Options that need what the port does not have yet raise `ValueError` at
-construction, naming their ROADMAP item (`unsupported`).
+`bert_model_dir` loads a HuggingFace bert checkpoint into the BERT tower
+after the seeded init and before the freeze rules, so the frozen layers and
+the `last_*` frozen base hold the file's weights.  `profile_dir` is read by
+`cli/train.py`, which traces `train()` (`utils/timing.py::profile`).
+Options that need what the port does not have yet (MoE BERT, the parallel
+modes, the orbax backend) raise `ValueError` at construction, naming their
+ROADMAP item (`unsupported`).
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ from mmda_tpu_torch.config import resolve_device
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.data.loader import ArrayLoader, auto_bucket_sizes, to_device
 from mmda_tpu_torch.models import get_model
-from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, freeze_layers
+from mmda_tpu_torch.models.bert import (BertConfig, bert_config_for, freeze_layers,
+                                         load_hf_encoder)
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
 from mmda_tpu_torch.train.step import (eval_step, graph_pool, make_eval_graph,
@@ -94,8 +100,6 @@ def unsupported(cfg) -> List[str]:
         (cfg.zero1, f"zero1 ({q}: parallel modes)"),
         (cfg.fsdp, f"fsdp ({q}: parallel modes)"),
         (cfg.ckpt_backend != "msgpack", f"ckpt_backend={cfg.ckpt_backend} ({q}: parallel modes)"),
-        (cfg.bert_model_dir is not None, f"bert_model_dir (HF weight loading; {q})"),
-        (cfg.profile_dir is not None, f"profile_dir ({q}: profiler hook)"),
     ]
     return [msg for bad, msg in checks if bad]
 
@@ -138,6 +142,8 @@ class Trainer:
         if pretrained_emb is not None and not cfg.use_bert:
             with torch.no_grad():
                 model.embed.copy_(torch.as_tensor(pretrained_emb))
+        if cfg.use_bert and cfg.bert_model_dir:
+            load_hf_encoder(model.bert, cfg.bert_model_dir)
         self.model = model.to(self.device)
         self._freeze(pretrained_emb is not None)
         # the JAX trainer builds a frozen mask (and snapshots incrementally)

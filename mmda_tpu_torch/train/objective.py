@@ -3,7 +3,9 @@
 total = cls + diff_weight * diff + sim_weight * (cmd if use_cmd_sim else
 domain) + recon_weight * recon [+ conf_weight * conf under use_confidNet].
 
-`conf` is computed every step for logging, as the reference does, and may be
+A family without MISA's shared/private factorization (`out.shared_t is
+None`: EF_LSTM, LF_DNN, LMF, TFN) has diff, sim and recon 0, as in the JAX
+objective.  `conf` is computed every step for logging, as the reference does, and may be
 inf when a class has no positive in the batch; it enters `total` only under
 use_confidNet.  The sp logits carry no loss (the reference never adds it).
 The returned dict has the JAX package's keys; `moe`, `moe_drop` and
@@ -26,15 +28,18 @@ def compute_losses(cfg, out, batch) -> Dict[str, torch.Tensor]:
         cls_loss = torch.mean(torch.abs(out.scores[:, 0] - batch.sentiment))
     else:
         cls_loss = L.bce_sum_over_classes(out.scores, emo)
-    diff = L.diff_loss_total(out.private_t, out.private_v, out.private_a,
-                             out.shared_t, out.shared_v, out.shared_a)
-    recon = L.recon_loss_total(out.recon_t, out.orig_t, out.recon_v, out.orig_v,
-                               out.recon_a, out.orig_a)
-    if cfg.use_cmd_sim:
-        sim = L.cmd_loss_total(out.shared_t, out.shared_v, out.shared_a)
-    else:
-        sim = L.domain_loss(out.domain_t, out.domain_v, out.domain_a)
     zero = cls_loss.new_zeros(())
+    if out.shared_t is None:
+        diff = sim = recon = zero
+    else:
+        diff = L.diff_loss_total(out.private_t, out.private_v, out.private_a,
+                                 out.shared_t, out.shared_v, out.shared_a)
+        recon = L.recon_loss_total(out.recon_t, out.orig_t, out.recon_v, out.orig_v,
+                                   out.recon_a, out.orig_a)
+        if cfg.use_cmd_sim:
+            sim = L.cmd_loss_total(out.shared_t, out.shared_v, out.shared_a)
+        else:
+            sim = L.domain_loss(out.domain_t, out.domain_v, out.domain_a)
     if task == "regression":
         conf = zero
     else:

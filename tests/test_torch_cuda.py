@@ -24,7 +24,7 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import CHECK_SHAPES, SHORT_SHAPES, steady_on_cpu  # noqa: E402
+from chip_smoke import CHECK_SHAPES, INT8_DENSES, SHORT_SHAPES, steady_on_cpu  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -1006,3 +1006,95 @@ def test_confidnet_stage2_launches_no_lstm_backward(cuda_device, tmp_path):
     after = flatten_tree(ckpt.load_checkpoint(str(tmp_path), name))
     changed = sorted(k for k in before if not torch.equal(before[k], after[k]))
     assert changed == ["confidence.bias", "confidence.kernel"]
+
+
+# ------------------------------------- the zoo's first four families, int8 serving
+
+ZOO_PATHS = {                                    # options, launches per step (tiny BERT)
+    "EF_LSTM": (dict(model="EF_LSTM", use_bert=False), {"lstm_fwd": 4, "lstm_bwd": 4}),
+    "LF_DNN": (dict(model="LF_DNN", attn_impl="fused"),
+               {"short_attn_fwd": 2, "short_attn_bwd": 2}),
+    "LMF": (dict(model="LMF", attn_impl="fused"), {"short_attn_fwd": 2, "short_attn_bwd": 2}),
+    "TFN": (dict(model="TFN", attn_impl="fused", fused_ln_dropout=True),
+            {"short_attn_fwd": 2, "short_attn_bwd": 2, "ln_dropout_fwd": 4,
+             "ln_dropout_bwd": 4}),
+}
+
+
+@pytest.mark.parametrize("family", sorted(ZOO_PATHS))
+def test_zoo_captured_steps_equal_eager_steps_bit_for_bit(cuda_device, tmp_path, family):
+    """`chip_smoke.captured_steps` for each zoo family at a small width:
+    eager steps twice and replays from one state give the same bits, and a
+    replay counts the family's launches."""
+    from chip_smoke import captured_steps
+    from mmda_tpu_torch.ops.kernels import _launch
+
+    options, per_step = ZOO_PATHS[family]
+    trainer = _small_trainer(tmp_path, **options)
+    out = captured_steps(trainer, _launch, family, cuda_device, per_step=per_step, timed=2)
+    assert out["eager_twice_diffs"] == {} and out["captured_diffs"] == {}
+    assert out["launches_per_replay"] == per_step and out["sync_free"]
+
+
+@pytest.mark.parametrize("family", sorted(ZOO_PATHS))
+def test_zoo_gradients_on_the_card_match_the_cpu(cuda_device, family):
+    """`chip_smoke.train_card_vs_cpu` for the family: a small f32 model's
+    step gradients through the kernels against the CPU's plain versions,
+    within 1e-4."""
+    from chip_smoke import DEVICE_TOL, train_card_vs_cpu
+
+    options = {k: v for k, v in ZOO_PATHS[family][0].items() if k != "fused_ln_dropout"}
+    assert train_card_vs_cpu(cuda_device, **options) <= DEVICE_TOL
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "fused"])
+def test_int8_predictor_on_the_card(cuda_device, attn_impl):
+    """Int8 BERT weights on the card: the small f32 model's outputs against
+    the CPU's (1e-4, `chip_smoke.card_vs_cpu`), and each bucket's replay
+    equal to an eager call bit for bit, 8 `lstm_fwd` a call (and with the
+    fused attention 2 `short_attn_fwd`, one a layer)."""
+    from chip_smoke import DEVICE_TOL, card_vs_cpu, make_requests, serve_captured_vs_eager
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.models.bert import BertConfig, QuantizedDense
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.serving import Predictor
+
+    assert card_vs_cpu(cuda_device, bert_weights_dtype="int8") <= DEVICE_TOL
+    cfg = Config(device="cuda", use_bert=True, hidden_size=16, bucket_sizes=(4, 8),
+                 max_seq_len=8, visual_size=5, acoustic_size=7, vocab_size=40,
+                 attn_impl=attn_impl)
+    model = init_misa(cfg, seed=0, bert_cfg=BertConfig.tiny(vocab_size=30522))
+    pred = Predictor(cfg, params=model, max_batch=6, bert_weights_dtype="int8")
+    assert isinstance(pred.model.bert.layers[0].q, QuantizedDense)
+    reqs = make_requests([4] * 3, cfg, seed=4)
+    pred(reqs)
+    _launch.reset_launch_count()
+    pred(reqs)
+    assert _launch.launch_count("lstm_fwd") == 8
+    assert _launch.launch_count("short_attn_fwd") == (2 if attn_impl == "fused" else 0)
+    out = serve_captured_vs_eager(cfg, pred, klstm.lstm_recurrence, cuda_device)
+    assert out["bit_equal_at"] == [[4, 6], [4, 1], [8, 6], [8, 1]]
+
+
+@pytest.mark.parametrize("d_in,d_out", INT8_DENSES)
+def test_int8_dense_bf16_rounds_once_on_the_card(cuda_device, d_in, d_out):
+    """The bf16 int8 dense at bert-base's shapes on the card: within one bf16
+    ulp + 2^-8 of the CPU's, and at most 1e-3 of its outputs off the float64
+    product scaled and rounded once, where a second rounding misses about a
+    quarter (`chip_smoke.int8_dense_bf16` raises otherwise)."""
+    from chip_smoke import INT8_MISMATCH_TOL, int8_dense_bf16
+
+    out = int8_dense_bf16(cuda_device, d_in, d_out)
+    assert out["mismatch_vs_one_rounding"] <= INT8_MISMATCH_TOL
+
+
+def test_int8_bert_encode_bf16_card_vs_cpu(cuda_device):
+    """A two-layer bert-base-width bf16 int8 encoder with the fused attention
+    on the card against the CPU, no further apart than the same encoder with
+    bf16 weights plus one bf16 ulp (`chip_smoke.int8_encode_bf16`)."""
+    from chip_smoke import int8_encode_bf16
+    from mmda_tpu_torch.ops.kernels import _launch
+
+    out = int8_encode_bf16(_launch, cuda_device)
+    assert out["int8"]["max_abs_err"] <= out["tol"] and out["int8"]["short_attn_fwd"] == 2

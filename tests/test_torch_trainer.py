@@ -213,8 +213,7 @@ def test_trainer_with_ema_exports_the_shadow(tmp_path):
 
 @pytest.mark.parametrize("option", [
     dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(moe_experts=4), dict(zero1=True),
-    dict(fsdp=True), dict(ckpt_backend="orbax"), dict(profile_dir="/tmp/p"),
-    dict(bert_model_dir="/tmp/b")])
+    dict(fsdp=True), dict(ckpt_backend="orbax")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     cfg = _tiny_cfg(tmp_path, **option)
     with pytest.raises(ValueError, match="ROADMAP"):
