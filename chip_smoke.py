@@ -182,11 +182,23 @@ the result):
    model's gradients on the card against the CPU (1e-4); `cli.etl --data ur_funny` with a
    GloVe file and a WordPiece vocab through the native library (its build must succeed and
    its GloVe scan print its line), the native `encode_batch` byte-equal to the Python one;
-14. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+14. MULT, MAG_BERT and MMIM at full width (bert-base, B=64, T=48, S=50), each as a phase 13
+   zoo family (`Trainer.train()` for 4 steps, phase 11's eager and captured steps with
+   every replay bit-equal, a `Predictor` on its export, a small f32 model's gradients
+   on the card against the CPU at 1e-4): MULT with `fused` attention on aligned splits
+   and on the unaligned ones (visual over 96 steps, acoustic over 144), 12 + 12 short
+   attention a step, 12 an eval batch and a call; MAG_BERT (`fused`, `fused_ln_dropout`,
+   the gate at layer 1), also 24 + 24 LayerNorm a step; MMIM (`fused`), 8 + 8 LSTM and
+   12 + 12 short attention a step, 8 + 12 an eval batch and a call, its `model_aux`,
+   `nll` and `nce` finite; each run's `post_eval_time_s` (the export now written on a
+   thread), and beside MULT the export written synchronously against the return and the
+   join of `save_checkpoint(async_write=True)`, the two files the same bytes;
+15. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
-chiprun_out/chip_smoke.json.
+chiprun_out/chip_smoke.json, and every result line, each with the process's
+age in `elapsed_s`, to chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -349,10 +361,38 @@ TRAIN_CONFIGS.update({
             "profile": SHORT_PROFILE + ("ln_dropout_fwd", "ln_dropout_bwd", "ln_dropout_dgb")},
 })
 ZOO = ("ef_lstm", "lf_dnn", "lmf", "tfn")
+# phase 14: the rest of the zoo, with bert-base and the short-attention kernels;
+# "mult_unaligned" on the unaligned synthetic splits (visual over 2T steps,
+# acoustic over 3T), MMIM's towers through the single-direction LSTM kernels
+TRAIN_CONFIGS.update({
+    "mult": {"options": {"model": "MULT", "attn_impl": "fused"}, "steps": ZOO_STEPS,
+             "timed": ZOO_TIMED, "per_step": SHORT_STEP,
+             "per_eval": {"short_attn_fwd": BERT_LAYERS}, "profile": SHORT_PROFILE},
+    "mag_bert": {"options": {"model": "MAG_BERT", "attn_impl": "fused",
+                             "fused_ln_dropout": True, "mag_inject_layer": 1},
+                 "steps": ZOO_STEPS, "timed": ZOO_TIMED,
+                 "per_step": TRAIN_CONFIGS["tfn"]["per_step"],
+                 "per_eval": {"short_attn_fwd": BERT_LAYERS},
+                 "profile": TRAIN_CONFIGS["tfn"]["profile"]},
+    "mmim": {"options": {"model": "MMIM", "attn_impl": "fused"}, "steps": ZOO_STEPS,
+             "timed": ZOO_TIMED, "per_step": TRAIN_CONFIGS["fused"]["per_step"],
+             "per_eval": TRAIN_CONFIGS["fused"]["per_eval"],
+             "profile": TRAIN_CONFIGS["fused"]["profile"]},
+})
+TRAIN_CONFIGS["mult_unaligned"] = {**TRAIN_CONFIGS["mult"], "aligned": False}
+ZOO_REST = ("mult", "mult_unaligned", "mag_bert", "mmim")
+
+
+START = time.perf_counter()
+LOG_LINES = []                    # every result line, written whole by main()
 
 
 def log(phase: str, **kw) -> None:
-    print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
+    """One result line; `elapsed_s` is the process's age, for the time budget."""
+    kw["elapsed_s"] = round(time.perf_counter() - START, 1)
+    line = f"[{phase}] " + json.dumps(kw, default=str)
+    LOG_LINES.append(line)
+    print(line, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1774,14 +1814,18 @@ def card_vs_cpu(device, **predictor_options) -> float:
 # --------------------------------------------------------------- training
 
 
-def full_length_split(n, seed, T=TRAIN_T) -> dict:
+def full_length_split(n, seed, T=TRAIN_T, aligned=True) -> dict:
     """n synthetic MOSEI-shaped rows, every one T words long (the
-    steady-state shape: the whole bucket is used)."""
+    steady-state shape: the whole bucket is used); unaligned, the visual
+    and acoustic streams fill their own 2T and 3T steps."""
     from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
 
-    split = make_split(SyntheticSpec(num_examples=n, max_len=T, seed=seed))
+    split = make_split(SyntheticSpec(num_examples=n, max_len=T, seed=seed, aligned=aligned))
     split["lengths"][:] = T
     split["bert_mask"][:] = 1
+    if not aligned:
+        split["visual_lengths"][:] = split["visual"].shape[1]
+        split["acoustic_lengths"][:] = split["acoustic"].shape[1]
     return split
 
 
@@ -1807,8 +1851,10 @@ def train_main_path(counts, kind: str) -> tuple:
     cfg = Config(**{**dict(use_bert=True, data="mosei", batch_size=B, max_seq_len=T,
                            bucket_sizes=(T,), compute_dtype="bfloat16", n_epoch=1, seed=0,
                            name=name, ckpt_dir=str(BUILD / name)), **spec["options"]})
-    data = {"train": full_length_split(B * n_steps, 0, T),
-            "dev": full_length_split(B, 1, T), "test": full_length_split(B, 2, T)}
+    aligned = spec.get("aligned", True)
+    data = {"train": full_length_split(B * n_steps, 0, T, aligned),
+            "dev": full_length_split(B, 1, T, aligned),
+            "test": full_length_split(B, 2, T, aligned)}
     t0 = time.perf_counter()
     trainer = Trainer(cfg, data, logger=MetricLogger(("stdout",), run_name=cfg.name))
     build_s = time.perf_counter() - t0
@@ -1829,6 +1875,8 @@ def train_main_path(counts, kind: str) -> tuple:
               "params_trainable": sum(p.numel() for p in trainer.optimizer.params)}
     return trainer, {"build_s": build_s, "train_wall_s": wall, "launches": launches,
                      "steps": n_steps, "batch": B, "T": T, "epoch_time_s": epoch["epoch_time_s"],
+                     "eval_time_s": epoch["eval_time_s"],
+                     "post_eval_time_s": epoch["post_eval_time_s"],
                      "train_loss": epoch["train_loss"], "test_loss": summary["test_loss"],
                      **counts}
 
@@ -1978,11 +2026,12 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     return err
 
 
-def train_card_vs_cpu(device, **options) -> float:
+def train_card_vs_cpu(device, aligned=True, **options) -> float:
     """A small f32 model (tiny BERT, hidden 32; `options`: the towers' cell,
     the attention core, the model family) and one batch with ragged
-    lengths: the step's gradients (dropout off) on the card, through the
-    kernels, against the CPU, through the plain versions."""
+    lengths (unaligned: visual and acoustic on their own time axes): the
+    step's gradients (dropout off) on the card, through the kernels, against
+    the CPU, through the plain versions."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.data.synthetic import SyntheticSpec, make_split
@@ -1992,7 +2041,7 @@ def train_card_vs_cpu(device, **options) -> float:
 
     cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
                  device="cpu", **options)
-    split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3))
+    split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3, aligned=aligned))
     model = get_model(cfg.model)(cfg, bert_cfg=BertConfig.tiny(vocab_size=30522))
     model.reset_parameters(torch.Generator().manual_seed(1))
     model.eval()
@@ -3241,18 +3290,20 @@ def int8_serving(counts, klstm, device) -> dict:
     return out
 
 
-def zoo_family(counts, kind: str, device) -> dict:
+def zoo_family(counts, kind: str, device, extra=None) -> dict:
     """One zoo family at full width: `Trainer.train()` for ZOO_STEPS steps
     at B=64, T=48 (its launches a step and an eval batch), then phase 11's
     eager and captured steps on that trainer (replays bit-equal, launches a
     replay, ZOO_TIMED timed each), a `Predictor` on its best-on-dev export
     (the family's forward launches a call), and a small f32 model's
-    gradients on the card against the CPU."""
+    gradients on the card against the CPU.  `extra(trainer)`, when given,
+    runs after the captured steps; its dict joins the result."""
     from mmda_tpu_torch.serving import Predictor
 
     spec = TRAIN_CONFIGS[kind]
     trainer, path = train_main_path(counts, kind)
     captured = captured_steps(trainer, counts, kind, device)
+    more = extra(trainer) if extra is not None else {}
     cfg, sizes = trainer.cfg, trainer.sizes
     del trainer
     torch.cuda.empty_cache()
@@ -3269,11 +3320,12 @@ def zoo_family(counts, kind: str, device) -> dict:
         raise AssertionError(f"{kind}: hidden output {got['hidden'].shape}")
     del pred
     torch.cuda.empty_cache()
-    err = train_card_vs_cpu(device, **{k: v for k, v in spec["options"].items()
-                                       if k != "fused_ln_dropout"})
+    err = train_card_vs_cpu(device, spec.get("aligned", True),
+                            **{k: v for k, v in spec["options"].items()
+                               if k != "fused_ln_dropout"})
     launches = {k: path["launches"][k] + serve[k] for k in path["launches"]}
     return {"main_path": path, "captured": captured, "serve_launches": serve,
-            "card_vs_cpu_err": err, "launches": launches}
+            "card_vs_cpu_err": err, "launches": launches, **more}
 
 
 def native_etl() -> dict:
@@ -3374,6 +3426,81 @@ def phase13(counts, klstm, device) -> dict:
                 for name in counts.KERNELS}
     return {"hf_checkpoint": ckpt, "hf_train": hf, "hf_cli": cli, "int8": int8, "zoo": zoo,
             "native": native, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------ phase 14: MULT, MAG_BERT, MMIM; the export on a thread
+
+EXPORT_REPS = 3
+
+
+def export_times(trainer) -> dict:
+    """The best-on-dev export of a bert-base trainer's parameters, written
+    synchronously against `save_checkpoint(async_write=True)`: the time to
+    its return (the host copy) and to its join; EXPORT_REPS of each, the
+    median.  Both files must be the same bytes."""
+    from mmda_tpu_torch.train import checkpoint as ckpt
+
+    where = str(BUILD / "chip_smoke_export_times")
+    sync, returned, joined = [], [], []
+    for _ in range(EXPORT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(where, "sync", trainer.eval_model(), {"epoch": 0})
+        sync.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        thread = ckpt.save_checkpoint(where, "async", trainer.eval_model(), {"epoch": 0},
+                                      async_write=True)
+        returned.append(time.perf_counter() - t0)
+        thread.join()
+        joined.append(time.perf_counter() - t0)
+    files = [pathlib.Path(where, f"{n}.msgpack").read_bytes() for n in ("sync", "async")]
+    if files[0] != files[1]:
+        raise AssertionError("the export written on a thread differs from the synchronous one")
+    return {"export_bytes": len(files[0]), "export_sync_s": statistics.median(sync),
+            "export_async_return_s": statistics.median(returned),
+            "export_async_joined_s": statistics.median(joined)}
+
+
+def mmim_aux(trainer) -> dict:
+    """MMIM's auxiliary objective in a training-mode forward (dropout on) of
+    one train batch: model_aux's total, nll and nce, and the objective's
+    `model_aux` term; all finite."""
+    from mmda_tpu_torch.data.loader import ArrayLoader, to_device
+    from mmda_tpu_torch.train.objective import compute_losses
+
+    cfg = trainer.cfg
+    host = next(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
+                            bucket_sizes=cfg.bucket_sizes).host_batches())
+    batch = to_device(host, trainer.device)
+    with torch.no_grad():
+        out = trainer.model.train()(batch, None, None, trainer.generator)
+        losses = compute_losses(cfg, out, batch)
+    aux = {f"model_aux_{k}": float(v) for k, v in out.model_aux.items()}
+    aux["objective_model_aux"] = float(losses["model_aux"])
+    finite_losses(aux, "MMIM model_aux")
+    return {"mmim_aux": aux}
+
+
+def phase14(counts, device) -> dict:
+    """MULT (aligned and unaligned), MAG_BERT and MMIM at full width, each
+    as a phase 13 zoo family (module docstring, phase 14), every replay
+    bit-equal to its eager step, the export's write times beside MULT's;
+    each part's launches."""
+    t0 = time.perf_counter()
+    zoo = {}
+    extras = {"mult": export_times, "mmim": mmim_aux}
+    for kind in ZOO_REST:
+        torch.cuda.empty_cache()
+        zoo[kind] = zoo_family(counts, kind, device, extras.get(kind))
+        if zoo[kind]["captured"]["captured_diffs"]:
+            raise AssertionError(f"{kind}: replays differ from the eager steps: "
+                                 f"{zoo[kind]['captured']['captured_diffs']}")
+        log("14 zoo", kind=kind, **{k: v for k, v in zoo[kind].items() if k != "captured"})
+        log("14 zoo-captured", **zoo[kind]["captured"])
+    launches = {name: sum(z["launches"][name] for z in zoo.values())
+                for name in counts.KERNELS}
+    return {"zoo": zoo, "launches": launches, "seconds": time.perf_counter() - t0}
 
 
 # ------------------------------------------------------------------- main
@@ -3646,8 +3773,13 @@ def main() -> int:
     p13 = phase13(counts, klstm, device)
     log("13 seconds", seconds=p13["seconds"])
 
+    # phase 14: MULT, MAG_BERT and MMIM; the best-on-dev export on its thread
+    torch.cuda.empty_cache()
+    p14 = phase14(counts, device)
+    log("14 seconds", seconds=p14["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
-    # cli.infer, the tower pair, phase 12's and 13's runs)
+    # cli.infer, the tower pair, phase 12's, 13's and 14's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
     launches = {name: sum(t["main_path"]["launches"][name]
                           + t["compiled_train"]["launches"][name] for t in trains.values())
@@ -3655,7 +3787,7 @@ def main() -> int:
                 + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
-                + p13["launches"][name]
+                + p13["launches"][name] + p14["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -3706,8 +3838,10 @@ def main() -> int:
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
+        "phase14": p14,
         "kernels": kernels},
         indent=1, default=str))
+    (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

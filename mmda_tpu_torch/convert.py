@@ -3,11 +3,14 @@
 The JAX tree of any registered family (`mmda_tpu.models.misa.init_misa_params`,
 the zoo's `init_*_params`: EF_LSTM's `fused_extractor` and heads, the pooled
 families' `enc_t`/`enc_v`/`enc_a`, LMF's factors and fusion bias, TFN's
-`post_*` and `fusion`; or a best-on-dev export read by
-`train/checkpoint.py`) maps leaf by leaf onto the port's parameter names:
+`post_*` and `fusion`, MULT's conv projections and attention stacks,
+MAG_BERT's `mag` gate, MMIM's MI estimators; or a best-on-dev export read
+by `train/checkpoint.py`) maps leaf by leaf onto the port's parameter names:
 
 * `.../kernel` (in, out)   -> `.../weight` (out, in), transposed
   (linear layers, BERT denses, the fusion layer's in/out projections);
+* `.../kernel` (width, in, out) -> `.../weight` (out, in, width), the axes
+  reversed (MULT's `proj_t` / `proj_v` / `proj_a` temporal convolutions);
 * `.../scale`              -> `.../weight` (LayerNorms);
 * every other leaf keeps its name: biases, LSTM `w_ih`/`w_hh`/`b_ih`/`b_hh`
   (already in torch layout), BERT embedding tables, the GloVe table, LMF's
@@ -53,6 +56,13 @@ def to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def to_port_layout(kernel: torch.Tensor) -> torch.Tensor:
+    """A JAX `kernel` in the port's `weight` layout: a dense (in, out)
+    transposed, a conv (width, in, out) with its axes reversed.  Its own
+    inverse."""
+    return kernel.permute(*reversed(range(kernel.dim())))
+
+
 def port_name(path: str) -> str:
     head, _, leaf = path.rpartition(".")
     if leaf in ("kernel", "scale"):
@@ -72,7 +82,7 @@ def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
             continue
         value = to_tensor(leaf)
         if path.rpartition(".")[2] == "kernel":
-            value = value.t()
+            value = to_port_layout(value)
         if tuple(value.shape) != tuple(targets[name].shape):
             raise ValueError(f"leaf {path!r} has shape {tuple(value.shape)}, port "
                              f"parameter {name!r} needs {tuple(targets[name].shape)}")
@@ -92,14 +102,15 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
 
 def jax_name(model: nn.Module, name: str) -> str:
     """The JAX leaf path of port parameter `name`: a linear layer's weight
-    is its `kernel`, a LayerNorm's its `scale`; other names are kept."""
+    is its `kernel` (a conv's too), a LayerNorm's its `scale`; other names
+    are kept."""
     from mmda_tpu_torch.models.bert import Dense
-    from mmda_tpu_torch.models.common import LayerNorm, Linear
+    from mmda_tpu_torch.models.common import Conv1d, LayerNorm, Linear
 
     head, _, leaf = name.rpartition(".")
     if leaf == "weight":
         owner = model.get_submodule(head)
-        if isinstance(owner, (Linear, Dense)):
+        if isinstance(owner, (Linear, Dense, Conv1d)):
             return head + ".kernel"
         if isinstance(owner, LayerNorm):
             return head + ".scale"
@@ -110,14 +121,15 @@ def jax_leaves(model: nn.Module, tensors: Optional[List[torch.Tensor]] = None
                ) -> List[Tuple[str, torch.Tensor]]:
     """(JAX leaf path, host copy) of each of `model`'s parameters, or of
     `tensors` in their place (same order: the EMA shadow), a linear layer's
-    weight transposed back to the JAX (in, out) kernel."""
+    weight transposed back to the JAX (in, out) kernel, a conv's to
+    (width, in, out)."""
     out = []
     for i, (name, p) in enumerate(model.named_parameters()):
         path = jax_name(model, name)
-        value = (p if tensors is None else tensors[i]).detach().to("cpu", copy=True)
-        if path.endswith(".kernel"):
-            value = value.t().contiguous()
-        out.append((path, value))
+        value = (p if tensors is None else tensors[i]).detach()
+        if path.endswith(".kernel"):      # transposed where it lives: on the card, fast
+            value = to_port_layout(value).contiguous()
+        out.append((path, value.to("cpu", copy=True)))
     return out
 
 

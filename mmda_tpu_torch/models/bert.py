@@ -32,7 +32,10 @@ compute dtype); `attn_impl="fused"` through the short-sequence kernels of
 `ops/kernels/short_attention.py` (all of one (batch item, head) at once, q,
 k, v in the compute dtype, the (B, S) key bias, the probs dropout drawn in
 the kernel under a per-layer seed drawn on the device, the result in the
-compute dtype); "xla" (the default) is the dense S x S core.
+compute dtype); "xla" (the default) is the dense S x S core.  The
+injection hook (`inject_layer`, `inject_fn`) sits between layers, outside
+the attention core, so it composes with every core and with
+`fused_ln_dropout`.
 
 `load_hf_weights` reads a HuggingFace bert checkpoint directory
 (`model.safetensors`, read by `utils/safetensors_io.py`, or
@@ -223,9 +226,11 @@ class BertEncoder(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                attn_impl: str = "xla") -> torch.Tensor:
+                attn_impl: str = "xla", inject_layer: Optional[int] = None,
+                inject_fn=None) -> torch.Tensor:
         return bert_encode(self, input_ids, attention_mask, token_type_ids,
-                           compute_dtype, training, generator, attn_impl)
+                           compute_dtype, training, generator, attn_impl,
+                           inject_layer, inject_fn)
 
 
 _QUANT_DENSE_NAMES = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
@@ -402,10 +407,14 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                attn_impl: str = "xla") -> torch.Tensor:
+                attn_impl: str = "xla", inject_layer: Optional[int] = None,
+                inject_fn=None) -> torch.Tensor:
     """Last hidden state (B, S, H) of the encoder; dropout when training.
     attn_impl: "xla", "flash" or "fused", what `Config.resolved_attn_impl`
-    gave for this call."""
+    gave for this call.  inject_fn, when given, maps the hidden states
+    entering layer `inject_layer` (0: the embedding output, after its
+    dropout; >= num_layers: the last layer's output), and its result is
+    rounded once to compute_dtype (models/mag_bert.py's gate)."""
     cfg = p.cfg
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
@@ -414,6 +423,10 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
     x = dropout(x, cfg.hidden_dropout, training, generator)
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
     key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
-    for lp in p.layers:
+    for i, lp in enumerate(p.layers):
+        if inject_layer is not None and i == inject_layer:
+            x = inject_fn(x).to(compute_dtype)
         x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl)
+    if inject_layer is not None and inject_layer >= cfg.num_layers:
+        x = inject_fn(x).to(compute_dtype)
     return x

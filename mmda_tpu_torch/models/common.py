@@ -1,5 +1,5 @@
-"""Shared layer primitives: linear, LayerNorm, dropout and the fusion
-transformer layer.
+"""Shared layer primitives: linear, LayerNorm, dropout, the temporal
+convolution and the fusion transformer layer.
 
 Counterpart of `mmda_tpu/models/common.py`.  Parameters live in
 `nn.Module`s with PyTorch layouts (a linear weight is (out, in)); the math
@@ -71,6 +71,35 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)
+
+
+class Conv1d(nn.Module):
+    """A temporal convolution with SAME padding and no bias (MULT's
+    projections): weight (d_out, d_in, width), the JAX (width, d_in, d_out)
+    kernel with its axes reversed (`convert.py`)."""
+
+    def __init__(self, d_in: int, d_out: int, width: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in, width, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch nn.Conv1d default: uniform(+-1/sqrt(d_in * width))."""
+        _, d_in, width = self.weight.shape
+        uniform_(self.weight, 1.0 / math.sqrt(d_in * width), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, d_in) -> (B, T, d_out), computed in f32 and cast back to
+        x.dtype.  SAME pads (width - 1) // 2 steps before and width // 2
+        after, as XLA does for an even width too.  One product per tap,
+        summed: plain matmuls, whose backward on the card has no atomics (a
+        captured step replays an eager one bit for bit)."""
+        T, w = x.shape[1], self.weight.shape[-1]
+        xf = F.pad(x.float(), (0, 0, (w - 1) // 2, w // 2))
+        wf = self.weight.float()
+        y = torch.matmul(xf[:, :T], wf[:, :, 0].t())
+        for j in range(1, w):
+            y = y + torch.matmul(xf[:, j:j + T], wf[:, :, j].t())
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

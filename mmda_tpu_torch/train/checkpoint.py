@@ -218,13 +218,15 @@ def _dispatch(ckpt_dir: str, file: str, chunks: List[Any], meta_file: str, meta:
 
 
 def save_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
-                    metadata: Optional[Dict] = None) -> str:
+                    metadata: Optional[Dict] = None,
+                    async_write: bool = False) -> Optional[threading.Thread]:
     """Write `model`'s parameters as {ckpt_dir}/{name}.msgpack (the JAX
-    tree layout) and `metadata` as {name}.json; returns the .msgpack path."""
+    tree layout) and `metadata` as {name}.json.  With async_write the
+    parameters are copied to the host now and the files written on a
+    thread, which is returned for the caller to join."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    _dispatch(ckpt_dir, f"{name}.msgpack", to_chunks(to_jax_tree(model)), f"{name}.json",
-              dict(metadata or {}), async_write=False)
-    return os.path.join(ckpt_dir, f"{name}.msgpack")
+    return _dispatch(ckpt_dir, f"{name}.msgpack", to_chunks(to_jax_tree(model)),
+                     f"{name}.json", dict(metadata or {}), async_write)
 
 
 # ------------------------------------------------------ train-state snapshots

@@ -16,7 +16,10 @@ losses back in one copy, evaluates the
 dev split, lowers the learning rate on a dev-loss plateau
 (lr_schedule="plateau"), saves the best-on-dev parameters (the EMA shadow
 when ema_decay > 0) as the JAX-format export `best_model_*`, and logs the
-JAX trainer's payload.  `train()` then evaluates the test split with the
+JAX trainer's payload.  The export is copied to the host at once and
+written on a thread, as the JAX trainer writes it; every reload of it
+(early stop, the final test, stage 2) and the end of `train()` join that
+write first.  `train()` then evaluates the test split with the
 best-on-dev parameters and returns the summary dict.  Eval runs through an
 eval graph under `compiled_eval` (the default, as in the JAX package), one
 per set of parameters it reads.  `scan_chunk` is inert: a replay is one step.
@@ -58,6 +61,7 @@ import dataclasses
 import json
 import os
 import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -163,6 +167,7 @@ class Trainer:
         self.pool = graph_pool(self.device)             # every graph of this trainer
         self.train_graph = None                         # made by the first compiled epoch
         self.eval_graphs: Dict[tuple, Any] = {}         # by the parameters they read
+        self._export: Optional[threading.Thread] = None  # the best export's writer
 
         counts = trainable_param_count(self.model)
         self.logger.log({"params_total": counts["total"],
@@ -300,8 +305,9 @@ class Trainer:
                 if valid_loss <= best_valid_loss:
                     best_valid_loss = valid_loss
                     best_results, best_truths, best_epoch = preds, truths, e
-                    ckpt.save_checkpoint(cfg.ckpt_dir, best_name, self.eval_model(),
-                                         {"epoch": e, "valid_loss": valid_loss})
+                    self._export = ckpt.save_checkpoint(
+                        cfg.ckpt_dir, best_name, self.eval_model(),
+                        {"epoch": e, "valid_loss": valid_loss}, async_write=True)
                     eval_values = task_metrics(self.task, best_truths, best_results)
                     curr_patience = cfg.patience
                 elif cfg.enable_early_stop:
@@ -309,6 +315,7 @@ class Trainer:
                     if curr_patience <= -1:
                         num_trials -= 1
                         curr_patience = cfg.patience
+                        self._join_export()
                         if ckpt.checkpoint_exists(cfg.ckpt_dir, best_name):
                             self._load_best(best_name, self.model)
                         if num_trials <= 0:
@@ -346,6 +353,7 @@ class Trainer:
             for thread in pending:
                 if thread is not None:
                     thread.join()
+            self._join_export()
 
         best = None
         if best_epoch >= 0:
@@ -421,10 +429,19 @@ class Trainer:
         ckpt.save_checkpoint(cfg.ckpt_dir, name, self.model,
                              {"stage2_epochs": cfg.n_epoch_stage2})
 
+    def _join_export(self) -> None:
+        """Wait for the latest best-on-dev export's write, if one is running
+        (an earlier one's write never lands after it: `train/checkpoint.py`
+        orders the writes of one path)."""
+        if self._export is not None:
+            self._export.join()
+            self._export = None
+
     def _load_best(self, name: str, model: torch.nn.Module) -> torch.nn.Module:
-        """Load the best-on-dev export into `model`: the live model on early
-        stop (the EMA shadow is kept), a copy for the final test, as the JAX
-        trainer restores it."""
+        """Load the best-on-dev export into `model`, after its write: the
+        live model on early stop (the EMA shadow is kept), a copy for the
+        final test, as the JAX trainer restores it."""
+        self._join_export()
         return load_jax_params(model, ckpt.load_checkpoint(self.cfg.ckpt_dir, name))
 
     @staticmethod

@@ -4,12 +4,15 @@ total = cls + diff_weight * diff + sim_weight * (cmd if use_cmd_sim else
 domain) + recon_weight * recon [+ conf_weight * conf under use_confidNet].
 
 A family without MISA's shared/private factorization (`out.shared_t is
-None`: EF_LSTM, LF_DNN, LMF, TFN) has diff, sim and recon 0, as in the JAX
+None`: the rest of the zoo) has diff, sim and recon 0, as in the JAX
 objective.  `conf` is computed every step for logging, as the reference does, and may be
 inf when a class has no positive in the batch; it enters `total` only under
 use_confidNet.  The sp logits carry no loss (the reference never adds it).
-The returned dict has the JAX package's keys; `moe`, `moe_drop` and
-`model_aux` are 0 (the port has no MoE tower or auxiliary-objective model).
+A family with an auxiliary objective of its own (MMIM's mutual-information
+terms) returns it pre-weighted as `out.model_aux["total"]`; it is added to
+`total` and reported as `model_aux` (0 for every other family).  The
+returned dict has the JAX package's keys; `moe` and `moe_drop` are 0 (the
+port has no MoE tower yet).
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ def compute_losses(cfg, out, batch) -> Dict[str, torch.Tensor]:
              + cfg.recon_weight * recon)
     if cfg.use_confidNet:
         total = total + cfg.conf_weight * conf
+    model_aux = zero
+    if out.model_aux is not None:
+        model_aux = out.model_aux["total"]
+        total = total + model_aux
     return {"total": total, "cls": cls_loss, "diff": diff, "sim": sim,
             "recon": recon, "conf": conf, "moe": zero, "moe_drop": zero,
-            "model_aux": zero}
+            "model_aux": model_aux}

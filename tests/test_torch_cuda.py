@@ -809,9 +809,10 @@ def _small_trainer(tmp_path, **options):
     from mmda_tpu_torch.models.bert import BertConfig
     from mmda_tpu_torch.train.loop import Trainer
 
+    aligned = options.pop("aligned", True)
     cfg = Config(device="cuda", ckpt_dir=str(tmp_path), name="graphs",
                  **{**SMALL_MODEL, **options})
-    data = make_dataset(48, 16, 16, max_len=8, bert_vocab_size=128)
+    data = make_dataset(48, 16, 16, max_len=8, bert_vocab_size=128, aligned=aligned)
     return Trainer(cfg, data, bert_cfg=BertConfig.tiny())
 
 
@@ -1008,7 +1009,7 @@ def test_confidnet_stage2_launches_no_lstm_backward(cuda_device, tmp_path):
     assert changed == ["confidence.bias", "confidence.kernel"]
 
 
-# ------------------------------------- the zoo's first four families, int8 serving
+# ------------------------------------------------------- the zoo, int8 serving
 
 ZOO_PATHS = {                                    # options, launches per step (tiny BERT)
     "EF_LSTM": (dict(model="EF_LSTM", use_bert=False), {"lstm_fwd": 4, "lstm_bwd": 4}),
@@ -1018,6 +1019,17 @@ ZOO_PATHS = {                                    # options, launches per step (t
     "TFN": (dict(model="TFN", attn_impl="fused", fused_ln_dropout=True),
             {"short_attn_fwd": 2, "short_attn_bwd": 2, "ln_dropout_fwd": 4,
              "ln_dropout_bwd": 4}),
+    # the rest of the zoo; "aligned" picks the synthetic splits (False:
+    # visual and acoustic over their own 2T and 3T steps)
+    "MULT": (dict(model="MULT", attn_impl="fused"), {"short_attn_fwd": 2, "short_attn_bwd": 2}),
+    "MULT_unaligned": (dict(model="MULT", attn_impl="fused", aligned=False),
+                       {"short_attn_fwd": 2, "short_attn_bwd": 2}),
+    "MAG_BERT": (dict(model="MAG_BERT", attn_impl="fused", fused_ln_dropout=True,
+                      mag_inject_layer=1),
+                 {"short_attn_fwd": 2, "short_attn_bwd": 2, "ln_dropout_fwd": 4,
+                  "ln_dropout_bwd": 4}),
+    "MMIM": (dict(model="MMIM", attn_impl="fused"),
+             {**TOWERS, "short_attn_fwd": 2, "short_attn_bwd": 2}),
 }
 
 

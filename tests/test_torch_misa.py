@@ -178,8 +178,8 @@ def test_model_resolves_the_attention_core_from_the_batch_length(monkeypatch):
     from mmda_tpu_torch.models import bert as pbert
 
     encode = pbert.bert_encode
-    monkeypatch.setattr(pbert, "bert_encode",
-                        lambda *a: seen.append(a[-1]) or encode(*a))
+    monkeypatch.setattr(pbert, "bert_encode",       # a[7]: attn_impl
+                        lambda *a: seen.append(a[7]) or encode(*a))
     cfg = Config(device="cpu", use_bert=True, compute_dtype="float32", **SMALL)
     model = init_misa(cfg, seed=0, bert_cfg=BertConfig.tiny())
     arrays = _batch(T=254)

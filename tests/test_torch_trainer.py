@@ -12,6 +12,7 @@ sides, other summation orders).
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -209,6 +210,62 @@ def test_trainer_with_ema_exports_the_shadow(tmp_path):
     np.testing.assert_array_equal(tree["classifier"]["kernel"],
                                   got["classifier"]["kernel"].numpy())
     assert not torch.equal(trainer.ema[0], next(trainer.model.parameters()).detach())
+
+
+def test_async_export_is_byte_equal_to_a_synchronous_one(tmp_path):
+    """save_checkpoint(async_write=True) copies the parameters to the host
+    before it returns: a write still running when the parameters change in
+    place gives the bytes of a synchronous save taken before the change."""
+    cfg = _tiny_cfg(tmp_path, use_bert=False, **SMALL)
+    model = MISA(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    meta = {"epoch": 0, "valid_loss": 1.5}
+    assert pckpt.save_checkpoint(str(tmp_path / "sync"), "best", model, meta) is None
+    thread = pckpt.save_checkpoint(str(tmp_path / "async"), "best", model, meta,
+                                   async_write=True)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)                         # the next step
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    for f in ("best.msgpack", "best.json"):
+        assert (tmp_path / "async" / f).read_bytes() == (tmp_path / "sync" / f).read_bytes()
+
+
+@pytest.mark.parametrize("reload", ["early_stop", "stage2"])
+def test_reloads_wait_for_the_export_written_on_a_thread(tmp_path, monkeypatch, reload):
+    """The best-on-dev export is written on a thread; with that write slowed
+    down, the early-stop reload and ConfidNet stage 2 still load the
+    finished file: the epoch-0 parameters, not the later ones."""
+    extra = (dict(enable_early_stop=True, patience=0, n_epoch=3) if reload == "early_stop"
+             else dict(use_confidNet=True, confid_two_stage=True, n_epoch_stage2=1, n_epoch=2))
+    cfg = _tiny_cfg(tmp_path, use_bert=False, **extra)
+    trainer = Trainer(cfg, _tiny_data())
+    name = pckpt.best_model_name(cfg)
+    write = pckpt._atomic_write
+
+    def slow_write(path, chunks):
+        if path.endswith(f"{name}.msgpack"):
+            time.sleep(0.5)
+        write(path, chunks)
+
+    monkeypatch.setattr(pckpt, "_atomic_write", slow_write)
+    evaluate, at_best = trainer.evaluate, []
+
+    def rising_dev_loss(mode, model=None):
+        loss, *rest = evaluate(mode, model)
+        if mode == "dev":
+            if not at_best:
+                at_best.append([p.detach().clone() for p in trainer.model.parameters()])
+            loss += len(at_best) * 10.0 * trainer.step       # epoch 0 is the best
+        return (loss, *rest)
+
+    trainer.evaluate = rising_dev_loss
+    summary = trainer.train()
+    assert summary["best_epoch"] == 0 and trainer._export is None
+    for (n, p), want in zip(trainer.model.named_parameters(), at_best[0]):
+        if not n.startswith("confidence."):
+            assert torch.equal(p.detach(), want), n
 
 
 @pytest.mark.parametrize("option", [
