@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --first-calls
+    python3 chip_smoke.py --phase15
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -193,7 +194,25 @@ the result):
    `nll` and `nce` finite; each run's `post_eval_time_s` (the export now written on a
    thread), and beside MULT the export written synchronously against the return and the
    join of `save_checkpoint(async_write=True)`, the two files the same bytes;
-15. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+15. serving artifacts and MoE BERT, at full width: the default configuration with
+   `attn_impl="fused"` exported on the card (`serving_export.export_model`, buckets
+   16/32/64, max_batch 64; seconds and `.pt2` bytes a bucket), an `ExportedPredictor`
+   of it against the live captured `Predictor` on a copy of the weights (8 `lstm_fwd` +
+   12 `short_attn_fwd` a call, scores within SERVE_TOL with the bit-equal share, both
+   latencies at each bucket for B=64 and B=1, median of 10), the same artifact served by
+   `python -X importtime -m mmda_tpu_torch.cli.serve --export_dir` in a fresh process
+   (requests over HTTP one at a time, its launches on replays from /healthz, its import
+   log free of `mmda_tpu_torch.models`, `serving` and `train`, its scores against the
+   live `Predictor`'s); the same for an int8 artifact (bucket 64) and a flash one
+   (bucket 512 at B=32: 12 `flash_fwd` a call); MISA with a bert-base Switch MoE (4
+   experts, top-1, capacity 1.25, grouped by example, `fused`, the mosei freeze rule)
+   through `Trainer.train()` for 4 steps (`moe`, `moe_drop` finite, an eager step moves
+   layer 9's router), phase 11's eager and captured steps with every replay bit-equal,
+   a small f32 MoE model's gradients on the card against the CPU (1e-4), and its best
+   export served live and as an artifact; beside phase 9's fused trainer, eager steps
+   and single calls through the kernel ops against the ops' implementations called
+   directly (`15 op-dispatch`).  `--phase15` runs phase 15 alone after the build;
+16. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -206,6 +225,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import pathlib
@@ -2042,7 +2062,12 @@ def train_card_vs_cpu(device, aligned=True, **options) -> float:
     cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
                  device="cpu", **options)
     split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3, aligned=aligned))
-    model = get_model(cfg.model)(cfg, bert_cfg=BertConfig.tiny(vocab_size=30522))
+    bert_cfg = BertConfig.tiny(vocab_size=30522)
+    if cfg.moe_experts > 0:                 # the tiny BERT with a MoE in every layer
+        bert_cfg = dataclasses.replace(bert_cfg, moe_experts=cfg.moe_experts,
+                                       moe_capacity_factor=cfg.moe_capacity_factor,
+                                       moe_top_k=cfg.moe_top_k)
+    model = get_model(cfg.model)(cfg, bert_cfg=bert_cfg)
     model.reset_parameters(torch.Generator().manual_seed(1))
     model.eval()
 
@@ -3503,6 +3528,354 @@ def phase14(counts, device) -> dict:
     return {"zoo": zoo, "launches": launches, "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------- phase 15: serving artifacts, the kernels as ops; MoE BERT
+
+EXPORT_BUCKETS = (16, 32, 64)     # the default Config's buckets, max_batch 64
+FLASH_EXPORT = (512, 32)          # the long bucket and its batch
+EXPORT_SERVED = 6                 # requests posted one at a time to the artifact's server
+ZOO_FREE = ("mmda_tpu_torch.models", "mmda_tpu_torch.serving", "mmda_tpu_torch.train")
+MOE_OPTIONS = {"attn_impl": "fused", "moe_experts": 4, "moe_top_k": 1,
+               "moe_capacity_factor": 1.25}
+MOE_TRAINED_LAYER = 9             # the first encoder layer the mosei freeze rule trains
+TRAIN_CONFIGS["moe"] = {"options": MOE_OPTIONS, "steps": ZOO_STEPS, "timed": ZOO_TIMED,
+                        "per_step": TRAIN_CONFIGS["fused"]["per_step"],
+                        "per_eval": TRAIN_CONFIGS["fused"]["per_eval"],
+                        "profile": TRAIN_CONFIGS["fused"]["profile"]}
+FUSED_CALL = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS}
+FLASH_CALL = {"lstm_fwd": LAUNCHES_PER_CALL, "flash_fwd": BERT_LAYERS}
+
+
+def direct_dispatch(klstm, kgru, kshort, kattn):
+    """The four forward wrappers calling their ops' implementations
+    (`_forward`) directly, without the `torch.library` dispatch: how they
+    ran before they became ops (the same kernels, the same bits)."""
+    def lstm(x, w, m, reverse, need_cs):
+        ys, cs, h, c = klstm._forward(x, w, m, reverse, need_cs)
+        return ys, x.new_empty(0) if cs is None else cs, h, c
+
+    stack = contextlib.ExitStack()
+    for module, name, fn in ((klstm, "lstm_recurrence_op", lstm),
+                             (kgru, "gru_recurrence_op", kgru._forward),
+                             (kshort, "short_attention_fwd_op", kshort._forward),
+                             (kattn, "flash_attention_fwd_op", kattn._forward)):
+        stack.enter_context(replaced(module, name, fn))
+    return stack
+
+
+def op_dispatch_ab(trainer, kernels, device, n: int = 5, pairs: int = 6,
+                   calls: int = 400) -> dict:
+    """The cost of the `torch.library` dispatch.  (a) Eager training steps
+    of a trainer through the kernel ops (as shipped) and with
+    `direct_dispatch`, `pairs` pairs of n steps each, the side that runs
+    first alternating: host ms per step over all steps of a side (median
+    and quartiles) and whether both give the same losses; (b) us per call of
+    `lstm_recurrence` and `short_attention_fwd` at the smallest shapes phase
+    3 checks ((T, B, H) = (7, 5, 33); (B, nh, S, hd) = (3, 4, 10, 8) f32),
+    back to back, through the op and directly, `calls` each, in the order
+    op, direct, direct, op."""
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.train.step import train_step
+
+    klstm, kshort = kernels[0], kernels[2]
+    cfg = trainer.cfg
+    batch = next(iter(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
+                                  bucket_sizes=cfg.bucket_sizes, device=device)))
+    snap = train_state(trainer)
+    times = {"op": [], "direct": []}
+    losses = {}
+
+    def steps(side: str) -> None:
+        restore_train_state(trainer, snap)
+        with (direct_dispatch(*kernels) if side == "direct" else contextlib.nullcontext()):
+            for _ in range(n):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                out = train_step(trainer.model, trainer.optimizer, batch, cfg,
+                                 trainer.generator, trainer.ema)
+                torch.cuda.synchronize(device)
+                times[side].append((time.perf_counter() - t0) * 1e3)
+                losses.setdefault(side, {k: v.clone() for k, v in out.items()})
+
+    for i in range(pairs):
+        for side in (("op", "direct") if i % 2 == 0 else ("direct", "op")):
+            steps(side)
+    restore_train_state(trainer, snap)
+    diffs = bit_diffs(losses["op"], losses["direct"])
+    if diffs:
+        raise AssertionError(f"eager step through the ops vs direct: {diffs}")
+    x, w, m = lstm_inputs(*CHECK_SHAPES[-2], 0, device)[:3]      # the smallest checked shapes
+    q, k, v, _, bias = short_inputs(*SHORT_SHAPES[-1], torch.float32, 0, device)
+    per_call = {}
+    for name, fn in (("lstm_recurrence", lambda: klstm.lstm_recurrence(x, w, m)),
+                     ("short_attention_fwd",
+                      lambda: kshort.short_attention_fwd(q, k, v, bias, None))):
+        us = {"op": [], "direct": []}
+        for side in ("op", "direct", "direct", "op"):
+            with (direct_dispatch(*kernels) if side == "direct" else contextlib.nullcontext()):
+                fn()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize(device)
+                us[side].append((time.perf_counter() - t0) * 1e6 / calls)
+        per_call[name] = us
+
+    def quartiles(v):
+        q = statistics.quantiles(v, n=4)
+        return {"median": statistics.median(v), "q1": q[0], "q3": q[2]}
+
+    return {"steps_per_side": n * pairs, "op_ms": quartiles(times["op"]),
+            "direct_ms": quartiles(times["direct"]), "same_losses": True,
+            "host_us_per_call": per_call}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get_json(url: str, timeout: float = 60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def serve_artifact_subprocess(export_dir, requests, per_call: dict) -> dict:
+    """`python -X importtime -m mmda_tpu_torch.cli.serve --export_dir` in a
+    fresh process: wait for /healthz, post `requests` one at a time (one
+    `ExportedPredictor` call each, after the server's warm-up captured every
+    bucket), read the launches from /healthz around them (replays: `per_call`
+    each, no other kernel), stop it, and read from its import log that it
+    never imported the zoo, the live serving module or the trainer."""
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    logs = [BUILD / f"chip_smoke_export_served.{k}" for k in ("out", "err")]
+    t0 = time.perf_counter()
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:  # the import log is long
+        proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                 "mmda_tpu_torch.cli.serve", "--export_dir", str(export_dir),
+                                 "--port", str(port)], cwd=ROOT, stdout=out, stderr=err)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"cli.serve --export_dir exited {proc.returncode}:\n"
+                                   f"{logs[1].read_text()[-4000:]}")
+            try:
+                before = get_json(url + "/healthz", 5)
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 200:
+                    raise
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        replies = [post(url, r) for r in requests]
+        after = get_json(url + "/healthz")
+    finally:
+        proc.send_signal(2)                     # SIGINT: the server shuts down, then exits
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    out, err = (f.read_text() for f in logs)
+    calls = after["stats"]["requests"] - before["stats"]["requests"]
+    launches = {k: after["kernel_launches"][k] - before["kernel_launches"][k]
+                for k in after["kernel_launches"]}
+    want = {k: per_call.get(k, 0) * calls for k in launches}
+    if calls != len(requests) or launches != want:
+        raise AssertionError(f"artifact server: {calls} calls launched {launches}, "
+                             f"expected {per_call} a call")
+    imported = [line.rsplit("|", 1)[1].strip() for line in err.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    loaded = sorted(m for m in imported if m.startswith("mmda_tpu_torch"))
+    zoo = [m for m in loaded if any(m == z or m.startswith(z + ".") for z in ZOO_FREE)]
+    if zoo or "mmda_tpu_torch.serving_export" not in loaded:
+        raise AssertionError(f"the artifact's server imported {zoo} (loaded {loaded})")
+    return {"ready_s": ready_s, "calls": calls, "launches": launches,
+            "launches_per_call": {k: v // calls for k, v in launches.items() if v},
+            "port_modules_loaded": loaded, "zoo_free": True,
+            "scores": [r["scores"] for r in replies], "served_line": out.strip()[-300:]}
+
+
+def compare_scores(want: np.ndarray, got: np.ndarray, where: str) -> dict:
+    """Bit-equal share and the largest difference; raises beyond SERVE_TOL."""
+    want, got = np.asarray(want, np.float32), np.asarray(got, np.float32)
+    err = float(np.abs(want - got).max())
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"{where}: scores {err} from the live Predictor > {SERVE_TOL}")
+    return {"max_abs_diff": err, "bit_equal": bool(np.array_equal(want, got)),
+            "share_not_bit_equal": float(np.mean(want != got))}
+
+
+def artifact_latency(cfg, live, exported, buckets, batch) -> list:
+    """Host ms of a call (median of 10, each ended by the device-to-host
+    copy) of the exported and the live Predictor, both captured, at each
+    bucket for a full batch and one request."""
+    rows = []
+    for b in buckets:
+        reqs = make_requests([b] * batch, cfg, seed=b + 5)
+        for n in (batch, 1):
+            row = {"bucket": b, "batch": n}
+            for name, pred in (("exported", exported), ("live", live)):
+                pred(reqs[:n])
+                row[f"{name}_ms"] = host_ms(lambda i: pred(reqs[:n]), 10)["ms"]
+            rows.append(row)
+    return rows
+
+
+def export_and_compare(cfg, model, counts, device, out_dir, per_call, buckets, batch,
+                       weights_dtype=None) -> tuple:
+    """Export `model` at `buckets` (max_batch `batch`), load the artifact
+    in this process, and hold one call per bucket (a full batch and one
+    request) against the live `Predictor` on a copy of the same weights:
+    its launches a call and the scores.  Returns (result, live, exported)."""
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.serving_export import ExportedPredictor, export_model
+
+    t0 = time.perf_counter()
+    manifest = export_model(cfg, model, str(out_dir), max_batch=batch, bucket_sizes=buckets,
+                            weights_dtype=weights_dtype)
+    export_s = time.perf_counter() - t0
+    live = Predictor(cfg, params=copy.deepcopy(model), max_batch=batch,
+                     bert_weights_dtype=weights_dtype or "auto")
+    t0 = time.perf_counter()
+    exported = ExportedPredictor(str(out_dir))
+    load_s = time.perf_counter() - t0
+    compared, launches = [], {}
+    for b in buckets:
+        reqs = make_requests(spread_lengths(batch, (b,), b), cfg, seed=b)
+        for n in (batch, 1):
+            want = live(reqs[:n])
+            exported(reqs[:n])                      # a bucket's first call: eager, captured
+            counts.reset_launch_count()
+            got = exported(reqs[:n])
+            launches = all_launches(counts)
+            if launches != expected_launches(counts, per_call):
+                raise AssertionError(f"exported call at bucket {b}: launches {launches}, "
+                                     f"expected {per_call}")
+            check_outputs(got["scores"], got["labels"], got["tcp"], n, cfg.num_classes,
+                          cfg.threshold)
+            compared.append({"bucket": b, "batch": n,
+                             **compare_scores(want["scores"], got["scores"],
+                                              f"exported bucket {b}, B={n}")})
+    files = {str(b): (out_dir / f"bucket_{b}.pt2").stat().st_size for b in buckets}
+    return ({"buckets": list(buckets), "max_batch": batch, "weights_dtype": weights_dtype,
+             "export_s": export_s, "export_s_by_bucket": manifest["export_s"],
+             "pt2_bytes": files, "load_s": load_s, "launches_per_call": per_call,
+             "compared": compared}, live, exported)
+
+
+def moe_train(counts, device) -> dict:
+    """MISA with a bert-base MoE tower (MOE_OPTIONS, grouped by example, the
+    mosei freeze rule) at B=64, T=48: `Trainer.train()` for ZOO_STEPS steps
+    (12 + 12 short attention and 8 + 8 LSTM a step), `moe` and `moe_drop`
+    finite, an eager step moves the router of layer MOE_TRAINED_LAYER; phase
+    11's eager and captured steps with every replay bit-equal; a small f32
+    MoE model's gradients on the card against the CPU; then a `Predictor` on
+    the best-on-dev export against an `ExportedPredictor` of it (bucket 64)."""
+    from mmda_tpu_torch.data.loader import ArrayLoader
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.serving_export import ExportedPredictor, export_model
+    from mmda_tpu_torch.train.step import train_step
+
+    trainer, path = train_main_path(counts, "moe")
+    epoch = {k: path[k] for k in ("train_loss",)}
+    moe = trainer.model.bert.layers[MOE_TRAINED_LAYER].moe
+    frozen = trainer.model.bert.layers[MOE_TRAINED_LAYER - 1].moe
+    if frozen.gate.requires_grad or not moe.gate.requires_grad:
+        raise AssertionError("the mosei freeze rule does not cover the MoE layers by index")
+    cfg = trainer.cfg
+    batch = next(iter(ArrayLoader(trainer.data["train"], cfg.batch_size, shuffle=False,
+                                  bucket_sizes=cfg.bucket_sizes, device=device)))
+    gate0 = moe.gate.detach().clone()
+    losses = train_step(trainer.model, trainer.optimizer, batch, cfg, trainer.generator,
+                        trainer.ema)
+    terms = {k: float(losses[k]) for k in ("moe", "moe_drop", "total")}
+    finite_losses(terms, "MoE step")
+    if terms["moe"] == 0.0 or torch.equal(gate0, moe.gate.detach()):
+        raise AssertionError(f"the MoE step left the router unchanged ({terms})")
+    epoch.update(terms)
+    captured = captured_steps(trainer, counts, "moe", device)
+    if captured["captured_diffs"]:
+        raise AssertionError(f"MoE replays differ from the eager steps: "
+                             f"{captured['captured_diffs']}")
+    params = {"total": sum(p.numel() for p in trainer.model.parameters()),
+              "experts": sum(p.numel() for n, p in trainer.model.named_parameters()
+                             if ".moe." in n)}
+    sizes = trainer.sizes
+    del trainer, moe, frozen, batch
+    torch.cuda.empty_cache()
+    err = train_card_vs_cpu(device, **MOE_OPTIONS)
+    cfg = cfg.replace(bucket_sizes=(64,))            # serving's largest bucket
+    live = Predictor(cfg, max_batch=64, **sizes)
+    out_dir = BUILD / "chip_smoke_export_moe"
+    manifest = export_model(cfg, None, str(out_dir), visual_size=sizes["visual_size"],
+                            acoustic_size=sizes["acoustic_size"], max_batch=64)
+    exported = ExportedPredictor(str(out_dir))
+    reqs = make_requests(spread_lengths(64, (64,), 21), cfg, seed=21)
+    want = live(reqs)
+    exported(reqs)
+    counts.reset_launch_count()
+    got = exported(reqs)
+    serve = all_launches(counts)
+    if serve != expected_launches(counts, FUSED_CALL):
+        raise AssertionError(f"MoE artifact call: launches {serve}")
+    return {"main_path": path, "step": epoch, "captured": captured, "parameters": params,
+            "card_vs_cpu_err": err, "tol": DEVICE_TOL,
+            "export_s": manifest["export_s"], "serve_launches": serve,
+            "exported_vs_live": compare_scores(want["scores"], got["scores"], "MoE artifact"),
+            "launches": {k: path["launches"][k] + serve[k] for k in path["launches"]}}
+
+
+def phase15(counts, device) -> dict:
+    """Serving artifacts at full width (module docstring, phase 15) and the
+    MoE training step; each part's launches."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.models import init_misa
+
+    t0 = time.perf_counter()
+    cfg = Config(attn_impl="fused")
+    model = init_misa(cfg, seed=0, device=device)
+    fused, live, exported = export_and_compare(
+        cfg, model, counts, device, BUILD / "chip_smoke_export_fused", FUSED_CALL,
+        EXPORT_BUCKETS, 64)
+    fused["latency"] = artifact_latency(cfg, live, exported, EXPORT_BUCKETS, 64)
+    log("15 export-fused", **fused)
+    reqs = make_requests(spread_lengths(EXPORT_SERVED, EXPORT_BUCKETS, 33), cfg, seed=33)
+    want = [live([r])["scores"][0] for r in reqs]
+    del live, exported
+    torch.cuda.empty_cache()
+    sub = serve_artifact_subprocess(BUILD / "chip_smoke_export_fused", reqs, FUSED_CALL)
+    sub.update(compare_scores(want, sub.pop("scores"), "the artifact's server"))
+    fused["subprocess"] = sub
+    log("15 export-served", **sub)
+    int8, live, exported = export_and_compare(
+        cfg, model, counts, device, BUILD / "chip_smoke_export_int8", FUSED_CALL, (64,), 64,
+        weights_dtype="int8")
+    int8["latency"] = artifact_latency(cfg, live, exported, (64,), 64)
+    log("15 export-int8", **int8)
+    del model, live, exported
+    torch.cuda.empty_cache()
+    T, B = FLASH_EXPORT
+    long_cfg = Config(attn_impl="flash", bucket_sizes=(T,), max_seq_len=T)
+    model = init_misa(long_cfg, seed=0, device=device)
+    flash, live, exported = export_and_compare(
+        long_cfg, model, counts, device, BUILD / "chip_smoke_export_flash", FLASH_CALL, (T,), B)
+    flash["latency"] = artifact_latency(long_cfg, live, exported, (T,), B)
+    log("15 export-flash", **flash)
+    del model, live, exported
+    torch.cuda.empty_cache()
+    moe = moe_train(counts, device)
+    log("15 moe-train", **{k: v for k, v in moe.items() if k != "captured"})
+    log("15 moe-captured", **moe["captured"])
+    launches = {name: (sub["launches"][name] + moe["launches"][name]) for name in counts.KERNELS}
+    return {"fused": fused, "int8": int8, "flash": flash, "moe": moe, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3568,7 +3941,7 @@ def first_calls(kattn, kshort, device) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--first-calls"]):
+    if args not in ([], ["--first-calls"], ["--phase15"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -3610,6 +3983,12 @@ def main() -> int:
     log("2 build", sources=list(counts.KERNELS), seconds=build_s)
     if "--first-calls" in args:
         return first_calls(kattn, kshort, device)
+    if "--phase15" in args:                 # phase 15 alone, after the build
+        p15 = phase15(counts, device)
+        log("15 seconds", seconds=p15["seconds"])
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_phase15.log").write_text("\n".join(LOG_LINES) + "\n")
+        return 0
 
     checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
               "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
@@ -3736,6 +4115,8 @@ def main() -> int:
                                               attn_impl="fused")
     fused_train["steps_dense_core_phase5"] = train["steps"]
     fused_cfg = fused_trainer.cfg
+    op_ab = op_dispatch_ab(fused_trainer, (klstm, kgru, kshort, kattn), device)
+    log("15 op-dispatch", **op_ab)
     del fused_trainer
     torch.cuda.empty_cache()
     fused_serve = serve_fused(fused_cfg, counts, device)
@@ -3778,6 +4159,12 @@ def main() -> int:
     p14 = phase14(counts, device)
     log("14 seconds", seconds=p14["seconds"])
 
+    # phase 15: serving artifacts (the kernels as ops) and MoE BERT
+    torch.cuda.empty_cache()
+    p15 = phase15(counts, device)
+    p15["op_dispatch"] = op_ab
+    log("15 seconds", seconds=p15["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
     # cli.infer, the tower pair, phase 12's, 13's and 14's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
@@ -3787,7 +4174,7 @@ def main() -> int:
                 + fused_serve["launches_by_kernel"][name] + pair["launches"][name]
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
-                + p13["launches"][name] + p14["launches"][name]
+                + p13["launches"][name] + p14["launches"][name] + p15["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -3838,7 +4225,7 @@ def main() -> int:
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
-        "phase14": p14,
+        "phase14": p14, "phase15": p15,
         "kernels": kernels},
         indent=1, default=str))
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")

@@ -8,15 +8,20 @@ Counterpart of `mmda_tpu/cli/serve.py`: a stdlib HTTP front end over
                       "acoustic": [[...]...], "bert_ids": [...],
                       "bert_type": [...], "bert_mask": [...]}    (arrays)
                   -> {"scores": [...], "labels": [...], "tcp": [...]}
-  GET  /healthz   -> {"ok": true, "stats": {...}}
+  GET  /healthz   -> {"ok": true, "stats": {...}, "kernel_launches": {...}}
+                  (the hand-written kernels' launches since the start,
+                  by name: `ops/kernels/_launch.py`)
 
 Requests from concurrent clients are coalesced into micro-batches by the
 PredictionServer worker; one call per bucket warms the server at startup.
-Serving a StableHLO export (`--export_dir`) is not ported.
+`--export_dir` serves an artifact of `cli/export.py` through an
+`ExportedPredictor` (serving_export.py): that process imports no model code
+(`mmda_tpu_torch.models`, `serving` and `train` are never loaded).
 
 Usage (on the card; `--device cpu` for the CPU):
   python -m mmda_tpu_torch.cli.serve --data mosei --ckpt_dir checkpoints \\
       --port 8321 [--vocab_file vocab.txt]
+  python -m mmda_tpu_torch.cli.serve --export_dir artifact --port 8321
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Optional
 
 import numpy as np
 
-from mmda_tpu_torch.serving import Predictor, RequestTooLongError
+from mmda_tpu_torch.ops.kernels import _launch
+from mmda_tpu_torch.serving_requests import RequestTooLongError
 from mmda_tpu_torch.serving_server import PredictionServer
 
 
@@ -61,7 +67,8 @@ def make_handler(server, default_timeout_s: float):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._reply(200, {"ok": True, "stats": server.stats})
+                self._reply(200, {"ok": True, "stats": server.stats, "kernel_launches": {
+                    name: _launch.launch_count(name) for name in _launch.KERNELS}})
             else:
                 self._reply(404, {"error": "unknown path"})
 
@@ -99,11 +106,13 @@ def serve(cfg, params=None, port: int = 8321, host: str = "127.0.0.1",
     (httpd, prediction_server); run `httpd.serve_forever()` (in a thread, or
     as `main` does) and `httpd.shutdown(); prediction_server.close()` to stop.
 
-    predictor: a pre-built Predictor to front instead of building one from
-    cfg and params."""
-    pred = predictor or Predictor(cfg, params=params, tokenizer=tokenizer,
-                                  word2id=word2id)
-    psrv = PredictionServer(pred, default_timeout_s=timeout_s)
+    predictor: a pre-built Predictor (or ExportedPredictor) to front instead
+    of building one from cfg and params."""
+    if predictor is None:
+        from mmda_tpu_torch.serving import Predictor
+
+        predictor = Predictor(cfg, params=params, tokenizer=tokenizer, word2id=word2id)
+    psrv = PredictionServer(predictor, default_timeout_s=timeout_s)
     if warmup:
         psrv.warmup()
     httpd = ThreadingHTTPServer((host, port), make_handler(psrv, timeout_s))
@@ -114,16 +123,21 @@ def serve(cfg, params=None, port: int = 8321, host: str = "127.0.0.1",
 
 def main(argv=None):
     from mmda_tpu_torch.config import get_config
-    from mmda_tpu_torch.data.etl.tokenizer import WordPieceTokenizer
 
     cfg = get_config(argv=argv)
-    if cfg.export_dir:
-        raise NotImplementedError("--export_dir (StableHLO serving) is not "
-                                  "ported; serve a checkpoint with --ckpt_dir")
     tokenizer = None
     if cfg.vocab_file:
+        from mmda_tpu_torch.data.etl.tokenizer import WordPieceTokenizer
+
         tokenizer = WordPieceTokenizer.from_vocab_file(cfg.vocab_file)
-    httpd, psrv = serve(cfg, port=cfg.port, tokenizer=tokenizer)
+    predictor = None
+    if cfg.export_dir:
+        # an artifact of cli/export.py: no model code runs in this process
+        from mmda_tpu_torch.serving_export import ExportedPredictor
+
+        predictor = ExportedPredictor(cfg.export_dir, device=cfg.device)
+        cfg = cfg.replace(model=predictor.cfg.model)
+    httpd, psrv = serve(cfg, port=cfg.port, tokenizer=tokenizer, predictor=predictor)
     print(f"serving {cfg.model} ({cfg.data}) on {cfg.device} at http://"
           f"{httpd.server_address[0]}:{httpd.server_address[1]}  "
           "[POST /predict, GET /healthz]")

@@ -12,6 +12,8 @@ by `train/checkpoint.py`) maps leaf by leaf onto the port's parameter names:
 * `.../kernel` (width, in, out) -> `.../weight` (out, in, width), the axes
   reversed (MULT's `proj_t` / `proj_v` / `proj_a` temporal convolutions);
 * `.../scale`              -> `.../weight` (LayerNorms);
+* `.../moe/gate/kernel`    -> `.../moe.gate`, not transposed (a MoE layer's
+  router is (H, E) in both packages, as are its E-leading expert weights);
 * every other leaf keeps its name: biases, LSTM `w_ih`/`w_hh`/`b_ih`/`b_hh`
   (already in torch layout), BERT embedding tables, the GloVe table, LMF's
   (R, H+1, H) factors.
@@ -63,11 +65,21 @@ def to_port_layout(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.permute(*reversed(range(kernel.dim())))
 
 
+ROUTER = ".moe.gate"       # a MoE layer's router: the JAX `moe.gate.kernel`, (H, E) in both
+
+
 def port_name(path: str) -> str:
     head, _, leaf = path.rpartition(".")
+    if head.endswith(ROUTER) and leaf == "kernel":
+        return head
     if leaf in ("kernel", "scale"):
         return head + _ + "weight"
     return path
+
+
+def transposed(path: str) -> bool:
+    """Whether the JAX leaf at `path` is stored transposed in the port."""
+    return path.rpartition(".")[2] == "kernel" and not path.endswith(ROUTER + ".kernel")
 
 
 def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -81,7 +93,7 @@ def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
             extra.append(path)
             continue
         value = to_tensor(leaf)
-        if path.rpartition(".")[2] == "kernel":
+        if transposed(path):
             value = to_port_layout(value)
         if tuple(value.shape) != tuple(targets[name].shape):
             raise ValueError(f"leaf {path!r} has shape {tuple(value.shape)}, port "
@@ -107,6 +119,8 @@ def jax_name(model: nn.Module, name: str) -> str:
     from mmda_tpu_torch.models.bert import Dense
     from mmda_tpu_torch.models.common import Conv1d, LayerNorm, Linear
 
+    if name.endswith(ROUTER):
+        return name + ".kernel"
     head, _, leaf = name.rpartition(".")
     if leaf == "weight":
         owner = model.get_submodule(head)
@@ -127,7 +141,7 @@ def jax_leaves(model: nn.Module, tensors: Optional[List[torch.Tensor]] = None
     for i, (name, p) in enumerate(model.named_parameters()):
         path = jax_name(model, name)
         value = (p if tensors is None else tensors[i]).detach()
-        if path.endswith(".kernel"):      # transposed where it lives: on the card, fast
+        if transposed(path):              # transposed where it lives: on the card, fast
             value = to_port_layout(value).contiguous()
         out.append((path, value.to("cpu", copy=True)))
     return out

@@ -43,7 +43,15 @@ the attention core, so it composes with every core and with
 weights are already the port's layout, so nothing is transposed (the JAX
 package stores their transpose).  `quantize_bert_int8` turns the six encoder
 denses of every layer into `QuantizedDense` (weight-only int8, one f32 scale
-per output channel) for serving.  MoE FFNs are not ported yet.
+per output channel) for serving.
+
+`moe_experts > 0` replaces every layer's FFN by a Switch / GShard MoE
+(`ops/moe.py::SwitchFFN`, the JAX layout: `moe.gate` (H, E) and E-leading
+expert weights), routed per example under `moe_group_by_example`; the layer
+then returns its router's aux losses and `bert_encode` returns (hidden, aux)
+with each averaged over the layers.  The freeze rule covers a layer's `moe`
+with the rest of it; int8 leaves the experts as loaded; `load_hf_weights`
+upcycles a dense checkpoint.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from mmda_tpu_torch.models.common import LayerNorm, dropout, layer_norm
 from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 from mmda_tpu_torch.ops.kernels.short_attention import short_attention
+from mmda_tpu_torch.ops.moe import SwitchFFN, switch_ffn
 from mmda_tpu_torch.utils import safetensors_io
 
 
@@ -80,6 +89,12 @@ class BertConfig:
     gelu_exact: bool = True       # erf GELU (HF parity); False = tanh approx
     fused_ln_dropout: bool = False  # the 24 per-layer LN(x + dropout(h)) sites
                                     # through the fused kernel when training
+    moe_experts: int = 0          # > 0: every layer's FFN is a Switch MoE of
+                                  # this many experts (ops/moe.py), and
+                                  # bert_encode returns (hidden, aux)
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1            # 1 Switch, 2 GShard
+    moe_group_by_example: bool = True   # route each example's tokens as a group
 
     @staticmethod
     def base() -> "BertConfig":
@@ -95,12 +110,22 @@ class BertConfig:
 
 def bert_config_for(cfg) -> Optional[BertConfig]:
     """BertConfig.base() with the main config's BERT-tower options applied
-    (`fused_ln_dropout`), for a config that uses the BERT tower."""
+    (`fused_ln_dropout`; `moe_experts`, `moe_capacity_factor`, `moe_top_k`
+    as `mmda_tpu.models.bert.bert_config_for` carries them), for a config
+    that uses the BERT tower."""
     if not cfg.use_bert:
         return None
+    bc = BertConfig(fused_ln_dropout=bool(getattr(cfg, "fused_ln_dropout", False)))
     if getattr(cfg, "moe_experts", 0) > 0:
-        raise NotImplementedError("moe_experts > 0 is not ported yet")
-    return BertConfig(fused_ln_dropout=bool(getattr(cfg, "fused_ln_dropout", False)))
+        bc = dataclasses.replace(bc, moe_experts=cfg.moe_experts,
+                                 moe_capacity_factor=cfg.moe_capacity_factor,
+                                 moe_top_k=getattr(cfg, "moe_top_k", 1))
+    return bc
+
+
+def split_aux(out):
+    """(hidden, MoE aux losses or None) from what `bert_encode` returned."""
+    return out if isinstance(out, tuple) else (out, None)
 
 
 def apply_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -185,6 +210,9 @@ class BertEmbeddings(nn.Module):
 
 
 class BertLayer(nn.Module):
+    """q, k, v, attn_out, the two LayerNorms, and the FFN: `ffn_in` and
+    `ffn_out`, or with cfg.moe_experts > 0 a `SwitchFFN` `moe`."""
+
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         H, I = cfg.hidden_size, cfg.intermediate_size
@@ -192,8 +220,11 @@ class BertLayer(nn.Module):
         self.k = Dense(H, H, device)
         self.v = Dense(H, H, device)
         self.attn_out = Dense(H, H, device)
-        self.ffn_in = Dense(H, I, device)
-        self.ffn_out = Dense(I, H, device)
+        if cfg.moe_experts > 0:
+            self.moe = SwitchFFN(H, I, cfg.moe_experts, device)
+        else:
+            self.ffn_in = Dense(H, I, device)
+            self.ffn_out = Dense(I, H, device)
         self.attn_ln = LayerNorm(H, cfg.layer_norm_eps, device)
         self.ffn_ln = LayerNorm(H, cfg.layer_norm_eps, device)
 
@@ -217,8 +248,11 @@ class BertEncoder(nn.Module):
         emb.ln.reset_parameters()
         self.pooler.reset_parameters(std, generator)
         for lp in self.layers:
-            for d in (lp.q, lp.k, lp.v, lp.attn_out, lp.ffn_in, lp.ffn_out):
-                d.reset_parameters(std, generator)
+            for name in _QUANT_DENSE_NAMES:
+                if hasattr(lp, name):
+                    getattr(lp, name).reset_parameters(std, generator)
+            if hasattr(lp, "moe"):
+                lp.moe.reset_parameters(generator, std)
             lp.attn_ln.reset_parameters()
             lp.ffn_ln.reset_parameters()
 
@@ -227,7 +261,7 @@ class BertEncoder(nn.Module):
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 attn_impl: str = "xla", inject_layer: Optional[int] = None,
-                inject_fn=None) -> torch.Tensor:
+                inject_fn=None):
         return bert_encode(self, input_ids, attention_mask, token_type_ids,
                            compute_dtype, training, generator, attn_impl,
                            inject_layer, inject_fn)
@@ -238,11 +272,12 @@ _QUANT_DENSE_NAMES = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
 
 def quantize_bert_int8(p: BertEncoder) -> BertEncoder:
     """Weight-only int8 for serving (`mmda_tpu.models.bert.quantize_bert_int8`):
-    the six denses of every encoder layer become `QuantizedDense`, in place;
-    the embeddings, LayerNorms and pooler stay as loaded.  Returns `p`."""
+    the six denses of every encoder layer become `QuantizedDense`, in place
+    (a MoE layer's four: its experts stay as loaded); the embeddings,
+    LayerNorms and pooler stay as loaded.  Returns `p`."""
     for lp in p.layers:
         for name in _QUANT_DENSE_NAMES:
-            d = getattr(lp, name)
+            d = getattr(lp, name, None)
             if isinstance(d, Dense):
                 setattr(lp, name, quantize_dense(d))
     return p
@@ -265,7 +300,14 @@ def load_hf_weights(model_dir: str, cfg: Optional[BertConfig] = None
     (read with `weights_only=True`: the file is a pickle), its names with or
     without the `bert.` prefix.  The tensors keep the file's dtype.  Raises
     FileNotFoundError without either file and KeyError for a missing
-    tensor."""
+    tensor.
+
+    With cfg.moe_experts > 0 the dense FFNs are upcycled (Komatsuzaki et
+    al., as the JAX loader does): every expert of layer i is an exact copy
+    of the file's FFN, and the router is drawn truncated normal (std 0.02)
+    from a `torch.Generator` seeded with i, so loading is reproducible (the
+    JAX loader draws it from `fold_in(PRNGKey(0), i)`, which has no torch
+    counterpart)."""
     cfg = cfg or BertConfig.base()
     st_path = os.path.join(model_dir, "model.safetensors")
     pt_path = os.path.join(model_dir, "pytorch_model.bin")
@@ -298,7 +340,25 @@ def load_hf_weights(model_dir: str, cfg: Optional[BertConfig] = None
                              ("ffn_ln", "output.LayerNorm")):
             out[f"layers.{i}.{ours}.weight"] = g(base + theirs + ".weight")
             out[f"layers.{i}.{ours}.bias"] = g(base + theirs + ".bias")
+        if cfg.moe_experts > 0:
+            out.update(_upcycle(out, f"layers.{i}.", i, cfg))
     return out
+
+
+def _upcycle(sd: Dict[str, torch.Tensor], prefix: str, layer: int, cfg: BertConfig
+             ) -> Dict[str, torch.Tensor]:
+    """Layer `prefix`'s dense FFN in `sd` (removed from it) as a `SwitchFFN`
+    state: each expert a copy of it, the router seeded with the layer index."""
+    E = cfg.moe_experts
+    w_in, b_in = sd.pop(prefix + "ffn_in.weight"), sd.pop(prefix + "ffn_in.bias")
+    w_out, b_out = sd.pop(prefix + "ffn_out.weight"), sd.pop(prefix + "ffn_out.bias")
+    gate = torch.empty(cfg.hidden_size, E)
+    _trunc_normal_(gate, 0.02, torch.Generator().manual_seed(layer))
+    return {prefix + "moe.gate": gate,
+            prefix + "moe.w_in": w_in.t().expand(E, -1, -1).contiguous(),
+            prefix + "moe.b_in": b_in.expand(E, -1).contiguous(),
+            prefix + "moe.w_out": w_out.t().expand(E, -1, -1).contiguous(),
+            prefix + "moe.b_out": b_out.expand(E, -1).contiguous()}
 
 
 def load_hf_encoder(p: BertEncoder, model_dir: str) -> BertEncoder:
@@ -332,10 +392,11 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                key_bias: torch.Tensor, compute_dtype: torch.dtype,
                training: bool = False,
                generator: Optional[torch.Generator] = None,
-               attn_impl: str = "xla") -> torch.Tensor:
+               attn_impl: str = "xla"):
     """One post-norm encoder layer; key_bias (B * nh, 1, S) additive;
     attn_impl "xla" (the dense core), "flash" (the blockwise kernels) or
-    "fused" (the short-sequence kernels)."""
+    "fused" (the short-sequence kernels).  A MoE layer (cfg.moe_experts > 0)
+    returns (x, its router's aux losses), as the JAX layer does."""
     B, S, H = x.shape
     nh = cfg.num_heads
     hd = H // nh
@@ -394,6 +455,12 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
     x = residual_ln(x, dense(ctx, lp.attn_out, cd), lp.attn_ln)
 
+    if cfg.moe_experts > 0:
+        y, aux = switch_ffn(lp.moe, x.reshape(B * S, H),
+                            capacity_factor=cfg.moe_capacity_factor, gelu_exact=cfg.gelu_exact,
+                            compute_dtype=cd, groups=B if cfg.moe_group_by_example else 1,
+                            top_k=cfg.moe_top_k)
+        return residual_ln(x, y.reshape(B, S, H).to(cd), lp.ffn_ln), aux
     h = dense(x, lp.ffn_in, cd)
     if cfg.gelu_exact:
         h = F.gelu(h.float(), approximate="none")
@@ -408,8 +475,10 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
                 compute_dtype: torch.dtype = torch.bfloat16, training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 attn_impl: str = "xla", inject_layer: Optional[int] = None,
-                inject_fn=None) -> torch.Tensor:
+                inject_fn=None):
     """Last hidden state (B, S, H) of the encoder; dropout when training.
+    With cfg.moe_experts > 0, (hidden, aux): each router aux loss averaged
+    over the layers (`mmda_tpu.models.bert.bert_encode`).
     attn_impl: "xla", "flash" or "fused", what `Config.resolved_attn_impl`
     gave for this call.  inject_fn, when given, maps the hidden states
     entering layer `inject_layer` (0: the embedding output, after its
@@ -423,10 +492,16 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
     x = dropout(x, cfg.hidden_dropout, training, generator)
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
     key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
+    auxes = []
     for i, lp in enumerate(p.layers):
         if inject_layer is not None and i == inject_layer:
             x = inject_fn(x).to(compute_dtype)
         x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl)
+        if cfg.moe_experts > 0:
+            x, aux = x
+            auxes.append(aux)
     if inject_layer is not None and inject_layer >= cfg.num_layers:
         x = inject_fn(x).to(compute_dtype)
+    if cfg.moe_experts > 0:
+        return x, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     return x

@@ -32,8 +32,9 @@ class LF_DNN(PooledModel):
         """`recurrence` is the RNN families' argument; there is none here."""
         cfg = self.cfg
         act = get_activation(cfg.activation)
-        fused = torch.cat(self.encodings(batch, modality_keep, generator), dim=-1)
+        *h, moe_aux = self.encodings(batch, modality_keep, generator)
+        fused = torch.cat(h, dim=-1)
         tcp = torch.sigmoid(self.confidence(fused))
         logits = self.head2(act(self.head1(fused)))
         logits = dropout(logits, cfg.dropout, self.training, generator)
-        return classifier_output(cfg, logits, tcp)
+        return classifier_output(cfg, logits, tcp, moe_aux)

@@ -48,7 +48,7 @@ class LMF(PooledModel):
                 recurrence=None, generator: Optional[torch.Generator] = None
                 ) -> MISAOutput:
         cfg = self.cfg
-        ht, hv, ha = self.encodings(batch, modality_keep, generator)
+        ht, hv, ha, moe_aux = self.encodings(batch, modality_keep, generator)
         ones = ht.new_ones(ht.shape[0], 1)
 
         def project(z, w):                    # (B, H+1) x (R, H+1, H) -> (B, R, H)
@@ -58,4 +58,4 @@ class LMF(PooledModel):
                  * project(ha, self.factor_a)).sum(dim=1) + self.fusion_bias
         fused = dropout(fused, cfg.dropout, self.training, generator)
         tcp = torch.sigmoid(self.confidence(fused))
-        return classifier_output(cfg, self.out(fused).float(), tcp)
+        return classifier_output(cfg, self.out(fused).float(), tcp, moe_aux)

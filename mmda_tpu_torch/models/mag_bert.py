@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, split_aux
 from mmda_tpu_torch.models.common import LayerNorm, Linear, dropout
 from mmda_tpu_torch.models.misa import MISAOutput, classifier_output
 
@@ -122,10 +122,11 @@ class MAG_BERT(nn.Module):
             return mag_gate(self.mag, h, vis, aco, cfg.mag_beta, cfg.mag_dropout, training,
                             generator)
 
-        hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training,
-                           generator, cfg.resolved_attn_impl(training=training, seq_len=S),
-                           inject_layer=cfg.mag_inject_layer, inject_fn=inject)
+        hidden, moe_aux = split_aux(self.bert(
+            batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training, generator,
+            cfg.resolved_attn_impl(training=training, seq_len=S),
+            inject_layer=cfg.mag_inject_layer, inject_fn=inject))
         pooled = torch.tanh(self.pooler(hidden[:, 0].float()))
         pooled = dropout(pooled, cfg.dropout, training, generator)
         tcp = torch.sigmoid(self.confidence(pooled))
-        return classifier_output(cfg, self.classifier(pooled).float(), tcp)
+        return classifier_output(cfg, self.classifier(pooled).float(), tcp, moe_aux)

@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, split_aux
 from mmda_tpu_torch.models.bilstm import extract_features_pair
 from mmda_tpu_torch.models.common import LayerNorm, Linear, TransformerLayer, dropout
 from mmda_tpu_torch.models.extractors import make_tower
@@ -57,17 +57,19 @@ class MISAOutput(NamedTuple):
     model_aux: Optional[Dict] = None
 
 
-def classifier_output(cfg, logits: torch.Tensor, tcp: torch.Tensor) -> MISAOutput:
+def classifier_output(cfg, logits: torch.Tensor, tcp: torch.Tensor,
+                      moe_aux: Optional[Dict] = None) -> MISAOutput:
     """The `MISAOutput` of a family without MISA's shared/private
-    factorization (EF_LSTM, LF_DNN, LMF, TFN): scores, labels and tcp, every
-    other field None (the objective then drops diff, sim and recon)."""
+    factorization (EF_LSTM, LF_DNN, LMF, TFN): scores, labels and tcp (and a
+    MoE BERT tower's aux losses), every other field None (the objective then
+    drops diff, sim and recon)."""
     if cfg.resolved_task() == "regression":
         scores = logits.float()
         labels = scores
     else:
         scores = torch.sigmoid(logits)
         labels = binarize(scores, cfg.threshold)
-    return MISAOutput(scores, labels, tcp, *[None] * 19)
+    return MISAOutput(scores, labels, tcp, *[None] * 19)._replace(moe_aux=moe_aux)
 
 
 class Batch(NamedTuple):
@@ -196,11 +198,11 @@ class MISA(nn.Module):
             visual = visual * mk[:, 1][:, None, None]
             acoustic = acoustic * mk[:, 2][:, None, None]
 
+        moe_aux = None
         if cfg.use_bert:
-            hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd,
-                               training, generator,
-                               cfg.resolved_attn_impl(training=training,
-                                                      seq_len=batch.bert_ids.shape[1]))
+            hidden, moe_aux = split_aux(self.bert(
+                batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training, generator,
+                cfg.resolved_attn_impl(training=training, seq_len=batch.bert_ids.shape[1])))
             utt_text = masked_mean(hidden.float(), batch.bert_mask)
         else:
             emb = lookup(self.embed, batch.text).to(cd)
@@ -281,7 +283,7 @@ class MISA(nn.Module):
             recon_t=recon_t, recon_v=recon_v, recon_a=recon_a,
             domain_t=domain_t, domain_v=domain_v, domain_a=domain_a,
             sp_p_t=sp_p_t, sp_p_v=sp_p_v, sp_p_a=sp_p_a, sp_s=sp_s,
-            fusion_attn=fusion_attn,
+            fusion_attn=fusion_attn, moe_aux=moe_aux,
         )
 
 

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, split_aux
 from mmda_tpu_torch.models.bilstm import extract_features_pair
 from mmda_tpu_torch.models.common import Linear, dropout
 from mmda_tpu_torch.models.extractors import make_tower
@@ -141,10 +141,12 @@ class MMIM(nn.Module):
             visual = visual * mk[:, 1][:, None, None]
             acoustic = acoustic * mk[:, 2][:, None, None]
 
+        moe_aux = None
         if cfg.use_bert:
             S = batch.bert_ids.shape[1]
-            hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training,
-                               generator, cfg.resolved_attn_impl(training=training, seq_len=S))
+            hidden, moe_aux = split_aux(self.bert(
+                batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training, generator,
+                cfg.resolved_attn_impl(training=training, seq_len=S)))
             utt_t = masked_mean(hidden.float(), batch.bert_mask)
         else:
             emb = lookup(self.embed, batch.text).to(cd)
@@ -176,6 +178,6 @@ class MMIM(nn.Module):
                + infonce(h_a, self.cpc_a(z)))
 
         tcp = torch.sigmoid(self.confidence(z))
-        out = classifier_output(cfg, self.out(z).float(), tcp)
+        out = classifier_output(cfg, self.out(z).float(), tcp, moe_aux)
         return out._replace(model_aux={"total": cfg.mmim_alpha * nll + cfg.mmim_beta * nce,
                                        "nll": nll, "nce": nce})

@@ -41,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, split_aux
 from mmda_tpu_torch.models.common import Conv1d, LayerNorm, Linear, dropout
 from mmda_tpu_torch.models.misa import MISAOutput, classifier_output
 from mmda_tpu_torch.ops.functions import length_mask, lookup
@@ -170,10 +170,12 @@ class MULT(nn.Module):
         v_len = batch.visual_lengths if batch.visual_lengths is not None else batch.lengths
         a_len = batch.acoustic_lengths if batch.acoustic_lengths is not None else batch.lengths
 
+        moe_aux = None
         if cfg.use_bert:
             S = batch.bert_ids.shape[1]
-            feat_t = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training,
-                               generator, cfg.resolved_attn_impl(training=training, seq_len=S))
+            feat_t, moe_aux = split_aux(self.bert(
+                batch.bert_ids, batch.bert_mask, batch.bert_type, cd, training, generator,
+                cfg.resolved_attn_impl(training=training, seq_len=S)))
             mask_t = batch.bert_mask.float()
             len_t = batch.bert_mask.sum(-1)
         else:
@@ -222,4 +224,4 @@ class MULT(nn.Module):
         h = dropout(F.relu(self.proj1(fused)), rate, training, generator)
         h = self.proj2(h) + fused
         tcp = torch.sigmoid(self.confidence(fused))
-        return classifier_output(cfg, self.out(h).float(), tcp)
+        return classifier_output(cfg, self.out(h).float(), tcp, moe_aux)

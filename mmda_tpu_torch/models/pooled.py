@@ -11,12 +11,12 @@ dropout in `train()`, drawn from the caller's generator.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from mmda_tpu_torch.models.bert import BertConfig, BertEncoder
+from mmda_tpu_torch.models.bert import BertConfig, BertEncoder, split_aux
 from mmda_tpu_torch.models.common import LayerNorm, Linear
 from mmda_tpu_torch.ops.functions import get_activation, length_mask, lookup, masked_mean
 
@@ -72,17 +72,21 @@ class PooledModel(nn.Module):
 
     def encodings(self, batch, modality_keep: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(ht, hv, ha), each (B, hidden_size) f32."""
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[Dict]]:
+        """(ht, hv, ha, moe_aux): each h (B, hidden_size) f32; moe_aux the
+        BERT tower's router losses (None unless moe_experts > 0), as
+        `mmda_tpu.models.pooled.pooled_modality_encodings`."""
         cfg = self.cfg
         act = get_activation(cfg.activation)
         v_len = batch.visual_lengths if batch.visual_lengths is not None else batch.lengths
         a_len = batch.acoustic_lengths if batch.acoustic_lengths is not None else batch.lengths
+        moe_aux = None
         if cfg.use_bert:
             S = batch.bert_ids.shape[1]
-            hidden = self.bert(batch.bert_ids, batch.bert_mask, batch.bert_type,
-                               getattr(torch, cfg.compute_dtype), self.training, generator,
-                               cfg.resolved_attn_impl(training=self.training, seq_len=S))
+            hidden, moe_aux = split_aux(self.bert(
+                batch.bert_ids, batch.bert_mask, batch.bert_type,
+                getattr(torch, cfg.compute_dtype), self.training, generator,
+                cfg.resolved_attn_impl(training=self.training, seq_len=S)))
             pooled_t = masked_mean(hidden.float(), batch.bert_mask)
         else:
             pooled_t = masked_mean(lookup(self.embed, batch.text).float(),
@@ -96,4 +100,4 @@ class PooledModel(nn.Module):
             pooled_v = pooled_v * mk[:, 1][:, None]
             pooled_a = pooled_a * mk[:, 2][:, None]
         return (self.enc_t(pooled_t, act), self.enc_v(pooled_v, act),
-                self.enc_a(pooled_a, act))
+                self.enc_a(pooled_a, act), moe_aux)

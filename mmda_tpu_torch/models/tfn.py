@@ -38,7 +38,7 @@ class TFN(PooledModel):
                 ) -> MISAOutput:
         cfg = self.cfg
         act = get_activation(cfg.activation)
-        ht, hv, ha = self.encodings(batch, modality_keep, generator)
+        ht, hv, ha, moe_aux = self.encodings(batch, modality_keep, generator)
         B = ht.shape[0]
         ones = ht.new_ones(B, 1)
 
@@ -51,4 +51,4 @@ class TFN(PooledModel):
                         self.training, generator)
         h = dropout(act(self.head(fused)), cfg.dropout, self.training, generator)
         tcp = torch.sigmoid(self.confidence(h))
-        return classifier_output(cfg, self.out(h).float(), tcp)
+        return classifier_output(cfg, self.out(h).float(), tcp, moe_aux)

@@ -26,7 +26,10 @@ in the type of q, k, v.
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions
 (which form the whole S x S matrix).  There is no other route: a CUDA input
 that a kernel cannot take raises.  The seed is a one-element int32 tensor on
-the inputs' device; no wrapper reads it on the host.  Launch counts:
+the inputs' device; no wrapper reads it on the host.  The forward is the op
+`torch.ops.mmda_tpu_torch.flash_attention_fwd` (`flash_attention_fwd_op`, a
+`torch.library.custom_op` with a fake implementation): one node in a
+`torch.export` graph.  Launch counts:
 `launch_count("flash_fwd")`, `("flash_bwd_dq")`, `("flash_bwd_dkv")`.
 """
 
@@ -45,8 +48,8 @@ SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count",
            "flash_attention_fwd_reference", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference", "flash_attention_bwd_reference",
-           "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_bwd", "FlashAttention", "flash_attention"]
+           "flash_attention_fwd", "flash_attention_fwd_op", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_bwd", "FlashAttention", "flash_attention"]
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)     # the kernels' instantiations (csrc/flash_common.cuh)
 
@@ -136,9 +139,12 @@ def flash_attention_bwd_reference(q, k, v, bias, seed, lse, o, d_out, rate: floa
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(q, k, v, bias, seed, rate: float, f32_like=(), vectors=()) -> torch.device:
+def _check(q, k, v, bias, seed, rate: float, f32_like=(), vectors=(),
+           pointers: bool = True) -> torch.device:
     """Raises on what the kernels do not take.  f32_like: (name, tensor) that
-    must be (BH, S, D) f32; vectors: (name, tensor) that must be (BH, S) f32."""
+    must be (BH, S, D) f32; vectors: (name, tensor) that must be (BH, S) f32.
+    pointers=False leaves out the alignment of the data (which a tensor being
+    traced by `torch.export` has not got)."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"q must be a tensor, got {type(q).__name__}")
     if q.dtype not in DTYPES:
@@ -164,7 +170,7 @@ def _check(q, k, v, bias, seed, rate: float, f32_like=(), vectors=()) -> torch.d
             raise ValueError(f"the attention kernels take D in {HEAD_DIMS}, got {D}")
         if BH * -(-S // 64) >= 2 ** 31:
             raise ValueError(f"(BH, S) = {(BH, S)} needs more blocks than a grid has")
-        for name, t, _, _ in tensors:
+        for name, t, _, _ in (tensors if pointers else ()):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
     return dev
@@ -176,13 +182,10 @@ def _launch_args(q, rate: float):
             float(np.float32(rate)), keep_scale(rate))
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: torch.Tensor, seed: Optional[torch.Tensor],
-                        rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """softmax((q k^T) / sqrt(D) + bias) with dropout, times v.  q, k, v
-    (BH, S, D) f32 or bf16 (the same), bias (BH, S) f32 additive on keys, seed
-    (1,) int32 on the same device (unused at rate 0, may be None).  Returns
-    (o (BH, S, D) f32, lse (BH, S) f32)."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+             seed: Optional[torch.Tensor], rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `flash_attention_fwd` op's implementation: the plain version for
+    a CPU tensor, the kernel for a CUDA one."""
     dev = _check(q, k, v, bias, seed, rate)
     if dev.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, bias, seed, rate)
@@ -197,6 +200,35 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
                *_launch_args(q, rate), stream)
     return o, lse
+
+
+@torch.library.custom_op("mmda_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, seed: Optional[torch.Tensor],
+                           rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`torch.ops.mmda_tpu_torch.flash_attention_fwd`: one node in a
+    `torch.export` graph that runs `_forward` on the real tensors."""
+    return _forward(q, k, v, bias, seed, rate)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, bias, seed, rate):
+    BH, S, D = q.shape
+    return (q.new_empty(BH, S, D, dtype=torch.float32),
+            q.new_empty(BH, S, dtype=torch.float32))
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, seed: Optional[torch.Tensor],
+                        rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax((q k^T) / sqrt(D) + bias) with dropout, times v, through the
+    `mmda_tpu_torch::flash_attention_fwd` op.  q, k, v (BH, S, D) f32 or
+    bf16 (the same), bias (BH, S) f32 additive on keys, seed (1,) int32 on
+    the same device (unused at rate 0, may be None).  Returns (o (BH, S, D)
+    f32, lse (BH, S) f32)."""
+    # here too: with a meta tensor among the arguments the op runs its fake, not _forward
+    _check(q, k, v, bias, seed, rate, pointers=False)
+    return flash_attention_fwd_op(q, k, v, bias, seed, float(rate))
 
 
 def _bwd_launch(name: str, outs, q, k, v, bias, seed, do_t, lse, dsum, rate: float):

@@ -19,9 +19,12 @@ take it as (3H,) and the backward returns its gradient.
 and a CPU tensor to the plain version (`gru_recurrence_reference`,
 `gru_recurrence_bwd_reference`: `_cell_fwd` / `_cell_bwd` as a Python loop
 over t).  There is no other route: a CUDA input that a kernel cannot take
-raises.  Launch counts: `launch_count("gru_fwd")`, `launch_count("gru_bwd")`
-(a `gru_bwd` call launches the gate pass, the BPTT pass and the two passes
-of the dW_hh / db_hh reduction and counts once).
+raises.  The forward is the op `torch.ops.mmda_tpu_torch.gru_recurrence`
+(`gru_recurrence_op`, a `torch.library.custom_op` with a fake
+implementation): one node in a `torch.export` graph.  Launch counts:
+`launch_count("gru_fwd")`, `launch_count("gru_bwd")` (a `gru_bwd` call
+launches the gate pass, the BPTT pass and the two passes of the dW_hh /
+db_hh reduction and counts once).
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, bptt_rows_per_block
 
 SOURCES = ("gru_fwd", "gru_bwd")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count", "dw_splits", "gru_recurrence",
-           "gru_recurrence_reference", "gru_recurrence_bwd", "gru_recurrence_bwd_reference",
-           "GRURecurrence", "gru_scan"]
+           "gru_recurrence_op", "gru_recurrence_reference", "gru_recurrence_bwd",
+           "gru_recurrence_bwd_reference", "GRURecurrence", "gru_scan"]
 
 Result = Tuple[torch.Tensor, torch.Tensor]
 BwdResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -88,15 +91,10 @@ def _check(x_proj, w_hh_t, b_hh, mask) -> None:
         check_tensor(name, t, x_proj.device, shape=shape)
 
 
-def gru_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
-                   mask: torch.Tensor, reverse: bool = False) -> Result:
-    """Masked GRU recurrence over time-major inputs.
-
-    x_proj (T, B, 3H) f32 = x @ W_ih^T + b_ih (b_hh not folded), gates r, z,
-    n; w_hh_t (H, 3H) f32; b_hh (3H,) f32; mask (T, B) f32 in {0, 1}; reverse
-    walks t = T-1..0.  Returns ys (T, B, H) (carry held at masked steps) and
-    the final h (B, H).
-    """
+def _forward(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
+             mask: torch.Tensor, reverse: bool) -> Result:
+    """The `gru_recurrence` op's implementation: the plain version for a CPU
+    tensor, the kernel for a CUDA one."""
     _check(x_proj, w_hh_t, b_hh, mask)
     dev = device_of(x_proj)
     if dev.type == "cpu":
@@ -115,6 +113,36 @@ def gru_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tenso
                ys.data_ptr(), h_fin.data_ptr(),
                T, B, H, bptt_rows_per_block(B, H, sm_count(dev)), int(reverse), stream)
     return ys, h_fin
+
+
+@torch.library.custom_op("mmda_tpu_torch::gru_recurrence", mutates_args=())
+def gru_recurrence_op(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
+                      mask: torch.Tensor, reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`torch.ops.mmda_tpu_torch.gru_recurrence`: one node in a
+    `torch.export` graph that runs `_forward` on the real tensors."""
+    return _forward(x_proj, w_hh_t, b_hh, mask, reverse)
+
+
+@gru_recurrence_op.register_fake
+def _(x_proj, w_hh_t, b_hh, mask, reverse):
+    T, B, G = x_proj.shape
+    return x_proj.new_empty(T, B, G // 3), x_proj.new_empty(B, G // 3)
+
+
+def gru_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
+                   mask: torch.Tensor, reverse: bool = False) -> Result:
+    """Masked GRU recurrence over time-major inputs, through the
+    `mmda_tpu_torch::gru_recurrence` op.
+
+    x_proj (T, B, 3H) f32 = x @ W_ih^T + b_ih (b_hh not folded), gates r, z,
+    n; w_hh_t (H, 3H) f32; b_hh (3H,) f32; mask (T, B) f32 in {0, 1}; reverse
+    walks t = T-1..0.  Returns ys (T, B, H) (carry held at masked steps) and
+    the final h (B, H).
+    """
+    # here too: with a meta tensor among the arguments the op runs its fake, not _forward
+    _check(x_proj, w_hh_t, b_hh, mask)
+    device_of(x_proj)
+    return gru_recurrence_op(x_proj, w_hh_t, b_hh, mask, reverse)
 
 
 # ------------------------------------------------------------------ backward

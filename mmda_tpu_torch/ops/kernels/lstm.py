@@ -11,6 +11,10 @@ backward (`_bwd_kernel`, `_stream_bwd_kernel`) `csrc/lstm_bwd.cu`, and
 and a CPU tensor to the plain version (`lstm_recurrence_reference`,
 `lstm_recurrence_bwd_reference`: the same math as a Python loop over t).
 There is no other route: a CUDA input that a kernel cannot take raises.
+The forward is the op `torch.ops.mmda_tpu_torch.lstm_recurrence`
+(`lstm_recurrence_op`, a `torch.library.custom_op` with a fake
+implementation), so `torch.export` records each call as one node that picks
+its route from the tensors it is given when it runs, not when it is traced.
 
 Launch counts (`launch_count(name)`, shared by all the package's kernels):
 `lstm_fwd` by `lstm_recurrence`, `lstm_bwd` by `lstm_recurrence_bwd`, one per
@@ -33,8 +37,9 @@ from mmda_tpu_torch.ops.kernels._launch import (MAX_THREADS, bptt_rows_per_block
 SOURCES = ("lstm_fwd", "lstm_bwd")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count",
            "bptt_threads_per_row", "bptt_rows_per_block", "bwd_dw_splits",
-           "lstm_recurrence", "lstm_recurrence_reference", "lstm_recurrence_bwd",
-           "lstm_recurrence_bwd_reference", "LSTMRecurrence", "lstm_scan"]
+           "lstm_recurrence", "lstm_recurrence_op", "lstm_recurrence_reference",
+           "lstm_recurrence_bwd", "lstm_recurrence_bwd_reference", "LSTMRecurrence",
+           "lstm_scan"]
 
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]
@@ -89,16 +94,10 @@ def bwd_dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
     return dw_runs((T - 1) * B, H, 4 * H, n_sm)
 
 
-def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                    mask: torch.Tensor, reverse: bool = False,
-                    need_cs: bool = False) -> Result:
-    """Masked LSTM recurrence over time-major inputs.
-
-    x_proj (T, B, 4H) f32 = x @ W_ih^T + b_ih + b_hh, gates i, f, g, o;
-    w_hh_t (H, 4H) f32; mask (T, B) f32 in {0, 1}; reverse walks t = T-1..0.
-    Returns ys (T, B, H) (carry held at masked steps), cs (T, B, H) when
-    need_cs else None, and the final h, c (B, H).
-    """
+def _forward(x_proj: torch.Tensor, w_hh_t: torch.Tensor, mask: torch.Tensor,
+             reverse: bool, need_cs: bool) -> Result:
+    """The `lstm_recurrence` op's implementation: the plain version for a CPU
+    tensor, the kernel for a CUDA one."""
     _check(x_proj, w_hh_t, mask)
     dev = device_of(x_proj)
     if dev.type == "cpu":
@@ -121,6 +120,43 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                h_fin.data_ptr(), c_fin.data_ptr(),
                T, B, H, bptt_rows_per_block(B, H, n_sm), int(reverse), stream)
     return ys, cs, h_fin, c_fin
+
+
+@torch.library.custom_op("mmda_tpu_torch::lstm_recurrence", mutates_args=())
+def lstm_recurrence_op(x_proj: torch.Tensor, w_hh_t: torch.Tensor, mask: torch.Tensor,
+                       reverse: bool, need_cs: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`torch.ops.mmda_tpu_torch.lstm_recurrence`: one node in a
+    `torch.export` graph that runs `_forward` on the real tensors.  cs is
+    an empty tensor without need_cs (an op returns no None)."""
+    ys, cs, h_fin, c_fin = _forward(x_proj, w_hh_t, mask, reverse, need_cs)
+    return ys, x_proj.new_empty(0) if cs is None else cs, h_fin, c_fin
+
+
+@lstm_recurrence_op.register_fake
+def _(x_proj, w_hh_t, mask, reverse, need_cs):
+    T, B, G = x_proj.shape
+    H = G // 4
+    return (x_proj.new_empty(T, B, H), x_proj.new_empty((T, B, H) if need_cs else (0,)),
+            x_proj.new_empty(B, H), x_proj.new_empty(B, H))
+
+
+def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                    mask: torch.Tensor, reverse: bool = False,
+                    need_cs: bool = False) -> Result:
+    """Masked LSTM recurrence over time-major inputs, through the
+    `mmda_tpu_torch::lstm_recurrence` op.
+
+    x_proj (T, B, 4H) f32 = x @ W_ih^T + b_ih + b_hh, gates i, f, g, o;
+    w_hh_t (H, 4H) f32; mask (T, B) f32 in {0, 1}; reverse walks t = T-1..0.
+    Returns ys (T, B, H) (carry held at masked steps), cs (T, B, H) when
+    need_cs else None, and the final h, c (B, H).
+    """
+    # here too: with a meta tensor among the arguments the op runs its fake, not _forward
+    _check(x_proj, w_hh_t, mask)
+    device_of(x_proj)
+    ys, cs, h_fin, c_fin = lstm_recurrence_op(x_proj, w_hh_t, mask, reverse, need_cs)
+    return ys, cs if need_cs else None, h_fin, c_fin
 
 
 # ------------------------------------------------------------------ backward

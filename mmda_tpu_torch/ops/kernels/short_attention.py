@@ -28,8 +28,10 @@ There is no other route: a CUDA input that a kernel cannot take raises (the
 kernels hold one (batch item, head) in a block's shared memory, so they take
 S <= 128; longer sequences are `attn_impl="flash"`'s).  The seed is a
 one-element int32 tensor on the inputs' device; no wrapper reads it on the
-host.  Launch counts: `launch_count("short_attn_fwd")`,
-`("short_attn_bwd")`.
+host.  The forward is the op `torch.ops.mmda_tpu_torch.short_attention_fwd`
+(`short_attention_fwd_op`, a `torch.library.custom_op` with a fake
+implementation): one node in a `torch.export` graph.  Launch counts:
+`launch_count("short_attn_fwd")`, `("short_attn_bwd")`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from mmda_tpu_torch.ops.kernels.hash_dropout import keep_scale, short_attention_
 SOURCES = ("short_attn_fwd", "short_attn_bwd")
 __all__ = ["SOURCES", "launch_count", "reset_launch_count", "MAX_S", "kernel_takes",
            "short_attention_fwd_reference", "short_attention_bwd_reference",
-           "short_attention_fwd", "short_attention_bwd", "ShortAttention", "short_attention"]
+           "short_attention_fwd", "short_attention_fwd_op", "short_attention_bwd",
+           "ShortAttention", "short_attention"]
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_S, MAX_HD = 128, 128          # 4 keys and 4 columns per lane of a row's warp
 SMEM_LIMIT = 232448               # bytes of shared memory a block may opt into (H100)
@@ -156,13 +159,10 @@ def _launch_args(q, rate: float):
             float(np.float32(rate)), keep_scale(rate))
 
 
-def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: torch.Tensor, seed: Optional[torch.Tensor],
-                        rate: float = 0.0) -> torch.Tensor:
-    """softmax((q / sqrt(hd)) k^T + bias) with dropout, times v.  q, k, v
-    (B, nh, S, hd) f32 or bf16 (the same), bias (B, S) f32 additive on keys,
-    seed (1,) int32 on the same device (unused at rate 0, may be None).
-    Returns o (B, nh, S, hd) in q's dtype."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+             seed: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """The `short_attention_fwd` op's implementation: the plain version for
+    a CPU tensor, the kernel for a CUDA one."""
     dev = _check(q, k, v, bias, seed, rate)
     if dev.type == "cpu":
         return short_attention_fwd_reference(q, k, v, bias, seed, rate)
@@ -175,6 +175,33 @@ def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
                *_launch_args(q, rate), stream)
     return o
+
+
+@torch.library.custom_op("mmda_tpu_torch::short_attention_fwd", mutates_args=())
+def short_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, seed: Optional[torch.Tensor],
+                           rate: float) -> torch.Tensor:
+    """`torch.ops.mmda_tpu_torch.short_attention_fwd`: one node in a
+    `torch.export` graph that runs `_forward` on the real tensors."""
+    return _forward(q, k, v, bias, seed, rate)
+
+
+@short_attention_fwd_op.register_fake
+def _(q, k, v, bias, seed, rate):
+    return torch.empty_like(q)
+
+
+def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, seed: Optional[torch.Tensor],
+                        rate: float = 0.0) -> torch.Tensor:
+    """softmax((q / sqrt(hd)) k^T + bias) with dropout, times v, through the
+    `mmda_tpu_torch::short_attention_fwd` op.  q, k, v (B, nh, S, hd) f32 or
+    bf16 (the same), bias (B, S) f32 additive on keys, seed (1,) int32 on
+    the same device (unused at rate 0, may be None).  Returns o (B, nh, S,
+    hd) in q's dtype."""
+    # here too: with a meta tensor among the arguments the op runs its fake, not _forward
+    _check(q, k, v, bias, seed, rate)
+    return short_attention_fwd_op(q, k, v, bias, seed, float(rate))
 
 
 def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0):

@@ -13,6 +13,11 @@ padding and outputs:
     device-to-host copy per call;
   * any registered family (`get_model(cfg.model)`).
 
+The request contract itself (schema, raw text, bucket choice, padding) is
+`serving_requests.py`, which the exported artifact's loader shares
+(`serving_export.py`); `RequestTooLongError` and `validate_request` are
+re-exported here.
+
 With `compute_dtype="bfloat16"` on CUDA the BERT tower's weights of two or
 more dimensions are stored in bf16 (the JAX package does so on the TPU):
 every BERT product computes in bf16 anyway, so f32 storage would only double
@@ -46,32 +51,13 @@ from mmda_tpu_torch.config import Config, resolve_device, set_reference_numerics
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, quantize_bert_int8
+from mmda_tpu_torch.serving_requests import (RequestTooLongError, check_overflow, choose_bucket,
+                                             pad_requests, validate_request)
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.step import StepGraphs, graph_pool
 
 
-class RequestTooLongError(ValueError):
-    """Request exceeds the largest serving bucket (maps to HTTP 413)."""
-
-
-def validate_request(r: Dict) -> None:
-    """Schema check for one request row; raises ValueError before a malformed
-    dict can reach the batching worker."""
-    if not isinstance(r, dict):
-        raise ValueError(f"request must be a dict, got {type(r).__name__}")
-    text = r.get("text")
-    if text is None:
-        raise ValueError(
-            "request is missing 'text' (a string, or an int32 token-id "
-            "array); visual/acoustic-only requests must still carry an "
-            "empty-string text field")
-    if not isinstance(text, str):
-        try:
-            len(text)
-        except TypeError:
-            raise ValueError(
-                f"'text' must be a string or a sized array, got "
-                f"{type(text).__name__}")
+__all__ = ["Predictor", "RequestTooLongError", "validate_request"]
 
 
 class Predictor:
@@ -101,8 +87,7 @@ class Predictor:
         bert_weights_dtype: 'auto' stores BERT in bf16 on CUDA when the
         compute dtype is bf16; 'int8' quantizes the encoder denses (in
         place, on a model passed in); None keeps the loaded dtypes."""
-        if overflow not in ("error", "truncate"):
-            raise ValueError(f"overflow must be 'error'|'truncate', got {overflow!r}")
+        check_overflow(overflow)
         self.device = resolve_device(device or cfg.device)
         if self.device.type == "cuda":
             set_reference_numerics()
@@ -147,98 +132,17 @@ class Predictor:
         self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:
-        for b in sorted(self.cfg.bucket_sizes):
-            if n <= b:
-                return b
-        return max(self.cfg.bucket_sizes)
-
-    def _detokenize(self, r: Dict) -> Dict[str, np.ndarray]:
-        """Expand a raw-text request into the array form; missing visual and
-        acoustic streams become zeros."""
-        words = r["text"].split()
-        L = max(len(words), 1)
-        ids, types, mask = self.tokenizer.encode(r["text"], L + 2)
-        out = {
-            "text": np.asarray(
-                [self.word2id.get(w.lower(), 0) for w in words] or [0], np.int32),
-            "bert_ids": ids, "bert_type": types, "bert_mask": mask,
-        }
-        dv = self.visual_size or self.cfg.visual_size
-        da = self.acoustic_size or self.cfg.acoustic_size
-        out["visual"] = r.get("visual", np.zeros((L, dv), np.float32))
-        out["acoustic"] = r.get("acoustic", np.zeros((L, da), np.float32))
-        return out
+        return choose_bucket(n, self.cfg.bucket_sizes)
 
     def batch_arrays(self, requests: Sequence[Dict]) -> tuple:
-        """(Batch of host numpy arrays padded to bucket x max_batch, n)."""
-        for r in requests:
-            validate_request(r)
-        if any(isinstance(r.get("text"), str) for r in requests):
-            if self.tokenizer is None:
-                raise ValueError(
-                    "raw-text request but Predictor was built without a "
-                    "tokenizer; pass tokenizer=WordPieceTokenizer.from_vocab_file(...)")
-            requests = [
-                self._detokenize(r) if isinstance(r.get("text"), str) else r
-                for r in requests
-            ]
-        if any("bert_ids" not in r for r in requests):
-            if self.cfg.use_bert:
-                raise ValueError(
-                    "pre-tokenized request is missing 'bert_ids'/'bert_type'/"
-                    "'bert_mask' but the model consumes BERT inputs "
-                    "(use_bert=True); either supply them or send raw text "
-                    "with a tokenizer")
-
-            def _with_bert(r):
-                if "bert_ids" in r:
-                    return r
-                L = len(r["text"]) + 2
-                return {**r, "bert_ids": np.zeros(L, np.int32),
-                        "bert_type": np.zeros(L, np.int32),
-                        "bert_mask": np.ones(L, np.int32)}
-            requests = [_with_bert(r) for r in requests]
-        n = len(requests)
+        """(Batch of host numpy arrays padded to bucket x max_batch, n)
+        (`serving_requests.pad_requests`)."""
+        arrays, n = pad_requests(
+            requests, bucket_sizes=self.cfg.bucket_sizes, max_batch=self.max_batch,
+            overflow=self.overflow, use_bert=self.cfg.use_bert, tokenizer=self.tokenizer,
+            word2id=self.word2id, visual_size=self.visual_size or self.cfg.visual_size,
+            acoustic_size=self.acoustic_size or self.cfg.acoustic_size)
         B = self.max_batch
-        if n > B:
-            raise ValueError(f"{n} requests exceed max_batch={B}")
-        max_len = max(len(r["text"]) for r in requests)
-        cap = max(self.cfg.bucket_sizes)
-        if max_len > cap and self.overflow == "error":
-            raise RequestTooLongError(
-                f"request has {max_len} tokens but the largest serving bucket "
-                f"is {cap}; shorten the request or build the Predictor with "
-                "overflow='truncate'")
-        t = self._bucket(max_len)
-
-        def pad_to(x, shape):
-            x = np.asarray(x)
-            out = np.zeros(shape, x.dtype)
-            sl = tuple(slice(0, min(a, b)) for a, b in zip(x.shape, shape))
-            out[sl] = x[sl]
-            return out
-
-        dv = np.asarray(requests[0]["visual"]).shape[-1]
-        da = np.asarray(requests[0]["acoustic"]).shape[-1]
-        arrays = {
-            "text": np.stack([pad_to(r["text"], (t,)) for r in requests]),
-            "visual": np.stack([pad_to(r["visual"], (t, dv)) for r in requests]),
-            "acoustic": np.stack([pad_to(r["acoustic"], (t, da)) for r in requests]),
-            "lengths": np.asarray([min(len(r["text"]), t) for r in requests], np.int32),
-            "bert_ids": np.stack([pad_to(r["bert_ids"], (t + 2,)) for r in requests]),
-            "bert_type": np.stack([pad_to(r["bert_type"], (t + 2,)) for r in requests]),
-            "bert_mask": np.stack([pad_to(r["bert_mask"], (t + 2,)) for r in requests]),
-        }
-        if n < B:
-            for k, v in arrays.items():
-                pad = np.zeros((B - n,) + v.shape[1:], v.dtype)
-                if k == "lengths":
-                    pad[:] = 1
-                if k == "bert_mask":
-                    pad[:, :1] = 1
-                arrays[k] = np.concatenate([v, pad])
-        for k in ("text", "bert_ids", "bert_type"):     # index tensors
-            arrays[k] = arrays[k].astype(np.int64)
         batch = Batch(
             **arrays,
             sentiment=np.zeros(B, np.float32),

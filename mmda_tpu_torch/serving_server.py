@@ -1,7 +1,7 @@
 """Long-running serving front end: queueing, micro-batching, timeouts.
 
 Counterpart of `mmda_tpu/serving_server.py`, the same code over the port's
-`Predictor` (serving.py):
+`Predictor` (serving.py) or `ExportedPredictor` (serving_export.py):
 
   * callers submit single requests from any thread and get a Future;
   * a worker thread coalesces pending requests into micro-batches (up to
@@ -20,11 +20,14 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, Optional, Sequence
 
 import numpy as np
 
-from mmda_tpu_torch.serving import Predictor, validate_request
+from mmda_tpu_torch.serving_requests import validate_request
+
+if TYPE_CHECKING:
+    from mmda_tpu_torch.serving import Predictor
 
 
 class _Pending:

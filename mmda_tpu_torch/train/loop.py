@@ -49,9 +49,11 @@ test split is evaluated again (through the shadow when there is one).
 after the seeded init and before the freeze rules, so the frozen layers and
 the `last_*` frozen base hold the file's weights.  `profile_dir` is read by
 `cli/train.py`, which traces `train()` (`utils/timing.py::profile`).
-Options that need what the port does not have yet (MoE BERT, the parallel
-modes, the orbax backend) raise `ValueError` at construction, naming their
-ROADMAP item (`unsupported`).
+Options that need what the port does not have yet (the parallel modes, the
+orbax backend) raise `ValueError` at construction, naming their ROADMAP
+item (`unsupported`).  `moe_experts > 0` (a Switch MoE in every BERT layer,
+`bert_config_for`) raises the JAX trainer's own errors without the BERT
+tower and with `pp_size > 1`.
 """
 
 from __future__ import annotations
@@ -100,7 +102,6 @@ def unsupported(cfg) -> List[str]:
         (cfg.dp_size > 1 or cfg.tp_size > 1, f"dp_size/tp_size > 1 (mesh; {q}: parallel modes)"),
         (cfg.pp_size > 1, f"pp_size > 1 ({q}: parallel modes)"),
         (cfg.sp, f"sp ({q}: parallel modes)"),
-        (cfg.moe_experts > 0, f"moe_experts > 0 ({q}: parallel modes, MoE BERT)"),
         (cfg.zero1, f"zero1 ({q}: parallel modes)"),
         (cfg.fsdp, f"fsdp ({q}: parallel modes)"),
         (cfg.ckpt_backend != "msgpack", f"ckpt_backend={cfg.ckpt_backend} ({q}: parallel modes)"),
@@ -115,6 +116,13 @@ class Trainer:
                  bert_cfg: Optional[BertConfig] = None,
                  pretrained_emb: Optional[np.ndarray] = None,
                  logger: Optional[MetricLogger] = None):
+        if cfg.moe_experts > 0:
+            if not cfg.use_bert:
+                raise ValueError("moe_experts > 0 replaces the BERT FFNs; "
+                                 "use_bert=False has no MoE site")
+            if cfg.pp_size > 1:
+                raise ValueError("moe_experts > 0 does not compose with "
+                                 "pp_size > 1 (pipelined encoder)")
         missing = unsupported(cfg)
         if missing:
             raise ValueError("not ported yet: " + "; ".join(missing))
@@ -133,6 +141,10 @@ class Trainer:
         self.bert_cfg = bert_cfg or bert_config_for(cfg)
         if cfg.fused_ln_dropout and self.bert_cfg is not None:
             self.bert_cfg = dataclasses.replace(self.bert_cfg, fused_ln_dropout=True)
+        if cfg.moe_experts > 0:
+            self.bert_cfg = dataclasses.replace(
+                self.bert_cfg, moe_experts=cfg.moe_experts,
+                moe_capacity_factor=cfg.moe_capacity_factor, moe_top_k=cfg.moe_top_k)
         self.logger = logger or MetricLogger(cfg.log_sinks, run_name=cfg.name)
 
         train = data["train"]

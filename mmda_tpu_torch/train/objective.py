@@ -10,9 +10,11 @@ inf when a class has no positive in the batch; it enters `total` only under
 use_confidNet.  The sp logits carry no loss (the reference never adds it).
 A family with an auxiliary objective of its own (MMIM's mutual-information
 terms) returns it pre-weighted as `out.model_aux["total"]`; it is added to
-`total` and reported as `model_aux` (0 for every other family).  The
-returned dict has the JAX package's keys; `moe` and `moe_drop` are 0 (the
-port has no MoE tower yet).
+`total` and reported as `model_aux` (0 for every other family).  A MoE
+BERT tower's router losses (`out.moe_aux`) add `moe = moe_aux_weight *
+balance + moe_z_weight * router_z` to `total`, and `moe_drop` reports the
+share of routes over capacity (both 0 for a dense tower).  The returned
+dict has the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -51,10 +53,16 @@ def compute_losses(cfg, out, batch) -> Dict[str, torch.Tensor]:
              + cfg.recon_weight * recon)
     if cfg.use_confidNet:
         total = total + cfg.conf_weight * conf
+    moe = moe_drop = zero
+    if out.moe_aux is not None:
+        moe = (cfg.moe_aux_weight * out.moe_aux["balance"]
+               + cfg.moe_z_weight * out.moe_aux["router_z"])
+        total = total + moe
+        moe_drop = out.moe_aux["drop_frac"]
     model_aux = zero
     if out.model_aux is not None:
         model_aux = out.model_aux["total"]
         total = total + model_aux
     return {"total": total, "cls": cls_loss, "diff": diff, "sim": sim,
-            "recon": recon, "conf": conf, "moe": zero, "moe_drop": zero,
+            "recon": recon, "conf": conf, "moe": moe, "moe_drop": moe_drop,
             "model_aux": model_aux}

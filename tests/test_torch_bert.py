@@ -80,8 +80,11 @@ def test_bert_config_for_matches_jax():
                       "intermediate_size", "max_position_embeddings",
                       "layer_norm_eps"):
                 assert getattr(got, f) == getattr(want, f), f
-    with pytest.raises(NotImplementedError):
-        bert.bert_config_for(Config(moe_experts=4, device="cpu"))
+    moe = dict(use_bert=True, moe_experts=4, moe_capacity_factor=2.0, moe_top_k=2)
+    want = jbert.bert_config_for(JConfig(**moe))
+    got = bert.bert_config_for(Config(device="cpu", **moe))
+    for f in ("moe_experts", "moe_capacity_factor", "moe_top_k", "moe_group_by_example"):
+        assert getattr(got, f) == getattr(want, f), f
 
 
 def test_seeded_init_draws_bert_distributions():

@@ -1030,6 +1030,9 @@ ZOO_PATHS = {                                    # options, launches per step (t
                   "ln_dropout_bwd": 4}),
     "MMIM": (dict(model="MMIM", attn_impl="fused"),
              {**TOWERS, "short_attn_fwd": 2, "short_attn_bwd": 2}),
+    # MISA with a Switch MoE in both tiny BERT layers (two experts)
+    "MoE": (dict(attn_impl="fused", moe_experts=2),
+            {**TOWERS, "short_attn_fwd": 2, "short_attn_bwd": 2}),
 }
 
 
@@ -1110,3 +1113,91 @@ def test_int8_bert_encode_bf16_card_vs_cpu(cuda_device):
 
     out = int8_encode_bf16(_launch, cuda_device)
     assert out["int8"]["max_abs_err"] <= out["tol"] and out["int8"]["short_attn_fwd"] == 2
+
+
+# ------------------------------------- the serving kernels as ops; exported artifacts
+
+
+def _op_args(name, device):
+    """Arguments of the `mmda_tpu_torch::name` op at a small width."""
+    g = torch.Generator().manual_seed(3)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    seed = torch.tensor([11], dtype=torch.int32, device=device)
+    if name == "lstm_recurrence":
+        x, w, m = _inputs(12, 16, 35, 1, device)
+        return (x, w, m, True, True)
+    if name == "gru_recurrence":
+        return (rand(12, 16, 3 * 20), rand(20, 3 * 20) / 5, rand(3 * 20),
+                (torch.rand(12, 16, generator=g) > 0.2).float().to(device), False)
+    if name == "short_attention_fwd":
+        q = rand(4, 12, 50, 64, dtype=torch.bfloat16)
+        return (q, rand(*q.shape, dtype=q.dtype), rand(*q.shape, dtype=q.dtype),
+                rand(4, 50), seed, 0.1)
+    q = rand(8, 130, 64, dtype=torch.bfloat16)
+    return (q, rand(*q.shape, dtype=q.dtype), rand(*q.shape, dtype=q.dtype), rand(8, 130),
+            seed, 0.1)
+
+
+OP_KERNELS = {"lstm_recurrence": (klstm, "lstm_fwd"), "gru_recurrence": (kgru, "gru_fwd"),
+              "short_attention_fwd": (kshort, "short_attn_fwd"),
+              "flash_attention_fwd": (kattn, "flash_fwd")}
+
+
+@pytest.mark.parametrize("name", sorted(OP_KERNELS))
+def test_kernel_ops_give_the_wrappers_bits(cuda_device, name):
+    """`torch.ops.mmda_tpu_torch.<name>` on CUDA tensors launches the kernel
+    once (one count) and gives the bits of the op's implementation called
+    directly and of the Python wrapper."""
+    from mmda_tpu_torch.ops.kernels import _launch
+
+    module, kernel = OP_KERNELS[name]
+    args = _op_args(name, cuda_device)
+    _launch.reset_launch_count()
+    got = getattr(torch.ops.mmda_tpu_torch, name)(*args)
+    assert _launch.launch_count(kernel) == 1
+    direct = module._forward(*args)
+    wrapper = getattr(module, name)(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, d, w in zip(got, direct if isinstance(direct, tuple) else (direct,),
+                       wrapper if isinstance(wrapper, tuple) else (wrapper,)):
+        assert torch.equal(g, d) and torch.equal(g, w)
+    assert _launch.launch_count(kernel) == 3
+
+
+def test_exported_predictor_replays_equal_its_eager_call(cuda_device, tmp_path):
+    """A tiny MISA (fused attention) exported on the card: the artifact's
+    first call per bucket (eager, then captured) and its replays give the
+    same bits, equal to the live Predictor's (the same kernels), and a
+    replay counts 8 `lstm_fwd` + 2 `short_attn_fwd`; the artifact refuses
+    the CPU."""
+    from chip_smoke import make_requests
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.models import init_misa
+    from mmda_tpu_torch.models.bert import BertConfig
+    from mmda_tpu_torch.ops.kernels import _launch
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.serving_export import ExportedPredictor, export_model
+
+    cfg = Config(device="cuda", use_bert=True, hidden_size=16, bucket_sizes=(4, 8),
+                 max_seq_len=8, visual_size=5, acoustic_size=7, vocab_size=40,
+                 attn_impl="fused")
+    bert_cfg = BertConfig.tiny(vocab_size=30522)
+    model = init_misa(cfg, seed=0, bert_cfg=bert_cfg)
+    export_model(cfg, model, str(tmp_path), bert_cfg=bert_cfg, max_batch=6)
+    exported = ExportedPredictor(str(tmp_path))
+    live = Predictor(cfg, params=model, bert_cfg=bert_cfg, max_batch=6)
+    for b in cfg.bucket_sizes:
+        reqs = make_requests([b] * 3, cfg, seed=b)
+        first = exported(reqs)
+        _launch.reset_launch_count()
+        again = exported(reqs)
+        assert {k: _launch.launch_count(k) for k in ("lstm_fwd", "short_attn_fwd")} == {
+            "lstm_fwd": 8, "short_attn_fwd": 2}
+        want = live(reqs)
+        for k in want:
+            assert np.array_equal(first[k], again[k]) and np.array_equal(again[k], want[k]), k
+    with pytest.raises(ValueError, match="exported for cuda"):
+        ExportedPredictor(str(tmp_path), device="cpu")

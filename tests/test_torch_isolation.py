@@ -106,11 +106,13 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 
 def test_kernel_wrapper_has_no_fallback():
-    """lstm_recurrence takes the plain version only for a CPU tensor: its
-    source holds no try/except, and every other device either launches the
-    kernel or raises."""
+    """lstm_recurrence takes the plain version only for a CPU tensor: it
+    calls the `mmda_tpu_torch::lstm_recurrence` op, whose implementation
+    (`_forward`, where the route is taken) holds no try/except, and every
+    other device either launches the kernel or raises."""
     assert "environ" not in inspect.getsource(klstm)      # no routing switch
-    src = inspect.getsource(klstm.lstm_recurrence)
+    assert "lstm_recurrence_op(" in inspect.getsource(klstm.lstm_recurrence)
+    src = inspect.getsource(klstm._forward)
     tree = ast.parse(textwrap.dedent(src))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
@@ -147,7 +149,8 @@ def _meta(*shapes, dtype=torch.float32):
 T_, B_, H_ = 2, 2, 2
 NEW_WRAPPERS = {
     "gru_recurrence": (kgru, "gru_recurrence_reference",
-                       lambda: _meta((T_, B_, 3 * H_), (H_, 3 * H_), (3 * H_,), (T_, B_))),
+                       lambda: _meta((T_, B_, 3 * H_), (H_, 3 * H_), (3 * H_,), (T_, B_)),
+                       "_forward"),
     "gru_recurrence_bwd": (kgru, "gru_recurrence_bwd_reference",
                            lambda: _meta((T_, B_, 3 * H_), (H_, 3 * H_), (3 * H_,), (T_, B_),
                                          (T_, B_, H_), (T_, B_, H_), (B_, H_))),
@@ -163,9 +166,11 @@ def test_gru_and_layernorm_wrappers_have_no_fallback(name):
     """Each takes its plain version only for a CPU tensor: no try/except, no
     routing switch, one call of the plain version, and any other device
     either launches the kernel or raises."""
-    module, reference, make_args = NEW_WRAPPERS[name]
+    module, reference, make_args, *routed = NEW_WRAPPERS[name]
     assert "environ" not in inspect.getsource(module)
-    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, name))))
+    if routed:      # an op's wrapper: the route is taken in the op's implementation
+        assert f"{name}_op(" in inspect.getsource(getattr(module, name))
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, (routed or [name])[0]))))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and getattr(n.func, "id", None) == reference]
@@ -209,7 +214,7 @@ BH_, S_, D_ = 2, 8, 16
 FLASH_WRAPPERS = {
     "flash_attention_fwd": ("flash_attention_fwd_reference",
                             lambda: _meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
-                                          (BH_, S_)) + [None]),
+                                          (BH_, S_)) + [None], "_forward"),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq_reference",
                                lambda: _meta((BH_, S_, D_), (BH_, S_, D_), (BH_, S_, D_),
                                              (BH_, S_)) + [None]
@@ -230,10 +235,12 @@ def test_attention_wrappers_have_no_fallback(name):
     (one call of each plain version, one launch of each kernel, on d_out
     rounded once for both), and no wrapper or plain version calls a
     library's attention."""
-    reference, make_args = FLASH_WRAPPERS[name]
+    reference, make_args, *routed = FLASH_WRAPPERS[name]
     source = inspect.getsource(kattn)
     assert "environ" not in source and "scaled_dot_product_attention" not in source
-    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(kattn, name))))
+    if routed:      # an op's wrapper: the route is taken in the op's implementation
+        assert f"{name}_op(" in inspect.getsource(getattr(kattn, name))
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(kattn, (routed or [name])[0]))))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and getattr(n.func, "id", None) == reference]
@@ -259,7 +266,7 @@ def test_attention_wrappers_have_no_fallback(name):
 Q_ = (2, 2, 8, 16)
 SLICE5_WRAPPERS = {
     "short_attention_fwd": (kshort, "short_attention_fwd_reference",
-                            lambda: _meta(Q_, Q_, Q_, (2, 8)) + [None]),
+                            lambda: _meta(Q_, Q_, Q_, (2, 8)) + [None], "_forward"),
     "short_attention_bwd": (kshort, "short_attention_bwd_reference",
                             lambda: _meta(Q_, Q_, Q_, (2, 8)) + [None] + _meta(Q_)),
     "lstm_multi_recurrence": (kmulti, "lstm_multi_recurrence_reference",
@@ -280,10 +287,12 @@ def test_short_attention_and_multi_lstm_wrappers_have_no_fallback(name):
     either launches the kernel or raises.  The autograd functions' backwards
     go through the backward wrappers, and no short attention code calls a
     library's attention."""
-    module, reference, make_args = SLICE5_WRAPPERS[name]
+    module, reference, make_args, *routed = SLICE5_WRAPPERS[name]
     source = inspect.getsource(module)
     assert "environ" not in source and "scaled_dot_product_attention" not in source
-    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, name))))
+    if routed:      # an op's wrapper: the route is taken in the op's implementation
+        assert f"{name}_op(" in inspect.getsource(getattr(module, name))
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, (routed or [name])[0]))))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and getattr(n.func, "id", None) == reference]

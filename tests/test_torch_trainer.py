@@ -269,7 +269,7 @@ def test_reloads_wait_for_the_export_written_on_a_thread(tmp_path, monkeypatch, 
 
 
 @pytest.mark.parametrize("option", [
-    dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(moe_experts=4), dict(zero1=True),
+    dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(tp_size=2), dict(zero1=True),
     dict(fsdp=True), dict(ckpt_backend="orbax")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     cfg = _tiny_cfg(tmp_path, **option)
