@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --first-calls
     python3 chip_smoke.py --phase15
+    python3 chip_smoke.py --phase16
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -35,10 +36,13 @@ the result):
    or one bf16 ulp, dscale and dbias within 1e-4; timed beside the composition
    `F.layer_norm(x + F.dropout(y, p))` and its `autograd.grad`, the
    backward also split into its rows pass and its column sums, with the
-   inputs in L2 and read from HBM.  The three
+   inputs in L2 and read from HBM; rows wider than 1024 (H = 1025, 1536, 4096:
+   the backward's block a row) checked and timed the same way.  The three
    blockwise attention kernels (forward, dq, dk/dv) at S = 130, 514 and 1026
-   and at D = 16, in f32 (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus
-   one bf16 ulp on the gradients), at dropout rate 0 and 0.1 with masked
+   and at D = 16, and at D = 8, 40 and 96 (the next instantiation up on
+   zero-padded columns, also timed at the long step's (384, 514)), in f32
+   (|err| <= 1e-5 + 1e-4 |ref|) and bf16 (2e-2, plus one bf16 ulp on the
+   gradients), at dropout rate 0 and 0.1 with masked
    tails; their keep mask equal bit for bit to the plain hash in f32 and in
    bf16; two launches of each of the three giving the same bits; the
    tensor-core instructions (HMMA/HGMMA) in the SASS of the three kernels'
@@ -49,8 +53,11 @@ the result):
    34, 50, 66 and at (3, 4, 10, 8), f32 (1e-5 + 1e-5 |ref|) and bf16 (one
    bf16 ulp), rate 0 and 0.1, masked tails, their keep mask bit for bit in
    f32 and bf16, two launches of each giving the same bits, the HMMA count
-   of both bf16 kernels (none fails), S = 130 and 514 refused; timed at
-   (64, 12, 50, 64) bf16 beside SDPA.  The two
+   of both bf16 kernels (none fails); the tiled short kernels (query and key
+   tiles, S > 128) the same way at (32, 12, 514, 64), (2, 4, 129, 8), (2, 4,
+   257, 128) and (1, 2, 1026, 64), their masks at S = 129 and 514, each call
+   launching its route's kernels and no other; hd = 136 refused; timed at
+   (64, 12, 50, 64) and (32, 12, 514, 64) bf16 beside SDPA.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
    35, 35, 74, 74, and at (16, 64) with H = 35, 74, 300 in one launch (the
    serial passes' three instantiations, which the checks must reach),
@@ -212,7 +219,19 @@ the result):
    export served live and as an artifact; beside phase 9's fused trainer, eager steps
    and single calls through the kernel ops against the ops' implementations called
    directly (`15 op-dispatch`).  `--phase15` runs phase 15 alone after the build;
-16. a `kernels` JSON line (all 13 kernels), the card's name and power limit, and as the last
+16. fused attention at the long shape: bert-base at B=32, T=512 (S=514), bf16, the mosei
+   freeze rule, dropout on, `attn_impl="fused"`, as phases 8 and 11 run the flash step:
+   `Trainer.train()` for 4 full-length batches (12 `short_attn_tiled_fwd` + 12
+   `short_attn_tiled_bwd` + 8 + 8 LSTM launches a step, 12 + 8 an eval batch), 10 timed
+   steps and a profile, one step's gradients with dropout on against the plain versions,
+   a small f32 model at T=130 on the card against the CPU, eager steps against captured
+   replays bit for bit, timed, and `Trainer.train()` with compiled_epoch; phase 8's flash
+   step on the same trainer, eager and captured; a `Predictor(attn_impl="fused")` on the
+   checkpoint at bucket 512 over HTTP (12 `short_attn_tiled_fwd` + 8 `lstm_fwd` a call),
+   captured at B=32 and B=1 against eager calls, within 2e-2 of the dense-core and flash
+   `Predictor`s; then `cli.train --attn_impl fused --max_seq_len 512 --bucket_sizes 64,512`
+   and a `Predictor` on its export.  `--phase16` runs phase 16 alone after the build;
+17. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -270,6 +289,9 @@ TRAIN_TOL = 1e-3                  # kernels vs plain versions, step gradients: t
 # length and step counts (the others: TRAIN_B, TRAIN_T, TRAIN_STEPS) and
 # whether the kernels-against-plain gradient check runs with dropout on
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SHORT_TILED = ("short_attn_tiled_fwd", "short_attn_tiled_bwd")
+FUSED_LONG_STEPS = 4              # phase 16: Trainer.train()'s epoch at B=32, T=512
+FUSED_LONG_SMALL_T = 130          # its small f32 model's length, card against CPU (S > 128)
 TRAIN_CONFIGS = {
     "lstm": {"options": {"attn_impl": "xla"},
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
@@ -294,6 +316,17 @@ TRAIN_CONFIGS = {
               "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS},
               "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "short_attn_fwd",
                           "short_attn_bwd")},
+    # attn_impl "fused" at the long shape: the tiled short-attention kernels in
+    # every training step and eval batch (S = 514)
+    "fused_long": {"options": {"attn_impl": "fused"}, "dropout_on": True,
+                   "batch": LONG_B, "T": LONG_T, "steps": FUSED_LONG_STEPS,
+                   "timed": LONG_TIMED,
+                   "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
+                                **dict.fromkeys(SHORT_TILED, BERT_LAYERS)},
+                   "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL,
+                                "short_attn_tiled_fwd": BERT_LAYERS},
+                   "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "tiled_fwd",
+                               "tiled_dq", "tiled_dkv")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
@@ -304,8 +337,12 @@ TRAIN_CONFIGS = {
 }
 # (BH, S, D) of the attention checks: S no multiple of the 64-wide tiles, the
 # long step's S = 514, S > 1024 (where inference resolves to flash), and the
-# tiny config's D = 16; each in f32 and bf16, at rate 0 and 0.1
-ATTN_SHAPES = [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16)]
+# tiny config's D = 16, and head dims that are no instantiation of the kernels (8,
+# 40, 96: the next one up on zero-padded columns); each in f32 and bf16, at rate 0
+# and 0.1
+ATTN_SHAPES = [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16), (4, 130, 8),
+               (4, 200, 40), (2, 130, 96)]
+ATTN_ANY_D_TIMED = (8, 40, 96)    # timed at the long step's (BH, S), bf16
 ATTN_REPORT = (LONG_B * 12, LONG_T + 2, 64)      # the long step's call, bf16
 ATTN_RATE = 0.1
 ATTN_MASK_SEEDS = (7, -5, 2 ** 31 - 2, 12345)   # the bf16 mask checks at ATTN_SHAPES
@@ -315,11 +352,13 @@ ATTN_BF16_TOL = (2e-2, 2.0 ** -7)  # a probability on a rounding boundary may ro
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 FLASH_SERVE_TOL = 2e-2            # flash Predictor against the dense core, bf16
 # (N, H, dtype) of the fused LayerNorm checks: the flagship step's sites
-# (N = B * S = 64 * 50) in bf16 and f32, and two row counts that are no
-# multiple of the TPU kernel's 128-row blocks
+# (N = B * S = 64 * 50) in bf16 and f32, two row counts that are no multiple of
+# the TPU kernel's 128-row blocks, and rows wider than a warp's registers hold
+# (the backward's block a row: H = 1025 one value an access, 1536 and 4096 four)
 LN_SHAPES = [(3200, 768, "bfloat16"), (3200, 768, "float32"),
-             (200, 128, "float32"), (300, 128, "float32")]
-LN_TIMED = LN_SHAPES[:2]
+             (200, 128, "float32"), (300, 128, "float32"),
+             (640, 1025, "float32"), (3200, 1536, "bfloat16"), (800, 4096, "bfloat16")]
+LN_TIMED = LN_SHAPES[:2] + LN_SHAPES[-3:]
 LN_REPORT = LN_SHAPES[0]
 LN_RATE = 0.1
 LN_SEEDS = (7, 2 ** 31 - 2)
@@ -327,15 +366,19 @@ BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
 LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
 # (B, nh, S, hd) of the short attention checks: the flagship step's S = 50 and the
 # serving buckets' S = 18, 34, 66 at bert-base's 12 heads of 64, and a small odd
-# shape; each in f32 and bf16, at rate 0 and 0.1.  S = 130 and 514 go to the
-# flash kernels: the wrapper must refuse them.
+# shape; each in f32 and bf16, at rate 0 and 0.1; they take one block per (b, h).
+# Beyond S = 128 the tiled kernels: the fused long step's (32, 12, 514, 64), S just
+# past 128 at hd = 8, the widest head at S = 257, and S = 1026.  hd > 128: refused.
 SHORT_SHAPES = [(64, 12, 18, 64), (64, 12, 34, 64), (64, 12, 50, 64), (64, 12, 66, 64),
                 (3, 4, 10, 8)]
-SHORT_REFUSED = [(2, 12, 130, 64), (2, 12, 514, 64)]
+SHORT_TILED_SHAPES = [(32, 12, 514, 64), (2, 4, 129, 8), (2, 4, 257, 128), (1, 2, 1026, 64)]
+SHORT_REFUSED = [(2, 12, 130, 136)]
 SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 0.1
+SHORT_TILED_REPORT = (LONG_B, 12, LONG_T + 2, 64)   # the fused long step's call
 SHORT_F32_TOL = (1e-5, 1e-5)       # f32 on both sides, summation order only
 SHORT_BF16_TOL = (1e-6, 2.0 ** -7)  # all math f32, each output rounded once: one bf16 ulp
-SHORT_MASKS = [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)]
+SHORT_MASKS = [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2), (2, 3, 129, 11),
+               (1, 2, 514, -7)]
 # (T, B) of the multi-direction LSTM checks and times, with the tower pair's
 # four directions at their true H (visual 35 forward and reverse, acoustic
 # 74); the checks also launch H = 35, 74 and 300 together, so that they reach
@@ -1138,7 +1181,8 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
     {kernel: result}."""
     import torch.nn.functional as F
 
-    for BH, S, D, seed in [(3, 130, 64, 7), (2, 514, 64, 2 ** 31 - 2), (2, 130, 16, -5)]:
+    for BH, S, D, seed in [(3, 130, 64, 7), (2, 514, 64, 2 ** 31 - 2), (2, 130, 16, -5),
+                           (2, 130, 40, 3)]:
         check_attn_mask(kattn, hashes, BH, S, D, seed, device)
     for (BH, S, D), seed in zip(ATTN_SHAPES, ATTN_MASK_SEEDS):
         check_attn_mask(kattn, hashes, BH, S, D, seed, device, torch.bfloat16)
@@ -1190,10 +1234,11 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
         mask="equal bit for bit, f32 and bf16", repeat="the same bits twice, all three",
         max_abs_err=errs, tol={"float32": ATTN_F32_TOL, "bfloat16": ATTN_BF16_TOL})
 
-    BH, S, D = ATTN_REPORT
+    BH, S, _ = ATTN_REPORT
     B, nh = BH // 12, 12
     timed = {k: [] for k in FLASH}
-    for dtype in (torch.bfloat16, torch.float32):
+    for D, dtype in [(ATTN_REPORT[2], torch.bfloat16), (ATTN_REPORT[2], torch.float32)] + [
+            (d, torch.bfloat16) for d in ATTN_ANY_D_TIMED]:
         q, k, v, bias, g = attn_inputs(BH, S, D, dtype, 1, device)
         o, lse = kattn.flash_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
         dsum = kattn.row_dsum(g, o)
@@ -1217,7 +1262,8 @@ def check_attn_kernels(kattn, hashes, device) -> dict:
                        - kattn.flash_attention_fwd(q, k, v, bias, seed, 0.0)[0]
                        .view(B, nh, S, D)).abs().max().item()
         bounds = attn_bounds(BH, S, D, dtype)
-        shape = {"BH": BH, "S": S, "D": D, "dtype": str(dtype)[6:], "rate": ATTN_RATE}
+        shape = {"BH": BH, "S": S, "D": D, "kernel_D": kattn.kernel_head_dim(D),
+                 "dtype": str(dtype)[6:], "rate": ATTN_RATE}
         calls = {
             "flash_fwd": (lambda: kattn.flash_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
                           lambda: kattn.flash_attention_fwd_reference(q, k, v, bias, seed,
@@ -1278,12 +1324,13 @@ def short_bounds(B, nh, S, hd, dtype) -> dict:
 
 
 def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32) -> None:
-    """Both kernels' keep mask against the plain hash, bit for bit, with q,
-    k, v in `dtype`: q = k = 0 and no bias make every probability 1 / S;
-    with v the identity (hd = S) o S (1 - rate) is the mask, and with do the
-    identity dv S (1 - rate) is the mask transposed.  In bf16 the inputs are
-    exact and each output is the scaled keep rounded once: the ratio still
-    rounds to 1 or 0."""
+    """The forward's and the backward's keep mask against the plain hash,
+    bit for bit, with q, k, v in `dtype`: q = k = 0 and no bias make every
+    probability 1 / S; with v a shifted identity (hd = min(S, 128), hd keys
+    at a time) o S (1 - rate) is hd columns of the mask, and with do a
+    shifted identity dv S (1 - rate) is hd rows of it, transposed.  In bf16
+    the inputs are exact and each output is the scaled keep rounded once:
+    the ratio still rounds to 1 or 0."""
     rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
     s = torch.tensor([seed], dtype=torch.int32, device=device)
     b = torch.arange(B, device=device).reshape(B, 1, 1, 1)
@@ -1291,23 +1338,35 @@ def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32
     want = hashes.short_attention_keep_mask(S, rate, s, b, h)
     if not 0 < want.mean().item() < 1:
         raise AssertionError(f"degenerate short attention mask at {(B, nh, S, seed)}")
-    zeros = torch.zeros(B, nh, S, S, device=device, dtype=dtype)
-    eye = torch.eye(S, device=device, dtype=dtype).expand(B, nh, S, S).contiguous()
+    hd = min(S, kshort.MAX_HD)
+    zeros = torch.zeros(B, nh, S, hd, device=device, dtype=dtype)
     bias = torch.zeros(B, S, device=device)
-    o = kshort.short_attention_fwd(zeros, zeros, eye, bias, s, rate)
-    _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, eye, rate)
-    torch.cuda.synchronize()
+    idx = torch.arange(hd, device=device)
     where = f"{(B, nh, S, seed)} {dtype}"
-    if not torch.equal((o.float() * S / ks).round(), want):
-        raise AssertionError(f"short_attn_fwd: keep mask differs from the hash at {where}")
-    if not torch.equal((dv.float() * S / ks).round(), want.transpose(-1, -2)):
-        raise AssertionError(f"short_attn_bwd: keep mask differs from the hash at {where}")
+    for off in range(0, S, hd):
+        n = min(hd, S - off)
+        shifted = torch.zeros(B, nh, S, hd, device=device, dtype=dtype)
+        shifted[:, :, off + idx[:n], idx[:n]] = 1.0
+        o = kshort.short_attention_fwd(zeros, zeros, shifted, bias, s, rate)
+        _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, shifted, rate)
+        torch.cuda.synchronize()
+        if not torch.equal((o.float() * S / ks).round()[..., :n], want[..., off:off + n]):
+            raise AssertionError(f"short attention forward: keep mask differs from the hash "
+                                 f"at {where}, keys {off}..")
+        if not torch.equal((dv.float() * S / ks).round()[..., :n].transpose(-1, -2),
+                           want[..., off:off + n, :]):
+            raise AssertionError(f"short attention backward: keep mask differs from the hash "
+                                 f"at {where}, queries {off}..")
 
 
 def check_short_kernels(kshort, hashes, device) -> dict:
-    """`short_attn_fwd` and `short_attn_bwd` against their plain versions
-    (mask bit for bit, outputs, gradients), the refusal of the S the flash
-    kernels take, then their times at the fused step's shape beside
+    """The short attention kernels of both routes against their plain
+    versions (mask bit for bit, outputs, gradients, two launches the same
+    bits): `short_attn_fwd` / `short_attn_bwd` (one block per (b, h)) at
+    SHORT_SHAPES, `short_attn_tiled_fwd` / `short_attn_tiled_bwd` (query and
+    key tiles) at SHORT_TILED_SHAPES, each call launching its route's kernel
+    once and no other; hd > 128 refused; then each route's times at its
+    report shape (the fused flagship step's, the fused long step's) beside
     `F.scaled_dot_product_attention` with the same additive mask and
     dropout_p (forward) and its `autograd.grad` (backward).  Returns
     {kernel: result}."""
@@ -1317,21 +1376,28 @@ def check_short_kernels(kshort, hashes, device) -> dict:
     for B, nh, S, seed in SHORT_MASKS:
         for dtype in (torch.float32, torch.bfloat16):
             check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype)
-    # both bf16 kernels run on the tensor cores: count them in the SASS
+    # the bf16 kernels run on the tensor cores: count them in the SASS
     sass = tensor_core_counts(names)
     log("3 short-sass", tensor_core_instructions=sass)
     rows = {k: [] for k in names}
     seed = torch.tensor([12345], dtype=torch.int32, device=device)
-    for B, nh, S, hd in SHORT_SHAPES:
+    for B, nh, S, hd in SHORT_SHAPES + SHORT_TILED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             tol = SHORT_F32_TOL if dtype == torch.float32 else SHORT_BF16_TOL
+            fwd, bwd = kshort.ROUTE_SOURCES[kshort.kernel_route(S, hd, dtype)]
+            if (S > kshort.MAX_S) != (fwd == "short_attn_tiled_fwd"):
+                raise AssertionError(f"{(B, nh, S, hd)} {dtype} routed to {fwd}")
             q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, S + hd, device)
             for rate in (0.0, ATTN_RATE):
                 where = f"(B,nh,S,hd)={(B, nh, S, hd)} {dtype} rate={rate}"
+                counts_before = {n: kshort.launch_count(n) for n in names}
                 o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
+                grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
+                launched = {n: kshort.launch_count(n) - c for n, c in counts_before.items()}
+                if launched != {n: int(n in (fwd, bwd)) for n in names}:
+                    raise AssertionError(f"launches {launched} at {where}")
                 if not torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate)):
                     raise AssertionError(f"two forward launches differ at {where}")
-                grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
                 again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                     raise AssertionError(f"two backward launches differ at {where}")
@@ -1342,66 +1408,71 @@ def check_short_kernels(kshort, hashes, device) -> dict:
                     raise AssertionError(f"output dtype at {where}")
                 shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:],
                          "rate": rate}
-                rows["short_attn_fwd"].append({**shape, "max_abs_err": max_err(
-                    [("o", o, o_w)], tol, "short_attn_fwd " + where)})
-                rows["short_attn_bwd"].append({**shape, "max_abs_err": max_err(
-                    zip(("dq", "dk", "dv"), grads, grads_w), tol, "short_attn_bwd " + where)})
+                rows[fwd].append({**shape, "max_abs_err": max_err(
+                    [("o", o, o_w)], tol, f"{fwd} " + where)})
+                rows[bwd].append({**shape, "max_abs_err": max_err(
+                    zip(("dq", "dk", "dv"), grads, grads_w), tol, f"{bwd} " + where)})
+            del q, k, v, g, bias, o, grads, again, o_w, grads_w
     refused = []
     for B, nh, S, hd in SHORT_REFUSED:
         q, k, v, _, bias = short_inputs(B, nh, S, hd, torch.bfloat16, 0, device)
         try:
             kshort.short_attention_fwd(q, k, v, bias, None)
         except ValueError as e:
-            refused.append({"S": S, "error": str(e)[:120]})
+            refused.append({"S": S, "hd": hd, "error": str(e)[:120]})
         else:
-            raise AssertionError(f"short attention took S = {S} beyond one block")
+            raise AssertionError(f"short attention took hd = {hd}")
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
 
     errs = {k: {d: worst(k, d) for d in ("float32", "bfloat16")} for k in names}
-    log("3 short-kernels-vs-plain", checks=len(rows["short_attn_fwd"]),
-        mask="equal bit for bit, f32 and bf16", repeat="the same bits twice, both kernels",
+    log("3 short-kernels-vs-plain", checks={k: len(r) for k, r in rows.items()},
+        mask="equal bit for bit, f32 and bf16", repeat="the same bits twice, every kernel",
         max_abs_err=errs, tol={"float32": SHORT_F32_TOL, "bfloat16": SHORT_BF16_TOL},
-        refused=[r["S"] for r in refused])
+        refused=[[r["S"], r["hd"]] for r in refused])
 
-    B, nh, S, hd = SHORT_REPORT
     timed = {k: [] for k in names}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, 1, device)
-        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
-        lmask = bias.view(B, 1, 1, S).to(dtype)
+    for (B, nh, S, hd), route in ((SHORT_REPORT, "block"), (SHORT_TILED_REPORT, "tiled")):
+        fwd, bwd = kshort.ROUTE_SOURCES[route]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, 1, device)
+            lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+            lmask = bias.view(B, 1, 1, S).to(dtype)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
-                                                  dropout_p=ATTN_RATE)
+            def sdpa():
+                return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
+                                                      dropout_p=ATTN_RATE)
 
-        lib_out = sdpa()
+            lib_out = sdpa()
 
-        def sdpa_bwd():
-            return torch.autograd.grad(lib_out, [lq, lk, lv], g, retain_graph=True)
+            def sdpa_bwd():
+                return torch.autograd.grad(lib_out, [lq, lk, lv], g, retain_graph=True)
 
-        with torch.no_grad():
-            lib_err = (F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask).float()
-                       - kshort.short_attention_fwd(q, k, v, bias, None).float()).abs().max().item()
-        bounds = short_bounds(B, nh, S, hd, dtype)
-        shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:], "rate": ATTN_RATE}
-        calls = {
-            "short_attn_fwd": (lambda: kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
-                               lambda: kshort.short_attention_fwd_reference(q, k, v, bias, seed,
-                                                                            ATTN_RATE),
-                               lambda: torch.no_grad()(sdpa)(),
-                               "F.scaled_dot_product_attention(attn_mask, dropout_p)"),
-            "short_attn_bwd": (lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g,
-                                                                  ATTN_RATE),
-                               lambda: kshort.short_attention_bwd_reference(q, k, v, bias, seed,
-                                                                            g, ATTN_RATE),
-                               sdpa_bwd, "autograd.grad of that call: dq, dk and dv")}
-        for name, (kernel, plain, library, what) in calls.items():
-            timed[name].append({**shape, **kernel_times(kernel, plain, library),
-                                "library": what, "library_rate0_max_abs_err": lib_err,
-                                **bounds[name]})
-            log(f"3 {name}-time", **timed[name][-1])
+            with torch.no_grad():
+                lib_err = (F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask).float()
+                           - kshort.short_attention_fwd(q, k, v, bias, None).float()
+                           ).abs().max().item()
+            bounds = short_bounds(B, nh, S, hd, dtype)
+            shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:],
+                     "rate": ATTN_RATE}
+            calls = {
+                fwd: (lambda: kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
+                      lambda: kshort.short_attention_fwd_reference(q, k, v, bias, seed,
+                                                                   ATTN_RATE),
+                      lambda: torch.no_grad()(sdpa)(),
+                      "F.scaled_dot_product_attention(attn_mask, dropout_p)", "short_attn_fwd"),
+                bwd: (lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE),
+                      lambda: kshort.short_attention_bwd_reference(q, k, v, bias, seed, g,
+                                                                   ATTN_RATE),
+                      sdpa_bwd, "autograd.grad of that call: dq, dk and dv", "short_attn_bwd")}
+            for name, (kernel, plain, library, what, bound) in calls.items():
+                timed[name].append({**shape, **kernel_times(kernel, plain, library),
+                                    "library": what, "library_rate0_max_abs_err": lib_err,
+                                    **bounds[bound]})
+                log(f"3 {name}-time", **timed[name][-1])
+            del q, k, v, g, bias, lq, lk, lv, lib_out
+            torch.cuda.empty_cache()
     return {name: {"checks": rows[name], "timed": timed[name], "refused": refused,
                    "max_abs_err": errs[name]["float32"],
                    "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0],
@@ -1988,7 +2059,55 @@ def profile_training(trainer, kind: str, device) -> dict:
     return device_profile(run, steps, device, TRAIN_CONFIGS[kind]["profile"])
 
 
-def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> float:
+# The Linear layers whose outputs enter MISA's ReLU / LeakyReLU (the fusion
+# layers' FFN, the shared/private projections, the discriminators): the step's
+# gradient jumps where one of those inputs changes sign
+KINKED_INPUTS = ("ffn1", "linear", "l1")
+KINK_FLIPS_MAX = 1e-4             # a share of a layer's outputs that may change sign
+KINK_GAP_MAX = 1e-3               # how far apart the two passes may put such an output
+
+
+@contextlib.contextmanager
+def same_relu_branches(model, recorded: dict, flips: dict, align: bool):
+    """The kernel pass (align=False) records the outputs of the KINKED_INPUTS
+    layers outside BERT; the plain pass (align=True) then takes, where one of
+    its outputs has the other sign, the kernel pass's value (the gradient
+    still flows through its own), so both passes differentiate the same
+    branch of each ReLU / LeakyReLU.  Where a layer's outputs changed sign,
+    flips["name[call]"] = (count, share, largest gap between the two passes);
+    raises where the share or the gap exceeds KINK_FLIPS_MAX / KINK_GAP_MAX."""
+    calls: dict = {}
+
+    def hook(name):
+        def on_output(module, inputs, out):
+            if not align:               # a layer called more than once keeps every output
+                recorded.setdefault(name, []).append(out.detach().clone())
+                return None
+            calls[name] = calls.get(name, -1) + 1
+            key = f"{name}[{calls[name]}]"
+            want = recorded[name][calls[name]]
+            flip = (want > 0) != (out > 0)
+            n = int(flip.sum())
+            if not n:
+                return None
+            gap = float((want - out.detach()).abs()[flip].max())
+            flips[key] = (n, n / flip.numel(), gap)
+            if n / flip.numel() > KINK_FLIPS_MAX or gap > KINK_GAP_MAX:
+                raise AssertionError(f"{name}: {n} outputs change sign between the kernel and "
+                                     f"the plain pass, {gap} apart")
+            return out + ((want - out) * flip).detach()
+        return on_output
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if n.rsplit(".", 1)[-1] in KINKED_INPUTS and not n.startswith("bert.")]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tuple:
     """One step's gradients on the flagship model with the kernels against
     their plain versions: the towers' recurrence replaced by `reference`
     (autograd through its loop), the fused LayerNorm sites by their plain
@@ -1997,7 +2116,11 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     off; the others with dropout on (the fused sites exist only then, and
     the attention kernels draw their mask only then), both passes drawing
     from the same generator state, so the seeds and every other dropout mask
-    are the same."""
+    are the same.  Both passes take the same branch of every ReLU /
+    LeakyReLU outside BERT (`same_relu_branches`): an input within float
+    noise of 0 on which the two passes disagree would add a whole term to
+    one pass's gradient and not to the other's.  Returns (max |err|, the
+    sign changes aligned)."""
     from mmda_tpu_torch.data.loader import ArrayLoader
     from mmda_tpu_torch.models import bert
     from mmda_tpu_torch.ops.kernels import attention as kattn
@@ -2012,7 +2135,9 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     params = trainer.optimizer.params
     state = trainer.generator.get_state()
     counts.reset_launch_count()
-    got_l, got = loss_and_grads(model, batch, cfg, params, generator=trainer.generator)
+    recorded, flips = {}, {}
+    with same_relu_branches(model, recorded, flips, align=False):
+        got_l, got = loss_and_grads(model, batch, cfg, params, generator=trainer.generator)
     if all_launches(counts) != expected_launches(counts, TRAIN_CONFIGS[kind]["per_step"]):
         raise AssertionError(f"the kernel-path gradient made {all_launches(counts)} launches")
     trainer.generator.set_state(state)
@@ -2026,8 +2151,9 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     kshort.short_attention_bwd = kshort.short_attention_bwd_reference
     try:
         counts.reset_launch_count()
-        _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
-                                      generator=trainer.generator)
+        with same_relu_branches(model, recorded, flips, align=True):
+            _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
+                                     generator=trainer.generator)
         if any(all_launches(counts).values()):
             raise AssertionError(f"the plain path made {all_launches(counts)} launches")
     finally:
@@ -2043,13 +2169,13 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> floa
     if excess > TRAIN_TOL:
         raise AssertionError(f"step gradients, kernels vs plain versions: max |err| {err}, "
                              f"{excess} beyond one bf16 ulp > {TRAIN_TOL}")
-    return err
+    return err, flips
 
 
-def train_card_vs_cpu(device, aligned=True, **options) -> float:
+def train_card_vs_cpu(device, aligned=True, T=16, **options) -> float:
     """A small f32 model (tiny BERT, hidden 32; `options`: the towers' cell,
     the attention core, the model family) and one batch with ragged
-    lengths (unaligned: visual and acoustic on their own time axes): the
+    lengths up to T (unaligned: visual and acoustic on their own time axes): the
     step's gradients (dropout off) on the card, through the kernels, against
     the CPU, through the plain versions."""
     from mmda_tpu_torch.config import Config
@@ -2059,9 +2185,9 @@ def train_card_vs_cpu(device, aligned=True, **options) -> float:
     from mmda_tpu_torch.models.bert import BertConfig
     from mmda_tpu_torch.train.step import loss_and_grads
 
-    cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=16,
+    cfg = Config(hidden_size=32, compute_dtype="float32", batch_size=8, max_seq_len=T,
                  device="cpu", **options)
-    split = make_split(SyntheticSpec(num_examples=8, max_len=16, seed=3, aligned=aligned))
+    split = make_split(SyntheticSpec(num_examples=8, max_len=T, seed=3, aligned=aligned))
     bert_cfg = BertConfig.tiny(vocab_size=30522)
     if cfg.moe_experts > 0:                 # the tiny BERT with a MoE in every layer
         bert_cfg = dataclasses.replace(bert_cfg, moe_experts=cfg.moe_experts,
@@ -2073,16 +2199,53 @@ def train_card_vs_cpu(device, aligned=True, **options) -> float:
 
     def run(dev):
         m = copy.deepcopy(model).to(dev)
-        batch = next(iter(ArrayLoader(split, 8, shuffle=False, bucket_sizes=(16,),
+        batch = next(iter(ArrayLoader(split, 8, shuffle=False, bucket_sizes=(T,),
                                       device=dev)))
         _, g = loss_and_grads(m, batch, cfg, list(m.parameters()))
         return [x.cpu() for x in g]
 
-    cpu = steady_on_cpu(lambda: run("cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # at T = 130 some CPU op's sums follow the threads
+    try:
+        cpu = steady_on_cpu(lambda: run("cpu"))
+    finally:
+        torch.set_num_threads(threads)
     err = max((a - b).abs().max().item() for a, b in zip(cpu, run(device)))
     if err > DEVICE_TOL:
         raise AssertionError(f"step gradients, card vs CPU {options}: {err} > {DEVICE_TOL}")
     return err
+
+
+def train_phases(phase, kind, reference, counts, device, small_T=16, **small_options):
+    """Phase 5 (LSTM towers), 7 (GRU towers, fused LayerNorm sites), 8
+    (the long-sequence step with the attention kernels), 9 (the short
+    attention kernels) or 16 (the tiled short attention kernels at the long
+    shape): the main path, timed and profiled steps, the kernels against
+    their plain versions, a small f32 model (of length small_T) on the card
+    against the CPU, then phase 11's captured steps and compiled train()."""
+    trainer, path = train_main_path(counts, kind)
+    log(f"{phase} train-main-path", **path)
+    steps = train_timing(trainer, counts, kind, device)
+    log(f"{phase} train-steps", **steps)
+    prof = profile_training(trainer, kind, device)
+    busy = prof["device_busy_ms_per_call"]
+    if isinstance(busy, float):     # the profiler slows the host, not the card
+        prof["idle_share_of_unprofiled_step"] = 1.0 - busy / steps["ms_per_step"]
+    log(f"{phase} train-profile", **prof)
+    err, flips = grads_kernel_vs_plain(trainer, counts, kind, reference, device)
+    log(f"{phase} train-kernel-vs-plain", max_abs_err=err, tol=TRAIN_TOL,
+        relu_sign_changes_aligned=flips)
+    small_err = train_card_vs_cpu(device, T=small_T, **small_options)
+    log(f"{phase} train-card-vs-cpu", max_abs_err=small_err, tol=DEVICE_TOL)
+    captured = captured_steps(trainer, counts, kind, device)
+    if isinstance(busy, float):
+        captured["eager_idle_share_from_phase_profile"] = 1.0 - busy / steps["ms_per_step"]
+    log("11 captured-steps", **captured)
+    compiled = compiled_train(trainer, counts, kind, device)
+    log("11 captured-train", **compiled)
+    return trainer, {"main_path": path, "steps": steps, "profile": prof,
+                     "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err,
+                     "captured": captured, "compiled_train": compiled}
 
 
 def train_then_serve(device, counts, kernel="lstm_fwd", options=(), per_call=None) -> dict:
@@ -3876,6 +4039,92 @@ def phase15(counts, device) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------ phase 16: fused attention at the long shape
+
+FUSED_LONG_CALL = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_tiled_fwd": BERT_LAYERS}
+FUSED_LONG_CLI = ("--attn_impl", "fused", "--max_seq_len", str(LONG_T), "--batch_size",
+                  str(LONG_B), "--bucket_sizes", f"64,{LONG_T}")
+
+
+def serve_fused_long(cfg, counts, device) -> dict:
+    """A `Predictor(attn_impl="fused")` on the checkpoint the fused long run
+    wrote, one bucket of LONG_T, LONG_B rows a call, behind the HTTP front
+    end: BERT_LAYERS `short_attn_tiled_fwd` and LAUNCHES_PER_CALL `lstm_fwd`
+    launches per call and no other; its captured calls at B=LONG_B and B=1
+    against eager calls, bit for bit, with both latencies; then the same
+    batch through the same weights with the dense core and with the flash
+    kernels, each within FLASH_SERVE_TOL (dropout off: the same function)."""
+    from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
+    from mmda_tpu_torch.serving import Predictor
+
+    fused_cfg = cfg.replace(attn_impl="fused", bucket_sizes=(LONG_T,), max_seq_len=LONG_T)
+    pred = Predictor(fused_cfg, max_batch=LONG_B)
+    rng = np.random.default_rng(16)
+    lengths = [LONG_T, 1] + [int(n) for n in rng.integers(LONG_T // 4, LONG_T + 1, size=46)]
+    out = serve_over_http(fused_cfg, pred, make_requests(lengths, fused_cfg, 16), counts,
+                          per_call=FUSED_LONG_CALL)
+    batch = make_requests(lengths[:LONG_B], fused_cfg, 17)
+    counts.reset_launch_count()
+    got = pred(batch)
+    if all_launches(counts) != expected_launches(counts, FUSED_LONG_CALL):
+        raise AssertionError(f"fused Predictor call at bucket {LONG_T}: {all_launches(counts)}")
+    out["captured"] = serve_captured_vs_eager(fused_cfg, pred, lstm_recurrence, device)
+    del pred
+    torch.cuda.empty_cache()
+    check_outputs(got["scores"], got["labels"], got["tcp"], LONG_B, cfg.num_classes,
+                  cfg.threshold)
+    for core, kernels in (("xla", {}), ("flash", {"flash_fwd": BERT_LAYERS})):
+        other = Predictor(fused_cfg.replace(attn_impl=core), max_batch=LONG_B)
+        counts.reset_launch_count()
+        want = other(batch)
+        if all_launches(counts) != expected_launches(
+                counts, {"lstm_fwd": LAUNCHES_PER_CALL, **kernels}):
+            raise AssertionError(f"{core} Predictor call: {all_launches(counts)}")
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in ("scores", "tcp", "hidden"))
+        if err > FLASH_SERVE_TOL:
+            raise AssertionError(f"fused Predictor vs the {core} one at bucket {LONG_T}: "
+                                 f"{err} > {FLASH_SERVE_TOL}")
+        out[f"fused_vs_{core}_err"] = err
+        out[f"{core}_latency"] = bucket_latency(fused_cfg, other, device)
+        del other
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase16(counts, klstm, device) -> dict:
+    """The fused configuration at the long shape (module docstring, phase
+    16): the training phases, phase 8's flash step timed on the same
+    trainer, the bucket-512 Predictor, `cli.train --attn_impl fused` at
+    T=512 and a Predictor on its export; each part's launches."""
+    t0 = time.perf_counter()
+    trainer, train = train_phases(16, "fused_long", klstm.lstm_recurrence_reference, counts,
+                                  device, small_T=FUSED_LONG_SMALL_T, attn_impl="fused")
+    cfg = trainer.cfg
+    trainer.cfg = trainer.model.cfg = cfg.replace(attn_impl="flash", compiled_epoch=False)
+    try:            # phase 8's flash step, beside the fused one on the same trainer
+        flash = {"steps": train_timing(trainer, counts, "long", device),
+                 "captured": captured_steps(trainer, counts, "long", device)}
+    finally:
+        trainer.cfg = trainer.model.cfg = cfg
+    log("16 flash-steps-beside", **flash["steps"])
+    log("11 captured-steps", **flash["captured"])
+    train["flash_beside"] = flash
+    del trainer
+    torch.cuda.empty_cache()
+    serve = serve_fused_long(cfg, counts, device)
+    log("16 fused-serve-http", **{k: v for k, v in serve.items() if k != "captured"},
+        tol=FLASH_SERVE_TOL)
+    log("11 captured-serve", kind="fused_long", **serve["captured"])
+    torch.cuda.empty_cache()
+    cli = train_then_serve(device, counts, options=FUSED_LONG_CLI, per_call=FUSED_LONG_CALL)
+    log("16 fused-cli-train-then-serve", **cli)
+    launches = {name: train["main_path"]["launches"][name]
+                + train["compiled_train"]["launches"][name]
+                + serve["launches_by_kernel"][name] for name in counts.KERNELS}
+    return {"train": train, "serve": serve, "cli": cli, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3884,8 +4133,8 @@ def first_calls(kattn, kshort, device) -> int:
     process: the f32 flash path through autograd (its first launches equal
     to its second, bit for bit) against the same on the CPU (1e-5 + 1e-4
     |ref|; the case that once disagreed on a first call), the bf16 flash
-    kernels and both instantiations of the two short kernels against their
-    plain versions on the card.  One line, which also gives how far the
+    kernels and both instantiations of the short kernels of both routes (S =
+    50 and 200) against their plain versions on the card.  One line, which also gives how far the
     process's first CPU `torch.exp` lay from its second on the same input
     (taken first, so the reference after it runs with exp warm), how far the
     CPU's first call of the reference lay from its steady result, and the
@@ -3924,16 +4173,17 @@ def first_calls(kattn, kshort, device) -> int:
     out["flash_bf16"] = max(
         max_err([("o", o, o_w), ("lse", lse, lse_w)], (ATTN_BF16_TOL[0], 0.0), "first call"),
         max_err(zip(("dq", "dk", "dv"), (dq, dk, dv), want), ATTN_BF16_TOL, "first call"))
-    for dtype, tol in ((torch.float32, SHORT_F32_TOL), (torch.bfloat16, SHORT_BF16_TOL)):
-        q, k, v, g, bias = short_inputs(4, 12, 50, 64, dtype, 3, device)
+    for (dtype, tol), S in itertools.product(
+            ((torch.float32, SHORT_F32_TOL), (torch.bfloat16, SHORT_BF16_TOL)), (50, 200)):
+        q, k, v, g, bias = short_inputs(4, 12, S, 64, dtype, 3, device)
         o = kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
-        out[f"short_fwd_{str(dtype)[6:]}"] = max_err(
+        out[f"short_fwd_{str(dtype)[6:]}_S{S}"] = max_err(
             [("o", o, kshort.short_attention_fwd_reference(q, k, v, bias, seed, ATTN_RATE))],
             tol, "first call")
         grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE)
         want = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE)
-        out[f"short_bwd_{str(dtype)[6:]}"] = max_err(zip(("dq", "dk", "dv"), grads, want), tol,
-                                                    "first call")
+        out[f"short_bwd_{str(dtype)[6:]}_S{S}"] = max_err(
+            zip(("dq", "dk", "dv"), grads, want), tol, "first call")
     torch.cuda.synchronize()
     log("first-calls", max_abs_err=out)
     return 0
@@ -3941,7 +4191,7 @@ def first_calls(kattn, kshort, device) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--first-calls"], ["--phase15"]):
+    if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -3989,6 +4239,12 @@ def main() -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_phase15.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
+    if "--phase16" in args:                 # phase 16 alone, after the build
+        p16 = phase16(counts, klstm, device)
+        log("16 seconds", seconds=p16["seconds"])
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_phase16.log").write_text("\n".join(LOG_LINES) + "\n")
+        return 0
 
     checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
               "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
@@ -4029,41 +4285,14 @@ def main() -> int:
     log("4 card-vs-cpu", max_abs_err=device_err, tol=DEVICE_TOL)
     del model, pred
 
-    def train_phases(phase, kind, reference, **small_options):
-        """Phase 5 (LSTM towers), 7 (GRU towers, fused LayerNorm sites), 8
-        (the long-sequence step with the attention kernels) or 9 (the short
-        attention kernels)."""
-        trainer, path = train_main_path(counts, kind)
-        log(f"{phase} train-main-path", **path)
-        steps = train_timing(trainer, counts, kind, device)
-        log(f"{phase} train-steps", **steps)
-        prof = profile_training(trainer, kind, device)
-        busy = prof["device_busy_ms_per_call"]
-        if isinstance(busy, float):     # the profiler slows the host, not the card
-            prof["idle_share_of_unprofiled_step"] = 1.0 - busy / steps["ms_per_step"]
-        log(f"{phase} train-profile", **prof)
-        err = grads_kernel_vs_plain(trainer, counts, kind, reference, device)
-        log(f"{phase} train-kernel-vs-plain", max_abs_err=err, tol=TRAIN_TOL)
-        small_err = train_card_vs_cpu(device, **small_options)
-        log(f"{phase} train-card-vs-cpu", max_abs_err=small_err, tol=DEVICE_TOL)
-        captured = captured_steps(trainer, counts, kind, device)
-        if isinstance(busy, float):
-            captured["eager_idle_share_from_phase_profile"] = 1.0 - busy / steps["ms_per_step"]
-        log("11 captured-steps", **captured)
-        compiled = compiled_train(trainer, counts, kind, device)
-        log("11 captured-train", **compiled)
-        return trainer, {"main_path": path, "steps": steps, "profile": prof,
-                         "kernel_vs_plain_err": err, "card_vs_cpu_err": small_err,
-                         "captured": captured, "compiled_train": compiled}
-
-    lstm_trainer, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference)
+    lstm_trainer, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference, counts, device)
     del lstm_trainer
     torch.cuda.empty_cache()
     train_serve = train_then_serve(device, counts)
     log("6 train-then-serve", **train_serve)
 
-    gru_trainer, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference,
-                                          rnncell="gru")
+    gru_trainer, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference, counts,
+                                          device, rnncell="gru")
     gru_cfg = gru_trainer.cfg
     del gru_trainer
     torch.cuda.empty_cache()
@@ -4084,7 +4313,7 @@ def main() -> int:
     # phase 8: the long-sequence configuration, train -> timed steps with the
     # attention kernels and with the dense core -> serve -> score
     long_trainer, long_train = train_phases(8, "long", klstm.lstm_recurrence_reference,
-                                            attn_impl="flash")
+                                            counts, device, attn_impl="flash")
     long_cfg = long_trainer.cfg
     long_trainer.model.cfg = long_cfg.replace(attn_impl="xla")
     try:
@@ -4112,7 +4341,7 @@ def main() -> int:
     # phase 9: attn_impl="fused" at the flagship shape, train -> timed steps
     # (beside phase 5's dense-core steps) -> serve over HTTP -> cli.train
     fused_trainer, fused_train = train_phases(9, "fused", klstm.lstm_recurrence_reference,
-                                              attn_impl="fused")
+                                              counts, device, attn_impl="fused")
     fused_train["steps_dense_core_phase5"] = train["steps"]
     fused_cfg = fused_trainer.cfg
     op_ab = op_dispatch_ab(fused_trainer, (klstm, kgru, kshort, kattn), device)
@@ -4165,6 +4394,11 @@ def main() -> int:
     p15["op_dispatch"] = op_ab
     log("15 seconds", seconds=p15["seconds"])
 
+    # phase 16: attn_impl="fused" at the long shape (the tiled short-attention kernels)
+    torch.cuda.empty_cache()
+    p16 = phase16(counts, klstm, device)
+    log("16 seconds", seconds=p16["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
     # cli.infer, the tower pair, phase 12's, 13's and 14's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
@@ -4175,6 +4409,7 @@ def main() -> int:
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
                 + p13["launches"][name] + p14["launches"][name] + p15["launches"][name]
+                + p16["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -4184,6 +4419,8 @@ def main() -> int:
                 "flash_bwd_dq": "attention.py:136", "flash_bwd_dkv": "attention.py:172",
                 "short_attn_fwd": "short_attention.py:61",
                 "short_attn_bwd": "short_attention.py:82",
+                "short_attn_tiled_fwd": "short_attention.py:61",
+                "short_attn_tiled_bwd": "short_attention.py:82",
                 "lstm_multi_fwd": "lstm_multi.py:48", "lstm_multi_bwd": "lstm_multi.py:74"}
     kernels = []
     for name in counts.KERNELS:
@@ -4209,7 +4446,7 @@ def main() -> int:
             **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep},
             "launches_per_replay": {
                 kind: t["captured"]["launches_per_replay"].get(name, 0)
-                for kind, t in trains.items()}})
+                for kind, t in {**trains, "fused_long": p16["train"]}.items()}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"
@@ -4225,7 +4462,7 @@ def main() -> int:
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
-        "phase14": p14, "phase15": p15,
+        "phase14": p14, "phase15": p15, "phase16": p16,
         "kernels": kernels},
         indent=1, default=str))
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")

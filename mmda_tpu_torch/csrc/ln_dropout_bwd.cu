@@ -43,6 +43,16 @@
 //     partials w, w + 8, ... of 32 columns, and the block adds its 8 warps'
 //     sums in order.  Deterministic, no atomics.
 // The TPU kernel instead carries dg and db across a grid that runs in order.
+//
+// Rows wider than 1024 (the widest a warp's registers hold; the forward takes
+// up to 14,528) go to ln_dropout_bwd_wide_kernel: a block of 256 threads per
+// row, the block walking over rows.  A thread owns the same V-column chunks
+// of every row: it stages the row's z (then zhat) in shared memory and adds
+// its columns' do * zhat and do to the block's dg and db rows there; the row
+// sums are block reductions (warp sums, then the 8 warps' in order).  Shared
+// memory: z, dg and db, 12 H bytes (174 KB at H = 14,528).  The block writes
+// its (2, H) partial and ln_dropout_dgb_sum_kernel adds them as above.  The
+// same hash; no atomics.
 
 #include "hash_dropout.cuh"
 #include "ln_dropout.cuh"
@@ -52,6 +62,8 @@ namespace {
 constexpr int kWarps = 8;          // rows a block holds at once, one per warp
 constexpr int kSumWarps = 8;       // ln_dropout_dgb_sum_kernel: partial runs per column
 constexpr int kSumLoads = 36;      // partials a thread of it loads before adding them
+constexpr int kWarpMaxH = 1024;    // the widest row ln_dropout_bwd_kernel holds in a warp
+constexpr int kWideMaxH = 14528;   // the widest the forward takes (4 rows of f32 in 227 KB)
 
 // Blocks an SM holds at once: two of kWarps warps where a lane's registers
 // fit 128 (bf16 with V = 4), else one.
@@ -213,6 +225,129 @@ ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
   }
 }
 
+constexpr int kWideWarps = 8;      // ln_dropout_bwd_wide_kernel: one row a block at a time
+
+// The sum of v over the block's threads, the same value in each: the warps'
+// sums added in order.  red holds kWideWarps floats; the block's threads all
+// call it.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x >> 5;
+  v = mmda::warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) total += red[w];
+  __syncthreads();   // red is reused by the next call
+  return total;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                           const float* __restrict__ g, const T* __restrict__ dout,
+                           const int* __restrict__ seed_ptr, T* __restrict__ dx,
+                           T* __restrict__ dy, float* __restrict__ partial, int N, int H,
+                           float rate, float scale, float eps) {
+  constexpr int NT = 32 * kWideWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* z_s = smem;           // (H,) z, then zhat, of the current row
+  float* dg_s = z_s + H;       // (H,) the block's sums: column c added to by its owner alone
+  float* db_s = dg_s + H;
+  __shared__ float red[kWideWarps];
+  const uint32_t seed = rate > 0.0f ? (uint32_t)seed_ptr[0] : 0u;
+  const float inv_h = 1.0f / (float)H;
+  for (int c = threadIdx.x * V; c < H; c += NT * V) {
+    const float zero[V] = {};
+    mmda::store_vec<V>(dg_s + c, zero);
+    mmda::store_vec<V>(db_s + c, zero);
+  }
+  for (int row = blockIdx.x; row < N; row += gridDim.x) {
+    const size_t base = (size_t)row * H;
+    float sum = 0.0f;
+    for (int c = threadIdx.x * V; c < H; c += NT * V) {
+      float xv[V], yv[V], zv[V];
+      mmda::load_vec<V>(x + base + c, xv);
+      mmda::load_vec<V>(y + base + c, yv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        zv[i] = xv[i] + (kept ? yv[i] * scale : 0.0f);
+        sum += zv[i];
+      }
+      mmda::store_vec<V>(z_s + c, zv);
+    }
+    const float mu = block_sum(sum, red) * inv_h;
+    float sq = 0.0f;
+    for (int c = threadIdx.x * V; c < H; c += NT * V) {
+      float zv[V];
+      mmda::load_vec<V>(z_s + c, zv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) sq += (zv[i] - mu) * (zv[i] - mu);
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) * inv_h + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int c = threadIdx.x * V; c < H; c += NT * V) {
+      float zv[V], dv[V], gv[V], dgv[V], dbv[V];
+      mmda::load_vec<V>(z_s + c, zv);
+      mmda::load_vec<V>(dout + base + c, dv);
+      mmda::load_vec<V>(g + c, gv);
+      mmda::load_vec<V>(dg_s + c, dgv);
+      mmda::load_vec<V>(db_s + c, dbv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        zv[i] = (zv[i] - mu) * rstd;        // zhat
+        const float dzh = dv[i] * gv[i];
+        s1 += dzh;
+        s2 += dzh * zv[i];
+        dgv[i] += dv[i] * zv[i];
+        dbv[i] += dv[i];
+      }
+      mmda::store_vec<V>(z_s + c, zv);
+      mmda::store_vec<V>(dg_s + c, dgv);
+      mmda::store_vec<V>(db_s + c, dbv);
+    }
+    const float m1 = block_sum(s1, red) * inv_h;
+    const float m2 = block_sum(s2, red) * inv_h;
+    for (int c = threadIdx.x * V; c < H; c += NT * V) {
+      float zv[V], dv[V], gv[V], dxv[V], dyv[V];
+      mmda::load_vec<V>(z_s + c, zv);
+      mmda::load_vec<V>(dout + base + c, dv);
+      mmda::load_vec<V>(g + c, gv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float dz = rstd * (dv[i] * gv[i] - m1 - zv[i] * m2);
+        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        dxv[i] = dz;
+        dyv[i] = kept ? dz * scale : 0.0f;
+      }
+      mmda::store_vec<V>(dx + base + c, dxv);
+      mmda::store_vec<V>(dy + base + c, dyv);
+    }
+  }
+  __syncthreads();
+  float* out = partial + (size_t)blockIdx.x * 2 * H;
+  for (int c = threadIdx.x; c < H; c += NT) {
+    out[c] = dg_s[c];
+    out[H + c] = db_s[c];
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_wide(const void* x, const void* y, const float* g, const void* dout,
+                        const int* seed, void* dx, void* dy, float* partial, int N, int H,
+                        int blocks, float rate, float scale, float eps, cudaStream_t stream) {
+  const size_t smem_bytes = (size_t)3 * H * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_dropout_bwd_wide_kernel<T, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes);
+  if (err != cudaSuccess) return err;
+  ln_dropout_bwd_wide_kernel<T, V><<<blocks, 32 * kWideWarps, smem_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), g, static_cast<const T*>(dout),
+      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, rate, scale, eps);
+  return cudaGetLastError();
+}
+
 // dg, db = the blocks' partials added per column: block x takes columns
 // 32 x .. 32 x + 31 of the (2, H) partials, warp w the partials w, w + 8,
 // ... in order (all kSumLoads of a round loaded before the first add: one
@@ -266,11 +401,15 @@ cudaError_t launch(const void* x, const void* y, const float* g, const void* dou
 
 // The rows pass for a row of H values, V at a time: NCH chunks of 32 V
 // columns a warp, from the instantiations below (H <= 256, 768, 1024 for
-// V = 4; 256, 1024 for V = 1).
+// V = 4; 256, 1024 for V = 1); a block a row above 1024.
 template <typename T, int V>
 cudaError_t launch_rows(const void* x, const void* y, const float* g, const void* dout,
                         const int* seed, void* dx, void* dy, float* partial, int N, int H,
                         int blocks, float rate, float scale, float eps, cudaStream_t st) {
+  if (H > kWarpMaxH) {
+    return launch_wide<T, V>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate, scale,
+                             eps, st);
+  }
   const int need = (H + 32 * V - 1) / (32 * V);
   if constexpr (V == 4) {
     if (need <= 2) return launch<T, 4, 2>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
@@ -295,7 +434,7 @@ extern "C" {
 // Launches the two kernels on `stream` (the rows' pass, then the sum of its
 // partials) and returns the first nonzero cudaError as an int (0 = ok).
 // x, y, dout, dx, dy: bf16 when is_bf16 else f32.  vec is 4 (H % 4 == 0 and
-// every pointer 16-byte aligned) or 1; 1 <= H <= 1024.  The caller allocates
+// every pointer 16-byte aligned) or 1; 1 <= H <= 14528.  The caller allocates
 // dx, dy, dg, db and the (blocks, 2, H) f32 scratch `partial`; blocks >= 1
 // (the grid of the rows pass).  rate and scale = 1 / (1 - rate) already
 // rounded to f32; seed (device int32) is read only when rate > 0.
@@ -304,7 +443,7 @@ int mmda_ln_dropout_bwd(const void* x, const void* y, const float* g, const void
                         float* partial, int N, int H, int is_bf16, int vec, int blocks,
                         float rate, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((vec != 1 && vec != 4) || blocks < 1 || N < 1 || H < 1 || H > 1024) {
+  if ((vec != 1 && vec != 4) || blocks < 1 || N < 1 || H < 1 || H > kWideMaxH) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;

@@ -65,8 +65,8 @@
 //      per output element;
 //   4. q * scale replaces do: dk = ds^T (q * scale).
 // expf and IEEE division.  Two S x S matrices and two operand tiles fill the
-// block's shared memory: S <= 128 at D = 64 (the wrapper raises where a shape
-// does not fit either kernel).
+// block's shared memory: S <= 128 at D = 64 (the wrapper sends a shape that
+// does not fit either kernel to short_attn_tiled_bwd.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -55,8 +55,8 @@
 //     through a per-warp row of shared memory to the product with v, where
 //     the lanes own output columns (at most 4 each, D <= 128).
 // The whole (b, h) sits in one block's shared memory, so the kernel takes
-// S <= 128 (the wrapper raises above that and names attn_impl="flash").  A
-// tile over query rows for longer S is later work.
+// S <= 128; longer sequences go to short_attn_tiled_fwd.cu, which tiles the
+// queries and streams the keys with the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -381,10 +381,14 @@ def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
                token_type_ids: torch.Tensor, eps: float,
                compute_dtype: torch.dtype) -> torch.Tensor:
     # positions beyond the table read its last row, as the JAX package's
-    # gather (which clamps an out-of-range index) does at S > max_position
-    positions = torch.arange(input_ids.shape[1], device=input_ids.device).clamp(
-        max=p.position.shape[0] - 1)
-    emb = p.word[input_ids] + p.position[positions][None] + p.token_type[token_type_ids]
+    # gather (which clamps an out-of-range index) does at S > max_position;
+    # its gradient drops what those positions would add to that row, so here
+    # they read a detached copy of it
+    S, P = input_ids.shape[1], p.position.shape[0]
+    position = p.position[:S]
+    if S > P:
+        position = torch.cat([position, p.position[-1:].detach().expand(S - P, -1)])
+    emb = p.word[input_ids] + position[None] + p.token_type[token_type_ids]
     return layer_norm(emb, p.ln.weight, p.ln.bias, eps).to(compute_dtype)
 
 

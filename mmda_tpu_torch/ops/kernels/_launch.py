@@ -26,7 +26,8 @@ from mmda_tpu_torch.ops.kernels import _build
 KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd",
            "ln_dropout_fwd", "ln_dropout_bwd",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "short_attn_fwd", "short_attn_bwd", "lstm_multi_fwd", "lstm_multi_bwd")
+           "short_attn_fwd", "short_attn_bwd", "lstm_multi_fwd", "lstm_multi_bwd",
+           "short_attn_tiled_fwd", "short_attn_tiled_bwd")
 MAX_THREADS = 1024
 BWD_DW_TILE = (32, 64)     # csrc/lstm_bwd.cu's and gru_bwd.cu's dW tile: rows x gate columns
 BWD_DW_CHUNK = 16          # (t, b) rows such a dW block stages at a time

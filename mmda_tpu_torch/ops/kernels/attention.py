@@ -25,8 +25,13 @@ in the type of q, k, v.
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions
 (which form the whole S x S matrix).  There is no other route: a CUDA input
-that a kernel cannot take raises.  The seed is a one-element int32 tensor on
-the inputs' device; no wrapper reads it on the host.  The forward is the op
+that a kernel cannot take raises.  The kernels are instantiated at D = 16,
+32, 64 and 128; any other D up to 128 runs the next one up on q, k, v (and
+do) with zero columns appended and the true `softmax_scale(D)`: a zero
+column adds an exact 0 to every product, so no score, probability or kept
+column changes, and the pad columns of o, dq, dk and dv are cut off.  The
+seed is a one-element int32 tensor on the inputs' device; no wrapper reads
+it on the host.  The forward is the op
 `torch.ops.mmda_tpu_torch.flash_attention_fwd` (`flash_attention_fwd_op`, a
 `torch.library.custom_op` with a fake implementation): one node in a
 `torch.export` graph.  Launch counts:
@@ -52,6 +57,7 @@ __all__ = ["SOURCES", "launch_count", "reset_launch_count",
            "flash_attention_bwd_dkv", "flash_attention_bwd", "FlashAttention", "flash_attention"]
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)     # the kernels' instantiations (csrc/flash_common.cuh)
+MAX_D = HEAD_DIMS[-1]
 
 
 def softmax_scale(D: int) -> float:
@@ -166,8 +172,8 @@ def _check(q, k, v, bias, seed, rate: float, f32_like=(), vectors=(),
             raise ValueError("rate > 0 needs a seed")
         check_tensor("seed", seed, q.device, torch.int32, (1,))
     if dev.type == "cuda":
-        if D not in HEAD_DIMS:
-            raise ValueError(f"the attention kernels take D in {HEAD_DIMS}, got {D}")
+        if not 1 <= D <= MAX_D:
+            raise ValueError(f"the attention kernels take D <= {MAX_D}, got {D}")
         if BH * -(-S // 64) >= 2 ** 31:
             raise ValueError(f"(BH, S) = {(BH, S)} needs more blocks than a grid has")
         for name, t, _, _ in (tensors if pointers else ()):
@@ -176,9 +182,23 @@ def _check(q, k, v, bias, seed, rate: float, f32_like=(), vectors=(),
     return dev
 
 
-def _launch_args(q, rate: float):
-    BH, S, D = q.shape
-    return (BH, S, D, int(q.dtype == torch.bfloat16), softmax_scale(D),
+def kernel_head_dim(D: int) -> int:
+    """The instantiation a head dim D runs: the least of HEAD_DIMS >= D."""
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def _pad_heads(D: int, *tensors):
+    """(BH, S, D) tensors with zero columns appended up to the kernels'
+    instantiation for D (the tensors themselves where D is one)."""
+    pad = kernel_head_dim(D) - D
+    return tuple(torch.nn.functional.pad(t, (0, pad)) if pad else t for t in tensors)
+
+
+def _launch_args(q, rate: float, D: int):
+    """The C entries' shape and scalars for q (BH, S, kernel D) holding a
+    head dim D: the scale is the true one."""
+    BH, S, DK = q.shape
+    return (BH, S, DK, int(q.dtype == torch.bfloat16), softmax_scale(D),
             float(np.float32(rate)), keep_scale(rate))
 
 
@@ -191,15 +211,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tens
         return flash_attention_fwd_reference(q, k, v, bias, seed, rate)
     so = lib("flash_fwd", 7, 4, 3)
     BH, S, D = q.shape
-    o = torch.empty(BH, S, D, device=dev, dtype=torch.float32)
+    qp, kp, vp = _pad_heads(D, q, k, v)
+    o = torch.empty(BH, S, qp.shape[-1], device=dev, dtype=torch.float32)
     lse = torch.empty(BH, S, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch("flash_fwd", so.mmda_flash_fwd,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+               qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
                seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
-               *_launch_args(q, rate), stream)
-    return o, lse
+               *_launch_args(qp, rate, D), stream)
+    return (o if o.shape[-1] == D else o[..., :D].contiguous()), lse
 
 
 @torch.library.custom_op("mmda_tpu_torch::flash_attention_fwd", mutates_args=())
@@ -231,17 +252,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd_op(q, k, v, bias, seed, float(rate))
 
 
-def _bwd_launch(name: str, outs, q, k, v, bias, seed, do_t, lse, dsum, rate: float):
+def _bwd_launch(name: str, n_outs: int, q, k, v, bias, seed, do_t, lse, dsum, rate: float):
     """Launch the backward kernel `name` on d_out already rounded to the
-    operand type (`do_t`), writing into the preallocated `outs`."""
-    so = lib(name, 8 + len(outs), 4, 3)
+    operand type (`do_t`); returns its n_outs outputs, each in q's shape.
+    q, k, v and do_t get the kernels' zero columns where D needs them."""
+    D = q.shape[-1]
+    q, k, v, do_t = _pad_heads(D, q, k, v, do_t)
+    padded = [torch.empty_like(q) for _ in range(n_outs)]
+    so = lib(name, 8 + n_outs, 4, 3)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         launch(name, getattr(so, f"mmda_{name}"),
                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                seed.data_ptr() if rate > 0.0 else None, do_t.data_ptr(), lse.data_ptr(),
-               dsum.data_ptr(), *(t.data_ptr() for t in outs), *_launch_args(q, rate), stream)
-    return outs
+               dsum.data_ptr(), *(t.data_ptr() for t in padded), *_launch_args(q, rate, D),
+               stream)
+    return tuple(t if t.shape[-1] == D else t[..., :D].contiguous() for t in padded)
 
 
 def _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate: float) -> torch.device:
@@ -256,7 +282,7 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, d_out, lse, dsum,
     in the operand type: d_out is rounded to it once here."""
     if _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate).type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, bias, seed, d_out, lse, dsum, rate)
-    return _bwd_launch("flash_bwd_dq", (torch.empty_like(q),), q, k, v, bias, seed,
+    return _bwd_launch("flash_bwd_dq", 1, q, k, v, bias, seed,
                        d_out.to(q.dtype), lse, dsum, rate)[0]
 
 
@@ -266,7 +292,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, d_out, lse, dsum,
     f32, rounded to the operand type once here."""
     if _check_bwd(q, k, v, bias, seed, d_out, lse, dsum, rate).type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, bias, seed, d_out, lse, dsum, rate)
-    return _bwd_launch("flash_bwd_dkv", (torch.empty_like(k), torch.empty_like(v)), q, k, v,
+    return _bwd_launch("flash_bwd_dkv", 2, q, k, v,
                        bias, seed, d_out.to(q.dtype), lse, dsum, rate)
 
 
@@ -282,8 +308,8 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, o, d_out, rate: float = 0.0):
                 *flash_attention_bwd_dkv_reference(*args))
     do_t = d_out.to(q.dtype)
     rest = (q, k, v, bias, seed, do_t, lse, dsum, rate)
-    dq, = _bwd_launch("flash_bwd_dq", (torch.empty_like(q),), *rest)
-    dk, dv = _bwd_launch("flash_bwd_dkv", (torch.empty_like(k), torch.empty_like(v)), *rest)
+    dq, = _bwd_launch("flash_bwd_dq", 1, *rest)
+    dk, dv = _bwd_launch("flash_bwd_dkv", 2, *rest)
     return dq, dk, dv
 
 

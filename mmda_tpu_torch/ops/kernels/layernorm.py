@@ -38,7 +38,8 @@ __all__ = ["SOURCES", "launch_count", "reset_launch_count",
            "ResidualDropoutLayerNorm", "residual_dropout_layernorm"]
 WARPS_PER_BLOCK = 4               # csrc/ln_dropout.cuh kWarpsPerBlock: the forward's rows a block
 BWD_WARPS = 8                     # csrc/ln_dropout_bwd.cu kWarps: rows a backward block holds
-BWD_MAX_H = 1024                  # the widest row the backward holds in a warp's registers
+BWD_WARP_MAX_H = 1024             # the widest row the backward holds in a warp's registers;
+                                  # wider rows take a block each (csrc/ln_dropout_bwd.cu)
 SMEM_OPTIN = 232448               # bytes of shared memory a Hopper block can opt in to
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -116,7 +117,8 @@ def _vec(H: int, *tensors) -> int:
 
 
 def _check_smem(H: int) -> None:
-    """The forward keeps each of its rows' z in shared memory."""
+    """The forward keeps each of its rows' z in shared memory (the backward
+    takes every H the forward takes)."""
     if WARPS_PER_BLOCK * H * 4 > SMEM_OPTIN:
         raise ValueError(f"row width {H} does not fit the kernel's shared memory")
 
@@ -146,12 +148,19 @@ def residual_dropout_layernorm_fwd(x: torch.Tensor, y: torch.Tensor, scale: torc
 
 
 def bwd_blocks(N: int, n_sm: int, two_per_sm: bool) -> int:
-    """Blocks of the backward's rows pass: as many as the SMs hold at once
-    (two of BWD_WARPS warps each where the kernel's registers allow it:
-    bf16 rows read 4 values at a time; else one), no more than the rows
-    need.  Each block's warps walk the rows block * BWD_WARPS + warp + k *
-    blocks * BWD_WARPS, and its dg/db partial covers them."""
+    """Blocks of the backward's rows pass for rows up to BWD_WARP_MAX_H: as
+    many as the SMs hold at once (two of BWD_WARPS warps each where the
+    kernel's registers allow it: bf16 rows read 4 values at a time; else
+    one), no more than the rows need.  Each block's warps walk the rows
+    block * BWD_WARPS + warp + k * blocks * BWD_WARPS, and its dg/db partial
+    covers them."""
     return max(1, min(-(-N // BWD_WARPS), (2 if two_per_sm else 1) * n_sm))
+
+
+def bwd_wide_blocks(N: int, n_sm: int) -> int:
+    """Blocks of the backward's rows pass for wider rows: a block a row, two
+    an SM, no more than the rows; block i walks the rows i + k * blocks."""
+    return max(1, min(N, 2 * n_sm))
 
 
 def residual_dropout_layernorm_bwd(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
@@ -163,13 +172,13 @@ def residual_dropout_layernorm_bwd(x: torch.Tensor, y: torch.Tensor, scale: torc
     if dev.type == "cpu":
         return residual_dropout_layernorm_bwd_reference(x, y, scale, dout, seed, rate, eps)
     N, H = x.shape
-    if H > BWD_MAX_H:
-        raise ValueError(f"row width {H} > {BWD_MAX_H} is not supported by the backward kernel")
+    _check_smem(H)
     so = lib("ln_dropout_bwd", 10, 5, 3)
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     vec = _vec(H, x, y, scale, dout, dx, dy)
     bf16 = x.dtype == torch.bfloat16
-    blocks = bwd_blocks(N, sm_count(dev), bf16 and vec == 4)
+    blocks = (bwd_wide_blocks(N, sm_count(dev)) if H > BWD_WARP_MAX_H
+              else bwd_blocks(N, sm_count(dev), bf16 and vec == 4))
     dg = torch.empty(H, device=dev)
     db = torch.empty(H, device=dev)
     partial = torch.empty(blocks, 2, H, device=dev)

@@ -2,12 +2,13 @@
 forward and backward: the CUDA kernels' wrappers and their plain versions.
 
 Counterpart of `mmda_tpu/ops/pallas/short_attention.py`: softmax attention
-over (B, nh, S, hd) with a (B, S) additive key bias, all of one (batch item,
-head) at once (no online softmax, no lse), the attention-probs keep mask
-drawn from the short kernels' own positional hash
-(`hash_dropout.short_attention_keep_mask`) and regenerated by the backward.
-Two kernels: `csrc/short_attn_fwd.cu` (the TPU package's `_fwd_kernel`) and
-`csrc/short_attn_bwd.cu` (`_bwd_kernel`).
+over (B, nh, S, hd) with a (B, S) additive key bias and the exact softmax of
+each row (its true max and sum, no online rescaling of the output, no lse
+kept), the attention-probs keep mask drawn from the short kernels' own
+positional hash (`hash_dropout.short_attention_keep_mask`) and regenerated
+by the backward.  The TPU package's `_fwd_kernel` and `_bwd_kernel` are
+`csrc/short_attn_fwd.cu` and `short_attn_bwd.cu`, and beyond what one block
+holds `csrc/short_attn_tiled_fwd.cu` and `short_attn_tiled_bwd.cu`.
 
 The rounding sites, the same in the kernels and in the plain versions: q, k,
 v widened to f32 and q multiplied by f32(1 / sqrt(hd)) before the product;
@@ -20,18 +21,26 @@ f32 sums), `scale` after q k^T and after ds^T q instead of on q first, and
 each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo: all its 24
 bits) times the bf16 input; `expf` and IEEE division as in f32.  They stay
 within one bf16 ulp of the plain versions
-(`tests/test_torch_short_attention.py` models them on the CPU).  The f32
+(`tests/test_torch_short_attention.py` and, for the tiled kernels' sums over
+tiles, `tests/test_torch_kernel_domain.py` model them on the CPU).  The f32
 instantiations are f32 FMAs.
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions.
-There is no other route: a CUDA input that a kernel cannot take raises (the
-kernels hold one (batch item, head) in a block's shared memory, so they take
-S <= 128; longer sequences are `attn_impl="flash"`'s).  The seed is a
-one-element int32 tensor on the inputs' device; no wrapper reads it on the
-host.  The forward is the op `torch.ops.mmda_tpu_torch.short_attention_fwd`
-(`short_attention_fwd_op`, a `torch.library.custom_op` with a fake
-implementation): one node in a `torch.export` graph.  Launch counts:
-`launch_count("short_attn_fwd")`, `("short_attn_bwd")`.
+There is no other route.  Two pairs of kernels, by shape (`kernel_route`):
+one block per (batch item, head) holding all of it in shared memory
+(`csrc/short_attn_fwd.cu`, `short_attn_bwd.cu`: S <= 128, and in f32 where
+the backward's two S x S tiles fit), and over query and key tiles for every
+longer S (`csrc/short_attn_tiled_fwd.cu`, `short_attn_tiled_bwd.cu`: the same
+arithmetic, the exact softmax in two passes over the keys, the backward as a
+dq kernel then a dk/dv kernel, no atomics).  Both take hd <= 128; a CUDA
+input with a wider head raises.  The seed is a one-element int32 tensor on
+the inputs' device; no wrapper reads it on the host.  The forward is the op
+`torch.ops.mmda_tpu_torch.short_attention_fwd` (`short_attention_fwd_op`, a
+`torch.library.custom_op` with a fake implementation): one node in a
+`torch.export` graph, whichever kernel it launches.  Launch counts:
+`launch_count("short_attn_fwd")`, `("short_attn_bwd")`,
+`("short_attn_tiled_fwd")`, `("short_attn_tiled_bwd")` (a tiled backward
+call launches its two kernels and counts once).
 """
 
 from __future__ import annotations
@@ -45,13 +54,18 @@ from mmda_tpu_torch.ops.kernels._launch import (check_tensor, device_of, launch,
                                                 launch_count, lib, reset_launch_count)
 from mmda_tpu_torch.ops.kernels.hash_dropout import keep_scale, short_attention_keep_mask
 
-SOURCES = ("short_attn_fwd", "short_attn_bwd")
-__all__ = ["SOURCES", "launch_count", "reset_launch_count", "MAX_S", "kernel_takes",
+# (forward, backward) of each route: one block per (b, h), or query and key tiles
+ROUTE_SOURCES = {"block": ("short_attn_fwd", "short_attn_bwd"),
+                 "tiled": ("short_attn_tiled_fwd", "short_attn_tiled_bwd")}
+SOURCES = ROUTE_SOURCES["block"] + ROUTE_SOURCES["tiled"]
+__all__ = ["SOURCES", "ROUTE_SOURCES", "launch_count", "reset_launch_count", "MAX_S",
+           "MAX_HD", "kernel_route", "kernel_takes",
            "short_attention_fwd_reference", "short_attention_bwd_reference",
            "short_attention_fwd", "short_attention_fwd_op", "short_attention_bwd",
            "ShortAttention", "short_attention"]
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_S, MAX_HD = 128, 128          # 4 keys and 4 columns per lane of a row's warp
+MAX_S, MAX_HD = 128, 128          # the block kernels: 4 keys and 4 columns a lane
+TILED_ROWS = 32                   # the tiled f32 kernels' query and key tiles (the smallest)
 SMEM_LIMIT = 232448               # bytes of shared memory a block may opt into (H100)
 WARPS = 8                         # csrc/short_attn_*.cu kWarps
 
@@ -61,17 +75,26 @@ def softmax_scale(hd: int) -> float:
     return float(np.float32(1.0 / np.sqrt(hd)))
 
 
-def kernel_takes(S: int, hd: int, dtype: torch.dtype = torch.float32) -> bool:
-    """Whether both kernels take (S, hd) in `dtype`: S and hd up to 128, and
-    in f32 the backward's shared memory (k, v or do or q, pd, ds and the
-    warps' rows; csrc/short_attn_bwd.cu smem_bytes), the larger of the two,
-    within the card's opt-in limit.  The bf16 kernels hold four padded bf16
-    operand tiles at most (141,312 bytes at S = hd = 128), which always fit."""
-    if not (1 <= S <= MAX_S and 1 <= hd <= MAX_HD):
-        return False
+def kernel_route(S: int, hd: int, dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """Which kernels a CUDA input of (S, hd) in `dtype` goes to: "block" (S
+    up to 128, and in f32 the block backward's shared memory (k, v or do or
+    q, pd, ds and the warps' rows; csrc/short_attn_bwd.cu smem_bytes) within
+    the card's opt-in limit; the bf16 kernels hold four padded bf16 operand
+    tiles at most, 141,312 bytes at S = hd = 128, which always fit), "tiled"
+    for every other S, None where hd is outside 1 .. 128."""
+    if not (S >= 1 and 1 <= hd <= MAX_HD):
+        return None
+    if S > MAX_S:
+        return "tiled"
     if dtype == torch.bfloat16:
-        return True
-    return 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd) <= SMEM_LIMIT
+        return "block"
+    fits = 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd) <= SMEM_LIMIT
+    return "block" if fits else "tiled"
+
+
+def kernel_takes(S: int, hd: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the kernels take (S, hd) in `dtype`: any S, hd up to 128."""
+    return kernel_route(S, hd, dtype) is not None
 
 
 # ------------------------------------------------------------ plain versions
@@ -145,11 +168,11 @@ def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
         if seed is None:
             raise ValueError("rate > 0 needs a seed")
         check_tensor("seed", seed, q.device, torch.int32, (1,))
-    if dev.type == "cuda" and not kernel_takes(S, hd, q.dtype):
-        raise ValueError(f"the short attention kernels take S <= {MAX_S} and hd <= {MAX_HD} "
-                         f"within one block's shared memory, got S={S}, hd={hd} in "
-                         f"{q.dtype}: use "
-                         'attn_impl="flash" for longer sequences')
+    if dev.type == "cuda":
+        if not kernel_takes(S, hd, q.dtype):
+            raise ValueError(f"the short attention kernels take hd <= {MAX_HD}, got hd={hd}")
+        if B * nh * -(-S // TILED_ROWS) >= 2 ** 31:
+            raise ValueError(f"(B, nh, S) = {(B, nh, S)} needs more blocks than a grid has")
     return dev
 
 
@@ -166,11 +189,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tens
     dev = _check(q, k, v, bias, seed, rate)
     if dev.type == "cpu":
         return short_attention_fwd_reference(q, k, v, bias, seed, rate)
-    so = lib("short_attn_fwd", 6, 5, 3)
+    name = ROUTE_SOURCES[kernel_route(q.shape[2], q.shape[3], q.dtype)][0]
+    so = lib(name, 6, 5, 3)
     o = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch("short_attn_fwd", so.mmda_short_attn_fwd,
+        launch(name, getattr(so, f"mmda_{name}"),
                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
                *_launch_args(q, rate), stream)
@@ -211,14 +235,20 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0):
     dev = _check(q, k, v, bias, seed, rate, d_out)
     if dev.type == "cpu":
         return short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate)
-    so = lib("short_attn_bwd", 9, 5, 3)
+    B, nh, S, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr() if rate > 0.0 else None, d_out.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr()]
+    route = kernel_route(S, hd, q.dtype)
+    name, stats = ROUTE_SOURCES[route][1], None
+    if route == "tiled":     # the dq kernel's (m, l, r) per query, for the dk/dv kernel
+        stats = torch.empty(B * nh * S * 3, device=dev)
+        ptrs.append(stats.data_ptr())
+    so = lib(name, len(ptrs), 5, 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch("short_attn_bwd", so.mmda_short_attn_bwd,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-               seed.data_ptr() if rate > 0.0 else None, d_out.data_ptr(), dq.data_ptr(),
-               dk.data_ptr(), dv.data_ptr(), *_launch_args(q, rate), stream)
+        launch(name, getattr(so, f"mmda_{name}"), *ptrs, *_launch_args(q, rate), stream)
     return dq, dk, dv
 
 

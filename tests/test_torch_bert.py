@@ -162,6 +162,31 @@ def test_positions_beyond_the_table_read_its_last_row(attn_impl, request):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
+def test_positions_beyond_the_table_add_no_gradient_to_its_last_row():
+    """S > max_position_embeddings: jax.grad of the clamped gather drops what
+    the positions beyond the table would add to its last row, and so does
+    the port: the position table's gradient equals the JAX one, and it
+    differs from the gradient that adds them."""
+    jbc = jbert.BertConfig(vocab_size=128, hidden_size=32, num_layers=1, num_heads=2,
+                           intermediate_size=64, max_position_embeddings=8)
+    bc = bert.BertConfig(vocab_size=128, hidden_size=32, num_layers=1, num_heads=2,
+                         intermediate_size=64, max_position_embeddings=8)
+    tree = jbert.init_bert_params(jax.random.PRNGKey(3), jbc)
+    ids, types, mask = _inputs(S=11)
+    w = np.random.default_rng(1).normal(size=(3, 11, 32)).astype(np.float32)
+    want = jax.grad(lambda t: jnp.sum(jbert.bert_encode(
+        t, jbc, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(types),
+        compute_dtype=jnp.float32) * w))(tree)["embeddings"]["position"]
+    enc = load_jax_params(bert.BertEncoder(bc), tree)
+    with torch.enable_grad():      # the file's fixture turns autograd off
+        out = bert.bert_encode(enc, torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                               torch.from_numpy(types).long(), torch.float32)
+        got, = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                                   [enc.embeddings.position])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    assert np.abs(np.asarray(want)[-1]).max() > 0
+
+
 def test_flash_dropout_draws_its_seed_from_the_generator():
     """Training with attn_impl="flash": the probs dropout is the kernel's
     (a per-layer seed drawn from the step's generator), so the same

@@ -24,7 +24,8 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import CHECK_SHAPES, INT8_DENSES, SHORT_SHAPES, steady_on_cpu  # noqa: E402
+from chip_smoke import (CHECK_SHAPES, INT8_DENSES, SHORT_SHAPES,  # noqa: E402
+                        check_short_mask, steady_on_cpu)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -308,7 +309,8 @@ def _ln_inputs(N, H, dtype, seed, device):
 @pytest.mark.parametrize("seed", [7, 2 ** 31 - 2])
 @pytest.mark.parametrize("N,H,dtype", [(3200, 768, torch.bfloat16), (3200, 768, torch.float32),
                                        (200, 128, torch.float32), (300, 128, torch.bfloat16),
-                                       (13, 30, torch.float32)])
+                                       (13, 30, torch.float32), (100, 1536, torch.bfloat16),
+                                       (13, 1025, torch.float32)])
 def test_ln_dropout_mask_is_the_hash_bit_for_bit(cuda_device, N, H, dtype, seed):
     """x = 0, y = 1, scale = 1: the forward's z is keep / (1 - rate), so the
     kept positions are where the output lies above the row mean (in rows
@@ -360,11 +362,15 @@ def test_ln_dropout_kernels_match_plain_versions(cuda_device, N, H, dtype, rate)
     (3200, 768, torch.bfloat16), (3201, 768, torch.bfloat16), (3201, 768, torch.float32),
     (1, 768, torch.bfloat16), (1, 30, torch.float32), (50, 100, torch.float32),
     (50, 100, torch.bfloat16), (13, 30, torch.bfloat16), (64, 770, torch.float32),
-    (64, 770, torch.bfloat16), (64, 1024, torch.bfloat16), (64, 512, torch.float32)])
+    (64, 770, torch.bfloat16), (64, 1024, torch.bfloat16), (64, 512, torch.float32),
+    (300, 1025, torch.float32), (300, 1536, torch.bfloat16), (300, 1536, torch.float32),
+    (40, 4096, torch.bfloat16), (3, 14528, torch.float32)])
 def test_ln_dropout_bwd_kernel_matches_plain_version(cuda_device, N, H, dtype, rate):
     """Every instantiation of the rows pass (4 values an access: H = 100,
-    512, 768, 1024; one: H = 30, 770), one row and a last block that is not
-    full: dx, dy within 1e-5 (f32) or one bf16 ulp, dscale, dbias 1e-4."""
+    512, 768, 1024; one: H = 30, 770; a block a row above 1024, 4 values an
+    access at H = 1536, 4096 and 14528, one at 1025), one row and a last
+    block that is not full: dx, dy within 1e-5 (f32) or one bf16 ulp,
+    dscale, dbias 1e-4."""
     x, y, g, _, dout = _ln_inputs(N, H, dtype, seed=N * H, device=cuda_device)
     s = torch.tensor([5], dtype=torch.int32, device=cuda_device)
     tol = TOL if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
@@ -377,7 +383,8 @@ def test_ln_dropout_bwd_kernel_matches_plain_version(cuda_device, N, H, dtype, r
 
 
 @pytest.mark.parametrize("N,H,dtype", [(3200, 768, torch.bfloat16), (3200, 768, torch.float32),
-                                       (13, 30, torch.bfloat16)])
+                                       (13, 30, torch.bfloat16), (600, 1536, torch.bfloat16),
+                                       (300, 1025, torch.float32)])
 def test_ln_dropout_bwd_kernel_gives_the_same_bits_twice(cuda_device, N, H, dtype):
     x, y, g, _, dout = _ln_inputs(N, H, dtype, seed=1, device=cuda_device)
     s = torch.tensor([5], dtype=torch.int32, device=cuda_device)
@@ -386,10 +393,18 @@ def test_ln_dropout_bwd_kernel_gives_the_same_bits_twice(cuda_device, N, H, dtyp
     assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
 
 
-def test_ln_dropout_bwd_kernel_refuses_rows_wider_than_1024(cuda_device):
-    x, y, g, _, dout = _ln_inputs(4, 1025, torch.float32, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="1024"):
-        kln.residual_dropout_layernorm_bwd(x, y, g, dout, None, 0.0)
+def test_ln_dropout_bwd_kernel_takes_every_row_the_forward_takes(cuda_device):
+    """Rows wider than 1024 launch the backward (a block a row) up to the
+    forward's widest, 14528; one wider raises in both."""
+    x, y, g, b, dout = _ln_inputs(4, 1025, torch.float32, seed=0, device=cuda_device)
+    before = kln.launch_count("ln_dropout_bwd")
+    kln.residual_dropout_layernorm_bwd(x, y, g, dout, None, 0.0)
+    assert kln.launch_count("ln_dropout_bwd") == before + 1
+    x, y, g, b, dout = _ln_inputs(2, 14529, torch.float32, seed=0, device=cuda_device)
+    for call in (lambda: kln.residual_dropout_layernorm_fwd(x, y, g, b, None),
+                 lambda: kln.residual_dropout_layernorm_bwd(x, y, g, dout, None)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
 
 
 def test_ln_dropout_autograd_on_the_card_matches_the_cpu(cuda_device):
@@ -436,10 +451,11 @@ def _close(got, want, atol, rtol):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BH,S,D", [(24, 130, 64), (24, 514, 64), (8, 1026, 64), (4, 130, 16),
-                                    (4, 70, 32), (2, 200, 128), (3, 5, 16)])
+                                    (4, 70, 32), (2, 200, 128), (3, 5, 16), (4, 130, 8),
+                                    (4, 200, 40), (2, 130, 96), (3, 5, 1)])
 def test_flash_kernels_match_plain_versions(cuda_device, BH, S, D, dtype, rate):
     """The three attention kernels against their plain versions on the card,
-    each launched once.  f32: 1e-5 + 1e-4 |ref| (summation order only); bf16:
+    each launched once; a D outside 16, 32, 64, 128 on the next of them up.  f32: 1e-5 + 1e-4 |ref| (summation order only); bf16:
     2e-2 on o, 2e-2 plus one bf16 ulp on the gradients (a probability on a
     rounding boundary may round the other way)."""
     q, k, v, bias, g = _attn_inputs(BH, S, D, dtype, S + D, cuda_device)
@@ -513,7 +529,7 @@ def test_flash_backward_keep_masks_are_the_hash_bit_for_bit(cuda_device, BH, S, 
         assert torch.equal(got_dq, want[:, :, off:off + n])
 
 
-@pytest.mark.parametrize("BH,S,D", [(24, 514, 64), (2, 200, 128), (3, 5, 16)])
+@pytest.mark.parametrize("BH,S,D", [(24, 514, 64), (2, 200, 128), (3, 5, 16), (4, 200, 40)])
 def test_flash_backward_kernels_give_the_same_bits_twice(cuda_device, BH, S, D):
     """No atomics: each block owns its output rows, so two launches on the
     same bf16 inputs give identical bits."""
@@ -559,9 +575,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
         kattn.flash_attention_fwd(q, k.cpu(), v, bias, None)
     with pytest.raises(ValueError):                         # the seed on the CPU
         kattn.flash_attention_fwd(q, k, v, bias, torch.tensor([1], dtype=torch.int32), 0.1)
-    with pytest.raises(ValueError, match="D in"):
-        kattn.flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
-                                  v[..., :8].contiguous(), bias, None)
+    wide = torch.zeros(2, 9, 136, device=cuda_device)
+    with pytest.raises(ValueError, match="D <= 128"):
+        kattn.flash_attention_fwd(wide, wide, wide, bias, None)
 
 
 # ------------------------------------------------- short attention (rows 15-16)
@@ -583,17 +599,25 @@ def _short_inputs(B, nh, S, hd, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nh,S,hd", [(64, 12, 50, 64), (8, 12, 66, 64), (8, 12, 18, 64),
                                        (3, 4, 10, 8), (2, 2, 128, 64), (2, 3, 33, 100),
-                                       (2, 3, 66, 128)])
+                                       (2, 3, 66, 128), (2, 4, 129, 8), (2, 4, 257, 128),
+                                       (1, 2, 1026, 64), (4, 12, 514, 64), (2, 3, 200, 40),
+                                       (2, 2, 128, 128)])
 def test_short_attention_kernels_match_plain_versions(cuda_device, B, nh, S, hd, dtype, rate):
-    """Both kernels against their plain versions on the card, each launched
-    once.  f32: 1e-5 + 1e-5 |ref|; bf16: one bf16 ulp (the math is f32 on
-    both sides and each output is rounded once)."""
+    """The kernels of the shape's route (one block per (b, h), or query and
+    key tiles beyond S = 128 and for the f32 shapes the block's shared memory
+    does not hold) against their plain versions on the card, each launched
+    once and no other.  f32: 1e-5 + 1e-5 |ref|; bf16: one bf16 ulp (the math
+    is f32 on both sides and each output is rounded once)."""
     q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, S + hd, cuda_device)
     seed = torch.tensor([12345], dtype=torch.int32, device=cuda_device)
-    before = [kshort.launch_count(n) for n in kshort.SOURCES]
+    route = kshort.ROUTE_SOURCES[kshort.kernel_route(S, hd, dtype)]
+    assert (kshort.kernel_route(S, hd, dtype) == "tiled") == (
+        S > 128 or (S, hd, dtype) == (128, 128, torch.float32))
+    before = {n: kshort.launch_count(n) for n in kshort.SOURCES}
     o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
     grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
-    assert [kshort.launch_count(n) for n in kshort.SOURCES] == [b + 1 for b in before]
+    assert {n: kshort.launch_count(n) for n in kshort.SOURCES} == {
+        n: c + (n in route) for n, c in before.items()}
     want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
             *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)]
     tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, 2.0 ** -7)
@@ -622,43 +646,37 @@ def test_short_attention_bf16_forward_matches_plain_version(cuda_device, B, nh, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,nh,S,seed", [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2)])
+@pytest.mark.parametrize("B,nh,S,seed", [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2),
+                                         (2, 3, 129, 11), (1, 2, 514, -7)])
 def test_short_attention_keep_mask_is_the_hash_bit_for_bit(cuda_device, B, nh, S, seed, dtype):
-    """q = k = 0, no bias, v the identity (hd = S): o S (1 - rate) is the
-    whole keep mask; the backward with do the identity gives dv (1 - rate)
-    = the mask transposed.  In bf16 the inputs are exact and each output is
-    the scaled keep rounded once: the ratio still rounds to 1 or 0."""
-    rate = 0.1
-    s = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
-    b = torch.arange(B, device=cuda_device).reshape(B, 1, 1, 1)
-    h = torch.arange(nh, device=cuda_device).reshape(1, nh, 1, 1)
-    want = hash_dropout.short_attention_keep_mask(S, rate, s, b, h)
-    zeros = torch.zeros(B, nh, S, S, device=cuda_device, dtype=dtype)
-    eye = torch.eye(S, device=cuda_device, dtype=dtype).expand(B, nh, S, S).contiguous()
-    bias = torch.zeros(B, S, device=cuda_device)
-    ks = hash_dropout.keep_scale(rate)
-    o = kshort.short_attention_fwd(zeros, zeros, eye, bias, s, rate)
-    _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, eye, rate)
-    assert torch.equal((o.float() * S / ks).round(), want)
-    assert torch.equal((dv.float() * S / ks).round(), want.transpose(-1, -2))
+    """q = k = 0, no bias, v a shifted identity (128 keys at a time beyond
+    S = 128): o S (1 - rate) is the keep mask; the backward with do a
+    shifted identity gives dv (1 - rate) = the mask transposed.  In bf16 the
+    inputs are exact and each output is the scaled keep rounded once: the
+    ratio still rounds to 1 or 0 (`chip_smoke.check_short_mask`)."""
+    check_short_mask(kshort, hash_dropout, B, nh, S, seed, cuda_device, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nh,S,hd", [(64, 12, 50, 64), (2, 2, 128, 64), (2, 3, 66, 128),
-                                       (2, 3, 33, 100)])
+                                       (2, 3, 33, 100), (4, 12, 514, 64), (2, 4, 257, 128)])
 def test_short_attention_backward_gives_the_same_bits_twice(cuda_device, B, nh, S, hd, dtype):
-    """One block per (batch item, head), no atomics: two launches on the same
-    inputs give identical dq, dk and dv."""
+    """No atomics (one block per (batch item, head), or the tiled dq kernel
+    then the dk/dv kernel, each block owning its rows): two launches on the
+    same inputs give identical dq, dk and dv, and the tiled forward o."""
     q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, 6, cuda_device)
     seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
     first = kshort.short_attention_bwd(q, k, v, bias, seed, g, 0.1)
     second = kshort.short_attention_bwd(q, k, v, bias, seed, g, 0.1)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    assert torch.equal(kshort.short_attention_fwd(q, k, v, bias, seed, 0.1),
+                       kshort.short_attention_fwd(q, k, v, bias, seed, 0.1))
 
 
-def test_short_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
-    cpu = _short_inputs(3, 4, 21, 16, torch.float32, seed=1, device="cpu")
+@pytest.mark.parametrize("S", [21, 150])
+def test_short_attention_autograd_on_the_card_matches_the_cpu(cuda_device, S):
+    cpu = _short_inputs(3, 4, S, 16, torch.float32, seed=1, device="cpu")
 
     def run(dev):
         q, k, v, g, bias = (t.to(dev) for t in cpu)
@@ -677,9 +695,9 @@ def test_short_attention_kernels_reject_what_they_do_not_take(cuda_device):
         kshort.short_attention_fwd(q, k.cpu(), v, bias, None)
     with pytest.raises(ValueError):                         # the seed on the CPU
         kshort.short_attention_fwd(q, k, v, bias, torch.tensor([1], dtype=torch.int32), 0.1)
-    long = _short_inputs(1, 2, 130, 64, torch.float32, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="flash"):
-        kshort.short_attention_fwd(*long[:3], long[4], None)
+    wide = _short_inputs(1, 2, 130, 136, torch.float32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        kshort.short_attention_fwd(*wide[:3], wide[4], None)
 
 
 def test_attention_kernels_agree_on_a_fresh_process_first_call(cuda_device):

@@ -55,7 +55,7 @@ def _batch(B=4, T=6, seed=0):
     )
 
 
-def _both(use_bert, use_cmd_sim, dtype, modality_keep=None, seed=0, **extra):
+def _both(use_bert, use_cmd_sim, dtype, modality_keep=None, seed=0, T=6, **extra):
     kw = dict(use_bert=use_bert, use_cmd_sim=use_cmd_sim, compute_dtype=dtype,
               **SMALL, **extra)
     jcfg = JConfig(use_pallas=False, **kw)
@@ -63,7 +63,7 @@ def _both(use_bert, use_cmd_sim, dtype, modality_keep=None, seed=0, **extra):
     tiny = BertConfig.tiny() if use_bert else None
     tree = jmisa.init_misa_params(jax.random.PRNGKey(seed), jcfg,
                                   bert_cfg=jbert.BertConfig.tiny() if use_bert else None)
-    arrays = _batch(seed=seed)
+    arrays = _batch(T=T, seed=seed)
     mk = None if modality_keep is None else np.asarray(modality_keep, np.float32)
     want = jmisa.misa_forward(
         tree, jcfg, jmisa.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()}),
@@ -170,6 +170,20 @@ def test_every_output_matches_jax_with_fused_attention():
     finally:
         jsa.set_force_interpret(False)
     assert _compare(got, want, 1e-4) == 20
+
+
+def test_every_output_matches_jax_with_fused_attention_beyond_128():
+    """attn_impl="fused" at T = 200 (S = 202: the tiled kernels' route on the
+    card, the JAX kernel's whole-S block in interpret mode), the positions
+    past tiny BERT's 64 clamped on both sides."""
+    from mmda_tpu.ops.pallas import short_attention as jsa
+
+    jsa.set_force_interpret(True)
+    try:
+        got, want = _both(True, True, "float32", seed=6, T=200, attn_impl="fused")
+    finally:
+        jsa.set_force_interpret(False)
+    assert got.orig_t.shape[0] == 4 and _compare(got, want, 1e-4) == 20
 
 
 def test_model_resolves_the_attention_core_from_the_batch_length(monkeypatch):

@@ -150,24 +150,25 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
     assert tsa.launch_count("short_attn_fwd") == 0      # the CPU takes the plain version
 
 
-@pytest.mark.parametrize("S,hd,takes", [(50, 64, True), (66, 64, True), (128, 64, True),
-                                        (129, 64, False), (66, 128, True), (128, 128, False),
-                                        (10, 8, True)])
-def test_kernel_takes_shapes_that_fit_one_block(S, hd, takes):
-    """The kernels hold one (batch item, head) in shared memory: S and hd
-    up to 128 where the backward's two S x S tiles and two operand tiles
-    fit in 227 KB; a CUDA input beyond that raises (names attn_impl="flash")
-    where a CPU one takes the plain version."""
-    assert tsa.kernel_takes(S, hd) == takes
+@pytest.mark.parametrize("S,hd,route", [(50, 64, "block"), (66, 64, "block"), (128, 64, "block"),
+                                        (129, 64, "tiled"), (66, 128, "block"),
+                                        (128, 128, "tiled"), (10, 8, "block")])
+def test_kernel_takes_shapes_that_fit_one_block(S, hd, route):
+    """f32: one block per (batch item, head) holds S and hd up to 128 where
+    the backward's two S x S tiles and two operand tiles fit in 227 KB; every
+    other S goes to the tiled kernels (a CUDA input at any S launches one or
+    the other; a CPU one takes the plain version)."""
+    assert tsa.kernel_route(S, hd) == route and tsa.kernel_takes(S, hd)
 
 
 @pytest.mark.parametrize("S,hd", [(128, 128), (66, 128), (1, 1), (128, 8), (33, 100)])
 def test_bf16_kernels_take_every_shape_up_to_128(S, hd):
-    """The bf16 kernels hold at most four padded bf16 operand tiles (141,312
-    bytes at S = hd = 128), so bf16 takes S = hd = 128, which the f32
-    backward's two f32 S x S tiles do not fit; beyond 128 both refuse."""
-    assert tsa.kernel_takes(S, hd, torch.bfloat16)
-    assert not tsa.kernel_takes(S + 128, hd, torch.bfloat16)
+    """The bf16 block kernels hold at most four padded bf16 operand tiles
+    (141,312 bytes at S = hd = 128), so bf16 takes S = hd = 128 in one
+    block, which the f32 backward's two f32 S x S tiles do not fit; beyond
+    S = 128 the tiled kernels take it; no kernel takes hd > 128."""
+    assert tsa.kernel_route(S, hd, torch.bfloat16) == "block"
+    assert tsa.kernel_route(S + 128, hd, torch.bfloat16) == "tiled"
     assert not tsa.kernel_takes(S, hd + 128, torch.bfloat16)
 
 

@@ -174,7 +174,29 @@ def test_flash_step_gradients_match_jax_grad(dtype, tol, flash_interpreted):
     _step_gradients(dtype, True, False, tol, attn_impl="flash")
 
 
-def _step_gradients(dtype, use_bert, use_cmd_sim, tol, **extra):
+@pytest.fixture
+def fused_interpreted():
+    """The JAX package's short attention kernel in interpret mode."""
+    from mmda_tpu.ops.pallas import short_attention as jsa
+
+    calls, forward = [], jsa._fwd_call
+    jsa._fwd_call = lambda *a, **k: calls.append(1) or forward(*a, **k)
+    jsa.set_force_interpret(True)
+    yield
+    jsa.set_force_interpret(False)
+    jsa._fwd_call = forward
+    assert calls, "the JAX side never reached its short attention kernel"
+
+
+def test_fused_step_gradients_beyond_128_match_jax_grad(fused_interpreted):
+    """The step with attn_impl="fused" at T = 200 (S = 202, where a CUDA
+    input goes to the tiled kernels): the JAX side through its short
+    attention kernel (interpret mode) and its backward kernel, the port
+    through the plain versions, f32."""
+    _step_gradients("float32", True, False, 1e-4, T=200, attn_impl="fused")
+
+
+def _step_gradients(dtype, use_bert, use_cmd_sim, tol, T=6, **extra):
     kw = dict(use_bert=use_bert, use_cmd_sim=use_cmd_sim, compute_dtype=dtype,
               data="mosei", **SMALL, **extra)
     jcfg = JConfig(use_pallas=False, **kw)
@@ -184,7 +206,7 @@ def _step_gradients(dtype, use_bert, use_cmd_sim, tol, **extra):
     frozen = jax.tree_util.tree_map(lambda _: False, tree)
     if use_bert:
         frozen["bert"] = jbert.frozen_mask(tree["bert"], max_frozen_layer=8)
-    arrays = _batch_arrays(seed=2)
+    arrays = _batch_arrays(T=T, seed=2)
     jbatch = jmisa.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
     def loss_fn(p):
