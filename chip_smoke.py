@@ -55,9 +55,14 @@ the result):
    f32 and bf16, two launches of each giving the same bits, the HMMA count
    of both bf16 kernels (none fails); the tiled short kernels (query and key
    tiles, S > 128) the same way at (32, 12, 514, 64), (2, 4, 129, 8), (2, 4,
-   257, 128) and (1, 2, 1026, 64), their masks at S = 129 and 514, each call
-   launching its route's kernels and no other; hd = 136 refused; timed at
-   (64, 12, 50, 64) and (32, 12, 514, 64) bf16 beside SDPA.  The two
+   257, 128), (1, 2, 1026, 64) and (2, 3, 200, 100) (the cp.async loader),
+   their masks at S = 129 and 514, each call launching its route's kernels
+   and no other, the training forward and the backward from its statistics
+   bit-equal to the plain calls; hd = 136 refused; timed at (64, 12, 50, 64)
+   and (32, 12, 514, 64) bf16 beside SDPA, the tiled backward from the saved
+   statistics by part (r, dq, dk/dv) and alone, and both bf16 tiled designs
+   (`wgmma` fed by TMA, `mma.sync` fed by cp.async) in turns with their
+   HGMMA / HMMA lines.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
    35, 35, 74, 74, and at (16, 64) with H = 35, 74, 300 in one launch (the
    serial passes' three instantiations, which the checks must reach),
@@ -226,7 +231,9 @@ the result):
    steps and a profile, one step's gradients with dropout on against the plain versions,
    a small f32 model at T=130 on the card against the CPU, eager steps against captured
    replays bit for bit, timed, and `Trainer.train()` with compiled_epoch; phase 8's flash
-   step on the same trainer, eager and captured; a `Predictor(attn_impl="fused")` on the
+   step on the same trainer, eager and captured, the two steps side by side (`16
+   fused-vs-flash`: ms, busy, attention kernels' ms a step, peak memory); a
+   `Predictor(attn_impl="fused")` on the
    checkpoint at bucket 512 over HTTP (12 `short_attn_tiled_fwd` + 8 `lstm_fwd` a call),
    captured at B=32 and B=1 against eager calls, within 2e-2 of the dense-core and flash
    `Predictor`s; then `cli.train --attn_impl fused --max_seq_len 512 --bucket_sizes 64,512`
@@ -326,7 +333,7 @@ TRAIN_CONFIGS = {
                    "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL,
                                 "short_attn_tiled_fwd": BERT_LAYERS},
                    "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "tiled_fwd",
-                               "tiled_dq", "tiled_dkv")},
+                               "tiled_r", "tiled_dq", "tiled_dkv")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
@@ -371,7 +378,8 @@ LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
 # past 128 at hd = 8, the widest head at S = 257, and S = 1026.  hd > 128: refused.
 SHORT_SHAPES = [(64, 12, 18, 64), (64, 12, 34, 64), (64, 12, 50, 64), (64, 12, 66, 64),
                 (3, 4, 10, 8)]
-SHORT_TILED_SHAPES = [(32, 12, 514, 64), (2, 4, 129, 8), (2, 4, 257, 128), (1, 2, 1026, 64)]
+SHORT_TILED_SHAPES = [(32, 12, 514, 64), (2, 4, 129, 8), (2, 4, 257, 128), (1, 2, 1026, 64),
+                      (2, 3, 200, 100)]
 SHORT_REFUSED = [(2, 12, 130, 136)]
 SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 0.1
 SHORT_TILED_REPORT = (LONG_B, 12, LONG_T + 2, 64)   # the fused long step's call
@@ -1137,8 +1145,9 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) 
 
 
 def tensor_core_instructions(so_path) -> dict:
-    """HMMA / HGMMA lines of a built library's SASS (cuobjdump -sass), by
-    kernel function (the bf16 instantiations are the `*_mma_kernel` ones)."""
+    """{function: {"HGMMA": lines, "HMMA": lines}} of a built library's SASS
+    (cuobjdump -sass), for every kernel function (the bf16 instantiations
+    are the `*_mma_kernel` and `*_wgmma_kernel` ones)."""
     from mmda_tpu_torch.ops.kernels import _build
 
     tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -1149,9 +1158,9 @@ def tensor_core_instructions(so_path) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             function = line.split("Function : ")[1].strip()
-            counts[function] = 0
+            counts[function] = {"HGMMA": 0, "HMMA": 0}
         elif function and ("HMMA" in line or "HGMMA" in line):
-            counts[function] += 1
+            counts[function]["HGMMA" if "HGMMA" in line else "HMMA"] += 1
     return counts
 
 
@@ -1163,7 +1172,8 @@ def tensor_core_counts(names) -> dict:
 
     sass = {}
     for name in names:
-        by_function = tensor_core_instructions(_build.library_path(name))
+        by_function = {f: sum(n.values())
+                       for f, n in tensor_core_instructions(_build.library_path(name)).items()}
         bf16 = sum(n for f, n in by_function.items() if "mma_kernel" in f)
         sass[name] = {"bf16_kernels": bf16, "all": sum(by_function.values())}
         if bf16 == 0:
@@ -1359,6 +1369,68 @@ def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32
                                  f"at {where}, queries {off}..")
 
 
+TILED_BWD_PARTS = {"r": "tiled_r", "dq": "tiled_dq", "dkv": "tiled_dkv"}
+TILED_DESIGNS = {1: "mma.sync, cp.async", 0: "wgmma, TMA"}   # short_attention._TILED_IMPL
+
+
+def tiled_extras(kshort, inputs, saved) -> tuple:
+    """The tiled rows' numbers beyond `kernel_times` at the report shape,
+    (forward's, backward's): the training forward's device ms; the parts of
+    the backward from the saved statistics (r, dq, dk/dv: profiler medians
+    by kernel name), the standalone backward's ms and parts (the forward's
+    kernel first, for the statistics); in bf16, each design of the kernels
+    (`TILED_DESIGNS`) timed in turns (each, then each again in reverse; the
+    smaller of its two times), with its parts, its HGMMA and HMMA lines and
+    its error against the plain versions (which it must meet)."""
+    from mmda_tpu_torch.ops.kernels import _build
+
+    q, k, v, bias, seed, g = inputs
+
+    def ms(fn):
+        return device_time(fn, cuda_ms(fn))[0]
+
+    def fwd():
+        return kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
+
+    def bwd():
+        return kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE, *saved)
+
+    def alone():
+        return kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE)
+
+    f = {"train_ms": ms(lambda: kshort.short_attention_fwd_train(q, k, v, bias, seed,
+                                                                 ATTN_RATE))}
+    b = {"parts_ms": bwd_parts(bwd, TILED_BWD_PARTS), "standalone_ms": ms(alone),
+         "standalone_parts_ms": bwd_parts(alone, {"stats": "tiled_fwd", **TILED_BWD_PARTS})}
+    if q.dtype != torch.bfloat16:
+        return f, b
+    o_w = kshort.short_attention_fwd_reference(q, k, v, bias, seed, ATTN_RATE)
+    grads_w = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE)
+    sass = {name: tensor_core_instructions(_build.library_path(name))
+            for name in kshort.ROUTE_SOURCES["tiled"]}
+    designs: dict = {}
+    for impl in list(TILED_DESIGNS) + list(TILED_DESIGNS)[::-1]:
+        with replaced(kshort, "_TILED_IMPL", impl):
+            row = designs.setdefault(TILED_DESIGNS[impl], {"fwd_ms": [], "bwd_ms": []})
+            where = f"{tuple(q.shape)} bf16, design {TILED_DESIGNS[impl]}"
+            row["max_abs_err"] = max_err([("o", fwd(), o_w),
+                                          *zip(("dq", "dk", "dv"), bwd(), grads_w)],
+                                         SHORT_BF16_TOL, where)
+            row["fwd_ms"].append(ms(fwd))
+            row["bwd_ms"].append(ms(bwd))
+            row["parts_ms"] = bwd_parts(bwd, TILED_BWD_PARTS)
+    for name, row in designs.items():
+        row["fwd_ms"], row["bwd_ms"] = min(row["fwd_ms"]), min(row["bwd_ms"])
+        kind = "wgmma" if "wgmma" in name else "_mma_"
+        row["sass"] = {src: {fn: n for fn, n in by_fn.items() if kind in fn and any(n.values())}
+                       for src, by_fn in sass.items()}
+    f["designs"] = {name: {k: row[k] for k in ("fwd_ms", "max_abs_err", "sass")}
+                    for name, row in designs.items()}
+    b["designs"] = {name: {k: row[k] for k in ("bwd_ms", "parts_ms", "max_abs_err", "sass")}
+                    for name, row in designs.items()}
+    return f, b
+
+
 def check_short_kernels(kshort, hashes, device) -> dict:
     """The short attention kernels of both routes against their plain
     versions (mask bit for bit, outputs, gradients, two launches the same
@@ -1401,6 +1473,13 @@ def check_short_kernels(kshort, hashes, device) -> dict:
                 again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                     raise AssertionError(f"two backward launches differ at {where}")
+                if fwd == "short_attn_tiled_fwd":   # the training path: the same bits
+                    o_t, st, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, rate)
+                    saved = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, st, o32)
+                    if not (torch.equal(o_t, o) and all(map(torch.equal, saved, grads))):
+                        raise AssertionError(f"the training forward or the backward from its "
+                                             f"statistics differs at {where}")
+                    del o_t, st, o32, saved
                 o_w = kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate)
                 grads_w = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)
                 torch.cuda.synchronize()
@@ -1456,22 +1535,29 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             bounds = short_bounds(B, nh, S, hd, dtype)
             shape = {"B": B, "nh": nh, "S": S, "hd": hd, "dtype": str(dtype)[6:],
                      "rate": ATTN_RATE}
+            # the training path's backward reads the training forward's statistics
+            saved = (kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)[1:]
+                     if route == "tiled" else ())
             calls = {
                 fwd: (lambda: kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
                       lambda: kshort.short_attention_fwd_reference(q, k, v, bias, seed,
                                                                    ATTN_RATE),
                       lambda: torch.no_grad()(sdpa)(),
                       "F.scaled_dot_product_attention(attn_mask, dropout_p)", "short_attn_fwd"),
-                bwd: (lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE),
+                bwd: (lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE,
+                                                         *saved),
                       lambda: kshort.short_attention_bwd_reference(q, k, v, bias, seed, g,
                                                                    ATTN_RATE),
                       sdpa_bwd, "autograd.grad of that call: dq, dk and dv", "short_attn_bwd")}
-            for name, (kernel, plain, library, what, bound) in calls.items():
+            extras = (tiled_extras(kshort, (q, k, v, bias, seed, g), saved)
+                      if route == "tiled" else ({}, {}))
+            for (name, (kernel, plain, library, what, bound)), extra in zip(calls.items(),
+                                                                            extras):
                 timed[name].append({**shape, **kernel_times(kernel, plain, library),
                                     "library": what, "library_rate0_max_abs_err": lib_err,
-                                    **bounds[bound]})
+                                    **bounds[bound], **extra})
                 log(f"3 {name}-time", **timed[name][-1])
-            del q, k, v, g, bias, lq, lk, lv, lib_out
+            del q, k, v, g, bias, lq, lk, lv, lib_out, saved
             torch.cuda.empty_cache()
     return {name: {"checks": rows[name], "timed": timed[name], "refused": refused,
                    "max_abs_err": errs[name]["float32"],
@@ -2144,11 +2230,13 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tupl
     fused = bert.residual_dropout_layernorm
     attn_fwd, attn_bwd = kattn.flash_attention_fwd, kattn.flash_attention_bwd
     short_fwd, short_bwd = kshort.short_attention_fwd, kshort.short_attention_bwd
+    short_train = kshort.short_attention_fwd_train
     bert.residual_dropout_layernorm = residual_dropout_layernorm_reference
     kattn.flash_attention_fwd = kattn.flash_attention_fwd_reference
     kattn.flash_attention_bwd = kattn.flash_attention_bwd_reference
     kshort.short_attention_fwd = kshort.short_attention_fwd_reference
     kshort.short_attention_bwd = kshort.short_attention_bwd_reference
+    kshort.short_attention_fwd_train = kshort.short_attention_fwd_train_reference
     try:
         counts.reset_launch_count()
         with same_relu_branches(model, recorded, flips, align=True):
@@ -2160,6 +2248,7 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tupl
         bert.residual_dropout_layernorm = fused
         kattn.flash_attention_fwd, kattn.flash_attention_bwd = attn_fwd, attn_bwd
         kshort.short_attention_fwd, kshort.short_attention_bwd = short_fwd, short_bwd
+        kshort.short_attention_fwd_train = short_train
     finite_losses(got_l, "kernel-path step")
     err, excess = 0.0, 0.0
     for g, w in zip(got, want):
@@ -4091,6 +4180,21 @@ def serve_fused_long(cfg, counts, device) -> dict:
     return out
 
 
+def step_summary(steps, captured, kind: str) -> dict:
+    """One training configuration's step beside another's: captured and
+    eager ms a step, busy ms of a replay, its attention kernels' device ms
+    a step (by the names in the configuration's profile), peak allocated
+    memory (eager timed steps, eager and captured steps of phase 11)."""
+    prof = captured["captured_profile"]
+    attention = [k for k in TRAIN_CONFIGS[kind]["profile"] if not k.startswith("lstm")]
+    return {"captured_ms": captured["captured"]["ms"], "eager_ms": captured["eager"]["ms"],
+            "busy_ms": prof["device_busy_ms_per_call"],
+            "attention_ms_per_step": {k: prof.get(f"{k}_ms_per_call") for k in attention},
+            "peak_allocated_gb": {"eager_timed": steps["peak_mem_gb"],
+                                  "eager": captured["eager"]["peak_mem_gb"],
+                                  "captured": captured["captured"]["peak_mem_gb"]}}
+
+
 def phase16(counts, klstm, device) -> dict:
     """The fused configuration at the long shape (module docstring, phase
     16): the training phases, phase 8's flash step timed on the same
@@ -4109,6 +4213,9 @@ def phase16(counts, klstm, device) -> dict:
     log("16 flash-steps-beside", **flash["steps"])
     log("11 captured-steps", **flash["captured"])
     train["flash_beside"] = flash
+    train["fused_vs_flash"] = {kind: step_summary(t["steps"], t["captured"], kind)
+                               for kind, t in (("fused_long", train), ("long", flash))}
+    log("16 fused-vs-flash", **train["fused_vs_flash"])
     del trainer
     torch.cuda.empty_cache()
     serve = serve_fused_long(cfg, counts, device)

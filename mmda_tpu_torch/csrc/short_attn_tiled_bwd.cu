@@ -4,37 +4,50 @@
 // memory).
 //
 // Replaces mmda_tpu/ops/pallas/short_attention.py::_bwd_kernel (:82,
-// launched by _bwd_call :143) at any S, with its arithmetic: from the saved
-// q, k, v, bias and seed alone, per (batch item b, head h), all f32,
+// launched by _bwd_call :143) at any S, with its function: per (batch item
+// b, head h), all f32,
 //
-//   p    = exp(s - m) / l, s = (q * scale) k^T + bias[b]   recomputed, pre-dropout
+//   p    = exp(s - m) / l, s = (q * scale) k^T + bias[b]   pre-dropout
 //   keep = mask * f32(1 / (1 - rate))                      the forward's mask, rehashed
 //   dp   = (do v^T) * keep;  r = rowsum(dp * p)
 //   ds   = p * (dp - r)
 //   dq   = (ds k) * scale;  dk = ds^T (q * scale);  dv = (p * keep)^T do
 //
 // each of dq, dk, dv rounded once to the input type; nothing rounded in
-// between.
+// between.  It reads the training forward's row statistics (m, l per query)
+// and o32 (o in f32 before its rounding): p = exp(s - m) (1 / l), a multiply
+// and no division a score, and r = rowsum(do o32), the algebraic form of
+// rowsum(dp p) (r from the bf16 o would miss the one-ulp gate: its 2^-9
+// reaches dq wherever ds cancels).
 //
-// Two kernels, so that no sum needs an atomic (short_tiled.cuh's tiles):
-//   1. tiled_dq: a block per query tile.  A first pass over the key tiles
-//      takes each row's m, l and r (r as sum dp exp(s - m) over l, rescaled
-//      with l), a second forms p and ds exactly and accumulates dq = ds k.
-//      It writes (m, l, r) per query to `stats` (B nh S x 3 f32).
-//   2. tiled_dkv: a block per key tile streams the query tiles, recomputes
-//      the transposed scores k q^T and v do^T, p from the saved m and l, the
-//      mask, pd and ds from r, and accumulates dv = pd^T do and dk = ds^T q.
+// Three kernels, so that no sum needs an atomic (short_tiled.cuh's tiles):
+//   1. tiled_r: r per query, a warp a row.
+//   2. tiled_dq: a block per query tile, one pass over the key tiles: s and
+//      dp, ds = p (dp - r), dq += ds k.
+//   3. tiled_dkv: a block per key tile streams the query tiles: the
+//      transposed scores k q^T and v do^T, p from the saved m and l, the mask,
+//      pd and ds from r; dv += pd^T do, dk += ds^T q.
 // Every sum runs in a fixed order: two launches give the same bits.
-// bf16: the products on the tensor cores with short_attn_bwd.cu's arithmetic
-// (q k^T and do v^T straight from the inputs, scale after the product, pd and
-// ds as three bf16 terms); f32: f32 FMAs, q * scale first.
+// bf16, wgmma fed by TMA (wgmma.cuh) where D is a multiple of 8 above 32 and
+// the inputs 16-byte aligned: the score products m64nNk16 from shared memory,
+// each f32 intermediate (ds, pd) as three m64nDPk16 issues of its bf16 terms
+// from registers against the streamed tile read MN-major; the block's own
+// rows once, the streamed side through a two-stage TMA ring; in the dk/dv
+// kernel ds is split into its terms while dv's products run.  Every other
+// head dim: mma.sync m16n8k16 with the same arithmetic, through cp.async.
+// Both take short_attn_bwd.cu's arithmetic (q k^T and do v^T straight from
+// the inputs, scale after the product; exp(s - m) as ex2.approx of (s - m)
+// log2 e).  f32: f32 FMAs, q * scale first, expf.
 //
 // What bounds it on the H100 at the long step's call (32, 12, 514, 64) bf16:
-// the products, 9 S^2 D a head (q k^T and do v^T twice in the dq kernel and
-// once in the dk/dv one, ds k, pd^T do, ds^T q; the three-term products
-// counted once).
+// 10 S^2 D operations a head as the bound counts them (q k^T, do v^T, ds k,
+// pd^T do, ds^T q) take 0.066 ms at the bf16 peak.  The kernels form q k^T and
+// do v^T twice (once a kernel) and the three other products three times over
+// (a bf16 term each), and an exp and a hash per score in each kernel.  Its
+// times beside the mma.sync design's, by part: PERF.md.
 
 #include "short_tiled.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -42,14 +55,57 @@ using mmda::flash::bf16;
 using mmda::flash::kRowPad;
 using namespace mmda::short_tiled;
 
-// The scaled keep mask of query i, key j: keep_scale, or 0 where dropped (1
-// at rate 0); the hash at i S + j in uint32 with S the full length.
-__device__ __forceinline__ float keep_of(bool drop, uint32_t hbase, int i, int j, int S,
-                                         float rate, float keep_scale) {
-  if (!drop) return 1.0f;
-  return mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate)
-             ? keep_scale
-             : 0.0f;
+// The short kernels' keep mask of one (batch item, head): query i keeps key j
+// where the hash at i S + j (uint32, S the full length) clears the rate;
+// always at rate 0.
+struct KeepMask {
+  bool drop;
+  uint32_t hbase;
+  int S;
+  float rate;
+
+  __device__ __forceinline__ KeepMask(const int* seed_ptr, int b, int h, int S_, float rate_)
+      : drop(rate_ > 0.0f),
+        hbase(rate_ > 0.0f ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u),
+        S(S_),
+        rate(rate_) {}
+
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    return !drop || mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate);
+  }
+};
+
+// ------------------------------------------------------------------ r
+
+constexpr int kRThreads = 256;   // a warp a query row
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+// r[i] = sum_d do[i, d] o32[i, d] in f32, for the rows i < n of the row-major
+// (n, D) do (in the input type) and o32 (f32).
+template <typename T>
+__global__ void __launch_bounds__(kRThreads)
+tiled_r_kernel(const T* __restrict__ d_out, const float* __restrict__ o32,
+               float* __restrict__ r, size_t n, int D) {
+  const size_t i = (size_t)blockIdx.x * (kRThreads / 32) + (threadIdx.x >> 5);
+  if (i >= n) return;
+  const int lane = threadIdx.x & 31;
+  const T* di = d_out + i * D;
+  const float* oi = o32 + i * D;
+  float acc = 0.0f;
+  for (int c = lane; c < D; c += 32) acc = fmaf(widen(di[c]), oi[c], acc);
+  acc = warp_sum(acc);
+  if (lane == 0) r[i] = acc;
+}
+
+template <typename T>
+cudaError_t launch_r(const void* d_out, const float* o32, float* r, size_t n, int D,
+                     cudaStream_t stream) {
+  const size_t blocks = (n + kRThreads / 32 - 1) / (kRThreads / 32);
+  tiled_r_kernel<T><<<(unsigned)blocks, kRThreads, 0, stream>>>(static_cast<const T*>(d_out),
+                                                                 o32, r, n, D);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- bf16
@@ -62,13 +118,27 @@ size_t dq_smem_bytes() {
          2 * NB * sizeof(float);
 }
 
+// The rows' saved m, 1 / l and r (0, 0, 0 beyond S: p = 0 there).
+__device__ __forceinline__ void row_stats(const float* stats, const float* r_g, size_t row,
+                                          bool valid, float& m, float& il, float& rr) {
+  m = il = rr = 0.0f;
+  if (valid) {
+    const float2 st = *reinterpret_cast<const float2*>(stats + row * 2);
+    m = st.x;
+    il = 1.0f / st.y;
+    rr = r_g[row];
+  }
+}
+
+// mma.sync m16n8k16; k, v and the key bias through two cp.async buffers.
 template <int DP>
 __global__ void __launch_bounds__(kTileThreads)
 tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ bias,
                     const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
-                    bf16* __restrict__ dq, float* __restrict__ stats, int nh, int S, int D,
-                    int q_tiles, float scale, float rate, float keep_scale) {
+                    const float* __restrict__ stats, const float* __restrict__ r_g,
+                    bf16* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
+                    float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
   constexpr int L = DP + kRowPad;
@@ -89,8 +159,7 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = 16 * (threadIdx.x >> 5);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
   const int k_tiles = (S + NB - 1) / NB;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
 
   load_rows<DP>(q_s, q + base, q0, kTileRows, S, D, kTileThreads);
   load_rows<DP>(do_s, d_out + base, q0, kTileRows, S, D, kTileThreads);
@@ -103,80 +172,13 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     mmda::flash::cp_async_commit();
   };
-  // s = q k^T * scale + bias and dp = (do v^T) * keep of key tile t
-  auto tile = [&](int t, float (&s)[N8][4], float (&dp)[N8][4]) {
-#pragma unroll
-    for (int j = 0; j < N8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-    }
-    const int buf = t & 1;
-    mmda::flash::mma_abt<DP, N8>(s, q_s, row0, k_s + buf * NB * L, lane);
-    mmda::flash::mma_abt<DP, N8>(dp, do_s, row0, v_s + buf * NB * L, lane);
-#pragma unroll
-    for (int j = 0; j < N8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = q0 + row0 + g + 8 * (e >> 1), jk = t * NB + 8 * j + t2 + (e & 1);
-        s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bias_s[buf * NB + 8 * j + t2 + (e & 1)]);
-        dp[j][e] *= keep_of(drop, hbase, i, jk, S, rate, keep_scale);
-      }
-    }
-  };
-  auto next = [&](int t) {
-    if (t + 1 < k_tiles) {
-      stage(t + 1);
-      cp_async_wait_one();
-    } else {
-      mmda::flash::cp_async_wait_all();
-    }
-    __syncthreads();
-  };
-
-  // pass 1: m, l and r = sum dp p of the rows row0 + g and row0 + g + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, rr[2] = {0.0f, 0.0f};
-  stage(0);
-  for (int t = 0; t < k_tiles; ++t) {
-    next(t);
-    float s[N8][4], dp[N8][4];
-    tile(t, s, dp);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < N8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
-      const float m_new = fmaxf(m[hh], quad_max(tmax));
-      const float alpha = expf(m[hh] - m_new);
-      float sum = 0.0f, dsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < N8; ++j) {
-#pragma unroll
-        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
-          const float x = expf(s[j][e] - m_new);
-          sum += x;
-          dsum += dp[j][e] * x;
-        }
-      }
-      l[hh] = l[hh] * alpha + sum;
-      rr[hh] = rr[hh] * alpha + dsum;
-      m[hh] = m_new;
-    }
-    __syncthreads();
-  }
+  float m[2], il[2], rr[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    l[hh] = quad_sum(l[hh]);
-    rr[hh] = quad_sum(rr[hh]) / l[hh];
     const int i = q0 + row0 + g + 8 * hh;
-    if (t2 == 0 && i < S) {
-      float* st = stats + ((size_t)bh * S + i) * 3;
-      st[0] = m[hh];
-      st[1] = l[hh];
-      st[2] = rr[hh];
-    }
+    row_stats(stats, r_g, (size_t)bh * S + i, i < S, m[hh], il[hh], rr[hh]);
   }
 
-  // pass 2: ds = p (dp - r) exactly, dq += ds k
   float acc[DP / 8][4];
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
@@ -185,18 +187,25 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   stage(0);
   for (int t = 0; t < k_tiles; ++t) {
-    next(t);
+    if (t + 1 < k_tiles) {
+      stage(t + 1);
+      cp_async_wait_one();
+    } else {
+      mmda::flash::cp_async_wait_all();
+    }
+    __syncthreads();
+    const int buf = t & 1;
     float s[N8][4], dp[N8][4];
-    tile(t, s, dp);
 #pragma unroll
     for (int j = 0; j < N8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
-        s[j][e] = p * (dp[j][e] - rr[e >> 1]);
-      }
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
     }
-    split_product<DP, NB>(acc, s, k_s + (t & 1) * NB * L, lane);
+    mmda::flash::mma_abt<DP, N8>(s, q_s, row0, k_s + buf * NB * L, lane);
+    mmda::flash::mma_abt<DP, N8>(dp, do_s, row0, v_s + buf * NB * L, lane);
+    scale_bias<N8>(s, scale, bias_s + buf * NB, t2);
+    ds_of<N8>(s, dp, m, il, rr, keep, q0 + row0 + g, t * NB + t2, keep_scale);
+    split_product<DP, NB>(acc, s, k_s + buf * NB * L, lane);
     __syncthreads();
   }
   store_rows<DP>(dq + base, acc, q0 + row0, S, D, scale, lane);
@@ -205,7 +214,7 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 size_t dkv_smem_bytes() {
   constexpr int NB = stream_rows<DP>();
-  // k, v; 2 x (q, do); 2 x (m, l, r) per query
+  // k, v; 2 x (q, do); 2 x (m, 1 / l, r) per query
   return ((size_t)2 * kTileRows + 4 * NB) * (DP + kRowPad) * sizeof(bf16) +
          2 * 3 * NB * sizeof(float);
 }
@@ -215,9 +224,9 @@ __global__ void __launch_bounds__(kTileThreads)
 tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
-                     const float* __restrict__ stats, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int nh, int S, int D, int k_tiles, float scale,
-                     float rate, float keep_scale) {
+                     const float* __restrict__ stats, const float* __restrict__ r_g,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int nh, int S, int D,
+                     int k_tiles, float scale, float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
   constexpr int L = DP + kRowPad;
@@ -233,19 +242,18 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / nh;
   const int h = bh - b * nh;
   const size_t base = (size_t)bh * S * D;
-  const float* st_g = stats + (size_t)bh * S * 3;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
   const int q_tiles = (S + NB - 1) / NB;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
-  // the key bias of the warp's keys k0 + row0 + g (+ 8): -inf beyond S
-  float kb[2];
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+  // the key bias of the warp's keys k0 + row0 + g (+ 8) in log2 units: -inf
+  // beyond S
+  float kbl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int jk = k0 + row0 + g + 8 * hh;
-    kb[hh] = jk < S ? bias[(size_t)b * S + jk] : -INFINITY;
+    kbl[hh] = jk < S ? log2e_units(bias[(size_t)b * S + jk]) : -INFINITY;
   }
 
   load_rows<DP>(k_s, k + base, k0, kTileRows, S, D, kTileThreads);
@@ -254,10 +262,11 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = t & 1;
     load_rows<DP>(q_s + buf * NB * L, q + base, t * NB, NB, S, D, kTileThreads);
     load_rows<DP>(do_s + buf * NB * L, d_out + base, t * NB, NB, S, D, kTileThreads);
-    // queries beyond S: m = 0, l = 1, r = 0 (their p is 0 either way)
-    for (int e = threadIdx.x; e < 3 * NB; e += kTileThreads) {
-      const int i = t * NB + e / 3;
-      st_s[buf * 3 * NB + e] = i < S ? st_g[(size_t)t * NB * 3 + e] : (e % 3 == 1 ? 1.0f : 0.0f);
+    for (int e = threadIdx.x; e < NB; e += kTileThreads) {
+      const int i = t * NB + e;
+      float* st = st_s + buf * 3 * NB + 3 * e;
+      row_stats(stats, r_g, (size_t)bh * S + i, i < S, st[0], st[1], st[2]);
+      st[0] = log2e_units(st[0]);
     }
     mmda::flash::cp_async_commit();
   };
@@ -280,7 +289,6 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = t & 1;
     const bf16* qt = q_s + buf * NB * L;
     const bf16* dot = do_s + buf * NB * L;
-    const float* st = st_s + buf * 3 * NB;
     // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
     float sT[N8][4], dpT[N8][4];
 #pragma unroll
@@ -290,22 +298,8 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     mmda::flash::mma_abt<DP, N8>(sT, k_s, row0, qt, lane);
     mmda::flash::mma_abt<DP, N8>(dpT, v_s, row0, dot, lane);
-#pragma unroll
-    for (int j = 0; j < N8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ii = 8 * j + t2 + (e & 1), i = t * NB + ii;
-        const int jk = k0 + row0 + g + 8 * (e >> 1);
-        float p = 0.0f;
-        if (i < S) {
-          const float sv = __fadd_rn(__fmul_rn(sT[j][e], scale), kb[e >> 1]);
-          p = expf(sv - st[3 * ii]) / st[3 * ii + 1];
-        }
-        const float keep = keep_of(drop, hbase, i, jk, S, rate, keep_scale);
-        sT[j][e] = p * keep;                                  // pd
-        dpT[j][e] = p * (dpT[j][e] * keep - st[3 * ii + 2]);  // ds
-      }
-    }
+    pd_ds_of<N8>(sT, dpT, st_s + buf * 3 * NB, kbl, log2e_units(scale), keep, t * NB, t2,
+                 k0 + row0 + g, S, keep_scale);
     split_product<DP, NB>(acc_v, sT, dot, lane);
     split_product<DP, NB>(acc_k, dpT, qt, lane);
     __syncthreads();
@@ -317,8 +311,8 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                       float* stats, int BH, int nh, int S, int D, float scale, float rate,
-                       float keep_scale, cudaStream_t stream) {
+                       const float* stats, const float* r, int BH, int nh, int S, int D,
+                       float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t dq_bytes = dq_smem_bytes<DP>(), dkv_bytes = dkv_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       tiled_dq_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
@@ -329,14 +323,280 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   const int tiles = (S + kTileRows - 1) / kTileRows;
   tiled_dq_mma_kernel<DP><<<BH * tiles, kTileThreads, dq_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<const bf16*>(d_out), static_cast<bf16*>(dq), stats, nh, S, D,
+      bias, seed, static_cast<const bf16*>(d_out), stats, r, static_cast<bf16*>(dq), nh, S, D,
       tiles, scale, rate, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_dkv_mma_kernel<DP><<<BH * tiles, kTileThreads, dkv_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<const bf16*>(d_out), stats, static_cast<bf16*>(dk),
+      bias, seed, static_cast<const bf16*>(d_out), stats, r, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), nh, S, D, tiles, scale, rate, keep_scale);
+  return cudaGetLastError();
+}
+
+// wgmma fed by TMA: the block's own rows once, the streamed side a tile at a
+// time through a ring of kStages buffers, one thread issuing; the key bias
+// or the queries' (m, 1 / l, r) staged by every thread.
+constexpr int kStages = 2;
+
+// The streamed tile's rows: 64, or 32 for the dk/dv kernel at DP = 128 (its
+// two accumulators take 128 registers a thread).
+template <int DP, bool DKV>
+__host__ __device__ constexpr int wg_rows() { return DKV && DP > 64 ? 32 : 64; }
+
+template <int DP, bool DKV>
+constexpr size_t wg_smem_bytes() {
+  constexpr int NB = wg_rows<DP, DKV>();
+  return ((size_t)2 * kTileRows * DP + 2 * kStages * NB * DP) * sizeof(bf16) +
+         kStages * 3 * NB * sizeof(float) + (kStages + 1) * sizeof(uint64_t) +
+         mmda::wgmma::kSmemAlign;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads)
+tiled_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ bias,
+                      const int* __restrict__ seed_ptr, const float* __restrict__ stats,
+                      const float* __restrict__ r_g, bf16* __restrict__ dq, int nh, int S, int D,
+                      int q_tiles, float scale, float rate, float keep_scale) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = wg_rows<DP, false>(), N8 = NB / 8, TILE = NB * DP;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // (64, DP)
+  bf16* do_s = q_s + kTileRows * DP;               // (64, DP)
+  bf16* k_s = do_s + kTileRows * DP;               // kStages x (NB, DP)
+  bf16* v_s = k_s + kStages * TILE;                // kStages x (NB, DP)
+  float* bias_s = reinterpret_cast<float*>(v_s + kStages * TILE);   // kStages x NB
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bias_s + kStages * 3 * NB);   // stages; q, do
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const float* bias_b = bias + (size_t)b * S;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int k_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+
+  auto issue = [&](int t) {
+    uint64_t* full = bar + t % kStages;
+    wg::mbar_expect_tx(full, 2 * TILE * sizeof(bf16));
+    wg::tma_tile<DP>(k_s + (t % kStages) * TILE, &tk, full, NB, t * NB, bh);
+    wg::tma_tile<DP>(v_s + (t % kStages) * TILE, &tv, full, NB, t * NB, bh);
+  };
+  auto stage_bias = [&](int t) {
+    for (int j = threadIdx.x; j < NB; j += kTileThreads) {
+      bias_s[(t % kStages) * NB + j] = t * NB + j < S ? bias_b[t * NB + j] : -INFINITY;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(bar + i, 1);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::mbar_expect_tx(bar + kStages, 2 * kTileRows * DP * sizeof(bf16));
+    wg::tma_tile<DP>(q_s, &tq, bar + kStages, kTileRows, q0, bh);
+    wg::tma_tile<DP>(do_s, &tdo, bar + kStages, kTileRows, q0, bh);
+    issue(0);
+  }
+  stage_bias(0);
+  float m[2], il[2], rr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + row0 + g + 8 * hh;
+    row_stats(stats, r_g, (size_t)bh * S + i, i < S, m[hh], il[hh], rr[hh]);
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  wg::mbar_wait(bar + kStages, 0);
+
+  for (int t = 0; t < k_tiles; ++t) {
+    const int st = t % kStages;
+    __syncthreads();     // tile t - 1's buffers are free; tile t's bias is in
+    if (t + 1 < k_tiles) {
+      if (threadIdx.x == 0) issue(t + 1);
+      stage_bias(t + 1);
+    }
+    wg::mbar_wait(bar + st, (t / kStages) & 1);
+    float s[N8][4], dp[N8][4];
+    wg::fence();
+    wg::issue_abt<NB, DP>(s, q_s, k_s + st * TILE);
+    wg::issue_abt<NB, DP>(dp, do_s, v_s + st * TILE);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(s);
+    wg::fence_operand(dp);
+    scale_bias<N8>(s, scale, bias_s + st * NB, t2);
+    ds_of<N8>(s, dp, m, il, rr, keep, q0 + row0 + g, t * NB + t2, keep_scale);
+    uint32_t a[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a, s);
+    wg::fence_operand(acc);
+    wg::fence();
+    wg::issue_split_product<DP, NB>(acc, a, k_s + st * TILE);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(acc);
+  }
+  store_rows<DP>(dq + (size_t)bh * S * D, acc, q0 + row0, S, D, scale, lane);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads)
+tiled_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ bias,
+                       const int* __restrict__ seed_ptr, const float* __restrict__ stats,
+                       const float* __restrict__ r_g, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int nh, int S, int D, int k_tiles, float scale,
+                       float rate, float keep_scale) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = wg_rows<DP, true>(), N8 = NB / 8, TILE = NB * DP;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // (64, DP)
+  bf16* v_s = k_s + kTileRows * DP;                // (64, DP)
+  bf16* q_s = v_s + kTileRows * DP;                // kStages x (NB, DP)
+  bf16* do_s = q_s + kStages * TILE;               // kStages x (NB, DP)
+  float* st_s = reinterpret_cast<float*>(do_s + kStages * TILE);   // kStages x (NB, 3)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(st_s + kStages * 3 * NB);   // stages; k, v
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x - bh * k_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int q_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+  float kbl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int jk = k0 + row0 + g + 8 * hh;
+    kbl[hh] = jk < S ? log2e_units(bias[(size_t)b * S + jk]) : -INFINITY;
+  }
+
+  auto issue = [&](int t) {
+    uint64_t* full = bar + t % kStages;
+    wg::mbar_expect_tx(full, 2 * TILE * sizeof(bf16));
+    wg::tma_tile<DP>(q_s + (t % kStages) * TILE, &tq, full, NB, t * NB, bh);
+    wg::tma_tile<DP>(do_s + (t % kStages) * TILE, &tdo, full, NB, t * NB, bh);
+  };
+  auto stage_stats = [&](int t) {
+    for (int e = threadIdx.x; e < NB; e += kTileThreads) {
+      const int i = t * NB + e;
+      float* st = st_s + (t % kStages) * 3 * NB + 3 * e;
+      row_stats(stats, r_g, (size_t)bh * S + i, i < S, st[0], st[1], st[2]);
+      st[0] = log2e_units(st[0]);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(bar + i, 1);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::mbar_expect_tx(bar + kStages, 2 * kTileRows * DP * sizeof(bf16));
+    wg::tma_tile<DP>(k_s, &tk, bar + kStages, kTileRows, k0, bh);
+    wg::tma_tile<DP>(v_s, &tv, bar + kStages, kTileRows, k0, bh);
+    issue(0);
+  }
+  stage_stats(0);
+  float acc_k[DP / 8][4], acc_v[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.0f;
+  }
+  wg::mbar_wait(bar + kStages, 0);
+
+  for (int t = 0; t < q_tiles; ++t) {
+    const int st = t % kStages;
+    __syncthreads();     // tile t - 1's buffers are free; tile t's statistics are in
+    if (t + 1 < q_tiles) {
+      if (threadIdx.x == 0) issue(t + 1);
+      stage_stats(t + 1);
+    }
+    wg::mbar_wait(bar + st, (t / kStages) & 1);
+    const bf16* qt = q_s + st * TILE;
+    const bf16* dot = do_s + st * TILE;
+    // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
+    float sT[N8][4], dpT[N8][4];
+    wg::fence();
+    wg::issue_abt<NB, DP>(sT, k_s, qt);
+    wg::issue_abt<NB, DP>(dpT, v_s, dot);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(sT);
+    wg::fence_operand(dpT);
+    pd_ds_of<N8>(sT, dpT, st_s + st * 3 * NB, kbl, log2e_units(scale), keep, t * NB, t2,
+                 k0 + row0 + g, S, keep_scale);
+    // dv's products run while ds is split into the operand of dk's
+    uint32_t a_v[3][NB / 16][4], a_k[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a_v, sT);
+    wg::fence_operand(acc_v);
+    wg::fence_operand(acc_k);
+    wg::fence();
+    wg::issue_split_product<DP, NB>(acc_v, a_v, dot);
+    mmda::short_mma::split_operand<NB / 16>(a_k, dpT);
+    wg::fence();
+    wg::issue_split_product<DP, NB>(acc_k, a_k, qt);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(acc_v);
+    wg::fence_operand(acc_k);
+  }
+  const size_t base = (size_t)bh * S * D;
+  store_rows<DP>(dv + base, acc_v, k0 + row0, S, D, 1.0f, lane);
+  store_rows<DP>(dk + base, acc_k, k0 + row0, S, D, scale, lane);
+}
+
+template <int DP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                         const int* seed, const void* d_out, void* dq, void* dk, void* dv,
+                         const float* stats, const float* r, int BH, int nh, int S, int D,
+                         float scale, float rate, float keep_scale, cudaStream_t stream) {
+  namespace wg = mmda::wgmma;
+  constexpr int NBQ = wg_rows<DP, false>(), NBK = wg_rows<DP, true>();
+  CUtensorMap tq, tk, tv, tdo, sq, sdo;    // the dq kernel's maps, then the dk/dv kernel's
+  if (!wg::head_map(&tq, q, BH, S, D, kTileRows) ||
+      !wg::head_map(&tdo, d_out, BH, S, D, kTileRows) || !wg::head_map(&tk, k, BH, S, D, NBQ) ||
+      !wg::head_map(&tv, v, BH, S, D, NBQ) || !wg::head_map(&sq, q, BH, S, D, NBK) ||
+      !wg::head_map(&sdo, d_out, BH, S, D, NBK)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t dq_bytes = wg_smem_bytes<DP, false>(), dkv_bytes = wg_smem_bytes<DP, true>();
+  cudaError_t err = cudaFuncSetAttribute(tiled_dq_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(tiled_dkv_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + kTileRows - 1) / kTileRows;
+  tiled_dq_wgmma_kernel<DP><<<BH * tiles, kTileThreads, dq_bytes, stream>>>(
+      tq, tk, tv, tdo, bias, seed, stats, r, static_cast<bf16*>(dq), nh, S, D, tiles, scale, rate,
+      keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the dk/dv kernel's own rows are 64-row boxes of k and v: tq's and tdo's
+  // box shape, on the other tensors
+  CUtensorMap bk, bv;
+  if (!wg::head_map(&bk, k, BH, S, D, kTileRows) || !wg::head_map(&bv, v, BH, S, D, kTileRows)) {
+    return cudaErrorInvalidValue;
+  }
+  tiled_dkv_wgmma_kernel<DP><<<BH * tiles, kTileThreads, dkv_bytes, stream>>>(
+      sq, bk, bv, sdo, bias, seed, stats, r, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh,
+      S, D, tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -353,8 +613,9 @@ __global__ void __launch_bounds__(kF32Threads)
 tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
                     const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
-                    float* __restrict__ dq, float* __restrict__ stats, int nh, int S, int D,
-                    int q_tiles, float scale, float rate, float keep_scale) {
+                    const float* __restrict__ stats, const float* __restrict__ r_g,
+                    float* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
+                    float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -372,8 +633,7 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
   const int k_tiles = (S + kF32Rows - 1) / kF32Rows;
 
   for (int e = lane; e < R * D; e += 32) {
@@ -383,12 +643,24 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     q_w[e] = ok ? q[at] * scale : 0.0f;
     do_w[e] = ok ? d_out[at] : 0.0f;
   }
+  float m[R], il[R], rr[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row_stats(stats, r_g, (size_t)bh * S + q0 + r, q0 + r < S, m[r], il[r], rr[r]);
+  }
   __syncwarp();
-  // the warp's R rows with key k0 + lane: s (-inf beyond S) and dp
-  auto tile = [&](int k0, float (&s)[R], float (&dp)[R]) {
+
+  float acc[R][kF32Cols] = {};
+  for (int t = 0; t < k_tiles; ++t) {
+    const int k0 = t * kF32Rows;
+    stage_f32(k_s, k + base, k0, kF32Rows, S, D, 1.0f, kF32Threads);
+    stage_f32(v_s, v + base, k0, kF32Rows, S, D, 1.0f, kF32Threads);
+    __syncthreads();
+    // the warp's R rows with key k0 + lane: s (-inf beyond S) and dp
     const int j = k0 + lane;
     const float* kj = k_s + lane * ld;
     const float* vj = v_s + lane * ld;
+    float s[R], dp[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.0f;
     for (int c = 0; c < D; ++c) {
@@ -401,69 +673,23 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      s[r] = j < S ? s[r] + bias_b[j] : -INFINITY;
-      dp[r] = j < S ? dp[r] * keep_of(drop, hbase, q0 + r, j, S, rate, keep_scale) : 0.0f;
-    }
-  };
-  auto stage = [&](int k0) {
-    stage_f32(k_s, k + base, k0, kF32Rows, S, D, 1.0f, kF32Threads);
-    stage_f32(v_s, v + base, k0, kF32Rows, S, D, 1.0f, kF32Threads);
-    __syncthreads();
-  };
-
-  float m[R], l[R], rr[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = rr[r] = 0.0f;
-  }
-  for (int t = 0; t < k_tiles; ++t) {
-    stage(t * kF32Rows);
-    float s[R], dp[R];
-    tile(t * kF32Rows, s, dp);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(s[r]));
-      const float alpha = expf(m[r] - m_new), x = expf(s[r] - m_new);
-      l[r] = l[r] * alpha + x;
-      rr[r] = rr[r] * alpha + dp[r] * x;
-      m[r] = m_new;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    l[r] = warp_sum(l[r]);
-    rr[r] = warp_sum(rr[r]) / l[r];
-    if (lane == 0 && q0 + r < S) {
-      float* st = stats + ((size_t)bh * S + q0 + r) * 3;
-      st[0] = m[r];
-      st[1] = l[r];
-      st[2] = rr[r];
-    }
-  }
-
-  float acc[R][kF32Cols] = {};
-  for (int t = 0; t < k_tiles; ++t) {
-    const int k0 = t * kF32Rows;
-    stage(k0);
-    float s[R], dp[R];
-    tile(k0, s, dp);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float p = expf(s[r] - m[r]) / l[r];
-      ds_w[r * kF32Rows + lane] = p * (dp[r] - rr[r]);
+      float ds = 0.0f;
+      if (j < S) {
+        const float p = expf(s[r] + bias_b[j] - m[r]) * il[r];
+        ds = p * (dp[r] * (keep(q0 + r, j) ? keep_scale : 0.0f) - rr[r]);
+      }
+      ds_w[r * kF32Rows + lane] = ds;
     }
     __syncwarp();
     const int n = min(kF32Rows, S - k0);
-    for (int j = 0; j < n; ++j) {
+    for (int jj = 0; jj < n; ++jj) {
 #pragma unroll
       for (int u = 0; u < kF32Cols; ++u) {
         const int c = lane + 32 * u;
         if (c < D) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            acc[r][u] = fmaf(ds_w[r * kF32Rows + j], k_s[j * ld + c], acc[r][u]);
+            acc[r][u] = fmaf(ds_w[r * kF32Rows + jj], k_s[jj * ld + c], acc[r][u]);
           }
         }
       }
@@ -483,7 +709,7 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 size_t dkv_f32_smem_bytes(int D) {
   // the block's k and v rows, the streamed q * scale and do tiles (stride
-  // D + 1), their (m, l, r); per warp its 4 keys' pd and ds rows
+  // D + 1), their (m, 1 / l, r); per warp its 4 keys' pd and ds rows
   return (4 * (size_t)kF32Rows * (D + 1) + 3 * kF32Rows +
           (size_t)kF32Warps * kF32RowsPerWarp * 2 * kF32Rows) * sizeof(float);
 }
@@ -492,9 +718,9 @@ __global__ void __launch_bounds__(kF32Threads)
 tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
-                     const float* __restrict__ stats, float* __restrict__ dk,
-                     float* __restrict__ dv, int nh, int S, int D, int k_tiles, float scale,
-                     float rate, float keep_scale) {
+                     const float* __restrict__ stats, const float* __restrict__ r_g,
+                     float* __restrict__ dk, float* __restrict__ dv, int nh, int S, int D,
+                     int k_tiles, float scale, float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -504,7 +730,7 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_s = k_s + kF32Rows * ld;
   float* q_s = v_s + kF32Rows * ld;      // (32, D + 1): q * scale of a query tile
   float* do_s = q_s + kF32Rows * ld;
-  float* st_s = do_s + kF32Rows * ld;    // (32, 3)
+  float* st_s = do_s + kF32Rows * ld;    // (32, 3): m, 1 / l, r
   float* pd_w = st_s + 3 * kF32Rows + warp * R * 2 * kF32Rows;   // (R, 32) pd
   float* ds_w = pd_w + R * kF32Rows;                             // (R, 32) ds
 
@@ -514,8 +740,7 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / nh;
   const int h = bh - b * nh;
   const size_t base = (size_t)bh * S * D;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
   const int q_tiles = (S + kF32Rows - 1) / kF32Rows;
   float kb[R];
 #pragma unroll
@@ -528,8 +753,9 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int i0 = t * kF32Rows;
     stage_f32(q_s, q + base, i0, kF32Rows, S, D, scale, kF32Threads);
     stage_f32(do_s, d_out + base, i0, kF32Rows, S, D, 1.0f, kF32Threads);
-    for (int e = threadIdx.x; e < 3 * kF32Rows; e += kF32Threads) {
-      st_s[e] = i0 + e / 3 < S ? stats[((size_t)bh * S + i0) * 3 + e] : (e % 3 == 1 ? 1.0f : 0.0f);
+    for (int e = threadIdx.x; e < kF32Rows; e += kF32Threads) {
+      row_stats(stats, r_g, (size_t)bh * S + i0 + e, i0 + e < S, st_s[3 * e], st_s[3 * e + 1],
+                st_s[3 * e + 2]);
     }
     __syncthreads();
     // the lane's query i0 + lane against the warp's R keys
@@ -549,10 +775,11 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float p = i < S ? expf(s[r] + kb[r] - st_s[3 * lane]) / st_s[3 * lane + 1] : 0.0f;
-      const float keep = keep_of(drop, hbase, i, k0 + r, S, rate, keep_scale);
-      pd_w[r * kF32Rows + lane] = p * keep;
-      ds_w[r * kF32Rows + lane] = p * (dp[r] * keep - st_s[3 * lane + 2]);
+      const float p =
+          i < S ? expf(s[r] + kb[r] - st_s[3 * lane]) * st_s[3 * lane + 1] : 0.0f;
+      const float kp = keep(i, k0 + r) ? keep_scale : 0.0f;
+      pd_w[r * kF32Rows + lane] = p * kp;
+      ds_w[r * kF32Rows + lane] = p * (dp[r] * kp - st_s[3 * lane + 2]);
     }
     __syncwarp();
     const int n = min(kF32Rows, S - i0);
@@ -587,8 +814,8 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                       float* stats, int BH, int nh, int S, int D, float scale, float rate,
-                       float keep_scale, cudaStream_t stream) {
+                       const float* stats, const float* r, int BH, int nh, int S, int D,
+                       float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t dq_bytes = dq_f32_smem_bytes(D), dkv_bytes = dkv_f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(tiled_dq_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -600,13 +827,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   const int tiles = (S + kF32Rows - 1) / kF32Rows;
   tiled_dq_f32_kernel<<<BH * tiles, kF32Threads, dq_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<const float*>(d_out), static_cast<float*>(dq), stats, nh, S, D,
+      bias, seed, static_cast<const float*>(d_out), stats, r, static_cast<float*>(dq), nh, S, D,
       tiles, scale, rate, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_dkv_f32_kernel<<<BH * tiles, kF32Threads, dkv_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<const float*>(d_out), stats, static_cast<float*>(dk),
+      bias, seed, static_cast<const float*>(d_out), stats, r, static_cast<float*>(dk),
       static_cast<float*>(dv), nh, S, D, tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
@@ -615,25 +842,40 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
 
 extern "C" {
 
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; returns the
-// first nonzero cudaError as an int (0 = ok).  q, k, v, d_out, dq, dk, dv
-// (B, nh, S, D): bf16 when is_bf16 else f32, contiguous; S >= 1, 1 <= D <=
-// 128, B nh ceil(S / 32) < 2^31.  stats: (B nh S x 3) f32 scratch the caller
-// allocates.  scale, rate and keep_scale as for mmda_short_attn_tiled_fwd;
-// seed (device int32) is read only when rate > 0.
+// Launches the r kernel, the dq kernel, then the dk/dv kernel, on `stream`;
+// returns the first nonzero cudaError as an int (0 = ok).  q, k, v, d_out,
+// dq, dk, dv (B, nh, S, D): bf16 when is_bf16 else f32, contiguous; S >= 1,
+// 1 <= D <= 128, B nh ceil(S / 32) < 2^31.  stats (B nh S x 2 f32) and o32
+// ((B, nh, S, D) f32) as the training forward wrote them; r: (B nh S) f32
+// scratch the caller allocates.  impl, scale, rate and keep_scale as for
+// mmda_short_attn_tiled_fwd; seed (device int32) is read only when rate > 0.
 int mmda_short_attn_tiled_bwd(const void* q, const void* k, const void* v, const float* bias,
                               const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                              float* stats, int B, int nh, int S, int D, int is_bf16,
-                              float scale, float rate, float keep_scale, void* stream) {
+                              const float* stats, const float* o32, float* r, int B, int nh,
+                              int S, int D, int is_bf16, int impl, float scale, float rate,
+                              float keep_scale, void* stream) {
   if (B < 1 || nh < 1 || S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
+  const size_t n = (size_t)BH * S;
+  cudaError_t err = is_bf16 ? launch_r<bf16>(d_out, o32, r, n, D, st)
+                            : launch_r<float>(d_out, o32, r, n, D, st);
+  if (err != cudaSuccess) return (int)err;
   if (!is_bf16) {
-    return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, BH, nh, S, D, scale,
-                           rate, keep_scale, st);
+    return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
+                           scale, rate, keep_scale, st);
   }
-#define MMDA_TILED_BWD(DP)                                                                 \
-  return (int)launch_mma<DP>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, BH, nh, S, D,  \
+  if (impl != 1 && D > 32 && mmda::wgmma::takes(q, D) && mmda::wgmma::takes(k, D) &&
+      mmda::wgmma::takes(v, D) && mmda::wgmma::takes(d_out, D)) {
+    if (D <= 64) {
+      return (int)launch_wgmma<64>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S,
+                                   D, scale, rate, keep_scale, st);
+    }
+    return (int)launch_wgmma<128>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
+                                  scale, rate, keep_scale, st);
+  }
+#define MMDA_TILED_BWD(DP)                                                                  \
+  return (int)launch_mma<DP>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D, \
                              scale, rate, keep_scale, st)
   if (D <= 16) MMDA_TILED_BWD(16);
   if (D <= 32) MMDA_TILED_BWD(32);

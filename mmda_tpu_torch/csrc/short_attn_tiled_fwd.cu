@@ -4,32 +4,49 @@
 // memory).
 //
 // Replaces mmda_tpu/ops/pallas/short_attention.py::_fwd_kernel (:61,
-// launched by _fwd_call :128) at any S, with its arithmetic: per (batch item
+// launched by _fwd_call :128) at any S, with its function: per (batch item
 // b, head h), all f32,
 //
 //   s  = (q * scale) k^T + bias[b]         scale = f32(1 / sqrt(D))
-//   p  = exp(s - m) / l                    m the exact row max, l = sum exp(s - m)
+//   p  = exp(s - m) / l                    m the row max, l = sum exp(s - m)
 //   o  = round((p * keep * f32(1 / (1 - rate))) v)    once, to the input type
 //
 // with the short kernels' own keep hash at i S + j (hash_dropout.cuh).
 //
 // Design (short_tiled.cuh).  A block per (64 queries, b, h) in bf16, (32
-// queries, b, h) in f32; two passes over the key tiles: the first takes each
-// row's m and l, the second forms p exactly, applies the mask and
-// accumulates pd v.  Nothing of S x S size is written.
-//   bf16: q k^T on the tensor cores straight from the bf16 inputs (exact
-//   products, f32 sums), then times scale and plus the bias in f32; pd v with
-//   pd as three bf16 terms (short_mma.cuh): the arithmetic of
-//   short_attn_fwd.cu's bf16 kernel.  k and v tiles stream through two
-//   shared-memory buffers by cp.async.
+// queries, b, h) in f32, one pass over the key tiles with the online max and
+// sum: s formed once, exp once a score; when a tile raises a row's max, its l
+// and f32 accumulator are rescaled by exp(m_old - m_new); the accumulator
+// takes exp(s - m) times the 0/1 mask, times v; at the end o = acc (1 / l)
+// keep_scale, one multiply an output, no division a score.  This differs from
+// the exact two-pass softmax by f32 rounding only (tests/
+// test_torch_kernel_domain.py models it against the one-ulp bf16 gate).  For
+// training it also writes each query's (m, l) and, in bf16, o before its
+// rounding (o32): the backward reads them instead of a pass over the keys.
+//   bf16, wgmma fed by TMA (wgmma.cuh), where D is a multiple of 8 above 32
+//   and the inputs 16-byte aligned: q k^T as m64n64k16 from shared memory,
+//   the scores and the online softmax in the accumulator fragments, pd v as
+//   three m64nDPk16 issues with the three bf16 terms of pd (short_mma.cuh) as
+//   the A operand from registers and v read MN-major; k and v a 64-key tile
+//   at a time through a two-stage TMA ring, one thread issuing.  Every other
+//   head dim: mma.sync m16n8k16 with the same arithmetic, k and v through two
+//   cp.async buffers.  scale after q k^T, as short_attn_fwd.cu's bf16 kernel.
 //   f32: f32 FMAs, q * scale first; a lane per key of the 32-key tile for the
 //   scores, a lane per output column (4 each, D <= 128) for pd v.
 //
+// exp(s - m) is ex2.approx of (s - m) log2 e in the bf16 kernels (within a
+// few f32 ulps; the f32 kernel keeps expf).
+//
 // What bounds it on the H100 at the long step's call (32, 12, 514, 64) bf16:
-// the products, 3 S^2 D a head (q k^T twice, pd v as three terms counted
-// once), not the 50.6 MB of q, k, v and o.
+// 4 S^2 D operations a head as the bound counts them (q k^T, pd v) take 0.026
+// ms at the bf16 peak, the 101 MB of q, k, v and o 0.030 ms: the bytes.  The
+// kernel does q k^T once and pd v three times over (each f32 term a bf16
+// product), and a hash, an exp and a three-way split per score, serialised
+// with the products within each warpgroup; the blocks resident beside it on
+// an SM fill the gaps.  Its times beside the mma.sync design's: PERF.md.
 
 #include "short_tiled.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -37,15 +54,25 @@ using mmda::flash::bf16;
 using mmda::flash::kRowPad;
 using namespace mmda::short_tiled;
 
-// The scaled keep mask of query i, key j: keep_scale, or 0 where dropped (1
-// at rate 0); the hash at i S + j in uint32 with S the full length.
-__device__ __forceinline__ float keep_of(bool drop, uint32_t hbase, int i, int j, int S,
-                                         float rate, float keep_scale) {
-  if (!drop) return 1.0f;
-  return mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate)
-             ? keep_scale
-             : 0.0f;
-}
+// The short kernels' keep mask of one (batch item, head): query i keeps key j
+// where the hash at i S + j (uint32, S the full length) clears the rate;
+// always at rate 0.
+struct KeepMask {
+  bool drop;
+  uint32_t hbase;
+  int S;
+  float rate;
+
+  __device__ __forceinline__ KeepMask(const int* seed_ptr, int b, int h, int S_, float rate_)
+      : drop(rate_ > 0.0f),
+        hbase(rate_ > 0.0f ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u),
+        S(S_),
+        rate(rate_) {}
+
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    return !drop || mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate);
+  }
+};
 
 // ----------------------------------------------------------------- bf16
 
@@ -56,12 +83,14 @@ size_t mma_smem_bytes() {
          2 * NB * sizeof(float);
 }
 
+// mma.sync m16n8k16, k, v and the key bias through two cp.async buffers.
 template <int DP>
 __global__ void __launch_bounds__(kTileThreads)
 tiled_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                     const int* __restrict__ seed_ptr, bf16* __restrict__ o, int nh, int S,
-                     int D, int q_tiles, float scale, float rate, float keep_scale) {
+                     const int* __restrict__ seed_ptr, bf16* __restrict__ o,
+                     float* __restrict__ stats, float* __restrict__ o32, int nh, int S, int D,
+                     int q_tiles, float scale, float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
   constexpr int L = DP + kRowPad;
@@ -81,106 +110,51 @@ tiled_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = 16 * (threadIdx.x >> 5);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
   const int k_tiles = (S + NB - 1) / NB;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
 
   load_rows<DP>(q_s, q + base, q0, kTileRows, S, D, kTileThreads);
-  auto stage = [&](int t, bool with_v) {
+  auto stage = [&](int t) {
     const int buf = t & 1;
     load_rows<DP>(k_s + buf * NB * L, k + base, t * NB, NB, S, D, kTileThreads);
-    if (with_v) load_rows<DP>(v_s + buf * NB * L, v + base, t * NB, NB, S, D, kTileThreads);
+    load_rows<DP>(v_s + buf * NB * L, v + base, t * NB, NB, S, D, kTileThreads);
     for (int j = threadIdx.x; j < NB; j += kTileThreads) {
       bias_s[buf * NB + j] = t * NB + j < S ? bias_b[t * NB + j] : -INFINITY;
     }
     mmda::flash::cp_async_commit();
   };
-  // s = q k^T * scale + bias of key tile t (in buffer t & 1)
-  auto scores = [&](int t, float (&s)[N8][4]) {
+
+  OnlineRows<DP> rows;
+  stage(0);
+  for (int t = 0; t < k_tiles; ++t) {
+    if (t + 1 < k_tiles) {
+      stage(t + 1);
+      cp_async_wait_one();
+    } else {
+      mmda::flash::cp_async_wait_all();
+    }
+    __syncthreads();
+    const int buf = t & 1;
+    float s[N8][4];
 #pragma unroll
     for (int j = 0; j < N8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
     }
-    mmda::flash::mma_abt<DP, N8>(s, q_s, row0, k_s + (t & 1) * NB * L, lane);
-    const float* bt = bias_s + (t & 1) * NB;
-#pragma unroll
-    for (int j = 0; j < N8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bt[8 * j + t2 + (e & 1)]);
-      }
-    }
-  };
-
-  // pass 1: m and l of the rows row0 + g and row0 + g + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  stage(0, false);
-  for (int t = 0; t < k_tiles; ++t) {
-    if (t + 1 < k_tiles) {
-      stage(t + 1, false);
-      cp_async_wait_one();
-    } else {
-      mmda::flash::cp_async_wait_all();
-    }
-    __syncthreads();
-    float s[N8][4];
-    scores(t, s);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < N8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
-      const float m_new = fmaxf(m[hh], quad_max(tmax));   // finite: key t NB < S
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < N8; ++j) {
-        sum += expf(s[j][2 * hh] - m_new) + expf(s[j][2 * hh + 1] - m_new);
-      }
-      l[hh] = l[hh] * expf(m[hh] - m_new) + sum;
-      m[hh] = m_new;
-    }
+    mmda::flash::mma_abt<DP, N8>(s, q_s, row0, k_s + buf * NB * L, lane);
+    scale_bias<N8>(s, scale, bias_s + buf * NB, t2);
+    rows.update(s, keep, q0 + row0 + g, t * NB + t2);
+    split_product<DP, NB>(rows.acc, s, v_s + buf * NB * L, lane);
     __syncthreads();
   }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) l[hh] = quad_sum(l[hh]);
-
-  // pass 2: p exactly, the mask, o += pd v
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  }
-  stage(0, true);
-  for (int t = 0; t < k_tiles; ++t) {
-    if (t + 1 < k_tiles) {
-      stage(t + 1, true);
-      cp_async_wait_one();
-    } else {
-      mmda::flash::cp_async_wait_all();
-    }
-    __syncthreads();
-    float s[N8][4];
-    scores(t, s);
-#pragma unroll
-    for (int j = 0; j < N8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = q0 + row0 + g + 8 * (e >> 1), jk = t * NB + 8 * j + t2 + (e & 1);
-        const float p = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
-        s[j][e] = p * keep_of(drop, hbase, i, jk, S, rate, keep_scale);
-      }
-    }
-    split_product<DP, NB>(acc, s, v_s + (t & 1) * NB * L, lane);
-    __syncthreads();
-  }
-  store_rows<DP>(o + base, acc, q0 + row0, S, D, 1.0f, lane);
+  rows.finish(o + base, stats, o32 == nullptr ? nullptr : o32 + base, (size_t)bh * S,
+              q0 + row0, S, D, keep_scale, lane);
 }
 
 template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
-                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
-                       float rate, float keep_scale, cudaStream_t stream) {
+                       const int* seed, void* o, float* stats, float* o32, int BH, int nh,
+                       int S, int D, float scale, float rate, float keep_scale,
+                       cudaStream_t stream) {
   const size_t bytes = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_mma_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -188,7 +162,125 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   const int q_tiles = (S + kTileRows - 1) / kTileRows;
   tiled_fwd_mma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<bf16*>(o), nh, S, D, q_tiles, scale, rate, keep_scale);
+      bias, seed, static_cast<bf16*>(o), stats, o32, nh, S, D, q_tiles, scale, rate,
+      keep_scale);
+  return cudaGetLastError();
+}
+
+// wgmma fed by TMA: q, and k, v a key tile at a time through a ring of
+// kStages buffers, one thread issuing; the key bias staged by every thread.
+constexpr int kStages = 2;
+constexpr int kWgNB = 64;        // keys a tile
+
+template <int DP>
+constexpr size_t wgmma_smem_bytes() {
+  return ((size_t)kTileRows * DP + 2 * kStages * kWgNB * DP) * sizeof(bf16) +
+         kStages * kWgNB * sizeof(float) + (kStages + 1) * sizeof(uint64_t) +
+         mmda::wgmma::kSmemAlign;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads)
+tiled_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
+                       const int* __restrict__ seed_ptr, bf16* __restrict__ o,
+                       float* __restrict__ stats, float* __restrict__ o32, int nh, int S, int D,
+                       int q_tiles, float scale, float rate, float keep_scale) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = kWgNB, N8 = NB / 8, TILE = NB * DP;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // (64, DP)
+  bf16* k_s = q_s + kTileRows * DP;                // kStages x (NB, DP)
+  bf16* v_s = k_s + kStages * TILE;                // kStages x (NB, DP)
+  float* bias_s = reinterpret_cast<float*>(v_s + kStages * TILE);   // kStages x NB
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bias_s + kStages * NB);   // k, v stages; q
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const float* bias_b = bias + (size_t)b * S;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int k_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+
+  auto issue = [&](int t) {        // thread 0: key tile t into its stage
+    uint64_t* full = bar + t % kStages;
+    wg::mbar_expect_tx(full, 2 * TILE * sizeof(bf16));
+    wg::tma_tile<DP>(k_s + (t % kStages) * TILE, &tk, full, NB, t * NB, bh);
+    wg::tma_tile<DP>(v_s + (t % kStages) * TILE, &tv, full, NB, t * NB, bh);
+  };
+  auto stage_bias = [&](int t) {
+    for (int j = threadIdx.x; j < NB; j += kTileThreads) {
+      bias_s[(t % kStages) * NB + j] = t * NB + j < S ? bias_b[t * NB + j] : -INFINITY;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(bar + i, 1);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::mbar_expect_tx(bar + kStages, kTileRows * DP * sizeof(bf16));
+    wg::tma_tile<DP>(q_s, &tq, bar + kStages, kTileRows, q0, bh);
+    issue(0);
+  }
+  stage_bias(0);
+  wg::mbar_wait(bar + kStages, 0);
+
+  OnlineRows<DP> rows;
+  for (int t = 0; t < k_tiles; ++t) {
+    const int st = t % kStages;
+    __syncthreads();     // tile t - 1's buffers are free; tile t's bias is in
+    if (t + 1 < k_tiles) {
+      if (threadIdx.x == 0) issue(t + 1);
+      stage_bias(t + 1);
+    }
+    wg::mbar_wait(bar + st, (t / kStages) & 1);
+    float s[N8][4];
+    wg::fence();
+    wg::issue_abt<NB, DP>(s, q_s, k_s + st * TILE);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(s);
+    scale_bias<N8>(s, scale, bias_s + st * NB, t2);
+    rows.update(s, keep, q0 + row0 + g, t * NB + t2);
+    uint32_t a[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a, s);
+    wg::fence_operand(rows.acc);
+    wg::fence();
+    wg::issue_split_product<DP, NB>(rows.acc, a, v_s + st * TILE);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(rows.acc);
+  }
+  const size_t base = (size_t)bh * S * D;
+  rows.finish(o + base, stats, o32 == nullptr ? nullptr : o32 + base, (size_t)bh * S,
+              q0 + row0, S, D, keep_scale, lane);
+}
+
+template <int DP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                         const int* seed, void* o, float* stats, float* o32, int BH, int nh,
+                         int S, int D, float scale, float rate, float keep_scale,
+                         cudaStream_t stream) {
+  namespace wg = mmda::wgmma;
+  CUtensorMap tq, tk, tv;
+  if (!wg::head_map(&tq, q, BH, S, D, kTileRows) || !wg::head_map(&tk, k, BH, S, D, kWgNB) ||
+      !wg::head_map(&tv, v, BH, S, D, kWgNB)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t bytes = wgmma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (S + kTileRows - 1) / kTileRows;
+  tiled_fwd_wgmma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
+      tq, tk, tv, bias, seed, static_cast<bf16*>(o), stats, o32, nh, S, D, q_tiles, scale, rate,
+      keep_scale);
   return cudaGetLastError();
 }
 
@@ -203,8 +295,9 @@ size_t f32_smem_bytes(int D) {
 __global__ void __launch_bounds__(kF32Threads)
 tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
-                     const int* __restrict__ seed_ptr, float* __restrict__ o, int nh, int S,
-                     int D, int q_tiles, float scale, float rate, float keep_scale) {
+                     const int* __restrict__ seed_ptr, float* __restrict__ o,
+                     float* __restrict__ stats, int nh, int S, int D, int q_tiles, float scale,
+                     float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -221,8 +314,7 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
-  const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
   const int k_tiles = (S + kF32Rows - 1) / kF32Rows;
 
   for (int e = lane; e < R * D; e += 32) {
@@ -230,44 +322,15 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     q_w[e] = q0 + r < S ? q[base + (size_t)(q0 + r) * D + (e - r * D)] * scale : 0.0f;
   }
   __syncwarp();
-  // the scores of the warp's R rows with key k0 + lane (-inf beyond S)
-  auto scores = [&](int k0, float (&s)[R]) {
-    const int j = k0 + lane;
-    const float* kj = k_s + lane * ld;
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.0f;
-    for (int c = 0; c < D; ++c) {
-      const float kc = kj[c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) s[r] = fmaf(q_w[r * D + c], kc, s[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = j < S ? s[r] + bias_b[j] : -INFINITY;
-  };
 
-  float m[R], l[R];
+  // per row: the online max m, the lane's share of l, the accumulator of
+  // (exp(s - m) times the 0/1 mask) v over the lane's columns
+  float m[R], l[R], acc[R][kF32Cols] = {};
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.0f;
   }
-  for (int t = 0; t < k_tiles; ++t) {
-    stage_f32(k_s, k + base, t * kF32Rows, kF32Rows, S, D, 1.0f, kF32Threads);
-    __syncthreads();
-    float s[R];
-    scores(t * kF32Rows, s);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(s[r]));
-      l[r] = l[r] * expf(m[r] - m_new) + expf(s[r] - m_new);
-      m[r] = m_new;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) l[r] = warp_sum(l[r]);
-
-  float acc[R][kF32Cols] = {};
   for (int t = 0; t < k_tiles; ++t) {
     const int k0 = t * kF32Rows;
     stage_f32(k_s, k + base, k0, kF32Rows, S, D, 1.0f, kF32Threads);
@@ -276,24 +339,39 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       v_s[e] = k0 + r < S ? v[base + (size_t)k0 * D + e] : 0.0f;
     }
     __syncthreads();
+    // the scores of the warp's R rows with key k0 + lane (-inf beyond S)
+    const int j = k0 + lane;
+    const float* kj = k_s + lane * ld;
     float s[R];
-    scores(k0, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+    for (int c = 0; c < D; ++c) {
+      const float kc = kj[c];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] = fmaf(q_w[r * D + c], kc, s[r]);
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float p = expf(s[r] - m[r]) / l[r];
-      p_w[r * kF32Rows + lane] =
-          p * keep_of(drop, hbase, q0 + r, k0 + lane, S, rate, keep_scale);
+      s[r] = j < S ? s[r] + bias_b[j] : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(s[r]));
+      const float alpha = expf(m[r] - m_new);
+      const float x = expf(s[r] - m_new);
+      l[r] = l[r] * alpha + x;
+      m[r] = m_new;
+#pragma unroll
+      for (int u = 0; u < kF32Cols; ++u) acc[r][u] *= alpha;
+      p_w[r * kF32Rows + lane] = keep(q0 + r, j) ? x : 0.0f;
     }
     __syncwarp();
     const int n = min(kF32Rows, S - k0);
-    for (int j = 0; j < n; ++j) {
+    for (int jj = 0; jj < n; ++jj) {
 #pragma unroll
       for (int u = 0; u < kF32Cols; ++u) {
         const int c = lane + 32 * u;
         if (c < D) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            acc[r][u] = fmaf(p_w[r * kF32Rows + j], v_s[j * D + c], acc[r][u]);
+            acc[r][u] = fmaf(p_w[r * kF32Rows + jj], v_s[jj * D + c], acc[r][u]);
           }
         }
       }
@@ -302,18 +380,23 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    l[r] = warp_sum(l[r]);
     if (q0 + r >= S) continue;
+    const float f = (1.0f / l[r]) * keep_scale;
+    if (stats != nullptr && lane == 0) {
+      *reinterpret_cast<float2*>(stats + ((size_t)bh * S + q0 + r) * 2) = make_float2(m[r], l[r]);
+    }
 #pragma unroll
     for (int u = 0; u < kF32Cols; ++u) {
       const int c = lane + 32 * u;
-      if (c < D) o[base + (size_t)(q0 + r) * D + c] = acc[r][u];
+      if (c < D) o[base + (size_t)(q0 + r) * D + c] = acc[r][u] * f;
     }
   }
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
-                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
-                       float rate, float keep_scale, cudaStream_t stream) {
+                       const int* seed, void* o, float* stats, int BH, int nh, int S, int D,
+                       float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t bytes = f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -321,7 +404,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   const int q_tiles = (S + kF32Rows - 1) / kF32Rows;
   tiled_fwd_f32_kernel<<<BH * q_tiles, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<float*>(o), nh, S, D, q_tiles, scale, rate, keep_scale);
+      bias, seed, static_cast<float*>(o), stats, nh, S, D, q_tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -331,27 +414,40 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // q, k, v, o (B, nh, S, D): bf16 when is_bf16 else f32, contiguous; S >= 1,
-// 1 <= D <= 128, B nh ceil(S / 32) < 2^31.  scale = 1 / sqrt(D), rate and
-// keep_scale = 1 / (1 - rate) already rounded to f32; seed (device int32) is
-// read only when rate > 0.
+// 1 <= D <= 128, B nh ceil(S / 32) < 2^31.  stats (B nh S x 2 f32: each
+// query's m and l) and, in bf16, o32 ((B, nh, S, D) f32: o before its
+// rounding) are written where not NULL (the training forward; in f32 o is
+// o32).  impl: the bf16 design (0 by shape: wgmma where D is a multiple of 8
+// above 32 and q, k, v 16-byte aligned, else mma.sync; 1 mma.sync).  scale = 1 / sqrt(D), rate and keep_scale = 1 / (1 - rate)
+// already rounded to f32; seed (device int32) is read only when rate > 0.
 int mmda_short_attn_tiled_fwd(const void* q, const void* k, const void* v, const float* bias,
-                              const int* seed, void* o, int B, int nh, int S, int D,
-                              int is_bf16, float scale, float rate, float keep_scale,
-                              void* stream) {
+                              const int* seed, void* o, float* stats, float* o32, int B, int nh,
+                              int S, int D, int is_bf16, int impl, float scale, float rate,
+                              float keep_scale, void* stream) {
   if (B < 1 || nh < 1 || S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
-    return (int)launch_f32(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate, keep_scale, st);
+    return (int)launch_f32(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
+                           keep_scale, st);
   }
-  if (D <= 16) return (int)launch_mma<16>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate,
-                                           keep_scale, st);
-  if (D <= 32) return (int)launch_mma<32>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate,
-                                           keep_scale, st);
-  if (D <= 64) return (int)launch_mma<64>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate,
-                                           keep_scale, st);
-  return (int)launch_mma<128>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate, keep_scale,
-                              st);
+#define MMDA_TILED_FWD(DP)                                                                \
+  return (int)launch_mma<DP>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale, rate, \
+                             keep_scale, st)
+  if (impl != 1 && D > 32 && mmda::wgmma::takes(q, D) && mmda::wgmma::takes(k, D) &&
+      mmda::wgmma::takes(v, D)) {
+    if (D <= 64) {
+      return (int)launch_wgmma<64>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale,
+                                   rate, keep_scale, st);
+    }
+    return (int)launch_wgmma<128>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale, rate,
+                                  keep_scale, st);
+  }
+  if (D <= 16) MMDA_TILED_FWD(16);
+  if (D <= 32) MMDA_TILED_FWD(32);
+  if (D <= 64) MMDA_TILED_FWD(64);
+  MMDA_TILED_FWD(128);
+#undef MMDA_TILED_FWD
 }
 
 }  // extern "C"

@@ -2,20 +2,27 @@
 // attention kernels' arithmetic (short_attn_fwd.cu, short_attn_bwd.cu) over
 // tiles of queries and keys, for sequences longer than one block holds.
 //
-// Tiles.  A bf16 block has kTileWarps = 4 warps and owns 64 rows (queries in
-// the forward and the dq kernel, keys in the dk/dv kernel), 16 a warp; it
-// streams the other side in tiles of NB = 64 rows (32 at a padded head dim of
-// 128, which keeps the accumulators in registers), two buffers in turn filled
-// by cp.async.  The head dim D is padded with zero columns to DP in {16, 32,
-// 64, 128}: a zero column adds an exact 0 to every product.  An f32 block has
-// kF32Warps = 8 warps and owns 32 rows, 4 a warp; it streams tiles of 32
-// rows, one a lane.
+// Tiles.  A bf16 block has kTileWarps = 4 warps (one warpgroup) and owns 64
+// rows (queries in the forward and the dq kernel, keys in the dk/dv kernel),
+// 16 a warp; it streams the other side in tiles of NB rows (64; 32 where
+// two DP = 128 accumulators must stay in registers).  The mma.sync kernels
+// pad the head dim D with zero columns to DP in {16, 32, 64, 128} and fill
+// two buffers in turn by cp.async; the wgmma kernels (wgmma.cuh) take DP in
+// {64, 128}, their TMA boxes reading zeros past D and S.  A zero column adds
+// an exact 0 to every product.  Both keep a product's f32 result in the
+// fragments of m16n8k16 (a wgmma accumulator is four warps' worth of them),
+// so the row code below serves both.  An f32 block has kF32Warps = 8 warps
+// and owns 32 rows, 4 a warp; it streams tiles of 32 rows, one a lane.
 //
-// The softmax is exact: the row max m is the max over every key, and
-// p = exp(s - m) / l with l = sum exp(s - m).  A first pass over the key
-// tiles takes m and l (l rescaled by exp(m_old - m_new) when a tile raises the
-// max, the sums in a fixed order), a second forms p.  The keep mask is the
-// short kernels' own hash at i S + j with S the full length.
+// The forward's softmax is online (OnlineRows): the row max m and the sum l
+// rescaled by exp(m_old - m_new) when a tile raises the max, the accumulator
+// with them; o = acc (1 / l) keep_scale at the end.  The backward takes p =
+// exp(s - m) (1 / l) from the forward's saved (m, l).  The keep mask is the
+// short kernels' own hash at i S + j with S the full length, drawn by each
+// source (KeepMask).
+//
+// What bounds the kernels: the products and the per-score work (an exp, a
+// hash, a three-way split); not the bytes.
 
 #pragma once
 
@@ -118,6 +125,192 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DP / 8]
         if (c < D) row[c] = __float2bfloat16_rn(x0);
         if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(x1);
       }
+    }
+  }
+}
+
+// Rows row0 + g, row0 + g + 8 (< S) of the accumulator block acc (16 x DP),
+// columns < D, into the row-major (S, D) f32 matrix dst.
+template <int DP>
+__device__ __forceinline__ void store_rows_f32(float* dst, const float (&acc)[DP / 8][4],
+                                               int row0, int S, int D, int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
+    if (r >= S) continue;
+    float* row = dst + (size_t)r * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + t2;
+      if ((D & 1) == 0 && c + 1 < D) {
+        *reinterpret_cast<float2*>(row + c) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      } else {
+        if (c < D) row[c] = acc[j][2 * half];
+        if (c + 1 < D) row[c + 1] = acc[j][2 * half + 1];
+      }
+    }
+  }
+}
+
+// exp(x - m) as 2^(x log2 e - m log2 e) on the special-function unit
+// (ex2.approx, subnormal results flushed to 0), mlog2e = m log2 e.  x log2 e
+// is rounded as m log2 e was, so x = m gives exactly 2^0 at any magnitude (a
+// row whose keys are all masked: every score -1e9); for the scores' range
+// the roundings stay within a few f32 ulps of expf, far inside the one-ulp
+// bf16 gate.  The f32 kernels keep expf.
+__device__ __forceinline__ float log2e_units(float x) {
+  return __fmul_rn(x, mmda::flash::kLog2e);
+}
+
+__device__ __forceinline__ float exp_minus(float x, float mlog2e) {
+  return mmda::flash::exp2_ftz(__fsub_rn(log2e_units(x), mlog2e));
+}
+
+// s = s * scale + bias, in that order, rounded each time (the plain
+// version's (q k^T) scale + bias): the 16 x 8 N8 score block in C fragments
+// of the key columns 8 j + t2 (+ 1) of bias_t (-inf beyond S).
+template <int N8>
+__device__ __forceinline__ void scale_bias(float (&s)[N8][4], float scale, const float* bias_t,
+                                           int t2) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bias_t[8 * j + t2 + (e & 1)]);
+    }
+  }
+}
+
+// One warp's 16 query rows of the one-pass forward: the online row max m and
+// sum l of exp(s - m) over the key tiles seen so far (the lane's share of l;
+// its quad holds the row), and the f32 accumulator of (exp(s - m) times the
+// 0/1 mask) v, 16 x DP in C fragments.  Rows i0 = row0 + g and i0 + 8.
+template <int DP>
+struct OnlineRows {
+  float acc[DP / 8][4];
+  float m[2], l[2];
+
+  __device__ __forceinline__ OnlineRows() {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    }
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.0f;
+  }
+
+  // A key tile's scores s (keys c0 + 8 j + (e & 1), -inf beyond S): raises m
+  // where the tile holds a larger score and rescales l and acc by exp(m_old -
+  // m_new) (0 on the first tile: m_old = -inf); then s <- exp(s - m) where
+  // keep(i, j), 0 where dropped, and l += exp(s - m) whether kept or not.
+  // The first tile holds key 0, so m is finite from then on.
+  template <int N8, class Keep>
+  __device__ __forceinline__ void update(float (&s)[N8][4], const Keep& keep, int i0, int c0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < N8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      const float m_new = fmaxf(m[hh], quad_max(tmax));
+      const float alpha = exp_minus(m[hh], log2e_units(m_new));
+      l[hh] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][2 * hh] *= alpha;
+        acc[j][2 * hh + 1] *= alpha;
+      }
+      m[hh] = m_new;
+    }
+    const float ml[2] = {log2e_units(m[0]), log2e_units(m[1])};
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp_minus(s[j][e], ml[e >> 1]);
+        l[e >> 1] += x;
+        s[j][e] = keep(i0 + 8 * (e >> 1), c0 + 8 * j + (e & 1)) ? x : 0.0f;
+      }
+    }
+  }
+
+  // o = acc (1 / l) keep_scale rounded once to bf16, rows r0 + g (+ 8) < S
+  // of the row-major (S, D) o; where given, the same f32 values into o32 and
+  // (m, l) into stats[(row_base + row) 2 ..].
+  __device__ __forceinline__ void finish(bf16* o, float* stats, float* o32, size_t row_base,
+                                         int r0, int S, int D, float keep_scale, int lane) {
+    const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] = quad_sum(l[hh]);
+      const float f = (1.0f / l[hh]) * keep_scale;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][2 * hh] *= f;
+        acc[j][2 * hh + 1] *= f;
+      }
+      const int r = r0 + g + 8 * hh;
+      if (stats != nullptr && t2 == 0 && r < S) {
+        *reinterpret_cast<float2*>(stats + (row_base + r) * 2) = make_float2(m[hh], l[hh]);
+      }
+    }
+    store_rows<DP>(o, acc, r0, S, D, 1.0f, lane);
+    if (o32 != nullptr) store_rows_f32<DP>(o32, acc, r0, S, D, lane);
+  }
+};
+
+// The dq kernel's tile: s (the scores of rows i0 and i0 + 8 after
+// scale_bias, keys c0 + 8 j + (e & 1), -inf beyond S) becomes ds = p (dp keep
+// - r) with p = exp(s - m) (1 / l) from the saved statistics (m, 1 / l, r of
+// the two rows; 0, 0, 0 beyond S), dp = do v^T as the product gave it and
+// keep(i, j) the mask.
+template <int N8, class Keep>
+__device__ __forceinline__ void ds_of(float (&s)[N8][4], const float (&dp)[N8][4],
+                                      const float (&m)[2], const float (&il)[2],
+                                      const float (&rr)[2], const Keep& keep, int i0, int c0,
+                                      float keep_scale) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hh = e >> 1;
+      const float p = exp_minus(s[j][e], log2e_units(m[hh])) * il[hh];
+      const float kp = keep(i0 + 8 * hh, c0 + 8 * j + (e & 1)) ? keep_scale : 0.0f;
+      s[j][e] = p * (dp[j][e] * kp - rr[hh]);
+    }
+  }
+}
+
+// The dk/dv kernel's tile, transposed: sT = k q^T and dpT = v do^T as the
+// products gave them, keys j0 and j0 + 8 (their bias kbl), queries i_base +
+// ii with ii = 8 j + t2 + (e & 1) and st their staged (m log2 e, 1 / l, r).
+// Becomes sT <- pd = p keep, dpT <- ds = p (dp keep - r), p = 0 beyond S
+// (keep(i, j) the mask, keep_scale where kept).  The score goes to log2 units
+// in one fma, scale_l = scale log2 e and kbl = bias log2 e: fewer registers
+// and instructions than rounding s, then s log2 e, which made this kernel
+// markedly slower (PERF.md).  A row whose keys are all masked still gets
+// exactly 2^0 while its unbiased scores stay below 32 in magnitude: the fma
+// then rounds to kbl, as m log2 e does, both at -1e9.
+template <int N8, class Keep>
+__device__ __forceinline__ void pd_ds_of(float (&sT)[N8][4], float (&dpT)[N8][4],
+                                         const float* st, const float (&kbl)[2], float scale_l,
+                                         const Keep& keep, int i_base, int t2, int j0, int S,
+                                         float keep_scale) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ii = 8 * j + t2 + (e & 1), i = i_base + ii;
+      const int jk = j0 + 8 * (e >> 1);
+      float p = 0.0f;
+      if (i < S) {
+        const float t = fmaf(sT[j][e], scale_l, kbl[e >> 1]);
+        p = mmda::flash::exp2_ftz(__fsub_rn(t, st[3 * ii])) * st[3 * ii + 1];
+      }
+      const float kp = keep(i, jk) ? keep_scale : 0.0f;
+      sT[j][e] = p * kp;
+      dpT[j][e] = p * (dpT[j][e] * kp - st[3 * ii + 2]);
     }
   }
 }

@@ -601,7 +601,7 @@ def _short_inputs(B, nh, S, hd, dtype, seed, device):
                                        (3, 4, 10, 8), (2, 2, 128, 64), (2, 3, 33, 100),
                                        (2, 3, 66, 128), (2, 4, 129, 8), (2, 4, 257, 128),
                                        (1, 2, 1026, 64), (4, 12, 514, 64), (2, 3, 200, 40),
-                                       (2, 2, 128, 128)])
+                                       (2, 2, 128, 128), (2, 3, 200, 100)])
 def test_short_attention_kernels_match_plain_versions(cuda_device, B, nh, S, hd, dtype, rate):
     """The kernels of the shape's route (one block per (b, h), or query and
     key tiles beyond S = 128 and for the f32 shapes the block's shared memory
@@ -659,7 +659,8 @@ def test_short_attention_keep_mask_is_the_hash_bit_for_bit(cuda_device, B, nh, S
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nh,S,hd", [(64, 12, 50, 64), (2, 2, 128, 64), (2, 3, 66, 128),
-                                       (2, 3, 33, 100), (4, 12, 514, 64), (2, 4, 257, 128)])
+                                       (2, 3, 33, 100), (4, 12, 514, 64), (2, 4, 257, 128),
+                                       (2, 3, 200, 100)])
 def test_short_attention_backward_gives_the_same_bits_twice(cuda_device, B, nh, S, hd, dtype):
     """No atomics (one block per (batch item, head), or the tiled dq kernel
     then the dk/dv kernel, each block owning its rows): two launches on the
@@ -672,6 +673,74 @@ def test_short_attention_backward_gives_the_same_bits_twice(cuda_device, B, nh, 
         assert torch.equal(a, b)
     assert torch.equal(kshort.short_attention_fwd(q, k, v, bias, seed, 0.1),
                        kshort.short_attention_fwd(q, k, v, bias, seed, 0.1))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nh,S,hd", [(4, 12, 514, 64), (2, 3, 200, 100), (2, 4, 257, 128),
+                                       (2, 4, 129, 8)])
+def test_tiled_backward_from_saved_statistics_is_the_standalone_one(cuda_device, B, nh, S, hd,
+                                                                    dtype, rate):
+    """The training forward's o is `short_attention_fwd`'s bit for bit, and
+    the backward from its saved (m, l) and o32 gives the standalone
+    backward's bits (which forms them itself in the same call, counted once
+    as `short_attn_tiled_bwd`)."""
+    q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, S + hd + 1, cuda_device)
+    seed = torch.tensor([321], dtype=torch.int32, device=cuda_device)
+    before = {n: kshort.launch_count(n) for n in kshort.SOURCES}
+    o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, rate)
+    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, stats, o32)
+    alone = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
+    assert {n: kshort.launch_count(n) - c for n, c in before.items()} == {
+        n: {"short_attn_tiled_fwd": 1, "short_attn_tiled_bwd": 2}.get(n, 0)
+        for n in kshort.SOURCES}
+    assert stats.shape == (B, nh, S, 2) and (o32 is o) == (dtype == torch.float32)
+    assert torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate))
+    assert torch.equal(o32.to(dtype), o)
+    for a, b in zip(grads, alone):
+        assert torch.equal(a, b)
+    o_w, stats_w, _ = kshort.short_attention_fwd_train_reference(q, k, v, bias, seed, rate)
+    _close(stats, stats_w, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nh,S,hd", [(3, 2, 200, 64), (2, 2, 257, 128), (2, 3, 200, 100)])
+def test_tiled_kernels_take_a_batch_item_whose_keys_are_all_masked(cuda_device, B, nh, S, hd,
+                                                                     dtype):
+    """A batch item with every key masked (bias -1e9, as a padded row of a
+    batch gets): every score of its rows is the same -1e9, and its softmax is
+    uniform over the keys; the tiled kernels against the plain versions at
+    the gates, forward and the backward from the saved statistics."""
+    q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, S + hd + 2, cuda_device)
+    bias[1] = -1e9
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, 0.1)
+    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, 0.1, stats, o32)
+    want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, 0.1),
+            *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, 0.1)]
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, 2.0 ** -7)
+    for got, ref in zip((o, *grads), want):
+        _close(got, ref, *tol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tiled_autograd_at_the_long_shape_meets_the_gate(cuda_device, rate):
+    """`short_attention` through autograd at (4, 12, 514, 64) bf16 (the
+    training forward, its statistics saved, the backward from them) against
+    the plain forward and backward: one bf16 ulp plus 1e-6."""
+    q, k, v, g, bias = _short_inputs(4, 12, 514, 64, torch.bfloat16, 17, cuda_device)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kshort.launch_count("short_attn_tiled_fwd"), kshort.launch_count("short_attn_tiled_bwd")
+    o = kshort.short_attention(*leaves, bias, seed, rate)
+    grads = torch.autograd.grad(o, leaves, g)
+    assert (kshort.launch_count("short_attn_tiled_fwd"),
+            kshort.launch_count("short_attn_tiled_bwd")) == (before[0] + 1, before[1] + 1)
+    want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
+            *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)]
+    for got, ref in zip((o.detach(), *grads), want):
+        assert got.dtype == torch.bfloat16
+        _close(got, ref, 1e-6, 2.0 ** -7)
 
 
 @pytest.mark.parametrize("S", [21, 150])

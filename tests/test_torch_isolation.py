@@ -323,7 +323,7 @@ def test_cuda_sources_include_only_the_repo_and_the_toolkit():
 
     csrc = PKG / "csrc"
     local = {p.name for p in csrc.glob("*.cuh")}
-    toolkit = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "cstdint", "cstddef",
+    toolkit = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "cuda.h", "cstdint", "cstddef",
                "math.h", "cmath", "stdint.h"}
     seen = set()
     for path in sorted(csrc.iterdir()):

@@ -126,20 +126,24 @@ def _split_matmul(x, b):
     return sum(torch.matmul(t, b) for t in (hi, mid, lo))
 
 
-def _tiled_model(q, k, v, bias, seed, g, rate):
+def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False):
     """(o, dq, dk, dv) as the tiled kernels form them, on the CPU: keys and
-    queries in tiles of NB (bf16: 64, 32 at hd > 64; f32: 32).  Forward:
-    a pass over the key tiles for the row max m and the sum l (rescaled by
-    exp(m_old - m_new) when a tile raises m), then p = exp(s - m) / l and o
-    summed tile by tile.  dq kernel: m, l and R = sum dp exp(s - m) rescaled
-    alike, r = R / l, then ds = p (dp - r) and dq summed tile by tile; dk/dv
-    kernel: p from that m and l, the same ds, dk and dv summed over query
-    tiles.  bf16 takes its products as the kernels do (q k^T and do v^T of
-    the inputs, scale after q k^T and ds^T q, pd and ds as three bf16
-    terms); each output rounded once."""
+    queries in tiles of NB (bf16: 64, 32 for the dk/dv kernel's query tiles
+    at hd > 64; f32: 32).  Forward, one pass over the key tiles: the row
+    max m and sum l online (when a tile raises m, l and the f32 accumulator
+    are rescaled by exp(m_old - m_new)), the accumulator += (exp(s - m) times
+    the 0/1 mask) v, and at the end o32 = acc (1 / l) keep_scale; it saves m,
+    l and o32.  r = rowsum(do o32) (from the bf16 o with `r_from_bf16_o`).
+    dq kernel, one pass: p = exp(s - m) (1 / l), ds = p (dp - r), dq summed
+    tile by tile; dk/dv kernel: the same p and ds, pd = p keep, dk and dv
+    summed over query tiles.  bf16 takes its products as the kernels do (q
+    k^T and do v^T of the inputs, scale after q k^T and ds^T q, the f32
+    intermediate as three bf16 terms); each output rounded once.  (The bf16
+    kernels take exp as ex2.approx, within a few f32 ulps of torch.exp.)"""
     B, nh, S, hd = q.shape
     bf16 = q.dtype == torch.bfloat16
-    NB = (64 if hd <= 64 else 32) if bf16 else 32
+    NB = 64 if bf16 else 32
+    NQ = (64 if hd <= 64 else 32) if bf16 else 32
     scale = tsa.softmax_scale(hd)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     if bf16:
@@ -148,49 +152,169 @@ def _tiled_model(q, k, v, bias, seed, g, rate):
     else:
         s = torch.matmul(qf * scale, kf.transpose(-1, -2)) + bias[:, None, None, :]
         product = torch.matmul
-    keep = torch.ones_like(s)
+    mask = torch.ones_like(s)
+    ks = keep_scale(rate)
     if rate > 0.0:
         b = torch.arange(B).reshape(B, 1, 1, 1)
         h = torch.arange(nh).reshape(1, nh, 1, 1)
-        keep = short_attention_keep_mask(S, rate, seed, b, h) * keep_scale(rate)
-    dp = torch.matmul(gf, vf.transpose(-1, -2)) * keep
+        mask = short_attention_keep_mask(S, rate, seed, b, h)
+    keep = mask * ks
     tiles = [slice(t, min(t + NB, S)) for t in range(0, S, NB)]
     m = torch.full((B, nh, S, 1), -float("inf"))
-    l, R = torch.zeros(B, nh, S, 1), torch.zeros(B, nh, S, 1)
+    l, acc = torch.zeros(B, nh, S, 1), torch.zeros(B, nh, S, hd)
     for t in tiles:
         m_new = torch.maximum(m, s[..., t].max(-1, keepdim=True).values)
         alpha, x = torch.exp(m - m_new), torch.exp(s[..., t] - m_new)
         l = l * alpha + x.sum(-1, keepdim=True)
-        R = R * alpha + (dp[..., t] * x).sum(-1, keepdim=True)
+        acc = acc * alpha + product(x * mask[..., t], vf[..., t, :])
         m = m_new
-    r = R / l
-    p = torch.exp(s - m) / l
+    inv_l = 1.0 / l
+    o32 = acc * (inv_l * ks)
+    o = o32.to(q.dtype)
+    r = (gf * (o.float() if r_from_bf16_o else o32)).sum(-1, keepdim=True)
+    p = torch.exp(s - m) * inv_l
+    dp = torch.matmul(gf, vf.transpose(-1, -2)) * keep
     pd, ds = p * keep, p * (dp - r)
     qs = qf if bf16 else qf * scale
-    o = sum(product(pd[..., t], vf[..., t, :]) for t in tiles)
     dq = sum(product(ds[..., t], kf[..., t, :]) for t in tiles) * scale
-    dk = sum(product(ds[..., t, :].transpose(-1, -2), qs[..., t, :]) for t in tiles)
-    dv = sum(product(pd[..., t, :].transpose(-1, -2), gf[..., t, :]) for t in tiles)
+    qtiles = [slice(t, min(t + NQ, S)) for t in range(0, S, NQ)]
+    dk = sum(product(ds[..., t, :].transpose(-1, -2), qs[..., t, :]) for t in qtiles)
+    dv = sum(product(pd[..., t, :].transpose(-1, -2), gf[..., t, :]) for t in qtiles)
     if bf16:
         dk = dk * scale
-    return tuple(x.to(q.dtype) for x in (o, dq, dk, dv))
+    return (o, *(x.to(q.dtype) for x in (dq, dk, dv))), torch.cat((m, l), -1), o32
+
+
+def _tiled_case(S, hd, dtype, case):
+    """Inputs of a model case: `_short_inputs` at (2, 2, S, hd), and for
+    "rescale" a last key tile (unmasked) with a bias of 30 (each row's max
+    rises by at least 20 there), for "masked_tail" batch item 0's keys
+    masked from 64 before the last tile of 64 on (whole trailing tiles of
+    every kernel's keys)."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _short_inputs(2, 2, S, hd, seed=S * hd))
+    last = (S - 1) // 64 * 64
+    if case == "rescale":
+        bias[:, last:] = 30.0
+    elif case == "masked_tail":
+        bias[0, last - 64:] = -1e9
+    return (*(t.to(getattr(torch, dtype)) for t in (q, k, v, g)), bias)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,hd", [(129, 16), (200, 100), (514, 64)])
-def test_tiled_kernel_arithmetic_meets_the_gates(S, hd, dtype, rate):
+@pytest.mark.parametrize("S,hd,case", [
+    pytest.param(129, 16, "plain", id="129-16"), pytest.param(200, 100, "plain", id="200-100"),
+    pytest.param(514, 64, "plain", id="514-64"), (514, 64, "rescale"),
+    (257, 128, "masked_tail"), (1026, 64, "plain")])
+def test_tiled_kernel_arithmetic_meets_the_gates(S, hd, dtype, rate, case):
     """The tiled kernels' design on the CPU against the plain versions: f32
-    within 1e-5 + 1e-5 |ref|, bf16 within one bf16 ulp (plus 1e-6)."""
-    q, k, v, g, bias = (torch.from_numpy(a) for a in _short_inputs(2, 2, S, hd, seed=S * hd))
-    q, k, v, g = (t.to(getattr(torch, dtype)) for t in (q, k, v, g))
+    within 1e-5 + 1e-5 |ref|, bf16 within one bf16 ulp (plus 1e-6); the
+    saved m and l and o32 within f32 rounding of the plain training
+    forward's."""
+    q, k, v, g, bias = _tiled_case(S, hd, dtype, case)
+    if case == "rescale":
+        s = torch.matmul(q.float() * tsa.softmax_scale(hd), k.float().transpose(-1, -2))
+        s = s + bias[:, None, None, :]
+        last = (S - 1) // 64 * 64
+        assert (s[..., last:].amax(-1) - s[..., :last].amax(-1)).min() >= 20.0
     seed = torch.tensor([4321], dtype=torch.int32)
-    got = _tiled_model(q, k, v, bias, seed, g, rate)
-    want = (tsa.short_attention_fwd_reference(q, k, v, bias, seed, rate),
-            *tsa.short_attention_bwd_reference(q, k, v, bias, seed, g, rate))
+    got, stats, o32 = _tiled_model(q, k, v, bias, seed, g, rate)
+    o_w, stats_w, o32_w = tsa.short_attention_fwd_train_reference(q, k, v, bias, seed, rate)
+    want = (o_w, *tsa.short_attention_bwd_reference(q, k, v, bias, seed, g, rate))
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), err_msg=name, **tol)
+    np.testing.assert_allclose(stats.numpy(), stats_w.numpy(), **F32_TOL)
+    np.testing.assert_allclose(o32.numpy(), o32_w.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S,hd,case", [(129, 16, "plain"), (514, 64, "plain"),
+                                       (514, 64, "rescale")])
+def test_r_from_the_bf16_output_misses_the_gate(S, hd, case, rate):
+    """Why the training forward saves o32 in bf16: r = rowsum(do o) taken
+    from the rounded o (2^-9 relative) reaches dq wherever ds = p (dp - r)
+    cancels, and dq then leaves the one-ulp gate, where r from o32 meets it."""
+    q, k, v, g, bias = _tiled_case(S, hd, "bfloat16", case)
+    seed = torch.tensor([4321], dtype=torch.int32)
+    want = tsa.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)[0].float()
+    limit = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()
+    outside = {}
+    for from_o in (False, True):
+        dq = _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=from_o)[0][1].float()
+        outside[from_o] = int(((dq - want).abs() > limit).sum())
+    assert outside == {False: 0, True: outside[True]} and outside[True] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [129, 514])
+def test_training_forward_plain_version(S, dtype):
+    """`short_attention_fwd_train` on the CPU (its plain version): o bit
+    for bit `short_attention_fwd`'s, m and l the plain softmax's row max and
+    sum, o32 the f32 o (o itself in f32); the backward from them within f32
+    rounding of the one without (r = rowsum(do o32) against rowsum(dp p))."""
+    q, k, v, g, bias = _tiled_case(S, 32, dtype, "plain")
+    seed = torch.tensor([11], dtype=torch.int32)
+    o, stats, o32 = tsa.short_attention_fwd_train(q, k, v, bias, seed, 0.1)
+    assert stats.shape == (2, 2, S, 2) and stats.dtype == o32.dtype == torch.float32
+    assert torch.equal(o, tsa.short_attention_fwd(q, k, v, bias, seed, 0.1))
+    s = torch.matmul(q.float() * tsa.softmax_scale(32), k.float().transpose(-1, -2))
+    s = s + bias[:, None, None, :]
+    m = s.max(-1).values
+    assert torch.equal(stats[..., 0], m)
+    assert torch.equal(stats[..., 1], torch.exp(s - m[..., None]).sum(-1))
+    assert (o32 is o) == (dtype == "float32") and torch.equal(o32.to(o.dtype), o)
+    with_stats = tsa.short_attention_bwd(q, k, v, bias, seed, g, 0.1, stats, o32)
+    alone = tsa.short_attention_bwd(q, k, v, bias, seed, g, 0.1)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for name, a, b in zip(("dq", "dk", "dv"), with_stats, alone):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), err_msg=name, **tol)
+    with pytest.raises(ValueError, match="together"):
+        tsa.short_attention_bwd(q, k, v, bias, seed, g, 0.1, stats)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 2, 200, 40), (1, 2, 514, 64)], ids=str)
+def test_short_attention_saves_the_row_statistics_and_matches_jax(interpreted, monkeypatch,
+                                                                   shape, dtype):
+    """`ShortAttention` beyond S = 128 runs the training forward when a
+    gradient is needed (and only then), saves its statistics and o32, and
+    its backward reads them: forward and gradients against jax.vjp of the
+    JAX kernel in interpret mode at S = 200 and 514."""
+    B, nh, S, hd = shape
+    q, k, v, g, bias = _short_inputs(*shape, seed=S)
+    rate, seed = 0.1, 123
+    jdt = jnp.dtype(dtype)
+    want, vjp = jax.vjp(lambda a, b_, c: jsa.short_attention(
+        a, b_, c, jnp.asarray(bias), jnp.asarray([seed], jnp.int32), rate),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g).astype(jdt))
+    calls = {"train": 0, "bwd_stats": 0}
+    train, bwd = tsa.short_attention_fwd_train, tsa.short_attention_bwd
+
+    def spy_train(*args):
+        calls["train"] += 1
+        return train(*args)
+
+    def spy_bwd(*args):
+        calls["bwd_stats"] += len(args) == 9 and args[7] is not None
+        return bwd(*args)
+
+    monkeypatch.setattr(tsa, "short_attention_fwd_train", spy_train)
+    monkeypatch.setattr(tsa, "short_attention_bwd", spy_bwd)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (q, k, v))
+    tseed, tbias = torch.tensor([seed], dtype=torch.int32), torch.from_numpy(bias)
+    with torch.no_grad():
+        tsa.short_attention(tq, tk, tv, tbias, tseed, rate)
+    assert calls["train"] == 0
+    got = tsa.short_attention(tq, tk, tv, tbias, tseed, rate)
+    got_grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(g).to(tdt))
+    assert calls == {"train": 1, "bwd_stats": 1}
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (got, *got_grads), (want, *want_grads)):
+        np.testing.assert_allclose(a.detach().float().numpy(), np.asarray(b, np.float32),
+                                   err_msg=name, **tol)
 
 
 # ------------------------------------------------- flash attention at any D
