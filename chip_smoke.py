@@ -5,6 +5,7 @@
     python3 chip_smoke.py --first-calls
     python3 chip_smoke.py --phase15
     python3 chip_smoke.py --phase16
+    python3 chip_smoke.py --phase17
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -50,7 +51,7 @@ the result):
    long step's (384, 514, 64) beside `F.scaled_dot_product_attention` with
    the same additive mask and dropout_p and its `autograd.grad`.  The two
    short attention kernels at (B, nh, S, hd) = (64, 12, S, 64) for S = 18,
-   34, 50, 66 and at (3, 4, 10, 8), f32 (1e-5 + 1e-5 |ref|) and bf16 (one
+   34, 50, 66, at (32, 12, 50, 64) and at (3, 4, 10, 8), f32 (1e-5 + 1e-5 |ref|) and bf16 (one
    bf16 ulp), rate 0 and 0.1, masked tails, their keep mask bit for bit in
    f32 and bf16, two launches of each giving the same bits, the HMMA count
    of both bf16 kernels (none fails); the tiled short kernels (query and key
@@ -58,7 +59,10 @@ the result):
    257, 128), (1, 2, 1026, 64) and (2, 3, 200, 100) (the cp.async loader),
    their masks at S = 129 and 514, each call launching its route's kernels
    and no other, the training forward and the backward from its statistics
-   bit-equal to the plain calls; hd = 136 refused; timed at (64, 12, 50, 64)
+   bit-equal to the plain calls; an item whose keys are all masked and whose
+   scores reach 33, 40 and 100 against the plain training forward and the
+   plain backward from its statistics (`check_masked_items`, f32 and bf16, at
+   (3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100)); hd = 136 refused; timed at (64, 12, 50, 64)
    and (32, 12, 514, 64) bf16 beside SDPA, the tiled backward from the saved
    statistics by part (r, dq, dk/dv) and alone, and both bf16 tiled designs
    (`wgmma` fed by TMA, `mma.sync` fed by cp.async) in turns with their
@@ -69,7 +73,7 @@ the result):
    against their plain versions (1e-5 + 1e-5 |ref|) and against four
    single-direction calls, whose passes they run: ys, cs, h_fin and dx_proj
    bit for bit, dw_hh_t too where its runs are the same; two launches
-   giving the same bits; timed beside those four calls and cuDNN, with the
+   giving the same bits; timed at (48, 64) beside those four calls and cuDNN, with the
    time per serial step, the backward split into its gate pass, BPTT and dW
    passes, and the launch geometry (registers a thread, blocks, resident
    blocks an SM, waves);
@@ -238,7 +242,22 @@ the result):
    captured at B=32 and B=1 against eager calls, within 2e-2 of the dense-core and flash
    `Predictor`s; then `cli.train --attn_impl fused --max_seq_len 512 --bucket_sizes 64,512`
    and a `Predictor` on its export.  `--phase16` runs phase 16 alone after the build;
-17. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
+17. data parallelism (`mmda_tpu_torch/parallel/mesh.py`) at the flagship's full width
+   (bert-base, B=64 global, T=48, `attn_impl="fused"`, LSTM towers): (a) `torchrun
+   --nproc_per_node 1 chip_smoke.py --dp-cli ...`, whose rank joins an nccl process group
+   and runs `cli.train --compiled_epoch True` in its process (8 steps of the data-parallel
+   step, its collectives captured with it; 8 + 8 LSTM and 12 + 12 short attention launches
+   a step, 8 + 12 an eval batch, replays counted as recorded), against the one-process
+   `Trainer` on the same configuration in this process: the best export and the `last_*`
+   delta the same bytes, the epoch's losses and metrics the same; both captured steps
+   timed; (b) two ranks on the one card: nccl (what it answers is recorded; it refuses two
+   ranks on one device), then gloo (each collective through the host), each rank 3 eager
+   f32 steps on its 32 rows (dropout off), against the one-process step at the global
+   batch: the losses and the trained parameters within twice what splitting the batch in
+   two on one process through the plain versions (`split_step`) moves them, and at least
+   DP_LOSS_FLOOR (relative) and DP_PARAM_FLOOR; the ranks' launches and step times beside
+   the one-process step's.  `--phase17` runs phase 17 alone after the build;
+18. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
@@ -273,13 +292,15 @@ SERVE_TOL = 1e-3                  # kernel vs plain recurrence, whole model
 DEVICE_TOL = 1e-4                 # card vs CPU, small f32 model
 # (T, B, H): serving shapes (buckets 16/32/64, batch 64, towers H=35/74),
 # the GloVe tower's H=300 (w_hh_t in global memory), long T, where the TPU
-# package used its time-chunked streaming kernel, and EF_LSTM's step (hidden
-# 128 over inputs of 409 and 256: w_hh_t in global memory too)
+# package used its time-chunked streaming kernel, EF_LSTM's step (hidden
+# 128 over inputs of 409 and 256: w_hh_t in global memory too), and the
+# towers at B = 32, a rank's rows of phase 17's two-rank step
 CHECK_SHAPES = [(16, 64, 35), (32, 64, 35), (48, 64, 35), (64, 64, 35),
                 (16, 64, 74), (32, 64, 74), (48, 64, 74), (64, 64, 74),
-                (48, 64, 300), (256, 32, 74), (512, 32, 74), (7, 5, 33), (48, 64, 128)]
+                (48, 64, 300), (48, 32, 35), (48, 32, 74), (256, 32, 74), (512, 32, 74),
+                (7, 5, 33), (48, 64, 128)]
 TIMED_SHAPES = [(48, 64, 35), (64, 64, 35), (16, 64, 74), (48, 64, 74), (64, 64, 74),
-                (256, 32, 74), (512, 32, 74), (48, 64, 128)]
+                (512, 32, 74), (48, 64, 128)]
 REPORT_SHAPE = (64, 64, 74)       # the kernels line: largest bucket, wider tower
 REPORT_BWD_SHAPE = (48, 64, 74)   # the training step's wider tower
 LAUNCHES_PER_CALL = 8             # 2 towers x 2 layers x 2 directions
@@ -372,25 +393,32 @@ LN_SEEDS = (7, 2 ** 31 - 2)
 BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
 LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
 # (B, nh, S, hd) of the short attention checks: the flagship step's S = 50 and the
-# serving buckets' S = 18, 34, 66 at bert-base's 12 heads of 64, and a small odd
-# shape; each in f32 and bf16, at rate 0 and 0.1; they take one block per (b, h).
+# serving buckets' S = 18, 34, 66 at bert-base's 12 heads of 64, the flagship
+# step's rank rows in phase 17's two-rank step (B = 32), and a small odd shape;
+# each in f32 and bf16, at rate 0 and 0.1; they take one block per (b, h).
 # Beyond S = 128 the tiled kernels: the fused long step's (32, 12, 514, 64), S just
 # past 128 at hd = 8, the widest head at S = 257, and S = 1026.  hd > 128: refused.
 SHORT_SHAPES = [(64, 12, 18, 64), (64, 12, 34, 64), (64, 12, 50, 64), (64, 12, 66, 64),
-                (3, 4, 10, 8)]
+                (32, 12, 50, 64), (3, 4, 10, 8)]
 SHORT_TILED_SHAPES = [(32, 12, 514, 64), (2, 4, 129, 8), (2, 4, 257, 128), (1, 2, 1026, 64),
                       (2, 3, 200, 100)]
 SHORT_REFUSED = [(2, 12, 130, 136)]
+# a batch item whose keys are all masked, its q scaled so that the largest
+# |s scale| reaches each of MASKED_REACH (>= 32: s scale - 1e9 no longer rounds
+# to -1e9): the tiled kernels (hd 64 on wgmma, 100 on mma.sync) at these shapes
+MASKED_ITEM_SHAPES = [(3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100)]
+MASKED_REACH = (33.0, 40.0, 100.0)
 SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 0.1
 SHORT_TILED_REPORT = (LONG_B, 12, LONG_T + 2, 64)   # the fused long step's call
 SHORT_F32_TOL = (1e-5, 1e-5)       # f32 on both sides, summation order only
 SHORT_BF16_TOL = (1e-6, 2.0 ** -7)  # all math f32, each output rounded once: one bf16 ulp
 SHORT_MASKS = [(3, 4, 18, 7), (2, 12, 50, -5), (1, 2, 66, 2 ** 31 - 2), (2, 3, 129, 11),
                (1, 2, 514, -7)]
-# (T, B) of the multi-direction LSTM checks and times, with the tower pair's
+# (T, B) of the multi-direction LSTM checks and of the tower pair, with its
 # four directions at their true H (visual 35 forward and reverse, acoustic
 # 74); the checks also launch H = 35, 74 and 300 together, so that they reach
-# the serial passes' three instantiations (11, 21, 0) in one launch
+# the serial passes' three instantiations (11, 21, 0) in one launch.  The
+# kernels are timed at MULTI_REPORT alone (T = 512's last times: PERF.md rows 19-20).
 MULTI_SHAPES = [(48, 64), (512, 32)]
 MULTI_HS = (35, 35, 74, 74)
 MULTI_REVERSE = (False, True, False, True)
@@ -1333,6 +1361,93 @@ def short_bounds(B, nh, S, hd, dtype) -> dict:
     return out
 
 
+def masked_item_inputs(B, nh, S, hd, dtype, reach, device):
+    """`short_inputs` with batch item 1's keys all masked and its q scaled
+    so that the largest |s scale| of its scores is `reach`."""
+    q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, S + hd + 3, device)
+    bias[1] = -1e9
+    scale = 1.0 / hd ** 0.5
+    s1 = torch.einsum("hqd,hkd->hqk", q[1].float(), k[1].float()) * scale
+    q[1] = (q[1].float() * (reach / s1.abs().max())).to(dtype)
+    return q, k, v, g, bias
+
+
+def masked_item_exact(kshort, q, k, v, bias, seed, g, rate):
+    """The tiled kernels' function in float64 on these inputs: the scores
+    rounded in f32 as the plain version rounds them (which, at the mask's
+    -1e9, decides which keys tie at a row's max), every step after them in
+    float64: (o, dq, dk, dv)."""
+    s, qs = (t.double() for t in kshort._scores(q, k, bias))
+    keep = kshort._keep(q, seed, rate)
+    keep = 1.0 if keep is None else keep.double()
+    p = torch.softmax(s, -1)
+    do, vd = g.double(), v.double()
+    dp = torch.matmul(do, vd.transpose(-1, -2)) * keep
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return (torch.matmul(p * keep, vd), torch.matmul(ds, k.double()) * kshort.softmax_scale(
+        q.shape[-1]), torch.matmul(ds.transpose(-1, -2), qs),
+            torch.matmul((p * keep).transpose(-1, -2), do))
+
+
+def masked_item_case(kshort, B, nh, S, hd, dtype, reach, device) -> dict:
+    """The tiled kernels' training forward and backward from its statistics
+    on `masked_item_inputs` against the plain training forward and the plain
+    backward from its statistics (the form the kernels take) at the gate,
+    but for dq and dk of the masked item: its softmax is one-hot, so ds = p
+    (dp - r) cancels to a few f32 ulps of dp in any order of summation (the
+    plain forms from rowsum(dp p) and from rowsum(do o32) part by 2.35e-5 in
+    dk at hd = 100, reach 40).  There the kernels are held to the float64
+    evaluation of their function (`masked_item_exact`) at the gate widened
+    by twice that noise: the plain version's largest distance from it in
+    f32, before any rounding to the output's type.  A kernel that takes the
+    masked rows' p wrong lands far outside either.  Raises past a bound;
+    returns, by output, the masked item's largest errors from float64, the
+    kernels' and the plain version's in f32."""
+    seed = torch.tensor([4], dtype=torch.int32, device=device)
+    q, k, v, g, bias = masked_item_inputs(B, nh, S, hd, dtype, reach, device)
+    o, st, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)
+    got = (o, *kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE, st, o32))
+    o_w, st_w, o32_w = kshort.short_attention_fwd_train_reference(q, k, v, bias, seed,
+                                                                  ATTN_RATE)
+    plain = (o_w, *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE,
+                                                        st_w, o32_w))
+    f32 = [t.float() for t in (q, k, v)]
+    plain32 = (o32_w, *kshort.short_attention_bwd_reference(
+        *f32, bias, seed, g.float(), ATTN_RATE, st_w, o32_w))
+    exact = masked_item_exact(kshort, q, k, v, bias, seed, g, ATTN_RATE)
+    atol, rtol = SHORT_F32_TOL if dtype == torch.float32 else SHORT_BF16_TOL
+    where = f"masked item (B,nh,S,hd)={(B, nh, S, hd)} {dtype} reach {reach}"
+    out = {}
+    for name, a, w, w32, x in zip(("o", "dq", "dk", "dv"), got, plain, plain32, exact):
+        gated = [b for b in range(B) if b != 1 or name in ("o", "dv")]
+        max_err([(name, a[gated], w[gated])], (atol, rtol), where)
+        err = (a[1].double() - x[1]).abs()
+        noise = (w32[1].double() - x[1]).abs().max().item()
+        if name in ("dq", "dk") and (err - atol - rtol * x[1].abs() - 2 * noise).max() > 0:
+            raise AssertionError(f"{where}: {name} of the masked item {err.max().item():.3e} "
+                                 f"from float64, the plain version {noise:.3e} in f32")
+        out[name] = {"err": err.max().item(), "plain_f32_err": noise}
+    return out
+
+
+def check_masked_items(kshort, device) -> dict:
+    """`masked_item_case` at every MASKED_ITEM_SHAPES, MASKED_REACH, f32 and
+    bf16; the largest errors from float64, the kernels' and the plain
+    version's, by dtype."""
+    worst = {}
+    for (B, nh, S, hd), reach, dtype in itertools.product(
+            MASKED_ITEM_SHAPES, MASKED_REACH, (torch.float32, torch.bfloat16)):
+        case = masked_item_case(kshort, B, nh, S, hd, dtype, reach, device)
+        row = worst.setdefault(str(dtype)[6:], {"err": 0.0, "plain_f32_err": 0.0})
+        for r in case.values():
+            row["err"] = max(row["err"], r["err"])
+            row["plain_f32_err"] = max(row["plain_f32_err"], r["plain_f32_err"])
+    out = {"shapes": MASKED_ITEM_SHAPES, "reach": MASKED_REACH, "from_float64": worst,
+           "tol": {"float32": SHORT_F32_TOL, "bfloat16": SHORT_BF16_TOL}}
+    log("3 short-tiled-masked-items", **out)
+    return out
+
+
 def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32) -> None:
     """The forward's and the backward's keep mask against the plain hash,
     bit for bit, with q, k, v in `dtype`: q = k = 0 and no bias make every
@@ -1501,6 +1616,7 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             refused.append({"S": S, "hd": hd, "error": str(e)[:120]})
         else:
             raise AssertionError(f"short attention took hd = {hd}")
+    masked_items = check_masked_items(kshort, device)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
@@ -1560,6 +1676,7 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             del q, k, v, g, bias, lq, lk, lv, lib_out, saved
             torch.cuda.empty_cache()
     return {name: {"checks": rows[name], "timed": timed[name], "refused": refused,
+                   **({"masked_items": masked_items} if "tiled" in name else {}),
                    "max_abs_err": errs[name]["float32"],
                    "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0],
                    **({"sass": sass[name]} if name in sass else {})}
@@ -1693,12 +1810,13 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
     `lstm_bwd`, whose passes every direction runs: ys, cs, h_fin and dx_proj
     bit for bit, dw_hh_t too where its runs of rows are the same; two
     launches give the same bits; the checks reach the serial passes' three
-    instantiations.  Then, at MULTI_SHAPES, their times beside those four
+    instantiations.  Then, at MULTI_REPORT, their times beside those four
     calls and four cuDNN `nn.LSTM` calls (forward, or autograd.grad; no one
     PyTorch call computes the four directions, so `library_ms` is None), the
-    time per serial step, the backward's parts, and the launch geometry
-    (registers, blocks, resident blocks an SM, waves).  Returns (forward,
-    backward) results."""
+    time per serial step, the backward's parts, the launch geometry
+    (registers, blocks, resident blocks an SM, waves), and the launch plans,
+    which differ there, compared (`compare_multi_plans`).
+    Returns (forward, backward) results."""
     from mmda_tpu_torch.ops.kernels._launch import bptt_instantiation
 
     rows = {"fwd": [], "bwd": []}
@@ -1751,7 +1869,7 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
                                                   "dw_hh_t_bit_equal": same_runs,
                                                   "dw_hh_t_max_abs_err": dw_vs_single},
                             "twice": "bit-equal"})
-        if (T, B) not in MULTI_SHAPES or tuple(hs) != MULTI_HS:
+        if (T, B) != MULTI_REPORT or tuple(hs) != MULTI_HS:
             continue
 
         packed = [dys[d] * m[d][..., None] for d in range(D)]   # no padded outputs in cuDNN's
@@ -1763,7 +1881,7 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
                           for d in range(D)]
         four_b = lambda: [klstm.lstm_recurrence_bwd(x[d], w[d], m[d], ys_w[d], cs_w[d], dys[d],
                                                     dh[d], None, rev[d]) for d in range(D)]
-        # the plain versions loop over T in Python (up to 2 s a call at T=512): one call each
+        # the plain versions loop over T in Python: one call each
         rows_f = kernel_times(fwd, lambda: kmulti.lstm_multi_recurrence_reference(x, w, m, rev,
                                                                                   True),
                               lambda: [c() for c in lib_f], 1, 0)
@@ -1774,6 +1892,7 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
         if isinstance(rows_b["parts_ms"]["bptt"], float):     # the serial pass alone
             rows_b["bptt_us_per_step"] = rows_b["parts_ms"]["bptt"] * 1e3 / T
         geometry = kmulti.launch_geometry(hs, B, device)
+        # the plans differ here: a visual row beside an acoustic one
         plans = compare_multi_plans(kmulti, klstm, T, B, x, w, m, rev, ys_w, cs_w, dys, dh)
         log("3 lstm-multi-plans", T=T, B=B, **plans)
         for row in (rows_f, rows_b):      # no one PyTorch call computes the four directions
@@ -1809,7 +1928,7 @@ def check_multi_kernels(kmulti, klstm, device) -> tuple:
         twice="bit-equal", instantiations=used)
 
     def result(k):
-        report = next(r for r in timed[k] if (r["T"], r["B"]) == MULTI_REPORT)
+        (report,) = timed[k]
         return {"checks": rows[k], "timed": timed[k], "max_abs_err": worst[k], "report": report}
 
     return result("fwd"), result("bwd")
@@ -2193,6 +2312,30 @@ def same_relu_branches(model, recorded: dict, flips: dict, align: bool):
             h.remove()
 
 
+@contextlib.contextmanager
+def plain_versions(counts):
+    """Inside the block BERT's fused LayerNorm sites and the attention
+    kernels (flash and short) run their plain versions; the block must
+    launch no kernel (the towers' recurrence is the caller's to replace)."""
+    from mmda_tpu_torch.models import bert
+    from mmda_tpu_torch.ops.kernels import attention as kattn
+    from mmda_tpu_torch.ops.kernels import short_attention as kshort
+    from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm_reference
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(replaced(bert, "residual_dropout_layernorm",
+                                     residual_dropout_layernorm_reference))
+        for module, names in ((kattn, ("flash_attention_fwd", "flash_attention_bwd")),
+                              (kshort, ("short_attention_fwd", "short_attention_bwd",
+                                        "short_attention_fwd_train"))):
+            for name in names:
+                stack.enter_context(replaced(module, name, getattr(module, name + "_reference")))
+        counts.reset_launch_count()
+        yield
+        if any(all_launches(counts).values()):
+            raise AssertionError(f"the plain path made {all_launches(counts)} launches")
+
+
 def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tuple:
     """One step's gradients on the flagship model with the kernels against
     their plain versions: the towers' recurrence replaced by `reference`
@@ -2208,10 +2351,6 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tupl
     one pass's gradient and not to the other's.  Returns (max |err|, the
     sign changes aligned)."""
     from mmda_tpu_torch.data.loader import ArrayLoader
-    from mmda_tpu_torch.models import bert
-    from mmda_tpu_torch.ops.kernels import attention as kattn
-    from mmda_tpu_torch.ops.kernels import short_attention as kshort
-    from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm_reference
     from mmda_tpu_torch.train.step import loss_and_grads
 
     cfg, model = trainer.cfg, trainer.model
@@ -2227,28 +2366,10 @@ def grads_kernel_vs_plain(trainer, counts, kind: str, reference, device) -> tupl
     if all_launches(counts) != expected_launches(counts, TRAIN_CONFIGS[kind]["per_step"]):
         raise AssertionError(f"the kernel-path gradient made {all_launches(counts)} launches")
     trainer.generator.set_state(state)
-    fused = bert.residual_dropout_layernorm
-    attn_fwd, attn_bwd = kattn.flash_attention_fwd, kattn.flash_attention_bwd
-    short_fwd, short_bwd = kshort.short_attention_fwd, kshort.short_attention_bwd
-    short_train = kshort.short_attention_fwd_train
-    bert.residual_dropout_layernorm = residual_dropout_layernorm_reference
-    kattn.flash_attention_fwd = kattn.flash_attention_fwd_reference
-    kattn.flash_attention_bwd = kattn.flash_attention_bwd_reference
-    kshort.short_attention_fwd = kshort.short_attention_fwd_reference
-    kshort.short_attention_bwd = kshort.short_attention_bwd_reference
-    kshort.short_attention_fwd_train = kshort.short_attention_fwd_train_reference
-    try:
-        counts.reset_launch_count()
+    with plain_versions(counts):
         with same_relu_branches(model, recorded, flips, align=True):
             _, want = loss_and_grads(model, batch, cfg, params, recurrence=reference,
                                      generator=trainer.generator)
-        if any(all_launches(counts).values()):
-            raise AssertionError(f"the plain path made {all_launches(counts)} launches")
-    finally:
-        bert.residual_dropout_layernorm = fused
-        kattn.flash_attention_fwd, kattn.flash_attention_bwd = attn_fwd, attn_bwd
-        kshort.short_attention_fwd, kshort.short_attention_bwd = short_fwd, short_bwd
-        kshort.short_attention_fwd_train = short_train
     finite_losses(got_l, "kernel-path step")
     err, excess = 0.0, 0.0
     for g, w in zip(got, want):
@@ -4232,6 +4353,343 @@ def phase16(counts, klstm, device) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------- phase 17
+
+DP_STEPS = 3                      # the two gloo ranks' steps, and the one-process references
+DP_TIMED = 10                     # captured replays timed in (a), each side
+DP_TIMEOUT_S = 60.0               # every process group's timeout; each spawned set's deadline
+# (b)'s least tolerance: about 5x the losses' and 2-3x the parameters'
+# distance from the one-process step that two gloo ranks and the kernels'
+# split step gave (9.5e-7; 8.1e-6 and 6.8e-6: PERF.md), a fifth of one Adam
+# step (lr 1e-4), which a wrong gradient's sign moves a parameter by
+DP_LOSS_FLOOR, DP_PARAM_FLOOR = 5e-6, 2e-5
+# (a): cli.train's flagship fused configuration, every batch the full B x T
+DP_CLI = ("--data", "synthetic", "--n_epoch", "1", "--attn_impl", "fused", "--max_seq_len",
+          str(TRAIN_T), "--bucket_sizes", str(TRAIN_T), "--batch_size", str(TRAIN_B),
+          "--compiled_epoch", "True", "--name", "dp")
+DP_CLI_STEPS, DP_CLI_EVALS = 512 // TRAIN_B, 2 * (128 // TRAIN_B)   # cli.load_data's splits
+DP_PER_STEP = TRAIN_CONFIGS["fused"]["per_step"]
+DP_PER_EVAL = TRAIN_CONFIGS["fused"]["per_eval"]
+
+
+def dp_cfg_and_data(name: str, **options):
+    """(a) and (b)'s configuration at the flagship's full width (bert-base,
+    B=64, T=48, `attn_impl="fused"`, the mosei freeze rule) and its splits:
+    cli.train's under DP_CLI, or (b)'s f32 one (full-length batches)."""
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import Config, get_config
+
+    if name == "dp":
+        cfg = get_config(argv=[*DP_CLI, "--ckpt_dir", str(BUILD / "chip_smoke_dp_one")])
+        return cfg, cli_train.load_data(cfg)[0]
+    cfg = Config(use_bert=True, data="mosei", batch_size=TRAIN_B, max_seq_len=TRAIN_T,
+                 bucket_sizes=(TRAIN_T,), attn_impl="fused", n_epoch=1, seed=0, name=name,
+                 ckpt_dir=str(BUILD / f"chip_smoke_{name}"), log_sinks=(), **options)
+    return cfg, {"train": full_length_split(TRAIN_B * DP_STEPS, 0),
+                 "dev": full_length_split(TRAIN_B, 1), "test": full_length_split(TRAIN_B, 2)}
+
+
+def replay_ms(trainer, device) -> float:
+    """Median host ms of DP_TIMED replays of the trainer's training graph
+    (its rows under its mesh), each ended by a synchronize, after a warm-up
+    and the capture."""
+    from mmda_tpu_torch.train.step import make_train_graph
+
+    hosts = [trainer._shard(h) for h in
+             itertools.islice(trainer._loader("train", shuffle=False).host_batches(), 3)]
+    graph = make_train_graph(trainer.model, trainer.optimizer, trainer.cfg, device,
+                             trainer.generator, trainer.ema, trainer.pool, trainer.step_mesh,
+                             trainer.dropout_generator)
+    times = []
+    for i in range(DP_TIMED + 2):
+        t0 = time.perf_counter()
+        graph(hosts[i % 3])
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
+
+
+def dp_cli_rank(out_path: str, argv: list) -> int:
+    """(a)'s rank under torchrun: the process group over nccl, then
+    `cli.train` with `argv` in this process, its launches counted; then the
+    captured step of the same configuration timed on this rank's mesh."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import get_config, set_reference_numerics
+    from mmda_tpu_torch.ops.kernels import _launch as counts
+    from mmda_tpu_torch.parallel.mesh import init_distributed
+    from mmda_tpu_torch.train.loop import Trainer
+
+    device = init_distributed("cuda", timeout_s=DP_TIMEOUT_S)
+    set_reference_numerics()
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    summary = cli_train.main([*argv, "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches = all_launches(counts)
+    cfg = get_config(argv=[*argv, "--device", str(device)])
+    trainer = Trainer(cfg, cli_train.load_data(cfg)[0])
+    step_ms = replay_ms(trainer, device)
+    if dist.get_rank() == 0:
+        pathlib.Path(out_path).write_text(json.dumps({
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "dp": trainer.mesh.dp, "device": str(device), "launches": launches,
+            "train_wall_s": wall, "captured_ms": step_ms, "summary": summary}, default=float))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_nccl_rank(rank: int, store: str, out_dir: str) -> None:
+    """(b)'s first check: a rank of two nccl ranks on the one card; what
+    the first collective does, as text."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from mmda_tpu_torch.parallel.mesh import init_distributed
+
+    try:
+        device = init_distributed("cuda:0", init_method=f"file://{store}", rank=rank,
+                                  world_size=2, timeout_s=30)
+        t = torch.ones(1, device=device)
+        dist.all_reduce(t)
+        torch.cuda.synchronize(device)
+        result = f"all_reduce gave {t.item()}"
+    except Exception as e:                  # what NCCL says is the result
+        result = f"{type(e).__name__}: {e}"
+    pathlib.Path(out_dir, f"nccl{rank}.txt").write_text(result)
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        pass
+
+
+def dp_eager_steps(trainer, device, step) -> tuple:
+    """DP_STEPS steps `step(host)` over the trainer's first batches (dropout
+    off: both sides run the deterministic forward); ([losses], [ms])."""
+    losses, times = [], []
+    for host in itertools.islice(trainer._loader("train", shuffle=False).host_batches(),
+                                 DP_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = step(host)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    return losses, times
+
+
+def dp_gloo_trainer(device):
+    from mmda_tpu_torch.train.loop import Trainer
+
+    cfg, data = dp_cfg_and_data("dp_gloo", compute_dtype="float32", compiled_epoch=False,
+                                compiled_eval=False)
+    trainer = Trainer(cfg, data)
+    model = trainer.model
+    model.train = lambda mode=True: torch.nn.Module.train(model, False)
+    return trainer
+
+
+def dp_gloo_rank(rank: int, store: str, ref_path: str, out_dir: str) -> None:
+    """(b)'s rank: one of two gloo ranks on the one card, DP_STEPS eager f32
+    steps of the data-parallel Trainer, each on its rows; its losses, step
+    times and launches, and its trained parameters' distance from the
+    one-process step's at the global batch (`ref_path`)."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from mmda_tpu_torch.config import set_reference_numerics
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.ops.kernels import _launch as counts
+    from mmda_tpu_torch.parallel.mesh import init_distributed
+    from mmda_tpu_torch.train.step import train_step
+
+    device = init_distributed("cuda:0", backend="gloo", init_method=f"file://{store}",
+                              rank=rank, world_size=2, timeout_s=DP_TIMEOUT_S)
+    set_reference_numerics()
+    trainer = dp_gloo_trainer(device)
+    counts.reset_launch_count()
+    losses, times = dp_eager_steps(trainer, device, lambda h: train_step(
+        trainer.model, trainer.optimizer, to_device(trainer._shard(h), device), trainer.cfg,
+        trainer.generator, trainer.ema, mesh=trainer.step_mesh,
+        dropout_generator=trainer.dropout_generator))
+    launches = all_launches(counts)
+    ref = torch.load(ref_path)
+    err = max((p.detach().cpu() - ref[n]).abs().max().item()
+              for n, p in trainer.model.named_parameters() if p.requires_grad)
+    torch.save({"losses": losses, "ms": times, "launches": launches, "param_err": err,
+                "backend": dist.get_backend(), "dp": trainer.mesh.dp,
+                "sharded": trainer.step_mesh is not None},
+               pathlib.Path(out_dir, f"gloo{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(fn, nprocs: int, *args, must_finish: bool = True) -> bool:
+    """fn(rank, *args) in nprocs processes (spawn), joined with a deadline
+    of DP_TIMEOUT_S, after which they are killed; whether they all ended in
+    time.  A rank that raises, or outlives the deadline under must_finish,
+    fails the phase."""
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                                                start_method="spawn")
+    end = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > end:
+                if must_finish:
+                    raise TimeoutError(f"{fn.__name__}: ranks ran past {DP_TIMEOUT_S} s")
+                return False
+        return True
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def split_step(trainer, host, device, counts, parts: int = 2) -> dict:
+    """One training step as two ranks take it, on one process, through the
+    plain versions of the kernels (`plain_versions`, the towers' recurrence
+    `lstm_recurrence_reference`): the forward on each of `parts` row
+    blocks, the outputs the objective reads joined, the objective on the
+    global batch, its gradient, the update."""
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.ops.kernels import lstm as klstm
+    from mmda_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from mmda_tpu_torch.train.objective import OUTPUT_FIELDS, compute_losses
+
+    model, opt, cfg = trainer.model, trainer.optimizer, trainer.cfg
+    model.train()
+    with plain_versions(counts):
+        outs = [model(to_device(shard_batch(host, Mesh(parts, r, device)), device), None,
+                      klstm.lstm_recurrence_reference) for r in range(parts)]
+        names = [f for f in OUTPUT_FIELDS if getattr(outs[0], f) is not None]
+        out = outs[0]._replace(**{f: torch.cat([getattr(o, f) for o in outs]) for f in names})
+        losses = compute_losses(cfg, out, to_device(host, device))
+        grads = torch.autograd.grad(losses["total"], opt.params, allow_unused=True,
+                                    materialize_grads=True)
+    grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    opt.advance()
+    opt.apply(grads)
+    return {**{k: v.detach() for k, v in losses.items()}, "grad_norm": grad_norm}
+
+
+def phase17(counts, device) -> dict:
+    """Data parallelism (module docstring, phase 17): (a) `cli.train` under
+    `torchrun --nproc_per_node 1` over nccl with compiled_epoch against the
+    one-process Trainer, bit for bit, launches counted, and both captured
+    steps timed; (b) NCCL with two ranks on the one card (refused), then two
+    gloo ranks on it, eager f32 steps, against the one-process step at the
+    global batch."""
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.train.loop import Trainer
+    from mmda_tpu_torch.train.step import train_step
+
+    t0 = time.perf_counter()
+    work = BUILD / "chip_smoke_dp"
+    work.mkdir(parents=True, exist_ok=True)
+    # (a) one nccl rank under torchrun, then the one-process Trainer
+    out_json, dp_dir = work / "cli_rank0.json", BUILD / "chip_smoke_dp_nccl"
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", str(ROOT / "chip_smoke.py"), "--dp-cli", str(out_json), *DP_CLI,
+         "--ckpt_dir", str(dp_dir)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        raise RuntimeError(f"torchrun cli.train exit {run.returncode}:\n{run.stdout[-2000:]}\n"
+                           f"{run.stderr[-3000:]}")
+    rank0 = json.loads(out_json.read_text())
+    want = expected_launches(counts, {k: n * DP_CLI_STEPS + DP_PER_EVAL.get(k, 0) * DP_CLI_EVALS
+                                      for k, n in DP_PER_STEP.items()})
+    if rank0["launches"] != want or (rank0["backend"], rank0["dp"]) != ("nccl", 1):
+        raise AssertionError(f"torchrun cli.train: launches {rank0['launches']} (expected "
+                             f"{want}), backend {rank0['backend']}, dp {rank0['dp']}")
+    cfg, data = dp_cfg_and_data("dp")
+    one = Trainer(cfg, data)
+    summary = one.train()
+    one_ms = replay_ms(one, device)
+    del one
+    torch.cuda.empty_cache()
+    one_dir = pathlib.Path(cfg.ckpt_dir)
+    files = ["best_model_MISA_synthetic.msgpack", "last_dp.inc.msgpack", "last_dp.inc.json"]
+    differ = [f for f in files if (one_dir / f).read_bytes() != (dp_dir / f).read_bytes()]
+    history = [{k: v for k, v in h.items() if not k.endswith("_s")} for h in summary["history"]]
+    got_history = [{k: h[k] for k in history[0]} for h in rank0["summary"]["history"]]
+    same = (json.dumps(got_history, sort_keys=True, default=float)
+            == json.dumps(history, sort_keys=True, default=float))
+    if differ or not same or rank0["summary"]["test_loss"] != summary["test_loss"]:
+        raise AssertionError(f"the nccl rank's run is not the one-process Trainer's: files "
+                             f"{differ}, history {got_history} against {history}")
+    nccl = {"backend": "nccl", "world": rank0["world"], "launches": rank0["launches"],
+            "steps": DP_CLI_STEPS, "eval_batches": DP_CLI_EVALS, "bit_equal_files": files,
+            "train_loss": history[0]["train_loss"], "train_wall_s": rank0["train_wall_s"],
+            "captured_ms": rank0["captured_ms"], "one_process_captured_ms": one_ms}
+    log("17 dp-nccl-one-rank", **nccl)
+
+    # (b) two ranks on the one card: nccl refuses them, gloo runs them
+    store = work / f"store_nccl_{time.monotonic_ns()}"
+    for r in range(2):
+        pathlib.Path(work, f"nccl{r}.txt").unlink(missing_ok=True)
+    ended = spawn_ranks(dp_nccl_rank, 2, str(store), str(work), must_finish=False)
+    refused = [pathlib.Path(work, f"nccl{r}.txt").read_text()
+               if pathlib.Path(work, f"nccl{r}.txt").exists()
+               else f"no answer in {DP_TIMEOUT_S} s (killed)" for r in range(2)]
+    if any(text.startswith("all_reduce gave") for text in refused):
+        raise AssertionError(f"nccl ran two ranks on one card: {refused}")
+    cfg, _ = dp_cfg_and_data("dp_gloo")
+    whole_t = dp_gloo_trainer(device)
+    whole, whole_ms = dp_eager_steps(whole_t, device, lambda h: train_step(
+        whole_t.model, whole_t.optimizer, to_device(h, device), whole_t.cfg,
+        whole_t.generator, whole_t.ema))
+    whole_p = {n: p.detach().cpu() for n, p in whole_t.model.named_parameters()
+               if p.requires_grad}
+    del whole_t
+    split_t = dp_gloo_trainer(device)
+    split, _ = dp_eager_steps(split_t, device, lambda h: split_step(split_t, h, device, counts))
+    split_err = max((p.detach().cpu() - whole_p[n]).abs().max().item()
+                    for n, p in split_t.model.named_parameters() if p.requires_grad)
+    del split_t
+    ref = work / "whole_params.pt"
+    torch.save(whole_p, ref)
+    del whole_p
+    torch.cuda.empty_cache()
+    counts.reset_launch_count()             # the ranks count their own launches
+    spawn_ranks(dp_gloo_rank, 2, str(work / f"store_gloo_{time.monotonic_ns()}"), str(ref),
+                str(work))
+    ranks = [torch.load(work / f"gloo{r}.pt") for r in range(2)]
+    per_rank = expected_launches(counts, {k: n * DP_STEPS for k, n in DP_PER_STEP.items()})
+    loss_err = {k: max(abs(r["losses"][i][k] - whole[i][k]) for r in ranks
+                       for i in range(DP_STEPS)) for k in whole[0]}
+    split_loss_err = {k: max(abs(split[i][k] - whole[i][k]) for i in range(DP_STEPS))
+                      for k in whole[0]}
+    # the tolerance: twice what splitting the batch in two on one process, through the
+    # plain versions, moves the step, or DP_LOSS_FLOOR (relative) and DP_PARAM_FLOOR where
+    # that is less; the kernels at a rank's shapes are held to their plain versions in phase 3
+    loss_tol = {k: max(2 * split_loss_err[k], DP_LOSS_FLOOR * max(1.0, abs(whole[0][k])))
+                for k in whole[0]}
+    param_tol = max(2 * split_err, DP_PARAM_FLOOR)
+    bad = [k for k in whole[0] if loss_err[k] > loss_tol[k]]
+    param_err = max(r["param_err"] for r in ranks)
+    if (bad or param_err > param_tol or any(r["launches"] != per_rank for r in ranks)
+            or any((r["backend"], r["dp"], r["sharded"]) != ("gloo", 2, True) for r in ranks)
+            or ranks[0]["losses"] != ranks[1]["losses"]):
+        raise AssertionError(f"two gloo ranks against the one-process step: losses {bad} "
+                             f"({loss_err} against {loss_tol}), parameters "
+                             f"{param_err} against {param_tol}, launches "
+                             f"{[r['launches'] for r in ranks]}")
+    gloo = {"backend": "gloo", "ranks": 2, "steps": DP_STEPS, "dtype": "float32",
+            "nccl_two_ranks_one_card": [text[:300] for text in refused],
+            "nccl_ranks_ended": ended,
+            "launches_per_rank": ranks[0]["launches"], "loss_err": loss_err,
+            "plain_split_loss_err": split_loss_err, "loss_tol": loss_tol,
+            "param_err": param_err, "plain_split_param_err": split_err, "param_tol": param_tol,
+            "step_ms": [statistics.median(r["ms"]) for r in ranks],
+            "one_process_step_ms": statistics.median(whole_ms)}
+    log("17 dp-gloo-two-ranks", **gloo)
+    launches = {name: rank0["launches"][name] + sum(r["launches"][name] for r in ranks)
+                for name in counts.KERNELS}
+    return {"nccl": nccl, "gloo": gloo, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -4298,7 +4756,9 @@ def first_calls(kattn, kshort, device) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"]):
+    if args[:1] == ["--dp-cli"] and len(args) > 1:     # phase 17 (a)'s torchrun rank
+        return dp_cli_rank(args[1], args[2:])
+    if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -4351,6 +4811,12 @@ def main() -> int:
         log("16 seconds", seconds=p16["seconds"])
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_phase16.log").write_text("\n".join(LOG_LINES) + "\n")
+        return 0
+    if "--phase17" in args:                 # phase 17 alone, after the build
+        p17 = phase17(counts, device)
+        log("17 seconds", seconds=p17["seconds"])
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_phase17.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
 
     checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
@@ -4506,6 +4972,11 @@ def main() -> int:
     p16 = phase16(counts, klstm, device)
     log("16 seconds", seconds=p16["seconds"])
 
+    # phase 17: data parallelism (one nccl rank under torchrun; two gloo ranks)
+    torch.cuda.empty_cache()
+    p17 = phase17(counts, device)
+    log("17 seconds", seconds=p17["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
     # cli.infer, the tower pair, phase 12's, 13's and 14's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
@@ -4516,7 +4987,7 @@ def main() -> int:
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
                 + p13["launches"][name] + p14["launches"][name] + p15["launches"][name]
-                + p16["launches"][name]
+                + p16["launches"][name] + p17["launches"][name]
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -4569,7 +5040,7 @@ def main() -> int:
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
-        "phase14": p14, "phase15": p15, "phase16": p16,
+        "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17,
         "kernels": kernels},
         indent=1, default=str))
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")

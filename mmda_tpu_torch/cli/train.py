@@ -23,6 +23,11 @@ op that makes a NaN (`utils/timing.py::debug_mode`), and it and
 `--disable_jit True` run the steps and evals eager (no CUDA graph), as JAX
 runs them op by op.
 
+Under torchrun the run is data-parallel (`parallel/mesh.py`): each process
+joins the process group (`nccl` on the card LOCAL_RANK, `gloo` with
+`--device cpu`), the trainer shards each batch over `--dp_size` ranks (-1,
+the default: all of them), and only rank 0 prints, logs and writes files.
+
 Usage:
   python -m mmda_tpu_torch.cli.etl --data mosei --data_dir DIR       # the splits, once
   python -m mmda_tpu_torch.cli.train --data mosei --data_dir DIR
@@ -33,6 +38,9 @@ Usage:
   python -m mmda_tpu_torch.cli.train --data synthetic --compiled_epoch True
   python -m mmda_tpu_torch.cli.train --data synthetic --bert_model_dir DIR --profile_dir P
   python -m mmda_tpu_torch.cli.train --data synthetic --device cpu --use_bert False
+  torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.train --data synthetic --dp_size 2
+  torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.train --device cpu --data synthetic \
+      --use_bert False --dp_size 2
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 
 def load_data(cfg):
@@ -62,18 +71,34 @@ def load_data(cfg):
 
 def main(argv=None) -> dict:
     from mmda_tpu_torch.config import get_config
+
+    cfg = get_config(argv=argv)
+    distributed = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if distributed:                         # a torchrun rank
+        from mmda_tpu_torch.parallel.mesh import init_distributed
+
+        cfg = cfg.replace(device=str(init_distributed(cfg.device)))
+    try:
+        return _train(cfg)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _train(cfg) -> dict:
     from mmda_tpu_torch.train.loop import Trainer
     from mmda_tpu_torch.utils.logging import MetricLogger
     from mmda_tpu_torch.utils.timing import debug_mode, profile
 
-    cfg = get_config(argv=argv)
+    chief = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if chief else (lambda *a, **k: None)
     if cfg.use_wandb and "wandb" not in cfg.log_sinks:
         cfg = cfg.replace(log_sinks=tuple(cfg.log_sinks) + ("wandb",))
     if (cfg.debug_nans or cfg.disable_jit) and (cfg.compiled_epoch or cfg.compiled_eval):
-        print("debug_nans / disable_jit: steps and evals run eager "
-              "(compiled_epoch=False, compiled_eval=False)")
+        say("debug_nans / disable_jit: steps and evals run eager "
+            "(compiled_epoch=False, compiled_eval=False)")
         cfg = cfg.replace(compiled_epoch=False, compiled_eval=False)
-    print(cfg)
+    say(cfg)
     data, pretrained_emb = load_data(cfg)
 
     summaries = []
@@ -81,10 +106,10 @@ def main(argv=None) -> dict:
     for i in range(n_runs):
         run_cfg = cfg if n_runs == 1 else cfg.replace(seed=cfg.seed + i,
                                                       name=f"{cfg.name}_r{i}")
-        logger = MetricLogger(run_cfg.log_sinks, run_name=run_cfg.name)
+        logger = MetricLogger(run_cfg.log_sinks if chief else (), run_name=run_cfg.name)
         trainer = Trainer(run_cfg, data, pretrained_emb=pretrained_emb, logger=logger)
         debug = debug_mode() if cfg.debug_nans else contextlib.nullcontext()
-        with debug, profile(run_cfg.profile_dir):
+        with debug, profile(run_cfg.profile_dir if chief else None):
             summaries.append(trainer.train())
         logger.close()
     summary = summaries[-1]
@@ -93,8 +118,10 @@ def main(argv=None) -> dict:
                 if k.startswith("test_") and isinstance(summary[k], (int, float))]
         agg = {f"mean_{k}": float(np.mean([s[k] for s in summaries])) for k in keys}
         agg.update({f"std_{k}": float(np.std([s[k] for s in summaries])) for k in keys})
-        print(json.dumps(agg, indent=2))
+        say(json.dumps(agg, indent=2))
         summary = {**summary, **agg}
+    if not chief:
+        return summary
 
     print("=" * 50)
     print(f"Best epoch: {summary['best_epoch']}")

@@ -9,8 +9,9 @@ Differences:
   (`resolve_device`), the port never falls back to the CPU on its own.
   A saved run config's `device` is not loaded by `--config_json`.
 * Knobs that only steer TPU code (Pallas routing, rbg PRNG, relay-friendly
-  epoch scans, mesh axes, ...) are kept as inert fields so that saved
-  configs keep parsing; nothing in the port reads them.
+  epoch scans) are kept as inert fields so that saved configs keep
+  parsing; nothing in the port reads them.  Parallel modes the port does
+  not run yet are refused by its trainer (`train/loop.py::unsupported`).
 """
 
 from __future__ import annotations
@@ -141,7 +142,11 @@ class Config:
     missing_modality: str = "none"
     missing_modality_prob: float = 0.0
 
-    # Parallelism (not ported yet; inert)
+    # Parallelism: dp_size is the data-parallel mesh (parallel/mesh.py; -1:
+    # every rank of the process group, one process without one).  tp_size > 1,
+    # pp_size > 1, sp, zero1 and fsdp are refused by the trainer, naming their
+    # ROADMAP items (train/loop.py::unsupported).  Then options the port runs:
+    # MoE BERT (moe_*), the EMA shadow (ema_decay), MMIM's weights (mmim_*).
     dp_size: int = -1
     tp_size: int = 1
     pp_size: int = 1
@@ -171,7 +176,11 @@ class Config:
     compiled_epoch: bool = False
     scan_chunk: int = 8
     compiled_eval: bool = True
-    # TPU-only knobs of the JAX package, inert here
+    # Kernel and debugging knobs.  The port reads use_flash_attention,
+    # attn_impl, fused_ln_dropout (the hand-written kernels' routes),
+    # export_weights_dtype (cli/export.py), adam_mu_dtype, use_wandb,
+    # debug_nans and disable_jit (cli/train.py); use_pallas, fast_dropout and
+    # fast_rng only steer TPU code and are inert here.
     use_pallas: bool = True
     use_flash_attention: bool = False
     attn_impl: str = "auto"

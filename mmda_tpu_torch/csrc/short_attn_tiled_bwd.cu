@@ -110,6 +110,18 @@ cudaError_t launch_r(const void* d_out, const float* o32, float* r, size_t n, in
 
 // ----------------------------------------------------------------- bf16
 
+// Whether (batch item, head) bh is an item whose keys are all masked
+// (pd_ds_of): query 0's saved row max, which every query of the item shares
+// up to its scores.
+__device__ __forceinline__ bool masked_item(const float* stats, int bh, int S) {
+  return stats[(size_t)bh * S * 2] < kMaskedRowMax;
+}
+
+template <bool B>
+struct Rounded {
+  static constexpr bool value = B;
+};
+
 template <int DP>
 size_t dq_smem_bytes() {
   constexpr int NB = stream_rows<DP>();
@@ -278,31 +290,40 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.0f;
   }
   stage(0);
-  for (int t = 0; t < q_tiles; ++t) {
-    if (t + 1 < q_tiles) {
-      stage(t + 1);
-      cp_async_wait_one();
-    } else {
-      mmda::flash::cp_async_wait_all();
-    }
-    __syncthreads();
-    const int buf = t & 1;
-    const bf16* qt = q_s + buf * NB * L;
-    const bf16* dot = do_s + buf * NB * L;
-    // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
-    float sT[N8][4], dpT[N8][4];
+  // the tile loop, once for each form of pd_ds_of (the branch outside it)
+  auto tiles = [&](auto rounded) {
+    for (int t = 0; t < q_tiles; ++t) {
+      if (t + 1 < q_tiles) {
+        stage(t + 1);
+        cp_async_wait_one();
+      } else {
+        mmda::flash::cp_async_wait_all();
+      }
+      __syncthreads();
+      const int buf = t & 1;
+      const bf16* qt = q_s + buf * NB * L;
+      const bf16* dot = do_s + buf * NB * L;
+      // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
+      float sT[N8][4], dpT[N8][4];
 #pragma unroll
-    for (int j = 0; j < N8; ++j) {
+      for (int j = 0; j < N8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.0f;
+      }
+      mmda::flash::mma_abt<DP, N8>(sT, k_s, row0, qt, lane);
+      mmda::flash::mma_abt<DP, N8>(dpT, v_s, row0, dot, lane);
+      pd_ds_of<N8, decltype(rounded)::value>(sT, dpT, st_s + buf * 3 * NB, kbl,
+                                             log2e_units(scale), scale, bias + (size_t)b * S,
+                                             keep, t * NB, t2, k0 + row0 + g, S, keep_scale);
+      split_product<DP, NB>(acc_v, sT, dot, lane);
+      split_product<DP, NB>(acc_k, dpT, qt, lane);
+      __syncthreads();
     }
-    mmda::flash::mma_abt<DP, N8>(sT, k_s, row0, qt, lane);
-    mmda::flash::mma_abt<DP, N8>(dpT, v_s, row0, dot, lane);
-    pd_ds_of<N8>(sT, dpT, st_s + buf * 3 * NB, kbl, log2e_units(scale), keep, t * NB, t2,
-                 k0 + row0 + g, S, keep_scale);
-    split_product<DP, NB>(acc_v, sT, dot, lane);
-    split_product<DP, NB>(acc_k, dpT, qt, lane);
-    __syncthreads();
+  };
+  if (masked_item(stats, bh, S)) {
+    tiles(Rounded<true>{});
+  } else {
+    tiles(Rounded<false>{});
   }
   store_rows<DP>(dv + base, acc_v, k0 + row0, S, D, 1.0f, lane);
   store_rows<DP>(dk + base, acc_k, k0 + row0, S, D, scale, lane);
@@ -519,41 +540,50 @@ tiled_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   wg::mbar_wait(bar + kStages, 0);
 
-  for (int t = 0; t < q_tiles; ++t) {
-    const int st = t % kStages;
-    __syncthreads();     // tile t - 1's buffers are free; tile t's statistics are in
-    if (t + 1 < q_tiles) {
-      if (threadIdx.x == 0) issue(t + 1);
-      stage_stats(t + 1);
+  // the tile loop, once for each form of pd_ds_of (the branch outside it)
+  auto tiles = [&](auto rounded) {
+    for (int t = 0; t < q_tiles; ++t) {
+      const int st = t % kStages;
+      __syncthreads();     // tile t - 1's buffers are free; tile t's statistics are in
+      if (t + 1 < q_tiles) {
+        if (threadIdx.x == 0) issue(t + 1);
+        stage_stats(t + 1);
+      }
+      wg::mbar_wait(bar + st, (t / kStages) & 1);
+      const bf16* qt = q_s + st * TILE;
+      const bf16* dot = do_s + st * TILE;
+      // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
+      float sT[N8][4], dpT[N8][4];
+      wg::fence();
+      wg::issue_abt<NB, DP>(sT, k_s, qt);
+      wg::issue_abt<NB, DP>(dpT, v_s, dot);
+      wg::commit();
+      wg::wait_all();
+      wg::fence_operand(sT);
+      wg::fence_operand(dpT);
+      pd_ds_of<N8, decltype(rounded)::value>(sT, dpT, st_s + st * 3 * NB, kbl,
+                                             log2e_units(scale), scale, bias + (size_t)b * S,
+                                             keep, t * NB, t2, k0 + row0 + g, S, keep_scale);
+      // dv's products run while ds is split into the operand of dk's
+      uint32_t a_v[3][NB / 16][4], a_k[3][NB / 16][4];
+      mmda::short_mma::split_operand<NB / 16>(a_v, sT);
+      wg::fence_operand(acc_v);
+      wg::fence_operand(acc_k);
+      wg::fence();
+      wg::issue_split_product<DP, NB>(acc_v, a_v, dot);
+      mmda::short_mma::split_operand<NB / 16>(a_k, dpT);
+      wg::fence();
+      wg::issue_split_product<DP, NB>(acc_k, a_k, qt);
+      wg::commit();
+      wg::wait_all();
+      wg::fence_operand(acc_v);
+      wg::fence_operand(acc_k);
     }
-    wg::mbar_wait(bar + st, (t / kStages) & 1);
-    const bf16* qt = q_s + st * TILE;
-    const bf16* dot = do_s + st * TILE;
-    // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
-    float sT[N8][4], dpT[N8][4];
-    wg::fence();
-    wg::issue_abt<NB, DP>(sT, k_s, qt);
-    wg::issue_abt<NB, DP>(dpT, v_s, dot);
-    wg::commit();
-    wg::wait_all();
-    wg::fence_operand(sT);
-    wg::fence_operand(dpT);
-    pd_ds_of<N8>(sT, dpT, st_s + st * 3 * NB, kbl, log2e_units(scale), keep, t * NB, t2,
-                 k0 + row0 + g, S, keep_scale);
-    // dv's products run while ds is split into the operand of dk's
-    uint32_t a_v[3][NB / 16][4], a_k[3][NB / 16][4];
-    mmda::short_mma::split_operand<NB / 16>(a_v, sT);
-    wg::fence_operand(acc_v);
-    wg::fence_operand(acc_k);
-    wg::fence();
-    wg::issue_split_product<DP, NB>(acc_v, a_v, dot);
-    mmda::short_mma::split_operand<NB / 16>(a_k, dpT);
-    wg::fence();
-    wg::issue_split_product<DP, NB>(acc_k, a_k, qt);
-    wg::commit();
-    wg::wait_all();
-    wg::fence_operand(acc_v);
-    wg::fence_operand(acc_k);
+  };
+  if (masked_item(stats, bh, S)) {
+    tiles(Rounded<true>{});
+  } else {
+    tiles(Rounded<false>{});
   }
   const size_t base = (size_t)bh * S * D;
   store_rows<DP>(dv + base, acc_v, k0 + row0, S, D, 1.0f, lane);

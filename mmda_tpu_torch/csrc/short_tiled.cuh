@@ -289,14 +289,17 @@ __device__ __forceinline__ void ds_of(float (&s)[N8][4], const float (&dp)[N8][4
 // (keep(i, j) the mask, keep_scale where kept).  The score goes to log2 units
 // in one fma, scale_l = scale log2 e and kbl = bias log2 e: fewer registers
 // and instructions than rounding s, then s log2 e, which made this kernel
-// markedly slower (PERF.md).  A row whose keys are all masked still gets
-// exactly 2^0 while its unbiased scores stay below 32 in magnitude: the fma
-// then rounds to kbl, as m log2 e does, both at -1e9.
-template <int N8, class Keep>
+// markedly slower (PERF.md).  That fma rounds once where the forward rounds
+// s scale + bias, then its log2 e: at a row max near the mask's -1e9 (an
+// item whose keys are all masked, kMaskedRowMax) one f32 ulp there is 64, so
+// the two forms part by whole powers of 2 once the unbiased scores reach 32
+// in magnitude.  Such an item (Rounded, decided per block by the caller)
+// takes the forward's rounded form, the key bias bias_b[j] read where used.
+template <int N8, bool Rounded, class Keep>
 __device__ __forceinline__ void pd_ds_of(float (&sT)[N8][4], float (&dpT)[N8][4],
                                          const float* st, const float (&kbl)[2], float scale_l,
-                                         const Keep& keep, int i_base, int t2, int j0, int S,
-                                         float keep_scale) {
+                                         float scale, const float* bias_b, const Keep& keep,
+                                         int i_base, int t2, int j0, int S, float keep_scale) {
 #pragma unroll
   for (int j = 0; j < N8; ++j) {
 #pragma unroll
@@ -305,7 +308,10 @@ __device__ __forceinline__ void pd_ds_of(float (&sT)[N8][4], float (&dpT)[N8][4]
       const int jk = j0 + 8 * (e >> 1);
       float p = 0.0f;
       if (i < S) {
-        const float t = fmaf(sT[j][e], scale_l, kbl[e >> 1]);
+        const float t =
+            !Rounded ? fmaf(sT[j][e], scale_l, kbl[e >> 1])
+            : jk < S ? log2e_units(__fadd_rn(__fmul_rn(sT[j][e], scale), bias_b[jk]))
+                     : -INFINITY;
         p = mmda::flash::exp2_ftz(__fsub_rn(t, st[3 * ii])) * st[3 * ii + 1];
       }
       const float kp = keep(i, jk) ? keep_scale : 0.0f;
@@ -314,6 +320,10 @@ __device__ __forceinline__ void pd_ds_of(float (&sT)[N8][4], float (&dpT)[N8][4]
     }
   }
 }
+
+// A row max below this is that of a batch item whose keys are all masked
+// (its scores sit at the mask's -1e9); a row of real keys never comes near.
+constexpr float kMaskedRowMax = -1024.0f;
 
 // Rows r0 .. r0 + R - 1 of the row-major (S, D) f32 matrix src, times mul,
 // into dst (row stride D + 1), zero beyond S; by the block's nt threads.

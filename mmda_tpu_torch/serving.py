@@ -25,12 +25,23 @@ the weight bytes read per call.  `bert_weights_dtype="int8"` quantizes the
 six denses of every encoder layer from the loaded weights
 (`models/bert.py::quantize_bert_int8`: int8 buffers, one f32 scale per
 output channel) and, as in the JAX package, leaves every other BERT weight
-as loaded.  Sharded (`mesh`) serving is not ported.
+as loaded.
+
+`mesh` (`parallel/mesh.py`, tp = 1; the counterpart of the JAX Predictor's
+mesh, `mmda_tpu/serving.py:142-151`, `:274-276`) serves data-parallel:
+max_batch must divide by dp; every rank pads the same requests to the same
+bucket batch, runs its rows [r max_batch / dp, (r + 1) max_batch / dp) and
+all-gathers the packed outputs, so every rank returns the whole result.
+Each call is a collective: every rank must make the same calls, with the
+same requests, in the same order.  Tensor-parallel serving (tp > 1) is not
+ported (ROADMAP Queue 1 item 2).
 
 On CUDA a call runs as a CUDA graph, one per bucket shape (the counterpart
-of the JAX package's jit per bucket): the padded batch is copied into device
-buffers kept for that shape, the graph replays the forward and writes the
-four outputs into one packed tensor, and one device-to-host copy reads it.
+of the JAX package's jit per bucket): the padded batch (a rank's rows of it
+under a mesh) is copied into device buffers kept for that shape, the graph
+replays the forward and writes the four outputs into one packed tensor
+(gathered over the ranks after the replay under a mesh), and one
+device-to-host copy reads it.
 A bucket's first call runs the forward eagerly over those buffers and then
 captures it, so `PredictionServer.warmup()`, which calls every bucket,
 leaves every graph captured.  An explicit `recurrence=` runs eagerly (the
@@ -51,6 +62,7 @@ from mmda_tpu_torch.config import Config, resolve_device, set_reference_numerics
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, quantize_bert_int8
+from mmda_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch
 from mmda_tpu_torch.serving_requests import (RequestTooLongError, check_overflow, choose_bucket,
                                              pad_requests, validate_request)
 from mmda_tpu_torch.train import checkpoint as ckpt
@@ -75,6 +87,7 @@ class Predictor:
         overflow: str = "error",
         bert_weights_dtype: Optional[str] = "auto",
         device: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """params: a port model (`nn.Module`, moved to the device and, for
         bf16 BERT storage, cast in place), a JAX parameter tree (converted
@@ -86,9 +99,15 @@ class Predictor:
         longer than the largest bucket, 'truncate' keeps its first tokens.
         bert_weights_dtype: 'auto' stores BERT in bf16 on CUDA when the
         compute dtype is bf16; 'int8' quantizes the encoder denses (in
-        place, on a model passed in); None keeps the loaded dtypes."""
+        place, on a model passed in); None keeps the loaded dtypes.
+        mesh: serve data-parallel over its ranks (module docstring); the
+        device is then the mesh's."""
         check_overflow(overflow)
-        self.device = resolve_device(device or cfg.device)
+        if mesh is not None and max_batch % mesh.dp != 0:
+            raise ValueError(f"max_batch={max_batch} must be divisible by the mesh data "
+                             f"axis {mesh.dp}")
+        self.mesh = mesh
+        self.device = resolve_device(device or (str(mesh.device) if mesh else cfg.device))
         if self.device.type == "cuda":
             set_reference_numerics()
         self.overflow = overflow
@@ -163,13 +182,15 @@ class Predictor:
         version (a yardstick for the kernel)."""
         t0 = time.perf_counter()
         batch, n = self.batch_arrays(requests)
+        if self.mesh is not None:
+            batch = Batch(**shard_batch(batch._asdict(), self.mesh))
         with torch.inference_mode():
             # one device-to-host copy for all four outputs
             if recurrence is not None or self._graphs is None:
-                packed = self._forward(batch.to(self.device), recurrence).cpu().numpy()
+                packed = self._host(self._forward(batch.to(self.device), recurrence))
             else:
                 with self._lock:
-                    packed = self._graphs(batch._asdict())["packed"].cpu().numpy()
+                    packed = self._host(self._graphs(batch._asdict())["packed"])
         cols = np.cumsum([0] + self._widths())
         result = {k: packed[:n, cols[i]:cols[i + 1]]
                   for i, k in enumerate(("scores", "labels", "tcp", "hidden"))}
@@ -178,6 +199,12 @@ class Predictor:
         self._stats["utterances"] += n
         self._stats["seconds"] += dt
         return result
+
+    def _host(self, packed: torch.Tensor) -> np.ndarray:
+        """The packed outputs on the host: every rank's rows under a mesh."""
+        if self.mesh is not None:
+            (packed,) = gather_rows(self.mesh, packed)
+        return packed.cpu().numpy()
 
     def _widths(self) -> list:
         C = self.cfg.num_classes

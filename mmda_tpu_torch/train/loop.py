@@ -49,11 +49,31 @@ test split is evaluated again (through the shadow when there is one).
 after the seeded init and before the freeze rules, so the frozen layers and
 the `last_*` frozen base hold the file's weights.  `profile_dir` is read by
 `cli/train.py`, which traces `train()` (`utils/timing.py::profile`).
-Options that need what the port does not have yet (the parallel modes, the
-orbax backend) raise `ValueError` at construction, naming their ROADMAP
-item (`unsupported`).  `moe_experts > 0` (a Switch MoE in every BERT layer,
-`bert_config_for`) raises the JAX trainer's own errors without the BERT
-tower and with `pp_size > 1`.
+Options that need what the port does not have yet (the parallel modes but
+data parallelism, the orbax backend) raise `ValueError` at construction,
+naming their ROADMAP item (`unsupported`).  `moe_experts > 0` (a Switch
+MoE in every BERT layer, `bert_config_for`) raises the JAX trainer's own
+errors without the BERT tower and with `pp_size > 1`.
+
+Data parallelism (the JAX trainer's mesh, `mmda_tpu/train/loop.py:192-193`,
+`:661-700`): with a process group up (`parallel/mesh.py::init_distributed`,
+torchrun) the trainer runs on the mesh of `cfg.dp_size` ranks (-1: the
+world; without a process group, one process, and dp_size > 1 raises).
+Every rank builds the same model from the seed (then rank 0's parameters
+are broadcast), the same loader, batch order and bucket lengths, and takes
+its rows of each batch (`shard_batch`); the steps are `train/step.py`'s
+data-parallel steps, and a batch_size that does not divide dp runs every
+batch whole on every rank, as the JAX trainer runs it replicated.  The
+modality-keep draws come from the shared generator; at dp > 1 the forward's
+dropout comes from each rank's own generator, seeded at every epoch from
+(seed, rank, epoch), so a resumed run draws what the uninterrupted one did.
+`evaluate` gathers the outputs, so every rank computes the same metrics,
+and every host decision (best-on-dev, the plateau schedule, early stop)
+follows from values every rank holds; a preemption signal on any rank stops
+them all.  Only rank 0 logs and writes the best export and the `last_*`
+snapshots; every rank waits at a barrier before it reads one.  The captured
+steps and evals record their collectives (nccl); gloo on CUDA cannot be
+captured, and compiled_epoch / compiled_eval then raise at construction.
 """
 
 from __future__ import annotations
@@ -69,6 +89,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmda_tpu_torch.config import resolve_device
 from mmda_tpu_torch.convert import load_jax_params
@@ -76,6 +97,7 @@ from mmda_tpu_torch.data.loader import ArrayLoader, auto_bucket_sizes, to_device
 from mmda_tpu_torch.models import get_model
 from mmda_tpu_torch.models.bert import (BertConfig, bert_config_for, freeze_layers,
                                          load_hf_encoder)
+from mmda_tpu_torch.parallel import mesh as pmesh
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
 from mmda_tpu_torch.train.step import (eval_step, graph_pool, make_eval_graph,
@@ -94,19 +116,33 @@ def task_metrics(task: str, truths: np.ndarray, preds: np.ndarray) -> dict:
     return get_metrics(truths, preds)
 
 
-def unsupported(cfg) -> List[str]:
-    """The options of `cfg` the port's trainer cannot run yet, each with
-    the ROADMAP item that brings it."""
+def unsupported(cfg, dp: int = 1) -> List[str]:
+    """The options of `cfg` the port's trainer cannot run yet on a mesh of
+    dp data-parallel ranks, each with the ROADMAP item that brings it."""
     q = "ROADMAP Queue 1"
     checks = [
-        (cfg.dp_size > 1 or cfg.tp_size > 1, f"dp_size/tp_size > 1 (mesh; {q}: parallel modes)"),
-        (cfg.pp_size > 1, f"pp_size > 1 ({q}: parallel modes)"),
-        (cfg.sp, f"sp ({q}: parallel modes)"),
-        (cfg.zero1, f"zero1 ({q}: parallel modes)"),
-        (cfg.fsdp, f"fsdp ({q}: parallel modes)"),
-        (cfg.ckpt_backend != "msgpack", f"ckpt_backend={cfg.ckpt_backend} ({q}: parallel modes)"),
+        (cfg.tp_size > 1, f"tp_size > 1 ({q} item 2: tensor parallelism)"),
+        (cfg.sp, f"sp ({q} item 3: sequence parallelism)"),
+        (cfg.moe_experts > 0 and dp > 1,
+         f"moe_experts > 0 with dp > 1 (routing couples the batch's tokens; {q} item 3: "
+         "the expert-parallel hook)"),
+        (cfg.zero1, f"zero1 ({q} item 4: zero1 and fsdp)"),
+        (cfg.fsdp, f"fsdp ({q} item 4: zero1 and fsdp)"),
+        (cfg.pp_size > 1, f"pp_size > 1 ({q} item 5: the pipelined encoder)"),
+        (cfg.ckpt_backend != "msgpack",
+         f"ckpt_backend={cfg.ckpt_backend} ({q} item 6: the sharded checkpoint)"),
+        (cfg.model == "MMIM" and dp > 1,
+         f"model=MMIM with dp > 1 (its CPC term takes a softmax over the batch; {q} item 7: "
+         "MMIM under data parallelism)"),
     ]
     return [msg for bad, msg in checks if bad]
+
+
+def data_parallel_size(cfg) -> int:
+    """The dp the trainer runs at: cfg.dp_size, -1 taking the process
+    group's world (one process without a group)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return world if cfg.dp_size == -1 else cfg.dp_size
 
 
 class Trainer:
@@ -123,7 +159,7 @@ class Trainer:
             if cfg.pp_size > 1:
                 raise ValueError("moe_experts > 0 does not compose with "
                                  "pp_size > 1 (pipelined encoder)")
-        missing = unsupported(cfg)
+        missing = unsupported(cfg, data_parallel_size(cfg))
         if missing:
             raise ValueError("not ported yet: " + "; ".join(missing))
         self.task = cfg.resolved_task()
@@ -138,6 +174,12 @@ class Trainer:
         self.data = data
         self._last_eval_confidence: Optional[Dict[str, np.ndarray]] = None
         self.device = resolve_device(cfg.device)
+        self.mesh = self._make_mesh()
+        # the mesh the steps shard over: None where batch_size does not divide
+        # dp (every batch then runs whole on every rank)
+        self.step_mesh = (self.mesh if self.mesh is not None
+                          and self.mesh.divides(cfg.batch_size) else None)
+        self.is_chief = self.mesh is None or self.mesh.rank == 0
         self.bert_cfg = bert_cfg or bert_config_for(cfg)
         if cfg.fused_ln_dropout and self.bert_cfg is not None:
             self.bert_cfg = dataclasses.replace(self.bert_cfg, fused_ln_dropout=True)
@@ -145,7 +187,8 @@ class Trainer:
             self.bert_cfg = dataclasses.replace(
                 self.bert_cfg, moe_experts=cfg.moe_experts,
                 moe_capacity_factor=cfg.moe_capacity_factor, moe_top_k=cfg.moe_top_k)
-        self.logger = logger or MetricLogger(cfg.log_sinks, run_name=cfg.name)
+        self.logger = logger or MetricLogger(cfg.log_sinks if self.is_chief else (),
+                                             run_name=cfg.name)
 
         train = data["train"]
         self.sizes = dict(visual_size=train["visual"].shape[-1],
@@ -161,6 +204,8 @@ class Trainer:
         if cfg.use_bert and cfg.bert_model_dir:
             load_hf_encoder(model.bert, cfg.bert_model_dir)
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            pmesh.replicated(self.model, self.mesh)
         self._freeze(pretrained_emb is not None)
         # the JAX trainer builds a frozen mask (and snapshots incrementally)
         # for every BERT run and for a frozen GloVe table
@@ -168,6 +213,11 @@ class Trainer:
                                                 and cfg.freeze_embeddings)
 
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        # the forward's dropout: each rank's own at dp > 1 (seeded per epoch,
+        # `_seed_dropout`), else the one generator, as the one-process step
+        self.dropout_generator = (torch.Generator(self.device)
+                                  if self.step_mesh is not None and self.step_mesh.dp > 1
+                                  else self.generator)
         steps_per_epoch = None
         if cfg.lr_schedule in ("exponential", "cosine"):
             steps_per_epoch = max(len(self._loader("train", shuffle=False)), 1)
@@ -186,8 +236,9 @@ class Trainer:
                          "params_trainable": counts["trainable"]})
         try:            # the resolved run config, reloadable with --config_json
             os.makedirs(cfg.ckpt_dir, exist_ok=True)
-            with open(os.path.join(cfg.ckpt_dir, f"{cfg.name}_config.json"), "w") as f:
-                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+            if self.is_chief:
+                with open(os.path.join(cfg.ckpt_dir, f"{cfg.name}_config.json"), "w") as f:
+                    json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         except OSError:
             pass
         if cfg.resume:
@@ -195,6 +246,41 @@ class Trainer:
             if step is not None:
                 self.step = step
                 self.logger.log({"resumed_at_step": step})
+
+    def _make_mesh(self) -> Optional[pmesh.Mesh]:
+        """The data-parallel mesh, or None for one process (module
+        docstring)."""
+        cfg = self.cfg
+        if not dist.is_initialized():
+            if cfg.dp_size > 1:
+                raise ValueError(f"dp_size={cfg.dp_size} needs a process group of as many "
+                                 "ranks: run under torchrun, or init_distributed first")
+            return None
+        mesh = pmesh.make_mesh(cfg.dp_size, cfg.tp_size, self.device)
+        if mesh.staged and (cfg.compiled_epoch or cfg.compiled_eval):
+            raise ValueError("compiled_epoch / compiled_eval capture the step's collectives "
+                             "as CUDA graphs, which the gloo backend cannot be part of: use "
+                             "nccl, or compiled_epoch=False compiled_eval=False")
+        if not mesh.divides(cfg.batch_size) and mesh.rank == 0:
+            print(f"batch_size={cfg.batch_size} does not divide dp={mesh.dp}: every rank "
+                  "runs every batch whole (replicated)", flush=True)
+        return mesh
+
+    def _seed_dropout(self, *tags: int) -> None:
+        """Seed this rank's dropout generator from (seed, rank, *tags) at
+        dp > 1; at dp = 1 it is the trainer's one generator, left as it is."""
+        if self.dropout_generator is not self.generator:
+            self.dropout_generator.manual_seed(
+                pmesh.rank_seed(self.cfg.seed, self.mesh.rank, *tags))
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _shard(self, host: Dict[str, Optional[np.ndarray]]) -> Dict[str, Optional[np.ndarray]]:
+        """This rank's rows of a host batch (the whole batch without a step
+        mesh)."""
+        return host if self.step_mesh is None else pmesh.shard_batch(host, self.step_mesh)
 
     def _freeze(self, has_pretrained_emb: bool) -> None:
         cfg, model = self.cfg, self.model
@@ -224,8 +310,10 @@ class Trainer:
                                      async_write=True)
 
     def _load_resume_ckpt(self) -> Optional[int]:
-        """Load `last_{name}` in place, if there is one; its step or None."""
+        """Load `last_{name}` in place, if there is one; its step or None.
+        Every rank loads it."""
         cfg = self.cfg
+        self._barrier()
         name = f"last_{cfg.name}"
         if self.has_frozen_mask and ckpt.incremental_checkpoint_exists(cfg.ckpt_dir, name):
             return ckpt.load_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state())
@@ -265,7 +353,8 @@ class Trainer:
 
         def save_last(epoch: int, valid_loss: float) -> None:
             last_saved[0] = epoch
-            pending.append(self._save_resume_ckpt(epoch, valid_loss))
+            if self.is_chief:
+                pending.append(self._save_resume_ckpt(epoch, valid_loss))
 
         preempted = [False]
 
@@ -282,6 +371,7 @@ class Trainer:
         try:
             for e in range(start_epoch, cfg.n_epoch):
                 t0 = time.perf_counter()
+                self._seed_dropout(e)
                 epoch_losses = self._train_epoch(train_loader)
                 if not epoch_losses:
                     raise ValueError(
@@ -317,9 +407,10 @@ class Trainer:
                 if valid_loss <= best_valid_loss:
                     best_valid_loss = valid_loss
                     best_results, best_truths, best_epoch = preds, truths, e
-                    self._export = ckpt.save_checkpoint(
-                        cfg.ckpt_dir, best_name, self.eval_model(),
-                        {"epoch": e, "valid_loss": valid_loss}, async_write=True)
+                    if self.is_chief:
+                        self._export = ckpt.save_checkpoint(
+                            cfg.ckpt_dir, best_name, self.eval_model(),
+                            {"epoch": e, "valid_loss": valid_loss}, async_write=True)
                     eval_values = task_metrics(self.task, best_truths, best_results)
                     curr_patience = cfg.patience
                 elif cfg.enable_early_stop:
@@ -328,6 +419,7 @@ class Trainer:
                         num_trials -= 1
                         curr_patience = cfg.patience
                         self._join_export()
+                        self._barrier()
                         if ckpt.checkpoint_exists(cfg.ckpt_dir, best_name):
                             self._load_best(best_name, self.model)
                         if num_trials <= 0:
@@ -354,7 +446,7 @@ class Trainer:
                 self.logger.log(payload, step=self.step)
                 history.append(payload)
 
-                if preempted[0]:
+                if self.mesh.any(preempted[0]) if self.mesh is not None else preempted[0]:
                     self.logger.log({"preempted_at_epoch": e})
                     if last_saved[0] != e:
                         save_last(e, valid_loss)
@@ -402,17 +494,19 @@ class Trainer:
         epoch_losses = []
         if cfg.compiled_epoch:
             if self.train_graph is None:
-                self.train_graph = make_train_graph(self.model, self.optimizer, cfg,
-                                                    self.device, self.generator,
-                                                    self.ema, self.pool)
+                self.train_graph = make_train_graph(
+                    self.model, self.optimizer, cfg, self.device, self.generator, self.ema,
+                    self.pool, self.step_mesh, self.dropout_generator)
             for host in train_loader.host_batches():
-                losses = self.train_graph(host)
+                losses = self.train_graph(self._shard(host))
                 epoch_losses.append({k: v.clone() for k, v in losses.items()})
                 self.step += 1
         else:
-            for batch in train_loader:
+            for host in train_loader.host_batches():
+                batch = to_device(self._shard(host), self.device)
                 epoch_losses.append(train_step(self.model, self.optimizer, batch, cfg,
-                                               self.generator, self.ema))
+                                               self.generator, self.ema, mesh=self.step_mesh,
+                                               dropout_generator=self.dropout_generator))
                 self.step += 1
         return epoch_losses
 
@@ -430,16 +524,22 @@ class Trainer:
                     if cfg.ema_decay > 0 else None)
         self.step = 0
         for e in range(cfg.n_epoch_stage2):
+            self._seed_dropout(cfg.n_epoch, e)
             conf = []
-            for batch in train_loader:
-                losses = train_step(self.model, self.optimizer, batch, cfg, self.generator,
-                                    self.ema, conf_only=True)
+            for host in train_loader.host_batches():
+                losses = train_step(self.model, self.optimizer,
+                                    to_device(self._shard(host), self.device), cfg,
+                                    self.generator, self.ema, conf_only=True,
+                                    mesh=self.step_mesh,
+                                    dropout_generator=self.dropout_generator)
                 conf.append(losses["conf"])
                 self.step += 1
             self.logger.log({"stage2_epoch": e, "stage2_conf_loss": float(
                 np.mean(torch.stack(conf).float().cpu().numpy()))})
-        ckpt.save_checkpoint(cfg.ckpt_dir, name, self.model,
-                             {"stage2_epochs": cfg.n_epoch_stage2})
+        if self.is_chief:
+            ckpt.save_checkpoint(cfg.ckpt_dir, name, self.model,
+                                 {"stage2_epochs": cfg.n_epoch_stage2})
+        self._barrier()
 
     def _join_export(self) -> None:
         """Wait for the latest best-on-dev export's write, if one is running
@@ -454,6 +554,7 @@ class Trainer:
         live model on early stop (the EMA shadow is kept), a copy for the
         final test, as the JAX trainer restores it."""
         self._join_export()
+        self._barrier()
         return load_jax_params(model, ckpt.load_checkpoint(self.cfg.ckpt_dir, name))
 
     @staticmethod
@@ -467,7 +568,8 @@ class Trainer:
         addresses is read the same way by any module that holds it."""
         key = self._params_key(model)
         if key not in self.eval_graphs:
-            self.eval_graphs[key] = make_eval_graph(model, self.cfg, self.device, self.pool)
+            self.eval_graphs[key] = make_eval_graph(model, self.cfg, self.device, self.pool,
+                                                    self.step_mesh)
         return self.eval_graphs[key]
 
     def evaluate(self, mode: str, model: Optional[torch.nn.Module] = None) -> tuple:
@@ -475,6 +577,8 @@ class Trainer:
         over batches of the per-class BCE summed over classes, taken over
         the real rows (L1 for regression); accuracy the multilabel Jaccard
         (sign agreement for regression).  model: default `eval_model()`.
+        Under a mesh each rank runs its rows and every rank gets the
+        split's (the outputs are gathered).
         For classification the real rows' tcp and scores are kept, joined,
         in `_last_eval_confidence` for the ConfidNet metrics (None after a
         regression split)."""
@@ -483,8 +587,10 @@ class Trainer:
         losses, preds, truths = [], [], []
         tcps, raw_scores = [], []
         for host in self._loader(mode, shuffle=False).host_batches():
-            out = (graph(host) if graph is not None
-                   else eval_step(model, to_device(host, self.device), self.cfg))
+            local = self._shard(host)
+            out = (graph(local) if graph is not None
+                   else eval_step(model, to_device(local, self.device), self.cfg,
+                                  self.step_mesh))
             out = {k: v.float().cpu().numpy() for k, v in out.items()}   # one sync
             w = np.asarray(host["sample_weight"]) > 0
             losses.append(float(np.sum(np.mean(out["bce"][w], axis=0))))

@@ -26,6 +26,13 @@ import torch
 from mmda_tpu_torch.ops import losses as L
 
 
+# The output fields compute_losses reads (a None field is absent): what a
+# data-parallel step gathers over the ranks before it (train/step.py).
+OUTPUT_FIELDS = ("scores", "tcp", "shared_t", "shared_v", "shared_a", "private_t",
+                 "private_v", "private_a", "orig_t", "orig_v", "orig_a", "recon_t",
+                 "recon_v", "recon_a", "domain_t", "domain_v", "domain_a")
+
+
 def compute_losses(cfg, out, batch) -> Dict[str, torch.Tensor]:
     emo = batch.emo_label.float()
     task = cfg.resolved_task()

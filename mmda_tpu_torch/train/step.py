@@ -24,6 +24,23 @@ step is a mini-step (`Optimizer.advance` says whether it applies); grad_norm
 is the mini-batch gradient's and the EMA shadow moves every mini-step, as
 in the JAX step.
 
+Under a data-parallel mesh (`mesh`, `parallel/mesh.py`) `batch` is this
+rank's rows of a global batch whose rows divide dp, and a step is the
+one-process step at the global batch up to summation order, as XLA's SPMD
+step is in the JAX package: the modality-keep mask is drawn at the global
+batch size from `generator` (the same on every rank) and this rank's rows
+taken; the forward runs on the rank's rows with its dropout from
+`dropout_generator` (the rank's own, so that no two ranks drop alike); the
+output tensors the objective reads and the batch's labels and weights are
+gathered over the ranks (`gather_rows`), every rank computes the objective
+on the global tensors, and after the backward the gradients are summed over
+the ranks (`all_reduce_grads`) before grad_norm, the clip and the update.
+The optimizer state and the EMA shadow stay replicated.  A batch whose rows
+do not divide dp runs whole on every rank with mesh=None and one generator
+for everything, with no reduction, as the JAX trainer runs it replicated.
+An eval step under a mesh gathers its outputs the same way, so every rank
+returns the global batch's.
+
 `make_train_graph` and `make_eval_graph` are the counterparts of the JAX
 package's scanned epoch and eval (`compiled_epoch`, `compiled_eval`): one
 `StepGraphs` each, which runs the same body over device buffers kept for
@@ -53,7 +70,8 @@ import torch
 from mmda_tpu_torch.data.loader import StaticBatch, batch_shape
 from mmda_tpu_torch.ops import losses as L
 from mmda_tpu_torch.ops.kernels import _launch
-from mmda_tpu_torch.train.objective import compute_losses
+from mmda_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, gather_rows
+from mmda_tpu_torch.train.objective import OUTPUT_FIELDS, compute_losses
 
 
 def static_modality_keep(cfg, batch_size: int, device) -> Optional[torch.Tensor]:
@@ -93,43 +111,71 @@ def ema_update(ema: Optional[List[torch.Tensor]], params: List[torch.Tensor],
         torch._foreach_add_(ema, params, alpha=1.0 - decay)
 
 
+def gather_batch(out, batch, mesh: Mesh, fields: Sequence[str] = OUTPUT_FIELDS):
+    """(out, batch) with the output tensors named in `fields` and the
+    batch's labels and weights gathered over the mesh's ranks, in one
+    collective (the rest of `batch` stays this rank's rows)."""
+    names = [f for f in fields if getattr(out, f) is not None]
+    labels = ("emo_label", "sentiment", "sample_weight")
+    gathered = gather_rows(mesh, *[getattr(out, f) for f in names],
+                           *[getattr(batch, f) for f in labels])
+    return (out._replace(**dict(zip(names, gathered))),
+            batch._replace(**dict(zip(labels, gathered[len(names):]))))
+
+
 def loss_and_grads(model, batch, cfg, params: List[torch.Tensor],
                    modality_keep: Optional[torch.Tensor] = None, recurrence=None,
-                   generator: Optional[torch.Generator] = None, conf_only: bool = False):
+                   generator: Optional[torch.Generator] = None, conf_only: bool = False,
+                   mesh: Optional[Mesh] = None):
     """The objective of one forward in the model's current mode (dropout
     only under train()) and its gradients w.r.t. `params`: of
     losses["total"], or of losses["conf"] under conf_only.  A parameter no
     loss reaches (the sp discriminator) gets a zero gradient, as jax.grad
-    gives it."""
+    gives it.  Under `mesh`: the objective of the gathered global batch and
+    its gradient summed over the ranks (module docstring)."""
     out = model(batch, modality_keep, recurrence, generator)
+    if mesh is not None:
+        out, batch = gather_batch(out, batch, mesh)
     losses = compute_losses(cfg, out, batch)
     grads = torch.autograd.grad(losses["conf" if conf_only else "total"], params,
                                 allow_unused=True, materialize_grads=True)
+    if mesh is not None:
+        all_reduce_grads(grads, mesh)
     return losses, grads
 
 
 def train_step(model, optimizer, batch, cfg,
                generator: Optional[torch.Generator] = None,
                ema: Optional[List[torch.Tensor]] = None,
-               recurrence=None, conf_only: bool = False) -> Dict[str, torch.Tensor]:
+               recurrence=None, conf_only: bool = False, mesh: Optional[Mesh] = None,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
     """One update (a mini-step under grad_accum_steps > 1); returns the
     loss dict plus grad_norm, as 0-dim device tensors.  `ema` is the shadow
-    of `model.parameters()` (same order)."""
+    of `model.parameters()` (same order).  `mesh`: `batch` is this rank's
+    rows of the global batch (module docstring); `dropout_generator`
+    (default `generator`) draws the forward's dropout."""
     optimizer.advance()
-    return train_body(model, optimizer, batch, cfg, generator, ema, recurrence, conf_only)
+    return train_body(model, optimizer, batch, cfg, generator, ema, recurrence, conf_only,
+                      mesh, dropout_generator)
 
 
 def train_body(model, optimizer, batch, cfg,
                generator: Optional[torch.Generator] = None,
                ema: Optional[List[torch.Tensor]] = None,
-               recurrence=None, conf_only: bool = False) -> Dict[str, torch.Tensor]:
+               recurrence=None, conf_only: bool = False, mesh: Optional[Mesh] = None,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
     """The device work of `train_step`, after `optimizer.advance()`: what a
     training graph captures."""
     model.train()
-    keep = sample_modality_keep(cfg, batch.emo_label.shape[0], batch.emo_label.device,
-                                generator)
-    losses, grads = loss_and_grads(model, batch, cfg, optimizer.params, keep,
-                                   recurrence, generator, conf_only)
+    n = batch.emo_label.shape[0]
+    dp = 1 if mesh is None else mesh.dp
+    keep = sample_modality_keep(cfg, n * dp, batch.emo_label.device, generator)
+    if keep is not None and mesh is not None:
+        keep = keep[mesh.rows(n * dp)]
+    losses, grads = loss_and_grads(model, batch, cfg, optimizer.params, keep, recurrence,
+                                   dropout_generator or generator, conf_only, mesh)
     grad_norm = torch.linalg.vector_norm(
         torch.stack(torch._foreach_norm([g.float() for g in grads])))
     optimizer.apply(grads)
@@ -141,12 +187,15 @@ def train_body(model, optimizer, batch, cfg,
 
 
 @torch.no_grad()
-def eval_step(model, batch, cfg) -> Dict[str, torch.Tensor]:
+def eval_step(model, batch, cfg, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Deterministic forward: scores, labels, tcp, the batch's cls loss and
-    the per-example (per-class) loss the trainer averages over real rows."""
+    the per-example (per-class) loss the trainer averages over real rows;
+    under `mesh` of the global batch, from this rank's rows."""
     model.eval()
     keep = static_modality_keep(cfg, batch.emo_label.shape[0], batch.emo_label.device)
     out = model(batch, keep)
+    if mesh is not None:
+        out, batch = gather_batch(out, batch, mesh, ("scores", "labels", "tcp"))
     if cfg.resolved_task() == "regression":
         err = torch.abs(out.scores[:, 0] - batch.sentiment)
         cls_loss = err.mean()
@@ -224,14 +273,20 @@ def graph_pool(device):
 
 def make_train_graph(model, optimizer, cfg, device,
                      generator: Optional[torch.Generator] = None,
-                     ema: Optional[List[torch.Tensor]] = None, pool=None) -> StepGraphs:
+                     ema: Optional[List[torch.Tensor]] = None, pool=None,
+                     mesh: Optional[Mesh] = None,
+                     dropout_generator: Optional[torch.Generator] = None) -> StepGraphs:
     """Training steps as `StepGraphs` over `train_body`: each call takes a
-    host batch and returns `train_step`'s dict."""
-    return StepGraphs(lambda b: train_body(model, optimizer, b, cfg, generator, ema),
-                      device, optimizer.advance, (generator,), pool)
+    host batch (this rank's rows under `mesh`) and returns `train_step`'s
+    dict.  Under `mesh` a capture records the step's collectives (nccl)."""
+    generators = (generator,) if dropout_generator in (None, generator) else (
+        generator, dropout_generator)
+    return StepGraphs(lambda b: train_body(model, optimizer, b, cfg, generator, ema,
+                                           mesh=mesh, dropout_generator=dropout_generator),
+                      device, optimizer.advance, generators, pool)
 
 
-def make_eval_graph(model, cfg, device, pool=None) -> StepGraphs:
+def make_eval_graph(model, cfg, device, pool=None, mesh: Optional[Mesh] = None) -> StepGraphs:
     """Eval steps as `StepGraphs` over `eval_step`: each call takes a host
-    batch and returns its dict."""
-    return StepGraphs(lambda b: eval_step(model, b, cfg), device, pool=pool)
+    batch (this rank's rows under `mesh`) and returns its dict."""
+    return StepGraphs(lambda b: eval_step(model, b, cfg, mesh), device, pool=pool)

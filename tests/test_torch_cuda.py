@@ -24,8 +24,9 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (CHECK_SHAPES, INT8_DENSES, SHORT_SHAPES,  # noqa: E402
-                        check_short_mask, steady_on_cpu)
+from chip_smoke import (CHECK_SHAPES, INT8_DENSES, MASKED_ITEM_SHAPES,  # noqa: E402
+                        MASKED_REACH, SHORT_SHAPES, check_short_mask, masked_item_case,
+                        masked_item_inputs, steady_on_cpu)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -721,6 +722,25 @@ def test_tiled_kernels_take_a_batch_item_whose_keys_are_all_masked(cuda_device, 
     tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, 2.0 ** -7)
     for got, ref in zip((o, *grads), want):
         _close(got, ref, *tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nh,S,hd", MASKED_ITEM_SHAPES)
+@pytest.mark.parametrize("reach", MASKED_REACH)
+def test_tiled_kernels_take_an_all_masked_item_whose_scores_reach_32(cuda_device, B, nh, S,
+                                                                       hd, dtype, reach):
+    """The all-masked item of the test above with its q scaled so that the
+    largest |s scale| of its rows is `reach` (>= 32): s scale - 1e9 then
+    rounds to a multiple of 64 away from -1e9, so its softmax is no longer
+    uniform but one-hot on the keys whose rounded scores tie at the row max.
+    The tiled kernels (both bf16 designs: hd = 64 on wgmma, 100 on mma.sync)
+    against the float64 evaluation of their function, within the gate plus
+    the plain version's own error (`chip_smoke.masked_item_case`: with p
+    one-hot, ds cancels to a few ulps of dp in any f32 order of summation)."""
+    q, k, _, _, _ = masked_item_inputs(B, nh, S, hd, dtype, reach, cuda_device)
+    s1 = torch.einsum("hqd,hkd->hqk", q[1].float(), k[1].float()) / hd ** 0.5
+    assert s1.abs().max() >= 32.0
+    masked_item_case(kshort, B, nh, S, hd, dtype, reach, cuda_device)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -87,6 +87,19 @@ def test_entry_points_raise_without_cuda_instead_of_using_the_cpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_the_parallel_package_is_covered(monkeypatch, tmp_path):
+    """The data-parallel modules are among those the checks above read and
+    import; their entry point asks for the card by default and raises
+    without one instead of running its ranks on the CPU."""
+    from mmda_tpu_torch.parallel.mesh import init_distributed
+
+    assert {"mmda_tpu_torch.parallel", "mmda_tpu_torch.parallel.mesh"} <= set(_modules())
+    assert PKG / "parallel" / "mesh.py" in set(PKG.rglob("*.py"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed(rank=0, world_size=1, init_method=f"file://{tmp_path / 'store'}")
+
+
 def test_chip_smoke_fails_without_cuda():
     """No card: a non-zero exit and no result line."""
     code = ("import torch; torch.cuda.is_available = lambda: False; "
