@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase15
     python3 chip_smoke.py --phase16
     python3 chip_smoke.py --phase17
+    python3 chip_smoke.py --fused-long-f32
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -63,10 +64,14 @@ the result):
    scores reach 33, 40 and 100 against the plain training forward and the
    plain backward from its statistics (`check_masked_items`, f32 and bf16, at
    (3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100)); hd = 136 refused; timed at (64, 12, 50, 64)
-   and (32, 12, 514, 64) bf16 beside SDPA, the tiled backward from the saved
-   statistics by part (r, dq, dk/dv) and alone, and both bf16 tiled designs
-   (`wgmma` fed by TMA, `mma.sync` fed by cp.async) in turns with their
-   HGMMA / HMMA lines.  The two
+   and (32, 12, 514, 64), bf16 and f32, beside SDPA, the tiled backward from the
+   saved statistics by part (r, dq, dk/dv) and alone, and both tiled designs of each
+   dtype in turns with their HGMMA / HMMA lines (bf16: `wgmma` fed by TMA, `mma.sync`
+   fed by cp.async; f32: six bf16 term products on `wgmma`, f32 FMAs, each also
+   against float64, with the plain version's distance beside it, and with q times 4
+   and 8 (peaked scores) each output within twice that distance); both f32 designs
+   timed at (2, 4, 257, 8) and (2, 2, 129, 33); the f32
+   tensor-core kernels' SASS must hold HGMMA lines.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
    35, 35, 74, 74, and at (16, 64) with H = 35, 74, 300 in one launch (the
    serial passes' three instantiations, which the checks must reach),
@@ -98,7 +103,10 @@ the result):
    (1e-4);
 6. train -> serve: `python -m mmda_tpu_torch.cli.train --data synthetic
    --n_epoch 1` at the default widths writes a best-on-dev checkpoint, and a
-   `Predictor` loaded from it answers a few requests with finite scores;
+   `Predictor` loaded from it answers a few requests with finite scores; the
+   `cli.train` runs of phases 7, 9 and 16 start beside it, all four
+   processes at once on the card (nothing timed runs beside them), and each
+   checkpoint is then served in turn;
 7. the GRU configuration (`rnncell=gru`, `fused_ln_dropout=True`) at the
    flagship shape: `Trainer.train()` as in phase 5, every step making 8
    `gru_fwd`, 8 `gru_bwd`, 24 `ln_dropout_fwd` and 24 `ln_dropout_bwd`
@@ -212,7 +220,7 @@ the result):
    join of `save_checkpoint(async_write=True)`, the two files the same bytes;
 15. serving artifacts and MoE BERT, at full width: the default configuration with
    `attn_impl="fused"` exported on the card (`serving_export.export_model`, buckets
-   16/32/64, max_batch 64; seconds and `.pt2` bytes a bucket), an `ExportedPredictor`
+   32 and 64, max_batch 64; seconds and `.pt2` bytes a bucket), an `ExportedPredictor`
    of it against the live captured `Predictor` on a copy of the weights (8 `lstm_fwd` +
    12 `short_attn_fwd` a call, scores within SERVE_TOL with the bit-equal share, both
    latencies at each bucket for B=64 and B=1, median of 10), the same artifact served by
@@ -236,7 +244,12 @@ the result):
    a small f32 model at T=130 on the card against the CPU, eager steps against captured
    replays bit for bit, timed, and `Trainer.train()` with compiled_epoch; phase 8's flash
    step on the same trainer, eager and captured, the two steps side by side (`16
-   fused-vs-flash`: ms, busy, attention kernels' ms a step, peak memory); a
+   fused-vs-flash`: ms, busy, attention kernels' ms a step, peak memory); the same
+   step in f32 (`compute_dtype="float32"`: the f32 tiled kernels on the tensor
+   cores, 12 + 12 a step, 12 an eval batch) through `Trainer.train()` for 3 steps,
+   then eager steps against captured replays bit for bit, 5 of each timed, busy, idle
+   share, peak memory and the tiled kernels' ms a step (`11 fused-long-f32`;
+   `--fused-long-f32` runs it alone after the build with both f32 designs in turns); a
    `Predictor(attn_impl="fused")` on the
    checkpoint at bucket 512 over HTTP (12 `short_attn_tiled_fwd` + 8 `lstm_fwd` a call),
    captured at B=32 and B=1 against eager calls, within 2e-2 of the dense-core and flash
@@ -271,6 +284,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -299,8 +313,7 @@ CHECK_SHAPES = [(16, 64, 35), (32, 64, 35), (48, 64, 35), (64, 64, 35),
                 (16, 64, 74), (32, 64, 74), (48, 64, 74), (64, 64, 74),
                 (48, 64, 300), (48, 32, 35), (48, 32, 74), (256, 32, 74), (512, 32, 74),
                 (7, 5, 33), (48, 64, 128)]
-TIMED_SHAPES = [(48, 64, 35), (64, 64, 35), (16, 64, 74), (48, 64, 74), (64, 64, 74),
-                (512, 32, 74), (48, 64, 128)]
+TIMED_SHAPES = [(48, 64, 74), (64, 64, 74), (512, 32, 74), (48, 64, 128)]
 REPORT_SHAPE = (64, 64, 74)       # the kernels line: largest bucket, wider tower
 REPORT_BWD_SHAPE = (48, 64, 74)   # the training step's wider tower
 LAUNCHES_PER_CALL = 8             # 2 towers x 2 layers x 2 directions
@@ -320,6 +333,7 @@ FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SHORT_TILED = ("short_attn_tiled_fwd", "short_attn_tiled_bwd")
 FUSED_LONG_STEPS = 4              # phase 16: Trainer.train()'s epoch at B=32, T=512
 FUSED_LONG_SMALL_T = 130          # its small f32 model's length, card against CPU (S > 128)
+FUSED_LONG_F32_STEPS, FUSED_LONG_F32_TIMED = 3, 5   # the f32 long step: train()'s, then timed
 TRAIN_CONFIGS = {
     "lstm": {"options": {"attn_impl": "xla"},
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
@@ -355,6 +369,18 @@ TRAIN_CONFIGS = {
                                 "short_attn_tiled_fwd": BERT_LAYERS},
                    "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw", "tiled_fwd",
                                "tiled_r", "tiled_dq", "tiled_dkv")},
+    # the same in f32: the f32 tiled kernels in every training step and eval
+    # batch (phase 16); a few steps, for the captured step alone
+    "fused_long_f32": {"options": {"attn_impl": "fused", "compute_dtype": "float32"},
+                       "dropout_on": True, "batch": LONG_B, "T": LONG_T,
+                       "steps": FUSED_LONG_F32_STEPS, "timed": FUSED_LONG_F32_TIMED,
+                       "per_step": {"lstm_fwd": LAUNCHES_PER_CALL,
+                                    "lstm_bwd": LAUNCHES_PER_CALL,
+                                    **dict.fromkeys(SHORT_TILED, BERT_LAYERS)},
+                       "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL,
+                                    "short_attn_tiled_fwd": BERT_LAYERS},
+                       "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw",
+                                   "tiled_fwd", "tiled_r", "tiled_dq", "tiled_dkv")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
@@ -378,6 +404,7 @@ ATTN_F32_TOL = (1e-5, 1e-4)       # |err| <= 1e-5 + 1e-4 |ref|: summation order 
 ATTN_BF16_TOL = (2e-2, 2.0 ** -7)  # a probability on a rounding boundary may round the
                                   # other way (one bf16 ulp of a value up to 1, times v)
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
+PEAK_F32_TERMS_FLOPS = PEAK_BF16_FLOPS / 6   # f32-accurate products as six bf16 term products
 FLASH_SERVE_TOL = 2e-2            # flash Predictor against the dense core, bf16
 # (N, H, dtype) of the fused LayerNorm checks: the flagship step's sites
 # (N = B * S = 64 * 50) in bf16 and f32, two row counts that are no multiple of
@@ -1172,6 +1199,7 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) 
                                      f"{(BH, S, D, seed)} {dtype}, offset {off}")
 
 
+@functools.lru_cache(maxsize=None)
 def tensor_core_instructions(so_path) -> dict:
     """{function: {"HGMMA": lines, "HMMA": lines}} of a built library's SASS
     (cuobjdump -sass), for every kernel function (the bf16 instantiations
@@ -1193,8 +1221,10 @@ def tensor_core_instructions(so_path) -> dict:
 
 
 def tensor_core_counts(names) -> dict:
-    """{kernel: {"bf16_kernels": HMMA/HGMMA lines in its `*_mma_kernel`
-    functions, "all": in the whole library}}; raises where a bf16 kernel
+    """{kernel: {"bf16_kernels": HMMA/HGMMA lines in its bf16 `*_mma_kernel`
+    and `*_wgmma_kernel` functions, "f32_kernels": in its f32
+    `*_f32_wgmma_kernel` ones (the tiled kernels), "all": in the whole
+    library}}; raises where a bf16 kernel, or a tiled kernel's f32 design,
     has none (its products would not run on the tensor cores)."""
     from mmda_tpu_torch.ops.kernels import _build
 
@@ -1202,11 +1232,16 @@ def tensor_core_counts(names) -> dict:
     for name in names:
         by_function = {f: sum(n.values())
                        for f, n in tensor_core_instructions(_build.library_path(name)).items()}
-        bf16 = sum(n for f, n in by_function.items() if "mma_kernel" in f)
-        sass[name] = {"bf16_kernels": bf16, "all": sum(by_function.values())}
+        bf16 = sum(n for f, n in by_function.items() if "mma_kernel" in f and "f32" not in f)
+        f32 = sum(n for f, n in by_function.items() if "f32_wgmma_kernel" in f)
+        sass[name] = {"bf16_kernels": bf16, "f32_kernels": f32,
+                      "all": sum(by_function.values())}
         if bf16 == 0:
             raise AssertionError(f"{name}: no HMMA/HGMMA instruction in the SASS of its "
                                  "bf16 kernels")
+        if "tiled" in name and f32 == 0:
+            raise AssertionError(f"{name}: no HMMA/HGMMA instruction in the SASS of its "
+                                 "f32 tensor-core kernels")
     return sass
 
 
@@ -1345,10 +1380,12 @@ def short_bounds(B, nh, S, hd, dtype) -> dict:
     read once, o (dq, dk, dv) written once, the bias once, over HBM; against
     the 2 and 5 S x S x hd products (2 S^2 hd operations each) over the
     dense bf16 tensor-core peak for bf16 operands (a tensor-core kernel
-    takes them as they are, and an f32 intermediate as bf16 terms) and over
-    the f32 peak for f32 operands."""
+    takes them as they are, and an f32 intermediate as bf16 terms) and, for
+    f32 operands, over a sixth of it (PEAK_F32_TERMS_FLOPS): an f32-accurate
+    product on the tensor cores is six bf16 term products, the least time
+    the card takes for it, below the f32 FMA peak's."""
     w = torch.finfo(dtype).bits // 8
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_TERMS_FLOPS
     n, bias = B * nh * S * hd, B * S * 4
     out = {}
     for name, (nbytes, products) in {"short_attn_fwd": (4 * n * w + bias, 2),
@@ -1372,12 +1409,16 @@ def masked_item_inputs(B, nh, S, hd, dtype, reach, device):
     return q, k, v, g, bias
 
 
-def masked_item_exact(kshort, q, k, v, bias, seed, g, rate):
+def masked_item_exact(kshort, q, k, v, bias, seed, g, rate, scores="f32"):
     """The tiled kernels' function in float64 on these inputs: the scores
     rounded in f32 as the plain version rounds them (which, at the mask's
-    -1e9, decides which keys tie at a row's max), every step after them in
-    float64: (o, dq, dk, dv)."""
+    -1e9, decides which keys tie at a row's max), or with scores="float64"
+    formed in float64 from the f32 q * scale (the function's own rounding of
+    q * scale and none after it; for inputs whose bias is 0 or a masked
+    tail), every step after them in float64: (o, dq, dk, dv)."""
     s, qs = (t.double() for t in kshort._scores(q, k, bias))
+    if scores == "float64":
+        s = torch.matmul(qs, k.double().transpose(-1, -2)) + bias.double()[:, None, None, :]
     keep = kshort._keep(q, seed, rate)
     keep = 1.0 if keep is None else keep.double()
     p = torch.softmax(s, -1)
@@ -1485,7 +1526,113 @@ def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32
 
 
 TILED_BWD_PARTS = {"r": "tiled_r", "dq": "tiled_dq", "dkv": "tiled_dkv"}
-TILED_DESIGNS = {1: "mma.sync, cp.async", 0: "wgmma, TMA"}   # short_attention._TILED_IMPL
+# short_attention._TILED_IMPL by dtype: design -> (name, whether a SASS
+# function name is one of its kernels)
+TILED_DESIGNS = {
+    torch.bfloat16: {1: ("mma.sync, cp.async", lambda f: "_mma_kernel" in f),
+                     0: ("wgmma, TMA", lambda f: "wgmma_kernel" in f and "f32" not in f)},
+    torch.float32: {1: ("f32 FMAs", lambda f: "f32_kernel" in f),
+                    0: ("wgmma, six bf16 term products", lambda f: "f32_wgmma_kernel" in f)}}
+
+
+def from_float64(kshort, inputs, rate, got, scores="float64") -> dict:
+    """How far the tiled kernels' (o, dq, dk, dv) and the plain versions'
+    (cuBLAS in f32) lie from the float64 evaluation of the function on the
+    same inputs (`masked_item_exact`, its scores in float64): {output:
+    [kernel's largest |error|, the plain version's]}.  With scores="f32"
+    the evaluation takes the plain version's f32 scores: a distance from
+    cuBLAS's own rounding of s, which the f32 FMA kernels (the same FMA
+    chain) meet by construction and a kernel that forms s more exactly does
+    not, by about the plain version's own error times the softmax's
+    peak."""
+    q, k, v, bias, seed, g = inputs
+    exact = masked_item_exact(kshort, q, k, v, bias, seed, g, rate, scores)
+    plain = (kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
+             *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate))
+    out = {name: [(a.double() - x).abs().max().item(), (w.double() - x).abs().max().item()]
+           for name, a, w, x in zip(("o", "dq", "dk", "dv"), got, plain, exact)}
+    del exact, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+PEAKED_Q = (4.0, 8.0)              # q's factors in `peaked_scores`: scores of spread 4 and 8
+PEAKED_TIMES = 2.0                 # o, dq, dk, dv from float64 within this many times
+                                   # the plain version's distance
+
+
+def peaked_check(kshort, inputs, q_factor, rate) -> dict:
+    """Both f32 tiled designs on `inputs` with q times q_factor (a softmax
+    as peaked as a trained model's can be): each output's largest |err|
+    against the plain version over the f32 gate (1e-5 + 1e-5 |ref|;
+    recorded: two f32 forms of s part by a few ulps of |s|, which the
+    peaked softmax carries into every output, so at spread 8 dk leaves the
+    gate in both designs), and `from_float64`'s two distances, with the
+    scores in float64 (held) and as the plain version rounds them
+    (`from_plain_scores`, recorded).  Each output must lie from float64
+    within PEAKED_TIMES the plain version's distance: a design whose f32
+    sums drift with the scores' size (the tensor cores truncate theirs)
+    fails here.  Raises past it."""
+    q, k, v, bias, seed, g = inputs
+    peaked = (q * q_factor, k, v, bias, seed, g)
+    qp = peaked[0]
+    atol, rtol = SHORT_F32_TOL
+    want = (kshort.short_attention_fwd_reference(qp, k, v, bias, seed, rate),
+            *kshort.short_attention_bwd_reference(qp, k, v, bias, seed, g, rate))
+    out = {"q_factor": q_factor}
+    for impl, (name, _) in TILED_DESIGNS[torch.float32].items():
+        with replaced(kshort, "_TILED_IMPL", impl):
+            got = (kshort.short_attention_fwd(qp, k, v, bias, seed, rate),
+                   *kshort.short_attention_bwd(qp, k, v, bias, seed, g, rate))
+        far = from_float64(kshort, peaked, rate, got)
+        out[name] = {
+            "gate_share": {n: ((a - w).abs() / (atol + rtol * w.abs())).max().item()
+                           for n, a, w in zip(("o", "dq", "dk", "dv"), got, want)},
+            "from_float64": far,
+            "from_plain_scores": from_float64(kshort, peaked, rate, got, scores="f32")}
+        del got
+        for n, (ours, plain) in far.items():
+            if ours > PEAKED_TIMES * plain:
+                raise AssertionError(
+                    f"{tuple(q.shape)} q x {q_factor}, design {name}: {n} lies {ours:.3e} "
+                    f"from float64, the plain version {plain:.3e}")
+    return out
+
+
+def peaked_scores(kshort, inputs) -> list:
+    """`peaked_check` at each PEAKED_Q at rate ATTN_RATE."""
+    return [peaked_check(kshort, inputs, f, ATTN_RATE) for f in PEAKED_Q]
+
+
+F32_SMALL_HD = [(2, 4, 257, 8), (2, 2, 129, 33)]   # f32 head dims the six-term design pads
+
+
+def f32_small_hd_times(kshort, device) -> list:
+    """Both f32 tiled designs at F32_SMALL_HD, rate ATTN_RATE, timed in
+    turns (each, then each again in reverse; the smaller of a design's two
+    device times): the forward and the backward from the saved statistics."""
+    seed = torch.tensor([7], dtype=torch.int32, device=device)
+    order = list(TILED_DESIGNS[torch.float32])
+    rows = []
+    for B, nh, S, hd in F32_SMALL_HD:
+        q, k, v, g, bias = short_inputs(B, nh, S, hd, torch.float32, S + hd, device)
+        row = {"B": B, "nh": nh, "S": S, "hd": hd}
+        for impl in order + order[::-1]:
+            name = TILED_DESIGNS[torch.float32][impl][0]
+            with replaced(kshort, "_TILED_IMPL", impl):
+                saved = kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)[1:]
+                fns = {"fwd_ms": lambda: kshort.short_attention_fwd(q, k, v, bias, seed,
+                                                                    ATTN_RATE),
+                       "bwd_ms": lambda: kshort.short_attention_bwd(q, k, v, bias, seed, g,
+                                                                    ATTN_RATE, *saved)}
+                times = row.setdefault(name, {"fwd_ms": [], "bwd_ms": []})
+                for key, fn in fns.items():
+                    times[key].append(device_time(fn, cuda_ms(fn))[0])
+        for name, _ in TILED_DESIGNS[torch.float32].values():
+            row[name] = {key: min(t) for key, t in row[name].items()}
+        rows.append(row)
+        del q, k, v, g, bias, saved
+    return rows
 
 
 def tiled_extras(kshort, inputs, saved) -> tuple:
@@ -1493,10 +1640,12 @@ def tiled_extras(kshort, inputs, saved) -> tuple:
     (forward's, backward's): the training forward's device ms; the parts of
     the backward from the saved statistics (r, dq, dk/dv: profiler medians
     by kernel name), the standalone backward's ms and parts (the forward's
-    kernel first, for the statistics); in bf16, each design of the kernels
-    (`TILED_DESIGNS`) timed in turns (each, then each again in reverse; the
-    smaller of its two times), with its parts, its HGMMA and HMMA lines and
-    its error against the plain versions (which it must meet)."""
+    kernel first, for the statistics); each design of the kernels in the
+    inputs' dtype (`TILED_DESIGNS`) timed in turns (each, then each again in
+    reverse; the smaller of its two times), with its parts, its HGMMA and
+    HMMA lines, its error against the plain versions (which it must meet)
+    and, in f32, how far it and the plain versions lie from float64
+    (`from_float64`), there and on peaked scores (`peaked_scores`)."""
     from mmda_tpu_torch.ops.kernels import _build
 
     q, k, v, bias, seed, g = inputs
@@ -1517,32 +1666,39 @@ def tiled_extras(kshort, inputs, saved) -> tuple:
                                                                  ATTN_RATE))}
     b = {"parts_ms": bwd_parts(bwd, TILED_BWD_PARTS), "standalone_ms": ms(alone),
          "standalone_parts_ms": bwd_parts(alone, {"stats": "tiled_fwd", **TILED_BWD_PARTS})}
-    if q.dtype != torch.bfloat16:
-        return f, b
+    tol = SHORT_BF16_TOL if q.dtype == torch.bfloat16 else SHORT_F32_TOL
     o_w = kshort.short_attention_fwd_reference(q, k, v, bias, seed, ATTN_RATE)
     grads_w = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE)
     sass = {name: tensor_core_instructions(_build.library_path(name))
             for name in kshort.ROUTE_SOURCES["tiled"]}
     designs: dict = {}
-    for impl in list(TILED_DESIGNS) + list(TILED_DESIGNS)[::-1]:
+    order = list(TILED_DESIGNS[q.dtype])
+    for impl in order + order[::-1]:
+        name, _ = TILED_DESIGNS[q.dtype][impl]
         with replaced(kshort, "_TILED_IMPL", impl):
-            row = designs.setdefault(TILED_DESIGNS[impl], {"fwd_ms": [], "bwd_ms": []})
-            where = f"{tuple(q.shape)} bf16, design {TILED_DESIGNS[impl]}"
-            row["max_abs_err"] = max_err([("o", fwd(), o_w),
-                                          *zip(("dq", "dk", "dv"), bwd(), grads_w)],
-                                         SHORT_BF16_TOL, where)
+            row = designs.setdefault(name, {"fwd_ms": [], "bwd_ms": []})
+            where = f"{tuple(q.shape)} {q.dtype}, design {name}"
+            got = (fwd(), *bwd())
+            row["max_abs_err"] = max_err(zip(("o", "dq", "dk", "dv"), got, (o_w, *grads_w)),
+                                         tol, where)
+            if q.dtype == torch.float32 and "from_float64" not in row:
+                row["from_float64"] = from_float64(kshort, inputs, ATTN_RATE, got)
+            del got
             row["fwd_ms"].append(ms(fwd))
             row["bwd_ms"].append(ms(bwd))
             row["parts_ms"] = bwd_parts(bwd, TILED_BWD_PARTS)
-    for name, row in designs.items():
+    for name, ours in TILED_DESIGNS[q.dtype].values():
+        row = designs[name]
         row["fwd_ms"], row["bwd_ms"] = min(row["fwd_ms"]), min(row["bwd_ms"])
-        kind = "wgmma" if "wgmma" in name else "_mma_"
-        row["sass"] = {src: {fn: n for fn, n in by_fn.items() if kind in fn and any(n.values())}
+        row["sass"] = {src: {fn: n for fn, n in by_fn.items() if ours(fn) and any(n.values())}
                        for src, by_fn in sass.items()}
-    f["designs"] = {name: {k: row[k] for k in ("fwd_ms", "max_abs_err", "sass")}
+    keys = ("max_abs_err", "sass") + (("from_float64",) if q.dtype == torch.float32 else ())
+    f["designs"] = {name: {"fwd_ms": row["fwd_ms"], **{k: row[k] for k in keys}}
                     for name, row in designs.items()}
-    b["designs"] = {name: {k: row[k] for k in ("bwd_ms", "parts_ms", "max_abs_err", "sass")}
-                    for name, row in designs.items()}
+    if q.dtype == torch.float32:
+        f["peaked"] = peaked_scores(kshort, inputs)
+    b["designs"] = {name: {"bwd_ms": row["bwd_ms"], "parts_ms": row["parts_ms"],
+                           **{k: row[k] for k in keys}} for name, row in designs.items()}
     return f, b
 
 
@@ -1617,6 +1773,8 @@ def check_short_kernels(kshort, hashes, device) -> dict:
         else:
             raise AssertionError(f"short attention took hd = {hd}")
     masked_items = check_masked_items(kshort, device)
+    small_hd = f32_small_hd_times(kshort, device)
+    log("3 short-tiled-f32-small-hd", designs=small_hd)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in rows[name] if r["dtype"] == dtype)
@@ -1676,7 +1834,8 @@ def check_short_kernels(kshort, hashes, device) -> dict:
             del q, k, v, g, bias, lq, lk, lv, lib_out, saved
             torch.cuda.empty_cache()
     return {name: {"checks": rows[name], "timed": timed[name], "refused": refused,
-                   **({"masked_items": masked_items} if "tiled" in name else {}),
+                   **({"masked_items": masked_items, "f32_small_hd": small_hd}
+                      if "tiled" in name else {}),
                    "max_abs_err": errs[name]["float32"],
                    "max_abs_err_bf16": errs[name]["bfloat16"], "report": timed[name][0],
                    **({"sass": sass[name]} if name in sass else {})}
@@ -2458,29 +2617,41 @@ def train_phases(phase, kind, reference, counts, device, small_T=16, **small_opt
                      "captured": captured, "compiled_train": compiled}
 
 
-def train_then_serve(device, counts, kernel="lstm_fwd", options=(), per_call=None) -> dict:
-    """`python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 1` (and
-    `options`) at the default widths (on the card, its default), then a
-    Predictor loaded from the checkpoint it wrote answers a few requests in
-    one call that launches `kernel` LAUNCHES_PER_CALL times and no other
-    (`per_call`: every kernel it launches, by name)."""
+def start_cli_train(options, per_call) -> dict:
+    """Starts `python -m mmda_tpu_torch.cli.train --data synthetic --n_epoch 1`
+    (and `options`) at the default widths (on the card, its default), its
+    output into a log beside its checkpoint; `serve_cli_checkpoint` waits."""
+    name = "chip_smoke_cli_" + "_".join(sorted(per_call))
+    ckpt_dir = BUILD / name
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    args = ["--data", "synthetic", "--ckpt_dir", str(ckpt_dir), "--name", name, *options]
+    log_path = ckpt_dir / "cli_train.log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "mmda_tpu_torch.cli.train", *args,
+                                 "--n_epoch", "1"], cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+    return {"proc": proc, "args": args, "name": name, "ckpt_dir": ckpt_dir, "log": log_path,
+            "per_call": per_call, "t0": time.perf_counter()}
+
+
+def serve_cli_checkpoint(run: dict, device, counts) -> dict:
+    """Waits for a `start_cli_train` run, then a Predictor loaded from the
+    checkpoint it wrote answers a few requests in one call that launches
+    the run's `per_call` kernels (by name) and no other."""
     from mmda_tpu_torch.config import get_config
     from mmda_tpu_torch.serving import Predictor
 
-    per_call = per_call or {kernel: LAUNCHES_PER_CALL}
-    name = "chip_smoke_cli_" + "_".join(sorted(per_call))
-    ckpt_dir = BUILD / name
-    args = ["--data", "synthetic", "--ckpt_dir", str(ckpt_dir), "--name", name, *options]
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "mmda_tpu_torch.cli.train", *args,
-                          "--n_epoch", "1"], cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    train_s = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise RuntimeError(f"cli.train exit {out.returncode}:\n{out.stdout[-3000:]}\n"
-                           f"{out.stderr[-3000:]}")
-    summary = json.loads((ckpt_dir / f"summary_{name}.json").read_text())
-    cfg = get_config(argv=args)
+    try:
+        code = run["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        raise
+    train_s = time.perf_counter() - run["t0"]
+    if code != 0:
+        raise RuntimeError(f"cli.train exit {code}:\n{run['log'].read_text()[-6000:]}")
+    name, per_call = run["name"], run["per_call"]
+    summary = json.loads((run["ckpt_dir"] / f"summary_{name}.json").read_text())
+    cfg = get_config(argv=run["args"])
     pred = Predictor(cfg, visual_size=35, acoustic_size=74, max_batch=8, device=str(device))
     reqs = make_requests(spread_lengths(8, cfg.bucket_sizes, 9), cfg, seed=9)
     counts.reset_launch_count()
@@ -2493,6 +2664,28 @@ def train_then_serve(device, counts, kernel="lstm_fwd", options=(), per_call=Non
     return {"train_s": train_s, "best_epoch": summary["best_epoch"],
             "test_loss": summary["test_loss"], "requests": len(reqs),
             "score_mean": float(np.mean(got["scores"]))}
+
+
+def train_then_serve_all(device, counts) -> dict:
+    """Every CLI_RUNS entry's `cli.train` (`start_cli_train`), the processes
+    all at once on the card (nothing is timed beside them; each `train_s` is
+    its process's wall time among the others), then each checkpoint's
+    Predictor in turn (`serve_cli_checkpoint`); every process is ended
+    before this returns.  {log line: result}, each also logged."""
+    runs = {}
+    out = {}
+    try:
+        for line, (options, per_call) in CLI_RUNS.items():
+            runs[line] = start_cli_train(options, per_call)
+        for line, run in runs.items():
+            out[line] = serve_cli_checkpoint(run, device, counts)
+            log(line, **out[line])
+    finally:
+        for run in runs.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    return out
 
 
 def serve_long(cfg, counts, device) -> dict:
@@ -3903,7 +4096,8 @@ def phase14(counts, device) -> dict:
 
 # ---------------------------- phase 15: serving artifacts, the kernels as ops; MoE BERT
 
-EXPORT_BUCKETS = (16, 32, 64)     # the default Config's buckets, max_batch 64
+EXPORT_BUCKETS = (32, 64)         # the default Config's buckets but 16 (the same graph at
+                                  # a smaller shape: cut for time), max_batch 64
 FLASH_EXPORT = (512, 32)          # the long bucket and its batch
 EXPORT_SERVED = 6                 # requests posted one at a time to the artifact's server
 ZOO_FREE = ("mmda_tpu_torch.models", "mmda_tpu_torch.serving", "mmda_tpu_torch.train")
@@ -4254,6 +4448,15 @@ def phase15(counts, device) -> dict:
 FUSED_LONG_CALL = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_tiled_fwd": BERT_LAYERS}
 FUSED_LONG_CLI = ("--attn_impl", "fused", "--max_seq_len", str(LONG_T), "--batch_size",
                   str(LONG_B), "--bucket_sizes", f"64,{LONG_T}")
+# the `cli.train` runs that phases 6, 7, 9 and 16 serve from (train_then_serve_all):
+# log line -> (options, the kernels a Predictor call on the checkpoint launches)
+CLI_RUNS = {
+    "6 train-then-serve": ((), {"lstm_fwd": LAUNCHES_PER_CALL}),
+    "7 gru-train-then-serve": (("--rnncell", "gru", "--fused_ln_dropout", "True"),
+                               {"gru_fwd": LAUNCHES_PER_CALL}),
+    "9 fused-train-then-serve": (("--attn_impl", "fused"),
+                                 {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS}),
+    "16 fused-cli-train-then-serve": (FUSED_LONG_CLI, FUSED_LONG_CALL)}
 
 
 def serve_fused_long(cfg, counts, device) -> dict:
@@ -4316,11 +4519,52 @@ def step_summary(steps, captured, kind: str) -> dict:
                                   "captured": captured["captured"]["peak_mem_gb"]}}
 
 
-def phase16(counts, klstm, device) -> dict:
+def fused_long_f32(counts, kshort, device, designs=(0,)) -> dict:
+    """Phase 11's `fused_long_f32`: MISA at bert-base width, B=32, T=512,
+    compute_dtype="float32", attn_impl="fused" with dropout: `Trainer.train()`
+    for FUSED_LONG_F32_STEPS steps (its launches: BERT_LAYERS
+    `short_attn_tiled_fwd` + `short_attn_tiled_bwd` and LAUNCHES_PER_CALL
+    `lstm_fwd` + `lstm_bwd` a step, BERT_LAYERS + LAUNCHES_PER_CALL an eval
+    batch), then `captured_steps` (replays bit-equal to eager steps, ms a
+    step, busy, idle share, peak memory, the tiled kernels' device ms a
+    step), for each f32 design of the tiled kernels in `designs`
+    (`short_attention._TILED_IMPL`: 0 on the tensor cores, 1 f32 FMAs), in
+    turns on one trainer.  {design name: its summaries in turn}, and the
+    main path's."""
+    trainer, path = train_main_path(counts, "fused_long_f32")
+    log("11 fused-long-f32-main-path", **path)
+    out = {"main_path": path}
+    for impl in designs:
+        name = TILED_DESIGNS[torch.float32][impl][0]
+        with replaced(kshort, "_TILED_IMPL", impl):
+            captured = captured_steps(trainer, counts, "fused_long_f32", device)
+        log("11 captured-steps", design=name, **captured)
+        prof = captured["captured_profile"]
+        out.setdefault(name, []).append({
+            "captured_ms": captured["captured"]["ms"], "eager_ms": captured["eager"]["ms"],
+            "busy_ms": prof["device_busy_ms_per_call"],
+            "device_ops": prof.get("device_ops_per_call"),
+            "idle_share": {k: captured[k].get("idle_share") for k in ("eager", "captured")},
+            "tiled_ms_per_step": {k: prof.get(f"{k}_ms_per_call")
+                                  for k in ("tiled_fwd", "tiled_r", "tiled_dq", "tiled_dkv")},
+            "peak_allocated_gb": {k: captured[k]["peak_mem_gb"] for k in ("eager", "captured")},
+            "captured_diffs": captured["captured_diffs"],
+            "launches_per_replay": captured["launches_per_replay"]})
+    log("11 fused-long-f32", **{k: v for k, v in out.items() if k != "main_path"})
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16(counts, klstm, device, cli=None) -> dict:
     """The fused configuration at the long shape (module docstring, phase
     16): the training phases, phase 8's flash step timed on the same
-    trainer, the bucket-512 Predictor, `cli.train --attn_impl fused` at
-    T=512 and a Predictor on its export; each part's launches."""
+    trainer, the same step in f32 (`fused_long_f32`), the bucket-512
+    Predictor, `cli.train --attn_impl fused` at T=512 and a Predictor on
+    its export (`cli`, where the caller ran it with the other CLI_RUNS);
+    each part's launches."""
+    from mmda_tpu_torch.ops.kernels import short_attention as kshort
+
     t0 = time.perf_counter()
     trainer, train = train_phases(16, "fused_long", klstm.lstm_recurrence_reference, counts,
                                   device, small_T=FUSED_LONG_SMALL_T, attn_impl="fused")
@@ -4339,18 +4583,22 @@ def phase16(counts, klstm, device) -> dict:
     log("16 fused-vs-flash", **train["fused_vs_flash"])
     del trainer
     torch.cuda.empty_cache()
+    f32 = fused_long_f32(counts, kshort, device)
     serve = serve_fused_long(cfg, counts, device)
     log("16 fused-serve-http", **{k: v for k, v in serve.items() if k != "captured"},
         tol=FLASH_SERVE_TOL)
     log("11 captured-serve", kind="fused_long", **serve["captured"])
     torch.cuda.empty_cache()
-    cli = train_then_serve(device, counts, options=FUSED_LONG_CLI, per_call=FUSED_LONG_CALL)
-    log("16 fused-cli-train-then-serve", **cli)
+    if cli is None:
+        line = "16 fused-cli-train-then-serve"
+        cli = serve_cli_checkpoint(start_cli_train(*CLI_RUNS[line]), device, counts)
+        log(line, **cli)
     launches = {name: train["main_path"]["launches"][name]
                 + train["compiled_train"]["launches"][name]
+                + f32["main_path"]["launches"][name]
                 + serve["launches_by_kernel"][name] for name in counts.KERNELS}
-    return {"train": train, "serve": serve, "cli": cli, "launches": launches,
-            "seconds": time.perf_counter() - t0}
+    return {"train": train, "fused_long_f32": f32, "serve": serve, "cli": cli,
+            "launches": launches, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------- phase 17
@@ -4758,7 +5006,8 @@ def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--dp-cli"] and len(args) > 1:     # phase 17 (a)'s torchrun rank
         return dp_cli_rank(args[1], args[2:])
-    if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"]):
+    if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"],
+                    ["--fused-long-f32"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -4812,6 +5061,12 @@ def main() -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_phase16.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
+    if "--fused-long-f32" in args:          # phase 11's f32 long step alone, both designs
+        out = fused_long_f32(counts, kshort, device, designs=(0, 1, 1, 0))
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_fused_long_f32.log").write_text(
+            "\n".join(LOG_LINES) + "\n")
+        return 0
     if "--phase17" in args:                 # phase 17 alone, after the build
         p17 = phase17(counts, device)
         log("17 seconds", seconds=p17["seconds"])
@@ -4861,8 +5116,9 @@ def main() -> int:
     lstm_trainer, train = train_phases(5, "lstm", klstm.lstm_recurrence_reference, counts, device)
     del lstm_trainer
     torch.cuda.empty_cache()
-    train_serve = train_then_serve(device, counts)
-    log("6 train-then-serve", **train_serve)
+    # the cli.train runs of phases 6, 7, 9 and 16, at once
+    cli_runs = train_then_serve_all(device, counts)
+    train_serve = cli_runs["6 train-then-serve"]
 
     gru_trainer, gru_train = train_phases(7, "gru", kgru.gru_recurrence_reference, counts,
                                           device, rnncell="gru")
@@ -4879,9 +5135,7 @@ def main() -> int:
     log("7 gru-serve-http", **gru_serve, tol=SERVE_TOL)
     del gru_pred
     torch.cuda.empty_cache()
-    gru_train_serve = train_then_serve(device, counts, "gru_fwd",
-                                       ("--rnncell", "gru", "--fused_ln_dropout", "True"))
-    log("7 gru-train-then-serve", **gru_train_serve)
+    gru_train_serve = cli_runs["7 gru-train-then-serve"]
 
     # phase 8: the long-sequence configuration, train -> timed steps with the
     # attention kernels and with the dense core -> serve -> score
@@ -4927,10 +5181,7 @@ def main() -> int:
     captured_serve["fused"] = fused_serve["captured"]
     log("11 captured-serve", kind="fused", **captured_serve["fused"])
     torch.cuda.empty_cache()
-    fused_train_serve = train_then_serve(
-        device, counts, options=("--attn_impl", "fused"),
-        per_call={"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS})
-    log("9 fused-train-then-serve", **fused_train_serve)
+    fused_train_serve = cli_runs["9 fused-train-then-serve"]
 
     # phase 10: the tower pair with its four directions in one launch per layer
     pair = tower_pair(counts, device)
@@ -4969,7 +5220,7 @@ def main() -> int:
 
     # phase 16: attn_impl="fused" at the long shape (the tiled short-attention kernels)
     torch.cuda.empty_cache()
-    p16 = phase16(counts, klstm, device)
+    p16 = phase16(counts, klstm, device, cli_runs["16 fused-cli-train-then-serve"])
     log("16 seconds", seconds=p16["seconds"])
 
     # phase 17: data parallelism (one nccl rank under torchrun; two gloo ranks)
@@ -5000,6 +5251,8 @@ def main() -> int:
                 "short_attn_tiled_fwd": "short_attention.py:61",
                 "short_attn_tiled_bwd": "short_attention.py:82",
                 "lstm_multi_fwd": "lstm_multi.py:48", "lstm_multi_bwd": "lstm_multi.py:74"}
+    f32_replay = p16["fused_long_f32"][TILED_DESIGNS[torch.float32][0][0]][0][
+        "launches_per_replay"]
     kernels = []
     for name in counts.KERNELS:
         rep = checks[name]["report"]
@@ -5019,12 +5272,15 @@ def main() -> int:
                if "max_abs_err_bf16" in checks[name] else {}),
             **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
                if "sass" in checks[name] else {}),
+            **({"sass_tensor_core_lines_f32": checks[name]["sass"]["f32_kernels"]}
+               if "tiled" in name else {}),
             **{k: rep[k] for k in ("cold_ms", "cold_parts_ms") if k in rep},
             **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
             **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep},
             "launches_per_replay": {
-                kind: t["captured"]["launches_per_replay"].get(name, 0)
-                for kind, t in {**trains, "fused_long": p16["train"]}.items()}})
+                **{kind: t["captured"]["launches_per_replay"].get(name, 0)
+                   for kind, t in {**trains, "fused_long": p16["train"]}.items()},
+                "fused_long_f32": f32_replay.get(name, 0)}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"

@@ -37,14 +37,40 @@
 // head dim: mma.sync m16n8k16 with the same arithmetic, through cp.async.
 // Both take short_attn_bwd.cu's arithmetic (q k^T and do v^T straight from
 // the inputs, scale after the product; exp(s - m) as ex2.approx of (s - m)
-// log2 e).  f32: f32 FMAs, q * scale first, expf.
+// log2 e).
+// f32, on the tensor cores (impl 0, every head dim): q * scale first and
+// expf, as the plain version; every f32 operand (q * scale, k, v, do, and
+// the intermediates pd and ds) as three bf16 terms and every product as six
+// bf16 term products on wgmma (short_attn_tiled_fwd.cu), 18 a key tile in the
+// dq kernel (s, dp, ds k) and 24 a query tile in the dk/dv kernel (s^T, dp^T,
+// pd^T do, ds^T q): 42 in all.  The block's own 64 rows are split once; the
+// streamed side 32 rows a tile, read from global memory into registers and
+// split into swizzled term tiles by all threads (no f32 copy in shared
+// memory: three blocks share an SM at D <= 64, 73 KB each).  q * scale and
+// k are split on each row's grid (short_tiled.cuh), so that the scores' hi
+// hi sums are exact and take their own accumulator (wgmma::issue_scores).
+// The score products take the forward's term pairs in its order (k q^T and
+// v do^T with A and B swapped), so s is the forward's.  Each tile's dq (dk,
+// dv) is summed in a fresh accumulator, 64 columns at a time, and added to
+// the running one in f32: the tensor cores' sums, in their order and
+// rounding, stay within a tile, and dq, dk, dv lie within the f32 gate of
+// the plain version, not on its bits (closer to float64 than it: PERF.md).
+// D is zero-padded to 64 or 128.  f32
+// FMAs (impl 1, kept for comparison): a lane a key (dq) or a query (dk/dv)
+// of 32-row tiles, 10 shared-memory loads for 8 FMAs in the score loops.
 //
 // What bounds it on the H100 at the long step's call (32, 12, 514, 64) bf16:
 // 10 S^2 D operations a head as the bound counts them (q k^T, do v^T, ds k,
 // pd^T do, ds^T q) take 0.066 ms at the bf16 peak.  The kernels form q k^T and
 // do v^T twice (once a kernel) and the three other products three times over
 // (a bf16 term each), and an exp and a hash per score in each kernel.  Its
-// times beside the mma.sync design's, by part: PERF.md.
+// times beside the mma.sync design's, by part: PERF.md.  In f32 the bound is
+// the same 10 S^2 D operations at a sixth of the bf16 peak (the six term
+// products): 0.394 ms, above the 0.106 ms of the bytes.  The kernels issue
+// 42 term products where the bound counts 30 (s and dp twice), split every
+// element they read and every ds and pd three ways, and take an expf and a
+// hash a score in each, serialised with the products within each
+// warpgroup; three blocks share an SM at D <= 64, one at D <= 128 (145 KB).
 
 #include "short_tiled.cuh"
 #include "wgmma.cuh"
@@ -868,6 +894,246 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
+// f32 on wgmma: every f32 operand as three bf16 terms, every product six
+// term products (wgmma.cuh issue_terms_*).  The block's own rows (q * scale
+// and do in the dq kernel, k and v in the dk/dv kernel) are split once; the
+// streamed side kF32StreamRows rows a tile, read from global memory into
+// registers and split into their term tiles by all threads (no f32 staging
+// in shared memory: three blocks share an SM at D <= 64).  Each tile's dq
+// (dk, dv) is summed in a fresh accumulator, 64 columns at a time, then
+// added to the running one in f32: the tensor cores' sums stay within the
+// tile.  The score products take the forward's term pairs in its order (k
+// q^T and v do^T with Swap), so s is the forward's s.
+template <int DP>
+constexpr size_t f32_wgmma_smem_bytes() {
+  // the block's two inputs' terms, the streamed two's, the streamed rows'
+  // key bias or (m, 1 / l, r)
+  return (size_t)3 * 2 * (kTileRows + kF32StreamRows) * DP * sizeof(bf16) +
+         3 * kF32StreamRows * sizeof(float) + mmda::wgmma::kSmemAlign;
+}
+
+// acc[8 hb + j] += part (the 64 columns of box hb)
+template <int DP>
+__device__ __forceinline__ void add_part(float (&acc)[DP / 8][4], const float (&part)[8][4],
+                                         int hb) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[8 * hb + j][e] += part[j][e];
+  }
+}
+
+// acc += X B over the K rows of the term tiles b (K x DP, three terms term
+// apart), X the three terms a: 64 columns at a time, each in a fresh
+// accumulator; waits for the products.
+template <int DP, int K>
+__device__ __forceinline__ void tile_product(float (&acc)[DP / 8][4],
+                                             const uint32_t (&a)[3][K / 16][4], const bf16* b,
+                                             int term) {
+  namespace wg = mmda::wgmma;
+#pragma unroll
+  for (int hb = 0; hb < DP / 64; ++hb) {
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+    }
+    wg::fence_operand(part);
+    wg::fence();
+    wg::issue_terms_product<K>(part, a, b + hb * K * wg::kBoxCols, term);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(part);
+    add_part<DP>(acc, part, hb);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads, DP == 64 ? 3 : 1)
+tiled_dq_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
+                          const float* __restrict__ stats, const float* __restrict__ r_g,
+                          float* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
+                          float rate, float keep_scale, int vec) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = kF32StreamRows, N8 = NB / 8;
+  constexpr int QT = kTileRows * DP, KT = NB * DP;   // elements of a term tile
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // 3 x (64, DP) q * scale
+  bf16* do_s = q_s + 3 * QT;                         // 3 x (64, DP)
+  bf16* k_s = do_s + 3 * QT;                         // 3 x (NB, DP)
+  bf16* v_s = k_s + 3 * KT;                          // 3 x (NB, DP)
+  float* bias_s = reinterpret_cast<float*>(v_s + 3 * KT);   // NB; -inf beyond S
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  const float* bias_b = bias + (size_t)b * S;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int k_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+
+  split_rows<DP, kTileRows, true>(q_s, QT, q + base, q0, S, D, vec, scale);
+  split_rows<DP, kTileRows, false>(do_s, QT, d_out + base, q0, S, D, vec, 1.0f);
+  float m[2], il[2], rr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + row0 + g + 8 * hh;
+    row_stats(stats, r_g, (size_t)bh * S + i, i < S, m[hh], il[hh], rr[hh]);
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+
+  for (int t = 0; t < k_tiles; ++t) {
+    __syncthreads();   // every warp done with tile t - 1's terms
+    split_rows<DP, NB, true>(k_s, KT, k + base, t * NB, S, D, vec, 1.0f);
+    split_rows<DP, NB, false>(v_s, KT, v + base, t * NB, S, D, vec, 1.0f);
+    for (int j = threadIdx.x; j < NB; j += kTileThreads) {
+      bias_s[j] = t * NB + j < S ? bias_b[t * NB + j] : -INFINITY;
+    }
+    wg::fence_proxy_async();
+    __syncthreads();   // the terms are in
+    float s[N8][4], s_hh[N8][4], dp[N8][4];
+    wg::fence();
+    wg::issue_scores<NB, DP>(s_hh, s, q_s, QT, k_s, KT);
+    wg::issue_terms_abt<NB, DP>(dp, do_s, QT, v_s, KT);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(s);
+    wg::fence_operand(s_hh);
+    wg::fence_operand(dp);
+    wg::sum_scores(s, s_hh);
+    add_bias<N8>(s, bias_s, t2);
+    ds_of_f32<N8>(s, dp, m, il, rr, keep, q0 + row0 + g, t * NB + t2, keep_scale);
+    uint32_t a[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a, s);
+    tile_product<DP, NB>(acc, a, k_s, KT);
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= scale;
+  }
+  store_rows_f32<DP>(dq + base, acc, q0 + row0, S, D, lane);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads, DP == 64 ? 3 : 1)
+tiled_dkv_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ bias,
+                           const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
+                           const float* __restrict__ stats, const float* __restrict__ r_g,
+                           float* __restrict__ dk, float* __restrict__ dv, int nh, int S, int D,
+                           int k_tiles, float scale, float rate, float keep_scale, int vec) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = kF32StreamRows, N8 = NB / 8;
+  constexpr int KT = kTileRows * DP, QT = NB * DP;   // elements of a term tile
+  extern __shared__ unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // 3 x (64, DP)
+  bf16* v_s = k_s + 3 * KT;                          // 3 x (64, DP)
+  bf16* q_s = v_s + 3 * KT;                          // 3 x (NB, DP) q * scale
+  bf16* do_s = q_s + 3 * QT;                         // 3 x (NB, DP)
+  float* st_s = reinterpret_cast<float*>(do_s + 3 * QT);   // (NB, 3): m, 1 / l, r
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x - bh * k_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int q_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+  float kb[2];      // the bias of the warp's keys k0 + row0 + g (+ 8); -inf beyond S
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int jk = k0 + row0 + g + 8 * hh;
+    kb[hh] = jk < S ? bias[(size_t)b * S + jk] : -INFINITY;
+  }
+
+  split_rows<DP, kTileRows, true>(k_s, KT, k + base, k0, S, D, vec, 1.0f);
+  split_rows<DP, kTileRows, false>(v_s, KT, v + base, k0, S, D, vec, 1.0f);
+  float acc_k[DP / 8][4], acc_v[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.0f;
+  }
+
+  for (int t = 0; t < q_tiles; ++t) {
+    __syncthreads();   // every warp done with tile t - 1's terms
+    split_rows<DP, NB, true>(q_s, QT, q + base, t * NB, S, D, vec, scale);
+    split_rows<DP, NB, false>(do_s, QT, d_out + base, t * NB, S, D, vec, 1.0f);
+    for (int e = threadIdx.x; e < NB; e += kTileThreads) {
+      const int i = t * NB + e;
+      row_stats(stats, r_g, (size_t)bh * S + i, i < S, st_s[3 * e], st_s[3 * e + 1],
+                st_s[3 * e + 2]);
+    }
+    wg::fence_proxy_async();
+    __syncthreads();   // the terms are in
+    // [j][e]: key k0 + row0 + g + 8 (e / 2), query t NB + 8 j + t2 + e % 2
+    float sT[N8][4], s_hh[N8][4], dpT[N8][4];
+    wg::fence();
+    wg::issue_scores<NB, DP, true>(s_hh, sT, k_s, KT, q_s, QT);
+    wg::issue_terms_abt<NB, DP, true>(dpT, v_s, KT, do_s, QT);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(sT);
+    wg::fence_operand(s_hh);
+    wg::fence_operand(dpT);
+    wg::sum_scores(sT, s_hh);
+    pd_ds_of_f32<N8>(sT, dpT, st_s, kb, keep, t * NB, t2, k0 + row0 + g, S, keep_scale);
+    uint32_t a[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a, sT);
+    tile_product<DP, NB>(acc_v, a, do_s, QT);
+    mmda::short_mma::split_operand<NB / 16>(a, dpT);
+    tile_product<DP, NB>(acc_k, a, q_s, QT);
+  }
+  store_rows_f32<DP>(dv + base, acc_v, k0 + row0, S, D, lane);
+  store_rows_f32<DP>(dk + base, acc_k, k0 + row0, S, D, lane);
+}
+
+template <int DP>
+cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                             const int* seed, const void* d_out, void* dq, void* dk, void* dv,
+                             const float* stats, const float* r, int BH, int nh, int S, int D,
+                             float scale, float rate, float keep_scale, cudaStream_t stream) {
+  constexpr size_t bytes = f32_wgmma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(tiled_dq_f32_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(tiled_dkv_f32_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + kTileRows - 1) / kTileRows;
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(d_out);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(d_out);
+  tiled_dq_f32_wgmma_kernel<DP><<<BH * tiles, kTileThreads, bytes, stream>>>(
+      fq, fk, fv, bias, seed, fdo, stats, r, static_cast<float*>(dq), nh, S, D, tiles, scale,
+      rate, keep_scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tiled_dkv_f32_wgmma_kernel<DP><<<BH * tiles, kTileThreads, bytes, stream>>>(
+      fq, fk, fv, bias, seed, fdo, stats, r, static_cast<float*>(dk), static_cast<float*>(dv), nh,
+      S, D, tiles, scale, rate, keep_scale, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -892,8 +1158,16 @@ int mmda_short_attn_tiled_bwd(const void* q, const void* k, const void* v, const
                             : launch_r<float>(d_out, o32, r, n, D, st);
   if (err != cudaSuccess) return (int)err;
   if (!is_bf16) {
-    return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
-                           scale, rate, keep_scale, st);
+    if (impl == 1) {
+      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
+                             scale, rate, keep_scale, st);
+    }
+    if (D <= 64) {
+      return (int)launch_f32_wgmma<64>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh,
+                                       S, D, scale, rate, keep_scale, st);
+    }
+    return (int)launch_f32_wgmma<128>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh,
+                                      S, D, scale, rate, keep_scale, st);
   }
   if (impl != 1 && D > 32 && mmda::wgmma::takes(q, D) && mmda::wgmma::takes(k, D) &&
       mmda::wgmma::takes(v, D) && mmda::wgmma::takes(d_out, D)) {

@@ -13,8 +13,8 @@
 //
 // with the short kernels' own keep hash at i S + j (hash_dropout.cuh).
 //
-// Design (short_tiled.cuh).  A block per (64 queries, b, h) in bf16, (32
-// queries, b, h) in f32, one pass over the key tiles with the online max and
+// Design (short_tiled.cuh).  A block per (64 queries, b, h) (32 in the f32
+// FMA design), one pass over the key tiles with the online max and
 // sum: s formed once, exp once a score; when a tile raises a row's max, its l
 // and f32 accumulator are rescaled by exp(m_old - m_new); the accumulator
 // takes exp(s - m) times the 0/1 mask, times v; at the end o = acc (1 / l)
@@ -31,11 +31,31 @@
 //   at a time through a two-stage TMA ring, one thread issuing.  Every other
 //   head dim: mma.sync m16n8k16 with the same arithmetic, k and v through two
 //   cp.async buffers.  scale after q k^T, as short_attn_fwd.cu's bf16 kernel.
-//   f32: f32 FMAs, q * scale first; a lane per key of the 32-key tile for the
-//   scores, a lane per output column (4 each, D <= 128) for pd v.
+//   f32, on the tensor cores (impl 0, every head dim): q * scale first, as
+//   the plain version; q * scale, k and v each as three bf16 terms hi, mid,
+//   lo (v all 24 bits: short_mma.cuh split3; q * scale and k on each row's
+//   grid, short_tiled.cuh, so that the scores' hi hi sums are exact in the
+//   tensor cores' truncating f32 and take their own accumulator) and each
+//   product as six bf16 term products on wgmma (hi hi, hi mid, mid hi, hi
+//   lo, lo hi, mid mid; the terms left out weigh 2^-24 and less), 12 a key
+//   tile: q k^T from shared memory (wgmma::issue_scores), pd v with pd's
+//   terms from registers and v's read MN-major.  k and
+//   v (64 keys a tile at D <= 64, 32 at D <= 128) are read from global
+//   memory into registers (16 bytes a load where D % 4 == 0, else 4) and
+//   split by all threads into swizzled bf16 term tiles: no f32 copy in shared
+//   memory, so three blocks share an SM at D <= 64 (73 KB each), where an f32
+//   staging area left room for two; D is zero-padded to 64 or 128 columns.
+//   A tile's pd v is summed in a fresh accumulator and added to the running
+//   one in f32, so the tensor cores' own sums (in their order and rounding,
+//   not the plain version's) stay within a tile: o lies within the f32 gate
+//   of the plain version, not on its bits, and closer to float64 than it
+//   (PERF.md).  At hd = 8 and 33 it also beats the FMAs (PERF.md), so every
+//   head dim takes it.  f32 FMAs (impl 1, kept for
+//   comparison): a lane per key of a 32-query, 32-key tile for the scores, a
+//   lane per output column for pd v; about 1.25 shared-memory loads an FMA.
 //
 // exp(s - m) is ex2.approx of (s - m) log2 e in the bf16 kernels (within a
-// few f32 ulps; the f32 kernel keeps expf).
+// few f32 ulps; the f32 kernels keep expf).
 //
 // What bounds it on the H100 at the long step's call (32, 12, 514, 64) bf16:
 // 4 S^2 D operations a head as the bound counts them (q k^T, pd v) take 0.026
@@ -44,6 +64,11 @@
 // product), and a hash, an exp and a three-way split per score, serialised
 // with the products within each warpgroup; the blocks resident beside it on
 // an SM fill the gaps.  Its times beside the mma.sync design's: PERF.md.
+// In f32 the same call's bound is the 12.99 GFLOP of its two products at a
+// sixth of the bf16 peak (the six term products): 0.158 ms, above the 0.060
+// ms of its 202 MB.  The kernel adds a three-way split of every element it
+// reads and of every score, an expf and a hash a score, serialised with the
+// products within each warpgroup; three blocks share an SM at D <= 64.
 
 #include "short_tiled.cuh"
 #include "wgmma.cuh"
@@ -408,6 +433,116 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
+// f32 on wgmma: q * scale, k and v as three bf16 terms each, every product
+// six term products (wgmma.cuh issue_terms_*); k and v a key tile at a time,
+// read from global memory into registers and split into their term tiles by
+// all threads (no f32 staging in shared memory: three blocks share an SM at
+// D <= 64).  A key tile's pd v is summed in a fresh accumulator, 64 output
+// columns at a time, then added to the running one in f32: the tensor
+// cores' sums stay within the tile.
+template <int DP>
+__host__ __device__ constexpr int f32_key_rows() { return DP <= 64 ? 64 : 32; }
+
+template <int DP>
+constexpr size_t f32_wgmma_smem_bytes() {
+  // q's terms; k's and v's terms; the key bias
+  constexpr int NB = f32_key_rows<DP>();
+  return (size_t)3 * (kTileRows + 2 * NB) * DP * sizeof(bf16) + NB * sizeof(float) +
+         mmda::wgmma::kSmemAlign;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTileThreads, DP == 64 ? 3 : 1)
+tiled_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ bias,
+                           const int* __restrict__ seed_ptr, float* __restrict__ o,
+                           float* __restrict__ stats, int nh, int S, int D, int q_tiles,
+                           float scale, float rate, float keep_scale, int vec) {
+  namespace wg = mmda::wgmma;
+  constexpr int NB = f32_key_rows<DP>(), N8 = NB / 8;
+  constexpr int QT = kTileRows * DP, KT = NB * DP;   // elements of a term tile
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // 3 x (64, DP)
+  bf16* k_s = q_s + 3 * QT;                          // 3 x (NB, DP)
+  bf16* v_s = k_s + 3 * KT;                          // 3 x (NB, DP)
+  float* bias_s = reinterpret_cast<float*>(v_s + 3 * KT);   // NB; -inf beyond S
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  const float* bias_b = bias + (size_t)b * S;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int k_tiles = (S + NB - 1) / NB;
+  const KeepMask keep(seed_ptr, b, h, S, rate);
+
+  split_rows<DP, kTileRows, true>(q_s, QT, q + base, q0, S, D, vec, scale);
+  OnlineRows<DP> rows;
+  for (int t = 0; t < k_tiles; ++t) {
+    __syncthreads();   // every warp done with tile t - 1's terms
+    split_rows<DP, NB, true>(k_s, KT, k + base, t * NB, S, D, vec, 1.0f);
+    split_rows<DP, NB, false>(v_s, KT, v + base, t * NB, S, D, vec, 1.0f);
+    for (int j = threadIdx.x; j < NB; j += kTileThreads) {
+      bias_s[j] = t * NB + j < S ? bias_b[t * NB + j] : -INFINITY;
+    }
+    wg::fence_proxy_async();
+    __syncthreads();   // the terms are in
+    float s[N8][4], s_hh[N8][4];
+    wg::fence();
+    wg::issue_scores<NB, DP>(s_hh, s, q_s, QT, k_s, KT);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(s);
+    wg::fence_operand(s_hh);
+    wg::sum_scores(s, s_hh);
+    add_bias<N8>(s, bias_s, t2);
+    rows.update_f32(s, keep, q0 + row0 + g, t * NB + t2);
+    uint32_t a[3][NB / 16][4];
+    mmda::short_mma::split_operand<NB / 16>(a, s);
+#pragma unroll
+    for (int hb = 0; hb < DP / 64; ++hb) {
+      float part[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+      }
+      wg::fence_operand(part);
+      wg::fence();
+      wg::issue_terms_product<NB>(part, a, v_s + hb * NB * wg::kBoxCols, KT);
+      wg::commit();
+      wg::wait_all();
+      wg::fence_operand(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rows.acc[8 * hb + j][e] += part[j][e];
+      }
+    }
+  }
+  rows.finish(o + base, stats, nullptr, (size_t)bh * S, q0 + row0, S, D, keep_scale, lane);
+}
+
+template <int DP>
+cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                             const int* seed, void* o, float* stats, int BH, int nh, int S,
+                             int D, float scale, float rate, float keep_scale,
+                             cudaStream_t stream) {
+  constexpr size_t bytes = f32_wgmma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_f32_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (S + kTileRows - 1) / kTileRows;
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  tiled_fwd_f32_wgmma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bias, seed, static_cast<float*>(o), stats, nh, S, D, q_tiles, scale, rate, keep_scale, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,9 +552,11 @@ extern "C" {
 // 1 <= D <= 128, B nh ceil(S / 32) < 2^31.  stats (B nh S x 2 f32: each
 // query's m and l) and, in bf16, o32 ((B, nh, S, D) f32: o before its
 // rounding) are written where not NULL (the training forward; in f32 o is
-// o32).  impl: the bf16 design (0 by shape: wgmma where D is a multiple of 8
-// above 32 and q, k, v 16-byte aligned, else mma.sync; 1 mma.sync).  scale = 1 / sqrt(D), rate and keep_scale = 1 / (1 - rate)
-// already rounded to f32; seed (device int32) is read only when rate > 0.
+// o32).  impl: the design; bf16 0 by shape (wgmma where D is a multiple of 8
+// above 32 and q, k, v 16-byte aligned, else mma.sync), 1 mma.sync; f32 0
+// the six bf16 term products on wgmma (any D), 1 f32 FMAs.  scale = 1 /
+// sqrt(D), rate and keep_scale = 1 / (1 - rate) already rounded to f32;
+// seed (device int32) is read only when rate > 0.
 int mmda_short_attn_tiled_fwd(const void* q, const void* k, const void* v, const float* bias,
                               const int* seed, void* o, float* stats, float* o32, int B, int nh,
                               int S, int D, int is_bf16, int impl, float scale, float rate,
@@ -428,8 +565,16 @@ int mmda_short_attn_tiled_fwd(const void* q, const void* k, const void* v, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
-    return (int)launch_f32(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
-                           keep_scale, st);
+    if (impl == 1) {
+      return (int)launch_f32(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
+                             keep_scale, st);
+    }
+    if (D <= 64) {
+      return (int)launch_f32_wgmma<64>(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
+                                       keep_scale, st);
+    }
+    return (int)launch_f32_wgmma<128>(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
+                                      keep_scale, st);
   }
 #define MMDA_TILED_FWD(DP)                                                                \
   return (int)launch_mma<DP>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale, rate, \

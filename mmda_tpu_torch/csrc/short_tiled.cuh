@@ -11,8 +11,10 @@
 // {64, 128}, their TMA boxes reading zeros past D and S.  A zero column adds
 // an exact 0 to every product.  Both keep a product's f32 result in the
 // fragments of m16n8k16 (a wgmma accumulator is four warps' worth of them),
-// so the row code below serves both.  An f32 block has kF32Warps = 8 warps
-// and owns 32 rows, 4 a warp; it streams tiles of 32 rows, one a lane.
+// so the row code below serves both.  The f32 kernels on the tensor cores
+// take the same blocks and fragments (the f32 section at the end); the f32
+// FMA kernels' block has kF32Warps = 8 warps and owns 32 rows, 4 a warp; it
+// streams tiles of 32 rows, one a lane.
 //
 // The forward's softmax is online (OnlineRows): the row max m and the sum l
 // rescaled by exp(m_old - m_new) when a tile raises the max, the accumulator
@@ -235,10 +237,43 @@ struct OnlineRows {
     }
   }
 
+  // update() in the f32 kernels' arithmetic: expf(s - m) and expf(m_old -
+  // m_new), as the plain version's exp (s here already holds the bias).
+  template <int N8, class Keep>
+  __device__ __forceinline__ void update_f32(float (&s)[N8][4], const Keep& keep, int i0,
+                                             int c0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < N8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      const float m_new = fmaxf(m[hh], quad_max(tmax));
+      const float alpha = expf(m[hh] - m_new);
+      l[hh] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][2 * hh] *= alpha;
+        acc[j][2 * hh + 1] *= alpha;
+      }
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += x;
+        s[j][e] = keep(i0 + 8 * (e >> 1), c0 + 8 * j + (e & 1)) ? x : 0.0f;
+      }
+    }
+  }
+
   // o = acc (1 / l) keep_scale rounded once to bf16, rows r0 + g (+ 8) < S
   // of the row-major (S, D) o; where given, the same f32 values into o32 and
-  // (m, l) into stats[(row_base + row) 2 ..].
-  __device__ __forceinline__ void finish(bf16* o, float* stats, float* o32, size_t row_base,
+  // (m, l) into stats[(row_base + row) 2 ..].  An f32 o takes the f32 values
+  // (o32 is o).
+  template <typename T>
+  __device__ __forceinline__ void finish(T* o, float* stats, float* o32, size_t row_base,
                                          int r0, int S, int D, float keep_scale, int lane) {
     const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
@@ -255,8 +290,12 @@ struct OnlineRows {
         *reinterpret_cast<float2*>(stats + (row_base + r) * 2) = make_float2(m[hh], l[hh]);
       }
     }
-    store_rows<DP>(o, acc, r0, S, D, 1.0f, lane);
-    if (o32 != nullptr) store_rows_f32<DP>(o32, acc, r0, S, D, lane);
+    if constexpr (sizeof(T) == sizeof(float)) {
+      store_rows_f32<DP>(o, acc, r0, S, D, lane);
+    } else {
+      store_rows<DP>(o, acc, r0, S, D, 1.0f, lane);
+      if (o32 != nullptr) store_rows_f32<DP>(o32, acc, r0, S, D, lane);
+    }
   }
 };
 
@@ -333,6 +372,187 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int r0, 
     const int r = e / D;
     const int c = e - r * D;
     dst[r * (D + 1) + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] * mul : 0.0f;
+  }
+}
+
+// ------------------------------------------------- f32 on the tensor cores
+//
+// The f32 kernels' tensor-core design (short_attn_tiled_fwd.cu,
+// short_attn_tiled_bwd.cu): every f32 operand tile is read into registers
+// and split into three bf16 term tiles in shared memory (split_rows) that
+// wgmma reads; each product is six term products (wgmma.cuh
+// issue_terms_*).  The score code takes the plain version's order: s =
+// (q scale) k^T, then + bias, expf.
+//
+// The tensor cores truncate their f32 sums: each k16 step aligns its
+// products and the accumulator to the largest and drops the bits below
+// the f32 width, so a sum of many steps loses about an ulp of the
+// accumulator a step, always toward zero.  For the scores, whose error p =
+// exp(s - m) carries into every output and whose size grows with the
+// softmax's peak, q scale and k are split on a grid: a row's hi terms are
+// its values rounded to multiples of 2^(e - 7), e the exponent of the
+// row's largest |x| (each at most 256 of them, so a bf16), mid and lo the
+// rest as split3 takes it.  A product hi_q hi_k is then an integer of at
+// most 2^16 units of the two rows' grids, a sum over 128 columns at most
+// 2^23: every sum of hi hi products is exact in f32 in any order, and so
+// in the tensor cores' truncating sums while they keep f32's 24 bits.  It
+// takes its own accumulator
+// (wgmma::issue_scores); the five smaller pairs, 2^-8 of it and less, lose
+// what truncation takes of their own sum only.  What the grid costs: a
+// value far below its row's largest keeps hi's bits on the row's grid and
+// 16-17 more, so each term error is at most 2^-26 of the row's largest
+// |x| (split3's is 2^-25 of the value itself).  v and do keep split3.
+
+constexpr int kF32StreamRows = 32;   // the streamed tile of the dq and dk/dv kernels
+
+// Whether a pointer takes 16-byte loads.
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// 1.5 2^(e + 16), e the exponent of row_max (clamped to [-100, 111]): x +
+// it - it rounds x (|x| < 2^(e + 1)) to a multiple of 2^(e - 7).
+__device__ __forceinline__ float grid_magic(float row_max) {
+  const int e = min(max((int)((__float_as_uint(row_max) >> 23) & 0xff) - 127, -100), 111);
+  return __uint_as_float(((uint32_t)(e + 16 + 127) << 23) | (1u << 22));
+}
+
+// Eight f32 values y of row r, columns 8 c .. 8 c + 7, as their three bf16
+// terms into the tiles dst + t term (t = 0 hi, 1 mid, 2 lo) of R rows in
+// wgmma.cuh's layout, as TMA would write them: DP / 64 boxes of (R x 64), a
+// row 128 bytes, its 16-byte piece c at c ^ (r % 8).  With Grid, hi is y
+// on the row's grid (magic = grid_magic of the row's largest |y|) and mid,
+// lo the rest as short_mma::split3 takes it; else split3.  A product reads
+// the tiles through the async proxy: the caller fences
+// (wgmma::fence_proxy_async) before the barrier.
+template <bool Grid>
+__device__ __forceinline__ void store_terms(bf16* dst, int term, int R, int r, int c,
+                                            const float (&y)[8], float magic) {
+  uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if constexpr (Grid) {
+      const float y0 = y[2 * u], y1 = y[2 * u + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(__fsub_rn(__fadd_rn(y0, magic), magic),
+                                                     __fsub_rn(__fadd_rn(y1, magic), magic));
+      const float r0 = __fsub_rn(y0, __low2float(h)), r1 = __fsub_rn(y1, __high2float(h));
+      const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(r0, __low2float(m)),
+                                                     __fsub_rn(r1, __high2float(m)));
+      hi[u] = *reinterpret_cast<const uint32_t*>(&h);
+      mid[u] = *reinterpret_cast<const uint32_t*>(&m);
+      lo[u] = *reinterpret_cast<const uint32_t*>(&l);
+    } else {
+      short_mma::split3(y[2 * u], y[2 * u + 1], hi[u], mid[u], lo[u]);
+    }
+  }
+  const int at = (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+  *reinterpret_cast<uint4*>(dst + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(dst + term + at) = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+  *reinterpret_cast<uint4*>(dst + 2 * term + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Rows r0 .. r0 + R - 1 of the row-major (S, D) f32 matrix src, times mul
+// (rounded, as the plain version's q * scale), as their three bf16 term
+// tiles at dst (store_terms; with Grid on each row's grid), zero beyond S
+// and D, read from global memory into registers (16 bytes a load where
+// vec: D a multiple of 4 and src 16-byte aligned), all of a thread's loads
+// ahead of its stores; by the block's kTileThreads threads.  A row's DP / 8
+// pieces lie in as many neighbouring lanes of one warp.
+template <int DP, int R, bool Grid>
+__device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src, int r0, int S,
+                                           int D, bool vec, float mul) {
+  constexpr int C8 = DP / 8, N = R * C8 / kTileThreads;
+  static_assert(R * C8 % kTileThreads == 0 && 32 % C8 == 0, "whole rows a warp");
+  const int valid = min(R, S - r0);
+  const float* rows = src + (size_t)r0 * D;
+  float x[N][8];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int i = threadIdx.x + n * kTileThreads;
+    const int r = i / C8, col = 8 * (i - r * C8);
+    const float* p = rows + (size_t)r * D + col;
+    if (vec) {
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+      if (r < valid && col < D) a = *reinterpret_cast<const float4*>(p);
+      if (r < valid && col + 4 < D) b = *reinterpret_cast<const float4*>(p + 4);
+      x[n][0] = a.x, x[n][1] = a.y, x[n][2] = a.z, x[n][3] = a.w;
+      x[n][4] = b.x, x[n][5] = b.y, x[n][6] = b.z, x[n][7] = b.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[n][u] = r < valid && col + u < D ? p[u] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int i = threadIdx.x + n * kTileThreads;
+    const int r = i / C8;
+    float big = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[n][u] = __fmul_rn(x[n][u], mul);
+      big = fmaxf(big, fabsf(x[n][u]));
+    }
+    float magic = 0.0f;
+    if constexpr (Grid) {
+#pragma unroll
+      for (int w = 1; w < C8; w <<= 1) big = fmaxf(big, __shfl_xor_sync(0xffffffffu, big, w));
+      magic = grid_magic(big);
+    }
+    store_terms<Grid>(dst, term, R, r, i - r * C8, x[n], magic);
+  }
+}
+
+// s += bias of the key columns 8 j + t2 (+ 1) of bias_t (-inf beyond S): the
+// f32 scores, (q scale) k^T + bias.
+template <int N8>
+__device__ __forceinline__ void add_bias(float (&s)[N8][4], const float* bias_t, int t2) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], bias_t[8 * j + t2 + (e & 1)]);
+  }
+}
+
+// ds_of in the f32 kernels' arithmetic: s (after add_bias) becomes ds = p
+// (dp keep - r), p = expf(s - m) (1 / l); keys beyond S have s = -inf, p = 0.
+template <int N8, class Keep>
+__device__ __forceinline__ void ds_of_f32(float (&s)[N8][4], const float (&dp)[N8][4],
+                                          const float (&m)[2], const float (&il)[2],
+                                          const float (&rr)[2], const Keep& keep, int i0,
+                                          int c0, float keep_scale) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hh = e >> 1;
+      const float p = expf(s[j][e] - m[hh]) * il[hh];
+      const float kp = keep(i0 + 8 * hh, c0 + 8 * j + (e & 1)) ? keep_scale : 0.0f;
+      s[j][e] = p * (dp[j][e] * kp - rr[hh]);
+    }
+  }
+}
+
+// pd_ds_of in the f32 kernels' arithmetic: sT = k (q scale)^T and dpT = v
+// do^T as the products gave them, keys j0 and j0 + 8 (their bias kb, -inf
+// beyond S), queries i_base + ii with ii = 8 j + t2 + (e & 1) and st their
+// staged (m, 1 / l, r).  Becomes sT <- pd = p keep, dpT <- ds = p (dp keep
+// - r), p = expf(s + bias - m) (1 / l), 0 for queries beyond S.
+template <int N8, class Keep>
+__device__ __forceinline__ void pd_ds_of_f32(float (&sT)[N8][4], float (&dpT)[N8][4],
+                                             const float* st, const float (&kb)[2],
+                                             const Keep& keep, int i_base, int t2, int j0,
+                                             int S, float keep_scale) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ii = 8 * j + t2 + (e & 1), i = i_base + ii;
+      const int jk = j0 + 8 * (e >> 1);
+      const float p =
+          i < S ? expf(__fadd_rn(sT[j][e], kb[e >> 1]) - st[3 * ii]) * st[3 * ii + 1] : 0.0f;
+      const float kp = keep(i, jk) ? keep_scale : 0.0f;
+      sT[j][e] = p * kp;
+      dpT[j][e] = p * (dpT[j][e] * kp - st[3 * ii + 2]);
+    }
   }
 }
 

@@ -1,6 +1,7 @@
 // Hopper's warpgroup products and tensor-memory loads as inline PTX, for the
-// tiled short attention kernels' bf16 instantiations (short_attn_tiled_fwd.cu,
-// short_attn_tiled_bwd.cu), in the style of flash_mma.cuh.
+// tiled short attention kernels (short_attn_tiled_fwd.cu,
+// short_attn_tiled_bwd.cu: the bf16 instantiations, and the f32 ones with
+// each f32 operand as three bf16 terms), in the style of flash_mma.cuh.
 //
 // wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators): the 4 warps of a
 // block (one warpgroup) own 64 rows, 16 a warp, and the accumulator of an
@@ -23,6 +24,8 @@
 // The host encodes each (B nh, S, D) input as a 3-d tensor map (columns, rows,
 // batch item x head) whose boxes past S and D read zeros.  It needs D a
 // multiple of 8 (a row a multiple of 16 bytes) and a 16-byte aligned base.
+// The f32 kernels write their bf16 term tiles themselves, in the same layout
+// (short_tiled.cuh store_terms).
 
 #pragma once
 
@@ -290,6 +293,92 @@ __device__ __forceinline__ void issue_abt(float (&d)[N / 8][4], const bf16* a_s,
     } else {
       static_assert(N == 32, "score tiles of 32 or 64 columns");
       wgmma_ss_n32(d, k_major(a_s, 64, kk), k_major(b_s, N, kk), kk > 0);
+    }
+  }
+}
+
+// ------------------------------------------ f32 operands as bf16 terms
+
+// After a thread's own stores into an operand tile (the generic proxy),
+// before the barrier after which a product reads it (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// An f32 operand held as three bf16 terms t = 0 (hi), 1 (mid), 2 (lo)
+// (short_mma::split3, or short_tiled.cuh store_terms on a row's grid) makes
+// a product to f32 accuracy out of six term products: pair p takes A's term
+// term_a(p) times B's term term_b(p), in the order hi lo, lo hi, mid mid,
+// hi mid, mid hi, hi hi (the smaller ones first, so that hi hi meets an
+// accumulator that already holds the rest).  The pairs left out (mid lo,
+// lo mid, lo lo) weigh 2^-24 and less of it.
+constexpr int kTermPairs = 6;
+constexpr int kHiHi = kTermPairs - 1;   // the last pair, hi hi
+
+__host__ __device__ constexpr int term_a(int p) { return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0; }
+__host__ __device__ constexpr int term_b(int p) { return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0; }
+
+// d (64 x N) = A B^T over DP, the term pairs P0 .. P1 - 1: A's terms the
+// (64 x DP) tiles at a + t a_term, B's the (N x DP) tiles at b + t b_term,
+// all K-major (q k^T, do v^T; with Swap, k q^T and v do^T: A's term of
+// each pair is B's of the unswapped order and the reverse, so that the
+// transposed product adds the same term products in the same order).  d's
+// old values are not read.  Issued, not waited for.
+template <int N, int DP, bool Swap = false, int P0 = 0, int P1 = kTermPairs>
+__device__ __forceinline__ void issue_terms_abt(float (&d)[N / 8][4], const bf16* a, int a_term,
+                                                const bf16* b, int b_term) {
+#pragma unroll
+  for (int p = P0; p < P1; ++p) {
+    const bf16* at = a + (Swap ? term_b(p) : term_a(p)) * a_term;
+    const bf16* bt = b + (Swap ? term_a(p) : term_b(p)) * b_term;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if constexpr (N == 64) {
+        wgmma_ss_n64(d, k_major(at, 64, kk), k_major(bt, N, kk), p > P0 || kk > 0);
+      } else {
+        static_assert(N == 32, "score tiles of 32 or 64 columns");
+        wgmma_ss_n32(d, k_major(at, 64, kk), k_major(bt, N, kk), p > P0 || kk > 0);
+      }
+    }
+  }
+}
+
+// The scores (q scale) k^T (with Swap k (q scale)^T) of operands split on
+// their rows' grids (short_tiled.cuh store_terms): hi hi into hh, where its
+// sums are exact, the other five pairs into rest; sum_scores then adds the
+// two in f32.  Issued, not waited for.
+template <int N, int DP, bool Swap = false>
+__device__ __forceinline__ void issue_scores(float (&hh)[N / 8][4], float (&rest)[N / 8][4],
+                                             const bf16* a, int a_term, const bf16* b,
+                                             int b_term) {
+  issue_terms_abt<N, DP, Swap, 0, kHiHi>(rest, a, a_term, b, b_term);
+  issue_terms_abt<N, DP, Swap, kHiHi, kTermPairs>(hh, a, a_term, b, b_term);
+}
+
+// rest += hh, rounded once (after the products are waited for)
+template <int N8>
+__device__ __forceinline__ void sum_scores(float (&rest)[N8][4], const float (&hh)[N8][4]) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) rest[j][e] = __fadd_rn(rest[j][e], hh[j][e]);
+  }
+}
+
+// acc (64 x 64) += X B over K to f32 accuracy: X an f32 intermediate as its
+// three bf16 terms a (register A fragments, short_mma::split_operand), B's
+// terms the (K x 64) tiles at b + t b_term (one box each) read MN-major (p
+// v, ds k, pd^T do, ds^T q, 64 output columns at a time); the six term
+// products.  Issued, not waited for.
+template <int K>
+__device__ __forceinline__ void issue_terms_product(float (&acc)[8][4],
+                                                    const uint32_t (&a)[3][K / 16][4],
+                                                    const bf16* b, int b_term) {
+#pragma unroll
+  for (int p = 0; p < kTermPairs; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) {
+      wgmma_rs_n64(acc, a[term_a(p)][kk], mn_major(b + term_b(p) * b_term, K, kk));
     }
   }
 }

@@ -21,7 +21,14 @@ each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo: all its 24
 bits) times the bf16 input.  They stay within one bf16 ulp of the plain
 versions (`tests/test_torch_short_attention.py` and, for the tiled kernels,
 `tests/test_torch_kernel_domain.py` model them on the CPU).  The f32
-instantiations are f32 FMAs.
+instantiations of the block kernels are f32 FMAs; the tiled ones run on the
+tensor cores with every f32 operand (q * scale, k, v, do, and the
+intermediates pd and ds) as three bf16 terms and each product as six term
+products (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid: the terms left out
+weigh 2^-24 and less), a tile's products summed in a fresh f32 accumulator
+and added to the running sum in f32 (`tests/test_torch_f32_terms.py` models
+it); their sums run in the tensor cores' order, within the f32 gate of the
+plain versions.
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions.
 There is no other route.  Two pairs of kernels, by shape (`kernel_route`):
@@ -39,7 +46,9 @@ o in f32 before its rounding (o32).  The tiled backward takes p = exp(s - m)
 kernel, each one pass, no atomics; called without them, it forms them first
 with the forward's kernel.  The bf16 tiled kernels run on `wgmma` fed by TMA
 where hd is a multiple of 8 above 32 (`_TILED_IMPL`), on `mma.sync` fed by
-cp.async at the other head dims.  Both routes take hd <= 128; a CUDA input
+cp.async at the other head dims; the f32 tiled kernels on `wgmma` at every
+head dim (zero-padded to 64 or 128 columns), their f32 FMA design kept
+beside them.  Both routes take hd <= 128; a CUDA input
 with a wider head raises.  The seed is a one-element int32 tensor on the
 inputs' device; no wrapper reads it on the host.  The forward is the op
 `torch.ops.mmda_tpu_torch.short_attention_fwd` (`short_attention_fwd_op`, a
@@ -72,11 +81,11 @@ __all__ = ["SOURCES", "ROUTE_SOURCES", "launch_count", "reset_launch_count", "MA
            "short_attention_fwd", "short_attention_fwd_op", "short_attention_bwd",
            "ShortAttention", "short_attention"]
 DTYPES = (torch.float32, torch.bfloat16)
-# The tiled bf16 kernels' design: 0 by shape (wgmma fed by TMA where hd is a
-# multiple of 8 above 32, a head's row then a multiple of 16 bytes, and the
+# The tiled kernels' design.  bf16: 0 by shape (wgmma fed by TMA where hd is
+# a multiple of 8 above 32, a head's row then a multiple of 16 bytes, and the
 # inputs 16-byte aligned; else mma.sync fed by cp.async), 1 mma.sync and
-# cp.async at every shape.  Only a timing that compares the two designs sets
-# 1; the f32 kernels take no design.
+# cp.async at every shape.  f32: 0 six bf16 term products on wgmma at every
+# hd, 1 f32 FMAs.  Only a timing or a check that compares the designs sets 1.
 _TILED_IMPL = 0
 MAX_S, MAX_HD = 128, 128          # the block kernels: 4 keys and 4 columns a lane
 TILED_ROWS = 32                   # the tiled f32 kernels' query and key tiles (the smallest)

@@ -25,8 +25,9 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (CHECK_SHAPES, INT8_DENSES, MASKED_ITEM_SHAPES,  # noqa: E402
-                        MASKED_REACH, SHORT_SHAPES, check_short_mask, masked_item_case,
-                        masked_item_inputs, steady_on_cpu)
+                        MASKED_REACH, PEAKED_TIMES, SHORT_SHAPES,
+                        check_short_mask, masked_item_case, masked_item_inputs, peaked_check,
+                        steady_on_cpu)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -702,6 +703,56 @@ def test_tiled_backward_from_saved_statistics_is_the_standalone_one(cuda_device,
         assert torch.equal(a, b)
     o_w, stats_w, _ = kshort.short_attention_fwd_train_reference(q, k, v, bias, seed, rate)
     _close(stats, stats_w, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("impl", [0, 1])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,nh,S,hd", [(2, 3, 300, 36), (2, 2, 514, 128), (2, 4, 257, 8),
+                                       (4, 12, 514, 64), (2, 3, 200, 100), (2, 2, 129, 33)])
+def test_f32_tiled_designs_meet_the_gate(cuda_device, monkeypatch, B, nh, S, hd, rate, impl):
+    """Both f32 designs of the tiled kernels (`_TILED_IMPL` 0: six bf16
+    term products on wgmma at every hd, on columns zero-padded to 64 or 128,
+    the f32 tiles staged 16 bytes a copy where hd % 4 == 0 and 4 at hd = 33;
+    1: f32 FMAs) against the plain versions within 1e-5 + 1e-5 |ref|: the
+    forward, and the backward from the training forward's statistics, the
+    standalone backward the same bits; two launches the same bits."""
+    monkeypatch.setattr(kshort, "_TILED_IMPL", impl)
+    q, k, v, g, bias = _short_inputs(B, nh, S, hd, torch.float32, S * hd + impl, cuda_device)
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda_device)
+    assert kshort.kernel_route(S, hd, torch.float32) == "tiled"
+    o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, rate)
+    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, stats, o32)
+    assert o32 is o and torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate))
+    for a, b in zip(grads, kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)):
+        assert torch.equal(a, b)
+    again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, stats, o32)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
+            *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)]
+    for got, ref in zip((o, *grads), want):
+        assert got.dtype == torch.float32
+        _close(got, ref, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("q_factor", [4.0, 8.0])
+@pytest.mark.parametrize("B,nh,S,hd", [(4, 12, 514, 64), (2, 2, 514, 128), (2, 3, 300, 36)])
+def test_f32_tiled_designs_hold_float64_on_peaked_scores(cuda_device, B, nh, S, hd, q_factor,
+                                                         rate):
+    """Both f32 designs with q times 4 and 8 (scores of that spread, a
+    peaked softmax): o, dq, dk and dv lie from the float64 evaluation of the
+    function (its scores in float64 from the f32 q * scale) within
+    PEAKED_TIMES the plain version's (cuBLAS f32) distance
+    (`chip_smoke.peaked_check`, which raises past it).  Summing the scores'
+    products in the tensor cores' truncating f32 accumulators would drift
+    with |s|."""
+    q, k, v, g, bias = _short_inputs(B, nh, S, hd, torch.float32, S * hd + 5, cuda_device)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    out = peaked_check(kshort, (q, k, v, bias, seed, g), q_factor, rate)
+    for design in out.values():
+        if isinstance(design, dict):
+            far = design["from_float64"]
+            assert all(ours <= PEAKED_TIMES * plain for ours, plain in far.values()), far
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -126,17 +126,70 @@ def _split_matmul(x, b):
     return sum(torch.matmul(t, b) for t in (hi, mid, lo))
 
 
-def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False):
+# The f32 tiled kernels' term products (csrc/wgmma.cuh kTermPairs): (A's
+# term, B's term) with 0 = hi, 1 = mid, 2 = lo, in the order they are issued
+SIX_TERMS = ((0, 2), (2, 0), (1, 1), (0, 1), (1, 0), (0, 0))
+
+
+def _terms(x):
+    """x (f32) as its three bf16 terms hi, mid, lo, each widened back to f32."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, (x - hi - mid).bfloat16().float()
+
+
+def _grid_terms(x):
+    """x (f32) as its three bf16 terms on each row's grid (the f32 kernels'
+    split of q scale and k, csrc/short_tiled.cuh store_terms): hi is x
+    rounded to a multiple of 2^(e - 7), e the exponent of the row's largest
+    |x| (clamped to [-100, 111]), mid and lo the rest as `_terms` takes it."""
+    e = (torch.frexp(x.abs().amax(-1, keepdim=True)).exponent - 1).clamp(-100, 111)
+    quantum = torch.pow(2.0, (e - 7).float())
+    hi = torch.round(x / quantum) * quantum
+    assert torch.equal(hi.bfloat16().float(), hi)
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, (x - hi - mid).bfloat16().float()
+
+
+def _terms_matmul(x, y, pairs=SIX_TERMS, tx=None, ty=None):
+    """x @ y with both f32 operands as three bf16 terms (tx, ty where given,
+    else `_terms`): the term products of `pairs` (each exact, summed in
+    f32), added in their order in f32."""
+    tx, ty = tx or _terms(x), ty or _terms(y)
+    out = torch.matmul(tx[pairs[0][0]], ty[pairs[0][1]])
+    for a, b in pairs[1:]:
+        out = out + torch.matmul(tx[a], ty[b])
+    return out
+
+
+def _scores_matmul(tx, ty, pairs=SIX_TERMS):
+    """The f32 kernels' scores from terms on the rows' grids (`_grid_terms`;
+    ty transposed): the hi hi products' sum in its own accumulator, exact
+    there (an integer of at most 2^23 units of the grids), the other pairs'
+    by `_terms_matmul`, then the two added in f32."""
+    rest = _terms_matmul(None, None, [p for p in pairs if p != (0, 0)], tx, ty)
+    return rest + torch.matmul(tx[0].double(), ty[0].double()).float()
+
+
+def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False, pairs=None):
     """(o, dq, dk, dv) as the tiled kernels form them, on the CPU: keys and
     queries in tiles of NB (bf16: 64, 32 for the dk/dv kernel's query tiles
-    at hd > 64; f32: 32).  Forward, one pass over the key tiles: the row
-    max m and sum l online (when a tile raises m, l and the f32 accumulator
-    are rescaled by exp(m_old - m_new)), the accumulator += (exp(s - m) times
-    the 0/1 mask) v, and at the end o32 = acc (1 / l) keep_scale; it saves m,
-    l and o32.  r = rowsum(do o32) (from the bf16 o with `r_from_bf16_o`).
-    dq kernel, one pass: p = exp(s - m) (1 / l), ds = p (dp - r), dq summed
-    tile by tile; dk/dv kernel: the same p and ds, pd = p keep, dk and dv
-    summed over query tiles.  bf16 takes its products as the kernels do (q
+    at hd > 64; f32: 32).  With `pairs`, f32 on the tensor cores: every
+    product of f32 operands (q scale k^T, do v^T, and the tile products pd
+    v, ds k, pd^T do, ds^T (q scale)) as those term products
+    (`_terms_matmul`; q scale and k split on their rows' grids, the
+    scores' hi hi sum exact, `_scores_matmul`), the forward's key tiles 64
+    (32 at hd > 64), the dq
+    kernel's key tiles and the dk/dv kernel's query tiles 32; each tile's
+    product a fresh sum, added to the running one in f32.  Forward, one
+    pass over the key tiles: the row max m and sum l online (when a tile
+    raises m, l and the f32 accumulator are rescaled by exp(m_old - m_new)),
+    the accumulator += (exp(s - m) times the 0/1 mask) v, and at the end
+    o32 = acc (1 / l) keep_scale; it saves m, l and o32.  r = rowsum(do
+    o32) (from the bf16 o with `r_from_bf16_o`).  dq kernel, one pass: p =
+    exp(s - m) (1 / l), ds = p (dp - r), dq summed tile by tile; dk/dv
+    kernel: the same p and ds, pd = p keep, dk and dv summed over query
+    tiles.  bf16 takes its products as the kernels do (q
     k^T and do v^T of the inputs, scale after q k^T and ds^T q, the f32
     intermediate as three bf16 terms); each output rounded once.  (The bf16
     kernels take exp as ex2.approx, within a few f32 ulps of torch.exp.)"""
@@ -144,14 +197,23 @@ def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False):
     bf16 = q.dtype == torch.bfloat16
     NB = 64 if bf16 else 32
     NQ = (64 if hd <= 64 else 32) if bf16 else 32
+    NK = NB                     # the dq kernel's key tiles
     scale = tsa.softmax_scale(hd)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     if bf16:
         s = torch.matmul(qf, kf.transpose(-1, -2)) * scale + bias[:, None, None, :]
         product = _split_matmul
-    else:
+    elif pairs is None:
         s = torch.matmul(qf * scale, kf.transpose(-1, -2)) + bias[:, None, None, :]
         product = torch.matmul
+    else:
+        NB, NK = (64 if hd <= 64 else 32), 32
+
+        def product(x, y, ty=None):
+            return _terms_matmul(x, y, pairs, ty=ty)
+
+        t_q, t_k = _grid_terms(qf * scale), _grid_terms(kf)
+        s = _scores_matmul(t_q, [t.transpose(-1, -2) for t in t_k], pairs) + bias[:, None, None, :]
     mask = torch.ones_like(s)
     ks = keep_scale(rate)
     if rate > 0.0:
@@ -173,12 +235,18 @@ def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False):
     o = o32.to(q.dtype)
     r = (gf * (o.float() if r_from_bf16_o else o32)).sum(-1, keepdim=True)
     p = torch.exp(s - m) * inv_l
-    dp = torch.matmul(gf, vf.transpose(-1, -2)) * keep
+    dp = (torch.matmul if pairs is None else product)(gf, vf.transpose(-1, -2)) * keep
     pd, ds = p * keep, p * (dp - r)
     qs = qf if bf16 else qf * scale
-    dq = sum(product(ds[..., t], kf[..., t, :]) for t in tiles) * scale
+    ktiles = [slice(t, min(t + NK, S)) for t in range(0, S, NK)]
     qtiles = [slice(t, min(t + NQ, S)) for t in range(0, S, NQ)]
-    dk = sum(product(ds[..., t, :].transpose(-1, -2), qs[..., t, :]) for t in qtiles)
+    if pairs is None:
+        dq = sum(product(ds[..., t], kf[..., t, :]) for t in ktiles) * scale
+        dk = sum(product(ds[..., t, :].transpose(-1, -2), qs[..., t, :]) for t in qtiles)
+    else:                       # k's and q scale's terms on their rows' grids
+        dq = sum(product(ds[..., t], None, [u[..., t, :] for u in t_k]) for t in ktiles) * scale
+        dk = sum(product(ds[..., t, :].transpose(-1, -2), None, [u[..., t, :] for u in t_q])
+                 for t in qtiles)
     dv = sum(product(pd[..., t, :].transpose(-1, -2), gf[..., t, :]) for t in qtiles)
     if bf16:
         dk = dk * scale
