@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase16
     python3 chip_smoke.py --phase17
     python3 chip_smoke.py --fused-long-f32
+    python3 chip_smoke.py --fused-f32
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -63,15 +64,19 @@ the result):
    bit-equal to the plain calls; an item whose keys are all masked and whose
    scores reach 33, 40 and 100 against the plain training forward and the
    plain backward from its statistics (`check_masked_items`, f32 and bf16, at
-   (3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100)); hd = 136 refused; timed at (64, 12, 50, 64)
+   (3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100), and on the block route
+   at (3, 2, 50, 64), (2, 3, 100, 100)); hd = 136 refused; timed at (64, 12, 50, 64)
    and (32, 12, 514, 64), bf16 and f32, beside SDPA, the tiled backward from the
    saved statistics by part (r, dq, dk/dv) and alone, and both tiled designs of each
    dtype in turns with their HGMMA / HMMA lines (bf16: `wgmma` fed by TMA, `mma.sync`
    fed by cp.async; f32: six bf16 term products on `wgmma`, f32 FMAs, each also
    against float64, with the plain version's distance beside it, and with q times 4
-   and 8 (peaked scores) each output within twice that distance); both f32 designs
-   timed at (2, 4, 257, 8) and (2, 2, 129, 33); the f32
-   tensor-core kernels' SASS must hold HGMMA lines.  The two
+   and 8 (peaked scores) each output within twice that distance); the f32 block
+   kernels' two designs likewise at (64, 12, 50, 64) (f32 FMAs, six bf16 term
+   products on `wgmma`), at the serving buckets' S = 18, 34, 66 timed too, and the tiled route's
+   kernels timed at (64, 12, 50, 64) as a yardstick; both f32 tiled designs
+   timed at (2, 4, 257, 8) and (2, 2, 129, 33); the f32 tensor-core kernels'
+   SASS (both routes) must hold HGMMA lines.  The two
    multi-direction LSTM kernels at (T, B) = (48, 64) and (512, 32) with H =
    35, 35, 74, 74, and at (16, 64) with H = 35, 74, 300 in one launch (the
    serial passes' three instantiations, which the checks must reach),
@@ -143,7 +148,15 @@ the result):
    `Predictor(attn_impl="fused")` on that run's checkpoint at buckets
    16/32/64 behind the HTTP front end (12 `short_attn_fwd` and 8 `lstm_fwd`
    per call, no backward kernel) against the dense core (2e-2), with
-   per-bucket latency; and `cli.train --attn_impl fused` -> `Predictor`;
+   per-bucket latency; and `cli.train --attn_impl fused` -> `Predictor`; then
+   the same step in f32 (`fused_f32`: `compute_dtype="float32"`, the f32
+   one-block kernels on the tensor cores, 12 + 12 a step, 12 an eval batch)
+   through `Trainer.train()` for 3 steps, eager steps against captured
+   replays bit for bit, 10 of each timed, busy, idle share, peak memory and
+   the two kernels' ms a step (`11 fused-f32`), and a captured f32
+   `Predictor` at bucket 64, B=64, on its checkpoint (12 `short_attn_fwd` +
+   8 `lstm_fwd` a replay, replays bit-equal to eager calls); `--fused-f32`
+   runs it alone after the build with both f32 designs in turns;
 10. the tower pair: `extract_features_pair(use_pallas_multi=True)` at the
    towers' widths (35, 74), forward and backward, at B=64, T=48 and B=32,
    T=512: 2 `lstm_multi_fwd` and 2 `lstm_multi_bwd` launches per call and no
@@ -334,6 +347,7 @@ SHORT_TILED = ("short_attn_tiled_fwd", "short_attn_tiled_bwd")
 FUSED_LONG_STEPS = 4              # phase 16: Trainer.train()'s epoch at B=32, T=512
 FUSED_LONG_SMALL_T = 130          # its small f32 model's length, card against CPU (S > 128)
 FUSED_LONG_F32_STEPS, FUSED_LONG_F32_TIMED = 3, 5   # the f32 long step: train()'s, then timed
+FUSED_F32_STEPS, FUSED_F32_TIMED = 3, 10    # the f32 flagship step: train()'s, then timed
 TRAIN_CONFIGS = {
     "lstm": {"options": {"attn_impl": "xla"},
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL},
@@ -381,6 +395,15 @@ TRAIN_CONFIGS = {
                                     "short_attn_tiled_fwd": BERT_LAYERS},
                        "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw",
                                    "tiled_fwd", "tiled_r", "tiled_dq", "tiled_dkv")},
+    # the flagship step in f32: the f32 one-block kernels in every training step
+    # and eval batch (S = 50); a few steps, for the captured step alone
+    "fused_f32": {"options": {"attn_impl": "fused", "compute_dtype": "float32"},
+                  "dropout_on": True, "steps": FUSED_F32_STEPS, "timed": FUSED_F32_TIMED,
+                  "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
+                               "short_attn_fwd": BERT_LAYERS, "short_attn_bwd": BERT_LAYERS},
+                  "per_eval": {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS},
+                  "profile": ("lstm_fwd", "lstm_gates", "lstm_bptt", "lstm_dw",
+                              "short_attn_fwd", "short_attn_bwd")},
     "long": {"options": {"attn_impl": "auto"}, "dropout_on": True,
              "batch": LONG_B, "T": LONG_T, "steps": LONG_STEPS, "timed": LONG_TIMED,
              "per_step": {"lstm_fwd": LAUNCHES_PER_CALL, "lstm_bwd": LAUNCHES_PER_CALL,
@@ -432,10 +455,14 @@ SHORT_TILED_SHAPES = [(32, 12, 514, 64), (2, 4, 129, 8), (2, 4, 257, 128), (1, 2
 SHORT_REFUSED = [(2, 12, 130, 136)]
 # a batch item whose keys are all masked, its q scaled so that the largest
 # |s scale| reaches each of MASKED_REACH (>= 32: s scale - 1e9 no longer rounds
-# to -1e9): the tiled kernels (hd 64 on wgmma, 100 on mma.sync) at these shapes
-MASKED_ITEM_SHAPES = [(3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100)]
+# to -1e9): the tiled kernels (hd 64 on wgmma, 100 on mma.sync) and the block
+# kernels (S = 50, one warpgroup in f32; S = 100, two) at these shapes
+MASKED_ITEM_SHAPES = [(3, 2, 200, 64), (2, 2, 514, 64), (2, 3, 200, 100), (3, 2, 50, 64),
+                      (2, 3, 100, 100)]
 MASKED_REACH = (33.0, 40.0, 100.0)
 SHORT_REPORT = (64, 12, 50, 64)    # the fused flagship step's call, bf16, rate 0.1
+SHORT_BUCKETS = [(64, 12, 18, 64), (64, 12, 34, 64), (64, 12, 66, 64)]   # fused Predictor
+                                   # calls at buckets 16, 32, 64
 SHORT_TILED_REPORT = (LONG_B, 12, LONG_T + 2, 64)   # the fused long step's call
 SHORT_F32_TOL = (1e-5, 1e-5)       # f32 on both sides, summation order only
 SHORT_BF16_TOL = (1e-6, 2.0 ** -7)  # all math f32, each output rounded once: one bf16 ulp
@@ -1223,9 +1250,10 @@ def tensor_core_instructions(so_path) -> dict:
 def tensor_core_counts(names) -> dict:
     """{kernel: {"bf16_kernels": HMMA/HGMMA lines in its bf16 `*_mma_kernel`
     and `*_wgmma_kernel` functions, "f32_kernels": in its f32
-    `*_f32_wgmma_kernel` ones (the tiled kernels), "all": in the whole
-    library}}; raises where a bf16 kernel, or a tiled kernel's f32 design,
-    has none (its products would not run on the tensor cores)."""
+    `*_f32_wgmma_kernel` ones (the short-attention kernels of both routes),
+    "all": in the whole library}}; raises where a bf16 kernel, or a short
+    attention kernel's f32 design 0, has none (its products would not run on
+    the tensor cores)."""
     from mmda_tpu_torch.ops.kernels import _build
 
     sass = {}
@@ -1239,7 +1267,7 @@ def tensor_core_counts(names) -> dict:
         if bf16 == 0:
             raise AssertionError(f"{name}: no HMMA/HGMMA instruction in the SASS of its "
                                  "bf16 kernels")
-        if "tiled" in name and f32 == 0:
+        if name.startswith("short_attn") and f32 == 0:
             raise AssertionError(f"{name}: no HMMA/HGMMA instruction in the SASS of its "
                                  "f32 tensor-core kernels")
     return sass
@@ -1433,7 +1461,8 @@ def masked_item_exact(kshort, q, k, v, bias, seed, g, rate, scores="f32"):
 def masked_item_case(kshort, B, nh, S, hd, dtype, reach, device) -> dict:
     """The tiled kernels' training forward and backward from its statistics
     on `masked_item_inputs` against the plain training forward and the plain
-    backward from its statistics (the form the kernels take) at the gate,
+    backward from its statistics (the form the kernels take) at the gate (on
+    the block route: the forward and the backward, against the plain ones),
     but for dq and dk of the masked item: its softmax is one-hot, so ds = p
     (dp - r) cancels to a few f32 ulps of dp in any order of summation (the
     plain forms from rowsum(dp p) and from rowsum(do o32) part by 2.35e-5 in
@@ -1446,15 +1475,22 @@ def masked_item_case(kshort, B, nh, S, hd, dtype, reach, device) -> dict:
     kernels' and the plain version's in f32."""
     seed = torch.tensor([4], dtype=torch.int32, device=device)
     q, k, v, g, bias = masked_item_inputs(B, nh, S, hd, dtype, reach, device)
-    o, st, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)
-    got = (o, *kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE, st, o32))
-    o_w, st_w, o32_w = kshort.short_attention_fwd_train_reference(q, k, v, bias, seed,
-                                                                  ATTN_RATE)
-    plain = (o_w, *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE,
-                                                        st_w, o32_w))
     f32 = [t.float() for t in (q, k, v)]
-    plain32 = (o32_w, *kshort.short_attention_bwd_reference(
-        *f32, bias, seed, g.float(), ATTN_RATE, st_w, o32_w))
+    if kshort.kernel_route(S, hd, dtype) == "block":
+        got = (kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE),
+               *kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE))
+        plain, plain32 = ((kshort.short_attention_fwd_reference(*x, bias, seed, ATTN_RATE),
+                           *kshort.short_attention_bwd_reference(*x, bias, seed, y, ATTN_RATE))
+                          for x, y in (((q, k, v), g), (f32, g.float())))
+    else:
+        o, st, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)
+        got = (o, *kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE, st, o32))
+        o_w, st_w, o32_w = kshort.short_attention_fwd_train_reference(q, k, v, bias, seed,
+                                                                      ATTN_RATE)
+        plain = (o_w, *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE,
+                                                            st_w, o32_w))
+        plain32 = (o32_w, *kshort.short_attention_bwd_reference(
+            *f32, bias, seed, g.float(), ATTN_RATE, st_w, o32_w))
     exact = masked_item_exact(kshort, q, k, v, bias, seed, g, ATTN_RATE)
     atol, rtol = SHORT_F32_TOL if dtype == torch.float32 else SHORT_BF16_TOL
     where = f"masked item (B,nh,S,hd)={(B, nh, S, hd)} {dtype} reach {reach}"
@@ -1485,7 +1521,7 @@ def check_masked_items(kshort, device) -> dict:
             row["plain_f32_err"] = max(row["plain_f32_err"], r["plain_f32_err"])
     out = {"shapes": MASKED_ITEM_SHAPES, "reach": MASKED_REACH, "from_float64": worst,
            "tol": {"float32": SHORT_F32_TOL, "bfloat16": SHORT_BF16_TOL}}
-    log("3 short-tiled-masked-items", **out)
+    log("3 short-masked-items", **out)
     return out
 
 
@@ -1533,10 +1569,20 @@ TILED_DESIGNS = {
                      0: ("wgmma, TMA", lambda f: "wgmma_kernel" in f and "f32" not in f)},
     torch.float32: {1: ("f32 FMAs", lambda f: "f32_kernel" in f),
                     0: ("wgmma, six bf16 term products", lambda f: "f32_wgmma_kernel" in f)}}
+# short_attention._BLOCK_IMPL: the f32 block kernels' designs, named as above
+BLOCK_F32_DESIGNS = TILED_DESIGNS[torch.float32]
+
+
+def f32_designs(kshort, S, hd) -> tuple:
+    """(the module constant that selects the f32 design on (S, hd)'s route,
+    {design: (name, whether a SASS function name is one of its kernels)})."""
+    if kshort.kernel_route(S, hd, torch.float32) == "block":
+        return "_BLOCK_IMPL", BLOCK_F32_DESIGNS
+    return "_TILED_IMPL", TILED_DESIGNS[torch.float32]
 
 
 def from_float64(kshort, inputs, rate, got, scores="float64") -> dict:
-    """How far the tiled kernels' (o, dq, dk, dv) and the plain versions'
+    """How far the kernels' (o, dq, dk, dv) and the plain versions'
     (cuBLAS in f32) lie from the float64 evaluation of the function on the
     same inputs (`masked_item_exact`, its scores in float64): {output:
     [kernel's largest |error|, the plain version's]}.  With scores="f32"
@@ -1562,7 +1608,7 @@ PEAKED_TIMES = 2.0                 # o, dq, dk, dv from float64 within this many
 
 
 def peaked_check(kshort, inputs, q_factor, rate) -> dict:
-    """Both f32 tiled designs on `inputs` with q times q_factor (a softmax
+    """Both f32 designs of the inputs' route on them, q times q_factor (a softmax
     as peaked as a trained model's can be): each output's largest |err|
     against the plain version over the f32 gate (1e-5 + 1e-5 |ref|;
     recorded: two f32 forms of s part by a few ulps of |s|, which the
@@ -1580,8 +1626,9 @@ def peaked_check(kshort, inputs, q_factor, rate) -> dict:
     want = (kshort.short_attention_fwd_reference(qp, k, v, bias, seed, rate),
             *kshort.short_attention_bwd_reference(qp, k, v, bias, seed, g, rate))
     out = {"q_factor": q_factor}
-    for impl, (name, _) in TILED_DESIGNS[torch.float32].items():
-        with replaced(kshort, "_TILED_IMPL", impl):
+    constant, designs = f32_designs(kshort, *q.shape[2:])
+    for impl, (name, _) in designs.items():
+        with replaced(kshort, constant, impl):
             got = (kshort.short_attention_fwd(qp, k, v, bias, seed, rate),
                    *kshort.short_attention_bwd(qp, k, v, bias, seed, g, rate))
         far = from_float64(kshort, peaked, rate, got)
@@ -1699,6 +1746,78 @@ def tiled_extras(kshort, inputs, saved) -> tuple:
         f["peaked"] = peaked_scores(kshort, inputs)
     b["designs"] = {name: {"bwd_ms": row["bwd_ms"], "parts_ms": row["parts_ms"],
                            **{k: row[k] for k in keys}} for name, row in designs.items()}
+    return f, b
+
+
+def block_extras(kshort, inputs) -> tuple:
+    """The f32 block rows' numbers beyond `kernel_times` at the report shape,
+    (forward's, backward's): each f32 design of the block kernels
+    (`BLOCK_F32_DESIGNS`) timed in turns (each, then each again in reverse;
+    the smaller of its two device times), with its HGMMA and HMMA lines, its
+    error against the plain versions (which it must meet) and how far it
+    and the plain versions lie from float64 (`from_float64`), there and on
+    peaked scores (`peaked_scores`); and, as a yardstick, the tiled route's
+    kernels at the same shape (`kernel_route` replaced for the timing): the
+    forward and the backward from the training forward's statistics; both
+    designs at SHORT_BUCKETS in turns (`buckets_ms`)."""
+    from mmda_tpu_torch.ops.kernels import _build
+
+    q, k, v, bias, seed, g = inputs
+
+    def ms(fn):
+        return device_time(fn, cuda_ms(fn))[0]
+
+    def fwd():
+        return kshort.short_attention_fwd(q, k, v, bias, seed, ATTN_RATE)
+
+    def bwd():
+        return kshort.short_attention_bwd(q, k, v, bias, seed, g, ATTN_RATE)
+
+    o_w = kshort.short_attention_fwd_reference(q, k, v, bias, seed, ATTN_RATE)
+    grads_w = kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, ATTN_RATE)
+    sass = {name: tensor_core_instructions(_build.library_path(name))
+            for name in kshort.ROUTE_SOURCES["block"]}
+    designs: dict = {}
+    order = list(BLOCK_F32_DESIGNS)
+    for impl in order + order[::-1]:
+        name, _ = BLOCK_F32_DESIGNS[impl]
+        with replaced(kshort, "_BLOCK_IMPL", impl):
+            row = designs.setdefault(name, {"fwd_ms": [], "bwd_ms": []})
+            got = (fwd(), *bwd())
+            row["max_abs_err"] = max_err(zip(("o", "dq", "dk", "dv"), got, (o_w, *grads_w)),
+                                         SHORT_F32_TOL, f"{tuple(q.shape)} f32, design {name}")
+            row.setdefault("from_float64", from_float64(kshort, inputs, ATTN_RATE, got))
+            del got
+            row["fwd_ms"].append(ms(fwd))
+            row["bwd_ms"].append(ms(bwd))
+    for name, ours in BLOCK_F32_DESIGNS.values():
+        row = designs[name]
+        row["fwd_ms"], row["bwd_ms"] = min(row["fwd_ms"]), min(row["bwd_ms"])
+        row["sass"] = {src: {fn: n for fn, n in by_fn.items() if ours(fn) and any(n.values())}
+                       for src, by_fn in sass.items()}
+    with replaced(kshort, "kernel_route", lambda S, hd, dtype=torch.float32: "tiled"):
+        saved = kshort.short_attention_fwd_train(q, k, v, bias, seed, ATTN_RATE)[1:]
+        tiled = {"fwd_ms": ms(fwd), "bwd_ms": ms(lambda: kshort.short_attention_bwd(
+            q, k, v, bias, seed, g, ATTN_RATE, *saved))}
+    del saved
+    keys = ("max_abs_err", "sass", "from_float64")
+    f = {"designs": {name: {"fwd_ms": row["fwd_ms"], **{k: row[k] for k in keys}}
+                     for name, row in designs.items()},
+         "tiled_route_ms": tiled["fwd_ms"], "peaked": peaked_scores(kshort, inputs)}
+    b = {"designs": {name: {"bwd_ms": row["bwd_ms"], **{k: row[k] for k in keys}}
+                     for name, row in designs.items()},
+         "tiled_route_ms": tiled["bwd_ms"]}
+    # the serving buckets' calls (S = 66: two warpgroups a block), both designs
+    for shape in SHORT_BUCKETS:
+        q, k, v, g, bias = short_inputs(*shape, torch.float32, 2, q.device)
+        times = {}
+        for impl in order + order[::-1]:
+            name = BLOCK_F32_DESIGNS[impl][0]
+            with replaced(kshort, "_BLOCK_IMPL", impl):
+                times.setdefault(name, []).append((ms(fwd), ms(bwd)))
+        for i, row in enumerate((f, b)):
+            row.setdefault("buckets_ms", {})[str(shape)] = {
+                name: min(t[i] for t in ts) for name, ts in times.items()}
     return f, b
 
 
@@ -1824,7 +1943,8 @@ def check_short_kernels(kshort, hashes, device) -> dict:
                                                                    ATTN_RATE),
                       sdpa_bwd, "autograd.grad of that call: dq, dk and dv", "short_attn_bwd")}
             extras = (tiled_extras(kshort, (q, k, v, bias, seed, g), saved)
-                      if route == "tiled" else ({}, {}))
+                      if route == "tiled" else block_extras(kshort, (q, k, v, bias, seed, g))
+                      if dtype == torch.float32 else ({}, {}))
             for (name, (kernel, plain, library, what, bound)), extra in zip(calls.items(),
                                                                             extras):
                 timed[name].append({**shape, **kernel_times(kernel, plain, library),
@@ -4519,25 +4639,35 @@ def step_summary(steps, captured, kind: str) -> dict:
                                   "captured": captured["captured"]["peak_mem_gb"]}}
 
 
-def fused_long_f32(counts, kshort, device, designs=(0,)) -> dict:
-    """Phase 11's `fused_long_f32`: MISA at bert-base width, B=32, T=512,
-    compute_dtype="float32", attn_impl="fused" with dropout: `Trainer.train()`
-    for FUSED_LONG_F32_STEPS steps (its launches: BERT_LAYERS
-    `short_attn_tiled_fwd` + `short_attn_tiled_bwd` and LAUNCHES_PER_CALL
-    `lstm_fwd` + `lstm_bwd` a step, BERT_LAYERS + LAUNCHES_PER_CALL an eval
-    batch), then `captured_steps` (replays bit-equal to eager steps, ms a
-    step, busy, idle share, peak memory, the tiled kernels' device ms a
-    step), for each f32 design of the tiled kernels in `designs`
-    (`short_attention._TILED_IMPL`: 0 on the tensor cores, 1 f32 FMAs), in
-    turns on one trainer.  {design name: its summaries in turn}, and the
-    main path's."""
-    trainer, path = train_main_path(counts, "fused_long_f32")
-    log("11 fused-long-f32-main-path", **path)
+F32_PATHS = {   # kind: (the design constant, its designs, the profile names read a step)
+    "fused_long_f32": ("_TILED_IMPL", TILED_DESIGNS[torch.float32],
+                       ("tiled_fwd", "tiled_r", "tiled_dq", "tiled_dkv")),
+    "fused_f32": ("_BLOCK_IMPL", BLOCK_F32_DESIGNS, ("short_attn_fwd", "short_attn_bwd"))}
+
+
+def f32_path(counts, kshort, device, kind: str, designs=(0,)) -> dict:
+    """Phase 11's f32 fused steps: MISA at bert-base width with
+    compute_dtype="float32", attn_impl="fused" and dropout, `kind`
+    "fused_long_f32" (B=32, T=512: the tiled kernels) or "fused_f32" (the
+    flagship B=64, T=48: the block kernels): `Trainer.train()` for the
+    configuration's steps (its launches: BERT_LAYERS forward + backward
+    short-attention launches and LAUNCHES_PER_CALL `lstm_fwd` + `lstm_bwd` a
+    step, BERT_LAYERS + LAUNCHES_PER_CALL an eval batch), then
+    `captured_steps` (replays bit-equal to eager steps, ms a step, busy,
+    idle share, peak memory, the attention kernels' device ms a step), for
+    each f32 design of the route's kernels in `designs` (`F32_PATHS`: 0 on
+    the tensor cores, 1 f32 FMAs), in turns on one trainer.  "fused_f32"
+    also serves the trainer's export through a captured f32 `Predictor`
+    (`serve_fused_f32`).  {design name: its summaries in turn}, the main
+    path's, and the Predictor's."""
+    constant, names, attention = F32_PATHS[kind]
+    trainer, path = train_main_path(counts, kind)
+    log(f"11 {kind.replace('_', '-')}-main-path", **path)
     out = {"main_path": path}
     for impl in designs:
-        name = TILED_DESIGNS[torch.float32][impl][0]
-        with replaced(kshort, "_TILED_IMPL", impl):
-            captured = captured_steps(trainer, counts, "fused_long_f32", device)
+        name = names[impl][0]
+        with replaced(kshort, constant, impl):
+            captured = captured_steps(trainer, counts, kind, device)
         log("11 captured-steps", design=name, **captured)
         prof = captured["captured_profile"]
         out.setdefault(name, []).append({
@@ -4545,13 +4675,47 @@ def fused_long_f32(counts, kshort, device, designs=(0,)) -> dict:
             "busy_ms": prof["device_busy_ms_per_call"],
             "device_ops": prof.get("device_ops_per_call"),
             "idle_share": {k: captured[k].get("idle_share") for k in ("eager", "captured")},
-            "tiled_ms_per_step": {k: prof.get(f"{k}_ms_per_call")
-                                  for k in ("tiled_fwd", "tiled_r", "tiled_dq", "tiled_dkv")},
+            "attention_ms_per_step": {k: prof.get(f"{k}_ms_per_call") for k in attention},
             "peak_allocated_gb": {k: captured[k]["peak_mem_gb"] for k in ("eager", "captured")},
             "captured_diffs": captured["captured_diffs"],
             "launches_per_replay": captured["launches_per_replay"]})
-    log("11 fused-long-f32", **{k: v for k, v in out.items() if k != "main_path"})
+    log(f"11 {kind.replace('_', '-')}", **{k: v for k, v in out.items() if k != "main_path"})
+    cfg = trainer.cfg
     del trainer
+    torch.cuda.empty_cache()
+    if kind == "fused_f32":
+        out["serve"] = serve_fused_f32(cfg, counts, device)
+        log("11 captured-serve", kind=kind, **out["serve"])
+    return out
+
+
+FUSED_F32_BUCKET = 64             # the f32 fused Predictor's bucket, at B = 64
+
+
+def serve_fused_f32(cfg, counts, device) -> dict:
+    """A captured f32 `Predictor` with attn_impl="fused" on the checkpoint the
+    `fused_f32` run wrote, at bucket FUSED_F32_BUCKET, B=64: a replayed call
+    launches BERT_LAYERS `short_attn_fwd` and LAUNCHES_PER_CALL `lstm_fwd`
+    and nothing else; `serve_captured_vs_eager` (replays bit for bit with
+    eager calls through the same kernels, both latencies); scores finite."""
+    from mmda_tpu_torch.ops.kernels.lstm import lstm_recurrence
+    from mmda_tpu_torch.serving import Predictor
+
+    pred_cfg = cfg.replace(bucket_sizes=(FUSED_F32_BUCKET,), max_seq_len=FUSED_F32_BUCKET)
+    pred = Predictor(pred_cfg, max_batch=64)
+    batch = make_requests([FUSED_F32_BUCKET] * 64, pred_cfg, 13)
+    pred(batch)                             # the warm-up, then the capture
+    counts.reset_launch_count()
+    got = pred(batch)
+    launches = all_launches(counts)
+    per_call = {"lstm_fwd": LAUNCHES_PER_CALL, "short_attn_fwd": BERT_LAYERS}
+    if launches != expected_launches(counts, per_call):
+        raise AssertionError(f"f32 fused Predictor replay: {launches}")
+    check_outputs(got["scores"], got["labels"], got["tcp"], 64, cfg.num_classes, cfg.threshold)
+    out = {"bucket": FUSED_F32_BUCKET, "batch": 64, "compute_dtype": pred_cfg.compute_dtype,
+           "launches_per_call": {k: v for k, v in launches.items() if v},
+           **serve_captured_vs_eager(pred_cfg, pred, lstm_recurrence, device)}
+    del pred
     torch.cuda.empty_cache()
     return out
 
@@ -4583,7 +4747,7 @@ def phase16(counts, klstm, device, cli=None) -> dict:
     log("16 fused-vs-flash", **train["fused_vs_flash"])
     del trainer
     torch.cuda.empty_cache()
-    f32 = fused_long_f32(counts, kshort, device)
+    f32 = f32_path(counts, kshort, device, "fused_long_f32")
     serve = serve_fused_long(cfg, counts, device)
     log("16 fused-serve-http", **{k: v for k, v in serve.items() if k != "captured"},
         tol=FLASH_SERVE_TOL)
@@ -5007,7 +5171,7 @@ def main() -> int:
     if args[:1] == ["--dp-cli"] and len(args) > 1:     # phase 17 (a)'s torchrun rank
         return dp_cli_rank(args[1], args[2:])
     if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"],
-                    ["--fused-long-f32"]):
+                    ["--fused-long-f32"], ["--fused-f32"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -5061,10 +5225,11 @@ def main() -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_phase16.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
-    if "--fused-long-f32" in args:          # phase 11's f32 long step alone, both designs
-        out = fused_long_f32(counts, kshort, device, designs=(0, 1, 1, 0))
+    if "--fused-long-f32" in args or "--fused-f32" in args:   # phase 11's f32 step alone
+        kind = "fused_f32" if "--fused-f32" in args else "fused_long_f32"
+        out = f32_path(counts, kshort, device, kind, designs=(0, 1, 1, 0))
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
-        (ROOT / "chiprun_out" / "chip_smoke_fused_long_f32.log").write_text(
+        (ROOT / "chiprun_out" / f"chip_smoke_{kind}.log").write_text(
             "\n".join(LOG_LINES) + "\n")
         return 0
     if "--phase17" in args:                 # phase 17 alone, after the build
@@ -5182,6 +5347,9 @@ def main() -> int:
     log("11 captured-serve", kind="fused", **captured_serve["fused"])
     torch.cuda.empty_cache()
     fused_train_serve = cli_runs["9 fused-train-then-serve"]
+    # phase 11's f32 flagship step: the f32 block kernels, then a captured f32 Predictor
+    fused_f32 = f32_path(counts, kshort, device, "fused_f32")
+    torch.cuda.empty_cache()
 
     # phase 10: the tower pair with its four directions in one launch per layer
     pair = tower_pair(counts, device)
@@ -5239,6 +5407,8 @@ def main() -> int:
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
                 + p13["launches"][name] + p14["launches"][name] + p15["launches"][name]
                 + p16["launches"][name] + p17["launches"][name]
+                + fused_f32["main_path"]["launches"][name]
+                + fused_f32["serve"]["launches_per_call"].get(name, 0)
                 for name in counts.KERNELS}
     launches["lstm_fwd"] += main_path["launches"]
     launches["gru_fwd"] += gru_serve["launches"]
@@ -5251,8 +5421,11 @@ def main() -> int:
                 "short_attn_tiled_fwd": "short_attention.py:61",
                 "short_attn_tiled_bwd": "short_attention.py:82",
                 "lstm_multi_fwd": "lstm_multi.py:48", "lstm_multi_bwd": "lstm_multi.py:74"}
-    f32_replay = p16["fused_long_f32"][TILED_DESIGNS[torch.float32][0][0]][0][
-        "launches_per_replay"]
+    f32_replay = {kind: out[F32_PATHS[kind][1][0][0]][0]["launches_per_replay"]
+                  for kind, out in (("fused_long_f32", p16["fused_long_f32"]),
+                                    ("fused_f32", fused_f32))}
+    f32_design = {"block": BLOCK_F32_DESIGNS[kshort._BLOCK_IMPL][0],
+                  "tiled": TILED_DESIGNS[torch.float32][kshort._TILED_IMPL][0]}
     kernels = []
     for name in counts.KERNELS:
         rep = checks[name]["report"]
@@ -5272,15 +5445,16 @@ def main() -> int:
                if "max_abs_err_bf16" in checks[name] else {}),
             **({"sass_tensor_core_lines": checks[name]["sass"]["bf16_kernels"]}
                if "sass" in checks[name] else {}),
-            **({"sass_tensor_core_lines_f32": checks[name]["sass"]["f32_kernels"]}
-               if "tiled" in name else {}),
+            **({"sass_tensor_core_lines_f32": checks[name]["sass"]["f32_kernels"],
+                "f32_design": f32_design["tiled" if "tiled" in name else "block"]}
+               if name.startswith("short_attn") else {}),
             **{k: rep[k] for k in ("cold_ms", "cold_parts_ms") if k in rep},
             **({"parts_ms": rep["parts_ms"]} if "parts_ms" in rep else {}),
             **{k: rep[k] for k in ("us_per_step", "bptt_us_per_step", "geometry") if k in rep},
             "launches_per_replay": {
                 **{kind: t["captured"]["launches_per_replay"].get(name, 0)
                    for kind, t in {**trains, "fused_long": p16["train"]}.items()},
-                "fused_long_f32": f32_replay.get(name, 0)}})
+                **{kind: r.get(name, 0) for kind, r in f32_replay.items()}}})
         if launches[name] < 1:
             raise AssertionError(f"the main paths never launched {name}")
     out_dir = ROOT / "chiprun_out"
@@ -5294,7 +5468,7 @@ def main() -> int:
         "gru_serve": gru_serve, "gru_train_then_serve": gru_train_serve,
         "long_train": long_train, "long_serve": long_serve, "long_infer": long_infer,
         "fused_train": fused_train, "fused_serve": fused_serve,
-        "fused_train_then_serve": fused_train_serve, "tower_pair": pair,
+        "fused_train_then_serve": fused_train_serve, "fused_f32": fused_f32, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
         "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17,
         "kernels": kernels},

@@ -19,8 +19,11 @@
 // What bounds it on the H100.  At (64, 12, 50, 64) bf16 the call reads q, k,
 // v, do and writes dq, dk, dv: 34.4 MB (10.3 us at 3.35 TB/s), and does
 // 10 B nh S^2 D = 1.23e9 operations (1.2 us at the 989 TFLOP/s bf16 dense
-// tensor-core peak): bytes.  In f32 the bytes (20.5 us) still just exceed
-// the operations at the 67 TFLOP/s f32 peak (18.3 us).
+// tensor-core peak): bytes.  In f32 the bytes (20.5 us) exceed the
+// operations taken as six bf16 term products each (7.5 us at a sixth of the
+// peak); the f32 design on the tensor cores issues 42 term products where
+// that counts 30 (s and dp twice), splits every operand three ways, and
+// takes an expf and a hash a score in each pass.
 //
 // The TPU kernel loops over the heads of one batch item in one program and
 // writes dk, dv once per head.  Here one block owns all S rows and keys of
@@ -53,8 +56,18 @@
 // passing pd and ds through shared memory, which at S = 128 and D = 128
 // would not fit beside the four operand tiles (2 x 64 KB in f32).
 //
-// f32: plain f32 FMAs (a TF32 tensor-core product would not meet the f32
-// tolerance):
+// f32, on the tensor cores (short_attn_bwd_f32_wgmma_kernel<DP, NW>,
+// design 0): short_attn_fwd.cu's f32 arithmetic (six bf16 term products on
+// wgmma, q * scale and k on each row's grid) in the two passes of the bf16
+// kernel above: A, queries as rows (s, dp, the exact softmax, r =
+// rowsum(dp p), ds, dq), then B, keys as rows (s^T and dp^T with A and B
+// swapped, so the same term products in the same order: the same bits as
+// A's and as the forward's; dv, dk).  Each product is one fresh f32 sum over
+// all S; dq, dk, dv written once, no atomics.  At D <= 64 the operands'
+// bf16 terms are split once into a slot each (96 KB at S <= 64, two blocks
+// an SM), at D > 64 two slots take them in turn (the kernel's note below);
+// every S, D <= 128 fits (192 KB).
+// f32 FMAs (design 1, kept for comparison):
 //   1. k and v are staged in shared memory as f32 (row stride D + 1);
 //   2. a warp per query row recomputes that row's scores, softmax and keep
 //      mask in registers (at most 4 keys per lane, S <= 128), and forms dpd =
@@ -65,8 +78,9 @@
 //      per output element;
 //   4. q * scale replaces do: dk = ds^T (q * scale).
 // expf and IEEE division.  Two S x S matrices and two operand tiles fill the
-// block's shared memory: S <= 128 at D = 64 (the wrapper sends a shape that
-// does not fit either kernel to short_attn_tiled_bwd.cu).
+// block's shared memory: S <= 128 at D = 64 (with design 1 the wrapper sends
+// a shape that does not fit, S = D = 128, to short_attn_tiled_bwd.cu).  One
+// shared load an FMA, as in the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +89,8 @@
 #include "flash_mma.cuh"
 #include "hash_dropout.cuh"
 #include "short_mma.cuh"
+#include "short_tiled.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -236,6 +252,395 @@ short_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+
+// f32 on the tensor cores (design 0): a block of NW = ceil(S / 64)
+// warpgroups per (b, h), the products and term tiles of
+// short_attn_fwd.cu's f32 kernel (six bf16 term products on wgmma, q * scale
+// and k split on each row's grid, one fresh f32 accumulator a product):
+//   A. Warpgroup w owns queries 64 w ..: s = (q scale) k^T and dp = do v^T
+//      (s the forward's bit for bit); the exact softmax with expf and IEEE
+//      division, the keep mask, r = rowsum(dp p), ds = p (dp keep - r); each
+//      query's max, sum and r to shared memory; dq = (ds k) scale, ds split
+//      in registers.
+//   B. Warpgroup w owns keys 64 w ..: s^T = k (q scale)^T and dp^T = v do^T
+//      (A and B swapped, so the same term products in the same order: A's
+//      s), p = expf(s + bias - m) / l from A's statistics, pd = p keep and
+//      ds as in A; then dv = pd^T do and dk = ds^T (q scale).
+// At S, D <= 64 dq's products are issued with B's score products, and dv's
+// with dk's, so that the tensor cores run them back to back (the same bits).
+// At D <= 64 each operand's terms have their own slot of NW 64-row tiles,
+// split once (96 KB at S <= 64: two blocks an SM; 192 KB at S > 64).  At D >
+// 64 two slots take the operands in turn (q scale and k, do and v, k again
+// for dq, q scale for s^T, do and v, q scale for dk; 96 KB at S <= 64), each
+// re-split a read from L2 and a three-way split more: four slots would not
+// fit at S > 64, and at S <= 64 the second block an SM that two slots leave
+// room for gains more than the re-splits cost (PERF.md).
+template <int DP>
+__host__ __device__ constexpr bool resident() { return DP == 64; }
+
+template <int DP, int NW>
+__host__ __device__ constexpr size_t f32_wgmma_smem_bytes() {
+  // the term slots; the key bias; each query's (m, l, r)
+  return (size_t)(resident<DP>() ? 4 : 2) * 3 * NW * mmda::short_tiled::kTileRows * DP *
+             sizeof(bf16) +
+         4 * NW * mmda::short_tiled::kTileRows * sizeof(float) + mmda::wgmma::kSmemAlign;
+}
+
+// The blocks an SM holds by their shared memory (228 KB an SM, 1 KB of it
+// reserved a block), at most 3: the kernel's launch bound.
+template <int DP, int NW>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return 233472 / (f32_wgmma_smem_bytes<DP, NW>() + 1024) < 3
+             ? 233472 / (f32_wgmma_smem_bytes<DP, NW>() + 1024)
+             : 3;
+}
+
+// The 64 x 64 blocks d[t] = A B_t^T (t over the NW 64-row tiles of the slot
+// b, A the 64-row term tile a), the scores' way (wgmma::issue_scores: the hi
+// hi sums in hh, added by sum_block_scores after the wait); Swap as there.
+// Issued, not waited for.
+template <int DP, int NW, bool Swap>
+__device__ __forceinline__ void issue_block_scores(float (&hh)[NW][8][4], float (&d)[NW][8][4],
+                                                   const bf16* a, const bf16* b) {
+  constexpr int T = mmda::short_tiled::kTileRows * DP;
+#pragma unroll
+  for (int t = 0; t < NW; ++t) {
+    mmda::wgmma::issue_scores<64, DP, Swap>(hh[t], d[t], a, T, b + t * 3 * T, T);
+  }
+}
+
+// The same blocks as six term products in one accumulator (issue_terms_abt).
+template <int DP, int NW, bool Swap>
+__device__ __forceinline__ void issue_block_abt(float (&d)[NW][8][4], const bf16* a,
+                                                const bf16* b) {
+  constexpr int T = mmda::short_tiled::kTileRows * DP;
+#pragma unroll
+  for (int t = 0; t < NW; ++t) {
+    mmda::wgmma::issue_terms_abt<64, DP, Swap>(d[t], a, T, b + t * 3 * T, T);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void fence_block(float (&d)[NW][8][4]) {
+#pragma unroll
+  for (int t = 0; t < NW; ++t) mmda::wgmma::fence_operand(d[t]);
+}
+
+template <int NW>
+__device__ __forceinline__ void sum_block_scores(float (&d)[NW][8][4], float (&hh)[NW][8][4]) {
+  fence_block<NW>(d);
+  fence_block<NW>(hh);
+#pragma unroll
+  for (int t = 0; t < NW; ++t) mmda::wgmma::sum_scores(d[t], hh[t]);
+}
+
+// Rows r0 + g (+ 8) of X B over the NW 64-row tiles of the slot b (read
+// MN-major), X given as the three terms a[t] of its 64-column blocks, times
+// mul, into the row-major (S, D) f32 dst: 64 columns at a time, each one
+// fresh f32 sum over all the tiles.
+template <int DP, int NW>
+__device__ __forceinline__ void block_product_out(float* dst, const uint32_t (&a)[NW][3][4][4],
+                                                  const bf16* b, int r0, int S, int D, float mul,
+                                                  int lane) {
+  namespace wg = mmda::wgmma;
+  constexpr int T = mmda::short_tiled::kTileRows * DP;
+#pragma unroll
+  for (int hb = 0; hb < DP / 64; ++hb) {
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+    }
+    wg::fence_operand(part);
+    wg::fence();
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+      wg::issue_terms_product<64>(part, a[t], b + t * 3 * T + hb * 64 * wg::kBoxCols, T);
+    }
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(part);
+    mmda::short_tiled::store_cols_f32(dst, part, r0, 64 * hb, S, D, mul, lane);
+  }
+}
+
+template <int DP, int NW>
+__global__ void __launch_bounds__(NW * mmda::short_tiled::kTileThreads,
+                                  f32_min_blocks<DP, NW>())
+short_attn_bwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ bias,
+                                const int* __restrict__ seed_ptr,
+                                const float* __restrict__ d_out, float* __restrict__ dq,
+                                float* __restrict__ dk, float* __restrict__ dv, int nh, int S,
+                                int D, float scale, float rate, float keep_scale, int vec) {
+  namespace wg = mmda::wgmma;
+  namespace st = mmda::short_tiled;
+  constexpr int R = st::kTileRows, N8 = R / 8;
+  constexpr int T = R * DP;                  // elements of one 64-row term tile
+  constexpr bool kResident = resident<DP>();
+  // One warpgroup holding every row, every operand resident: the
+  // independent products of A's end and B's start, and B's two outputs,
+  // are issued together, so that the tensor cores run them back to back.
+  constexpr bool kMerged = kResident && NW == 1;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(wg::align_smem(smem_raw));   // NW x 3 x (64, DP) each
+  bf16* k_s = q_s + NW * 3 * T;
+  bf16* do_s = kResident ? k_s + NW * 3 * T : q_s;                  // else in turns with q
+  bf16* v_s = kResident ? do_s + NW * 3 * T : k_s;                  // and with k
+  float* bias_s = reinterpret_cast<float*>(q_s + (kResident ? 4 : 2) * NW * 3 * T);
+  float* st_s = bias_s + NW * R;                                    // NW 64 x (m, l, r)
+
+  const int w = threadIdx.x / st::kTileThreads;   // the warpgroup: rows 64 w ..
+  const int tid = threadIdx.x - w * st::kTileThreads;
+  const int bh = blockIdx.x;
+  const int b = bh / nh;
+  const int h = bh - b * nh;
+  const size_t base = (size_t)bh * S * D;
+  const int lane = threadIdx.x & 31;
+  const int row0 = R * w + 16 * (tid >> 5);       // the warp's queries (A), keys (B)
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const float* q_b = q + base;
+  const float* k_b = k + base;
+  const float* v_b = v + base;
+  const float* do_b = d_out + base;
+  const int own = w * 3 * T;                      // this warpgroup's tile in a slot
+  const st::KeepMask keep(seed_ptr, b, h, S, rate);
+
+  // A. [t][j][e] is query row0 + g + 8 (e / 2), key 64 t + 8 j + t2 + e % 2
+  st::split_rows<DP, R, true>(q_s + own, T, q_b, R * w, S, D, vec, scale, tid);
+  st::split_rows<DP, R, true>(k_s + own, T, k_b, R * w, S, D, vec, 1.0f, tid);
+  if constexpr (kResident) {
+    st::split_rows<DP, R, false>(do_s + own, T, do_b, R * w, S, D, vec, 1.0f, tid);
+    st::split_rows<DP, R, false>(v_s + own, T, v_b, R * w, S, D, vec, 1.0f, tid);
+  }
+  for (int j = threadIdx.x; j < NW * R; j += NW * st::kTileThreads) {
+    bias_s[j] = j < S ? bias[(size_t)b * S + j] : -INFINITY;
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+  float s[NW][N8][4], dp[NW][N8][4];
+  {
+    float hh[NW][N8][4];
+    wg::fence();
+    issue_block_scores<DP, NW, false>(hh, s, q_s + own, k_s);
+    if constexpr (kResident) issue_block_abt<DP, NW, false>(dp, do_s + own, v_s);
+    wg::commit();
+    wg::wait_all();
+    sum_block_scores<NW>(s, hh);
+  }
+  if constexpr (!kResident) {
+    __syncthreads();   // every warpgroup done with q scale's and k's terms
+    st::split_rows<DP, R, false>(do_s + own, T, do_b, R * w, S, D, vec, 1.0f, tid);
+    st::split_rows<DP, R, false>(v_s + own, T, v_b, R * w, S, D, vec, 1.0f, tid);
+    wg::fence_proxy_async();
+    __syncthreads();
+    wg::fence();
+    issue_block_abt<DP, NW, false>(dp, do_s + own, v_s);
+    wg::commit();
+    wg::wait_all();
+  }
+  fence_block<NW>(dp);
+  {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][j][e] = __fadd_rn(s[t][j][e], bias_s[R * t + 8 * j + t2 + (e & 1)]);
+          m[e >> 1] = fmaxf(m[e >> 1], s[t][j][e]);
+        }
+      }
+    }
+    m[0] = st::quad_max(m[0]);
+    m[1] = st::quad_max(m[1]);
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][j][e] = expf(s[t][j][e] - m[e >> 1]);
+          l[e >> 1] += s[t][j][e];
+        }
+      }
+    }
+    l[0] = st::quad_sum(l[0]);
+    l[1] = st::quad_sum(l[1]);
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][j][e] = s[t][j][e] / l[e >> 1];   // p
+          if (keep.drop) {
+            const int i = row0 + g + 8 * (e >> 1), jk = R * t + 8 * j + t2 + (e & 1);
+            dp[t][j][e] *= keep(i, jk) ? keep_scale : 0.0f;
+          }
+          r[e >> 1] += dp[t][j][e] * s[t][j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      r[hh] = st::quad_sum(r[hh]);
+      if (t2 == 0) {
+        float* row = st_s + 3 * (row0 + g + 8 * hh);
+        row[0] = m[hh];
+        row[1] = l[hh];
+        row[2] = r[hh];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][j][e] = s[t][j][e] * (dp[t][j][e] - r[e >> 1]);   // ds
+      }
+    }
+  }
+  if constexpr (!kResident) {
+    __syncthreads();   // every warpgroup done with do's and v's terms
+    st::split_rows<DP, R, true>(k_s + own, T, k_b, R * w, S, D, vec, 1.0f, tid);
+    wg::fence_proxy_async();
+  }
+  uint32_t a[NW][3][R / 16][4];
+#pragma unroll
+  for (int t = 0; t < NW; ++t) mmda::short_mma::split_operand<R / 16>(a[t], s[t]);
+  __syncthreads();   // the statistics (and k's terms) are in
+  if constexpr (kMerged) {   // dq's products beside B's score products
+    float part[8][4], hh[NW][N8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+    }
+    wg::fence_operand(part);
+    wg::fence();
+    wg::issue_terms_product<R>(part, a[0], k_s, T);
+    issue_block_scores<DP, NW, true>(hh, s, k_s + own, q_s);
+    issue_block_abt<DP, NW, true>(dp, v_s + own, do_s);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(part);
+    st::store_cols_f32(dq + base, part, row0, 0, S, D, scale, lane);
+    sum_block_scores<NW>(s, hh);
+  } else {
+    block_product_out<DP, NW>(dq + base, a, k_s, row0, S, D, scale, lane);
+
+    // B. [t][j][e] is key row0 + g + 8 (e / 2), query 64 t + 8 j + t2 + e % 2
+    if constexpr (!kResident) {
+      st::split_rows<DP, R, true>(q_s + own, T, q_b, R * w, S, D, vec, scale, tid);
+      wg::fence_proxy_async();
+      __syncthreads();
+    }
+    {
+      float hh[NW][N8][4];
+      wg::fence();
+      issue_block_scores<DP, NW, true>(hh, s, k_s + own, q_s);
+      if constexpr (kResident) issue_block_abt<DP, NW, true>(dp, v_s + own, do_s);
+      wg::commit();
+      wg::wait_all();
+      sum_block_scores<NW>(s, hh);
+    }
+    if constexpr (!kResident) {
+      __syncthreads();   // every warpgroup done with k's and q scale's terms
+      st::split_rows<DP, R, false>(do_s + own, T, do_b, R * w, S, D, vec, 1.0f, tid);
+      st::split_rows<DP, R, false>(v_s + own, T, v_b, R * w, S, D, vec, 1.0f, tid);
+      wg::fence_proxy_async();
+      __syncthreads();
+      wg::fence();
+      issue_block_abt<DP, NW, true>(dp, v_s + own, do_s);
+      wg::commit();
+      wg::wait_all();
+    }
+  }
+  fence_block<NW>(dp);
+  float kb[2];      // the bias of the warp's keys row0 + g (+ 8); -inf beyond S
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) kb[hh] = bias_s[row0 + g + 8 * hh];
+#pragma unroll
+  for (int t = 0; t < NW; ++t) {
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = R * t + 8 * j + t2 + (e & 1), jk = row0 + g + 8 * (e >> 1);
+        const float* row = st_s + 3 * i;
+        const float p =
+            i < S ? expf(__fadd_rn(s[t][j][e], kb[e >> 1]) - row[0]) / row[1] : 0.0f;
+        float d = dp[t][j][e];
+        float pd = p;
+        if (keep.drop) {
+          const float kp = keep(i, jk) ? keep_scale : 0.0f;
+          pd = p * kp;
+          d *= kp;
+        }
+        s[t][j][e] = pd;
+        dp[t][j][e] = p * (d - row[2]);   // ds
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NW; ++t) mmda::short_mma::split_operand<R / 16>(a[t], s[t]);
+  if constexpr (kMerged) {   // dv's products beside dk's
+    uint32_t a2[NW][3][R / 16][4];
+    mmda::short_mma::split_operand<R / 16>(a2[0], dp[0]);
+    float pv[8][4], pk[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j][e] = pk[j][e] = 0.0f;
+    }
+    wg::fence_operand(pv);
+    wg::fence_operand(pk);
+    wg::fence();
+    wg::issue_terms_product<R>(pv, a[0], do_s, T);
+    wg::issue_terms_product<R>(pk, a2[0], q_s, T);
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operand(pv);
+    wg::fence_operand(pk);
+    st::store_cols_f32(dv + base, pv, row0, 0, S, D, 1.0f, lane);
+    st::store_cols_f32(dk + base, pk, row0, 0, S, D, 1.0f, lane);
+  } else {
+    block_product_out<DP, NW>(dv + base, a, do_s, row0, S, D, 1.0f, lane);
+    if constexpr (!kResident) {
+      __syncthreads();   // every warpgroup done with do's terms
+      st::split_rows<DP, R, true>(q_s + own, T, q_b, R * w, S, D, vec, scale, tid);
+      wg::fence_proxy_async();
+    }
+#pragma unroll
+    for (int t = 0; t < NW; ++t) mmda::short_mma::split_operand<R / 16>(a[t], dp[t]);
+    if constexpr (!kResident) __syncthreads();
+    block_product_out<DP, NW>(dk + base, a, q_s, row0, S, D, 1.0f, lane);
+  }
+}
+
+template <int DP, int NW>
+cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                             const int* seed, const void* d_out, void* dq, void* dk, void* dv,
+                             int BH, int nh, int S, int D, float scale, float rate,
+                             float keep_scale, cudaStream_t stream) {
+  constexpr size_t bytes = f32_wgmma_smem_bytes<DP, NW>();
+  cudaError_t err = cudaFuncSetAttribute(short_attn_bwd_f32_wgmma_kernel<DP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int vec = D % 4 == 0 && mmda::short_tiled::aligned16(q) &&
+                  mmda::short_tiled::aligned16(k) && mmda::short_tiled::aligned16(v) &&
+                  mmda::short_tiled::aligned16(d_out);
+  short_attn_bwd_f32_wgmma_kernel<DP, NW>
+      <<<BH, NW * mmda::short_tiled::kTileThreads, bytes, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), bias, seed, static_cast<const float*>(d_out),
+          static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), nh, S, D,
+          scale, rate, keep_scale, vec);
+  return cudaGetLastError();
+}
 
 // ----------------------------------------------------------------- bf16
 
@@ -454,21 +859,34 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // q, k, v, d_out, dq, dk, dv (B, nh, S, D): bf16 when is_bf16 else f32,
-// contiguous; 1 <= S <= 128, 1 <= D <= 128, and (f32) the shape's shared
-// memory within the card's opt-in limit.  scale, rate and keep_scale as for
-// mmda_short_attn_fwd; seed (device int32) is read only when rate > 0.
+// contiguous; 1 <= S <= 128, 1 <= D <= 128 (f32 design 1: the shape's shared
+// memory, smem_bytes, within the card's opt-in limit).  impl, scale, rate
+// and keep_scale as for mmda_short_attn_fwd; seed (device int32) is read
+// only when rate > 0.
 int mmda_short_attn_bwd(const void* q, const void* k, const void* v, const float* bias,
                         const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                        int B, int nh, int S, int D, int is_bf16, float scale, float rate,
-                        float keep_scale, void* stream) {
+                        int B, int nh, int S, int D, int is_bf16, int impl, float scale,
+                        float rate, float keep_scale, void* stream) {
   if (B < 1 || nh < 1 || S < 1 || S > kMaxS || D < 1 || D > kMaxD) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
-    return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D, scale, rate,
-                           keep_scale, st);
+    if (impl == 1) {
+      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D, scale, rate,
+                             keep_scale, st);
+    }
+#define MMDA_SHORT_BWD_F32(DP, NW)                                                             \
+  return (int)launch_f32_wgmma<DP, NW>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D,   \
+                                       scale, rate, keep_scale, st)
+    if (S <= 64) {
+      if (D <= 64) MMDA_SHORT_BWD_F32(64, 1);
+      MMDA_SHORT_BWD_F32(128, 1);
+    }
+    if (D <= 64) MMDA_SHORT_BWD_F32(64, 2);
+    MMDA_SHORT_BWD_F32(128, 2);
+#undef MMDA_SHORT_BWD_F32
   }
   switch ((S + 15) / 16) {
 #define MMDA_SHORT_BWD_CASE(n)                                                              \

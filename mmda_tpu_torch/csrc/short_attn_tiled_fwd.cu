@@ -79,26 +79,6 @@ using mmda::flash::bf16;
 using mmda::flash::kRowPad;
 using namespace mmda::short_tiled;
 
-// The short kernels' keep mask of one (batch item, head): query i keeps key j
-// where the hash at i S + j (uint32, S the full length) clears the rate;
-// always at rate 0.
-struct KeepMask {
-  bool drop;
-  uint32_t hbase;
-  int S;
-  float rate;
-
-  __device__ __forceinline__ KeepMask(const int* seed_ptr, int b, int h, int S_, float rate_)
-      : drop(rate_ > 0.0f),
-        hbase(rate_ > 0.0f ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u),
-        S(S_),
-        rate(rate_) {}
-
-  __device__ __forceinline__ bool operator()(int i, int j) const {
-    return !drop || mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate);
-  }
-};
-
 // ----------------------------------------------------------------- bf16
 
 template <int DP>

@@ -20,8 +20,7 @@
 // rescaled by exp(m_old - m_new) when a tile raises the max, the accumulator
 // with them; o = acc (1 / l) keep_scale at the end.  The backward takes p =
 // exp(s - m) (1 / l) from the forward's saved (m, l).  The keep mask is the
-// short kernels' own hash at i S + j with S the full length, drawn by each
-// source (KeepMask).
+// short kernels' own hash at i S + j with S the full length (KeepMask).
 //
 // What bounds the kernels: the products and the per-score work (an exp, a
 // hash, a three-way split); not the bytes.
@@ -50,6 +49,26 @@ constexpr int kF32RowsPerWarp = kF32Rows / kF32Warps;
 constexpr int kF32Threads = 32 * kF32Warps;
 constexpr int kMaxD = 128;                // 4 output columns a lane (f32), DP <= 128 (bf16)
 constexpr int kF32Cols = kMaxD / 32;
+
+// The short kernels' keep mask of one (batch item, head): query i keeps key j
+// where the hash at i S + j (uint32, S the full length) clears the rate;
+// always at rate 0.
+struct KeepMask {
+  bool drop;
+  uint32_t hbase;
+  int S;
+  float rate;
+
+  __device__ __forceinline__ KeepMask(const int* seed_ptr, int b, int h, int S_, float rate_)
+      : drop(rate_ > 0.0f),
+        hbase(rate_ > 0.0f ? mmda::short_attn_base((uint32_t)seed_ptr[0], b, h) : 0u),
+        S(S_),
+        rate(rate_) {}
+
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    return !drop || mmda::short_attn_keep(hbase, (uint32_t)i * (uint32_t)S + (uint32_t)j, rate);
+  }
+};
 
 // The streamed tile's rows for a padded head dim DP.
 template <int DP>
@@ -455,11 +474,12 @@ __device__ __forceinline__ void store_terms(bf16* dst, int term, int R, int r, i
 // tiles at dst (store_terms; with Grid on each row's grid), zero beyond S
 // and D, read from global memory into registers (16 bytes a load where
 // vec: D a multiple of 4 and src 16-byte aligned), all of a thread's loads
-// ahead of its stores; by the block's kTileThreads threads.  A row's DP / 8
-// pieces lie in as many neighbouring lanes of one warp.
+// ahead of its stores; by the kTileThreads threads of one warpgroup, tid
+// the thread's index in it.  A row's DP / 8 pieces lie in as many
+// neighbouring lanes of one warp.
 template <int DP, int R, bool Grid>
 __device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src, int r0, int S,
-                                           int D, bool vec, float mul) {
+                                           int D, bool vec, float mul, int tid) {
   constexpr int C8 = DP / 8, N = R * C8 / kTileThreads;
   static_assert(R * C8 % kTileThreads == 0 && 32 % C8 == 0, "whole rows a warp");
   const int valid = min(R, S - r0);
@@ -467,7 +487,7 @@ __device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src
   float x[N][8];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    const int i = threadIdx.x + n * kTileThreads;
+    const int i = tid + n * kTileThreads;
     const int r = i / C8, col = 8 * (i - r * C8);
     const float* p = rows + (size_t)r * D + col;
     if (vec) {
@@ -483,7 +503,7 @@ __device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    const int i = threadIdx.x + n * kTileThreads;
+    const int i = tid + n * kTileThreads;
     const int r = i / C8;
     float big = 0.0f;
 #pragma unroll
@@ -498,6 +518,38 @@ __device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src
       magic = grid_magic(big);
     }
     store_terms<Grid>(dst, term, R, r, i - r * C8, x[n], magic);
+  }
+}
+
+// split_rows by the block's own kTileThreads threads.
+template <int DP, int R, bool Grid>
+__device__ __forceinline__ void split_rows(bf16* dst, int term, const float* src, int r0, int S,
+                                           int D, bool vec, float mul) {
+  split_rows<DP, R, Grid>(dst, term, src, r0, S, D, vec, mul, (int)threadIdx.x);
+}
+
+// Rows r0 + g, r0 + g + 8 (< S) of the 64-column block part (a product's
+// columns c0 .. c0 + 63, < D), times mul, into the row-major (S, D) f32
+// matrix dst.
+__device__ __forceinline__ void store_cols_f32(float* dst, const float (&part)[8][4], int r0,
+                                               int c0, int S, int D, float mul, int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= S) continue;
+    float* row = dst + (size_t)r * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + 8 * j + t2;
+      const float x0 = part[j][2 * half] * mul, x1 = part[j][2 * half + 1] * mul;
+      if ((D & 1) == 0 && c + 1 < D) {
+        *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
+      } else {
+        if (c < D) row[c] = x0;
+        if (c + 1 < D) row[c + 1] = x1;
+      }
+    }
   }
 }
 

@@ -21,24 +21,25 @@ each f32 intermediate (pd, ds) as three bf16 terms (hi, mid, lo: all its 24
 bits) times the bf16 input.  They stay within one bf16 ulp of the plain
 versions (`tests/test_torch_short_attention.py` and, for the tiled kernels,
 `tests/test_torch_kernel_domain.py` model them on the CPU).  The f32
-instantiations of the block kernels are f32 FMAs; the tiled ones run on the
-tensor cores with every f32 operand (q * scale, k, v, do, and the
-intermediates pd and ds) as three bf16 terms and each product as six term
-products (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid: the terms left out
-weigh 2^-24 and less), a tile's products summed in a fresh f32 accumulator
-and added to the running sum in f32 (`tests/test_torch_f32_terms.py` models
-it); their sums run in the tensor cores' order, within the f32 gate of the
-plain versions.
+instantiations of both routes run on the tensor cores with every f32
+operand (q * scale, k, v, do, and the intermediates pd and ds) as three bf16
+terms and each product as six term products (hi hi, hi mid, mid hi, hi lo,
+lo hi, mid mid: the terms left out weigh 2^-24 and less), q * scale and k
+split on each row's grid so that the scores' hi hi sums are exact; the
+block kernels sum each product over all S in one fresh f32 accumulator, the
+tiled ones sum a tile's products fresh and add them to the running sum in
+f32 (`tests/test_torch_f32_terms.py` models both); their sums run in the
+tensor cores' order, within the f32 gate of the plain versions.  Each f32
+route keeps its f32 FMA design beside it (`_BLOCK_IMPL`, `_TILED_IMPL`).
 
 A CUDA tensor goes to the kernels and a CPU tensor to the plain versions.
 There is no other route.  Two pairs of kernels, by shape (`kernel_route`):
 one block per (batch item, head) holding all of it in shared memory
-(`csrc/short_attn_fwd.cu`, `short_attn_bwd.cu`: S <= 128, and in f32 where
-the backward's two S x S tiles fit; the exact softmax, expf and IEEE
-division), and over query and key tiles for every longer S
-(`csrc/short_attn_tiled_fwd.cu`, `short_attn_tiled_bwd.cu`).  The tiled
-forward makes one pass over the key tiles with an online max and sum (the
-accumulator rescaled when a tile raises a row's max, times 1 / l once at the
+(`csrc/short_attn_fwd.cu`, `short_attn_bwd.cu`: S <= 128; the exact
+softmax, expf and IEEE division), and over query and key tiles for every
+longer S (`csrc/short_attn_tiled_fwd.cu`, `short_attn_tiled_bwd.cu`).  The
+tiled forward makes one pass over the key tiles with an online max and sum
+(the accumulator rescaled when a tile raises a row's max, times 1 / l once at the
 end: within f32 rounding of the exact softmax); its training entry
 `short_attention_fwd_train` also returns each query's (m, l) and, in bf16,
 o in f32 before its rounding (o32).  The tiled backward takes p = exp(s - m)
@@ -46,12 +47,12 @@ o in f32 before its rounding (o32).  The tiled backward takes p = exp(s - m)
 kernel, each one pass, no atomics; called without them, it forms them first
 with the forward's kernel.  The bf16 tiled kernels run on `wgmma` fed by TMA
 where hd is a multiple of 8 above 32 (`_TILED_IMPL`), on `mma.sync` fed by
-cp.async at the other head dims; the f32 tiled kernels on `wgmma` at every
-head dim (zero-padded to 64 or 128 columns), their f32 FMA design kept
-beside them.  Both routes take hd <= 128; a CUDA input
-with a wider head raises.  The seed is a one-element int32 tensor on the
-inputs' device; no wrapper reads it on the host.  The forward is the op
-`torch.ops.mmda_tpu_torch.short_attention_fwd` (`short_attention_fwd_op`, a
+cp.async at the other head dims; the f32 kernels of both routes on `wgmma`
+at every head dim (zero-padded to 64 or 128 columns).  Both routes take hd
+<= 128; a CUDA input with a wider head raises.  The seed is a one-element
+int32 tensor on the inputs' device; no wrapper reads it on the host.  The
+forward is the op `torch.ops.mmda_tpu_torch.short_attention_fwd`
+(`short_attention_fwd_op`, a
 `torch.library.custom_op` with a fake implementation): one node in a
 `torch.export` graph, whichever kernel it launches, o alone.  Launch counts:
 `launch_count("short_attn_fwd")`, `("short_attn_bwd")`,
@@ -75,7 +76,7 @@ ROUTE_SOURCES = {"block": ("short_attn_fwd", "short_attn_bwd"),
                  "tiled": ("short_attn_tiled_fwd", "short_attn_tiled_bwd")}
 SOURCES = ROUTE_SOURCES["block"] + ROUTE_SOURCES["tiled"]
 __all__ = ["SOURCES", "ROUTE_SOURCES", "launch_count", "reset_launch_count", "MAX_S",
-           "MAX_HD", "kernel_route", "kernel_takes",
+           "MAX_HD", "kernel_route", "kernel_takes", "block_smem_bytes",
            "short_attention_fwd_reference", "short_attention_bwd_reference",
            "short_attention_fwd_train_reference", "short_attention_fwd_train",
            "short_attention_fwd", "short_attention_fwd_op", "short_attention_bwd",
@@ -87,10 +88,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 # cp.async at every shape.  f32: 0 six bf16 term products on wgmma at every
 # hd, 1 f32 FMAs.  Only a timing or a check that compares the designs sets 1.
 _TILED_IMPL = 0
-MAX_S, MAX_HD = 128, 128          # the block kernels: 4 keys and 4 columns a lane
+# The f32 block kernels' design: 0 six bf16 term products on wgmma, 1 f32
+# FMAs (the bf16 block kernels have one design).  Only a timing or a check
+# that compares the designs sets 1.
+_BLOCK_IMPL = 0
+MAX_S, MAX_HD = 128, 128          # the block kernels
 TILED_ROWS = 32                   # the tiled f32 kernels' query and key tiles (the smallest)
 SMEM_LIMIT = 232448               # bytes of shared memory a block may opt into (H100)
-WARPS = 8                         # csrc/short_attn_*.cu kWarps
+WARPS = 8                         # csrc/short_attn_*.cu kWarps (the f32 FMA design)
 
 
 def softmax_scale(hd: int) -> float:
@@ -100,19 +105,35 @@ def softmax_scale(hd: int) -> float:
 
 def kernel_route(S: int, hd: int, dtype: torch.dtype = torch.float32) -> Optional[str]:
     """Which kernels a CUDA input of (S, hd) in `dtype` goes to: "block" (S
-    up to 128, and in f32 the block backward's shared memory (k, v or do or
-    q, pd, ds and the warps' rows; csrc/short_attn_bwd.cu smem_bytes) within
-    the card's opt-in limit; the bf16 kernels hold four padded bf16 operand
-    tiles at most, 141,312 bytes at S = hd = 128, which always fit), "tiled"
-    for every other S, None where hd is outside 1 .. 128."""
+    up to 128 where the block kernels' shared memory fits the card's opt-in
+    limit, `block_smem_bytes`), "tiled" for every other S, None where hd is
+    outside 1 .. 128.  The bf16 block kernels hold four padded bf16 operand
+    tiles at most (141,312 bytes at S = hd = 128) and the f32 ones on the
+    tensor cores four slots of three bf16 term tiles at hd <= 64, two above
+    it (199,680 bytes at most), so both take every S <= 128; the f32 FMA
+    design (`_BLOCK_IMPL` = 1) takes the shapes where its backward's two f32
+    S x S tiles and two operand tiles fit, and sends the rest (S = hd = 128)
+    to the tiled kernels."""
     if not (S >= 1 and 1 <= hd <= MAX_HD):
         return None
     if S > MAX_S:
         return "tiled"
+    return "block" if block_smem_bytes(S, hd, dtype) <= SMEM_LIMIT else "tiled"
+
+
+def block_smem_bytes(S: int, hd: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of the block backward at (S, hd), the larger of the two
+    block kernels' (csrc/short_attn_bwd.cu `mma_smem_bytes` (bf16),
+    `f32_wgmma_smem_bytes` (f32 design 0), `smem_bytes` (design 1)), with
+    the 1024 bytes the wgmma kernels take to align it."""
     if dtype == torch.bfloat16:
-        return "block"
-    fits = 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd) <= SMEM_LIMIT
-    return "block" if fits else "tiled"
+        SP, DP = -(-S // 16) * 16, -(-hd // 16) * 16
+        return 4 * SP * (DP + 8) * 2 + 4 * SP * 4
+    if _BLOCK_IMPL == 0:
+        rows, DP = -(-S // 64) * 64, (64 if hd <= 64 else 128)
+        slots = 4 if DP == 64 else 2
+        return slots * 3 * rows * DP * 2 + 4 * rows * 4 + 1024
+    return 4 * (2 * S * (hd + 1) + 2 * S * S + WARPS * 2 * hd)
 
 
 def kernel_takes(S: int, hd: int, dtype: torch.dtype = torch.float32) -> bool:
@@ -229,17 +250,12 @@ def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
     return dev
 
 
-def _launch_args(q, rate: float):
+def _launch_args(q, rate: float, impl: int):
+    """The C entries' sizes and scalars: B, nh, S, hd, is_bf16, the design
+    (`_BLOCK_IMPL` or `_TILED_IMPL`), scale, rate, keep_scale."""
     B, nh, S, hd = q.shape
-    return (B, nh, S, hd, int(q.dtype == torch.bfloat16), softmax_scale(hd),
+    return (B, nh, S, hd, int(q.dtype == torch.bfloat16), impl, softmax_scale(hd),
             float(np.float32(rate)), keep_scale(rate))
-
-
-def _tiled_args(q, rate: float):
-    """The tiled entries' sizes and scalars: _launch_args with the bf16
-    design (`_TILED_IMPL`) after is_bf16."""
-    B, nh, S, hd, is_bf16, *floats = _launch_args(q, rate)
-    return (B, nh, S, hd, is_bf16, _TILED_IMPL, *floats)
 
 
 def _tiled_fwd(q, k, v, bias, seed, rate: float, o, stats=None, o32=None):
@@ -251,7 +267,7 @@ def _tiled_fwd(q, k, v, bias, seed, rate: float, o, stats=None, o32=None):
             None if stats is None else stats.data_ptr(),
             None if o32 is None or o32 is o else o32.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return fn, (*ptrs, *_tiled_args(q, rate), stream)
+    return fn, (*ptrs, *_launch_args(q, rate, _TILED_IMPL), stream)
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -268,12 +284,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tens
             fn, args = _tiled_fwd(q, k, v, bias, seed, rate, o)
             launch(name, fn, *args)
         else:
-            so = lib(name, 6, 5, 3)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            launch(name, getattr(so, f"mmda_{name}"),
+            launch(name, lib(name, 6, 6, 3).mmda_short_attn_fwd,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                    seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
-                   *_launch_args(q, rate), stream)
+                   *_launch_args(q, rate, _BLOCK_IMPL), stream)
     return o
 
 
@@ -356,8 +371,8 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
         if route == "block":
             if stats is not None:
                 raise ValueError(f"the block kernels (S <= {MAX_S}) take no saved statistics")
-            launch(name, lib(name, len(ptrs), 5, 3).mmda_short_attn_bwd, *ptrs,
-                   *_launch_args(q, rate), stream)
+            launch(name, lib(name, len(ptrs), 6, 3).mmda_short_attn_bwd, *ptrs,
+                   *_launch_args(q, rate, _BLOCK_IMPL), stream)
             return dq, dk, dv
         if stats is None:       # the forward's statistics, within this call
             stats = torch.empty(B, nh, S, 2, device=dev)
@@ -371,7 +386,7 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
         r = torch.empty(B, nh, S, device=dev)    # rowsum(do o32) per query
         ptrs += [stats.data_ptr(), o32.data_ptr(), r.data_ptr()]
         launch(name, lib(name, len(ptrs), 6, 3).mmda_short_attn_tiled_bwd, *ptrs,
-               *_tiled_args(q, rate), stream)
+               *_launch_args(q, rate, _TILED_IMPL), stream)
     return dq, dk, dv
 
 

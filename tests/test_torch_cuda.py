@@ -606,15 +606,13 @@ def _short_inputs(B, nh, S, hd, dtype, seed, device):
                                        (2, 2, 128, 128), (2, 3, 200, 100)])
 def test_short_attention_kernels_match_plain_versions(cuda_device, B, nh, S, hd, dtype, rate):
     """The kernels of the shape's route (one block per (b, h), or query and
-    key tiles beyond S = 128 and for the f32 shapes the block's shared memory
-    does not hold) against their plain versions on the card, each launched
+    key tiles beyond S = 128) against their plain versions on the card, each launched
     once and no other.  f32: 1e-5 + 1e-5 |ref|; bf16: one bf16 ulp (the math
     is f32 on both sides and each output is rounded once)."""
     q, k, v, g, bias = _short_inputs(B, nh, S, hd, dtype, S + hd, cuda_device)
     seed = torch.tensor([12345], dtype=torch.int32, device=cuda_device)
     route = kshort.ROUTE_SOURCES[kshort.kernel_route(S, hd, dtype)]
-    assert (kshort.kernel_route(S, hd, dtype) == "tiled") == (
-        S > 128 or (S, hd, dtype) == (128, 128, torch.float32))
+    assert (kshort.kernel_route(S, hd, dtype) == "tiled") == (S > 128)
     before = {n: kshort.launch_count(n) for n in kshort.SOURCES}
     o = kshort.short_attention_fwd(q, k, v, bias, seed, rate)
     grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)
@@ -708,24 +706,32 @@ def test_tiled_backward_from_saved_statistics_is_the_standalone_one(cuda_device,
 @pytest.mark.parametrize("impl", [0, 1])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,nh,S,hd", [(2, 3, 300, 36), (2, 2, 514, 128), (2, 4, 257, 8),
-                                       (4, 12, 514, 64), (2, 3, 200, 100), (2, 2, 129, 33)])
-def test_f32_tiled_designs_meet_the_gate(cuda_device, monkeypatch, B, nh, S, hd, rate, impl):
-    """Both f32 designs of the tiled kernels (`_TILED_IMPL` 0: six bf16
-    term products on wgmma at every hd, on columns zero-padded to 64 or 128,
-    the f32 tiles staged 16 bytes a copy where hd % 4 == 0 and 4 at hd = 33;
-    1: f32 FMAs) against the plain versions within 1e-5 + 1e-5 |ref|: the
-    forward, and the backward from the training forward's statistics, the
-    standalone backward the same bits; two launches the same bits."""
-    monkeypatch.setattr(kshort, "_TILED_IMPL", impl)
+                                       (4, 12, 514, 64), (2, 3, 200, 100), (2, 2, 129, 33),
+                                       (64, 12, 50, 64), (3, 4, 10, 8), (2, 3, 100, 100)])
+def test_f32_designs_meet_the_gate(cuda_device, monkeypatch, B, nh, S, hd, rate, impl):
+    """Both f32 designs of the shape's route (`_TILED_IMPL` beyond S = 128,
+    `_BLOCK_IMPL` up to it; 0: six bf16 term products on wgmma at every hd,
+    on columns zero-padded to 64 or 128, the f32 rows read 16 bytes a load
+    where hd % 4 == 0 and 4 at hd = 33; 1: f32 FMAs) against the plain
+    versions within 1e-5 + 1e-5 |ref|: the forward, and the backward (on the
+    tiled route from the training forward's statistics, the standalone
+    backward the same bits); two launches the same bits."""
     q, k, v, g, bias = _short_inputs(B, nh, S, hd, torch.float32, S * hd + impl, cuda_device)
     seed = torch.tensor([4242], dtype=torch.int32, device=cuda_device)
-    assert kshort.kernel_route(S, hd, torch.float32) == "tiled"
-    o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, rate)
-    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, stats, o32)
-    assert o32 is o and torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate))
+    route = "tiled" if S > kshort.MAX_S else "block"
+    monkeypatch.setattr(kshort, "_TILED_IMPL" if route == "tiled" else "_BLOCK_IMPL", impl)
+    assert kshort.kernel_route(S, hd, torch.float32) == route
+    if route == "tiled":
+        o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, seed, rate)
+        saved = (stats, o32)
+        assert o32 is o
+    else:
+        o, saved = kshort.short_attention_fwd(q, k, v, bias, seed, rate), ()
+    grads = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, *saved)
+    assert torch.equal(o, kshort.short_attention_fwd(q, k, v, bias, seed, rate))
     for a, b in zip(grads, kshort.short_attention_bwd(q, k, v, bias, seed, g, rate)):
         assert torch.equal(a, b)
-    again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, stats, o32)
+    again = kshort.short_attention_bwd(q, k, v, bias, seed, g, rate, *saved)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     want = [kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate),
             *kshort.short_attention_bwd_reference(q, k, v, bias, seed, g, rate)]
@@ -736,10 +742,11 @@ def test_f32_tiled_designs_meet_the_gate(cuda_device, monkeypatch, B, nh, S, hd,
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("q_factor", [4.0, 8.0])
-@pytest.mark.parametrize("B,nh,S,hd", [(4, 12, 514, 64), (2, 2, 514, 128), (2, 3, 300, 36)])
-def test_f32_tiled_designs_hold_float64_on_peaked_scores(cuda_device, B, nh, S, hd, q_factor,
-                                                         rate):
-    """Both f32 designs with q times 4 and 8 (scores of that spread, a
+@pytest.mark.parametrize("B,nh,S,hd", [(4, 12, 514, 64), (2, 2, 514, 128), (2, 3, 300, 36),
+                                       (64, 12, 50, 64)])
+def test_f32_designs_hold_float64_on_peaked_scores(cuda_device, B, nh, S, hd, q_factor, rate):
+    """Both f32 designs of the shape's route (tiled beyond S = 128, one block
+    per (b, h) up to it) with q times 4 and 8 (scores of that spread, a
     peaked softmax): o, dq, dk and dv lie from the float64 evaluation of the
     function (its scores in float64 from the f32 q * scale) within
     PEAKED_TIMES the plain version's (cuBLAS f32) distance
@@ -778,13 +785,14 @@ def test_tiled_kernels_take_a_batch_item_whose_keys_are_all_masked(cuda_device, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nh,S,hd", MASKED_ITEM_SHAPES)
 @pytest.mark.parametrize("reach", MASKED_REACH)
-def test_tiled_kernels_take_an_all_masked_item_whose_scores_reach_32(cuda_device, B, nh, S,
-                                                                       hd, dtype, reach):
+def test_kernels_take_an_all_masked_item_whose_scores_reach_32(cuda_device, B, nh, S, hd, dtype,
+                                                                 reach):
     """The all-masked item of the test above with its q scaled so that the
     largest |s scale| of its rows is `reach` (>= 32): s scale - 1e9 then
     rounds to a multiple of 64 away from -1e9, so its softmax is no longer
     uniform but one-hot on the keys whose rounded scores tie at the row max.
     The tiled kernels (both bf16 designs: hd = 64 on wgmma, 100 on mma.sync)
+    and the block kernels (S = 50 and 100; in f32 one and two warpgroups)
     against the float64 evaluation of their function, within the gate plus
     the plain version's own error (`chip_smoke.masked_item_case`: with p
     one-hot, ds cancels to a few ulps of dp in any f32 order of summation)."""

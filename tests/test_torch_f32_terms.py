@@ -1,19 +1,24 @@
-"""The f32 tiled short-attention kernels' arithmetic on the tensor cores
-(`csrc/short_attn_tiled_fwd.cu`, `short_attn_tiled_bwd.cu`, design 0 of
-`short_attention._TILED_IMPL` in f32), modelled on the CPU.
+"""The f32 short-attention kernels' arithmetic on the tensor cores, modelled
+on the CPU: the tiled kernels (`csrc/short_attn_tiled_fwd.cu`,
+`short_attn_tiled_bwd.cu`, design 0 of `short_attention._TILED_IMPL`) and
+the one-block kernels (`csrc/short_attn_fwd.cu`, `short_attn_bwd.cu`,
+design 0 of `_BLOCK_IMPL`).
 
 Every f32 operand (q * scale, k, v, do; pd and ds) is three bf16 terms, hi,
 mid and lo, and every product of two of them is six term products (hi hi,
-hi mid, mid hi, hi lo, lo hi, mid mid), each tile's product a fresh f32 sum
-added to the running one (`test_torch_kernel_domain._tiled_model` with
-`pairs`).  q * scale and k are split on each row's grid (hi a multiple of
-2^(e - 7), e the exponent of the row's largest |x|), so that the scores'
-hi hi sum is exact and takes its own accumulator.  The model is held
-against the JAX package's kernel in interpret mode (forward and jax.vjp) at
-S = 200 and 514, hd = 64 and 100, rate 0 and 0.1, with q as drawn (scores
-of unit spread) and times 4 (a peaked softmax), within the f32 gate 1e-5 +
-1e-5 |ref|.  With the mid mid product left out, or the lo terms, the peaked
-cases leave the gate several times over.
+hi mid, mid hi, hi lo, lo hi, mid mid).  The tiled kernels sum each tile's
+product fresh and add it to the running one
+(`test_torch_kernel_domain._tiled_model` with `pairs`); the block kernels
+take the whole row at once with the exact softmax, each product one fresh
+f32 sum over all S (`_block_model`).  q * scale and k are split on each
+row's grid (hi a multiple of 2^(e - 7), e the exponent of the row's largest
+|x|), so that the scores' hi hi sum is exact and takes its own accumulator.
+The models are held against the JAX package's kernel in interpret mode
+(forward and jax.vjp), tiled at S = 200 and 514, block at S = 50 and 100,
+each at hd = 64 and 100, rate 0 and 0.1, with q as drawn (scores of unit
+spread) and times 4 (a peaked softmax), within the f32 gate 1e-5 + 1e-5
+|ref|.  With the mid mid product left out, or the lo terms, the tiled
+model's peaked cases leave the gate several times over.
 
 The model sums in f32 with round to nearest.  The card's tensor cores
 truncate their f32 sums instead (each k16 step drops the bits below the
@@ -35,14 +40,18 @@ import torch
 
 from mmda_tpu.ops.pallas import short_attention as jsa
 from mmda_tpu_torch.ops.kernels import short_attention as tsa
-from test_torch_kernel_domain import (SIX_TERMS, _grid_terms, _short_inputs, _terms,
-                                      _tiled_model)
+from test_torch_kernel_domain import (SIX_TERMS, _block_model, _grid_terms, _short_inputs,
+                                      _terms, _tiled_model)
 
 torch.set_num_threads(1)
 
 ATOL, RTOL = 1e-5, 1e-5
-# (S, hd, rate, q's factor): 4 makes the scores' spread 4, the softmax peaked
-CASES = list(itertools.product((200, 514), (64, 100), (0.0, 0.1), (1.0, 4.0)))
+# (S, hd, rate, q's factor): 4 makes the scores' spread 4, the softmax peaked;
+# the tiled kernels' S, then the block kernels'
+TILED_CASES = list(itertools.product((200, 514), (64, 100), (0.0, 0.1), (1.0, 4.0)))
+BLOCK_CASES = list(itertools.product((50, 100), (64, 100), (0.0, 0.1), (1.0, 4.0)))
+CASES = TILED_CASES + BLOCK_CASES
+MODELS = {"tiled": _tiled_model, "block": _block_model}
 # the term products kept by each form the tests compare: the kernels' six,
 # and the two that fall short of the gate
 FORMS = {"six": SIX_TERMS,
@@ -78,9 +87,9 @@ def _outside(case, pairs):
     """{output: elements outside the gate} of the model with `pairs` against
     the JAX kernel."""
     (q, k, v, g, bias), want = _case(*case)
-    rate = case[2]
-    got = _tiled_model(q, k, v, bias, torch.tensor([31], dtype=torch.int32), g, rate,
-                       pairs=pairs)[0]
+    S, hd, rate, _ = case
+    model = MODELS[tsa.kernel_route(S, hd, torch.float32)]
+    got = model(q, k, v, bias, torch.tensor([31], dtype=torch.int32), g, rate, pairs=pairs)[0]
     return {name: int((np.abs(a.numpy() - w) > ATOL + RTOL * np.abs(w)).sum())
             for name, a, w in zip(("o", "dq", "dk", "dv"), got, want)}
 
@@ -105,14 +114,16 @@ def test_three_terms_hold_every_bit():
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_six_term_products_meet_the_f32_gate_against_jax(interpreted, case):
-    """The kernels' f32 design against the JAX kernel (forward and
-    jax.vjp) and against the plain training forward's saved (m, l) and o32."""
+    """The kernels' f32 design of the case's route (S <= 128 one block per
+    (b, h), else tiles) against the JAX kernel (forward and jax.vjp) and
+    against the plain training forward's (m, l) and o32."""
     S, hd, rate, _ = case
-    assert tsa.kernel_route(S, hd, torch.float32) == "tiled"
+    route = tsa.kernel_route(S, hd, torch.float32)
+    assert route == ("block" if S <= tsa.MAX_S else "tiled")
     assert _outside(case, SIX_TERMS) == {"o": 0, "dq": 0, "dk": 0, "dv": 0}
     (q, k, v, g, bias), _ = _case(*case)
     seed = torch.tensor([31], dtype=torch.int32)
-    _, stats, o32 = _tiled_model(q, k, v, bias, seed, g, rate, pairs=SIX_TERMS)
+    _, stats, o32 = MODELS[route](q, k, v, bias, seed, g, rate, pairs=SIX_TERMS)
     _, stats_w, o32_w = tsa.short_attention_fwd_train_reference(q, k, v, bias, seed, rate)
     np.testing.assert_allclose(stats.numpy(), stats_w.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(o32.numpy(), o32_w.numpy(), rtol=RTOL, atol=ATOL)
@@ -151,14 +162,14 @@ def test_grid_terms_make_the_hi_hi_sums_exact(hd):
 def test_fewer_term_products_miss_the_gate(interpreted, form):
     """Why six: with mid mid left out (on the grid, up to 2^-16 of the
     rows' largest products for every value), or the lo terms (hi hi + hi
-    mid + mid hi + mid mid: 16 bits past the grid), every peaked case of the
-    test above leaves the f32 gate (the error of a score grows with its
+    mid + mid hi + mid mid: 16 bits past the grid), every peaked tiled case
+    of the test above leaves the f32 gate (the error of a score grows with its
     size, and p = exp(s - m) carries it into every output); without mid mid
     the unit-spread cases leave it too.  The counts by case (outputs outside
     the gate) are in the assertion's message."""
-    outside = {case: _outside(case, FORMS[form]) for case in CASES}
+    outside = {case: _outside(case, FORMS[form]) for case in TILED_CASES}
     missed = [case for case, n in outside.items() if sum(n.values())]
-    peaked = [case for case in CASES if case[3] > 1.0]
+    peaked = [case for case in TILED_CASES if case[3] > 1.0]
     assert set(peaked) <= set(missed), (form, outside)
     if form == "no mid mid":
-        assert missed == CASES, (form, outside)
+        assert missed == TILED_CASES, (form, outside)

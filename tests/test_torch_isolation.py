@@ -318,15 +318,21 @@ def test_short_attention_and_multi_lstm_wrappers_have_no_fallback(name):
 
 def test_short_attention_hash_mix_is_in_the_header():
     """The short kernels' own position mix: the same constants in
-    hash_dropout.cuh and in the plain version, and both kernels use it."""
+    hash_dropout.cuh and in the plain version, and every short kernel uses
+    it: by calling it, or through short_tiled.cuh's `KeepMask`, which does."""
     header = (PKG / "csrc" / "hash_dropout.cuh").read_text()
     mix = header[header.index("short_attn_base"):]
     plain = inspect.getsource(hash_dropout.short_attention_keep_mask)
     for const in ("2654435761", "40503", "51329"):
         assert const in mix and const in plain, const
+    tiled = (PKG / "csrc" / "short_tiled.cuh").read_text()
+    keep_mask = tiled[tiled.index("struct KeepMask"):]
+    keep_mask = keep_mask[:keep_mask.index("\n};\n")]
+    assert "short_attn_base(" in keep_mask and "short_attn_keep(" in keep_mask
     for kernel in kshort.SOURCES:
         src = (PKG / "csrc" / f"{kernel}.cu").read_text()
-        assert "short_attn_base(" in src and "short_attn_keep(" in src
+        assert ("short_attn_base(" in src and "short_attn_keep(" in src) or (
+            '#include "short_tiled.cuh"' in src and "KeepMask keep(" in src), kernel
 
 
 def test_cuda_sources_include_only_the_repo_and_the_toolkit():

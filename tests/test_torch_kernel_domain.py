@@ -253,6 +253,40 @@ def _tiled_model(q, k, v, bias, seed, g, rate, r_from_bf16_o=False, pairs=None):
     return (o, *(x.to(q.dtype) for x in (dq, dk, dv))), torch.cat((m, l), -1), o32
 
 
+def _block_model(q, k, v, bias, seed, g, rate, pairs=SIX_TERMS):
+    """(o, dq, dk, dv) as the f32 block kernels on the tensor cores form
+    them (`csrc/short_attn_fwd.cu`, `short_attn_bwd.cu`, design 0 of
+    `short_attention._BLOCK_IMPL`), on the CPU, with the row statistics (m, l)
+    and o in f32 as `_tiled_model` returns them: the whole row at once, every
+    product of f32 operands (q scale k^T, do v^T, pd v, ds k, pd^T do, ds^T
+    (q scale)) as the term products of `pairs`, each one fresh f32 sum over
+    all S (`_terms_matmul`; q scale and k on their rows' grids, the scores'
+    hi hi sum exact, `_scores_matmul`); the exact softmax, p = exp(s - m) /
+    l, pd = p keep, r = rowsum(dp p), ds = p (dp - r)."""
+    B, nh, S, hd = q.shape
+    scale = tsa.softmax_scale(hd)
+    qs = q.float() * scale
+    t_q, t_k = _grid_terms(qs), _grid_terms(k.float())
+    s = _scores_matmul(t_q, [t.transpose(-1, -2) for t in t_k], pairs) + bias[:, None, None, :]
+    keep = torch.full_like(s, 1.0)
+    if rate > 0.0:
+        b = torch.arange(B).reshape(B, 1, 1, 1)
+        h = torch.arange(nh).reshape(1, nh, 1, 1)
+        keep = short_attention_keep_mask(S, rate, seed, b, h) * keep_scale(rate)
+    m = s.max(-1, keepdim=True).values
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    p = e / l
+    pd = p * keep
+    o = _terms_matmul(pd, v.float(), pairs)
+    dp = _terms_matmul(g.float(), v.float().transpose(-1, -2), pairs) * keep
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = _terms_matmul(ds, None, pairs, ty=t_k) * scale
+    dk = _terms_matmul(ds.transpose(-1, -2), None, pairs, ty=t_q)
+    dv = _terms_matmul(pd.transpose(-1, -2), g.float(), pairs)
+    return (o, dq, dk, dv), torch.cat((m, l), -1), o
+
+
 def _tiled_case(S, hd, dtype, case):
     """Inputs of a model case: `_short_inputs` at (2, 2, S, hd), and for
     "rescale" a last key tile (unmasked) with a bias of 30 (each row's max

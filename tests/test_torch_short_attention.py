@@ -152,13 +152,27 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize("S,hd,route", [(50, 64, "block"), (66, 64, "block"), (128, 64, "block"),
                                         (129, 64, "tiled"), (66, 128, "block"),
-                                        (128, 128, "tiled"), (10, 8, "block")])
+                                        (128, 128, "block"), (10, 8, "block")])
 def test_kernel_takes_shapes_that_fit_one_block(S, hd, route):
-    """f32: one block per (batch item, head) holds S and hd up to 128 where
-    the backward's two S x S tiles and two operand tiles fit in 227 KB; every
-    other S goes to the tiled kernels (a CUDA input at any S launches one or
-    the other; a CPU one takes the plain version)."""
+    """f32: one block per (batch item, head) holds S and hd up to 128 (the
+    tensor-core design's slots of bf16 term tiles, 199,680 bytes at most,
+    fit in 227 KB); every other S goes to the tiled kernels (a
+    CUDA input at any S launches one or the other; a CPU one takes the plain
+    version)."""
     assert tsa.kernel_route(S, hd) == route and tsa.kernel_takes(S, hd)
+    assert tsa.block_smem_bytes(min(S, 128), hd) <= tsa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,hd,route", [(50, 64, "block"), (128, 64, "block"),
+                                        (66, 128, "block"), (128, 128, "tiled")])
+def test_fma_block_design_sends_what_it_cannot_hold_to_the_tiled_kernels(monkeypatch, S, hd,
+                                                                          route):
+    """The f32 FMA design of the block kernels (`_BLOCK_IMPL` = 1) holds its
+    backward's two f32 S x S tiles and two operand tiles: at S = hd = 128
+    they need 271,360 bytes, so that shape goes to the tiled kernels."""
+    monkeypatch.setattr(tsa, "_BLOCK_IMPL", 1)
+    assert tsa.kernel_route(S, hd) == route
+    assert (tsa.block_smem_bytes(S, hd) <= tsa.SMEM_LIMIT) == (route == "block")
 
 
 @pytest.mark.parametrize("S,hd", [(128, 128), (66, 128), (1, 1), (128, 8), (33, 100)])
