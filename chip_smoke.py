@@ -6,8 +6,10 @@
     python3 chip_smoke.py --phase15
     python3 chip_smoke.py --phase16
     python3 chip_smoke.py --phase17
+    python3 chip_smoke.py --phase18
     python3 chip_smoke.py --fused-long-f32
     python3 chip_smoke.py --fused-f32
+    python3 chip_smoke.py --tp-nccl          # two or more cards
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -86,7 +88,13 @@ the result):
    giving the same bits; timed at (48, 64) beside those four calls and cuDNN, with the
    time per serial step, the backward split into its gate pass, BPTT and dW
    passes, and the launch geometry (registers a thread, blocks, resident
-   blocks an SM, waves);
+   blocks an SM, waves).  The head offsets of tensor parallelism: on the short
+   block route (B, nh, S, hd) = (4, 12, 50, 64), the tiled route (4, 12, 514, 64)
+   and flash (S = 514, D = 64), f32 and bf16, rate 0.1, heads 6..11 launched
+   alone with head0 = 6 (flash: the layout (6, 12, 6)) give the one-process
+   launch's heads 6..11 bit for bit, the forward and every backward kernel (the
+   tiled training forward's statistics and the backward from them too), and
+   their masks are the plain hash's at those heads (`3 head-offsets`);
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -232,8 +240,8 @@ the result):
    thread), and beside MULT the export written synchronously against the return and the
    join of `save_checkpoint(async_write=True)`, the two files the same bytes;
 15. serving artifacts and MoE BERT, at full width: the default configuration with
-   `attn_impl="fused"` exported on the card (`serving_export.export_model`, buckets
-   32 and 64, max_batch 64; seconds and `.pt2` bytes a bucket), an `ExportedPredictor`
+   `attn_impl="fused"` exported on the card (`serving_export.export_model`, bucket
+   64, max_batch 64; seconds and `.pt2` bytes a bucket), an `ExportedPredictor`
    of it against the live captured `Predictor` on a copy of the weights (8 `lstm_fwd` +
    12 `short_attn_fwd` a call, scores within SERVE_TOL with the bit-equal share, both
    latencies at each bucket for B=64 and B=1, median of 10), the same artifact served by
@@ -276,15 +284,38 @@ the result):
    a step, 8 + 12 an eval batch, replays counted as recorded), against the one-process
    `Trainer` on the same configuration in this process: the best export and the `last_*`
    delta the same bytes, the epoch's losses and metrics the same; both captured steps
-   timed; (b) two ranks on the one card: nccl (what it answers is recorded; it refuses two
-   ranks on one device), then gloo (each collective through the host), each rank 3 eager
-   f32 steps on its 32 rows (dropout off), against the one-process step at the global
-   batch: the losses and the trained parameters within twice what splitting the batch in
-   two on one process through the plain versions (`split_step`) moves them, and at least
-   DP_LOSS_FLOOR (relative) and DP_PARAM_FLOOR; the ranks' launches and step times beside
-   the one-process step's.  `--phase17` runs phase 17 alone after the build;
-18. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
+   timed; (b) two ranks on the one card over gloo (each collective through the host;
+   nccl refuses two ranks on one device), each rank 3 eager f32 steps on its 32 rows
+   (dropout off), against the one-process step at the global batch: the losses and the
+   trained parameters within twice what splitting the batch in two on one process through
+   the plain versions (`split_step`) moves them, and at least DP_LOSS_FLOOR (relative) and
+   DP_PARAM_FLOOR; the ranks' launches and step times beside the one-process step's.
+   `--phase17` runs phase 17 alone after the build;
+18. tensor parallelism on a (1, 2) mesh at the flagship's full width: two gloo ranks
+   on the one card, each holding half of every BERT layer's heads and FFN (the
+   Megatron blocks of `parallel/mesh.py::shard_params`), 3 eager f32 steps of the
+   fused flagship step (bert-base, B=64, T=48, `attn_impl="fused"`,
+   `fused_ln_dropout`, dropout on, the mosei freeze rule): 12 `short_attn_fwd` + 12
+   `short_attn_bwd` launches a step on 6 heads with head0 0 and 6, 24 + 24 LayerNorm
+   and 8 + 8 LSTM, against the one-process step with the same seed: the losses and
+   the gathered parameters within twice what splitting each row-parallel product in
+   two on one process through the plain versions (`split_products`) moves them, and at
+   least phase 17's floors; the ranks' launches by kernel and head offset, step ms and
+   peak memory; then the ranks' best export (the full layout, gathered over 'model')
+   served by `Predictor(mesh=)` at tp = 2 at bucket 64, B = 64 (8 + 12 launches a
+   rank), its scores within 1e-4 of the one-process `Predictor`'s.  `--phase18` runs
+   phase 18 alone after the build;
+19. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
+
+`--tp-nccl` is not among the phases (it needs two cards, `tp_nccl`): after the
+build, `cli.train --tp_size 2` under `torchrun --nproc_per_node 2` over nccl,
+one card a rank, the bf16 fused flagship with compiled_epoch and
+compiled_eval, so that every captured step and eval batch holds its 'model'
+sums; each rank then checks phase 11's captured step on its blocks and
+serves the export through `Predictor(mesh=)`, captured against eager and
+beside a one-process `Predictor`; the one-process `Trainer` runs the same
+epoch; and the row-parallel products of a bf16 forward are timed three ways.
 
 Imports nothing of JAX or the JAX package.  Full results also go to
 chiprun_out/chip_smoke.json, and every result line, each with the process's
@@ -297,6 +328,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import functools
 import itertools
 import json
@@ -485,7 +517,7 @@ MULTI_LAUNCHES = 2                 # one per stacked layer
 BUILD = ROOT / "build"            # git-ignored: checkpoints of phases 5 to 13
 # phase 13: a seeded bert-base checkpoint in HF's names, the zoo's families
 HF_DIR = BUILD / "chip_smoke_hf_bert"
-ZOO_STEPS, ZOO_TIMED = 4, 10
+ZOO_STEPS, ZOO_TIMED = 4, 5
 EF_LAUNCHES = 4                   # one bi-LSTM stack: 2 layers x 2 directions
 SHORT_STEP = {"short_attn_fwd": BERT_LAYERS, "short_attn_bwd": BERT_LAYERS}
 SHORT_PROFILE = ("short_attn_fwd", "short_attn_bwd")
@@ -1186,7 +1218,8 @@ def attn_bounds(BH, S, D, dtype) -> dict:
     return out
 
 
-def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) -> None:
+def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32,
+                    heads=(1, 1, 0)) -> None:
     """The three kernels' keep mask against the plain hash, bit for bit, D
     columns of the S x S mask at a time, with q, k, v in `dtype`.  With q = 0
     and no bias every probability is 1 / S (forward) or, with lse = 0, exactly
@@ -1195,10 +1228,12 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) 
     (1 - rate) is the mask's rows off .. off + D, transposed.  dq: do = 1, v =
     1 / D, dsum = 0, so ds is the scaled mask, and k a shifted identity picks
     its columns.  In bf16 every value is exact but the scaled keep 1 / (1 -
-    rate), which rounds to nearest: the ratio still rounds to 1 or 0."""
+    rate), which rounds to nearest: the ratio still rounds to 1 or 0.
+    `heads`: the kernels' head layout (a rank's heads): the mask is the
+    hash's at each local (batch, head)'s global index."""
     rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
     s = torch.tensor([seed], dtype=torch.int32, device=device)
-    want = hashes.attention_keep_mask((BH, S, S), rate, s)
+    want = hashes.attention_keep_mask((BH, S, S), rate, s, heads=heads)
     if not 0 < want.mean().item() < 1:
         raise AssertionError(f"degenerate attention mask at {(BH, S, D, seed)}")
     zeros = torch.zeros(BH, S, D, device=device, dtype=dtype)
@@ -1210,11 +1245,12 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) 
         n = min(D, S - off)
         shifted = torch.zeros(BH, S, D, device=device)
         shifted[:, off + idx[:n], idx[:n]] = 1.0
-        o, _ = kattn.flash_attention_fwd(zeros, zeros, shifted.to(dtype), vec0, s, rate)
+        o, _ = kattn.flash_attention_fwd(zeros, zeros, shifted.to(dtype), vec0, s, rate,
+                                         heads=heads)
         _, dv = kattn.flash_attention_bwd_dkv(zeros, zeros, zeros, vec0, s, shifted, vec0,
-                                              vec0, rate)
+                                              vec0, rate, heads=heads)
         dq = kattn.flash_attention_bwd_dq(zeros, shifted.to(dtype), (ones / D).to(dtype), vec0,
-                                          s, ones, vec0, vec0, rate)
+                                          s, ones, vec0, vec0, rate, heads=heads)
         torch.cuda.synchronize()
         got = {"flash_fwd": (o * S / ks).round()[:, :, :n],
                "flash_bwd_dkv": (dv.float() / ks).round()[:, :, :n].transpose(1, 2),
@@ -1223,7 +1259,8 @@ def check_attn_mask(kattn, hashes, BH, S, D, seed, device, dtype=torch.float32) 
             block = want[:, off:off + n, :] if name == "flash_bwd_dkv" else want[:, :, off:off + n]
             if not torch.equal(mask, block):
                 raise AssertionError(f"{name}: keep mask differs from the hash at "
-                                     f"{(BH, S, D, seed)} {dtype}, offset {off}")
+                                     f"{(BH, S, D, seed)} {dtype}, heads {heads}, "
+                                     f"offset {off}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1525,18 +1562,20 @@ def check_masked_items(kshort, device) -> dict:
     return out
 
 
-def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32) -> None:
+def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32,
+                     head0: int = 0) -> None:
     """The forward's and the backward's keep mask against the plain hash,
     bit for bit, with q, k, v in `dtype`: q = k = 0 and no bias make every
     probability 1 / S; with v a shifted identity (hd = min(S, 128), hd keys
     at a time) o S (1 - rate) is hd columns of the mask, and with do a
     shifted identity dv S (1 - rate) is hd rows of it, transposed.  In bf16
     the inputs are exact and each output is the scaled keep rounded once:
-    the ratio still rounds to 1 or 0."""
+    the ratio still rounds to 1 or 0.  head0: the kernels take heads head0
+    .. head0 + nh - 1 (a rank's heads), whose masks the hash gives."""
     rate, ks = ATTN_RATE, hashes.keep_scale(ATTN_RATE)
     s = torch.tensor([seed], dtype=torch.int32, device=device)
     b = torch.arange(B, device=device).reshape(B, 1, 1, 1)
-    h = torch.arange(nh, device=device).reshape(1, nh, 1, 1)
+    h = torch.arange(head0, head0 + nh, device=device).reshape(1, nh, 1, 1)
     want = hashes.short_attention_keep_mask(S, rate, s, b, h)
     if not 0 < want.mean().item() < 1:
         raise AssertionError(f"degenerate short attention mask at {(B, nh, S, seed)}")
@@ -1544,13 +1583,14 @@ def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32
     zeros = torch.zeros(B, nh, S, hd, device=device, dtype=dtype)
     bias = torch.zeros(B, S, device=device)
     idx = torch.arange(hd, device=device)
-    where = f"{(B, nh, S, seed)} {dtype}"
+    where = f"{(B, nh, S, seed)} {dtype} head0 {head0}"
     for off in range(0, S, hd):
         n = min(hd, S - off)
         shifted = torch.zeros(B, nh, S, hd, device=device, dtype=dtype)
         shifted[:, :, off + idx[:n], idx[:n]] = 1.0
-        o = kshort.short_attention_fwd(zeros, zeros, shifted, bias, s, rate)
-        _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, shifted, rate)
+        o = kshort.short_attention_fwd(zeros, zeros, shifted, bias, s, rate, head0=head0)
+        _, _, dv = kshort.short_attention_bwd(zeros, zeros, zeros, bias, s, shifted, rate,
+                                              head0=head0)
         torch.cuda.synchronize()
         if not torch.equal((o.float() * S / ks).round()[..., :n], want[..., off:off + n]):
             raise AssertionError(f"short attention forward: keep mask differs from the hash "
@@ -1559,6 +1599,88 @@ def check_short_mask(kshort, hashes, B, nh, S, seed, device, dtype=torch.float32
                            want[..., off:off + n, :]):
             raise AssertionError(f"short attention backward: keep mask differs from the hash "
                                  f"at {where}, queries {off}..")
+
+
+# Phase 3's head offsets: a rank's heads 6..11 of 12 (tensor parallelism at tp = 2) on
+# each attention route, (B, nh, S, hd) and the route the shape takes
+HEAD_OFFSET_CASES = [("block", (4, 12, 50, 64)), ("tiled", (4, 12, 514, 64)),
+                     ("flash", (4, 12, 514, 64))]
+HEAD0 = 6
+
+
+def head_offset_case(kattn, kshort, hashes, route, shape, dtype, device) -> dict:
+    """Heads HEAD0.. of a launch of `route` at `shape` in `dtype` (rate
+    ATTN_RATE) against the one-process launch's same heads, bit for bit:
+    the forward and every backward kernel, given heads HEAD0.. alone with
+    the head offset (flash: the layout (nh - HEAD0, nh, HEAD0)); then their
+    keep masks against the plain hash at those heads (`check_short_mask`,
+    `check_attn_mask`).  Raises on a difference; returns what it ran."""
+    B, nh, S, hd = shape
+    rate, seed = ATTN_RATE, 7
+    s = torch.tensor([seed], dtype=torch.int32, device=device)
+    q, k, v, g, bias = short_inputs(B, nh, S, hd, dtype, seed, device)
+    part = [t[:, HEAD0:].contiguous() for t in (q, k, v, g)]
+    where = f"{route} {shape} {dtype} head0 {HEAD0}"
+    if route == "flash":
+        heads = (nh - HEAD0, nh, HEAD0)
+        flat = [t.reshape(B * t.shape[1], S, hd) for t in (q, k, v)]
+        fbias = bias.repeat_interleave(nh, dim=0)
+        o, lse = kattn.flash_attention_fwd(*flat, fbias, s, rate)
+        whole = {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"), kattn.flash_attention_bwd(
+            *flat, fbias, s, lse, o, g.float().reshape(B * nh, S, hd), rate)))}
+        pflat = [t.reshape(B * (nh - HEAD0), S, hd) for t in part[:3]]
+        pbias = bias.repeat_interleave(nh - HEAD0, dim=0)
+        o, lse = kattn.flash_attention_fwd(*pflat, pbias, s, rate, heads=heads)
+        got = {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"), kattn.flash_attention_bwd(
+            *pflat, pbias, s, lse, o, part[3].float().reshape(-1, S, hd), rate, heads=heads)))}
+        whole = {n: t.reshape(B, nh, S, -1)[:, HEAD0:] for n, t in whole.items()}
+        got = {n: t.reshape(B, nh - HEAD0, S, -1) for n, t in got.items()}
+        sources = FLASH
+    else:
+        taken = kshort.kernel_route(S, hd, dtype)
+        if taken != route:
+            raise AssertionError(f"{where}: the shape takes the {taken} route")
+        whole = {"o": kshort.short_attention_fwd(q, k, v, bias, s, rate)}
+        whole.update(zip(("dq", "dk", "dv"), kshort.short_attention_bwd(q, k, v, bias, s, g,
+                                                                          rate)))
+        got = {"o": kshort.short_attention_fwd(*part[:3], bias, s, rate, head0=HEAD0)}
+        got.update(zip(("dq", "dk", "dv"), kshort.short_attention_bwd(
+            *part[:3], bias, s, part[3], rate, head0=HEAD0)))
+        if route == "tiled":         # the training forward and the backward from its statistics
+            o, stats, o32 = kshort.short_attention_fwd_train(q, k, v, bias, s, rate)
+            saved = kshort.short_attention_bwd(q, k, v, bias, s, g, rate, stats, o32)
+            whole.update({"train_o": o, "stats": stats, "o32": o32,
+                          **{f"saved_{n}": t for n, t in zip(("dq", "dk", "dv"), saved)}})
+            o, stats, o32 = kshort.short_attention_fwd_train(*part[:3], bias, s, rate,
+                                                             head0=HEAD0)
+            saved = kshort.short_attention_bwd(*part[:3], bias, s, part[3], rate, stats, o32,
+                                               head0=HEAD0)
+            got.update({"train_o": o, "stats": stats, "o32": o32,
+                        **{f"saved_{n}": t for n, t in zip(("dq", "dk", "dv"), saved)}})
+        whole = {n: t[:, HEAD0:] for n, t in whole.items()}
+        sources = kshort.ROUTE_SOURCES[route]
+    torch.cuda.synchronize(device)
+    differ = [n for n in whole if not bits_equal(whole[n], got[n])]
+    if differ:
+        raise AssertionError(f"{where}: {differ} differ from the one-process launch's heads")
+    if route == "flash":
+        check_attn_mask(kattn, hashes, B * (nh - HEAD0), S, hd, seed, device, dtype, heads)
+    else:
+        check_short_mask(kshort, hashes, B, nh - HEAD0, S, seed, device, dtype, head0=HEAD0)
+    return {"route": route, "shape": list(shape), "dtype": str(dtype).split(".")[1],
+            "head0": HEAD0, "sources": list(sources), "bit_equal": sorted(whole),
+            "masks": "plain hash, bit for bit"}
+
+
+def check_head_offsets(kattn, kshort, hashes, device) -> list:
+    """Every `HEAD_OFFSET_CASES` route in bf16 and f32 (`head_offset_case`),
+    each a `3 head-offsets` line."""
+    rows = []
+    for route, shape in HEAD_OFFSET_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(head_offset_case(kattn, kshort, hashes, route, shape, dtype, device))
+            log("3 head-offsets", **rows[-1])
+    return rows
 
 
 TILED_BWD_PARTS = {"r": "tiled_r", "dq": "tiled_dq", "dkv": "tiled_dkv"}
@@ -3042,6 +3164,12 @@ def train_state(trainer) -> dict:
             "generator": trainer.generator.get_state()}
 
 
+def on_host(snap: dict) -> dict:
+    """A `train_state` with its tensors moved to the host (it then holds
+    no device memory; `restore_train_state` copies them back)."""
+    return {**snap, "tensors": {k: t.cpu() for k, t in snap["tensors"].items()}}
+
+
 def restore_train_state(trainer, snap: dict) -> None:
     """Back to `snap` (`train_state`), in place: a graph reads these
     tensors where they live."""
@@ -4216,8 +4344,8 @@ def phase14(counts, device) -> dict:
 
 # ---------------------------- phase 15: serving artifacts, the kernels as ops; MoE BERT
 
-EXPORT_BUCKETS = (32, 64)         # the default Config's buckets but 16 (the same graph at
-                                  # a smaller shape: cut for time), max_batch 64
+EXPORT_BUCKETS = (64,)            # the default Config's largest bucket (16 and 32: the same
+                                  # graph at smaller shapes, cut for time), max_batch 64
 FLASH_EXPORT = (512, 32)          # the long bucket and its batch
 EXPORT_SERVED = 6                 # requests posted one at a time to the artifact's server
 ZOO_FREE = ("mmda_tpu_torch.models", "mmda_tpu_torch.serving", "mmda_tpu_torch.train")
@@ -4770,6 +4898,7 @@ def phase16(counts, klstm, device, cli=None) -> dict:
 DP_STEPS = 3                      # the two gloo ranks' steps, and the one-process references
 DP_TIMED = 10                     # captured replays timed in (a), each side
 DP_TIMEOUT_S = 60.0               # every process group's timeout; each spawned set's deadline
+DP_CLI_HANG_S = 180               # a torchrun rank's deadline (its stacks printed, then exit)
 # (b)'s least tolerance: about 5x the losses' and 2-3x the parameters'
 # distance from the one-process step that two gloo ranks and the kernels'
 # split step gave (9.5e-7; 8.1e-6 and 6.8e-6: PERF.md), a fifth of one Adam
@@ -4831,9 +4960,11 @@ def dp_cli_rank(out_path: str, argv: list) -> int:
     from mmda_tpu_torch.cli import train as cli_train
     from mmda_tpu_torch.config import get_config, set_reference_numerics
     from mmda_tpu_torch.ops.kernels import _launch as counts
-    from mmda_tpu_torch.parallel.mesh import init_distributed
+    from mmda_tpu_torch.parallel.mesh import init_distributed, leave_process_group
     from mmda_tpu_torch.train.loop import Trainer
 
+    # a rank that hangs prints every thread's stack and exits
+    faulthandler.dump_traceback_later(DP_CLI_HANG_S, exit=True)
     device = init_distributed("cuda", timeout_s=DP_TIMEOUT_S)
     set_reference_numerics()
     counts.reset_launch_count()
@@ -4841,40 +4972,59 @@ def dp_cli_rank(out_path: str, argv: list) -> int:
     summary = cli_train.main([*argv, "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = all_launches(counts)
+    log("dp-cli-rank", rank=dist.get_rank(), stage="cli.train", seconds=wall)
     cfg = get_config(argv=[*argv, "--device", str(device)])
     trainer = Trainer(cfg, cli_train.load_data(cfg)[0])
-    step_ms = replay_ms(trainer, device)
+    tp = {}
+    if trainer.mesh.tp == 1:
+        step_ms = replay_ms(trainer, device)
+    else:
+        tp = tp_nccl_rank(trainer, counts, device)
+        step_ms = tp["captured_step"]["captured"]["ms"]
     if dist.get_rank() == 0:
         pathlib.Path(out_path).write_text(json.dumps({
             "backend": dist.get_backend(), "world": dist.get_world_size(),
-            "dp": trainer.mesh.dp, "device": str(device), "launches": launches,
-            "train_wall_s": wall, "captured_ms": step_ms, "summary": summary}, default=float))
-    dist.destroy_process_group()
+            "dp": trainer.mesh.dp, "tp": trainer.mesh.tp, "device": str(device),
+            "launches": launches, "train_wall_s": wall, "captured_ms": step_ms,
+            "summary": summary, **tp}, default=float))
+    del trainer
+    leave_process_group()
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
-def dp_nccl_rank(rank: int, store: str, out_dir: str) -> None:
-    """(b)'s first check: a rank of two nccl ranks on the one card; what
-    the first collective does, as text."""
-    sys.path.insert(0, str(ROOT))
-    import torch.distributed as dist
+def tp_nccl_rank(trainer, counts, device) -> dict:
+    """`--tp-nccl`'s checks on a rank of a tensor-parallel nccl mesh, on the
+    trainer `cli.train` ran with: phase 11's captured step (three eager
+    steps from one state twice, then three replays of the captured step and
+    its 'model' sums against them, no host sync in an eager step or a
+    replay, both timed, a profile), then `Predictor(mesh=)` on the run's
+    best export at the trainer's bucket: a captured call against an eager
+    one through the same kernels, both latencies, and its scores beside a
+    one-process `Predictor`'s on the same export."""
+    from mmda_tpu_torch.ops.kernels import lstm as klstm
+    from mmda_tpu_torch.serving import Predictor
 
-    from mmda_tpu_torch.parallel.mesh import init_distributed
-
-    try:
-        device = init_distributed("cuda:0", init_method=f"file://{store}", rank=rank,
-                                  world_size=2, timeout_s=30)
-        t = torch.ones(1, device=device)
-        dist.all_reduce(t)
-        torch.cuda.synchronize(device)
-        result = f"all_reduce gave {t.item()}"
-    except Exception as e:                  # what NCCL says is the result
-        result = f"{type(e).__name__}: {e}"
-    pathlib.Path(out_dir, f"nccl{rank}.txt").write_text(result)
-    try:
-        dist.destroy_process_group()
-    except Exception:
-        pass
+    rank = trainer.mesh.rank
+    captured = captured_steps(trainer, counts, "fused", device)
+    log("dp-cli-rank", rank=rank, stage="captured step", ms=captured["captured"]["ms"])
+    cfg = trainer.cfg.replace(**trainer.sizes)
+    sharded = Predictor(cfg, max_batch=TRAIN_B, mesh=trainer.mesh)
+    one = Predictor(cfg, max_batch=TRAIN_B)
+    reqs = make_requests(spread_lengths(TRAIN_B, cfg.bucket_sizes, 24), cfg, seed=24)
+    sharded(reqs)                           # the bucket's first call: warm-up and capture
+    counts.reset_launch_count()
+    got = sharded(reqs)
+    launches = all_launches(counts)
+    log("dp-cli-rank", rank=rank, stage="Predictor(mesh=) captured")
+    want = np.asarray(one(reqs)["scores"], np.float32)
+    diff = np.abs(want - np.asarray(got["scores"], np.float32))
+    return {"captured_step": captured,
+            "serve": {**serve_captured_vs_eager(cfg, sharded, klstm.lstm_recurrence, device),
+                      "launches_per_call": launches,
+                      "one_process": bucket_latency(cfg, one, device),
+                      "vs_one_process": {"max_abs_diff": float(diff.max()),
+                                         "share_not_bit_equal": float(np.mean(diff > 0))}}}
 
 
 def dp_eager_steps(trainer, device, step) -> tuple:
@@ -4937,21 +5087,17 @@ def dp_gloo_rank(rank: int, store: str, ref_path: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def spawn_ranks(fn, nprocs: int, *args, must_finish: bool = True) -> bool:
+def spawn_ranks(fn, nprocs: int, *args, deadline_s: float = DP_TIMEOUT_S) -> None:
     """fn(rank, *args) in nprocs processes (spawn), joined with a deadline
-    of DP_TIMEOUT_S, after which they are killed; whether they all ended in
-    time.  A rank that raises, or outlives the deadline under must_finish,
-    fails the phase."""
+    of `deadline_s`, after which they are killed.  A rank that raises, or
+    outlives the deadline, fails the phase."""
     ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=nprocs, join=False,
                                                 start_method="spawn")
-    end = time.perf_counter() + DP_TIMEOUT_S
+    end = time.perf_counter() + deadline_s
     try:
         while not ctx.join(timeout=1.0):
             if time.perf_counter() > end:
-                if must_finish:
-                    raise TimeoutError(f"{fn.__name__}: ranks ran past {DP_TIMEOUT_S} s")
-                return False
-        return True
+                raise TimeoutError(f"{fn.__name__}: ranks ran past {deadline_s} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -4989,9 +5135,8 @@ def phase17(counts, device) -> dict:
     """Data parallelism (module docstring, phase 17): (a) `cli.train` under
     `torchrun --nproc_per_node 1` over nccl with compiled_epoch against the
     one-process Trainer, bit for bit, launches counted, and both captured
-    steps timed; (b) NCCL with two ranks on the one card (refused), then two
-    gloo ranks on it, eager f32 steps, against the one-process step at the
-    global batch."""
+    steps timed; (b) two gloo ranks on the one card, eager f32 steps,
+    against the one-process step at the global batch."""
     from mmda_tpu_torch.data.loader import to_device
     from mmda_tpu_torch.train.loop import Trainer
     from mmda_tpu_torch.train.step import train_step
@@ -5036,29 +5181,20 @@ def phase17(counts, device) -> dict:
             "captured_ms": rank0["captured_ms"], "one_process_captured_ms": one_ms}
     log("17 dp-nccl-one-rank", **nccl)
 
-    # (b) two ranks on the one card: nccl refuses them, gloo runs them
-    store = work / f"store_nccl_{time.monotonic_ns()}"
-    for r in range(2):
-        pathlib.Path(work, f"nccl{r}.txt").unlink(missing_ok=True)
-    ended = spawn_ranks(dp_nccl_rank, 2, str(store), str(work), must_finish=False)
-    refused = [pathlib.Path(work, f"nccl{r}.txt").read_text()
-               if pathlib.Path(work, f"nccl{r}.txt").exists()
-               else f"no answer in {DP_TIMEOUT_S} s (killed)" for r in range(2)]
-    if any(text.startswith("all_reduce gave") for text in refused):
-        raise AssertionError(f"nccl ran two ranks on one card: {refused}")
-    cfg, _ = dp_cfg_and_data("dp_gloo")
+    # (b) two gloo ranks on the one card (nccl refuses two ranks on one device)
     whole_t = dp_gloo_trainer(device)
+    start = on_host(train_state(whole_t))   # the split steps start where these do
     whole, whole_ms = dp_eager_steps(whole_t, device, lambda h: train_step(
         whole_t.model, whole_t.optimizer, to_device(h, device), whole_t.cfg,
         whole_t.generator, whole_t.ema))
     whole_p = {n: p.detach().cpu() for n, p in whole_t.model.named_parameters()
                if p.requires_grad}
-    del whole_t
-    split_t = dp_gloo_trainer(device)
-    split, _ = dp_eager_steps(split_t, device, lambda h: split_step(split_t, h, device, counts))
+    restore_train_state(whole_t, start)
+    del start
+    split, _ = dp_eager_steps(whole_t, device, lambda h: split_step(whole_t, h, device, counts))
     split_err = max((p.detach().cpu() - whole_p[n]).abs().max().item()
-                    for n, p in split_t.model.named_parameters() if p.requires_grad)
-    del split_t
+                    for n, p in whole_t.model.named_parameters() if p.requires_grad)
+    del whole_t
     ref = work / "whole_params.pt"
     torch.save(whole_p, ref)
     del whole_p
@@ -5088,8 +5224,6 @@ def phase17(counts, device) -> dict:
                              f"{param_err} against {param_tol}, launches "
                              f"{[r['launches'] for r in ranks]}")
     gloo = {"backend": "gloo", "ranks": 2, "steps": DP_STEPS, "dtype": "float32",
-            "nccl_two_ranks_one_card": [text[:300] for text in refused],
-            "nccl_ranks_ended": ended,
             "launches_per_rank": ranks[0]["launches"], "loss_err": loss_err,
             "plain_split_loss_err": split_loss_err, "loss_tol": loss_tol,
             "param_err": param_err, "plain_split_param_err": split_err, "param_tol": param_tol,
@@ -5100,6 +5234,307 @@ def phase17(counts, device) -> dict:
                 for name in counts.KERNELS}
     return {"nccl": nccl, "gloo": gloo, "launches": launches,
             "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------- phase 18
+
+TP = 2                            # tensor parallelism: two gloo ranks on the one card
+TP_HEADS = 12 // TP               # each rank's heads of bert-base's 12
+TP_STEPS = DP_STEPS               # `dp_eager_steps`' steps, each side
+TP_TIMEOUT_S = 300.0              # the two ranks' deadline: a bert-base each, the steps,
+                                  # the export and serving
+TP_SERVE_BUCKET = 64              # Predictor(mesh=) at bucket 64, B = 64
+TP_SERVE_TOL = 1e-4
+# phase 17's least tolerances (relative for the losses, absolute for the parameters)
+TP_LOSS_FLOOR, TP_PARAM_FLOOR = DP_LOSS_FLOOR, DP_PARAM_FLOOR
+TP_PER_STEP = {**DP_PER_STEP, "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES}
+
+
+def tp_trainer(device, **options):
+    """Phase 18's Trainer: the fused flagship step at full width (bert-base,
+    B=64, T=48, `attn_impl="fused"`, the mosei freeze rule) in f32 with
+    `fused_ln_dropout` and dropout on, eager; `options` name its mesh."""
+    from mmda_tpu_torch.train.loop import Trainer
+
+    cfg, data = dp_cfg_and_data("tp_gloo", compute_dtype="float32", fused_ln_dropout=True,
+                                compiled_epoch=False, compiled_eval=False, **options)
+    return Trainer(cfg, data)
+
+
+def tp_serve_cfg(trainer):
+    """The Predictor's configuration of phase 18: the trainer's, at bucket
+    TP_SERVE_BUCKET, with the trainer's sizes."""
+    return trainer.cfg.replace(bucket_sizes=(TP_SERVE_BUCKET,), max_seq_len=TP_SERVE_BUCKET,
+                               **trainer.sizes)
+
+
+@contextlib.contextmanager
+def split_products(model, parts: int = TP):
+    """Inside the block each row-parallel product of the model's BERT
+    (attn_out, ffn_out) runs as tensor parallelism at tp = `parts` runs it,
+    on one process: f32 products over `parts` blocks of input columns,
+    summed, then one rounding and the bias (`models/bert.py::
+    row_parallel_dense`); the column-parallel products and the attention of
+    each head are the same computations whatever the sharding."""
+    from mmda_tpu_torch.models import bert
+
+    rows = {id(getattr(layer, name)) for layer in model.bert.layers
+            for name in ("attn_out", "ffn_out")}
+    whole = bert.dense
+
+    def dense(x, d, cd):
+        if id(d) not in rows:
+            return whole(x, d, cd)
+        w = d.weight.to(cd).float()
+        y = sum(torch.matmul(xb.float(), wb.t())
+                for xb, wb in zip(x.chunk(parts, dim=-1), w.chunk(parts, dim=1)))
+        return y.to(cd) + d.bias.to(cd)
+
+    with replaced(bert, "dense", dense):
+        yield
+
+
+def tp_step(trainer, host, device, recurrence=None):
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.train.step import train_step
+
+    return train_step(trainer.model, trainer.optimizer, to_device(trainer._shard(host), device),
+                      trainer.cfg, trainer.generator, trainer.ema, recurrence=recurrence,
+                      mesh=trainer.step_mesh, dropout_generator=trainer.dropout_generator)
+
+
+def tp_gloo_rank(rank: int, store: str, ref_path: str, out_dir: str) -> None:
+    """Phase 18's rank: one of two gloo ranks on the one card, a (1, 2)
+    mesh.  TP_STEPS eager f32 steps of the tensor-parallel Trainer (its
+    launches, step times, peak memory, its gathered trainable parameters'
+    distance from the one-process step's, `ref_path`), the best export in
+    the full layout (rank 0 writes it), then `Predictor(mesh=)` on that
+    export at bucket TP_SERVE_BUCKET: its scores and launches."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from mmda_tpu_torch.config import set_reference_numerics
+    from mmda_tpu_torch.ops.kernels import _launch as counts
+    from mmda_tpu_torch.parallel.mesh import gather_params, init_distributed
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.train import checkpoint as ckpt
+
+    device = init_distributed("cuda:0", backend="gloo", init_method=f"file://{store}",
+                              rank=rank, world_size=TP, timeout_s=DP_TIMEOUT_S)
+    set_reference_numerics()
+    trainer = tp_trainer(device, dp_size=1, tp_size=TP)
+    mesh, model = trainer.mesh, trainer.model
+    torch.cuda.reset_peak_memory_stats(device)
+    counts.reset_launch_count()
+    losses, times = dp_eager_steps(trainer, device, lambda h: tp_step(trainer, h, device))
+    launches = all_launches(counts)
+    peak = torch.cuda.max_memory_allocated(device)
+    whole = dict(zip([n for n, _ in model.named_parameters()], gather_params(model, mesh)))
+    ref = torch.load(ref_path)
+    err = max((whole[n].cpu() - ref[n]).abs().max().item() for n in ref)
+    name = ckpt.best_model_name(trainer.cfg)
+    trainer._export_best(name, model, {"steps": TP_STEPS})
+    trainer._barrier()
+    cfg = tp_serve_cfg(trainer)
+    pred = Predictor(cfg, max_batch=TRAIN_B, mesh=mesh)
+    requests = make_requests(spread_lengths(TRAIN_B, (TP_SERVE_BUCKET,), 18), cfg, seed=18)
+    counts.reset_launch_count()
+    t0 = time.perf_counter()
+    scores = pred(requests)["scores"]
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"losses": losses, "ms": times, "launches": launches, "param_err": err,
+                "peak_mem_gb": peak / 1e9, "head0": mesh.tp_rank * TP_HEADS,
+                "dp": mesh.dp, "tp": mesh.tp, "backend": dist.get_backend(),
+                "scores": torch.from_numpy(scores), "serve_launches": all_launches(counts),
+                "serve_ms": serve_ms,
+                "sharded": trainer.step_mesh is not None},
+               pathlib.Path(out_dir, f"tp{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase18(counts, device) -> dict:
+    """Tensor parallelism (module docstring, phase 18): the fused flagship
+    step at tp = 2 as two gloo ranks on the one card against the
+    one-process step with the same seed, within twice what splitting each
+    row-parallel product in two moves the one-process step (through the
+    plain versions), then its export served by `Predictor(mesh=)` at tp = 2
+    against the one-process Predictor."""
+    from mmda_tpu_torch.ops.kernels import lstm as klstm
+    from mmda_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    work = BUILD / "chip_smoke_tp"
+    work.mkdir(parents=True, exist_ok=True)
+    base = torch.cuda.memory_allocated(device)     # what earlier phases still hold
+    whole_t = tp_trainer(device)
+    serve_cfg = tp_serve_cfg(whole_t)       # the ranks' export lands in its ckpt_dir
+    start = on_host(train_state(whole_t))   # the split steps start where these do
+    torch.cuda.reset_peak_memory_stats(device)
+    whole, whole_ms = dp_eager_steps(whole_t, device, lambda h: tp_step(whole_t, h, device))
+    # the trainer's and its steps' peak, as a rank's (a fresh process) counts it
+    whole_peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    whole_p = {n: p.detach().cpu() for n, p in whole_t.model.named_parameters()
+               if p.requires_grad}
+    restore_train_state(whole_t, start)
+    del start
+    with plain_versions(counts), split_products(whole_t.model):
+        split, _ = dp_eager_steps(whole_t, device, lambda h: tp_step(
+            whole_t, h, device, klstm.lstm_recurrence_reference))
+    split_err = max((p.detach().cpu() - whole_p[n]).abs().max().item()
+                    for n, p in whole_t.model.named_parameters() if p.requires_grad)
+    del whole_t
+    ref = work / "whole_params.pt"
+    torch.save(whole_p, ref)
+    del whole_p
+    torch.cuda.empty_cache()
+    counts.reset_launch_count()             # the ranks count their own launches
+    spawn_ranks(tp_gloo_rank, TP, str(work / f"store_{time.monotonic_ns()}"), str(ref),
+                str(work), deadline_s=TP_TIMEOUT_S)
+    ranks = [torch.load(work / f"tp{r}.pt") for r in range(TP)]
+    per_rank = expected_launches(counts, {k: n * TP_STEPS for k, n in TP_PER_STEP.items()})
+    loss_err = {k: max(abs(r["losses"][i][k] - whole[i][k]) for r in ranks
+                       for i in range(TP_STEPS)) for k in whole[0]}
+    split_loss_err = {k: max(abs(split[i][k] - whole[i][k]) for i in range(TP_STEPS))
+                      for k in whole[0]}
+    loss_tol = {k: max(2 * split_loss_err[k], TP_LOSS_FLOOR * max(1.0, abs(whole[0][k])))
+                for k in whole[0]}
+    param_tol = max(2 * split_err, TP_PARAM_FLOOR)
+    bad = [k for k in whole[0] if loss_err[k] > loss_tol[k]]
+    param_err = max(r["param_err"] for r in ranks)
+    if (bad or param_err > param_tol or any(r["launches"] != per_rank for r in ranks)
+            or [(r["backend"], r["dp"], r["tp"], r["sharded"], r["head0"]) for r in ranks]
+            != [("gloo", 1, TP, True, TP_HEADS * i) for i in range(TP)]
+            or ranks[0]["losses"] != ranks[1]["losses"]):
+        raise AssertionError(f"tp = {TP} against the one-process step: losses {bad} "
+                             f"({loss_err} against {loss_tol}), parameters {param_err} against "
+                             f"{param_tol}, launches {[r['launches'] for r in ranks]}")
+    # the export the ranks wrote, served by one process
+    one = Predictor(serve_cfg, max_batch=TRAIN_B)
+    requests = make_requests(spread_lengths(TRAIN_B, (TP_SERVE_BUCKET,), 18), serve_cfg,
+                             seed=18)
+    want = one(requests)["scores"]
+    serve_err = max(float(np.abs(r["scores"].numpy() - want).max()) for r in ranks)
+    serve_per_rank = expected_launches(counts, FUSED_CALL)
+    if serve_err > TP_SERVE_TOL or any(r["serve_launches"] != serve_per_rank for r in ranks):
+        raise AssertionError(f"Predictor(mesh=) at tp = {TP}: scores {serve_err} from the "
+                             f"one-process Predictor's (tol {TP_SERVE_TOL}), launches "
+                             f"{[r['serve_launches'] for r in ranks]}")
+    out = {"backend": "gloo", "mesh": [1, TP], "steps": TP_STEPS, "dtype": "float32",
+           "dropout": True, "batch": [TRAIN_B, TRAIN_T + 2],
+           "launches_per_rank": [{"head0": r["head0"], "launches": r["launches"]}
+                                 for r in ranks],
+           "loss_err": loss_err, "plain_split_loss_err": split_loss_err, "loss_tol": loss_tol,
+           "param_err": param_err, "plain_split_param_err": split_err, "param_tol": param_tol,
+           "step_ms": [statistics.median(r["ms"]) for r in ranks],
+           "step_ms_all": [r["ms"] for r in ranks],
+           "one_process_step_ms": statistics.median(whole_ms),
+           "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+           "one_process_peak_mem_gb": whole_peak,
+           "serve": {"bucket": TP_SERVE_BUCKET, "batch": TRAIN_B, "max_abs_err": serve_err,
+                     "tol": TP_SERVE_TOL, "ms_per_rank": [r["serve_ms"] for r in ranks],
+                     "launches_per_rank": [r["serve_launches"] for r in ranks]}}
+    log("18 tp-gloo-two-ranks", **out)
+    launches = {name: sum(r["launches"][name] + r["serve_launches"][name] for r in ranks)
+                for name in counts.KERNELS}
+    return {**out, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------- --tp-nccl: tensor parallelism over two cards
+
+TP_NCCL_DIR = BUILD / "chip_smoke_tp_nccl"
+# cli.train's flagship fused configuration (bf16) at tp = 2, compiled_epoch and
+# compiled_eval: each captured step and eval batch holds the 'model' sums
+TP_NCCL_CLI = (*DP_CLI[:-2], "--name", "tp", "--tp_size", str(TP))
+ROW_PARALLEL_K = {"attn_out": 768, "ffn_out": 3072}     # bert-base's row-parallel inputs
+
+
+def row_parallel_products(device) -> dict:
+    """A rank's row-parallel products at tp = TP of one bf16 step's forward
+    (B = 64, S = 50, bert-base's 12 layers), three ways: the f32 product of
+    the bf16 operands, the bf16 product that keeps its f32 result
+    (`models/bert.py::product_f32`, what the port runs), and the bf16
+    product with a bf16 result (what a one-process layer runs, which a
+    sum over 'model' cannot take unrounded): ms for the 12 layers' pairs,
+    each the median of 20 CUDA-event timings."""
+    from mmda_tpu_torch.models.bert import product_f32
+
+    g = torch.Generator(device).manual_seed(0)
+    rows, cd = TRAIN_B * (TRAIN_T + 2), torch.bfloat16
+    out = {}
+    ways = {"f32_product_ms": lambda x, w: torch.matmul(x.float(), w.float().t()),
+            "bf16_product_f32_result_ms": lambda x, w: product_f32(x, w, cd),
+            "bf16_product_bf16_result_ms": lambda x, w: torch.matmul(x, w.t())}
+    operands = {name: (torch.randn(rows, k // TP, generator=g, device=device).to(cd),
+                       torch.randn(768, k // TP, generator=g, device=device).to(cd))
+                for name, k in ROW_PARALLEL_K.items()}
+    for way, fn in ways.items():
+        out[way] = BERT_LAYERS * sum(cuda_ms(lambda: fn(x, w)) for x, w in operands.values())
+    x, w = operands["ffn_out"]
+    out["bf16_f32_result_vs_f32_product_max_abs"] = (
+        product_f32(x, w, cd) - torch.matmul(x.float(), w.float().t())).abs().max().item()
+    return out
+
+
+def tp_nccl(counts, device) -> dict:
+    """`--tp-nccl` (two or more cards): `cli.train` at tp = 2 under
+    `torchrun --nproc_per_node 2` over nccl, one card a rank, with
+    compiled_epoch and compiled_eval (TP_NCCL_CLI), its launches counted;
+    each rank's `tp_nccl_rank` checks; the one-process `Trainer` on the
+    same configuration beside it (its epoch's losses); the row-parallel
+    products' cost (`row_parallel_products`)."""
+    from mmda_tpu_torch.cli import train as cli_train
+    from mmda_tpu_torch.config import get_config
+    from mmda_tpu_torch.train.loop import Trainer
+
+    if torch.cuda.device_count() < TP:
+        raise RuntimeError(f"--tp-nccl needs {TP} cards, found {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    TP_NCCL_DIR.mkdir(parents=True, exist_ok=True)
+    out_json = TP_NCCL_DIR / "rank0.json"
+    ranks_log = ROOT / "chiprun_out" / "chip_smoke_tp_nccl_ranks.log"
+    ranks_log.parent.mkdir(exist_ok=True)
+    with open(ranks_log, "w") as f:     # the ranks' output, kept if they fail or hang
+        code = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(TP), str(ROOT / "chip_smoke.py"), "--dp-cli", str(out_json), *TP_NCCL_CLI,
+             "--ckpt_dir", str(TP_NCCL_DIR / "tp")], cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, timeout=DP_CLI_HANG_S + 60).returncode
+    if code != 0:
+        raise RuntimeError(f"torchrun cli.train --tp_size {TP} exit {code}:\n"
+                           f"{ranks_log.read_text()[-8000:]}")
+    rank0 = json.loads(out_json.read_text())
+    want = expected_launches(counts, {k: n * DP_CLI_STEPS + DP_PER_EVAL.get(k, 0) * DP_CLI_EVALS
+                                      for k, n in DP_PER_STEP.items()})
+    problems = []
+    if (rank0["launches"] != want or (rank0["backend"], rank0["dp"], rank0["tp"])
+            != ("nccl", 1, TP) or rank0["serve"]["launches_per_call"]
+            != expected_launches(counts, FUSED_CALL)):
+        problems.append(f"launches {rank0['launches']} (expected {want}), serving "
+                        f"{rank0['serve']['launches_per_call']}, backend {rank0['backend']}, "
+                        f"mesh {rank0['dp']} x {rank0['tp']}")
+    if not rank0["serve"]["vs_one_process"]["max_abs_diff"] <= SERVE_TOL:
+        problems.append(f"Predictor(mesh=) scores {rank0['serve']['vs_one_process']} from "
+                        f"the one-process Predictor's (tol {SERVE_TOL})")
+    cfg = get_config(argv=[*DP_CLI[:-2], "--name", "tp_one", "--ckpt_dir",
+                           str(TP_NCCL_DIR / "one")])
+    one = Trainer(cfg, cli_train.load_data(cfg)[0])
+    summary = one.train()
+    history = [{k: v for k, v in h.items() if not k.endswith("_s")} for h in summary["history"]]
+    got = rank0["summary"]["history"]
+    loss_diff = {k: max(abs(g[k] - h[k]) for g, h in zip(got, history))
+                 for k in history[0] if isinstance(history[0][k], float)}
+    if not all(np.isfinite(v) for v in loss_diff.values()):
+        problems.append(f"the epoch's losses: {got}")
+    out = {"backend": "nccl", "mesh": [1, TP], "cards": TP, "dtype": "bfloat16",
+           "launches": rank0["launches"], "train_wall_s": rank0["train_wall_s"],
+           "captured_step": rank0["captured_step"], "serve": rank0["serve"],
+           "history": got, "one_process_history": history, "vs_one_process": loss_diff,
+           "row_parallel_products": row_parallel_products(device),
+           "seconds": time.perf_counter() - t0}
+    log("tp-nccl", **out)
+    if problems:
+        raise AssertionError(f"torchrun cli.train --tp_size {TP}: " + "; ".join(problems))
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -5171,7 +5606,7 @@ def main() -> int:
     if args[:1] == ["--dp-cli"] and len(args) > 1:     # phase 17 (a)'s torchrun rank
         return dp_cli_rank(args[1], args[2:])
     if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"],
-                    ["--fused-long-f32"], ["--fused-f32"]):
+                    ["--phase18"], ["--fused-long-f32"], ["--fused-f32"], ["--tp-nccl"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -5238,6 +5673,17 @@ def main() -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_phase17.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
+    if "--tp-nccl" in args:                 # tensor parallelism over two cards
+        tp_nccl(counts, device)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_tp_nccl.log").write_text("\n".join(LOG_LINES) + "\n")
+        return 0
+    if "--phase18" in args:                 # phase 18 alone, after the build
+        p18 = phase18(counts, device)
+        log("18 seconds", seconds=p18["seconds"])
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_phase18.log").write_text("\n".join(LOG_LINES) + "\n")
+        return 0
 
     checks = {"lstm_fwd": check_lstm_kernel(klstm, device),
               "lstm_bwd": check_lstm_bwd_kernel(klstm, device)}
@@ -5246,6 +5692,7 @@ def main() -> int:
         kln, hashes.keep_mask, device)
     checks.update(check_attn_kernels(kattn, hashes, device))
     checks.update(check_short_kernels(kshort, hashes, device))
+    check_head_offsets(kattn, kshort, hashes, device)
     checks["lstm_multi_fwd"], checks["lstm_multi_bwd"] = check_multi_kernels(kmulti, klstm,
                                                                              device)
 
@@ -5396,6 +5843,11 @@ def main() -> int:
     p17 = phase17(counts, device)
     log("17 seconds", seconds=p17["seconds"])
 
+    # phase 18: tensor parallelism (two gloo ranks on a (1, 2) mesh; Predictor(mesh=))
+    torch.cuda.empty_cache()
+    p18 = phase18(counts, device)
+    log("18 seconds", seconds=p18["seconds"])
+
     # launches: the main paths' runs (HTTP serving windows, Trainer.train(),
     # cli.infer, the tower pair, phase 12's, 13's and 14's runs)
     trains = {"lstm": train, "gru": gru_train, "long": long_train, "fused": fused_train}
@@ -5406,7 +5858,7 @@ def main() -> int:
                 + stage2["launches"][name] + stage2["serve_launches"][name]
                 + accum["launches"][name] + resume["launches"][name] + etl["launches"][name]
                 + p13["launches"][name] + p14["launches"][name] + p15["launches"][name]
-                + p16["launches"][name] + p17["launches"][name]
+                + p16["launches"][name] + p17["launches"][name] + p18["launches"][name]
                 + fused_f32["main_path"]["launches"][name]
                 + fused_f32["serve"]["launches_per_call"].get(name, 0)
                 for name in counts.KERNELS}
@@ -5470,7 +5922,7 @@ def main() -> int:
         "fused_train": fused_train, "fused_serve": fused_serve,
         "fused_train_then_serve": fused_train_serve, "fused_f32": fused_f32, "tower_pair": pair,
         "captured_serve": captured_serve, "phase12": phase12, "phase13": p13,
-        "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17,
+        "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17, "phase18": p18,
         "kernels": kernels},
         indent=1, default=str))
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")

@@ -18,15 +18,24 @@ PredictionServer worker; one call per bucket warms the server at startup.
 `ExportedPredictor` (serving_export.py): that process imports no model code
 (`mmda_tpu_torch.models`, `serving` and `train` are never loaded).
 
+Under torchrun the checkpoint is served on a (dp, tp) mesh (`--dp_size`,
+`--tp_size`; `Predictor(mesh=)`, the counterpart of the JAX CLI's mesh,
+`mmda_tpu/cli/serve.py:115-118`): rank 0 runs the HTTP front end and sends
+each of its Predictor calls to the other ranks, which make the same call
+(a call is a collective) until rank 0 stops.
+
 Usage (on the card; `--device cpu` for the CPU):
   python -m mmda_tpu_torch.cli.serve --data mosei --ckpt_dir checkpoints \\
       --port 8321 [--vocab_file vocab.txt]
   python -m mmda_tpu_torch.cli.serve --export_dir artifact --port 8321
+  torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.serve --data mosei \\
+      --ckpt_dir checkpoints --tp_size 2
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -98,6 +107,44 @@ def make_handler(server, default_timeout_s: float):
     return Handler
 
 
+class MeshLeader:
+    """Rank 0's `Predictor` on a mesh: each call first sends its requests to
+    every other rank (`follow`), so that every rank makes the same calls in
+    the same order; `close()` lets them stop."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+
+    def __call__(self, requests, **kwargs):
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([list(requests)], src=0)
+        return self.predictor(requests, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.predictor, name)
+
+    def close(self) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([None], src=0)
+
+
+def follow(predictor) -> int:
+    """A rank but 0's loop: make rank 0's calls of `predictor` until it
+    closes; returns the number of calls."""
+    import torch.distributed as dist
+
+    calls = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return calls
+        predictor(box[0])
+        calls += 1
+
+
 def serve(cfg, params=None, port: int = 8321, host: str = "127.0.0.1",
           tokenizer=None, word2id=None, timeout_s: float = 30.0,
           warmup: bool = True, ready_event: Optional[threading.Event] = None,
@@ -131,6 +178,23 @@ def main(argv=None):
 
         tokenizer = WordPieceTokenizer.from_vocab_file(cfg.vocab_file)
     predictor = None
+    distributed = "WORLD_SIZE" in os.environ and not cfg.export_dir
+    if distributed:                         # a torchrun rank: the mesh's Predictor
+        from mmda_tpu_torch.parallel.mesh import (init_distributed, leave_process_group,
+                                                  make_mesh)
+        from mmda_tpu_torch.serving import Predictor
+
+        cfg = cfg.replace(device=str(init_distributed(cfg.device)))
+        mesh = make_mesh(cfg.dp_size, cfg.tp_size, cfg.device)
+        predictor = Predictor(cfg, tokenizer=tokenizer, mesh=mesh)
+        if mesh.rank != 0:
+            try:
+                follow(predictor)
+            finally:
+                predictor = None            # its graphs go before the group
+                leave_process_group()
+            return
+        predictor = MeshLeader(predictor)
     if cfg.export_dir:
         # an artifact of cli/export.py: no model code runs in this process
         from mmda_tpu_torch.serving_export import ExportedPredictor
@@ -148,6 +212,10 @@ def main(argv=None):
     finally:
         httpd.shutdown()
         psrv.close()
+        if distributed:
+            predictor.close()
+            predictor = psrv = httpd = None     # their graphs go before the group
+            leave_process_group()
 
 
 if __name__ == "__main__":

@@ -23,10 +23,12 @@ op that makes a NaN (`utils/timing.py::debug_mode`), and it and
 `--disable_jit True` run the steps and evals eager (no CUDA graph), as JAX
 runs them op by op.
 
-Under torchrun the run is data-parallel (`parallel/mesh.py`): each process
-joins the process group (`nccl` on the card LOCAL_RANK, `gloo` with
-`--device cpu`), the trainer shards each batch over `--dp_size` ranks (-1,
-the default: all of them), and only rank 0 prints, logs and writes files.
+Under torchrun the run is data- and tensor-parallel (`parallel/mesh.py`):
+each process joins the process group (`nccl` on the card LOCAL_RANK, `gloo`
+with `--device cpu`), the trainer shards each batch over `--dp_size` ranks
+(-1, the default: the world over `--tp_size`) and the BERT encoder over
+`--tp_size` ranks (Megatron's blocks; the files hold the full layout), and
+only rank 0 prints, logs and writes files.
 
 Usage:
   python -m mmda_tpu_torch.cli.etl --data mosei --data_dir DIR       # the splits, once
@@ -41,6 +43,8 @@ Usage:
   torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.train --data synthetic --dp_size 2
   torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.train --device cpu --data synthetic \
       --use_bert False --dp_size 2
+  torchrun --nproc_per_node 2 -m mmda_tpu_torch.cli.train --data synthetic --dp_size 1 \
+      --tp_size 2
 """
 
 from __future__ import annotations
@@ -82,7 +86,9 @@ def main(argv=None) -> dict:
         return _train(cfg)
     finally:
         if distributed:
-            dist.destroy_process_group()
+            from mmda_tpu_torch.parallel.mesh import leave_process_group
+
+            leave_process_group()
 
 
 def _train(cfg) -> dict:

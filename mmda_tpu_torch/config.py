@@ -142,11 +142,15 @@ class Config:
     missing_modality: str = "none"
     missing_modality_prob: float = 0.0
 
-    # Parallelism: dp_size is the data-parallel mesh (parallel/mesh.py; -1:
-    # every rank of the process group, one process without one).  tp_size > 1,
-    # pp_size > 1, sp, zero1 and fsdp are refused by the trainer, naming their
-    # ROADMAP items (train/loop.py::unsupported).  Then options the port runs:
-    # MoE BERT (moe_*), the EMA shadow (ema_decay), MMIM's weights (mmim_*).
+    # Parallelism: the ('data', 'model') mesh of parallel/mesh.py under
+    # torchrun: dp_size ranks on 'data' (-1: the process group's world over
+    # tp_size; one process without a group) and tp_size on 'model' (the
+    # Megatron-sharded BERT encoder, tp dividing its heads and FFN width), in
+    # the Trainer, cli.train, Predictor(mesh=) and cli.serve.  pp_size > 1, sp,
+    # zero1, fsdp and MoE BERT on a mesh (dp or tp > 1) are refused by the
+    # trainer, naming their ROADMAP items (train/loop.py::unsupported).  Then
+    # options the port runs: MoE BERT (moe_*) on one process, the EMA shadow
+    # (ema_decay), MMIM's weights (mmim_*).
     dp_size: int = -1
     tp_size: int = 1
     pp_size: int = 1

@@ -26,7 +26,7 @@ the inverse, for the checkpoints the port's trainer writes.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,8 +82,12 @@ def transposed(path: str) -> bool:
     return path.rpartition(".")[2] == "kernel" and not path.endswith(ROUTER + ".kernel")
 
 
-def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The port state dict for `model` from a JAX parameter tree."""
+def convert_params(tree: Any, model: nn.Module,
+                   local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The port state dict for `model` from a JAX parameter tree.  `local`
+    maps (port name, full tensor) to what `model` holds of it (a rank's
+    block under tensor parallelism: `parallel/mesh.py::local_blocks`)."""
     targets = dict(model.named_parameters())
     out: Dict[str, torch.Tensor] = {}
     extra = []
@@ -95,6 +99,8 @@ def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
         value = to_tensor(leaf)
         if transposed(path):
             value = to_port_layout(value)
+        if local is not None:
+            value = local(name, value)
         if tuple(value.shape) != tuple(targets[name].shape):
             raise ValueError(f"leaf {path!r} has shape {tuple(value.shape)}, port "
                              f"parameter {name!r} needs {tuple(targets[name].shape)}")
@@ -106,9 +112,12 @@ def convert_params(tree: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
-    """Copy a JAX parameter tree into `model` (cast to its dtypes); returns it."""
-    model.load_state_dict(convert_params(tree, model), strict=True)
+def load_jax_params(model: nn.Module, tree: Any,
+                    local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                    ) -> nn.Module:
+    """Copy a JAX parameter tree into `model` (cast to its dtypes; `local`
+    as `convert_params`); returns it."""
+    model.load_state_dict(convert_params(tree, model, local), strict=True)
     return model
 
 

@@ -63,7 +63,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const int* __restrict__ seed_ptr,
                          const float* __restrict__ d_out, const float* __restrict__ lse,
                          const float* __restrict__ dsum, float* __restrict__ dk,
-                         float* __restrict__ dv, int S, int k_tiles, float scale,
+                         float* __restrict__ dv, HeadLayout heads, int S, int k_tiles, float scale,
                          float rate, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DT = D / 16;
@@ -83,7 +83,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const size_t base = (size_t)bh * S * D;
   const size_t vec_base = (size_t)bh * S;
   const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
+  const uint32_t hbase = drop ? hash_base(seed_ptr, global_bh(bh, heads)) : 0u;
 
   load_tile<D>(k_s, k + base, c0, S);
   load_tile<D>(v_s, v + base, c0, S);
@@ -165,7 +165,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
                          const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
                          const float* __restrict__ lse, const float* __restrict__ dsum,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int k_tiles,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, HeadLayout heads, int S,
+                         int k_tiles,
                          float scale, float rate, float keep_scale) {
   using G = DkvGeometry<D>;
   constexpr int TE = G::kTileElems;
@@ -190,7 +191,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)bh * S * D;
   const size_t vec_base = (size_t)bh * S;
   const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
+  const uint32_t hbase = drop ? hash_base(seed_ptr, global_bh(bh, heads)) : 0u;
   const int q_tiles = (S + kTile - 1) / kTile;
 
   auto load_stage = [&](int s, int r0) {
@@ -302,7 +303,8 @@ struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const float* bias, const int* seed, const void* d_out,
                          const float* lse, const float* dsum, void* dk, void* dv,
-                         int BH, int S, float scale, float rate, float keep_scale,
+                         int BH, HeadLayout heads, int S, float scale, float rate,
+                         float keep_scale,
                          cudaStream_t stream) {
     const int k_tiles = (S + kTile - 1) / kTile;
     if constexpr (sizeof(T) == 2) {
@@ -314,7 +316,7 @@ struct Launch {
       flash_bwd_dkv_mma_kernel<D><<<BH * k_tiles, G::kThreads, G::kSmemBytes, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), bias, seed, static_cast<const bf16*>(d_out), lse,
-          dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, k_tiles, scale, rate,
+          dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, S, k_tiles, scale, rate,
           keep_scale);
     } else {
       const size_t smem_bytes =
@@ -326,7 +328,7 @@ struct Launch {
       flash_bwd_dkv_f32_kernel<D><<<BH * k_tiles, kThreads, smem_bytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), bias, seed, static_cast<const float*>(d_out), lse,
-          dsum, static_cast<float*>(dk), static_cast<float*>(dv), S, k_tiles, scale, rate,
+          dsum, static_cast<float*>(dk), static_cast<float*>(dv), heads, S, k_tiles, scale, rate,
           keep_scale);
     }
     return cudaGetLastError();
@@ -341,21 +343,26 @@ extern "C" {
 // q, k, v, d_out, dk, dv: bf16 when is_bf16 else f32; everything contiguous
 // and 16-byte aligned; D in {16, 32, 64, 128}.  rate and keep_scale =
 // 1 / (1 - rate) already rounded to f32; seed (device int32) is read only
-// when rate > 0.
+// when rate > 0.  The BH axis holds heads head0 .. head0 + heads_local - 1
+// of heads_total per batch item (`HeadLayout`); (1, 1, 0) for all of them.
 int mmda_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        const float* bias, const int* seed, const void* d_out,
                        const float* lse, const float* dsum, void* dk, void* dv,
-                       int BH, int S, int D, int is_bf16, float scale, float rate,
+                       int BH, int S, int D, int is_bf16, int heads_local,
+                       int heads_total, int head0, float scale, float rate,
                        float keep_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (BH < 1 || S < 1 || !valid_heads(BH, heads_local, heads_total, head0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const HeadLayout heads{heads_local, heads_total, head0};
   if (is_bf16) {
     return (int)dispatch_head_dim<Launch, __nv_bfloat16>(
-        D, q, k, v, bias, seed, d_out, lse, dsum, dk, dv, BH, S, scale, rate,
+        D, q, k, v, bias, seed, d_out, lse, dsum, dk, dv, BH, heads, S, scale, rate,
         keep_scale, st);
   }
   return (int)dispatch_head_dim<Launch, float>(
-      D, q, k, v, bias, seed, d_out, lse, dsum, dk, dv, BH, S, scale, rate,
+      D, q, k, v, bias, seed, d_out, lse, dsum, dk, dv, BH, heads, S, scale, rate,
       keep_scale, st);
 }
 

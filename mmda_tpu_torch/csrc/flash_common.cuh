@@ -41,6 +41,24 @@ __device__ __forceinline__ uint32_t hash_base(const int* seed_ptr, int bh) {
   return (uint32_t)seed_ptr[0] * 40503u + (uint32_t)bh * 51329u;
 }
 
+// Which heads a launch holds: per batch item heads head0 .. head0 + local - 1
+// of total (a rank's heads under tensor parallelism; {1, 1, 0} for all of
+// them).  global_bh is the (batch, head) index the hash takes for the local
+// index bh = b * local + h: b * total + head0 + h, bh itself at {1, 1, 0}.
+struct HeadLayout {
+  int local, total, head0;
+};
+
+__device__ __forceinline__ int global_bh(int bh, HeadLayout heads) {
+  const int b = bh / heads.local;
+  return b * heads.total + heads.head0 + (bh - b * heads.local);
+}
+
+inline bool valid_heads(int BH, int local, int total, int head0) {
+  return local >= 1 && head0 >= 0 && head0 + local <= total && BH % local == 0 &&
+         (long long)(BH / local) * total < (1LL << 31);
+}
+
 constexpr uint32_t kHashRow = 2654435761u;   // the row's and the column's
 constexpr uint32_t kHashCol = 0x9E3779B9u;   // multipliers in the mix
 

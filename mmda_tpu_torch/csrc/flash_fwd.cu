@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int q_tiles, float scale,
+                     float* __restrict__ lse, HeadLayout heads, int S, int q_tiles, float scale,
                      float rate, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DT = D / 16;
@@ -86,7 +86,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x >> 4;
   const size_t base = (size_t)bh * S * D;
   const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
+  const uint32_t hbase = drop ? hash_base(seed_ptr, global_bh(bh, heads)) : 0u;
 
   load_tile<D>(q_s, q + base, row0, S);
 
@@ -178,8 +178,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int q_tiles, float scale, float rate,
-                     float keep_scale) {
+                     float* __restrict__ lse, HeadLayout heads, int S, int q_tiles, float scale,
+                     float rate, float keep_scale) {
   constexpr int TE = FwdGeometry<D>::kTileElems;
   constexpr int L = D + kRowPad;
   constexpr int KS = FwdGeometry<D>::kKeyStep;
@@ -200,7 +200,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)bh * S * D;
   const size_t vec_base = (size_t)bh * S;
   const bool drop = rate > 0.0f;
-  const uint32_t hbase = drop ? hash_base(seed_ptr, bh) : 0u;
+  const uint32_t hbase = drop ? hash_base(seed_ptr, global_bh(bh, heads)) : 0u;
   const int k_tiles = (S + kTile - 1) / kTile;
 
   auto load_stage = [&](int s, int c0) {
@@ -353,7 +353,8 @@ template <typename T, int D>
 struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const float* bias, const int* seed, float* o, float* lse,
-                         int BH, int S, float scale, float rate, float keep_scale,
+                         int BH, HeadLayout heads, int S, float scale, float rate,
+                         float keep_scale,
                          cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
       constexpr size_t smem_bytes = FwdGeometry<D>::kSmemBytes;
@@ -364,7 +365,7 @@ struct Launch {
       const int q_tiles = (S + kMmaRows - 1) / kMmaRows;
       flash_fwd_mma_kernel<D><<<BH * q_tiles, kMmaThreads, smem_bytes, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), bias, seed, o, lse, S, q_tiles, scale, rate,
+          static_cast<const bf16*>(v), bias, seed, o, lse, heads, S, q_tiles, scale, rate,
           keep_scale);
     } else {
       const size_t smem_bytes =
@@ -376,7 +377,7 @@ struct Launch {
       const int q_tiles = (S + kTile - 1) / kTile;
       flash_fwd_f32_kernel<D><<<BH * q_tiles, kThreads, smem_bytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), bias, seed, o, lse, S, q_tiles, scale, rate,
+          static_cast<const float*>(v), bias, seed, o, lse, heads, S, q_tiles, scale, rate,
           keep_scale);
     }
     return cudaGetLastError();
@@ -390,19 +391,25 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // q, k, v: bf16 when is_bf16 else f32, contiguous and 16-byte aligned; D in
 // {16, 32, 64, 128}.  rate and keep_scale = 1 / (1 - rate) already rounded to
-// f32; seed (device int32) is read only when rate > 0.
+// f32; seed (device int32) is read only when rate > 0.  The BH axis holds
+// heads head0 .. head0 + heads_local - 1 of heads_total per batch item
+// (`HeadLayout`); (1, 1, 0) for every head of the batch.
 int mmda_flash_fwd(const void* q, const void* k, const void* v, const float* bias,
                    const int* seed, float* o, float* lse, int BH, int S, int D,
-                   int is_bf16, float scale, float rate, float keep_scale,
+                   int is_bf16, int heads_local, int heads_total, int head0,
+                   float scale, float rate, float keep_scale,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (BH < 1 || S < 1 || !valid_heads(BH, heads_local, heads_total, head0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const HeadLayout heads{heads_local, heads_total, head0};
   if (is_bf16) {
     return (int)dispatch_head_dim<Launch, __nv_bfloat16>(
-        D, q, k, v, bias, seed, o, lse, BH, S, scale, rate, keep_scale, st);
+        D, q, k, v, bias, seed, o, lse, BH, heads, S, scale, rate, keep_scale, st);
   }
   return (int)dispatch_head_dim<Launch, float>(
-      D, q, k, v, bias, seed, o, lse, BH, S, scale, rate, keep_scale, st);
+      D, q, k, v, bias, seed, o, lse, BH, heads, S, scale, rate, keep_scale, st);
 }
 
 }  // extern "C"

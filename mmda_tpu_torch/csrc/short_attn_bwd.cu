@@ -143,7 +143,7 @@ short_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ v, const float* __restrict__ bias,
                           const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
                           float* __restrict__ dq, float* __restrict__ dk,
-                          float* __restrict__ dv, int nh, int S, int D, float scale,
+                          float* __restrict__ dv, int nh, int head0, int S, int D, float scale,
                           float rate, float keep_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -158,7 +158,7 @@ short_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   stage(k_s, k + base, S, D, 1.0f);
   stage(x_s, v + base, S, D, 1.0f);
@@ -372,8 +372,8 @@ short_attn_bwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v, const float* __restrict__ bias,
                                 const int* __restrict__ seed_ptr,
                                 const float* __restrict__ d_out, float* __restrict__ dq,
-                                float* __restrict__ dk, float* __restrict__ dv, int nh, int S,
-                                int D, float scale, float rate, float keep_scale, int vec) {
+                                float* __restrict__ dk, float* __restrict__ dv, int nh, int head0,
+                                int S, int D, float scale, float rate, float keep_scale, int vec) {
   namespace wg = mmda::wgmma;
   namespace st = mmda::short_tiled;
   constexpr int R = st::kTileRows, N8 = R / 8;
@@ -395,7 +395,7 @@ short_attn_bwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __rest
   const int tid = threadIdx.x - w * st::kTileThreads;
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const int lane = threadIdx.x & 31;
   const int row0 = R * w + 16 * (tid >> 5);       // the warp's queries (A), keys (B)
@@ -624,7 +624,7 @@ short_attn_bwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __rest
 template <int DP, int NW>
 cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
                              const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                             int BH, int nh, int S, int D, float scale, float rate,
+                             int BH, int nh, int head0, int S, int D, float scale, float rate,
                              float keep_scale, cudaStream_t stream) {
   constexpr size_t bytes = f32_wgmma_smem_bytes<DP, NW>();
   cudaError_t err = cudaFuncSetAttribute(short_attn_bwd_f32_wgmma_kernel<DP, NW>,
@@ -637,8 +637,8 @@ cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const 
       <<<BH, NW * mmda::short_tiled::kTileThreads, bytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), bias, seed, static_cast<const float*>(d_out),
-          static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), nh, S, D,
-          scale, rate, keep_scale, vec);
+          static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), nh, head0, S,
+          D, scale, rate, keep_scale, vec);
   return cudaGetLastError();
 }
 
@@ -687,8 +687,8 @@ short_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const bf16* __restrict__ v, const float* __restrict__ bias,
                           const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
                           bf16* __restrict__ dq, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int nh, int S, int D, int DP, float scale,
-                          float rate, float keep_scale) {
+                          bf16* __restrict__ dv, int nh, int head0, int S, int D, int DP,
+                          float scale, float rate, float keep_scale) {
   constexpr int NT = 2 * SP;     // SP / 16 warps
   constexpr int N8 = SP / 8;     // n8 tiles of a 16 x SP block
   constexpr int K16 = SP / 16;   // k16 slices of it as an operand
@@ -705,7 +705,7 @@ short_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   load_operand(q_s, ld, q + base, S, D, SP, DP, NT);
   load_operand(k_s, ld, k + base, S, D, SP, DP, NT);
@@ -824,7 +824,7 @@ short_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 template <int SP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv, int BH,
-                       int nh, int S, int D, float scale, float rate, float keep_scale,
+                       int nh, int head0, int S, int D, float scale, float rate, float keep_scale,
                        cudaStream_t stream) {
   const int DP = (D + 15) / 16 * 16;
   const size_t bytes = mma_smem_bytes<SP>(DP);
@@ -834,13 +834,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   short_attn_bwd_mma_kernel<SP><<<BH, 2 * SP, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, seed, static_cast<const bf16*>(d_out), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh, S, D, DP, scale, rate, keep_scale);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh, head0, S, D, DP, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv, int BH,
-                       int nh, int S, int D, float scale, float rate, float keep_scale,
+                       int nh, int head0, int S, int D, float scale, float rate, float keep_scale,
                        cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -849,7 +849,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   short_attn_bwd_f32_kernel<<<BH, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       bias, seed, static_cast<const float*>(d_out), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), nh, S, D, scale, rate, keep_scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), nh, head0, S, D, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -863,23 +863,26 @@ extern "C" {
 // memory, smem_bytes, within the card's opt-in limit).  impl, scale, rate
 // and keep_scale as for mmda_short_attn_fwd; seed (device int32) is read
 // only when rate > 0.
+// head0: q, k, v hold heads head0 .. head0 + nh - 1 of a larger set (a rank's
+// heads under tensor parallelism); the dropout hash takes h = head0 + the
+// local head, so 0 gives every head of one process its own mask.
 int mmda_short_attn_bwd(const void* q, const void* k, const void* v, const float* bias,
                         const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                        int B, int nh, int S, int D, int is_bf16, int impl, float scale,
-                        float rate, float keep_scale, void* stream) {
-  if (B < 1 || nh < 1 || S < 1 || S > kMaxS || D < 1 || D > kMaxD) {
+                        int B, int nh, int S, int D, int is_bf16, int impl, int head0,
+                        float scale, float rate, float keep_scale, void* stream) {
+  if (B < 1 || nh < 1 || head0 < 0 || S < 1 || S > kMaxS || D < 1 || D > kMaxD) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
     if (impl == 1) {
-      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D, scale, rate,
-                             keep_scale, st);
+      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, head0, S, D, scale,
+                             rate, keep_scale, st);
     }
 #define MMDA_SHORT_BWD_F32(DP, NW)                                                             \
-  return (int)launch_f32_wgmma<DP, NW>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D,   \
-                                       scale, rate, keep_scale, st)
+  return (int)launch_f32_wgmma<DP, NW>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, head0, S, \
+                                       D, scale, rate, keep_scale, st)
     if (S <= 64) {
       if (D <= 64) MMDA_SHORT_BWD_F32(64, 1);
       MMDA_SHORT_BWD_F32(128, 1);
@@ -891,7 +894,7 @@ int mmda_short_attn_bwd(const void* q, const void* k, const void* v, const float
   switch ((S + 15) / 16) {
 #define MMDA_SHORT_BWD_CASE(n)                                                              \
   case n:                                                                                   \
-    return (int)launch_mma<16 * n>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, S, D,    \
+    return (int)launch_mma<16 * n>(q, k, v, bias, seed, d_out, dq, dk, dv, BH, nh, head0, S, D, \
                                    scale, rate, keep_scale, st);
     MMDA_SHORT_BWD_CASE(1)
     MMDA_SHORT_BWD_CASE(2)

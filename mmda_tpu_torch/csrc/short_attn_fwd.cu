@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kThreads)
 short_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ bias,
                           const int* __restrict__ seed_ptr, float* __restrict__ o, int nh,
-                          int S, int D, float scale, float rate, float keep_scale) {
+                          int head0, int S, int D, float scale, float rate, float keep_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* k_s = smem;                      // (S, D + 1)
@@ -136,7 +136,7 @@ short_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   for (int e = threadIdx.x; e < S * D; e += kThreads) {
     const int r = e / D;
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(NW * mmda::short_tiled::kTileThreads,
 short_attn_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ bias,
                                 const int* __restrict__ seed_ptr, float* __restrict__ o, int nh,
-                                int S, int D, float scale, float rate, float keep_scale,
+                                int head0, int S, int D, float scale, float rate, float keep_scale,
                                 int vec) {
   namespace wg = mmda::wgmma;
   namespace st = mmda::short_tiled;
@@ -249,7 +249,7 @@ short_attn_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __rest
   const int tid = threadIdx.x - w * st::kTileThreads;
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const int lane = threadIdx.x & 31;
   const int row0 = R * w + 16 * (tid >> 5);       // the warp's queries
@@ -354,7 +354,7 @@ short_attn_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __rest
 
 template <int DP, int NW>
 cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
-                             const int* seed, void* o, int BH, int nh, int S, int D,
+                             const int* seed, void* o, int BH, int nh, int head0, int S, int D,
                              float scale, float rate, float keep_scale, cudaStream_t stream) {
   constexpr size_t bytes = f32_wgmma_smem_bytes<DP, NW>();
   cudaError_t err = cudaFuncSetAttribute(short_attn_fwd_f32_wgmma_kernel<DP, NW>,
@@ -365,8 +365,8 @@ cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const 
   short_attn_fwd_f32_wgmma_kernel<DP, NW>
       <<<BH, NW * mmda::short_tiled::kTileThreads, bytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), bias, seed, static_cast<float*>(o), nh, S, D, scale, rate,
-          keep_scale, vec);
+          static_cast<const float*>(v), bias, seed, static_cast<float*>(o), nh, head0, S, D, scale,
+          rate, keep_scale, vec);
   return cudaGetLastError();
 }
 
@@ -382,7 +382,7 @@ template <int SP>
 __global__ void __launch_bounds__(2 * SP)
 short_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const int* __restrict__ seed_ptr, bf16* __restrict__ o, int nh,
+                          const int* __restrict__ seed_ptr, bf16* __restrict__ o, int nh, int head0,
                           int S, int D, int DP, float scale, float rate, float keep_scale) {
   constexpr int NT = 2 * SP;     // SP / 16 warps
   constexpr int N8 = SP / 8;     // n8 tiles of a 16 x SP block
@@ -396,7 +396,7 @@ short_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   mmda::short_mma::load_operand_async(q_s, ld, q + base, S, D, SP, DP, NT);
   mmda::short_mma::load_operand_async(k_s, ld, k + base, S, D, SP, DP, NT);
@@ -479,8 +479,8 @@ short_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int SP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
-                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
-                       float rate, float keep_scale, cudaStream_t stream) {
+                       const int* seed, void* o, int BH, int nh, int head0, int S, int D,
+                       float scale, float rate, float keep_scale, cudaStream_t stream) {
   const int DP = (D + 15) / 16 * 16;
   const size_t bytes = mma_smem_bytes<SP>(DP);
   cudaError_t err = cudaFuncSetAttribute(
@@ -488,20 +488,20 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   if (err != cudaSuccess) return err;
   short_attn_fwd_mma_kernel<SP><<<BH, 2 * SP, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<bf16*>(o), nh, S, D, DP, scale, rate, keep_scale);
+      bias, seed, static_cast<bf16*>(o), nh, head0, S, D, DP, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
-                       const int* seed, void* o, int BH, int nh, int S, int D, float scale,
-                       float rate, float keep_scale, cudaStream_t stream) {
+                       const int* seed, void* o, int BH, int nh, int head0, int S, int D,
+                       float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
       short_attn_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   short_attn_fwd_f32_kernel<<<BH, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<float*>(o), nh, S, D, scale, rate, keep_scale);
+      bias, seed, static_cast<float*>(o), nh, head0, S, D, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -516,21 +516,25 @@ extern "C" {
 // six bf16 term products on wgmma, 1 f32 FMAs; bf16 has one.  scale = 1 /
 // sqrt(D), rate and keep_scale = 1 / (1 - rate) already rounded to f32;
 // seed (device int32) is read only when rate > 0.
+// head0: q, k, v hold heads head0 .. head0 + nh - 1 of a larger set (a rank's
+// heads under tensor parallelism); the dropout hash takes h = head0 + the
+// local head, so 0 gives every head of one process its own mask.
 int mmda_short_attn_fwd(const void* q, const void* k, const void* v, const float* bias,
                         const int* seed, void* o, int B, int nh, int S, int D,
-                        int is_bf16, int impl, float scale, float rate, float keep_scale,
-                        void* stream) {
-  if (B < 1 || nh < 1 || S < 1 || S > kMaxS || D < 1 || D > kMaxD) {
+                        int is_bf16, int impl, int head0, float scale, float rate,
+                        float keep_scale, void* stream) {
+  if (B < 1 || nh < 1 || head0 < 0 || S < 1 || S > kMaxS || D < 1 || D > kMaxD) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
     if (impl == 1) {
-      return (int)launch_f32(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate, keep_scale, st);
+      return (int)launch_f32(q, k, v, bias, seed, o, BH, nh, head0, S, D, scale, rate, keep_scale,
+                             st);
     }
 #define MMDA_SHORT_FWD_F32(DP, NW)                                                        \
-  return (int)launch_f32_wgmma<DP, NW>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate, \
+  return (int)launch_f32_wgmma<DP, NW>(q, k, v, bias, seed, o, BH, nh, head0, S, D, scale, rate, \
                                        keep_scale, st)
     if (S <= 64) {
       if (D <= 64) MMDA_SHORT_FWD_F32(64, 1);
@@ -543,7 +547,7 @@ int mmda_short_attn_fwd(const void* q, const void* k, const void* v, const float
   switch ((S + 15) / 16) {
 #define MMDA_SHORT_FWD_CASE(n)                                                              \
   case n:                                                                                   \
-    return (int)launch_mma<16 * n>(q, k, v, bias, seed, o, BH, nh, S, D, scale, rate,       \
+    return (int)launch_mma<16 * n>(q, k, v, bias, seed, o, BH, nh, head0, S, D, scale, rate, \
                                    keep_scale, st);
     MMDA_SHORT_FWD_CASE(1)
     MMDA_SHORT_FWD_CASE(2)

@@ -155,8 +155,8 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ bias,
                     const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
                     const float* __restrict__ stats, const float* __restrict__ r_g,
-                    bf16* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
-                    float rate, float keep_scale) {
+                    bf16* __restrict__ dq, int nh, int head0, int S, int D, int q_tiles,
+                    float scale, float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
   constexpr int L = DP + kRowPad;
@@ -170,7 +170,7 @@ tiled_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
@@ -243,7 +243,7 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, const bf16* __restrict__ d_out,
                      const float* __restrict__ stats, const float* __restrict__ r_g,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int nh, int S, int D,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int nh, int head0, int S, int D,
                      int k_tiles, float scale, float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
@@ -258,7 +258,7 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x / k_tiles;
   const int k0 = (blockIdx.x - bh * k_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
@@ -338,7 +338,7 @@ tiled_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                       const float* stats, const float* r, int BH, int nh, int S, int D,
+                       const float* stats, const float* r, int BH, int nh, int head0, int S, int D,
                        float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t dq_bytes = dq_smem_bytes<DP>(), dkv_bytes = dkv_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -350,14 +350,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   const int tiles = (S + kTileRows - 1) / kTileRows;
   tiled_dq_mma_kernel<DP><<<BH * tiles, kTileThreads, dq_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<const bf16*>(d_out), stats, r, static_cast<bf16*>(dq), nh, S, D,
-      tiles, scale, rate, keep_scale);
+      bias, seed, static_cast<const bf16*>(d_out), stats, r, static_cast<bf16*>(dq), nh, head0, S,
+      D, tiles, scale, rate, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_dkv_mma_kernel<DP><<<BH * tiles, kTileThreads, dkv_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, seed, static_cast<const bf16*>(d_out), stats, r, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), nh, S, D, tiles, scale, rate, keep_scale);
+      static_cast<bf16*>(dv), nh, head0, S, D, tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -386,8 +386,8 @@ tiled_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ bias,
                       const int* __restrict__ seed_ptr, const float* __restrict__ stats,
-                      const float* __restrict__ r_g, bf16* __restrict__ dq, int nh, int S, int D,
-                      int q_tiles, float scale, float rate, float keep_scale) {
+                      const float* __restrict__ r_g, bf16* __restrict__ dq, int nh, int head0,
+                      int S, int D, int q_tiles, float scale, float rate, float keep_scale) {
   namespace wg = mmda::wgmma;
   constexpr int NB = wg_rows<DP, false>(), N8 = NB / 8, TILE = NB * DP;
   extern __shared__ unsigned char smem_raw[];
@@ -401,7 +401,7 @@ tiled_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
@@ -484,8 +484,8 @@ tiled_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ bias,
                        const int* __restrict__ seed_ptr, const float* __restrict__ stats,
                        const float* __restrict__ r_g, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int nh, int S, int D, int k_tiles, float scale,
-                       float rate, float keep_scale) {
+                       bf16* __restrict__ dv, int nh, int head0, int S, int D, int k_tiles,
+                       float scale, float rate, float keep_scale) {
   namespace wg = mmda::wgmma;
   constexpr int NB = wg_rows<DP, true>(), N8 = NB / 8, TILE = NB * DP;
   extern __shared__ unsigned char smem_raw[];
@@ -499,7 +499,7 @@ tiled_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x / k_tiles;
   const int k0 = (blockIdx.x - bh * k_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
@@ -599,8 +599,8 @@ tiled_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                          const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                         const float* stats, const float* r, int BH, int nh, int S, int D,
-                         float scale, float rate, float keep_scale, cudaStream_t stream) {
+                         const float* stats, const float* r, int BH, int nh, int head0, int S,
+                         int D, float scale, float rate, float keep_scale, cudaStream_t stream) {
   namespace wg = mmda::wgmma;
   constexpr int NBQ = wg_rows<DP, false>(), NBK = wg_rows<DP, true>();
   CUtensorMap tq, tk, tv, tdo, sq, sdo;    // the dq kernel's maps, then the dk/dv kernel's
@@ -620,8 +620,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
   if (err != cudaSuccess) return err;
   const int tiles = (S + kTileRows - 1) / kTileRows;
   tiled_dq_wgmma_kernel<DP><<<BH * tiles, kTileThreads, dq_bytes, stream>>>(
-      tq, tk, tv, tdo, bias, seed, stats, r, static_cast<bf16*>(dq), nh, S, D, tiles, scale, rate,
-      keep_scale);
+      tq, tk, tv, tdo, bias, seed, stats, r, static_cast<bf16*>(dq), nh, head0, S, D, tiles, scale,
+      rate, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the dk/dv kernel's own rows are 64-row boxes of k and v: tq's and tdo's
@@ -632,7 +632,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
   }
   tiled_dkv_wgmma_kernel<DP><<<BH * tiles, kTileThreads, dkv_bytes, stream>>>(
       sq, bk, bv, sdo, bias, seed, stats, r, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh,
-      S, D, tiles, scale, rate, keep_scale);
+      head0, S, D, tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -650,8 +650,8 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
                     const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
                     const float* __restrict__ stats, const float* __restrict__ r_g,
-                    float* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
-                    float rate, float keep_scale) {
+                    float* __restrict__ dq, int nh, int head0, int S, int D, int q_tiles,
+                    float scale, float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -666,7 +666,7 @@ tiled_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kF32Rows + warp * R;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const KeepMask keep(seed_ptr, b, h, S, rate);
@@ -755,8 +755,8 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
                      const float* __restrict__ stats, const float* __restrict__ r_g,
-                     float* __restrict__ dk, float* __restrict__ dv, int nh, int S, int D,
-                     int k_tiles, float scale, float rate, float keep_scale) {
+                     float* __restrict__ dk, float* __restrict__ dv, int nh, int head0, int S,
+                     int D, int k_tiles, float scale, float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -774,7 +774,7 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kb0 = (blockIdx.x - bh * k_tiles) * kF32Rows;
   const int k0 = kb0 + warp * R;          // the warp's keys
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const KeepMask keep(seed_ptr, b, h, S, rate);
   const int q_tiles = (S + kF32Rows - 1) / kF32Rows;
@@ -850,7 +850,7 @@ tiled_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                       const float* stats, const float* r, int BH, int nh, int S, int D,
+                       const float* stats, const float* r, int BH, int nh, int head0, int S, int D,
                        float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t dq_bytes = dq_f32_smem_bytes(D), dkv_bytes = dkv_f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(tiled_dq_f32_kernel,
@@ -863,14 +863,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   const int tiles = (S + kF32Rows - 1) / kF32Rows;
   tiled_dq_f32_kernel<<<BH * tiles, kF32Threads, dq_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<const float*>(d_out), stats, r, static_cast<float*>(dq), nh, S, D,
-      tiles, scale, rate, keep_scale);
+      bias, seed, static_cast<const float*>(d_out), stats, r, static_cast<float*>(dq), nh, head0, S,
+      D, tiles, scale, rate, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_dkv_f32_kernel<<<BH * tiles, kF32Threads, dkv_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       bias, seed, static_cast<const float*>(d_out), stats, r, static_cast<float*>(dk),
-      static_cast<float*>(dv), nh, S, D, tiles, scale, rate, keep_scale);
+      static_cast<float*>(dv), nh, head0, S, D, tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -935,8 +935,8 @@ tiled_dq_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ v, const float* __restrict__ bias,
                           const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
                           const float* __restrict__ stats, const float* __restrict__ r_g,
-                          float* __restrict__ dq, int nh, int S, int D, int q_tiles, float scale,
-                          float rate, float keep_scale, int vec) {
+                          float* __restrict__ dq, int nh, int head0, int S, int D, int q_tiles,
+                          float scale, float rate, float keep_scale, int vec) {
   namespace wg = mmda::wgmma;
   constexpr int NB = kF32StreamRows, N8 = NB / 8;
   constexpr int QT = kTileRows * DP, KT = NB * DP;   // elements of a term tile
@@ -950,7 +950,7 @@ tiled_dq_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
@@ -1013,8 +1013,8 @@ tiled_dkv_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ v, const float* __restrict__ bias,
                            const int* __restrict__ seed_ptr, const float* __restrict__ d_out,
                            const float* __restrict__ stats, const float* __restrict__ r_g,
-                           float* __restrict__ dk, float* __restrict__ dv, int nh, int S, int D,
-                           int k_tiles, float scale, float rate, float keep_scale, int vec) {
+                           float* __restrict__ dk, float* __restrict__ dv, int nh, int head0, int S,
+                           int D, int k_tiles, float scale, float rate, float keep_scale, int vec) {
   namespace wg = mmda::wgmma;
   constexpr int NB = kF32StreamRows, N8 = NB / 8;
   constexpr int KT = kTileRows * DP, QT = NB * DP;   // elements of a term tile
@@ -1028,7 +1028,7 @@ tiled_dkv_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict_
   const int bh = blockIdx.x / k_tiles;
   const int k0 = (blockIdx.x - bh * k_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
@@ -1087,8 +1087,9 @@ tiled_dkv_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict_
 template <int DP>
 cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
                              const int* seed, const void* d_out, void* dq, void* dk, void* dv,
-                             const float* stats, const float* r, int BH, int nh, int S, int D,
-                             float scale, float rate, float keep_scale, cudaStream_t stream) {
+                             const float* stats, const float* r, int BH, int nh, int head0, int S,
+                             int D, float scale, float rate, float keep_scale,
+                             cudaStream_t stream) {
   constexpr size_t bytes = f32_wgmma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(tiled_dq_f32_wgmma_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1104,13 +1105,13 @@ cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const 
   const float* fv = static_cast<const float*>(v);
   const float* fdo = static_cast<const float*>(d_out);
   tiled_dq_f32_wgmma_kernel<DP><<<BH * tiles, kTileThreads, bytes, stream>>>(
-      fq, fk, fv, bias, seed, fdo, stats, r, static_cast<float*>(dq), nh, S, D, tiles, scale,
+      fq, fk, fv, bias, seed, fdo, stats, r, static_cast<float*>(dq), nh, head0, S, D, tiles, scale,
       rate, keep_scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_dkv_f32_wgmma_kernel<DP><<<BH * tiles, kTileThreads, bytes, stream>>>(
       fq, fk, fv, bias, seed, fdo, stats, r, static_cast<float*>(dk), static_cast<float*>(dv), nh,
-      S, D, tiles, scale, rate, keep_scale, vec);
+      head0, S, D, tiles, scale, rate, keep_scale, vec);
   return cudaGetLastError();
 }
 
@@ -1125,12 +1126,17 @@ extern "C" {
 // ((B, nh, S, D) f32) as the training forward wrote them; r: (B nh S) f32
 // scratch the caller allocates.  impl, scale, rate and keep_scale as for
 // mmda_short_attn_tiled_fwd; seed (device int32) is read only when rate > 0.
+// head0: q, k, v hold heads head0 .. head0 + nh - 1 of a larger set (a rank's
+// heads under tensor parallelism); the dropout hash takes h = head0 + the
+// local head, so 0 gives every head of one process its own mask.
 int mmda_short_attn_tiled_bwd(const void* q, const void* k, const void* v, const float* bias,
                               const int* seed, const void* d_out, void* dq, void* dk, void* dv,
                               const float* stats, const float* o32, float* r, int B, int nh,
-                              int S, int D, int is_bf16, int impl, float scale, float rate,
-                              float keep_scale, void* stream) {
-  if (B < 1 || nh < 1 || S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+                              int S, int D, int is_bf16, int impl, int head0, float scale,
+                              float rate, float keep_scale, void* stream) {
+  if (B < 1 || nh < 1 || head0 < 0 || S < 1 || D < 1 || D > kMaxD) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   const size_t n = (size_t)BH * S;
@@ -1139,28 +1145,28 @@ int mmda_short_attn_tiled_bwd(const void* q, const void* k, const void* v, const
   if (err != cudaSuccess) return (int)err;
   if (!is_bf16) {
     if (impl == 1) {
-      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
+      return (int)launch_f32(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, head0, S, D,
                              scale, rate, keep_scale, st);
     }
     if (D <= 64) {
       return (int)launch_f32_wgmma<64>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh,
-                                       S, D, scale, rate, keep_scale, st);
+                                       head0, S, D, scale, rate, keep_scale, st);
     }
     return (int)launch_f32_wgmma<128>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh,
-                                      S, D, scale, rate, keep_scale, st);
+                                      head0, S, D, scale, rate, keep_scale, st);
   }
   if (impl != 1 && D > 32 && mmda::wgmma::takes(q, D) && mmda::wgmma::takes(k, D) &&
       mmda::wgmma::takes(v, D) && mmda::wgmma::takes(d_out, D)) {
     if (D <= 64) {
-      return (int)launch_wgmma<64>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S,
-                                   D, scale, rate, keep_scale, st);
+      return (int)launch_wgmma<64>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, head0,
+                                   S, D, scale, rate, keep_scale, st);
     }
-    return (int)launch_wgmma<128>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D,
-                                  scale, rate, keep_scale, st);
+    return (int)launch_wgmma<128>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, head0,
+                                  S, D, scale, rate, keep_scale, st);
   }
 #define MMDA_TILED_BWD(DP)                                                                  \
-  return (int)launch_mma<DP>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, S, D, \
-                             scale, rate, keep_scale, st)
+  return (int)launch_mma<DP>(q, k, v, bias, seed, d_out, dq, dk, dv, stats, r, BH, nh, head0, S, \
+                             D, scale, rate, keep_scale, st)
   if (D <= 16) MMDA_TILED_BWD(16);
   if (D <= 32) MMDA_TILED_BWD(32);
   if (D <= 64) MMDA_TILED_BWD(64);

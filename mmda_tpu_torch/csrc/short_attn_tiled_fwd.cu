@@ -94,8 +94,8 @@ __global__ void __launch_bounds__(kTileThreads)
 tiled_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, bf16* __restrict__ o,
-                     float* __restrict__ stats, float* __restrict__ o32, int nh, int S, int D,
-                     int q_tiles, float scale, float rate, float keep_scale) {
+                     float* __restrict__ stats, float* __restrict__ o32, int nh, int head0, int S,
+                     int D, int q_tiles, float scale, float rate, float keep_scale) {
   constexpr int NB = stream_rows<DP>();
   constexpr int N8 = NB / 8;
   constexpr int L = DP + kRowPad;
@@ -108,7 +108,7 @@ tiled_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
@@ -158,7 +158,7 @@ tiled_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
                        const int* seed, void* o, float* stats, float* o32, int BH, int nh,
-                       int S, int D, float scale, float rate, float keep_scale,
+                       int head0, int S, int D, float scale, float rate, float keep_scale,
                        cudaStream_t stream) {
   const size_t bytes = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_mma_kernel<DP>,
@@ -167,7 +167,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   const int q_tiles = (S + kTileRows - 1) / kTileRows;
   tiled_fwd_mma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, seed, static_cast<bf16*>(o), stats, o32, nh, S, D, q_tiles, scale, rate,
+      bias, seed, static_cast<bf16*>(o), stats, o32, nh, head0, S, D, q_tiles, scale, rate,
       keep_scale);
   return cudaGetLastError();
 }
@@ -190,8 +190,8 @@ tiled_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
                        const int* __restrict__ seed_ptr, bf16* __restrict__ o,
-                       float* __restrict__ stats, float* __restrict__ o32, int nh, int S, int D,
-                       int q_tiles, float scale, float rate, float keep_scale) {
+                       float* __restrict__ stats, float* __restrict__ o32, int nh, int head0, int S,
+                       int D, int q_tiles, float scale, float rate, float keep_scale) {
   namespace wg = mmda::wgmma;
   constexpr int NB = kWgNB, N8 = NB / 8, TILE = NB * DP;
   extern __shared__ unsigned char smem_raw[];
@@ -204,7 +204,7 @@ tiled_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * (threadIdx.x >> 5);
@@ -270,7 +270,7 @@ tiled_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                          const int* seed, void* o, float* stats, float* o32, int BH, int nh,
-                         int S, int D, float scale, float rate, float keep_scale,
+                         int head0, int S, int D, float scale, float rate, float keep_scale,
                          cudaStream_t stream) {
   namespace wg = mmda::wgmma;
   CUtensorMap tq, tk, tv;
@@ -284,8 +284,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
   if (err != cudaSuccess) return err;
   const int q_tiles = (S + kTileRows - 1) / kTileRows;
   tiled_fwd_wgmma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
-      tq, tk, tv, bias, seed, static_cast<bf16*>(o), stats, o32, nh, S, D, q_tiles, scale, rate,
-      keep_scale);
+      tq, tk, tv, bias, seed, static_cast<bf16*>(o), stats, o32, nh, head0, S, D, q_tiles, scale,
+      rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -301,8 +301,8 @@ __global__ void __launch_bounds__(kF32Threads)
 tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ seed_ptr, float* __restrict__ o,
-                     float* __restrict__ stats, int nh, int S, int D, int q_tiles, float scale,
-                     float rate, float keep_scale) {
+                     float* __restrict__ stats, int nh, int head0, int S, int D, int q_tiles,
+                     float scale, float rate, float keep_scale) {
   constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -316,7 +316,7 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kF32Rows + warp * R;   // the warp's rows
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const KeepMask keep(seed_ptr, b, h, S, rate);
@@ -400,8 +400,8 @@ tiled_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias,
-                       const int* seed, void* o, float* stats, int BH, int nh, int S, int D,
-                       float scale, float rate, float keep_scale, cudaStream_t stream) {
+                       const int* seed, void* o, float* stats, int BH, int nh, int head0, int S,
+                       int D, float scale, float rate, float keep_scale, cudaStream_t stream) {
   const size_t bytes = f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -409,7 +409,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   const int q_tiles = (S + kF32Rows - 1) / kF32Rows;
   tiled_fwd_f32_kernel<<<BH * q_tiles, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<float*>(o), stats, nh, S, D, q_tiles, scale, rate, keep_scale);
+      bias, seed, static_cast<float*>(o), stats, nh, head0, S, D, q_tiles, scale, rate, keep_scale);
   return cudaGetLastError();
 }
 
@@ -436,7 +436,7 @@ __global__ void __launch_bounds__(kTileThreads, DP == 64 ? 3 : 1)
 tiled_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const float* __restrict__ bias,
                            const int* __restrict__ seed_ptr, float* __restrict__ o,
-                           float* __restrict__ stats, int nh, int S, int D, int q_tiles,
+                           float* __restrict__ stats, int nh, int head0, int S, int D, int q_tiles,
                            float scale, float rate, float keep_scale, int vec) {
   namespace wg = mmda::wgmma;
   constexpr int NB = f32_key_rows<DP>(), N8 = NB / 8;
@@ -450,7 +450,7 @@ tiled_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict_
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x - bh * q_tiles) * kTileRows;
   const int b = bh / nh;
-  const int h = bh - b * nh;
+  const int h = head0 + bh - b * nh;
   const size_t base = (size_t)bh * S * D;
   const float* bias_b = bias + (size_t)b * S;
   const int lane = threadIdx.x & 31;
@@ -508,8 +508,8 @@ tiled_fwd_f32_wgmma_kernel(const float* __restrict__ q, const float* __restrict_
 
 template <int DP>
 cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const float* bias,
-                             const int* seed, void* o, float* stats, int BH, int nh, int S,
-                             int D, float scale, float rate, float keep_scale,
+                             const int* seed, void* o, float* stats, int BH, int nh, int head0,
+                             int S, int D, float scale, float rate, float keep_scale,
                              cudaStream_t stream) {
   constexpr size_t bytes = f32_wgmma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_f32_wgmma_kernel<DP>,
@@ -519,7 +519,8 @@ cudaError_t launch_f32_wgmma(const void* q, const void* k, const void* v, const 
   const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   tiled_fwd_f32_wgmma_kernel<DP><<<BH * q_tiles, kTileThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, seed, static_cast<float*>(o), stats, nh, S, D, q_tiles, scale, rate, keep_scale, vec);
+      bias, seed, static_cast<float*>(o), stats, nh, head0, S, D, q_tiles, scale, rate, keep_scale,
+      vec);
   return cudaGetLastError();
 }
 
@@ -537,36 +538,41 @@ extern "C" {
 // the six bf16 term products on wgmma (any D), 1 f32 FMAs.  scale = 1 /
 // sqrt(D), rate and keep_scale = 1 / (1 - rate) already rounded to f32;
 // seed (device int32) is read only when rate > 0.
+// head0: q, k, v hold heads head0 .. head0 + nh - 1 of a larger set (a rank's
+// heads under tensor parallelism); the dropout hash takes h = head0 + the
+// local head, so 0 gives every head of one process its own mask.
 int mmda_short_attn_tiled_fwd(const void* q, const void* k, const void* v, const float* bias,
                               const int* seed, void* o, float* stats, float* o32, int B, int nh,
-                              int S, int D, int is_bf16, int impl, float scale, float rate,
-                              float keep_scale, void* stream) {
-  if (B < 1 || nh < 1 || S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+                              int S, int D, int is_bf16, int impl, int head0, float scale,
+                              float rate, float keep_scale, void* stream) {
+  if (B < 1 || nh < 1 || head0 < 0 || S < 1 || D < 1 || D > kMaxD) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * nh;
   if (!is_bf16) {
     if (impl == 1) {
-      return (int)launch_f32(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
+      return (int)launch_f32(q, k, v, bias, seed, o, stats, BH, nh, head0, S, D, scale, rate,
                              keep_scale, st);
     }
     if (D <= 64) {
-      return (int)launch_f32_wgmma<64>(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
-                                       keep_scale, st);
+      return (int)launch_f32_wgmma<64>(q, k, v, bias, seed, o, stats, BH, nh, head0, S, D, scale,
+                                       rate, keep_scale, st);
     }
-    return (int)launch_f32_wgmma<128>(q, k, v, bias, seed, o, stats, BH, nh, S, D, scale, rate,
-                                      keep_scale, st);
+    return (int)launch_f32_wgmma<128>(q, k, v, bias, seed, o, stats, BH, nh, head0, S, D, scale,
+                                      rate, keep_scale, st);
   }
 #define MMDA_TILED_FWD(DP)                                                                \
-  return (int)launch_mma<DP>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale, rate, \
+  return (int)launch_mma<DP>(q, k, v, bias, seed, o, stats, o32, BH, nh, head0, S, D, scale, rate, \
                              keep_scale, st)
   if (impl != 1 && D > 32 && mmda::wgmma::takes(q, D) && mmda::wgmma::takes(k, D) &&
       mmda::wgmma::takes(v, D)) {
     if (D <= 64) {
-      return (int)launch_wgmma<64>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale,
+      return (int)launch_wgmma<64>(q, k, v, bias, seed, o, stats, o32, BH, nh, head0, S, D, scale,
                                    rate, keep_scale, st);
     }
-    return (int)launch_wgmma<128>(q, k, v, bias, seed, o, stats, o32, BH, nh, S, D, scale, rate,
-                                  keep_scale, st);
+    return (int)launch_wgmma<128>(q, k, v, bias, seed, o, stats, o32, BH, nh, head0, S, D, scale,
+                                  rate, keep_scale, st);
   }
   if (D <= 16) MMDA_TILED_FWD(16);
   if (D <= 32) MMDA_TILED_FWD(32);

@@ -45,6 +45,23 @@ package stores their transpose).  `quantize_bert_int8` turns the six encoder
 denses of every layer into `QuantizedDense` (weight-only int8, one f32 scale
 per output channel) for serving.
 
+Tensor parallelism (`parallel/mesh.py`, the JAX package's Megatron rules,
+`_bert_layer_spec`): `shard_params` leaves each rank of a 'model' row its
+block of q, k, v and ffn_in (output columns) and of attn_out and ffn_out
+(input columns) and gives the encoder the mesh (`tp_mesh`), and a layer
+runs nh / tp heads: q, k and v from the rank's own blocks of the three
+weights, concatenated per rank; `copy_to_model` before the column-parallel
+products, and after the row-parallel ones their f32 parts summed over
+'model' (`reduce_from_model`), rounded once to the compute dtype and the
+whole bias added once, as the one-process product rounds it.  The key bias
+is built for the local heads, and each attention core takes the rank's
+first head, head0 = tp_rank nh / tp: "fused" and "flash" pass it to the
+kernels, which draw the masks of the global heads; "xla" draws its
+probability dropout from the generator over all heads, as one process
+draws it, and keeps its heads' slice.  So every rank of a row draws alike
+and keeps the one-process masks.  The hidden dropout and the fused LayerNorm sites act on
+activations every rank of the row holds whole, from the same generator.
+
 `moe_experts > 0` replaces every layer's FFN by a Switch / GShard MoE
 (`ops/moe.py::SwitchFFN`, the JAX layout: `moe.gate` (H, E) and E-leading
 expert weights), routed per example under `moe_group_by_example`; the layer
@@ -70,6 +87,7 @@ from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 from mmda_tpu_torch.ops.kernels.short_attention import short_attention
 from mmda_tpu_torch.ops.moe import SwitchFFN, switch_ffn
+from mmda_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 from mmda_tpu_torch.utils import safetensors_io
 
 
@@ -230,6 +248,8 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
+    tp_mesh = None          # the mesh its forward runs on, set by `parallel.mesh.shard_params`
+
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -392,18 +412,67 @@ def bert_embed(p: BertEmbeddings, input_ids: torch.Tensor,
     return layer_norm(emb, p.ln.weight, p.ln.bias, eps).to(compute_dtype)
 
 
+class _ProductF32(torch.autograd.Function):
+    """x @ w.T of 16-bit operands on the card, its f32 accumulation kept
+    (`out_dtype`).  The backward's products run in the operands' dtype:
+    the incoming gradient is that of the product's sum rounded to that
+    dtype (`row_parallel_dense`), so it holds exactly in it, and each
+    product accumulates in f32 and rounds once, as the f32 product of the
+    same operands would after its cast back."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return g @ w, dw
+
+
+def product_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """x @ w.T with both operands in compute_dtype, accumulated and
+    returned in f32: on the card a 16-bit product on the tensor cores that
+    keeps its f32 result (`_ProductF32`), elsewhere the f32 product of the
+    same operands (exact in f32), the same sum."""
+    if x.is_cuda and compute_dtype != torch.float32:
+        return _ProductF32.apply(x.to(compute_dtype), w.to(compute_dtype))
+    return torch.matmul(x.float(), w.to(compute_dtype).float().t())
+
+
+def row_parallel_dense(x: torch.Tensor, d: nn.Module, compute_dtype: torch.dtype,
+                       mesh) -> torch.Tensor:
+    """`dense` of a row-parallel layer whose input columns are sharded over
+    'model': this rank's f32 part of x @ weight.T (`product_f32`; the int8
+    layout: times nothing yet), summed over 'model', then the one-process
+    rounding: the per-channel scale (int8), one rounding to compute_dtype,
+    the whole bias in compute_dtype."""
+    if isinstance(d, QuantizedDense):
+        y = reduce_from_model(product_f32(x, d.weight_q, compute_dtype), mesh)
+        return (y * d.scale.float()).to(compute_dtype) + d.bias.to(compute_dtype)
+    y = product_f32(x, d.weight, compute_dtype)
+    return reduce_from_model(y, mesh).to(compute_dtype) + d.bias.to(compute_dtype)
+
+
 def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                key_bias: torch.Tensor, compute_dtype: torch.dtype,
                training: bool = False,
                generator: Optional[torch.Generator] = None,
-               attn_impl: str = "xla"):
-    """One post-norm encoder layer; key_bias (B * nh, 1, S) additive;
+               attn_impl: str = "xla", mesh=None):
+    """One post-norm encoder layer; key_bias (B * nh_local, 1, S) additive;
     attn_impl "xla" (the dense core), "flash" (the blockwise kernels) or
     "fused" (the short-sequence kernels).  A MoE layer (cfg.moe_experts > 0)
-    returns (x, its router's aux losses), as the JAX layer does."""
+    returns (x, its router's aux losses), as the JAX layer does.  `mesh`
+    with tp > 1: `lp` holds this rank's blocks (module docstring)."""
     B, S, H = x.shape
-    nh = cfg.num_heads
-    hd = H // nh
+    tp = 1 if mesh is None else mesh.tp
+    nh = cfg.num_heads // tp                # this rank's heads
+    hd = H // cfg.num_heads
+    head0 = 0 if tp == 1 else mesh.tp_rank * nh
     cd = compute_dtype
     eps = cfg.layer_norm_eps
 
@@ -426,15 +495,19 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
             return out.reshape(B, S, H).to(cd)
         return layer_norm(x + drop(h, cfg.hidden_dropout), ln.weight, ln.bias, eps).to(cd)
 
+    def out_dense(h, d):
+        return dense(h, d, cd) if tp == 1 else row_parallel_dense(h, d, cd, mesh)
+
+    xm = copy_to_model(x, mesh)
     qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
     if isinstance(lp.q, QuantizedDense):      # the per-channel scales concatenate too
         qkv = apply_quantized_dense(
-            x, torch.cat([lp.q.weight_q, lp.k.weight_q, lp.v.weight_q], dim=0),
+            xm, torch.cat([lp.q.weight_q, lp.k.weight_q, lp.v.weight_q], dim=0),
             torch.cat([lp.q.scale, lp.k.scale, lp.v.scale]), qkv_b, cd)
     else:
-        qkv = apply_dense(x, torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0),
+        qkv = apply_dense(xm, torch.cat([lp.q.weight, lp.k.weight, lp.v.weight], dim=0),
                           qkv_b, cd)
-    q, k, v = qkv.split(H, dim=-1)
+    q, k, v = qkv.split(nh * hd, dim=-1)
 
     def heads(t):
         return t.reshape(B, S, nh, hd).transpose(1, 2).reshape(B * nh, S, hd)
@@ -444,20 +517,30 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
         rate = cfg.attention_dropout if training else 0.0
         ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               key_bias[:, 0].contiguous(),
-                              device_seed() if rate > 0.0 else None, rate).to(cd)
+                              device_seed() if rate > 0.0 else None, rate,
+                              (nh, cfg.num_heads, head0)).to(cd)
     elif attn_impl == "xla":
         logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
-        probs = drop(torch.softmax(logits + key_bias, dim=-1), cfg.attention_dropout)
+        probs = torch.softmax(logits + key_bias, dim=-1)
+        if tp == 1:
+            probs = drop(probs, cfg.attention_dropout)
+        elif training and cfg.attention_dropout > 0.0:
+            # the one-process draw over all heads, this rank's heads of it: every
+            # rank of a 'model' row draws alike and keeps the one-process masks
+            u = torch.rand((B, cfg.num_heads, S, S), generator=generator, device=x.device)
+            keep = u[:, head0:head0 + nh].reshape(B * nh, S, S) < 1.0 - cfg.attention_dropout
+            probs = torch.where(keep, probs / (1.0 - cfg.attention_dropout),
+                                torch.zeros_like(probs))
         ctx = torch.matmul(probs.to(cd), v)
     elif attn_impl == "fused":
         rate = cfg.attention_dropout if training else 0.0
         q, k, v = (t.reshape(B, nh, S, hd).contiguous() for t in (q, k, v))
         ctx = short_attention(q, k, v, key_bias[::nh, 0].contiguous(),
-                              device_seed() if rate > 0.0 else None, rate)
+                              device_seed() if rate > 0.0 else None, rate, head0)
     else:
         raise ValueError(f"attn_impl must be xla|flash|fused, got {attn_impl!r}")
-    ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, H)
-    x = residual_ln(x, dense(ctx, lp.attn_out, cd), lp.attn_ln)
+    ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, nh * hd)
+    x = residual_ln(x, out_dense(ctx, lp.attn_out), lp.attn_ln)
 
     if cfg.moe_experts > 0:
         y, aux = switch_ffn(lp.moe, x.reshape(B * S, H),
@@ -465,12 +548,12 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                             compute_dtype=cd, groups=B if cfg.moe_group_by_example else 1,
                             top_k=cfg.moe_top_k)
         return residual_ln(x, y.reshape(B, S, H).to(cd), lp.ffn_ln), aux
-    h = dense(x, lp.ffn_in, cd)
+    h = dense(copy_to_model(x, mesh), lp.ffn_in, cd)
     if cfg.gelu_exact:
         h = F.gelu(h.float(), approximate="none")
     else:
         h = F.gelu(h, approximate="tanh")
-    return residual_ln(x, dense(h.to(cd), lp.ffn_out, cd), lp.ffn_ln)
+    return residual_ln(x, out_dense(h.to(cd), lp.ffn_out), lp.ffn_ln)
 
 
 def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
@@ -487,20 +570,28 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
     gave for this call.  inject_fn, when given, maps the hidden states
     entering layer `inject_layer` (0: the embedding output, after its
     dropout; >= num_layers: the last layer's output), and its result is
-    rounded once to compute_dtype (models/mag_bert.py's gate)."""
+    rounded once to compute_dtype (models/mag_bert.py's gate).  Under
+    tensor parallelism `p` holds this rank's blocks and `p.tp_mesh` the
+    mesh they are spread over (`parallel/mesh.py::shard_params`)."""
     cfg = p.cfg
+    mesh = p.tp_mesh
+    tp = 1 if mesh is None else mesh.tp
+    if tp > 1 and cfg.moe_experts > 0:
+        raise ValueError("moe_experts > 0 with tp > 1: the expert-parallel hook is not "
+                         "ported yet (ROADMAP Queue 1 item 3)")
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
     x = bert_embed(p.embeddings, input_ids, token_type_ids, cfg.layer_norm_eps,
                    compute_dtype)
     x = dropout(x, cfg.hidden_dropout, training, generator)
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
-    key_bias = key_bias.repeat_interleave(cfg.num_heads, dim=0)       # (B*nh, 1, S)
+    key_bias = key_bias.repeat_interleave(cfg.num_heads // tp, dim=0)  # (B*nh_local, 1, S)
     auxes = []
     for i, lp in enumerate(p.layers):
         if inject_layer is not None and i == inject_layer:
             x = inject_fn(x).to(compute_dtype)
-        x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl)
+        x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl,
+                       mesh)
         if cfg.moe_experts > 0:
             x, aux = x
             auxes.append(aux)

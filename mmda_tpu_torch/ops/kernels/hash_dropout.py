@@ -18,7 +18,14 @@ their position in their own way and share the rest:
     x = row * 2654435761 + col * 0x9E3779B9 + seed * 40503 + bh * 51329
 
 with (row, col) the absolute position in the S x S score matrix and bh the
-flattened (batch, head) index: `attention_keep_mask`.
+flattened (batch, head) index: `attention_keep_mask`.  Under tensor
+parallelism a rank holds heads head0 .. head0 + heads_local - 1 of
+heads_total, and its local index bh = b * heads_local + h stands for
+
+    bh_global = (bh // heads_local) * heads_total + head0 + bh % heads_local
+
+(`global_bh`), so that every rank draws the masks of the heads it holds; the
+short kernels likewise take h = head0 + the local head.
 
 Here the uint32 arithmetic is int64 masked to 32 bits after every step that
 can carry past them.
@@ -77,21 +84,39 @@ def keep_mask(shape: Tuple[int, int], rate: float, seed: Union[int, torch.Tensor
     return (u >= float(np.float32(rate))).to(torch.float32)
 
 
+HeadLayout = Tuple[int, int, int]    # (heads_local, heads_total, head0)
+ALL_HEADS: HeadLayout = (1, 1, 0)    # bh_global = bh: every head in one process
+
+
+def global_bh(bh, heads: HeadLayout = ALL_HEADS):
+    """The (batch, head) index the attention kernels hash for the local
+    index bh of a rank holding heads head0 .. head0 + heads_local - 1 of
+    heads_total (ints or an integer tensor)."""
+    heads_local, heads_total, head0 = heads
+    return (bh // heads_local) * heads_total + head0 + bh % heads_local
+
+
 def attention_keep_mask(shape: Tuple[int, int, int], rate: float,
                         seed: Union[int, torch.Tensor], bh0: int = 0, row0: int = 0,
-                        col0: int = 0, device=None) -> torch.Tensor:
+                        col0: int = 0, device=None,
+                        heads: HeadLayout = ALL_HEADS) -> torch.Tensor:
     """float32 (BH, rows, cols) mask of the attention kernels, 1.0 where the
-    probability of query row0 + r and key col0 + c in (batch, head) bh0 + b
-    is kept under `seed`."""
+    probability of query row0 + r and key col0 + c in local (batch, head)
+    bh0 + b is kept under `seed`; `heads` maps a local index to the one
+    hashed (`global_bh`)."""
     seed_term, device = _seed_term(seed, device)
     n_bh, n_rows, n_cols = shape
 
-    def term(n, start, factor):
-        index = (torch.arange(n, dtype=torch.int64, device=device) + int(start)) & M32
-        return (index * factor) & M32
+    def term(index, factor):
+        return ((index & M32) * factor) & M32
 
-    x = term(n_rows, row0, 2654435761)[:, None] + term(n_cols, col0, 0x9E3779B9)[None, :]
-    x = (x & M32)[None] + ((term(n_bh, bh0, 51329) + seed_term) & M32)[:, None, None]
+    def positions(n, start):
+        return torch.arange(n, dtype=torch.int64, device=device) + int(start)
+
+    x = (term(positions(n_rows, row0), 2654435761)[:, None]
+         + term(positions(n_cols, col0), 0x9E3779B9)[None, :])
+    bh = global_bh(positions(n_bh, bh0), heads)
+    x = (x & M32)[None] + ((term(bh, 51329) + seed_term) & M32)[:, None, None]
     return (avalanche(x & M32) >= float(np.float32(rate))).to(torch.float32)
 
 

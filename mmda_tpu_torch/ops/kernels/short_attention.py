@@ -54,7 +54,11 @@ int32 tensor on the inputs' device; no wrapper reads it on the host.  The
 forward is the op `torch.ops.mmda_tpu_torch.short_attention_fwd`
 (`short_attention_fwd_op`, a
 `torch.library.custom_op` with a fake implementation): one node in a
-`torch.export` graph, whichever kernel it launches, o alone.  Launch counts:
+`torch.export` graph, whichever kernel it launches, o alone.  `head0`: q, k
+and v hold heads head0 .. head0 + nh - 1 of a larger set (a rank's heads
+under tensor parallelism), and each head's keep mask is the one of its
+index in that set, h = head0 + the local head; 0, the default, gives every
+kernel the bits it gave without it.  Launch counts:
 `launch_count("short_attn_fwd")`, `("short_attn_bwd")`,
 `("short_attn_tiled_fwd")`, `("short_attn_tiled_bwd")` (a tiled backward
 call launches its kernels and counts once).
@@ -150,17 +154,18 @@ def _scores(q, k, bias):
     return torch.matmul(qs, k.float().transpose(-1, -2)) + bias[:, None, None, :], qs
 
 
-def _keep(q, seed, rate: float):
-    """The scaled keep mask (B, nh, S, S) f32, None at rate 0."""
+def _keep(q, seed, rate: float, head0: int = 0):
+    """The scaled keep mask (B, nh, S, S) f32 of heads head0 .. head0 + nh
+    - 1, None at rate 0."""
     if rate == 0.0:
         return None
     B, nh, S, _ = q.shape
     b = torch.arange(B, device=q.device).reshape(B, 1, 1, 1)
-    h = torch.arange(nh, device=q.device).reshape(1, nh, 1, 1)
+    h = torch.arange(head0, head0 + nh, device=q.device).reshape(1, nh, 1, 1)
     return short_attention_keep_mask(S, rate, seed, b, h, device=q.device) * keep_scale(rate)
 
 
-def _probs(q, k, bias, seed, rate: float):
+def _probs(q, k, bias, seed, rate: float, head0: int = 0):
     """(p, keep, qs, m, l): the pre-dropout probabilities (B, nh, S, S) f32,
     the scaled keep mask (None at rate 0), q * scale f32, and each row's max
     m and sum l = sum exp(s - m) (B, nh, S, 1)."""
@@ -168,21 +173,22 @@ def _probs(q, k, bias, seed, rate: float):
     m = s.max(-1, keepdim=True).values
     e = torch.exp(s - m)
     l = e.sum(-1, keepdim=True)
-    return e / l, _keep(q, seed, rate), qs, m, l
+    return e / l, _keep(q, seed, rate, head0), qs, m, l
 
 
 def short_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   bias: torch.Tensor, seed: Optional[torch.Tensor],
-                                  rate: float = 0.0) -> torch.Tensor:
+                                  rate: float = 0.0, head0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: o in q's dtype."""
-    return short_attention_fwd_train_reference(q, k, v, bias, seed, rate)[0]
+    return short_attention_fwd_train_reference(q, k, v, bias, seed, rate, head0)[0]
 
 
-def short_attention_fwd_train_reference(q, k, v, bias, seed, rate: float = 0.0):
+def short_attention_fwd_train_reference(q, k, v, bias, seed, rate: float = 0.0,
+                                        head0: int = 0):
     """Plain PyTorch version of the training forward: (o in q's dtype, the
     row statistics (B, nh, S, 2) f32 (each query's max m and sum l =
     sum exp(s - m)), o in f32 before its rounding (o itself in f32))."""
-    p, keep, _, m, l = _probs(q, k, bias, seed, rate)
+    p, keep, _, m, l = _probs(q, k, bias, seed, rate, head0)
     if keep is not None:
         p = p * keep
     o32 = torch.matmul(p, v.float())
@@ -192,7 +198,8 @@ def short_attention_fwd_train_reference(q, k, v, bias, seed, rate: float = 0.0):
 
 def short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate: float = 0.0,
                                   stats: Optional[torch.Tensor] = None,
-                                  o32: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                                  o32: Optional[torch.Tensor] = None,
+                                  head0: int = 0) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the backward kernels: (dq, dk, dv) in q's
     dtype, from the saved inputs and the incoming gradient d_out.  Without
     `stats` it forms p from the exact softmax and r = rowsum(dp p); with the
@@ -200,11 +207,11 @@ def short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate: float = 0.0,
     exp(s - m) (1 / l) and r = rowsum(do o32), as the tiled kernels do."""
     do = d_out.float()
     if stats is None:
-        p, keep, qs, _, _ = _probs(q, k, bias, seed, rate)
+        p, keep, qs, _, _ = _probs(q, k, bias, seed, rate, head0)
     else:
         s, qs = _scores(q, k, bias)
         p = torch.exp(s - stats[..., :1]) * (1.0 / stats[..., 1:])
-        keep = _keep(q, seed, rate)
+        keep = _keep(q, seed, rate, head0)
     pd = p if keep is None else p * keep
     dv = torch.matmul(pd.transpose(-1, -2), do)
     dp = torch.matmul(do, v.float().transpose(-1, -2))
@@ -220,7 +227,7 @@ def short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate: float = 0.0,
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
+def _check(q, k, v, bias, seed, rate: float, d_out=None, head0: int = 0) -> torch.device:
     """Raises on what the kernels do not take."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"q must be a tensor, got {type(q).__name__}")
@@ -230,6 +237,8 @@ def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
         raise ValueError(f"q must be (B, nh, S, hd) with every size >= 1, got {tuple(q.shape)}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"rate must be in [0, 1), got {rate}")
+    if not 0 <= head0 < 2 ** 31 - q.shape[1]:
+        raise ValueError(f"head0 must be >= 0 (and head0 + nh an int32), got {head0}")
     B, nh, S, hd = q.shape
     dev = device_of(q)
     tensors = [("q", q, q.dtype, q.shape), ("k", k, q.dtype, q.shape),
@@ -250,86 +259,89 @@ def _check(q, k, v, bias, seed, rate: float, d_out=None) -> torch.device:
     return dev
 
 
-def _launch_args(q, rate: float, impl: int):
+def _launch_args(q, rate: float, impl: int, head0: int):
     """The C entries' sizes and scalars: B, nh, S, hd, is_bf16, the design
-    (`_BLOCK_IMPL` or `_TILED_IMPL`), scale, rate, keep_scale."""
+    (`_BLOCK_IMPL` or `_TILED_IMPL`), head0, scale, rate, keep_scale."""
     B, nh, S, hd = q.shape
-    return (B, nh, S, hd, int(q.dtype == torch.bfloat16), impl, softmax_scale(hd),
+    return (B, nh, S, hd, int(q.dtype == torch.bfloat16), impl, head0, softmax_scale(hd),
             float(np.float32(rate)), keep_scale(rate))
 
 
-def _tiled_fwd(q, k, v, bias, seed, rate: float, o, stats=None, o32=None):
+def _tiled_fwd(q, k, v, bias, seed, rate: float, head0: int, o, stats=None, o32=None):
     """(the tiled forward's C entry, its arguments): o, and the row
     statistics and o32 where given (NULL: not written)."""
-    fn = lib("short_attn_tiled_fwd", 8, 6, 3).mmda_short_attn_tiled_fwd
+    fn = lib("short_attn_tiled_fwd", 8, 7, 3).mmda_short_attn_tiled_fwd
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
             None if stats is None else stats.data_ptr(),
             None if o32 is None or o32 is o else o32.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return fn, (*ptrs, *_launch_args(q, rate, _TILED_IMPL), stream)
+    return fn, (*ptrs, *_launch_args(q, rate, _TILED_IMPL, head0), stream)
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-             seed: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+             seed: Optional[torch.Tensor], rate: float, head0: int = 0) -> torch.Tensor:
     """The `short_attention_fwd` op's implementation: the plain version for
     a CPU tensor, the kernel for a CUDA one."""
-    dev = _check(q, k, v, bias, seed, rate)
+    dev = _check(q, k, v, bias, seed, rate, head0=head0)
     if dev.type == "cpu":
-        return short_attention_fwd_reference(q, k, v, bias, seed, rate)
+        return short_attention_fwd_reference(q, k, v, bias, seed, rate, head0)
     name = ROUTE_SOURCES[kernel_route(q.shape[2], q.shape[3], q.dtype)][0]
     o = torch.empty_like(q)
     with torch.cuda.device(dev):
         if name == "short_attn_tiled_fwd":
-            fn, args = _tiled_fwd(q, k, v, bias, seed, rate, o)
+            fn, args = _tiled_fwd(q, k, v, bias, seed, rate, head0, o)
             launch(name, fn, *args)
         else:
             stream = torch.cuda.current_stream(dev).cuda_stream
-            launch(name, lib(name, 6, 6, 3).mmda_short_attn_fwd,
+            launch(name, lib(name, 6, 7, 3).mmda_short_attn_fwd,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                    seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
-                   *_launch_args(q, rate, _BLOCK_IMPL), stream)
+                   *_launch_args(q, rate, _BLOCK_IMPL, head0), stream)
     return o
 
 
 @torch.library.custom_op("mmda_tpu_torch::short_attention_fwd", mutates_args=())
 def short_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, seed: Optional[torch.Tensor],
-                           rate: float) -> torch.Tensor:
+                           rate: float, head0: int = 0) -> torch.Tensor:
     """`torch.ops.mmda_tpu_torch.short_attention_fwd`: one node in a
     `torch.export` graph that runs `_forward` on the real tensors."""
-    return _forward(q, k, v, bias, seed, rate)
+    return _forward(q, k, v, bias, seed, rate, head0)
 
 
 @short_attention_fwd_op.register_fake
-def _(q, k, v, bias, seed, rate):
+def _(q, k, v, bias, seed, rate, head0=0):
     return torch.empty_like(q)
 
 
 def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor, seed: Optional[torch.Tensor],
-                        rate: float = 0.0) -> torch.Tensor:
+                        rate: float = 0.0, head0: int = 0) -> torch.Tensor:
     """softmax((q / sqrt(hd)) k^T + bias) with dropout, times v, through the
     `mmda_tpu_torch::short_attention_fwd` op.  q, k, v (B, nh, S, hd) f32 or
     bf16 (the same), bias (B, S) f32 additive on keys, seed (1,) int32 on
-    the same device (unused at rate 0, may be None).  Returns o (B, nh, S,
-    hd) in q's dtype."""
+    the same device (unused at rate 0, may be None), head0 the first
+    head's index (module docstring).  Returns o (B, nh, S, hd) in q's
+    dtype."""
     # here too: with a meta tensor among the arguments the op runs its fake, not _forward
-    _check(q, k, v, bias, seed, rate)
+    _check(q, k, v, bias, seed, rate, head0=head0)
+    if head0:
+        return short_attention_fwd_op(q, k, v, bias, seed, float(rate), int(head0))
     return short_attention_fwd_op(q, k, v, bias, seed, float(rate))
 
 
 def short_attention_fwd_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: torch.Tensor, seed: Optional[torch.Tensor],
-                              rate: float = 0.0):
+                              rate: float = 0.0, head0: int = 0):
     """`short_attention_fwd` that also returns what the tiled backward reads:
     (o, stats, o32) with stats (B, nh, S, 2) f32 each query's row max m and
     sum l = sum exp(s - m) over every key, and o32 (B, nh, S, hd) f32 o before
     its rounding (o itself in f32).  A CUDA input must be on the tiled route
     (`kernel_route`); one `short_attn_tiled_fwd` launch."""
-    dev = _check(q, k, v, bias, seed, rate)
+    dev = _check(q, k, v, bias, seed, rate, head0=head0)
     if dev.type == "cpu":
-        return short_attention_fwd_train_reference(q, k, v, bias, seed, rate)
+        return short_attention_fwd_train_reference(q, k, v, bias, seed, rate, head0)
     B, nh, S, hd = q.shape
     if kernel_route(S, hd, q.dtype) != "tiled":
         raise ValueError(f"the training forward is the tiled kernels' (S > {MAX_S}), got "
@@ -338,20 +350,20 @@ def short_attention_fwd_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stats = torch.empty(B, nh, S, 2, device=dev)
     o32 = o if q.dtype == torch.float32 else torch.empty(q.shape, device=dev)
     with torch.cuda.device(dev):
-        fn, args = _tiled_fwd(q, k, v, bias, seed, rate, o, stats, o32)
+        fn, args = _tiled_fwd(q, k, v, bias, seed, rate, head0, o, stats, o32)
         launch("short_attn_tiled_fwd", fn, *args)
     return o, stats, o32
 
 
 def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
                         stats: Optional[torch.Tensor] = None,
-                        o32: Optional[torch.Tensor] = None):
+                        o32: Optional[torch.Tensor] = None, head0: int = 0):
     """Gradient of `short_attention_fwd`'s o from the saved (q, k, v, bias,
     seed) and d_out (B, nh, S, hd) in q's dtype: (dq, dk, dv) in q's dtype.
     On the tiled route it reads the training forward's `stats` and `o32`
     where given (both or neither), else forms them first in the same call
     (with the forward's kernel: the same bits, one launch counted here)."""
-    dev = _check(q, k, v, bias, seed, rate, d_out)
+    dev = _check(q, k, v, bias, seed, rate, d_out, head0)
     B, nh, S, hd = q.shape
     if (stats is None) != (o32 is None):
         raise ValueError("stats and o32 go together")
@@ -359,7 +371,8 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
         check_tensor("stats", stats, q.device, torch.float32, (B, nh, S, 2))
         check_tensor("o32", o32, q.device, torch.float32, q.shape)
     if dev.type == "cpu":
-        return short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate, stats, o32)
+        return short_attention_bwd_reference(q, k, v, bias, seed, d_out, rate, stats, o32,
+                                             head0)
     route = kernel_route(S, hd, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -371,13 +384,13 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
         if route == "block":
             if stats is not None:
                 raise ValueError(f"the block kernels (S <= {MAX_S}) take no saved statistics")
-            launch(name, lib(name, len(ptrs), 6, 3).mmda_short_attn_bwd, *ptrs,
-                   *_launch_args(q, rate, _BLOCK_IMPL), stream)
+            launch(name, lib(name, len(ptrs), 7, 3).mmda_short_attn_bwd, *ptrs,
+                   *_launch_args(q, rate, _BLOCK_IMPL, head0), stream)
             return dq, dk, dv
         if stats is None:       # the forward's statistics, within this call
             stats = torch.empty(B, nh, S, 2, device=dev)
             o32 = torch.empty(q.shape, device=dev)
-            fwd, args = _tiled_fwd(q, k, v, bias, seed, rate,
+            fwd, args = _tiled_fwd(q, k, v, bias, seed, rate, head0,
                                    o32 if q.dtype == torch.float32 else torch.empty_like(q),
                                    stats, o32)
             err = fwd(*args)
@@ -385,8 +398,8 @@ def short_attention_bwd(q, k, v, bias, seed, d_out, rate: float = 0.0,
                 raise RuntimeError(f"short_attn_tiled_fwd kernel launch failed: cudaError {err}")
         r = torch.empty(B, nh, S, device=dev)    # rowsum(do o32) per query
         ptrs += [stats.data_ptr(), o32.data_ptr(), r.data_ptr()]
-        launch(name, lib(name, len(ptrs), 6, 3).mmda_short_attn_tiled_bwd, *ptrs,
-               *_launch_args(q, rate, _TILED_IMPL), stream)
+        launch(name, lib(name, len(ptrs), 7, 3).mmda_short_attn_tiled_bwd, *ptrs,
+               *_launch_args(q, rate, _TILED_IMPL, head0), stream)
     return dq, dk, dv
 
 
@@ -402,32 +415,36 @@ class ShortAttention(torch.autograd.Function):
     can put their plain versions in their place."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate: float, train: bool):
+    def forward(ctx, q, k, v, bias, seed, rate: float, train: bool, head0: int = 0):
+        # the head offset is passed where there is one (a check may stand in for
+        # the functions with positional arguments alone)
+        offset = {"head0": head0} if head0 else {}
         if train and kernel_route(*q.shape[2:], q.dtype) == "tiled":
-            o, stats, o32 = short_attention_fwd_train(q, k, v, bias, seed, rate)
+            o, stats, o32 = short_attention_fwd_train(q, k, v, bias, seed, rate, **offset)
             ctx.save_for_backward(q, k, v, bias, seed, stats, o32)
         else:
-            o = short_attention_fwd(q, k, v, bias, seed, rate)
+            o = short_attention_fwd(q, k, v, bias, seed, rate, **offset)
             ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.rate = rate
+        ctx.rate, ctx.offset = rate, offset
         return o
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, bias, seed, *saved = ctx.saved_tensors
         dq, dk, dv = short_attention_bwd(q, k, v, bias, seed, d_out.to(q.dtype).contiguous(),
-                                         ctx.rate, *saved)
-        return dq, dk, dv, None, None, None, None
+                                         ctx.rate, *saved, **ctx.offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                    seed: Optional[torch.Tensor] = None, rate: float = 0.0) -> torch.Tensor:
+                    seed: Optional[torch.Tensor] = None, rate: float = 0.0,
+                    head0: int = 0) -> torch.Tensor:
     """Multi-head attention for short sequences with an additive key bias
     and attention-probs dropout drawn in the kernel, differentiable through
     the kernels (`mmda_tpu.ops.pallas.short_attention.short_attention`).
-    q, k, v (B, nh, S, hd); bias (B, S).  Returns (B, nh, S, hd) in q's
-    dtype."""
+    q, k, v (B, nh, S, hd) heads head0 .. head0 + nh - 1; bias (B, S).
+    Returns (B, nh, S, hd) in q's dtype."""
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)
     train = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return ShortAttention.apply(q, k, v, bias, seed, rate, train)
+    return ShortAttention.apply(q, k, v, bias, seed, rate, train, head0)

@@ -27,21 +27,26 @@ six denses of every encoder layer from the loaded weights
 output channel) and, as in the JAX package, leaves every other BERT weight
 as loaded.
 
-`mesh` (`parallel/mesh.py`, tp = 1; the counterpart of the JAX Predictor's
-mesh, `mmda_tpu/serving.py:142-151`, `:274-276`) serves data-parallel:
-max_batch must divide by dp; every rank pads the same requests to the same
-bucket batch, runs its rows [r max_batch / dp, (r + 1) max_batch / dp) and
-all-gathers the packed outputs, so every rank returns the whole result.
-Each call is a collective: every rank must make the same calls, with the
-same requests, in the same order.  Tensor-parallel serving (tp > 1) is not
-ported (ROADMAP Queue 1 item 2).
+`mesh` (`parallel/mesh.py`; the counterpart of the JAX Predictor's mesh,
+`mmda_tpu/serving.py:142-151`, `:274-276`) serves on a (dp, tp) mesh: batch
+rows over 'data' (max_batch must divide by dp; every rank pads the same
+requests to the same bucket batch, runs the rows of its 'data' coordinate
+d, [d max_batch / dp, (d + 1) max_batch / dp), and all-gathers the packed
+outputs over 'data', so every rank returns the whole result) and, at tp >
+1, the BERT encoder's blocks over 'model' (`shard_params`, after the bf16
+cast or the int8 quantization of the loaded weights, as the JAX Predictor
+shards them).  Each call is a collective: every rank must make the same
+calls, with the same requests, in the same order (`cli/serve.py` sends
+rank 0's calls to the others).
 
 On CUDA a call runs as a CUDA graph, one per bucket shape (the counterpart
 of the JAX package's jit per bucket): the padded batch (a rank's rows of it
 under a mesh) is copied into device buffers kept for that shape, the graph
 replays the forward and writes the four outputs into one packed tensor
 (gathered over the ranks after the replay under a mesh), and one
-device-to-host copy reads it.
+device-to-host copy reads it.  A tensor-parallel forward over gloo on the
+card sums its parts through the host, which a graph cannot hold: it runs
+eagerly.
 A bucket's first call runs the forward eagerly over those buffers and then
 captures it, so `PredictionServer.warmup()`, which calls every bucket,
 leaves every graph captured.  An explicit `recurrence=` runs eagerly (the
@@ -62,7 +67,7 @@ from mmda_tpu_torch.config import Config, resolve_device, set_reference_numerics
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, quantize_bert_int8
-from mmda_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch
+from mmda_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch, shard_params
 from mmda_tpu_torch.serving_requests import (RequestTooLongError, check_overflow, choose_bucket,
                                              pad_requests, validate_request)
 from mmda_tpu_torch.train import checkpoint as ckpt
@@ -100,8 +105,8 @@ class Predictor:
         bert_weights_dtype: 'auto' stores BERT in bf16 on CUDA when the
         compute dtype is bf16; 'int8' quantizes the encoder denses (in
         place, on a model passed in); None keeps the loaded dtypes.
-        mesh: serve data-parallel over its ranks (module docstring); the
-        device is then the mesh's."""
+        mesh: serve over its ranks, rows on 'data', the encoder's blocks on
+        'model' (module docstring); the device is then the mesh's."""
         check_overflow(overflow)
         if mesh is not None and max_batch % mesh.dp != 0:
             raise ValueError(f"max_batch={max_batch} must be divisible by the mesh data "
@@ -140,14 +145,17 @@ class Predictor:
             for p in self.model.bert.parameters():
                 if p.dim() >= 2 and p.dtype == torch.float32:
                     p.data = p.data.to(wdt)
+        if mesh is not None:
+            shard_params(self.model, mesh)          # tp > 1: this rank's blocks
         # MISA returns the shared/private representations; the zoo's
         # families return None there and serve their scores as `hidden`
         self._factorized = hasattr(self.model, "shared")
         self._stats = {"requests": 0, "utterances": 0, "seconds": 0.0}
         # the bucket shapes' graphs (CUDA only); one call at a time owns them
+        eager = mesh is not None and mesh.tp > 1 and mesh.staged
         self._graphs = (StepGraphs(lambda b: {"packed": self._forward(b)}, self.device,
                                    pool=graph_pool(self.device))
-                        if self.device.type == "cuda" else None)
+                        if self.device.type == "cuda" and not eager else None)
         self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:

@@ -38,7 +38,11 @@ state and a JAX PRNG key have no counterpart here:
     generator            uint8, `torch.Generator.get_state()`
 
 so a JAX `last_*` snapshot does not resume in the port, nor a port one in
-JAX.  Writes go to a unique temporary file in the same directory and are
+JAX.  Under tensor parallelism every file holds the full layout, as the JAX
+package's msgpack backend writes sharded arrays: `full_layout` gathers a
+train state's blocks over 'model' (every rank of the row takes part), the
+chief writes it, and a resume at any tp takes each rank's blocks of it
+(`mesh=`).  Writes go to a unique temporary file in the same directory and are
 renamed into place; each path has a lock and a sequence number, so a stale
 asynchronous write never replaces a newer one.  An asynchronous save copies
 every tensor to the host before it returns: later steps cannot change what
@@ -60,6 +64,7 @@ import torch
 import torch.nn as nn
 
 from mmda_tpu_torch.convert import convert_params, jax_leaves, to_jax_tree
+from mmda_tpu_torch.parallel import mesh as pmesh
 
 MAGIC = b"MMDAFSR1"
 _INLINE = (bool, int, float, str, type(None))
@@ -219,13 +224,16 @@ def _dispatch(ckpt_dir: str, file: str, chunks: List[Any], meta_file: str, meta:
 
 def save_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
                     metadata: Optional[Dict] = None,
-                    async_write: bool = False) -> Optional[threading.Thread]:
-    """Write `model`'s parameters as {ckpt_dir}/{name}.msgpack (the JAX
-    tree layout) and `metadata` as {name}.json.  With async_write the
-    parameters are copied to the host now and the files written on a
-    thread, which is returned for the caller to join."""
+                    async_write: bool = False,
+                    tensors: Optional[List[torch.Tensor]] = None) -> Optional[threading.Thread]:
+    """Write `model`'s parameters (or `tensors` in their place, in
+    `named_parameters` order: the full layout of a sharded model) as
+    {ckpt_dir}/{name}.msgpack (the JAX tree layout) and `metadata` as
+    {name}.json.  With async_write the parameters are copied to the host
+    now and the files written on a thread, which is returned for the
+    caller to join."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    return _dispatch(ckpt_dir, f"{name}.msgpack", to_chunks(to_jax_tree(model)),
+    return _dispatch(ckpt_dir, f"{name}.msgpack", to_chunks(to_jax_tree(model, tensors)),
                      f"{name}.json", dict(metadata or {}), async_write)
 
 
@@ -233,12 +241,45 @@ def save_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
 
 
 class TrainState(NamedTuple):
-    """What a `last_*` snapshot holds and a resume restores, in place."""
+    """What a `last_*` snapshot holds and a resume restores, in place.
+    `params`: the model's parameters in the full layout where the model
+    holds blocks of them (`full_layout`), None to read the model's own."""
     step: int
     model: nn.Module
     optimizer: Any                       # train/state.py::Optimizer
     generator: torch.Generator
     ema: Optional[List[torch.Tensor]] = None   # shadow of model.parameters()
+    params: Optional[List[torch.Tensor]] = None
+
+
+class _Gathered(NamedTuple):
+    """An optimizer's parameters beside its state in the full layout."""
+    params: List[torch.Tensor]
+    state: Dict[str, Any]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.state
+
+
+def full_layout(state: TrainState, mesh: "pmesh.Mesh") -> TrainState:
+    """`state` with its parameters, its EMA shadow and its optimizer's
+    tensors gathered whole over the mesh's 'model' row (a collective: every
+    rank of the row calls it), for a snapshot of a tensor-parallel run; the
+    model and the generator are `state`'s."""
+    if mesh.tp == 1:
+        return state
+    model, opt = state.model, state.optimizer
+    specs = pmesh.param_partition_specs(model, mesh.tp)
+    names = {id(p): n for n, p in model.named_parameters()}
+    dims = [specs.get(names[id(p)]) for p in opt.params]
+    held = dict(opt.state_dict())
+    keys = [k for k in ("mu", "nu", "acc") if held[k]]
+    whole = pmesh.gather_tensors([t for k in keys for t in held[k]], dims * len(keys), mesh)
+    for j, k in enumerate(keys):
+        held[k] = whole[j * len(dims):(j + 1) * len(dims)]
+    return state._replace(
+        optimizer=_Gathered(opt.params, held), params=pmesh.gather_params(model, mesh),
+        ema=pmesh.gather_params(model, mesh, state.ema) if state.ema else None)
 
 
 def keystr(path: str) -> str:
@@ -271,7 +312,7 @@ def save_train_state(ckpt_dir: str, name: str, state: TrainState,
     async_write the tensors are copied to the host now and the file written
     on a thread, which is returned for the caller to join."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    tree = {"step": int(state.step), "params": to_jax_tree(state.model),
+    tree = {"step": int(state.step), "params": to_jax_tree(state.model, state.params),
             "opt_state": _opt_tree(state), "generator": state.generator.get_state(),
             "ema_params": to_jax_tree(state.model, state.ema) if state.ema else None}
     return _dispatch(ckpt_dir, f"{name}.msgpack", to_chunks(tree), f"{name}.json",
@@ -295,7 +336,7 @@ def save_checkpoint_incremental(ckpt_dir: str, name: str, state: TrainState,
     def split(leaves, want_frozen):
         return {keystr(path): v for (path, v), f in zip(leaves, frozen) if f == want_frozen}
 
-    leaves = jax_leaves(state.model)
+    leaves = jax_leaves(state.model, state.params)
     trainable, frozen_leaves = split(leaves, False), split(leaves, True)
     cache_key = os.path.join(ckpt_dir, name)
     digest = _base_digest_cache.get(cache_key)
@@ -326,14 +367,17 @@ def incremental_checkpoint_exists(ckpt_dir: str, name: str) -> bool:
 
 @torch.no_grad()
 def _restore(state: TrainState, params: Dict[str, Any], opt: Dict[str, Any],
-             generator: torch.Tensor, ema: Optional[Dict[str, Any]]) -> None:
-    """Copy a snapshot's pieces into `state`'s own tensors."""
+             generator: torch.Tensor, ema: Optional[Dict[str, Any]],
+             mesh: Optional["pmesh.Mesh"] = None) -> None:
+    """Copy a snapshot's pieces (the full layout) into `state`'s own
+    tensors: under a tensor-parallel `mesh`, this rank's blocks of them."""
     model = state.model
-    model.load_state_dict(convert_params(params, model), strict=True)  # copy_ in place
+    local = pmesh.local_blocks(model, mesh)
+    model.load_state_dict(convert_params(params, model, local), strict=True)  # copy_ in place
     if ema is not None:
         if not state.ema:
             raise ValueError("the snapshot holds an EMA shadow; this run keeps none")
-        values = convert_params(ema, model)
+        values = convert_params(ema, model, local)
         for (n, _), t in zip(model.named_parameters(), state.ema):
             t.copy_(values[n])
     elif state.ema:
@@ -347,7 +391,8 @@ def _restore(state: TrainState, params: Dict[str, Any], opt: Dict[str, Any],
         if set(held) != set(keys) and (held or getattr(state.optimizer, k)):
             raise ValueError(f"optimizer state {k!r} holds {sorted(held)[:3]}..., "
                              f"this run trains {sorted(keys)[:3]}...")
-        loaded[k] = [held[n] for n in keys] if held else []
+        loaded[k] = ([held[n] if local is None else local(n, held[n]) for n in keys]
+                     if held else [])
     state.optimizer.load_state_dict(loaded)
     state.generator.set_state(generator.contiguous())
 
@@ -357,19 +402,21 @@ def _read(ckpt_dir: str, file: str) -> Dict[str, Any]:
         return from_bytes(f.read())
 
 
-def load_train_state(ckpt_dir: str, name: str, state: TrainState) -> int:
-    """Restore {ckpt_dir}/{name}.msgpack into `state` in place; returns the
-    snapshot's step."""
+def load_train_state(ckpt_dir: str, name: str, state: TrainState,
+                     mesh: Optional["pmesh.Mesh"] = None) -> int:
+    """Restore {ckpt_dir}/{name}.msgpack into `state` in place (this rank's
+    blocks under a tensor-parallel `mesh`); returns the snapshot's step."""
     tree = _read(ckpt_dir, f"{name}.msgpack")
     _restore(state, tree["params"], tree["opt_state"], tree["generator"],
-             tree.get("ema_params"))
+             tree.get("ema_params"), mesh)
     return int(tree["step"])
 
 
-def load_checkpoint_incremental(ckpt_dir: str, name: str, state: TrainState) -> int:
+def load_checkpoint_incremental(ckpt_dir: str, name: str, state: TrainState,
+                                mesh: Optional["pmesh.Mesh"] = None) -> int:
     """Restore a snapshot of `save_checkpoint_incremental` into `state` in
-    place (the frozen parameters from the base its metadata names); returns
-    its step."""
+    place (the frozen parameters from the base its metadata names; this
+    rank's blocks under a tensor-parallel `mesh`); returns its step."""
     with open(os.path.join(ckpt_dir, f"{name}.inc.json")) as f:
         meta = json.load(f)
     delta = _read(ckpt_dir, f"{name}.inc.msgpack")
@@ -381,7 +428,8 @@ def load_checkpoint_incremental(ckpt_dir: str, name: str, state: TrainState) -> 
         return {_dotted(k): v for k, v in {**leaves, **base}.items()}
 
     ema = flat(delta["ema_trainable"]) if meta.get("has_ema") else None
-    _restore(state, flat(delta["trainable"]), delta["opt_state"], delta["generator"], ema)
+    _restore(state, flat(delta["trainable"]), delta["opt_state"], delta["generator"], ema,
+             mesh)
     return int(delta["step"])
 
 

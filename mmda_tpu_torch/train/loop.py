@@ -49,9 +49,9 @@ test split is evaluated again (through the shadow when there is one).
 after the seeded init and before the freeze rules, so the frozen layers and
 the `last_*` frozen base hold the file's weights.  `profile_dir` is read by
 `cli/train.py`, which traces `train()` (`utils/timing.py::profile`).
-Options that need what the port does not have yet (the parallel modes but
-data parallelism, the orbax backend) raise `ValueError` at construction,
-naming their ROADMAP item (`unsupported`).  `moe_experts > 0` (a Switch
+Options that need what the port does not have yet (sequence and pipeline
+parallelism, zero1 and fsdp, MoE on a mesh, the orbax backend) raise
+`ValueError` at construction, naming their ROADMAP item (`unsupported`).  `moe_experts > 0` (a Switch
 MoE in every BERT layer, `bert_config_for`) raises the JAX trainer's own
 errors without the BERT tower and with `pp_size > 1`.
 
@@ -74,6 +74,19 @@ them all.  Only rank 0 logs and writes the best export and the `last_*`
 snapshots; every rank waits at a barrier before it reads one.  The captured
 steps and evals record their collectives (nccl); gloo on CUDA cannot be
 captured, and compiled_epoch / compiled_eval then raise at construction.
+
+Tensor parallelism (`cfg.tp_size` > 1, the JAX trainer's
+`shard_params(..., tp=True)`, `mmda_tpu/train/loop.py:192-193`): the mesh
+is (dp, tp) with dp = dp_size (-1: world / tp), the model is sharded after
+the broadcast (`parallel/mesh.py::shard_params`: each rank of a 'model'
+row its blocks of the BERT denses) and the optimizer and the EMA shadow
+are built on the blocks.  The ranks of a row take the same rows of each
+batch (their 'data' coordinate's), and their dropout generator is seeded
+from (seed, 'data' coordinate, epoch), so they drop alike.  The best
+export and the `last_*` snapshots hold the full layout (the JAX package
+reads them whole): the 'model' row of rank 0 gathers it
+(`checkpoint.full_layout`, `gather_params`) and rank 0 writes it; every
+rank reads its blocks of one back (a resume at any tp).
 """
 
 from __future__ import annotations
@@ -121,11 +134,10 @@ def unsupported(cfg, dp: int = 1) -> List[str]:
     dp data-parallel ranks, each with the ROADMAP item that brings it."""
     q = "ROADMAP Queue 1"
     checks = [
-        (cfg.tp_size > 1, f"tp_size > 1 ({q} item 2: tensor parallelism)"),
         (cfg.sp, f"sp ({q} item 3: sequence parallelism)"),
-        (cfg.moe_experts > 0 and dp > 1,
-         f"moe_experts > 0 with dp > 1 (routing couples the batch's tokens; {q} item 3: "
-         "the expert-parallel hook)"),
+        (cfg.moe_experts > 0 and (dp > 1 or cfg.tp_size > 1),
+         f"moe_experts > 0 with dp > 1 or tp_size > 1 (routing couples the batch's tokens; "
+         f"{q} item 3: the expert-parallel hook)"),
         (cfg.zero1, f"zero1 ({q} item 4: zero1 and fsdp)"),
         (cfg.fsdp, f"fsdp ({q} item 4: zero1 and fsdp)"),
         (cfg.pp_size > 1, f"pp_size > 1 ({q} item 5: the pipelined encoder)"),
@@ -140,9 +152,9 @@ def unsupported(cfg, dp: int = 1) -> List[str]:
 
 def data_parallel_size(cfg) -> int:
     """The dp the trainer runs at: cfg.dp_size, -1 taking the process
-    group's world (one process without a group)."""
+    group's world over tp_size (one process without a group)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    return world if cfg.dp_size == -1 else cfg.dp_size
+    return max(world // cfg.tp_size, 1) if cfg.dp_size == -1 else cfg.dp_size
 
 
 class Trainer:
@@ -206,6 +218,7 @@ class Trainer:
         self.model = model.to(self.device)
         if self.mesh is not None:
             pmesh.replicated(self.model, self.mesh)
+            pmesh.shard_params(self.model, self.mesh)       # tp > 1: this rank's blocks
         self._freeze(pretrained_emb is not None)
         # the JAX trainer builds a frozen mask (and snapshots incrementally)
         # for every BERT run and for a frozen GloVe table
@@ -252,9 +265,10 @@ class Trainer:
         docstring)."""
         cfg = self.cfg
         if not dist.is_initialized():
-            if cfg.dp_size > 1:
-                raise ValueError(f"dp_size={cfg.dp_size} needs a process group of as many "
-                                 "ranks: run under torchrun, or init_distributed first")
+            if cfg.dp_size > 1 or cfg.tp_size > 1:
+                raise ValueError(f"dp_size={cfg.dp_size}, tp_size={cfg.tp_size} needs a process "
+                                 "group of as many ranks: run under torchrun, or "
+                                 "init_distributed first")
             return None
         mesh = pmesh.make_mesh(cfg.dp_size, cfg.tp_size, self.device)
         if mesh.staged and (cfg.compiled_epoch or cfg.compiled_eval):
@@ -267,11 +281,27 @@ class Trainer:
         return mesh
 
     def _seed_dropout(self, *tags: int) -> None:
-        """Seed this rank's dropout generator from (seed, rank, *tags) at
-        dp > 1; at dp = 1 it is the trainer's one generator, left as it is."""
+        """Seed this rank's dropout generator from (seed, 'data' coordinate,
+        *tags) at dp > 1 (the ranks of a 'model' row alike); at dp = 1 it is
+        the trainer's one generator, left as it is."""
         if self.dropout_generator is not self.generator:
             self.dropout_generator.manual_seed(
-                pmesh.rank_seed(self.cfg.seed, self.mesh.rank, *tags))
+                pmesh.rank_seed(self.cfg.seed, self.mesh.dp_rank, *tags))
+
+    def _export_best(self, name: str, model: torch.nn.Module, meta: Dict,
+                     async_write: bool = False):
+        """Write `model`'s parameters as the export `name` on the chief (a
+        thread under async_write, returned), in the full layout: under
+        tensor parallelism rank 0's 'model' row gathers them first."""
+        tensors = None
+        if self.mesh is not None and self.mesh.tp > 1:
+            if self.mesh.dp_rank != 0:
+                return None
+            tensors = pmesh.gather_params(model, self.mesh)
+        if not self.is_chief:
+            return None
+        return ckpt.save_checkpoint(self.cfg.ckpt_dir, name, model, meta,
+                                    async_write=async_write, tensors=tensors)
 
     def _barrier(self) -> None:
         if self.mesh is not None:
@@ -299,15 +329,23 @@ class Trainer:
                                self.ema)
 
     def _save_resume_ckpt(self, epoch: int, valid_loss: float):
-        """The `last_{name}` snapshot, written on a thread (returned)."""
+        """The `last_{name}` snapshot in the full layout, written by the
+        chief on a thread (returned; under tensor parallelism rank 0's
+        'model' row gathers it first)."""
         cfg = self.cfg
+        state = self.train_state()
+        if self.mesh is not None and self.mesh.tp > 1:
+            if self.mesh.dp_rank != 0:
+                return None
+            state = ckpt.full_layout(state, self.mesh)
+        if not self.is_chief:
+            return None
         meta = {"epoch": epoch, "valid_loss": valid_loss}
         name = f"last_{cfg.name}"
         if cfg.ckpt_incremental and self.has_frozen_mask:
-            return ckpt.save_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state(),
-                                                    meta, async_write=True)
-        return ckpt.save_train_state(cfg.ckpt_dir, name, self.train_state(), meta,
-                                     async_write=True)
+            return ckpt.save_checkpoint_incremental(cfg.ckpt_dir, name, state, meta,
+                                                    async_write=True)
+        return ckpt.save_train_state(cfg.ckpt_dir, name, state, meta, async_write=True)
 
     def _load_resume_ckpt(self) -> Optional[int]:
         """Load `last_{name}` in place, if there is one; its step or None.
@@ -316,9 +354,10 @@ class Trainer:
         self._barrier()
         name = f"last_{cfg.name}"
         if self.has_frozen_mask and ckpt.incremental_checkpoint_exists(cfg.ckpt_dir, name):
-            return ckpt.load_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state())
+            return ckpt.load_checkpoint_incremental(cfg.ckpt_dir, name, self.train_state(),
+                                                    self.mesh)
         if ckpt.checkpoint_exists(cfg.ckpt_dir, name):
-            return ckpt.load_train_state(cfg.ckpt_dir, name, self.train_state())
+            return ckpt.load_train_state(cfg.ckpt_dir, name, self.train_state(), self.mesh)
         return None
 
     def _loader(self, split: str, shuffle: bool) -> ArrayLoader:
@@ -335,6 +374,8 @@ class Trainer:
         shadow = {n: e for (n, _), e in zip(self.model.named_parameters(), self.ema)}
         model = get_model(self.cfg.model)(self.cfg, bert_cfg=self.bert_cfg,
                                           device="meta", **self.sizes)
+        if self.mesh is not None:               # the shadow holds this rank's blocks
+            pmesh.shard_params(model, self.mesh)
         model.load_state_dict(shadow, assign=True)
         return model
 
@@ -353,8 +394,7 @@ class Trainer:
 
         def save_last(epoch: int, valid_loss: float) -> None:
             last_saved[0] = epoch
-            if self.is_chief:
-                pending.append(self._save_resume_ckpt(epoch, valid_loss))
+            pending.append(self._save_resume_ckpt(epoch, valid_loss))
 
         preempted = [False]
 
@@ -407,10 +447,9 @@ class Trainer:
                 if valid_loss <= best_valid_loss:
                     best_valid_loss = valid_loss
                     best_results, best_truths, best_epoch = preds, truths, e
-                    if self.is_chief:
-                        self._export = ckpt.save_checkpoint(
-                            cfg.ckpt_dir, best_name, self.eval_model(),
-                            {"epoch": e, "valid_loss": valid_loss}, async_write=True)
+                    self._export = self._export_best(best_name, self.eval_model(),
+                                                     {"epoch": e, "valid_loss": valid_loss},
+                                                     async_write=True)
                     eval_values = task_metrics(self.task, best_truths, best_results)
                     curr_patience = cfg.patience
                 elif cfg.enable_early_stop:
@@ -536,9 +575,7 @@ class Trainer:
                 self.step += 1
             self.logger.log({"stage2_epoch": e, "stage2_conf_loss": float(
                 np.mean(torch.stack(conf).float().cpu().numpy()))})
-        if self.is_chief:
-            ckpt.save_checkpoint(cfg.ckpt_dir, name, self.model,
-                                 {"stage2_epochs": cfg.n_epoch_stage2})
+        self._export_best(name, self.model, {"stage2_epochs": cfg.n_epoch_stage2})
         self._barrier()
 
     def _join_export(self) -> None:
@@ -555,7 +592,8 @@ class Trainer:
         final test, as the JAX trainer restores it."""
         self._join_export()
         self._barrier()
-        return load_jax_params(model, ckpt.load_checkpoint(self.cfg.ckpt_dir, name))
+        return load_jax_params(model, ckpt.load_checkpoint(self.cfg.ckpt_dir, name),
+                               pmesh.local_blocks(model, self.mesh))
 
     @staticmethod
     def _params_key(model: torch.nn.Module) -> tuple:

@@ -41,6 +41,17 @@ for everything, with no reduction, as the JAX trainer runs it replicated.
 An eval step under a mesh gathers its outputs the same way, so every rank
 returns the global batch's.
 
+On a (dp, tp) mesh with tp > 1 the BERT encoder holds this rank's blocks
+of its sharded weights (`parallel/mesh.py::shard_params`) and its forward
+sums their parts over 'model'; `batch` is the rows of the rank's 'data'
+coordinate, the same on every rank of its 'model' row, whose dropout
+generator is seeded alike.  The gradients are summed over 'data' alone,
+each rank its own blocks and the whole parameters; the value clip, Adam and
+the EMA shadow are element-wise and run on the blocks as they are
+(`train/state.py`).  grad_norm is the whole model's: the squared norms of
+the sharded gradients summed over 'model' (`sum_over_model`), those of the
+whole ones counted once.
+
 `make_train_graph` and `make_eval_graph` are the counterparts of the JAX
 package's scanned epoch and eval (`compiled_epoch`, `compiled_eval`): one
 `StepGraphs` each, which runs the same body over device buffers kept for
@@ -70,7 +81,7 @@ import torch
 from mmda_tpu_torch.data.loader import StaticBatch, batch_shape
 from mmda_tpu_torch.ops import losses as L
 from mmda_tpu_torch.ops.kernels import _launch
-from mmda_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, gather_rows
+from mmda_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, gather_rows, sum_over_model
 from mmda_tpu_torch.train.objective import OUTPUT_FIELDS, compute_losses
 
 
@@ -176,14 +187,33 @@ def train_body(model, optimizer, batch, cfg,
         keep = keep[mesh.rows(n * dp)]
     losses, grads = loss_and_grads(model, batch, cfg, optimizer.params, keep, recurrence,
                                    dropout_generator or generator, conf_only, mesh)
-    grad_norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm([g.float() for g in grads])))
+    grad_norm = global_grad_norm(optimizer.params, grads)
     optimizer.apply(grads)
     if ema:
         ema_update(ema, [p.detach() for p in model.parameters()], cfg.ema_decay)
     result = {k: v.detach() for k, v in losses.items()}
     result["grad_norm"] = grad_norm
     return result
+
+
+def global_grad_norm(params: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of the gradients `grads` of `params`, over the whole
+    model: under tensor parallelism the squares of the sharded parameters'
+    (those `shard_params` gave a `tp_mesh`) summed over 'model' (module
+    docstring).  The split is made on the host from the parameters alone:
+    no host-device copy or sync, so a step graph can hold it."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    meshes = [getattr(p, "tp_mesh", None) for p in params]
+    mesh = next((m for m in meshes if m is not None), None)
+    if mesh is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sharded = torch.stack([n for n, m in zip(norms, meshes) if m is not None]).square().sum()
+    total = sum_over_model(sharded, mesh)
+    whole = [n for n, m in zip(norms, meshes) if m is None]
+    if whole:
+        total = total + torch.stack(whole).square().sum()
+    return torch.sqrt(total)
 
 
 @torch.no_grad()

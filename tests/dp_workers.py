@@ -1,4 +1,5 @@
-"""Ranks for the data-parallel tests (tests/test_torch_dp*.py).
+"""Ranks for the data- and tensor-parallel tests (tests/test_torch_dp*.py,
+tests/test_torch_tp*.py).
 
 `run_ranks` starts dp processes with torch.multiprocessing (spawn), each a
 gloo rank over a FileStore in the test's directory (no port to clash under
@@ -69,39 +70,55 @@ def run_rank_sets(sets, tmp_path, deadline_s: float = 120.0) -> list:
 # ------------------------------------------------------------ the ranks
 
 
-def _mesh():
+def _mesh(tp: int = 1):
     from mmda_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh(-1, 1, "cpu")
+    return make_mesh(-1, tp, "cpu")
 
 
-def _tiny_misa(cfg, tree):
+def tp_bert_cfg(**kw):
+    """The tensor-parallel tests' tiny BERT: H = 32, nh = 4, 2 layers."""
+    import dataclasses
+
+    from mmda_tpu_torch.models.bert import BertConfig
+
+    return dataclasses.replace(BertConfig.tiny(), num_heads=4, **kw)
+
+
+def _tiny_misa(cfg, tree, bert_cfg=None, dropout=False, frozen=8):
     """The tests' small MISA with `tree`'s parameters (a JAX parameter tree
-    as numpy arrays), the mosei freeze rule, dropout off in train mode."""
+    as numpy arrays), encoder layers <= `frozen` frozen (8: the mosei freeze
+    rule), dropout off in train mode unless `dropout`."""
     from mmda_tpu_torch.convert import load_jax_params
     from mmda_tpu_torch.models import MISA
     from mmda_tpu_torch.models.bert import BertConfig, freeze_layers
 
-    model = load_jax_params(MISA(cfg, bert_cfg=BertConfig.tiny()), tree)
-    freeze_layers(model.bert, 8)
-    model.train = lambda mode=True: torch.nn.Module.train(model, False)
+    model = load_jax_params(MISA(cfg, bert_cfg=bert_cfg or BertConfig.tiny()), tree)
+    freeze_layers(model.bert, frozen)
+    if not dropout:
+        model.train = lambda mode=True: torch.nn.Module.train(model, False)
     return model
 
 
-def one_step(cfg, tree, arrays, mesh=None, generator_seed=0):
+def one_step(cfg, tree, arrays, mesh=None, generator_seed=0, bert_cfg=None, dropout=False,
+             frozen=8):
     """One training step of the small MISA from `tree` on the host batch
     `arrays` (its rows under `mesh`, or the whole of it where they do not
     divide dp): the losses and grad_norm, the gradients the optimizer
     applied (under `mesh` summed over the ranks), the trainable parameters
     after the update, and the per-rank objective a naive DDP step would
-    average."""
+    average.  Under a mesh with tp > 1 the model is sharded and the
+    gradients and parameters returned in the full layout."""
     from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.parallel import mesh as pmesh
     from mmda_tpu_torch.parallel.mesh import shard_batch
     from mmda_tpu_torch.train.objective import compute_losses
     from mmda_tpu_torch.train.state import Optimizer
     from mmda_tpu_torch.train.step import train_step
 
-    model = _tiny_misa(cfg, tree)
+    model = _tiny_misa(cfg, tree, bert_cfg, dropout, frozen)
+    if mesh is not None:
+        pmesh.shard_params(model, mesh)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     opt = Optimizer(cfg, [p for _, p in named])
     sharded = mesh is not None and mesh.divides(len(arrays["lengths"]))
@@ -113,9 +130,15 @@ def one_step(cfg, tree, arrays, mesh=None, generator_seed=0):
     opt.apply = lambda grads: applied.extend(g.clone() for g in grads) or apply(grads)
     out = train_step(model, opt, batch, cfg, torch.Generator().manual_seed(generator_seed),
                      mesh=mesh if sharded else None)
+    grads, params = applied, [p.detach().clone() for _, p in named]
+    if mesh is not None and mesh.tp > 1:
+        specs = pmesh.param_partition_specs(model, mesh.tp)
+        dims = [specs.get(n) for n, _ in named]
+        grads = pmesh.gather_tensors(grads, dims, mesh)
+        params = pmesh.gather_tensors(params, dims, mesh)
     return {"losses": {k: v.item() for k, v in out.items()},
-            "grads": {n: g for (n, _), g in zip(named, applied)},
-            "params": {n: p.detach().clone() for n, p in named}, "own_objective": own,
+            "grads": {n: g for (n, _), g in zip(named, grads)},
+            "params": {n: p for (n, _), p in zip(named, params)}, "own_objective": own,
             "sharded": sharded}
 
 
@@ -231,3 +254,67 @@ def predictor_worker(rank, dp, cfg_kwargs, tree, requests, sizes):
 
     pred = Predictor(Config(**cfg_kwargs), params=tree, mesh=_mesh(), **sizes)
     return [pred(requests), pred(requests[:3])]
+
+
+# ------------------------------------------------ tensor parallelism's ranks
+
+
+def tp_encode_worker(rank, world, tp, tree, ids, mask, impls):
+    """The tiny BERT of `tree` (a JAX tree of `tp_bert_cfg`) sharded on the
+    (world / tp, tp) mesh: this rank's 'data' rows through `bert_encode`
+    under every attn_impl of `impls` (f32, no dropout)."""
+    from mmda_tpu_torch.convert import load_jax_params
+    from mmda_tpu_torch.models.bert import BertEncoder, bert_encode
+    from mmda_tpu_torch.parallel.mesh import shard_params
+
+    mesh = _mesh(tp)
+    enc = shard_params(load_jax_params(BertEncoder(tp_bert_cfg()), tree), mesh)
+    rows = mesh.rows(len(ids))
+    with torch.no_grad():
+        out = {impl: bert_encode(enc, torch.from_numpy(ids[rows]), torch.from_numpy(mask[rows]),
+                                 compute_dtype=torch.float32, attn_impl=impl)
+               for impl in impls}
+    return {"rows": (rows.start, rows.stop), "tp_rank": mesh.tp_rank, "out": out}
+
+
+def tp_step_worker(rank, world, tp, cases_file):
+    """`one_step` of every pickled case (cfg kwargs, tree, arrays, dropout,
+    frozen) on the (world / tp, tp) mesh, with `tp_bert_cfg`
+    (fused_ln_dropout as the case's cfg says)."""
+    from mmda_tpu_torch.config import Config
+
+    with open(cases_file, "rb") as f:
+        cases = pickle.load(f)
+    mesh = _mesh(tp)
+    return [one_step(Config(device="cpu", **kw), tree, arrays, mesh,
+                     bert_cfg=tp_bert_cfg(fused_ln_dropout=kw.get("fused_ln_dropout", False)),
+                     dropout=dropout, frozen=frozen)
+            for kw, tree, arrays, dropout, frozen in cases]
+
+
+def tp_predictor_worker(rank, world, tp, variants, tree, requests):
+    """For each (cfg kwargs, Predictor options) of `variants`, a
+    `Predictor(mesh=)` of the tree's model (`tp_bert_cfg`) on the (world /
+    tp, tp) mesh: its outputs for `requests`."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.serving import Predictor
+
+    mesh = _mesh(tp)
+    return [Predictor(Config(**kw), params=tree, mesh=mesh, bert_cfg=tp_bert_cfg(),
+                      **options)(requests) for kw, options in variants]
+
+
+def tp_trainer_worker(rank, world, tp, cfg_kwargs, data):
+    """A Trainer's run on the (world / tp, tp) mesh (`cfg_kwargs` name the
+    mesh), dropout off: its summary and its parameters in the full layout."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.parallel.mesh import gather_params
+    from mmda_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(Config(**cfg_kwargs), data, bert_cfg=tp_bert_cfg())
+    model = trainer.model
+    model.train = lambda mode=True: torch.nn.Module.train(model, False)
+    summary = trainer.train()
+    names = [n for n, _ in model.named_parameters()]
+    return {"summary": summary, "step": trainer.step,
+            "params": dict(zip(names, gather_params(model, trainer.mesh)))}

@@ -24,10 +24,10 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (CHECK_SHAPES, INT8_DENSES, MASKED_ITEM_SHAPES,  # noqa: E402
-                        MASKED_REACH, PEAKED_TIMES, SHORT_SHAPES,
-                        check_short_mask, masked_item_case, masked_item_inputs, peaked_check,
-                        steady_on_cpu)
+from chip_smoke import (CHECK_SHAPES, HEAD_OFFSET_CASES, INT8_DENSES,  # noqa: E402
+                        MASKED_ITEM_SHAPES, MASKED_REACH, PEAKED_TIMES, SHORT_SHAPES,
+                        check_short_mask, head_offset_case, masked_item_case,
+                        masked_item_inputs, peaked_check, steady_on_cpu)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -643,6 +643,19 @@ def test_short_attention_bf16_forward_matches_plain_version(cuda_device, B, nh, 
     assert kshort.launch_count("short_attn_fwd") == before + 2
     assert o.dtype == torch.bfloat16 and torch.equal(o, again)
     _close(o, kshort.short_attention_fwd_reference(q, k, v, bias, seed, rate), 1e-6, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,shape", HEAD_OFFSET_CASES, ids=[r for r, _ in HEAD_OFFSET_CASES])
+def test_attention_kernels_with_a_head_offset_give_the_whole_launchs_heads(cuda_device, route,
+                                                                          shape, dtype):
+    """Tensor parallelism's head offset on each attention route (the short
+    block and tiled kernels, flash): heads 6..11 of 12 launched alone with
+    head0 = 6 (flash: the layout (6, 12, 6)) give the one-process launch's
+    heads 6..11 bit for bit, the forward and every backward kernel, and
+    their keep masks are the plain hash's at those heads
+    (`chip_smoke.head_offset_case`)."""
+    head_offset_case(kattn, kshort, hash_dropout, route, shape, dtype, cuda_device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1268,6 +1281,39 @@ def test_int8_dense_bf16_rounds_once_on_the_card(cuda_device, d_in, d_out):
 
     out = int8_dense_bf16(cuda_device, d_in, d_out)
     assert out["mismatch_vs_one_rounding"] <= INT8_MISMATCH_TOL
+
+
+@pytest.mark.parametrize("k", [384, 1536])
+def test_row_parallel_product_keeps_f32_on_the_card(cuda_device, k):
+    """`models/bert.py::product_f32` in bf16 on the card (a 16-bit product
+    that keeps its f32 result, and its backward) against the f32 product of
+    the same operands, at a tp = 2 rank's row-parallel shapes of bert-base
+    (attn_out, ffn_out): each of y, dx and dw within both sides' f32
+    rounding bound, n 2^-24 times the sum of |terms| for a sum of n terms,
+    and dx and dw (bf16 values on both sides) within one bf16 ulp more."""
+    from mmda_tpu_torch.models.bert import product_f32
+
+    g = torch.Generator(cuda_device).manual_seed(k)
+    rows = 3 * 1100
+    x = torch.randn(3, 1100, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(768, k, generator=g, device=cuda_device)
+    dy = torch.randn(3, 1100, 768, generator=g, device=cuda_device).to(torch.bfloat16).float()
+
+    def run(fn):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xs, ws)
+        return (y.detach(), *torch.autograd.grad(y, (xs, ws), dy))
+
+    got = run(lambda xs, ws: product_f32(xs, ws, torch.bfloat16))
+    want = run(lambda xs, ws: torch.matmul(xs.float(), ws.to(torch.bfloat16).float().t()))
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
+    wa, xa, dya = w.to(torch.bfloat16).float().abs(), x.float().abs(), dy.abs()
+    terms = {"y": (xa @ wa.t(), k, 0.0), "dx": (dya @ wa, 768, 2.0 ** -7),
+             "dw": (dya.reshape(rows, 768).t() @ xa.reshape(rows, k), rows, 2.0 ** -7)}
+    for (name, (total, n, ulp)), a, b in zip(terms.items(), got, want):
+        bound = 2 * n * 2.0 ** -24 * total + ulp * b.float().abs()
+        excess = ((a.float() - b.float()).abs() - bound).max().item()
+        assert excess <= 0.0, (name, excess)
 
 
 def test_int8_bert_encode_bf16_card_vs_cpu(cuda_device):

@@ -243,17 +243,19 @@ def test_ranks_draw_their_own_dropout_and_the_shared_keep_mask(tmp_path):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(tp_size=2), "item 2"), (dict(sp=True), "item 3"), (dict(zero1=True), "item 4"),
+    (dict(tp_size=2, moe_experts=4), "item 3"), (dict(sp=True), "item 3"),
+    (dict(zero1=True), "item 4"),
     (dict(fsdp=True), "item 4"), (dict(pp_size=2), "item 5"),
     (dict(ckpt_backend="orbax"), "item 6"), (dict(moe_experts=4), "item 3"),
     (dict(model="MMIM"), "item 7")])
 def test_unported_modes_are_refused_by_name(option, item):
     """Each mode the trainer cannot run names its ROADMAP item; MoE and
-    MMIM only at dp > 1 (one process runs them)."""
+    MMIM only at dp > 1 (one process runs them), MoE also at tp > 1 (tensor
+    parallelism itself runs: tests/test_torch_tp.py)."""
     cfg = Config(device="cpu", **option)
     (msg,) = unsupported(cfg, dp=2)
     assert f"ROADMAP Queue 1 {item}" in msg and next(iter(option)) in msg
-    if "moe_experts" in option or "model" in option:
+    if option in (dict(moe_experts=4), dict(model="MMIM")):
         assert unsupported(cfg, dp=1) == []
     with pytest.raises(ValueError, match=f"not ported yet: .*{item}"):
         Trainer(cfg.replace(dp_size=2) if item in ("item 3", "item 7") else cfg, {})

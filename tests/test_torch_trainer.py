@@ -272,11 +272,13 @@ def test_reloads_wait_for_the_export_written_on_a_thread(tmp_path, monkeypatch, 
     dict(dp_size=2), dict(pp_size=2), dict(sp=True), dict(tp_size=2), dict(zero1=True),
     dict(fsdp=True), dict(ckpt_backend="orbax")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, option):
-    """Each mode not ported names its ROADMAP item; data parallelism
-    (dp_size > 1) is ported, and without a process group of as many ranks it
-    is refused too, instead of running as one process."""
+    """Each mode not ported names its ROADMAP item; data and tensor
+    parallelism (dp_size > 1, tp_size > 1) are ported, and without a process
+    group of as many ranks they are refused too, instead of running as one
+    process."""
     cfg = _tiny_cfg(tmp_path, **option)
-    with pytest.raises(ValueError, match="process group" if "dp_size" in option else "ROADMAP"):
+    ported = "dp_size" in option or "tp_size" in option
+    with pytest.raises(ValueError, match="process group" if ported else "ROADMAP"):
         Trainer(cfg, _tiny_data())
 
 
