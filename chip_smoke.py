@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fused-long-f32
     python3 chip_smoke.py --fused-f32
     python3 chip_smoke.py --tp-nccl          # two or more cards
+    python3 chip_smoke.py --tp-nccl --sp     # the same with sequence parallelism
 
 With no argument, every phase below.  `--first-calls` stops after phase 2,
 calling each attention kernel once in the fresh process (f32 flash through
@@ -94,7 +95,12 @@ the result):
    alone with head0 = 6 (flash: the layout (6, 12, 6)) give the one-process
    launch's heads 6..11 bit for bit, the forward and every backward kernel (the
    tiled training forward's statistics and the backward from them too), and
-   their masks are the plain hash's at those heads (`3 head-offsets`);
+   their masks are the plain hash's at those heads (`3 head-offsets`).  The
+   LayerNorm kernels' row layout of sequence parallelism: at (B, S, H) = (64,
+   50, 768), tp = 2, each rank's 25 rows of every item launched alone under
+   (25, 50, s0), s0 = 0 and 25, give the whole launch's out, dx, dy and mask
+   rows bit for bit, f32 and bf16, and the default layout its own rows
+   (`3 ln-row-layout`);
 4. serving at full width: the default config (bert-base 12 x 768, bi-LSTM
    towers for 35 visual and 74 acoustic features, hidden 128, 6 classes,
    bf16), seeded random weights, behind the HTTP front end
@@ -303,7 +309,17 @@ the result):
    least phase 17's floors; the ranks' launches by kernel and head offset, step ms and
    peak memory; then the ranks' best export (the full layout, gathered over 'model')
    served by `Predictor(mesh=)` at tp = 2 at bucket 64, B = 64 (8 + 12 launches a
-   rank), its scores within 1e-4 of the one-process `Predictor`'s.  `--phase18` runs
+   rank), its scores within 1e-4 of the one-process `Predictor`'s.  Then on the same
+   two ranks: (a) `sp=True` on that step (sequence parallelism: each rank's LayerNorm
+   regions on its 25 of the 50 rows, 24 + 24 LayerNorm launches on 1600 rows with
+   the row layout s0 = 0 / 25) against the same one-process step within the same
+   bounds, its step ms and peak memory beside the TP step's; (b) MISA with a
+   bert-base Switch MoE (MOE_OPTIONS, 2 of 4 experts a rank, dropout off) at tp = 2,
+   3 eager steps against the one-process MoE step within twice what `split_products`
+   moves it, then its export served by `Predictor(mesh=)` at bucket 64, B = 64,
+   against the one-process Predictor; (c) the same MoE at dp = 2 (each rank 32
+   rows, the aux losses' statistics summed over 'data'), its `moe` and `moe_drop`
+   the one-process global values.  `--phase18` runs phase 3's row-layout checks and
    phase 18 alone after the build;
 19. a `kernels` JSON line (all 15 kernels), the card's name and power limit, and as the last
    line `{"ok": true, "device": {...}}`.
@@ -324,12 +340,14 @@ age in `elapsed_s`, to chiprun_out/chip_smoke.log.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import faulthandler
 import functools
+import gc
 import itertools
 import json
 import pathlib
@@ -474,6 +492,7 @@ LN_RATE = 0.1
 LN_SEEDS = (7, 2 ** 31 - 2)
 BF16_ULP = 2.0 ** -7              # one bf16 ulp, relative
 LN_SUM_TOL = 1e-4                 # dscale, dbias: f32 partial sums over N rows
+LN_LAYOUT = (TRAIN_B, TRAIN_T + 2, 768)   # sequence parallelism's rows: (B, S, H), S = 50
 # (B, nh, S, hd) of the short attention checks: the flagship step's S = 50 and the
 # serving buckets' S = 18, 34, 66 at bert-base's 12 heads of 64, the flagship
 # step's rank rows in phase 17's two-rank step (B = 32), and a small odd shape;
@@ -1075,6 +1094,67 @@ def check_ln_mask(kln, keep_mask, N, H, dtype, seed, device) -> None:
         raise AssertionError(f"forward keep mask differs from the hash at {(N, H, dtype, seed)}")
     if not torch.equal((dy.float() != 0)[moved], want.bool()[moved]):
         raise AssertionError(f"backward keep mask differs from the hash at {(N, H, dtype, seed)}")
+
+
+def ln_layout_case(kln, keep_mask, B, S, H, tp, dtype, device) -> dict:
+    """Sequence parallelism's row layout on the card: the whole (B * S, H)
+    launch, then each of tp ranks' launch of its S-shard of every batch item
+    (S_local = ceil(S / tp) rows from s0 = rank S_local, zero padding past S)
+    under (S_local, S, s0).  Each rank's out, dx and dy rows equal the whole
+    launch's bit for bit, and so does its keep mask the plain hash's rows;
+    dscale and dbias summed over the ranks within LN_SUM_TOL of the whole
+    launch's; the default layout is (N, N, 0) bit for bit."""
+    x, y, g, b, dout = ln_inputs(B * S, H, dtype, B + S + H, device)
+    s = torch.tensor([LN_SEEDS[0]], dtype=torch.int32, device=device)
+    out = kln.residual_dropout_layernorm_fwd(x, y, g, b, s, LN_RATE)
+    dx, dy, dg, db = kln.residual_dropout_layernorm_bwd(x, y, g, dout, s, LN_RATE)
+    N = B * S
+    if not torch.equal(kln.residual_dropout_layernorm_fwd(x, y, g, b, s, LN_RATE,
+                                                          layout=(N, N, 0)), out):
+        raise AssertionError("the default row layout is not the launch's own rows")
+    whole = {k: t.reshape(B, S, H) for k, t in (("out", out), ("dx", dx), ("dy", dy))}
+    mask = keep_mask((N, H), LN_RATE, s).reshape(B, S, H)
+    s_local = -(-S // tp)
+    sums = [torch.zeros(H, device=device), torch.zeros(H, device=device)]
+    for rank in range(tp):
+        s0, n = rank * s_local, min(s_local, S - rank * s_local)
+
+        def rows(t):
+            part = torch.zeros(B, s_local, H, dtype=t.dtype, device=device)
+            part[:, :n] = t.reshape(B, S, H)[:, s0:s0 + n]
+            return part.reshape(B * s_local, H)
+
+        layout = (s_local, S, s0)
+        got = {"out": kln.residual_dropout_layernorm_fwd(rows(x), rows(y), g, b, s, LN_RATE,
+                                                         layout=layout)}
+        got["dx"], got["dy"], g_r, b_r = kln.residual_dropout_layernorm_bwd(
+            rows(x), rows(y), g, rows(dout), s, LN_RATE, layout=layout)
+        sums = [sums[0] + g_r, sums[1] + b_r]
+        local_mask = keep_mask((B * s_local, H), LN_RATE, s, layout=layout)
+        torch.cuda.synchronize()
+        if not torch.equal(local_mask.reshape(B, s_local, H)[:, :n], mask[:, s0:s0 + n]):
+            raise AssertionError(f"the layout's hash rows differ at rank {rank}")
+        for k, t in got.items():
+            if not bits_equal(t.reshape(B, s_local, H)[:, :n], whole[k][:, s0:s0 + n]):
+                raise AssertionError(f"{k} of rank {rank}'s rows (s0 = {s0}) differs from the "
+                                     f"whole launch's at {(B, S, H, dtype)}")
+    err = max((sums[0] - dg).abs().max().item(), (sums[1] - db).abs().max().item())
+    if err > LN_SUM_TOL:
+        raise AssertionError(f"dscale / dbias summed over the ranks: {err} from the whole "
+                             f"launch's (tol {LN_SUM_TOL})")
+    return {"B": B, "S": S, "H": H, "tp": tp, "dtype": str(dtype).replace("torch.", ""),
+            "s0": [r * s_local for r in range(tp)], "s_local": s_local,
+            "rows_bit_equal": ["out", "dx", "dy", "mask"], "summed_dgb_max_abs_err": err,
+            "tol": LN_SUM_TOL}
+
+
+def check_ln_layouts(kln, keep_mask, device) -> list:
+    """`ln_layout_case` at the SP flagship's shapes: (B, S, H) = LN_LAYOUT at
+    tp = 2 (S_local 25, s0 0 and 25), f32 and bf16."""
+    cases = [ln_layout_case(kln, keep_mask, *LN_LAYOUT, TP, dtype, device)
+             for dtype in (torch.float32, torch.bfloat16)]
+    log("3 ln-row-layout", cases=cases)
+    return cases
 
 
 def check_ln_kernels(kln, keep_mask, device) -> tuple:
@@ -5241,13 +5321,15 @@ def phase17(counts, device) -> dict:
 TP = 2                            # tensor parallelism: two gloo ranks on the one card
 TP_HEADS = 12 // TP               # each rank's heads of bert-base's 12
 TP_STEPS = DP_STEPS               # `dp_eager_steps`' steps, each side
-TP_TIMEOUT_S = 300.0              # the two ranks' deadline: a bert-base each, the steps,
+TP_TIMEOUT_S = 600.0              # the two ranks' deadline: a bert-base each, the steps,
                                   # the export and serving
 TP_SERVE_BUCKET = 64              # Predictor(mesh=) at bucket 64, B = 64
 TP_SERVE_TOL = 1e-4
 # phase 17's least tolerances (relative for the losses, absolute for the parameters)
 TP_LOSS_FLOOR, TP_PARAM_FLOOR = DP_LOSS_FLOOR, DP_PARAM_FLOOR
 TP_PER_STEP = {**DP_PER_STEP, "ln_dropout_fwd": LN_SITES, "ln_dropout_bwd": LN_SITES}
+SP_LN_ROWS = TRAIN_B * -(-(TRAIN_T + 2) // TP)     # (a): a rank's LayerNorm rows, 64 x 25
+MOE_MESH = {k: v for k, v in MOE_OPTIONS.items() if k != "attn_impl"}   # (b), (c)
 
 
 def tp_trainer(device, **options):
@@ -5279,7 +5361,7 @@ def split_products(model, parts: int = TP):
     from mmda_tpu_torch.models import bert
 
     rows = {id(getattr(layer, name)) for layer in model.bert.layers
-            for name in ("attn_out", "ffn_out")}
+            for name in ("attn_out", "ffn_out") if hasattr(layer, name)}
     whole = bert.dense
 
     def dense(x, d, cd):
@@ -5303,13 +5385,16 @@ def tp_step(trainer, host, device, recurrence=None):
                       mesh=trainer.step_mesh, dropout_generator=trainer.dropout_generator)
 
 
-def tp_gloo_rank(rank: int, store: str, ref_path: str, out_dir: str) -> None:
+def tp_gloo_rank(rank: int, store: str, ref_path: str, moe_ref_path: str,
+                 out_dir: str) -> None:
     """Phase 18's rank: one of two gloo ranks on the one card, a (1, 2)
     mesh.  TP_STEPS eager f32 steps of the tensor-parallel Trainer (its
     launches, step times, peak memory, its gathered trainable parameters'
     distance from the one-process step's, `ref_path`), the best export in
     the full layout (rank 0 writes it), then `Predictor(mesh=)` on that
-    export at bucket TP_SERVE_BUCKET: its scores and launches."""
+    export at bucket TP_SERVE_BUCKET: its scores and launches; then (a),
+    (b) and (c) (`sp_rank`, `moe_rank`), `moe_ref_path` the one-process
+    MoE step's parameters."""
     sys.path.insert(0, str(ROOT))
     import torch.distributed as dist
 
@@ -5342,14 +5427,170 @@ def tp_gloo_rank(rank: int, store: str, ref_path: str, out_dir: str) -> None:
     t0 = time.perf_counter()
     scores = pred(requests)["scores"]
     serve_ms = (time.perf_counter() - t0) * 1e3
-    torch.save({"losses": losses, "ms": times, "launches": launches, "param_err": err,
-                "peak_mem_gb": peak / 1e9, "head0": mesh.tp_rank * TP_HEADS,
-                "dp": mesh.dp, "tp": mesh.tp, "backend": dist.get_backend(),
-                "scores": torch.from_numpy(scores), "serve_launches": all_launches(counts),
-                "serve_ms": serve_ms,
-                "sharded": trainer.step_mesh is not None},
-               pathlib.Path(out_dir, f"tp{rank}.pt"))
+    result = {"losses": losses, "ms": times, "launches": launches, "param_err": err,
+              "peak_mem_gb": peak / 1e9, "head0": mesh.tp_rank * TP_HEADS,
+              "dp": mesh.dp, "tp": mesh.tp, "backend": dist.get_backend(),
+              "scores": torch.from_numpy(scores), "serve_launches": all_launches(counts),
+              "serve_ms": serve_ms,
+              "sharded": trainer.step_mesh is not None}
+    del trainer, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["sp"] = sp_rank(device, counts, ref)
+    result["moe_tp"] = moe_rank(device, counts, torch.load(moe_ref_path), serve=True,
+                                dp_size=1, tp_size=TP)
+    result["moe_dp"] = moe_rank(device, counts, torch.load(moe_ref_path), serve=False,
+                                dp_size=TP, tp_size=1)
+    torch.save(result, pathlib.Path(out_dir, f"tp{rank}.pt"))
     dist.destroy_process_group()
+
+
+def rank_steps(trainer, device, counts, base: int) -> dict:
+    """`dp_eager_steps` of a phase 18 trainer on this rank: losses, ms,
+    launches, the trainer's and its steps' peak memory above `base` (what
+    the rank held before the trainer)."""
+    torch.cuda.reset_peak_memory_stats(device)
+    counts.reset_launch_count()
+    losses, times = dp_eager_steps(trainer, device, lambda h: tp_step(trainer, h, device))
+    return {"losses": losses, "ms": times, "launches": all_launches(counts),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(device) - base) / 1e9}
+
+
+def param_err(model, mesh, ref: dict) -> float:
+    """The largest distance of the model's gathered parameters from `ref`'s."""
+    from mmda_tpu_torch.parallel.mesh import gather_params
+
+    whole = dict(zip([n for n, _ in model.named_parameters()], gather_params(model, mesh)))
+    return max((whole[n].cpu() - ref[n]).abs().max().item() for n in ref)
+
+
+def sp_rank(device, counts, ref: dict) -> dict:
+    """(a): the TP step with sp=True on this rank; the rows and row layout of
+    each fused LayerNorm site it ran (`models/bert.py` calls)."""
+    from mmda_tpu_torch.models import bert
+
+    base = torch.cuda.memory_allocated(device)
+    trainer = tp_trainer(device, dp_size=1, tp_size=TP, sp=True)
+    sites = collections.Counter()
+    real = bert.residual_dropout_layernorm
+
+    def spy(x, *args):
+        sites[(x.shape[0], tuple(args[6]) if len(args) > 6 and args[6] else None)] += 1
+        return real(x, *args)
+
+    with replaced(bert, "residual_dropout_layernorm", spy):
+        out = rank_steps(trainer, device, counts, base)
+    out.update(param_err=param_err(trainer.model, trainer.mesh, ref),
+               ln_sites={f"{rows} rows, layout {layout}": n
+                         for (rows, layout), n in sites.items()},
+               sp=trainer.model.bert.sequence_parallel)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_mesh_trainer(device, **options):
+    """(b) and (c)'s Trainer: MISA with the bert-base Switch MoE of
+    MOE_OPTIONS at the flagship's width (B=64, T=48, `attn_impl="fused"`),
+    f32, eager, dropout off (at dp = 2 each rank draws its own); `options`
+    name its mesh."""
+    from mmda_tpu_torch.train.loop import Trainer
+
+    cfg, data = dp_cfg_and_data("moe_mesh", compute_dtype="float32", compiled_epoch=False,
+                                compiled_eval=False, **MOE_MESH, **options)
+    trainer = Trainer(cfg, data)
+    model = trainer.model
+    model.train = lambda mode=True: torch.nn.Module.train(model, False)
+    return trainer
+
+
+def moe_rank(device, counts, ref: dict, serve: bool, **mesh) -> dict:
+    """(b) / (c): DP_STEPS steps of `moe_mesh_trainer` on this rank's mesh;
+    under `serve` its export (full layout) served by `Predictor(mesh=)` at
+    bucket TP_SERVE_BUCKET: scores, launches, ms."""
+    from mmda_tpu_torch.serving import Predictor
+    from mmda_tpu_torch.train import checkpoint as ckpt
+
+    base = torch.cuda.memory_allocated(device)
+    trainer = moe_mesh_trainer(device, **mesh)
+    out = rank_steps(trainer, device, counts, base)
+    layer = trainer.model.bert.layers[MOE_TRAINED_LAYER].moe
+    out.update(param_err=param_err(trainer.model, trainer.mesh, ref),
+               experts_per_rank=layer.w_in.shape[0], dp=trainer.mesh.dp, tp=trainer.mesh.tp,
+               routes_over_data=trainer.model.bert.routes_over_data)
+    if serve:
+        trainer._export_best(ckpt.best_model_name(trainer.cfg), trainer.model,
+                             {"steps": DP_STEPS})
+        trainer._barrier()
+        cfg = tp_serve_cfg(trainer)
+        pred = Predictor(cfg, max_batch=TRAIN_B, mesh=trainer.mesh)
+        requests = make_requests(spread_lengths(TRAIN_B, (TP_SERVE_BUCKET,), 18), cfg, seed=18)
+        counts.reset_launch_count()
+        t0 = time.perf_counter()
+        out["scores"] = torch.from_numpy(pred(requests)["scores"])
+        out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+        out["serve_launches"] = all_launches(counts)
+        del pred
+    del trainer, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bounded_steps(name: str, whole: list, split: list, split_err: float, parts: list,
+                  per_rank: dict) -> dict:
+    """A phase 18 part's ranks (`rank_steps` results with `param_err`)
+    against the one-process steps `whole`: each loss and the gathered
+    parameters within twice what the plain split moves them (`split`,
+    `split_err`), and at least the floors; every rank made `per_rank`
+    launches; the ranks of a part agree."""
+    keys = list(whole[0])
+    loss_err = {k: max(abs(r["losses"][i][k] - whole[i][k]) for r in parts
+                       for i in range(TP_STEPS)) for k in keys}
+    split_loss_err = {k: max(abs(split[i][k] - whole[i][k]) for i in range(TP_STEPS))
+                      for k in keys}
+    loss_tol = {k: max(2 * split_loss_err[k], TP_LOSS_FLOOR * max(1.0, abs(whole[0][k])))
+                for k in keys}
+    param_tol = max(2 * split_err, TP_PARAM_FLOOR)
+    bad = [k for k in keys if loss_err[k] > loss_tol[k]]
+    worst = max(r["param_err"] for r in parts)
+    if (bad or worst > param_tol or any(r["launches"] != per_rank for r in parts)
+            or any(r["losses"] != parts[0]["losses"] for r in parts)):
+        raise AssertionError(f"{name} against the one-process step: losses {bad} ({loss_err} "
+                             f"against {loss_tol}), parameters {worst} against {param_tol}, "
+                             f"launches {[r['launches'] for r in parts]}")
+    return {"loss_err": loss_err, "plain_split_loss_err": split_loss_err, "loss_tol": loss_tol,
+            "param_err": worst, "plain_split_param_err": split_err, "param_tol": param_tol,
+            "step_ms": [statistics.median(r["ms"]) for r in parts],
+            "step_ms_all": [r["ms"] for r in parts],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in parts],
+            "launches_per_rank": [r["launches"] for r in parts]}
+
+
+def one_process_steps(trainer, device, counts, base: int) -> tuple:
+    """The one-process reference of a phase 18 part: DP_STEPS steps (ms,
+    losses, the trainable parameters after them, the trainer's and its
+    steps' peak memory above `base`, what was held before the trainer, as a
+    rank's fresh process counts it), then the same steps from the same start with each row-parallel
+    product split in two through the plain versions (`split_products`):
+    their losses and parameter distance."""
+    from mmda_tpu_torch.ops.kernels import lstm as klstm
+
+    start = on_host(train_state(trainer))   # the split steps start where these do
+    torch.cuda.reset_peak_memory_stats(device)
+    whole, ms = dp_eager_steps(trainer, device, lambda h: tp_step(trainer, h, device))
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()
+              if p.requires_grad}
+    restore_train_state(trainer, start)
+    del start
+    with plain_versions(counts), split_products(trainer.model):
+        split, _ = dp_eager_steps(trainer, device, lambda h: tp_step(
+            trainer, h, device, klstm.lstm_recurrence_reference))
+    split_err = max((p.detach().cpu() - params[n]).abs().max().item()
+                    for n, p in trainer.model.named_parameters() if p.requires_grad)
+    return whole, ms, peak, params, split, split_err
 
 
 def phase18(counts, device) -> dict:
@@ -5358,8 +5599,9 @@ def phase18(counts, device) -> dict:
     one-process step with the same seed, within twice what splitting each
     row-parallel product in two moves the one-process step (through the
     plain versions), then its export served by `Predictor(mesh=)` at tp = 2
-    against the one-process Predictor."""
-    from mmda_tpu_torch.ops.kernels import lstm as klstm
+    against the one-process Predictor; then (a) the same step with sequence
+    parallelism, (b) the MoE step at tp = 2 and its export served, (c) the
+    MoE step at dp = 2, each against its one-process step."""
     from mmda_tpu_torch.serving import Predictor
 
     t0 = time.perf_counter()
@@ -5368,46 +5610,32 @@ def phase18(counts, device) -> dict:
     base = torch.cuda.memory_allocated(device)     # what earlier phases still hold
     whole_t = tp_trainer(device)
     serve_cfg = tp_serve_cfg(whole_t)       # the ranks' export lands in its ckpt_dir
-    start = on_host(train_state(whole_t))   # the split steps start where these do
-    torch.cuda.reset_peak_memory_stats(device)
-    whole, whole_ms = dp_eager_steps(whole_t, device, lambda h: tp_step(whole_t, h, device))
-    # the trainer's and its steps' peak, as a rank's (a fresh process) counts it
-    whole_peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9
-    whole_p = {n: p.detach().cpu() for n, p in whole_t.model.named_parameters()
-               if p.requires_grad}
-    restore_train_state(whole_t, start)
-    del start
-    with plain_versions(counts), split_products(whole_t.model):
-        split, _ = dp_eager_steps(whole_t, device, lambda h: tp_step(
-            whole_t, h, device, klstm.lstm_recurrence_reference))
-    split_err = max((p.detach().cpu() - whole_p[n]).abs().max().item()
-                    for n, p in whole_t.model.named_parameters() if p.requires_grad)
+    whole, whole_ms, whole_peak, whole_p, split, split_err = one_process_steps(
+        whole_t, device, counts, base)
     del whole_t
     ref = work / "whole_params.pt"
     torch.save(whole_p, ref)
     del whole_p
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    moe_t = moe_mesh_trainer(device)
+    moe_serve_cfg = tp_serve_cfg(moe_t)
+    moe_whole, moe_ms, moe_peak, moe_p, moe_split, moe_split_err = one_process_steps(
+        moe_t, device, counts, base)
+    del moe_t
+    moe_ref = work / "moe_params.pt"
+    torch.save(moe_p, moe_ref)
+    del moe_p
+    torch.cuda.empty_cache()
     counts.reset_launch_count()             # the ranks count their own launches
     spawn_ranks(tp_gloo_rank, TP, str(work / f"store_{time.monotonic_ns()}"), str(ref),
-                str(work), deadline_s=TP_TIMEOUT_S)
+                str(moe_ref), str(work), deadline_s=TP_TIMEOUT_S)
     ranks = [torch.load(work / f"tp{r}.pt") for r in range(TP)]
     per_rank = expected_launches(counts, {k: n * TP_STEPS for k, n in TP_PER_STEP.items()})
-    loss_err = {k: max(abs(r["losses"][i][k] - whole[i][k]) for r in ranks
-                       for i in range(TP_STEPS)) for k in whole[0]}
-    split_loss_err = {k: max(abs(split[i][k] - whole[i][k]) for i in range(TP_STEPS))
-                      for k in whole[0]}
-    loss_tol = {k: max(2 * split_loss_err[k], TP_LOSS_FLOOR * max(1.0, abs(whole[0][k])))
-                for k in whole[0]}
-    param_tol = max(2 * split_err, TP_PARAM_FLOOR)
-    bad = [k for k in whole[0] if loss_err[k] > loss_tol[k]]
-    param_err = max(r["param_err"] for r in ranks)
-    if (bad or param_err > param_tol or any(r["launches"] != per_rank for r in ranks)
-            or [(r["backend"], r["dp"], r["tp"], r["sharded"], r["head0"]) for r in ranks]
-            != [("gloo", 1, TP, True, TP_HEADS * i) for i in range(TP)]
-            or ranks[0]["losses"] != ranks[1]["losses"]):
-        raise AssertionError(f"tp = {TP} against the one-process step: losses {bad} "
-                             f"({loss_err} against {loss_tol}), parameters {param_err} against "
-                             f"{param_tol}, launches {[r['launches'] for r in ranks]}")
+    tp = bounded_steps(f"tp = {TP}", whole, split, split_err, ranks, per_rank)
+    if ([(r["backend"], r["dp"], r["tp"], r["sharded"], r["head0"]) for r in ranks]
+            != [("gloo", 1, TP, True, TP_HEADS * i) for i in range(TP)]):
+        raise AssertionError(f"tp = {TP}: the ranks' meshes")
     # the export the ranks wrote, served by one process
     one = Predictor(serve_cfg, max_batch=TRAIN_B)
     requests = make_requests(spread_lengths(TRAIN_B, (TP_SERVE_BUCKET,), 18), serve_cfg,
@@ -5419,22 +5647,72 @@ def phase18(counts, device) -> dict:
         raise AssertionError(f"Predictor(mesh=) at tp = {TP}: scores {serve_err} from the "
                              f"one-process Predictor's (tol {TP_SERVE_TOL}), launches "
                              f"{[r['serve_launches'] for r in ranks]}")
+    del one
     out = {"backend": "gloo", "mesh": [1, TP], "steps": TP_STEPS, "dtype": "float32",
            "dropout": True, "batch": [TRAIN_B, TRAIN_T + 2],
            "launches_per_rank": [{"head0": r["head0"], "launches": r["launches"]}
                                  for r in ranks],
-           "loss_err": loss_err, "plain_split_loss_err": split_loss_err, "loss_tol": loss_tol,
-           "param_err": param_err, "plain_split_param_err": split_err, "param_tol": param_tol,
-           "step_ms": [statistics.median(r["ms"]) for r in ranks],
-           "step_ms_all": [r["ms"] for r in ranks],
+           **{k: v for k, v in tp.items() if k != "launches_per_rank"},
            "one_process_step_ms": statistics.median(whole_ms),
-           "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
            "one_process_peak_mem_gb": whole_peak,
            "serve": {"bucket": TP_SERVE_BUCKET, "batch": TRAIN_B, "max_abs_err": serve_err,
                      "tol": TP_SERVE_TOL, "ms_per_rank": [r["serve_ms"] for r in ranks],
                      "launches_per_rank": [r["serve_launches"] for r in ranks]}}
     log("18 tp-gloo-two-ranks", **out)
-    launches = {name: sum(r["launches"][name] + r["serve_launches"][name] for r in ranks)
+
+    # (a) sequence parallelism on the same step
+    sp_parts = [r["sp"] for r in ranks]
+    sp = bounded_steps(f"sp at tp = {TP}", whole, split, split_err, sp_parts, per_rank)
+    want_sites = [{f"{SP_LN_ROWS} rows, layout {(SP_LN_ROWS // TRAIN_B, TRAIN_T + 2, s0)}":
+                   LN_SITES * TP_STEPS}
+                  for s0 in (0, SP_LN_ROWS // TRAIN_B)]
+    if [p["ln_sites"] for p in sp_parts] != want_sites or not all(p["sp"] for p in sp_parts):
+        raise AssertionError(f"sp: the LayerNorm sites' rows and layouts "
+                             f"{[p['ln_sites'] for p in sp_parts]}, want {want_sites}")
+    out["sp"] = {"mesh": [1, TP], "dropout": True,
+                 "launches_per_rank": [{"head0": TP_HEADS * i, "ln_sites": p["ln_sites"],
+                                        "launches": p["launches"]}
+                                       for i, p in enumerate(sp_parts)],
+                 **{k: v for k, v in sp.items() if k != "launches_per_rank"},
+                 "tp_step_ms": out["step_ms"], "tp_peak_mem_gb": out["peak_mem_gb"]}
+    log("18 sp-gloo-two-ranks", **out["sp"])
+
+    # (b) the MoE step at tp = 2, its export served; (c) at dp = 2
+    moe_per_rank = expected_launches(counts, {k: n * TP_STEPS for k, n in DP_PER_STEP.items()})
+    for key, mesh_shape in (("moe_tp", [1, TP]), ("moe_dp", [TP, 1])):
+        parts = [r[key] for r in ranks]
+        res = bounded_steps(f"MoE on {mesh_shape}", moe_whole, moe_split, moe_split_err, parts,
+                            moe_per_rank)
+        if any([p["dp"], p["tp"]] != mesh_shape or p["experts_per_rank"] != 4 // mesh_shape[1]
+               or p["routes_over_data"] != (mesh_shape[0] > 1) for p in parts):
+            raise AssertionError(f"MoE on {mesh_shape}: the ranks' meshes or experts")
+        out[key] = {"mesh": mesh_shape, "dropout": False, "options": MOE_OPTIONS,
+                    "experts_per_rank": parts[0]["experts_per_rank"],
+                    "aux_one_process": [{k: s[k] for k in ("moe", "moe_drop")} for s in moe_whole],
+                    "aux_ranks": [[{k: s[k] for k in ("moe", "moe_drop")} for s in p["losses"]]
+                                  for p in parts],
+                    **res, "one_process_step_ms": statistics.median(moe_ms),
+                    "one_process_peak_mem_gb": moe_peak}
+        if key == "moe_tp":
+            one = Predictor(moe_serve_cfg, max_batch=TRAIN_B)
+            requests = make_requests(spread_lengths(TRAIN_B, (TP_SERVE_BUCKET,), 18),
+                                     moe_serve_cfg, seed=18)
+            want = one(requests)["scores"]
+            del one
+            err = max(float(np.abs(p["scores"].numpy() - want).max()) for p in parts)
+            if err > TP_SERVE_TOL or any(p["serve_launches"] != serve_per_rank for p in parts):
+                raise AssertionError(f"MoE Predictor(mesh=) at tp = {TP}: scores {err} "
+                                     f"(tol {TP_SERVE_TOL}), launches "
+                                     f"{[p['serve_launches'] for p in parts]}")
+            out[key]["serve"] = {"bucket": TP_SERVE_BUCKET, "batch": TRAIN_B,
+                                 "max_abs_err": err, "tol": TP_SERVE_TOL,
+                                 "ms_per_rank": [p["serve_ms"] for p in parts],
+                                 "launches_per_rank": [p["serve_launches"] for p in parts]}
+        log(f"18 {key.replace('_', '-')}-gloo-two-ranks", **out[key])
+    launches = {name: sum(r[part]["launches"][name] for r in ranks
+                          for part in ("sp", "moe_tp", "moe_dp"))
+                + sum(r["launches"][name] + r["serve_launches"][name]
+                      + r["moe_tp"]["serve_launches"][name] for r in ranks)
                 for name in counts.KERNELS}
     return {**out, "launches": launches, "seconds": time.perf_counter() - t0}
 
@@ -5475,12 +5753,14 @@ def row_parallel_products(device) -> dict:
     return out
 
 
-def tp_nccl(counts, device) -> dict:
+def tp_nccl(counts, device, sp: bool = False) -> dict:
     """`--tp-nccl` (two or more cards): `cli.train` at tp = 2 under
     `torchrun --nproc_per_node 2` over nccl, one card a rank, with
-    compiled_epoch and compiled_eval (TP_NCCL_CLI), its launches counted;
-    each rank's `tp_nccl_rank` checks; the one-process `Trainer` on the
-    same configuration beside it (its epoch's losses); the row-parallel
+    compiled_epoch and compiled_eval (TP_NCCL_CLI; `--tp-nccl --sp` adds
+    `--sp True`: the captured steps then hold nccl's all-gathers and
+    reduce-scatters along S), its launches counted; each rank's
+    `tp_nccl_rank` checks; the one-process `Trainer` on the same
+    configuration beside it (its epoch's losses); the row-parallel
     products' cost (`row_parallel_products`)."""
     from mmda_tpu_torch.cli import train as cli_train
     from mmda_tpu_torch.config import get_config
@@ -5497,7 +5777,8 @@ def tp_nccl(counts, device) -> dict:
         code = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
              str(TP), str(ROOT / "chip_smoke.py"), "--dp-cli", str(out_json), *TP_NCCL_CLI,
-             "--ckpt_dir", str(TP_NCCL_DIR / "tp")], cwd=ROOT, stdout=f,
+             *(["--sp", "True"] if sp else []), "--ckpt_dir", str(TP_NCCL_DIR / "tp")],
+            cwd=ROOT, stdout=f,
             stderr=subprocess.STDOUT, timeout=DP_CLI_HANG_S + 60).returncode
     if code != 0:
         raise RuntimeError(f"torchrun cli.train --tp_size {TP} exit {code}:\n"
@@ -5525,7 +5806,7 @@ def tp_nccl(counts, device) -> dict:
                  for k in history[0] if isinstance(history[0][k], float)}
     if not all(np.isfinite(v) for v in loss_diff.values()):
         problems.append(f"the epoch's losses: {got}")
-    out = {"backend": "nccl", "mesh": [1, TP], "cards": TP, "dtype": "bfloat16",
+    out = {"backend": "nccl", "mesh": [1, TP], "cards": TP, "dtype": "bfloat16", "sp": sp,
            "launches": rank0["launches"], "train_wall_s": rank0["train_wall_s"],
            "captured_step": rank0["captured_step"], "serve": rank0["serve"],
            "history": got, "one_process_history": history, "vs_one_process": loss_diff,
@@ -5606,7 +5887,8 @@ def main() -> int:
     if args[:1] == ["--dp-cli"] and len(args) > 1:     # phase 17 (a)'s torchrun rank
         return dp_cli_rank(args[1], args[2:])
     if args not in ([], ["--first-calls"], ["--phase15"], ["--phase16"], ["--phase17"],
-                    ["--phase18"], ["--fused-long-f32"], ["--fused-f32"], ["--tp-nccl"]):
+                    ["--phase18"], ["--fused-long-f32"], ["--fused-f32"], ["--tp-nccl"],
+                    ["--tp-nccl", "--sp"]):
         print(f"chip_smoke: unknown arguments {args}; see the module docstring",
               file=sys.stderr)
         return 2
@@ -5674,11 +5956,12 @@ def main() -> int:
         (ROOT / "chiprun_out" / "chip_smoke_phase17.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
     if "--tp-nccl" in args:                 # tensor parallelism over two cards
-        tp_nccl(counts, device)
+        tp_nccl(counts, device, sp="--sp" in args)
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_tp_nccl.log").write_text("\n".join(LOG_LINES) + "\n")
         return 0
-    if "--phase18" in args:                 # phase 18 alone, after the build
+    if "--phase18" in args:                 # phase 3's row layouts, then phase 18 alone
+        check_ln_layouts(kln, hashes.keep_mask, device)
         p18 = phase18(counts, device)
         log("18 seconds", seconds=p18["seconds"])
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
@@ -5693,6 +5976,7 @@ def main() -> int:
     checks.update(check_attn_kernels(kattn, hashes, device))
     checks.update(check_short_kernels(kshort, hashes, device))
     check_head_offsets(kattn, kshort, hashes, device)
+    check_ln_layouts(kln, hashes.keep_mask, device)
     checks["lstm_multi_fwd"], checks["lstm_multi_bwd"] = check_multi_kernels(kmulti, klstm,
                                                                              device)
 

@@ -27,8 +27,10 @@ Under torchrun the run is data- and tensor-parallel (`parallel/mesh.py`):
 each process joins the process group (`nccl` on the card LOCAL_RANK, `gloo`
 with `--device cpu`), the trainer shards each batch over `--dp_size` ranks
 (-1, the default: the world over `--tp_size`) and the BERT encoder over
-`--tp_size` ranks (Megatron's blocks; the files hold the full layout), and
-only rank 0 prints, logs and writes files.
+`--tp_size` ranks (Megatron's blocks, a MoE layer's experts on their
+leading E; the files hold the full layout), `--sp True` shards the
+encoder's LayerNorm regions along S over those ranks, and only rank 0
+prints, logs and writes files.
 
 Usage:
   python -m mmda_tpu_torch.cli.etl --data mosei --data_dir DIR       # the splits, once

@@ -145,12 +145,15 @@ class Config:
     # Parallelism: the ('data', 'model') mesh of parallel/mesh.py under
     # torchrun: dp_size ranks on 'data' (-1: the process group's world over
     # tp_size; one process without a group) and tp_size on 'model' (the
-    # Megatron-sharded BERT encoder, tp dividing its heads and FFN width), in
-    # the Trainer, cli.train, Predictor(mesh=) and cli.serve.  pp_size > 1, sp,
-    # zero1, fsdp and MoE BERT on a mesh (dp or tp > 1) are refused by the
-    # trainer, naming their ROADMAP items (train/loop.py::unsupported).  Then
-    # options the port runs: MoE BERT (moe_*) on one process, the EMA shadow
-    # (ema_decay), MMIM's weights (mmim_*).
+    # Megatron-sharded BERT encoder, tp dividing its heads, FFN width and
+    # experts), in the Trainer, cli.train, Predictor(mesh=) and cli.serve.  sp:
+    # sequence parallelism on that encoder (needs tp_size > 1;
+    # parallel/sequence.py).  MoE BERT (moe_*) runs on one process and on the
+    # mesh: its experts sharded over 'model' at tp > 1 (parallel/expert.py),
+    # routed as the global batch at dp > 1.  pp_size > 1, zero1 and fsdp are
+    # refused by the trainer, naming their ROADMAP items
+    # (train/loop.py::unsupported).  Then the EMA shadow (ema_decay) and
+    # MMIM's weights (mmim_*).
     dp_size: int = -1
     tp_size: int = 1
     pp_size: int = 1
@@ -263,6 +266,9 @@ class Config:
             raise ValueError(f"bad lr_schedule {self.lr_schedule!r}")
         if self.adam_mu_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"bad adam_mu_dtype {self.adam_mu_dtype!r}")
+        if self.sp and self.tp_size <= 1:
+            raise ValueError("sp=True needs tp_size > 1 (S is sharded over the TP 'model' "
+                             "axis)")
 
     def __str__(self) -> str:
         return "Configurations\n" + self.to_json()

@@ -1,7 +1,7 @@
 // Shared by ln_dropout_fwd.cu and ln_dropout_bwd.cu: rows of f32 or bf16
 // values read and written 1 or 4 at a time (4: one 16-byte or 8-byte access
 // per lane, neighbouring lanes on neighbouring addresses), as f32 or as
-// loaded (Raw), and a warp sum.
+// loaded (Raw), a warp sum, and the row layout the hash reads.
 
 #pragma once
 
@@ -11,6 +11,21 @@
 namespace mmda {
 
 constexpr int kWarpsPerBlock = 4;   // the forward: one warp per row, 4 rows per block
+
+// Where a launch's rows lie in the (B * s_total, H) rows the mask is drawn
+// over: B runs of s_local rows, run b holding rows b * s_total + s0 ..
+// b * s_total + s0 + s_local - 1 (sequence parallelism: a rank's S-shard of
+// each batch item).  s_local = s_total = N, s0 = 0 is the launch itself.
+struct RowLayout {
+  int s_local, s_total, s0;
+};
+
+// The row the hash takes for row `row` of the launch, in uint32 arithmetic
+// (wrapping, as the hash's own).
+__device__ __forceinline__ uint32_t hash_row(int row, RowLayout l) {
+  return (uint32_t)(row / l.s_local) * (uint32_t)l.s_total + (uint32_t)l.s0 +
+         (uint32_t)(row % l.s_local);
+}
 
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {

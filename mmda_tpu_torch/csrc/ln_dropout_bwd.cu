@@ -12,6 +12,7 @@
 //   dg    = sum over rows of do * zhat;   db = sum over rows of do
 //
 // x, y, do, dx, dy (N, H) in f32 or bf16, g, dg, db (H,) f32, arithmetic f32.
+// The mask's rows are placed by the forward's RowLayout (ln_dropout.cuh).
 //
 // What bounds it on the H100: bytes.  Five passes over N * H elements (x, y,
 // do read, dx, dy written): 24.6 MB in bf16 at N=3200, H=768, 7.3 us at
@@ -82,7 +83,8 @@ ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
                       T* __restrict__ dx,           // (N, H)
                       T* __restrict__ dy,           // (N, H)
                       float* __restrict__ partial,  // (blocks, 2, H)
-                      int N, int H, float rate, float scale, float eps) {
+                      int N, int H, mmda::RowLayout layout, float rate, float scale,
+                      float eps) {
   using R = mmda::Raw<T, V>;
   constexpr int HW = NCH * 32 * V;                 // the columns a warp's lanes own
   extern __shared__ __align__(16) float smem[];
@@ -127,6 +129,7 @@ ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
     float z[NCH][V];
     uint32_t keep = 0u;
     float sum = 0.0f;
+    const uint32_t hrow = mmda::hash_row(row, layout);
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
       const int c = (k * 32 + lane) * V;
@@ -135,7 +138,7 @@ ln_dropout_bwd_kernel(const T* __restrict__ x,      // (N, H)
       mmda::raw_to_float<T, V>(ry[k], yv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        const bool kept = mmda::hash_keep(seed, hrow, (uint32_t)(c + i), rate);
         keep |= (uint32_t)kept << (k * V + i);
         z[k][i] = xv[i] + (kept ? yv[i] * scale : 0.0f);   // 0 past H
         sum += z[k][i];
@@ -248,7 +251,7 @@ ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
                            const float* __restrict__ g, const T* __restrict__ dout,
                            const int* __restrict__ seed_ptr, T* __restrict__ dx,
                            T* __restrict__ dy, float* __restrict__ partial, int N, int H,
-                           float rate, float scale, float eps) {
+                           mmda::RowLayout layout, float rate, float scale, float eps) {
   constexpr int NT = 32 * kWideWarps;
   extern __shared__ __align__(16) float smem[];
   float* z_s = smem;           // (H,) z, then zhat, of the current row
@@ -264,6 +267,7 @@ ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
   for (int row = blockIdx.x; row < N; row += gridDim.x) {
     const size_t base = (size_t)row * H;
+    const uint32_t hrow = mmda::hash_row(row, layout);
     float sum = 0.0f;
     for (int c = threadIdx.x * V; c < H; c += NT * V) {
       float xv[V], yv[V], zv[V];
@@ -271,7 +275,7 @@ ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
       mmda::load_vec<V>(y + base + c, yv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        const bool kept = mmda::hash_keep(seed, hrow, (uint32_t)(c + i), rate);
         zv[i] = xv[i] + (kept ? yv[i] * scale : 0.0f);
         sum += zv[i];
       }
@@ -317,7 +321,7 @@ ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const float dz = rstd * (dv[i] * gv[i] - m1 - zv[i] * m2);
-        const bool kept = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate);
+        const bool kept = mmda::hash_keep(seed, hrow, (uint32_t)(c + i), rate);
         dxv[i] = dz;
         dyv[i] = kept ? dz * scale : 0.0f;
       }
@@ -336,7 +340,8 @@ ln_dropout_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
 template <typename T, int V>
 cudaError_t launch_wide(const void* x, const void* y, const float* g, const void* dout,
                         const int* seed, void* dx, void* dy, float* partial, int N, int H,
-                        int blocks, float rate, float scale, float eps, cudaStream_t stream) {
+                        mmda::RowLayout layout, int blocks, float rate, float scale, float eps,
+                        cudaStream_t stream) {
   const size_t smem_bytes = (size_t)3 * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(ln_dropout_bwd_wide_kernel<T, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,7 +349,8 @@ cudaError_t launch_wide(const void* x, const void* y, const float* g, const void
   if (err != cudaSuccess) return err;
   ln_dropout_bwd_wide_kernel<T, V><<<blocks, 32 * kWideWarps, smem_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), g, static_cast<const T*>(dout),
-      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, rate, scale, eps);
+      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, layout, rate, scale,
+      eps);
   return cudaGetLastError();
 }
 
@@ -387,7 +393,8 @@ ln_dropout_dgb_sum_kernel(const float* __restrict__ partial,  // (blocks, 2, H)
 template <typename T, int V, int NCH>
 cudaError_t launch(const void* x, const void* y, const float* g, const void* dout,
                    const int* seed, void* dx, void* dy, float* partial, int N, int H,
-                   int blocks, float rate, float scale, float eps, cudaStream_t stream) {
+                   mmda::RowLayout layout, int blocks, float rate, float scale, float eps,
+                   cudaStream_t stream) {
   const size_t smem_bytes = (size_t)(1 + 2 * kWarps) * NCH * 32 * V * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(ln_dropout_bwd_kernel<T, V, NCH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,7 +402,8 @@ cudaError_t launch(const void* x, const void* y, const float* g, const void* dou
   if (err != cudaSuccess) return err;
   ln_dropout_bwd_kernel<T, V, NCH><<<blocks, 32 * kWarps, smem_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), g, static_cast<const T*>(dout),
-      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, rate, scale, eps);
+      seed, static_cast<T*>(dx), static_cast<T*>(dy), partial, N, H, layout, rate, scale,
+      eps);
   return cudaGetLastError();
 }
 
@@ -405,24 +413,25 @@ cudaError_t launch(const void* x, const void* y, const float* g, const void* dou
 template <typename T, int V>
 cudaError_t launch_rows(const void* x, const void* y, const float* g, const void* dout,
                         const int* seed, void* dx, void* dy, float* partial, int N, int H,
-                        int blocks, float rate, float scale, float eps, cudaStream_t st) {
+                        mmda::RowLayout layout, int blocks, float rate, float scale, float eps,
+                        cudaStream_t st) {
   if (H > kWarpMaxH) {
-    return launch_wide<T, V>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate, scale,
-                             eps, st);
+    return launch_wide<T, V>(x, y, g, dout, seed, dx, dy, partial, N, H, layout, blocks,
+                             rate, scale, eps, st);
   }
   const int need = (H + 32 * V - 1) / (32 * V);
   if constexpr (V == 4) {
-    if (need <= 2) return launch<T, 4, 2>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                          rate, scale, eps, st);
-    if (need <= 6) return launch<T, 4, 6>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                          rate, scale, eps, st);
-    if (need <= 8) return launch<T, 4, 8>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                          rate, scale, eps, st);
+    if (need <= 2) return launch<T, 4, 2>(x, y, g, dout, seed, dx, dy, partial, N, H,
+                                          layout, blocks, rate, scale, eps, st);
+    if (need <= 6) return launch<T, 4, 6>(x, y, g, dout, seed, dx, dy, partial, N, H,
+                                          layout, blocks, rate, scale, eps, st);
+    if (need <= 8) return launch<T, 4, 8>(x, y, g, dout, seed, dx, dy, partial, N, H,
+                                          layout, blocks, rate, scale, eps, st);
   } else {
-    if (need <= 8) return launch<T, 1, 8>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                          rate, scale, eps, st);
+    if (need <= 8) return launch<T, 1, 8>(x, y, g, dout, seed, dx, dy, partial, N, H,
+                                          layout, blocks, rate, scale, eps, st);
     if (need <= 32) return launch<T, 1, 32>(x, y, g, dout, seed, dx, dy, partial, N, H,
-                                            blocks, rate, scale, eps, st);
+                                            layout, blocks, rate, scale, eps, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -437,28 +446,32 @@ extern "C" {
 // every pointer 16-byte aligned) or 1; 1 <= H <= 14528.  The caller allocates
 // dx, dy, dg, db and the (blocks, 2, H) f32 scratch `partial`; blocks >= 1
 // (the grid of the rows pass).  rate and scale = 1 / (1 - rate) already
-// rounded to f32; seed (device int32) is read only when rate > 0.
+// rounded to f32; seed (device int32) is read only when rate > 0.  The rows
+// hash as the forward's RowLayout {s_local, s_total, s0} places them.
 int mmda_ln_dropout_bwd(const void* x, const void* y, const float* g, const void* dout,
                         const int* seed, void* dx, void* dy, float* dg, float* db,
-                        float* partial, int N, int H, int is_bf16, int vec, int blocks,
-                        float rate, float scale, float eps, void* stream) {
+                        float* partial, int N, int H, int s_local, int s_total, int s0,
+                        int is_bf16, int vec, int blocks, float rate, float scale, float eps,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((vec != 1 && vec != 4) || blocks < 1 || N < 1 || H < 1 || H > kWideMaxH) {
+  if ((vec != 1 && vec != 4) || blocks < 1 || N < 1 || H < 1 || H > kWideMaxH ||
+      s_local < 1 || N % s_local) {
     return (int)cudaErrorInvalidValue;
   }
+  const mmda::RowLayout layout{s_local, s_total, s0};
   cudaError_t err;
   if (is_bf16) {
     err = vec == 4
-        ? launch_rows<__nv_bfloat16, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                        rate, scale, eps, st)
-        : launch_rows<__nv_bfloat16, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks,
-                                        rate, scale, eps, st);
+        ? launch_rows<__nv_bfloat16, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, layout,
+                                        blocks, rate, scale, eps, st)
+        : launch_rows<__nv_bfloat16, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, layout,
+                                        blocks, rate, scale, eps, st);
   } else {
     err = vec == 4
-        ? launch_rows<float, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate,
-                                scale, eps, st)
-        : launch_rows<float, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, blocks, rate,
-                                scale, eps, st);
+        ? launch_rows<float, 4>(x, y, g, dout, seed, dx, dy, partial, N, H, layout, blocks,
+                                rate, scale, eps, st)
+        : launch_rows<float, 1>(x, y, g, dout, seed, dx, dy, partial, N, H, layout, blocks,
+                                rate, scale, eps, st);
   }
   if (err != cudaSuccess) return (int)err;
   ln_dropout_dgb_sum_kernel<<<(2 * H + 31) / 32, 32 * kSumWarps, 0, st>>>(partial, dg, db,

@@ -12,7 +12,10 @@
 // keep mask is hash_dropout.cuh's, on the absolute (row, column) and the
 // seed read from device memory (the caller never copies it to the host), so
 // the mask, the dropout output and the normalised intermediate never exist
-// in device memory.  rate == 0 skips the mask (seed may be null).
+// in device memory.  rate == 0 skips the mask (seed may be null).  The row
+// hashed is the launch's row placed by a RowLayout (ln_dropout.cuh), so a
+// rank holding each batch item's rows s0 .. s0 + s_local - 1 of S draws the
+// whole (B * S, H) launch's bits for them.
 //
 // What bounds it on the H100: bytes.  Three passes over N * H elements (x and
 // y read, out written): 14.7 MB in bf16 at N=3200, H=768, 4.4 us at
@@ -42,8 +45,8 @@ __global__ void ln_dropout_fwd_kernel(const T* __restrict__ x,     // (N, H)
                                       const float* __restrict__ b, // (H,)
                                       const int* __restrict__ seed_ptr,
                                       T* __restrict__ out,         // (N, H)
-                                      int N, int H, float rate, float scale,
-                                      float eps) {
+                                      int N, int H, mmda::RowLayout layout,
+                                      float rate, float scale, float eps) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -52,6 +55,7 @@ __global__ void ln_dropout_fwd_kernel(const T* __restrict__ x,     // (N, H)
   float* z_s = smem + warp * H;         // each lane reads back only its own
   const bool drop = rate > 0.0f;
   const uint32_t seed = drop ? (uint32_t)seed_ptr[0] : 0u;
+  const uint32_t hrow = mmda::hash_row(row, layout);
   const size_t base = (size_t)row * H;
 
   float sum = 0.0f;
@@ -63,7 +67,7 @@ __global__ void ln_dropout_fwd_kernel(const T* __restrict__ x,     // (N, H)
     for (int i = 0; i < V; ++i) {
       float yi = yv[i];
       if (drop) {
-        yi = mmda::hash_keep(seed, (uint32_t)row, (uint32_t)(c + i), rate)
+        yi = mmda::hash_keep(seed, hrow, (uint32_t)(c + i), rate)
                  ? yi * scale : 0.0f;
       }
       zv[i] = xv[i] + yi;
@@ -98,8 +102,8 @@ __global__ void ln_dropout_fwd_kernel(const T* __restrict__ x,     // (N, H)
 
 template <typename T, int V>
 cudaError_t launch(const void* x, const void* y, const float* g, const float* b,
-                   const int* seed, void* out, int N, int H, float rate,
-                   float scale, float eps, cudaStream_t stream) {
+                   const int* seed, void* out, int N, int H, mmda::RowLayout layout,
+                   float rate, float scale, float eps, cudaStream_t stream) {
   const size_t smem_bytes = (size_t)kWarpsPerBlock * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ln_dropout_fwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -108,7 +112,7 @@ cudaError_t launch(const void* x, const void* y, const float* g, const float* b,
   const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
   ln_dropout_fwd_kernel<T, V><<<blocks, 32 * kWarpsPerBlock, smem_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), g, b, seed,
-      static_cast<T*>(out), N, H, rate, scale, eps);
+      static_cast<T*>(out), N, H, layout, rate, scale, eps);
   return cudaGetLastError();
 }
 
@@ -119,21 +123,24 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 // x, y, out: bf16 when is_bf16 else f32.  vec is 4 (H % 4 == 0 and every
 // pointer 16-byte aligned) or 1.  rate and scale = 1 / (1 - rate) already
-// rounded to f32; seed (device int32) is read only when rate > 0.
+// rounded to f32; seed (device int32) is read only when rate > 0.  The rows
+// hash as RowLayout {s_local, s_total, s0} places them (s_local >= 1 divides
+// N; N, N, 0 for the launch's own rows).
 int mmda_ln_dropout_fwd(const void* x, const void* y, const float* g,
                         const float* b, const int* seed, void* out, int N,
-                        int H, int is_bf16, int vec, float rate, float scale,
-                        float eps, void* stream) {
+                        int H, int s_local, int s_total, int s0, int is_bf16,
+                        int vec, float rate, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec != 1 && vec != 4) return (int)cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 4) || s_local < 1 || N % s_local) return (int)cudaErrorInvalidValue;
+  const mmda::RowLayout l{s_local, s_total, s0};
   if (is_bf16) {
     return (int)(vec == 4
-        ? launch<__nv_bfloat16, 4>(x, y, g, b, seed, out, N, H, rate, scale, eps, st)
-        : launch<__nv_bfloat16, 1>(x, y, g, b, seed, out, N, H, rate, scale, eps, st));
+        ? launch<__nv_bfloat16, 4>(x, y, g, b, seed, out, N, H, l, rate, scale, eps, st)
+        : launch<__nv_bfloat16, 1>(x, y, g, b, seed, out, N, H, l, rate, scale, eps, st));
   }
   return (int)(vec == 4
-      ? launch<float, 4>(x, y, g, b, seed, out, N, H, rate, scale, eps, st)
-      : launch<float, 1>(x, y, g, b, seed, out, N, H, rate, scale, eps, st));
+      ? launch<float, 4>(x, y, g, b, seed, out, N, H, l, rate, scale, eps, st)
+      : launch<float, 1>(x, y, g, b, seed, out, N, H, l, rate, scale, eps, st));
 }
 
 }  // extern "C"

@@ -62,13 +62,33 @@ draws it, and keeps its heads' slice.  So every rank of a row draws alike
 and keeps the one-process masks.  The hidden dropout and the fused LayerNorm sites act on
 activations every rank of the row holds whole, from the same generator.
 
+Sequence parallelism (`parallel/sequence.py::shard_sequence` sets the
+encoder's `sequence_parallel`, beside `tp_mesh`): after the embedding's
+dropout the stream is split along S (`scatter_to_sequence`), and a layer
+holds its rank's B x S_local rows between its blocks.  It gathers S before
+the qkv product and before the FFN (`gather_from_sequence`, the gradient
+reduce-scattered), runs attention on the whole S for its heads as above,
+reduce-scatters the f32 parts of attn_out and ffn_out
+(`reduce_scatter_to_sequence`) and then rounds once and adds the whole
+bias, and runs both residual LayerNorms on its rows: the fused kernels with
+the row layout (S_local, S, s0) (`ops/kernels/layernorm.py`), the plain
+dropout from the one-process (B, S, H) draw, its rows kept.  The two
+LayerNorms and the two row-parallel biases see only the rank's rows, so
+their gradients are summed over 'model' (`sum_grads_over_model`).  A MoE
+layer reads the gathered tokens (the gradient sliced: every rank routes
+them alike) and keeps its rows of the output.  The injection hook runs on
+the gathered stream and the encoder's output is gathered.
+
 `moe_experts > 0` replaces every layer's FFN by a Switch / GShard MoE
 (`ops/moe.py::SwitchFFN`, the JAX layout: `moe.gate` (H, E) and E-leading
 expert weights), routed per example under `moe_group_by_example`; the layer
 then returns its router's aux losses and `bert_encode` returns (hidden, aux)
 with each averaged over the layers.  The freeze rule covers a layer's `moe`
 with the rest of it; int8 leaves the experts as loaded; `load_hf_weights`
-upcycles a dense checkpoint.
+upcycles a dense checkpoint.  At tp > 1 a layer holds its rank's experts
+(`parallel/expert.py`); with `routes_over_data` (`route_over_data`) its
+batch is the rank's rows of one split over 'data', routed as the global
+batch.
 """
 
 from __future__ import annotations
@@ -87,7 +107,10 @@ from mmda_tpu_torch.ops.kernels.attention import flash_attention
 from mmda_tpu_torch.ops.kernels.layernorm import residual_dropout_layernorm
 from mmda_tpu_torch.ops.kernels.short_attention import short_attention
 from mmda_tpu_torch.ops.moe import SwitchFFN, switch_ffn
-from mmda_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
+from mmda_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model, sum_grads_over_model
+from mmda_tpu_torch.parallel.sequence import (gather_from_sequence, local_rows,
+                                              reduce_scatter_to_sequence, scatter_to_sequence,
+                                              sequence_rows)
 from mmda_tpu_torch.utils import safetensors_io
 
 
@@ -249,6 +272,8 @@ class BertLayer(nn.Module):
 
 class BertEncoder(nn.Module):
     tp_mesh = None          # the mesh its forward runs on, set by `parallel.mesh.shard_params`
+    sequence_parallel = False   # S sharded over 'model' (`parallel.sequence.shard_sequence`)
+    routes_over_data = False    # MoE rows split over 'data' (`parallel.expert.route_over_data`)
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
@@ -445,36 +470,44 @@ def product_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) ->
 
 
 def row_parallel_dense(x: torch.Tensor, d: nn.Module, compute_dtype: torch.dtype,
-                       mesh) -> torch.Tensor:
+                       mesh, reduce=reduce_from_model, bias=None) -> torch.Tensor:
     """`dense` of a row-parallel layer whose input columns are sharded over
     'model': this rank's f32 part of x @ weight.T (`product_f32`; the int8
-    layout: times nothing yet), summed over 'model', then the one-process
-    rounding: the per-channel scale (int8), one rounding to compute_dtype,
-    the whole bias in compute_dtype."""
+    layout: times nothing yet), summed over 'model' by `reduce` (whole, or
+    this rank's S-shard of it), then the one-process rounding: the
+    per-channel scale (int8), one rounding to compute_dtype, the whole bias
+    (`bias`, default d.bias) in compute_dtype."""
+    bias = d.bias if bias is None else bias
     if isinstance(d, QuantizedDense):
-        y = reduce_from_model(product_f32(x, d.weight_q, compute_dtype), mesh)
-        return (y * d.scale.float()).to(compute_dtype) + d.bias.to(compute_dtype)
+        y = reduce(product_f32(x, d.weight_q, compute_dtype), mesh)
+        return (y * d.scale.float()).to(compute_dtype) + bias.to(compute_dtype)
     y = product_f32(x, d.weight, compute_dtype)
-    return reduce_from_model(y, mesh).to(compute_dtype) + d.bias.to(compute_dtype)
+    return reduce(y, mesh).to(compute_dtype) + bias.to(compute_dtype)
 
 
 def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                key_bias: torch.Tensor, compute_dtype: torch.dtype,
                training: bool = False,
                generator: Optional[torch.Generator] = None,
-               attn_impl: str = "xla", mesh=None):
+               attn_impl: str = "xla", mesh=None, sp: bool = False, over_data: bool = False):
     """One post-norm encoder layer; key_bias (B * nh_local, 1, S) additive;
     attn_impl "xla" (the dense core), "flash" (the blockwise kernels) or
     "fused" (the short-sequence kernels).  A MoE layer (cfg.moe_experts > 0)
     returns (x, its router's aux losses), as the JAX layer does.  `mesh`
-    with tp > 1: `lp` holds this rank's blocks (module docstring)."""
-    B, S, H = x.shape
+    with tp > 1: `lp` holds this rank's blocks; `sp`: x is this rank's
+    S-shard (B, S_local, H) of the stream, and so is the result;
+    `over_data`: the MoE routes the batch split over 'data' (module
+    docstring)."""
+    B, S_x, H = x.shape
+    S = key_bias.shape[-1]
     tp = 1 if mesh is None else mesh.tp
+    sp = sp and tp > 1
     nh = cfg.num_heads // tp                # this rank's heads
     hd = H // cfg.num_heads
     head0 = 0 if tp == 1 else mesh.tp_rank * nh
     cd = compute_dtype
     eps = cfg.layer_norm_eps
+    moe = cfg.moe_experts > 0
 
     def drop(t, rate):
         return dropout(t, rate, training, generator)
@@ -484,21 +517,46 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
         return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=x.device, dtype=torch.int32)
 
+    # the parameters that see only this rank's rows under sp: their
+    # gradients summed over 'model'
+    shared = [lp.attn_ln.weight, lp.attn_ln.bias, lp.ffn_ln.weight, lp.ffn_ln.bias,
+              lp.attn_out.bias] + ([] if moe else [lp.ffn_out.bias])
+    if sp:
+        shared = sum_grads_over_model(mesh, *shared)
+    attn_ln, ffn_ln, attn_out_b = shared[0:2], shared[2:4], shared[4]
+    ffn_out_b = None if moe else shared[5]
+
     def residual_ln(x, h, ln):
-        """LN(x + dropout(h)): the fused kernel site under fused_ln_dropout
-        when training with hidden dropout (LayerNorm statistics are always
-        f32 here), else dropout then layer_norm."""
+        """LN(x + dropout(h)) on x's rows: the fused kernel site under
+        fused_ln_dropout when training with hidden dropout (LayerNorm
+        statistics are always f32 here; under sp the rows' layout), else
+        dropout then layer_norm (under sp the one-process draw's rows)."""
+        w, b = ln
         if cfg.fused_ln_dropout and training and cfg.hidden_dropout > 0.0:
+            layout = ((S_x, S, sequence_rows(S, mesh)[1]),) if sp else ()
             out = residual_dropout_layernorm(
-                x.reshape(B * S, H), h.reshape(B * S, H), ln.weight, ln.bias, device_seed(),
-                cfg.hidden_dropout, eps)
-            return out.reshape(B, S, H).to(cd)
-        return layer_norm(x + drop(h, cfg.hidden_dropout), ln.weight, ln.bias, eps).to(cd)
+                x.reshape(B * S_x, H), h.reshape(B * S_x, H), w, b, device_seed(),
+                cfg.hidden_dropout, eps, *layout)
+            return out.reshape(B, S_x, H).to(cd)
+        if sp and training and cfg.hidden_dropout > 0.0:
+            rate = cfg.hidden_dropout
+            u = local_rows(torch.rand((B, S, H), generator=generator, device=x.device), mesh)
+            h = torch.where(u < 1.0 - rate, h / (1.0 - rate), torch.zeros_like(h)).to(h.dtype)
+        else:
+            h = drop(h, cfg.hidden_dropout)
+        return layer_norm(x + h, w, b, eps).to(cd)
 
-    def out_dense(h, d):
-        return dense(h, d, cd) if tp == 1 else row_parallel_dense(h, d, cd, mesh)
+    def out_dense(h, d, bias):
+        if tp == 1:
+            return dense(h, d, cd)
+        return row_parallel_dense(h, d, cd, mesh,
+                                  reduce_scatter_to_sequence if sp else reduce_from_model, bias)
 
-    xm = copy_to_model(x, mesh)
+    def whole(x):
+        """The stream whole, for the column-parallel products."""
+        return gather_from_sequence(x, mesh, S) if sp else copy_to_model(x, mesh)
+
+    xm = whole(x)
     qkv_b = torch.cat([lp.q.bias, lp.k.bias, lp.v.bias])
     if isinstance(lp.q, QuantizedDense):      # the per-channel scales concatenate too
         qkv = apply_quantized_dense(
@@ -540,20 +598,25 @@ def bert_layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
     else:
         raise ValueError(f"attn_impl must be xla|flash|fused, got {attn_impl!r}")
     ctx = ctx.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, nh * hd)
-    x = residual_ln(x, out_dense(ctx, lp.attn_out), lp.attn_ln)
+    x = residual_ln(x, out_dense(ctx, lp.attn_out, attn_out_b), attn_ln)
 
-    if cfg.moe_experts > 0:
-        y, aux = switch_ffn(lp.moe, x.reshape(B * S, H),
+    if moe:
+        # the tokens whole: every rank of a 'model' row routes them alike
+        xt = gather_from_sequence(x, mesh, S, grad="slice") if sp else x
+        y, aux = switch_ffn(lp.moe, xt.reshape(B * S, H),
                             capacity_factor=cfg.moe_capacity_factor, gelu_exact=cfg.gelu_exact,
                             compute_dtype=cd, groups=B if cfg.moe_group_by_example else 1,
-                            top_k=cfg.moe_top_k)
-        return residual_ln(x, y.reshape(B, S, H).to(cd), lp.ffn_ln), aux
-    h = dense(copy_to_model(x, mesh), lp.ffn_in, cd)
+                            top_k=cfg.moe_top_k, mesh=mesh, over_data=over_data)
+        y = y.reshape(B, S, H)
+        if sp:
+            y = scatter_to_sequence(y, mesh)
+        return residual_ln(x, y.to(cd), ffn_ln), aux
+    h = dense(whole(x), lp.ffn_in, cd)
     if cfg.gelu_exact:
         h = F.gelu(h.float(), approximate="none")
     else:
         h = F.gelu(h, approximate="tanh")
-    return residual_ln(x, out_dense(h.to(cd), lp.ffn_out), lp.ffn_ln)
+    return residual_ln(x, out_dense(h.to(cd), lp.ffn_out, ffn_out_b), ffn_ln)
 
 
 def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
@@ -572,31 +635,42 @@ def bert_encode(p: BertEncoder, input_ids: torch.Tensor,
     dropout; >= num_layers: the last layer's output), and its result is
     rounded once to compute_dtype (models/mag_bert.py's gate).  Under
     tensor parallelism `p` holds this rank's blocks and `p.tp_mesh` the
-    mesh they are spread over (`parallel/mesh.py::shard_params`)."""
+    mesh they are spread over (`parallel/mesh.py::shard_params`), with
+    sequence parallelism under `p.sequence_parallel` (module docstring)."""
     cfg = p.cfg
     mesh = p.tp_mesh
     tp = 1 if mesh is None else mesh.tp
-    if tp > 1 and cfg.moe_experts > 0:
-        raise ValueError("moe_experts > 0 with tp > 1: the expert-parallel hook is not "
-                         "ported yet (ROADMAP Queue 1 item 3)")
+    sp = p.sequence_parallel and tp > 1
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
+    S = input_ids.shape[1]
     x = bert_embed(p.embeddings, input_ids, token_type_ids, cfg.layer_norm_eps,
                    compute_dtype)
     x = dropout(x, cfg.hidden_dropout, training, generator)
     key_bias = ((1.0 - attention_mask.float()) * -1e9)[:, None, :]     # (B, 1, S)
     key_bias = key_bias.repeat_interleave(cfg.num_heads // tp, dim=0)  # (B*nh_local, 1, S)
+
+    def inject(x):
+        if not sp:
+            return inject_fn(x).to(compute_dtype)
+        whole = gather_from_sequence(x, mesh, S, grad="slice")
+        return scatter_to_sequence(inject_fn(whole).to(compute_dtype), mesh)
+
+    if sp:
+        x = scatter_to_sequence(x, mesh)
     auxes = []
     for i, lp in enumerate(p.layers):
         if inject_layer is not None and i == inject_layer:
-            x = inject_fn(x).to(compute_dtype)
+            x = inject(x)
         x = bert_layer(x, lp, cfg, key_bias, compute_dtype, training, generator, attn_impl,
-                       mesh)
+                       mesh, sp, p.routes_over_data)
         if cfg.moe_experts > 0:
             x, aux = x
             auxes.append(aux)
     if inject_layer is not None and inject_layer >= cfg.num_layers:
-        x = inject_fn(x).to(compute_dtype)
+        x = inject(x)
+    if sp:
+        x = gather_from_sequence(x, mesh, S, grad="slice")
     if cfg.moe_experts > 0:
         return x, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     return x

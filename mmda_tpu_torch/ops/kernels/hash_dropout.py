@@ -27,13 +27,21 @@ heads_total, and its local index bh = b * heads_local + h stands for
 (`global_bh`), so that every rank draws the masks of the heads it holds; the
 short kernels likewise take h = head0 + the local head.
 
+Under sequence parallelism a rank's LayerNorm rows are, for each batch item
+b, rows s0 .. s0 + s_local - 1 of its S = s_total: the row layout
+(s_local, s_total, s0) maps local row r to the row hashed,
+
+    row = (r // s_local) * s_total + s0 + r % s_local
+
+(`layout_rows`), and (N, N, 0) is a launch's own rows.
+
 Here the uint32 arithmetic is int64 masked to 32 bits after every step that
 can carry past them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,14 +78,28 @@ def _seed_term(seed: Union[int, torch.Tensor], device):
     return (seed * 40503) & M32, device
 
 
+RowLayout = Tuple[int, int, int]     # (s_local, s_total, s0)
+
+
+def layout_rows(rows: torch.Tensor, layout: Optional[RowLayout]) -> torch.Tensor:
+    """The rows the LayerNorm kernels hash for local rows `rows` (int64)
+    under the row layout (module docstring; None: the rows themselves)."""
+    if layout is None:
+        return rows
+    s_local, s_total, s0 = layout
+    return (rows // s_local) * s_total + s0 + rows % s_local
+
+
 def keep_mask(shape: Tuple[int, int], rate: float, seed: Union[int, torch.Tensor],
-              row0: int = 0, device=None) -> torch.Tensor:
+              row0: int = 0, device=None, layout: Optional[RowLayout] = None) -> torch.Tensor:
     """float32 (rows, cols) mask, 1.0 where the element at absolute position
-    (row0 + r, c) is kept under `seed`.  seed: an int or a one-element integer
-    tensor; the mask lies on `device`, by default the seed's."""
+    (row0 + r, c) is kept under `seed`, the row placed by `layout`
+    (`layout_rows`).  seed: an int or a one-element integer tensor; the mask
+    lies on `device`, by default the seed's."""
     seed_term, device = _seed_term(seed, device)
     n_rows, n_cols = shape
-    rows = (torch.arange(n_rows, dtype=torch.int64, device=device) + int(row0)) & M32
+    rows = layout_rows(torch.arange(n_rows, dtype=torch.int64, device=device) + int(row0),
+                       layout) & M32
     cols = torch.arange(n_cols, dtype=torch.int64, device=device)
     x = ((rows * 2654435761) & M32)[:, None] + ((cols * 0x9E3779B9) & M32)[None, :]
     u = avalanche((x + seed_term) & M32)

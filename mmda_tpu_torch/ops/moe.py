@@ -29,9 +29,13 @@ Aux losses, returned with the output:
 - `router_z`: mean(logsumexp(logits)^2);
 - `drop_frac`: the share of (token, choice) routes that overflowed.
 
-The JAX package's expert-parallel hook (`set_expert_constraint`,
-`parallel/expert.py`) belongs to the mesh modes, which the port does not
-have yet.
+On a mesh (`mesh`, the encoder's): at tp > 1 the layer holds its rank's
+experts and runs them alone, its tokens' gradient summed over 'model' and
+the experts' outputs gathered before the combine (expert parallelism,
+`parallel/expert.py`, the counterpart of the JAX package's
+`set_expert_constraint`); with `over_data` its rows are the rank's of a
+batch split over 'data', and the capacity, the queue positions (G = 1) and
+the aux losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mmda_tpu_torch.parallel.expert import data_prefix, sum_over_data
+from mmda_tpu_torch.parallel.mesh import all_gather_model, copy_to_model
 
 
 class SwitchFFN(nn.Module):
@@ -58,7 +65,9 @@ class SwitchFFN(nn.Module):
 
     @property
     def num_experts(self) -> int:
-        return self.w_in.shape[0]
+        """E: the router's columns (this rank holds w_in.shape[0] of them
+        under expert parallelism)."""
+        return self.gate.shape[1]
 
     def reset_parameters(self, generator: torch.Generator, std: float = 0.02) -> None:
         """`init_moe_ffn_params`' distributions: the gate and the expert
@@ -98,8 +107,10 @@ class Routes(NamedTuple):
 
 
 def route(p: SwitchFFN, x: torch.Tensor, *, capacity_factor: float = 1.25, groups: int = 1,
-          top_k: int = 1) -> Routes:
-    """The routing of `switch_ffn` (module docstring) for tokens x (N, H)."""
+          top_k: int = 1, data=None) -> Routes:
+    """The routing of `switch_ffn` (module docstring) for tokens x (N, H).
+    `data`: the mesh whose 'data' ranks hold the rest of a batch routed as
+    one (G = 1 spans every rank's tokens)."""
     N, H = x.shape
     E = p.num_experts
     G = groups
@@ -108,20 +119,26 @@ def route(p: SwitchFFN, x: torch.Tensor, *, capacity_factor: float = 1.25, group
     if top_k not in (1, 2):
         raise ValueError(f"top_k must be 1 (Switch) or 2 (GShard), got {top_k}")
     n = N // G
-    C = max(int(math.ceil(capacity_factor * top_k * n / E)), 1)
+    spans = data is not None and G == 1          # one group over every rank's tokens
+    C = max(int(math.ceil(capacity_factor * top_k * n * (data.dp if spans else 1) / E)), 1)
     logits = torch.matmul(x.reshape(G, n, H).float(), p.gate.float())
     probs = torch.softmax(logits, dim=-1)
     gate_p = probs.amax(dim=-1)
     onehot = _slots(torch.argmax(probs, dim=-1), E)
     pos1 = torch.cumsum(onehot, dim=1) * onehot - onehot
+    count1 = onehot.sum(dim=1, keepdim=True)                            # (G, 1, E)
+    if spans:
+        before, count1 = data_prefix(count1, data)
+        pos1 = pos1 + before * onehot
     dispatch = _dispatch(onehot, pos1, C)
     if top_k == 1:
         return Routes(dispatch, dispatch * gate_p[..., None, None], onehot, probs, logits)
     probs2 = probs * (1.0 - onehot)
     gate_p2 = probs2.amax(dim=-1)
     onehot2 = _slots(torch.argmax(probs2, dim=-1), E)
-    count1 = onehot.sum(dim=1, keepdim=True)                            # (G, 1, E)
     pos2 = torch.cumsum(onehot2, dim=1) * onehot2 - onehot2 + count1 * onehot2
+    if spans:
+        pos2 = pos2 + data_prefix(onehot2.sum(dim=1, keepdim=True), data)[0] * onehot2
     dispatch2 = _dispatch(onehot2, pos2, C)
     denom = gate_p + gate_p2 + 1e-9
     combine = (dispatch * (gate_p / denom)[..., None, None]
@@ -131,34 +148,55 @@ def route(p: SwitchFFN, x: torch.Tensor, *, capacity_factor: float = 1.25, group
 
 def switch_ffn(p: SwitchFFN, x: torch.Tensor, *, capacity_factor: float = 1.25,
                gelu_exact: bool = True, compute_dtype: torch.dtype = torch.bfloat16,
-               groups: int = 1, top_k: int = 1
+               groups: int = 1, top_k: int = 1, mesh=None, over_data: bool = False
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Top-k MoE FFN over N tokens x (N, H).  Returns y (N, H) f32 and the
     aux losses {"balance", "router_z", "drop_frac"} (f32 scalars).
 
     groups: route G independent groups of n = N / G tokens, each with its
-    own capacity (bert_layer groups by example, G = batch)."""
+    own capacity (bert_layer groups by example, G = batch).  `mesh`: the
+    encoder's; its experts are this rank's at tp > 1, and with `over_data`
+    x is this rank's rows of a batch split over 'data' (module
+    docstring)."""
     N, H = x.shape
     E = p.num_experts
-    r = route(p, x, capacity_factor=capacity_factor, groups=groups, top_k=top_k)
+    data = mesh if over_data and mesh is not None and mesh.dp > 1 else None
+    r = route(p, x, capacity_factor=capacity_factor, groups=groups, top_k=top_k, data=data)
     G, n, _, C = r.dispatch.shape
     cd = compute_dtype
+    ep = mesh is not None and mesh.tp > 1       # this rank's experts e0 .. e1 - 1
+    e0 = mesh.tp_rank * p.w_in.shape[0] if ep else 0
+    e1 = e0 + p.w_in.shape[0]
 
     def rounded(t):             # an operand in the compute dtype, for an f32 product
         return t.to(cd).float()
 
-    xe = torch.einsum("gnec,gnh->gech", r.dispatch, rounded(x.reshape(G, n, H))).to(cd)
-    xe = xe.transpose(0, 1).reshape(E, G * C, H)
+    xd = copy_to_model(x, mesh)                 # this rank's experts' part of dx, summed
+    xe = torch.einsum("gnec,gnh->gech", r.dispatch[:, :, e0:e1],
+                      rounded(xd.reshape(G, n, H))).to(cd)
+    xe = xe.transpose(0, 1).reshape(e1 - e0, G * C, H)
     h = torch.matmul(xe.float(), rounded(p.w_in)) + p.b_in.float()[:, None]
     h = F.gelu(h, approximate="none" if gelu_exact else "tanh").to(cd)
     ye = torch.matmul(h.float(), rounded(p.w_out)) + p.b_out.float()[:, None]
-    yg = ye.to(cd).reshape(E, G, C, H).transpose(0, 1)                   # (G, E, C, H)
+    ye = ye.to(cd)
+    if ep:                      # every rank's experts; the gradient this rank's slice
+        ye = all_gather_model(ye, mesh, 0, grad="slice")
+    yg = ye.reshape(E, G, C, H).transpose(0, 1)                          # (G, E, C, H)
     y = torch.einsum("gnec,gech->gnh", rounded(r.combine), yg.float())
-
-    frac_tokens = r.onehot.mean(dim=(0, 1))
-    mean_prob = r.probs.mean(dim=(0, 1))
-    balance = E * torch.sum(frac_tokens * mean_prob)
-    router_z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
-    drop_frac = 1.0 - r.dispatch.sum() / (N * top_k)
+    if data is None:
+        frac_tokens = r.onehot.mean(dim=(0, 1))
+        mean_prob = r.probs.mean(dim=(0, 1))
+        balance = E * torch.sum(frac_tokens * mean_prob)
+        router_z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+        drop_frac = 1.0 - r.dispatch.sum() / (N * top_k)
+    else:                       # the global batch's sums, then the products
+        sums = sum_over_data(torch.cat([
+            r.onehot.sum(dim=(0, 1)), r.probs.sum(dim=(0, 1)),
+            (torch.logsumexp(r.logits, dim=-1) ** 2).sum()[None],
+            r.dispatch.sum()[None]]), data)
+        tokens = N * data.dp
+        balance = E * torch.sum((sums[:E] / tokens) * (sums[E:2 * E] / tokens))
+        router_z = sums[2 * E] / tokens
+        drop_frac = 1.0 - sums[2 * E + 1] / (tokens * top_k)
     return y.reshape(N, H), {"balance": balance, "router_z": router_z,
                              "drop_frac": drop_frac}

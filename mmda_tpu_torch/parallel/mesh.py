@@ -42,13 +42,28 @@ layout).  In the forward (`models/bert.py`) `copy_to_model` and
 summed over 'model', and the sum over 'model' with the gradient passed
 through.  Gradients are summed over 'data' only (`all_reduce_grads`): a
 rank of a 'model' row holds its own block of a sharded parameter and the
-same whole parameters and gradients as the rest of its row.
+same whole parameters and gradients as the rest of its row.  A MoE layer's
+experts shard on their leading E (the JAX package's 'moe' case): rank m of
+a row holds experts m E / tp .. (m + 1) E / tp - 1, the router whole
+(`parallel/expert.py`).
 
-The collectives are `all_reduce`, `all_gather`, `broadcast` and `barrier`,
-each over the world or one axis's group.  `all_gather` and `broadcast` move
-bytes (a `uint8` view), so every backend takes every dtype; `all_reduce`
-sums in the tensors' own dtype.  Over an axis of one rank they move
-nothing.
+Sequence parallelism (`parallel/sequence.py`) adds Megatron-SP's pairs
+along a dim, over 'model': `split_model` (this rank's chunk, its gradient
+gathered), `all_gather_model` (the chunks joined; the gradient
+reduce-scattered, or with grad="slice" this rank's chunk of it, for work
+every rank of the row computes whole and alike) and `reduce_scatter_model`
+(the sum over 'model' of f32 parts, this rank's chunk of it; the gradient
+gathered).  `sum_grads_over_model` is the identity on parameters that are
+whole on every rank but see only its rows, with their gradients summed over
+'model' in one collective.  Under gloo a reduce-scatter is an all_reduce and
+this rank's chunk of it (every gloo build has those); nccl runs
+`reduce_scatter_tensor`.
+
+The collectives are `all_reduce`, `all_gather`, `broadcast` and `barrier`
+(and nccl's `reduce_scatter_tensor`), each over the world or one axis's
+group.  `all_gather` and `broadcast` move bytes (a `uint8` view), so every
+backend takes every dtype; the sums are in the tensors' own dtype.  Over
+an axis of one rank they move nothing.
 """
 
 from __future__ import annotations
@@ -206,11 +221,20 @@ def make_mesh(dp: int = -1, tp: int = 1, device=None) -> Mesh:
                 model_group=model_group)
 
 
-def check_tp(tp: int, num_heads: int, intermediate_size: int) -> None:
-    """Raises ValueError unless tp divides the heads and the FFN width."""
+def check_tp(tp: int, num_heads: int, intermediate_size: int, moe_experts: int = 0) -> None:
+    """Raises ValueError unless tp divides the heads, the FFN width and
+    (expert parallelism) the experts."""
     if num_heads % tp or intermediate_size % tp:
         raise ValueError(f"tp={tp} must divide num_heads={num_heads} and "
                          f"intermediate_size={intermediate_size}")
+    check_experts(tp, moe_experts)
+
+
+def check_experts(tp: int, moe_experts: int) -> None:
+    """Raises the JAX trainer's ValueError unless tp divides the experts."""
+    if moe_experts % tp:
+        raise ValueError(f"moe_experts={moe_experts} must be divisible by tp_size={tp} for "
+                         "expert parallelism")
 
 
 def shard_batch(arrays: Dict, mesh: Mesh) -> Dict:
@@ -380,15 +404,128 @@ def sum_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x if mesh.tp == 1 else _all_reduce_model(x, mesh)
 
 
+def _chunk(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    n = t.shape[dim] // mesh.tp
+    return t.narrow(dim, mesh.tp_rank * n, n)
+
+
+def _reduce_scatter_model(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's chunk along `dim` of x summed over 'model' (a new
+    tensor): nccl's reduce_scatter_tensor, else an all_reduce and the
+    chunk."""
+    if mesh.backend != "nccl":
+        return _chunk(_all_reduce_model(x, mesh), dim, mesh).contiguous()
+    lead = x.movedim(dim, 0).contiguous()
+    out = lead.new_empty((lead.shape[0] // mesh.tp, *lead.shape[1:]))
+    dist.reduce_scatter_tensor(out, lead, group=mesh.model_group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _SplitModel(torch.autograd.Function):
+    """This rank's chunk along a dim of a tensor every rank holds alike; the
+    gradient: the ranks' chunks' gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _chunk(x, dim, mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_tensors([g], [ctx.dim], ctx.mesh)[0], None, None
+
+
+class _AllGatherModel(torch.autograd.Function):
+    """The ranks' chunks joined along a dim.  The gradient: summed over
+    'model' and this rank's chunk of it (each rank's products read the whole
+    tensor and give it their part of its gradient), or with `slice` only
+    this rank's chunk (every rank computes the same from the whole tensor,
+    so its gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, slice_grad):
+        ctx.mesh, ctx.dim, ctx.slice_grad = mesh, dim, slice_grad
+        return gather_tensors([x], [dim], mesh)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.slice_grad:
+            return _chunk(g, ctx.dim, ctx.mesh).contiguous(), None, None, None
+        return _reduce_scatter_model(g, ctx.dim, ctx.mesh), None, None, None
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    """This rank's chunk of the sum over 'model' of the ranks' parts; the
+    gradient: the ranks' chunks' gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _reduce_scatter_model(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_tensors([g], [ctx.dim], ctx.mesh)[0], None, None
+
+
+def split_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's chunk of x along `dim` (tp divides it), its gradient
+    gathered over 'model'."""
+    return _SplitModel.apply(x, mesh, dim)
+
+
+def all_gather_model(x: torch.Tensor, mesh: Mesh, dim: int, grad: str = "reduce_scatter"
+                     ) -> torch.Tensor:
+    """The ranks' x joined along `dim` in 'model' order.  grad:
+    "reduce_scatter" (the gradient summed over 'model', this rank's chunk)
+    or "slice" (this rank's chunk of it)."""
+    if grad not in ("reduce_scatter", "slice"):
+        raise ValueError(f"grad must be reduce_scatter or slice, got {grad!r}")
+    return _AllGatherModel.apply(x, mesh, dim, grad == "slice")
+
+
+def reduce_scatter_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of x summed over 'model', the gradient
+    gathered."""
+    return _ReduceScatterModel.apply(x, mesh, dim)
+
+
+class _SumGradsOverModel(torch.autograd.Function):
+    """The identity on each tensor; their gradients summed over 'model' in
+    one all_reduce."""
+
+    @staticmethod
+    def forward(ctx, mesh, *ts):
+        ctx.mesh = mesh
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        present = [g for g in grads if g is not None]
+        if not present:
+            return (None, *grads)
+        flat = _all_reduce_model(torch.cat([g.reshape(-1) for g in present]), ctx.mesh)
+        parts = iter(flat.split([g.numel() for g in present]))
+        return (None, *(None if g is None else next(parts).view_as(g) for g in grads))
+
+
+def sum_grads_over_model(mesh: Mesh, *ts: torch.Tensor) -> tuple:
+    """`ts` themselves, their gradients summed over 'model' (parameters whole
+    on every rank that see only its rows, one dtype)."""
+    return _SumGradsOverModel.apply(mesh, *ts)
+
+
 COLUMN_PARALLEL = ("q", "k", "v", "ffn_in")
 ROW_PARALLEL = ("attn_out", "ffn_out")
+EXPERTS = ("w_in", "b_in", "w_out", "b_out")   # a SwitchFFN's E-leading leaves
 
 
 def param_partition_specs(model: torch.nn.Module, tp: int) -> Dict[str, int]:
     """{parameter or buffer name: the dim split over 'model'} for every
     leaf that tensor parallelism shards (`_bert_layer_spec`'s rules in the
-    port's (out, in) layout, module docstring); a name not in it is whole.
-    Empty at tp = 1."""
+    port's (out, in) layout, module docstring; a MoE layer's experts on
+    their leading E, the router whole); a name not in it is whole.  Empty
+    at tp = 1."""
     from mmda_tpu_torch.models.bert import BertEncoder
 
     specs: Dict[str, int] = {}
@@ -399,6 +536,8 @@ def param_partition_specs(model: torch.nn.Module, tp: int) -> Dict[str, int]:
             continue
         head = f"{prefix}." if prefix else ""
         for i, layer in enumerate(module.layers):
+            if hasattr(layer, "moe"):
+                specs.update({f"{head}layers.{i}.moe.{leaf}": 0 for leaf in EXPERTS})
             for name in COLUMN_PARALLEL + ROW_PARALLEL:
                 dense = getattr(layer, name, None)
                 if dense is None:
@@ -411,15 +550,10 @@ def param_partition_specs(model: torch.nn.Module, tp: int) -> Dict[str, int]:
     return specs
 
 
-def _block(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    n = t.shape[dim] // mesh.tp
-    return t.narrow(dim, mesh.tp_rank * n, n).contiguous()
-
-
 def shard_tensor(name: str, t: torch.Tensor, specs: Dict[str, int], mesh: Mesh) -> torch.Tensor:
     """This rank's block of the full-layout tensor `t` of leaf `name` (`t`
     itself for a whole leaf)."""
-    return _block(t, specs[name], mesh) if name in specs else t
+    return _chunk(t, specs[name], mesh).contiguous() if name in specs else t
 
 
 @torch.no_grad()
@@ -428,28 +562,26 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     Parameter objects, each sharded one given the mesh as its `tp_mesh`:
     `train/step.py::global_grad_norm` reads it), and give each BERT encoder
     the mesh its forward runs on (`models/bert.py`); tp must divide each
-    encoder's heads and FFN width.  A model on the meta device takes its
-    shapes.  Returns `model`."""
+    encoder's heads, FFN width and experts.  A model on the meta device
+    takes its shapes.  Returns `model`."""
     from mmda_tpu_torch.models.bert import BertEncoder
 
     if mesh.tp == 1:
         return model
     for module in model.modules():
         if isinstance(module, BertEncoder):
-            if module.cfg.moe_experts > 0:
-                raise ValueError("moe_experts > 0 with tp > 1: the expert-parallel hook is "
-                                 "not ported yet (ROADMAP Queue 1 item 3)")
-            check_tp(mesh.tp, module.cfg.num_heads, module.cfg.intermediate_size)
+            check_tp(mesh.tp, module.cfg.num_heads, module.cfg.intermediate_size,
+                     module.cfg.moe_experts)
             module.tp_mesh = mesh
     for name, dim in param_partition_specs(model, mesh.tp).items():
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner)
         if leaf in module._parameters:
             param = module._parameters[leaf]
-            param.data = _block(param.data, dim, mesh)
+            param.data = _chunk(param.data, dim, mesh).contiguous()
             param.tp_mesh = mesh
         else:
-            module._buffers[leaf] = _block(module._buffers[leaf], dim, mesh)
+            module._buffers[leaf] = _chunk(module._buffers[leaf], dim, mesh).contiguous()
     return model
 
 

@@ -35,9 +35,11 @@ d, [d max_batch / dp, (d + 1) max_batch / dp), and all-gathers the packed
 outputs over 'data', so every rank returns the whole result) and, at tp >
 1, the BERT encoder's blocks over 'model' (`shard_params`, after the bf16
 cast or the int8 quantization of the loaded weights, as the JAX Predictor
-shards them).  Each call is a collective: every rank must make the same
-calls, with the same requests, in the same order (`cli/serve.py` sends
-rank 0's calls to the others).
+shards them; a MoE encoder's experts on their leading E), and at dp > 1 a
+MoE encoder routes the padded batch as one (`route_over_data`).  Each call
+is a collective: every rank must make the same calls, with the same
+requests, in the same order (`cli/serve.py` sends rank 0's calls to the
+others).
 
 On CUDA a call runs as a CUDA graph, one per bucket shape (the counterpart
 of the JAX package's jit per bucket): the padded batch (a rank's rows of it
@@ -46,7 +48,7 @@ replays the forward and writes the four outputs into one packed tensor
 (gathered over the ranks after the replay under a mesh), and one
 device-to-host copy reads it.  A tensor-parallel forward over gloo on the
 card sums its parts through the host, which a graph cannot hold: it runs
-eagerly.
+eagerly, and so does a MoE forward routed over 'data' there.
 A bucket's first call runs the forward eagerly over those buffers and then
 captures it, so `PredictionServer.warmup()`, which calls every bucket,
 leaves every graph captured.  An explicit `recurrence=` runs eagerly (the
@@ -67,6 +69,7 @@ from mmda_tpu_torch.config import Config, resolve_device, set_reference_numerics
 from mmda_tpu_torch.convert import load_jax_params
 from mmda_tpu_torch.models import Batch, get_model
 from mmda_tpu_torch.models.bert import BertConfig, bert_config_for, quantize_bert_int8
+from mmda_tpu_torch.parallel.expert import route_over_data
 from mmda_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch, shard_params
 from mmda_tpu_torch.serving_requests import (RequestTooLongError, check_overflow, choose_bucket,
                                              pad_requests, validate_request)
@@ -147,12 +150,15 @@ class Predictor:
                     p.data = p.data.to(wdt)
         if mesh is not None:
             shard_params(self.model, mesh)          # tp > 1: this rank's blocks
+            route_over_data(self.model, mesh)       # MoE at dp > 1: the global batch's routes
         # MISA returns the shared/private representations; the zoo's
         # families return None there and serve their scores as `hidden`
         self._factorized = hasattr(self.model, "shared")
         self._stats = {"requests": 0, "utterances": 0, "seconds": 0.0}
         # the bucket shapes' graphs (CUDA only); one call at a time owns them
-        eager = mesh is not None and mesh.tp > 1 and mesh.staged
+        eager = mesh is not None and mesh.staged and (
+            mesh.tp > 1 or any(getattr(m, "routes_over_data", False)
+                               for m in self.model.modules()))
         self._graphs = (StepGraphs(lambda b: {"packed": self._forward(b)}, self.device,
                                    pool=graph_pool(self.device))
                         if self.device.type == "cuda" and not eager else None)

@@ -49,11 +49,12 @@ test split is evaluated again (through the shadow when there is one).
 after the seeded init and before the freeze rules, so the frozen layers and
 the `last_*` frozen base hold the file's weights.  `profile_dir` is read by
 `cli/train.py`, which traces `train()` (`utils/timing.py::profile`).
-Options that need what the port does not have yet (sequence and pipeline
-parallelism, zero1 and fsdp, MoE on a mesh, the orbax backend) raise
-`ValueError` at construction, naming their ROADMAP item (`unsupported`).  `moe_experts > 0` (a Switch
-MoE in every BERT layer, `bert_config_for`) raises the JAX trainer's own
-errors without the BERT tower and with `pp_size > 1`.
+Options that need what the port does not have yet (pipeline parallelism,
+zero1 and fsdp, the orbax backend, MMIM at dp > 1) raise `ValueError` at
+construction, naming their ROADMAP item (`unsupported`).  `moe_experts > 0`
+(a Switch MoE in every BERT layer, `bert_config_for`) raises the JAX
+trainer's own errors without the BERT tower, with `pp_size > 1` and where
+tp_size does not divide the experts.
 
 Data parallelism (the JAX trainer's mesh, `mmda_tpu/train/loop.py:192-193`,
 `:661-700`): with a process group up (`parallel/mesh.py::init_distributed`,
@@ -86,7 +87,18 @@ from (seed, 'data' coordinate, epoch), so they drop alike.  The best
 export and the `last_*` snapshots hold the full layout (the JAX package
 reads them whole): the 'model' row of rank 0 gathers it
 (`checkpoint.full_layout`, `gather_params`) and rank 0 writes it; every
-rank reads its blocks of one back (a resume at any tp).
+rank reads its blocks of one back (a resume at any tp).  A MoE layer's
+experts are sharded too (rank m of a row its E / tp of them,
+`parallel/expert.py`), and gathered into the full layout for the files.
+
+Sequence parallelism (`cfg.sp`, which needs tp_size > 1, as the JAX
+trainer's `install_sequence_sharding`): the sharded BERT runs its
+LayerNorm regions on each rank's S-shard (`parallel/sequence.py::
+shard_sequence`); nothing else of the trainer changes.  MoE BERT at dp > 1
+routes each rank's rows as the global batch's (`route_over_data`: the aux
+losses' statistics summed over 'data', and with moe_group_by_example off
+the queue positions over every rank's tokens), where the steps shard the
+batch.
 """
 
 from __future__ import annotations
@@ -111,6 +123,8 @@ from mmda_tpu_torch.models import get_model
 from mmda_tpu_torch.models.bert import (BertConfig, bert_config_for, freeze_layers,
                                          load_hf_encoder)
 from mmda_tpu_torch.parallel import mesh as pmesh
+from mmda_tpu_torch.parallel.expert import route_over_data
+from mmda_tpu_torch.parallel.sequence import shard_sequence
 from mmda_tpu_torch.train import checkpoint as ckpt
 from mmda_tpu_torch.train.state import Optimizer, trainable_param_count
 from mmda_tpu_torch.train.step import (eval_step, graph_pool, make_eval_graph,
@@ -134,10 +148,6 @@ def unsupported(cfg, dp: int = 1) -> List[str]:
     dp data-parallel ranks, each with the ROADMAP item that brings it."""
     q = "ROADMAP Queue 1"
     checks = [
-        (cfg.sp, f"sp ({q} item 3: sequence parallelism)"),
-        (cfg.moe_experts > 0 and (dp > 1 or cfg.tp_size > 1),
-         f"moe_experts > 0 with dp > 1 or tp_size > 1 (routing couples the batch's tokens; "
-         f"{q} item 3: the expert-parallel hook)"),
         (cfg.zero1, f"zero1 ({q} item 4: zero1 and fsdp)"),
         (cfg.fsdp, f"fsdp ({q} item 4: zero1 and fsdp)"),
         (cfg.pp_size > 1, f"pp_size > 1 ({q} item 5: the pipelined encoder)"),
@@ -171,6 +181,7 @@ class Trainer:
             if cfg.pp_size > 1:
                 raise ValueError("moe_experts > 0 does not compose with "
                                  "pp_size > 1 (pipelined encoder)")
+            pmesh.check_experts(cfg.tp_size, cfg.moe_experts)
         missing = unsupported(cfg, data_parallel_size(cfg))
         if missing:
             raise ValueError("not ported yet: " + "; ".join(missing))
@@ -218,7 +229,7 @@ class Trainer:
         self.model = model.to(self.device)
         if self.mesh is not None:
             pmesh.replicated(self.model, self.mesh)
-            pmesh.shard_params(self.model, self.mesh)       # tp > 1: this rank's blocks
+            self._place(self.model)
         self._freeze(pretrained_emb is not None)
         # the JAX trainer builds a frozen mask (and snapshots incrementally)
         # for every BERT run and for a frozen GloVe table
@@ -279,6 +290,16 @@ class Trainer:
             print(f"batch_size={cfg.batch_size} does not divide dp={mesh.dp}: every rank "
                   "runs every batch whole (replicated)", flush=True)
         return mesh
+
+    def _place(self, model: torch.nn.Module) -> None:
+        """`model` (the live model or the EMA shadow's) on the mesh: this
+        rank's blocks at tp > 1 (`shard_params`), its S-shards under sp, its
+        MoE routing over 'data' where the steps shard the batch."""
+        pmesh.shard_params(model, self.mesh)
+        if self.cfg.sp:
+            shard_sequence(model)
+        if self.step_mesh is not None:
+            route_over_data(model, self.step_mesh)
 
     def _seed_dropout(self, *tags: int) -> None:
         """Seed this rank's dropout generator from (seed, 'data' coordinate,
@@ -375,7 +396,7 @@ class Trainer:
         model = get_model(self.cfg.model)(self.cfg, bert_cfg=self.bert_cfg,
                                           device="meta", **self.sizes)
         if self.mesh is not None:               # the shadow holds this rank's blocks
-            pmesh.shard_params(model, self.mesh)
+            self._place(model)
         model.load_state_dict(shadow, assign=True)
         return model
 

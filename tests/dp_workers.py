@@ -1,5 +1,6 @@
-"""Ranks for the data- and tensor-parallel tests (tests/test_torch_dp*.py,
-tests/test_torch_tp*.py).
+"""Ranks for the data-, tensor-, sequence- and expert-parallel tests
+(tests/test_torch_dp*.py, tests/test_torch_tp*.py, tests/test_torch_sp.py,
+tests/test_torch_ep.py).
 
 `run_ranks` starts dp processes with torch.multiprocessing (spawn), each a
 gloo rank over a FileStore in the test's directory (no port to clash under
@@ -107,21 +108,29 @@ def one_step(cfg, tree, arrays, mesh=None, generator_seed=0, bert_cfg=None, drop
     divide dp): the losses and grad_norm, the gradients the optimizer
     applied (under `mesh` summed over the ranks), the trainable parameters
     after the update, and the per-rank objective a naive DDP step would
-    average.  Under a mesh with tp > 1 the model is sharded and the
-    gradients and parameters returned in the full layout."""
+    average.  Under a mesh with tp > 1 the model is sharded (its S-shards
+    under cfg.sp) and the gradients and parameters returned in the full
+    layout; a MoE BERT routes over 'data' where the batch is split, as the
+    Trainer places a model (`Trainer._place`)."""
     from mmda_tpu_torch.data.loader import to_device
     from mmda_tpu_torch.parallel import mesh as pmesh
+    from mmda_tpu_torch.parallel.expert import route_over_data
     from mmda_tpu_torch.parallel.mesh import shard_batch
+    from mmda_tpu_torch.parallel.sequence import shard_sequence
     from mmda_tpu_torch.train.objective import compute_losses
     from mmda_tpu_torch.train.state import Optimizer
     from mmda_tpu_torch.train.step import train_step
 
     model = _tiny_misa(cfg, tree, bert_cfg, dropout, frozen)
+    sharded = mesh is not None and mesh.divides(len(arrays["lengths"]))
     if mesh is not None:
         pmesh.shard_params(model, mesh)
+        if cfg.sp:
+            shard_sequence(model)
+        if sharded:
+            route_over_data(model, mesh)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     opt = Optimizer(cfg, [p for _, p in named])
-    sharded = mesh is not None and mesh.divides(len(arrays["lengths"]))
     local = shard_batch(arrays, mesh) if sharded else arrays
     batch = to_device(local, torch.device("cpu"))
     with torch.no_grad():
@@ -304,17 +313,132 @@ def tp_predictor_worker(rank, world, tp, variants, tree, requests):
                       **options)(requests) for kw, options in variants]
 
 
-def tp_trainer_worker(rank, world, tp, cfg_kwargs, data):
+def tp_trainer_worker(rank, world, tp, cfg_kwargs, data, bert=None):
     """A Trainer's run on the (world / tp, tp) mesh (`cfg_kwargs` name the
-    mesh), dropout off: its summary and its parameters in the full layout."""
+    mesh), dropout off, `tp_bert_cfg(**bert)` the BERT (its MoE options
+    from the config): its summary and its parameters in the full layout."""
     from mmda_tpu_torch.config import Config
     from mmda_tpu_torch.parallel.mesh import gather_params
     from mmda_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(Config(**cfg_kwargs), data, bert_cfg=tp_bert_cfg())
+    trainer = Trainer(Config(**cfg_kwargs), data, bert_cfg=tp_bert_cfg(**(bert or {})))
     model = trainer.model
     model.train = lambda mode=True: torch.nn.Module.train(model, False)
     summary = trainer.train()
     names = [n for n, _ in model.named_parameters()]
     return {"summary": summary, "step": trainer.step,
             "params": dict(zip(names, gather_params(model, trainer.mesh)))}
+
+
+# ------------------------------------ sequence and expert parallelism's ranks
+
+
+def encode_case(enc, mesh, ids, mask, impl, grads, aux_weights=(0.5, 0.1)):
+    """This rank's 'data' rows of (ids, mask) through `enc` (f32, no
+    dropout): the hidden rows, the MoE aux losses (None for a dense
+    encoder), and with `grads` the gradient of the global batch's
+    mean(hidden^2) (+ the aux losses times `aux_weights`), summed over
+    'data': this rank's own (by name) and the full layout's (by JAX path)."""
+    from mmda_tpu_torch.convert import jax_leaves
+    from mmda_tpu_torch.models.bert import bert_encode, split_aux
+    from mmda_tpu_torch.parallel import mesh as pmesh
+
+    rows = mesh.rows(len(ids))
+    out = bert_encode(enc, torch.from_numpy(ids[rows]), torch.from_numpy(mask[rows]),
+                      compute_dtype=torch.float32, attn_impl=impl)
+    hidden, aux = split_aux(out)
+    result = {"rows": (rows.start, rows.stop), "tp_rank": mesh.tp_rank,
+              "out": hidden.detach(),
+              "aux": None if aux is None else {k: v.item() for k, v in aux.items()}}
+    if grads:
+        named = list(enc.named_parameters())
+        loss = hidden.square().sum() / (len(ids) * hidden[0].numel())
+        if aux is not None:
+            loss = loss + aux_weights[0] * aux["balance"] + aux_weights[1] * aux["router_z"]
+        g = list(torch.autograd.grad(loss, [p for _, p in named], allow_unused=True,
+                                     materialize_grads=True))
+        pmesh.all_reduce_grads(g, mesh)
+        specs = pmesh.param_partition_specs(enc, mesh.tp)
+        full = pmesh.gather_tensors(g, [specs.get(n) for n, _ in named], mesh)
+        result["own_grads"] = {n: t.clone() for (n, _), t in zip(named, g)}
+        result["grads"] = dict(jax_leaves(enc, full))
+    return result
+
+
+def placed_encoder(tree, bert_cfg, mesh, sp=False, over_data=False):
+    """The BERT encoder of `tree` on `mesh`: this rank's blocks, its
+    S-shards under `sp`, its MoE routed over 'data' under `over_data`."""
+    from mmda_tpu_torch.convert import load_jax_params
+    from mmda_tpu_torch.models.bert import BertEncoder
+    from mmda_tpu_torch.parallel.expert import route_over_data
+    from mmda_tpu_torch.parallel.mesh import shard_params
+    from mmda_tpu_torch.parallel.sequence import shard_sequence
+
+    enc = shard_params(load_jax_params(BertEncoder(bert_cfg), tree), mesh)
+    if sp:
+        shard_sequence(enc)
+    if over_data:
+        route_over_data(enc, mesh)
+    return enc
+
+
+def mesh_worker(rank, world, tp, cases_file):
+    """Every pickled case {"key", "kind", ...} on the (world / tp, tp) mesh,
+    by key: "encode" (`encode_case` of a `placed_encoder` under each
+    attn_impl), "step" (`one_step`), "model" (a family's forward on its
+    mesh rows with SP), "trainer" (`tp_trainer_worker`'s run), "predictor"
+    (a `Predictor(mesh=)`'s outputs for the case's requests)."""
+    from mmda_tpu_torch.config import Config
+
+    with open(cases_file, "rb") as f:
+        cases = pickle.load(f)
+    mesh = _mesh(tp)
+    out = {}
+    for case in cases:
+        kind = case["kind"]
+        if kind == "encode":
+            enc = placed_encoder(case["tree"], tp_bert_cfg(**case.get("bert", {})), mesh,
+                                 case.get("sp", False), case.get("over_data", False))
+            out[case["key"]] = {impl: encode_case(enc, mesh, case["ids"], case["mask"], impl,
+                                                  case.get("grads", False))
+                                for impl in case["impls"]}
+        elif kind == "step":
+            kw = case["cfg"]
+            out[case["key"]] = one_step(
+                Config(device="cpu", **kw), case["tree"], case["arrays"], mesh,
+                bert_cfg=tp_bert_cfg(fused_ln_dropout=kw.get("fused_ln_dropout", False),
+                                     **case.get("bert", {})),
+                dropout=case.get("dropout", False), frozen=case.get("frozen", 8))
+        elif kind == "model":
+            out[case["key"]] = model_case(case, mesh)
+        elif kind == "trainer":
+            out[case["key"]] = tp_trainer_worker(rank, world, tp, case["cfg"], case["data"],
+                                                 case.get("bert", {}))
+        elif kind == "predictor":
+            from mmda_tpu_torch.serving import Predictor
+
+            out[case["key"]] = Predictor(Config(**case["cfg"]), params=case["tree"], mesh=mesh,
+                                         bert_cfg=tp_bert_cfg(**case.get("bert", {})),
+                                         **case["options"])(case["requests"])
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def model_case(case, mesh):
+    """A family's model of `case["tree"]` (`tp_bert_cfg`), sharded with SP:
+    the forward's scores and hidden features on this rank's 'data' rows."""
+    from mmda_tpu_torch.config import Config
+    from mmda_tpu_torch.convert import load_jax_params
+    from mmda_tpu_torch.data.loader import to_device
+    from mmda_tpu_torch.models import get_model
+    from mmda_tpu_torch.parallel.mesh import shard_batch, shard_params
+    from mmda_tpu_torch.parallel.sequence import shard_sequence
+
+    cfg = Config(device="cpu", **case["cfg"])
+    model = load_jax_params(get_model(cfg.model)(cfg, bert_cfg=tp_bert_cfg()), case["tree"])
+    shard_sequence(shard_params(model, mesh))
+    batch = to_device(shard_batch(case["arrays"], mesh), torch.device("cpu"))
+    with torch.no_grad():
+        out = model.eval()(batch)
+    return {"scores": out.scores, "rows": mesh.rows(len(case["arrays"]["lengths"]))}

@@ -25,9 +25,9 @@ from mmda_tpu_torch.ops.kernels import short_attention as kshort
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (CHECK_SHAPES, HEAD_OFFSET_CASES, INT8_DENSES,  # noqa: E402
-                        MASKED_ITEM_SHAPES, MASKED_REACH, PEAKED_TIMES, SHORT_SHAPES,
-                        check_short_mask, head_offset_case, masked_item_case,
-                        masked_item_inputs, peaked_check, steady_on_cpu)
+                        LN_LAYOUT, MASKED_ITEM_SHAPES, MASKED_REACH, PEAKED_TIMES,
+                        SHORT_SHAPES, check_short_mask, head_offset_case, ln_layout_case,
+                        masked_item_case, masked_item_inputs, peaked_check, steady_on_cpu)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)       # f32 both sides, summation order only
@@ -422,6 +422,18 @@ def test_ln_dropout_autograd_on_the_card_matches_the_cpu(cuda_device):
 
     for a, b_ in zip(steady_on_cpu(lambda: run("cpu")), run(cuda_device)):
         torch.testing.assert_close(a, b_, **TOL)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_dropout_row_layout_gives_the_whole_launchs_rows(cuda_device, dtype, tp):
+    """Sequence parallelism's row layout: each rank's S-shard launch of
+    (B, S, H) = (64, 50, 768) rows gives the whole launch's out, dx and dy
+    rows bit for bit (tp = 2: s0 = 0 and 25; tp = 4: 13 rows a shard, the
+    last padded), the summed dscale and dbias within chip_smoke's
+    LN_SUM_TOL (`chip_smoke.ln_layout_case`)."""
+    case = ln_layout_case(kln, hash_dropout.keep_mask, *LN_LAYOUT, tp, dtype, cuda_device)
+    assert case["s_local"] == -(-LN_LAYOUT[1] // tp)
 
 
 def test_ln_dropout_kernels_reject_cpu_mixed_inputs(cuda_device):

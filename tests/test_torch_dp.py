@@ -249,16 +249,27 @@ def test_ranks_draw_their_own_dropout_and_the_shared_keep_mask(tmp_path):
     (dict(ckpt_backend="orbax"), "item 6"), (dict(moe_experts=4), "item 3"),
     (dict(model="MMIM"), "item 7")])
 def test_unported_modes_are_refused_by_name(option, item):
-    """Each mode the trainer cannot run names its ROADMAP item; MoE and
-    MMIM only at dp > 1 (one process runs them), MoE also at tp > 1 (tensor
-    parallelism itself runs: tests/test_torch_tp.py)."""
+    """Each mode the trainer cannot run names its ROADMAP item; MMIM only
+    at dp > 1 (one process runs it).  Item 3's modes run: MoE at dp = 2
+    and at tp = 2 is accepted (tests/test_torch_ep.py), and sp raises the
+    JAX trainer's "needs tp_size > 1" at tp_size = 1."""
+    if item == "item 3":
+        if "sp" in option:
+            with pytest.raises(ValueError, match="sp=True needs tp_size > 1"):
+                Config(device="cpu", **option)
+            option = dict(option, tp_size=2)
+        cfg = Config(device="cpu", **option)
+        assert unsupported(cfg, dp=2) == unsupported(cfg, dp=1) == []
+        with pytest.raises(ValueError, match="process group"):
+            Trainer(cfg.replace(dp_size=2), {})
+        return
     cfg = Config(device="cpu", **option)
     (msg,) = unsupported(cfg, dp=2)
     assert f"ROADMAP Queue 1 {item}" in msg and next(iter(option)) in msg
-    if option in (dict(moe_experts=4), dict(model="MMIM")):
+    if option == dict(model="MMIM"):
         assert unsupported(cfg, dp=1) == []
     with pytest.raises(ValueError, match=f"not ported yet: .*{item}"):
-        Trainer(cfg.replace(dp_size=2) if item in ("item 3", "item 7") else cfg, {})
+        Trainer(cfg.replace(dp_size=2) if item == "item 7" else cfg, {})
 
 
 def test_a_mesh_needs_a_process_group_and_tp_1():

@@ -90,6 +90,61 @@ def test_forward_and_gradients_match_pallas(N, H, rate):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **GRAD_TOL)
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("B,S", [(3, 12), (2, 13)])
+def test_row_layout_gives_the_whole_launch_rows(B, S, tp):
+    """Sequence parallelism's row layout: each of tp ranks launches its
+    S-shard of every batch item (S_local = ceil(S / tp) rows from s0 = rank
+    S_local, the last shard padded with zeros where tp does not divide S)
+    under (S_local, S, s0), and gets the rows the whole (B * S, H) launch of
+    the JAX kernel (interpret mode) gives them: the keep mask bit for bit,
+    the output and dx, dy at the gates above, dscale and dbias summed over
+    the ranks (padding rows carry no gradient).  The default layout is the
+    launch's own rows, bit for bit."""
+    H, rate, eps = 32, 0.3, 1e-12
+    a = _inputs(B * S, H, seed=B * S + tp)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    jseed = jnp.array([41], jnp.int32)
+    want, vjp = jax.vjp(lambda x, y, g, b: pln.residual_dropout_layernorm(
+        x, y, g, b, jseed, rate, eps), j["x"], j["y"], j["g"], j["b"])
+    wdx, wdy, wdg, wdb = (np.asarray(w) for w in vjp(j["dout"]))
+    want = np.asarray(want).reshape(B, S, H)
+    whole_mask = hash_dropout.keep_mask((B * S, H), rate, 41).reshape(B, S, H)
+    seed = torch.tensor([41], dtype=torch.int32)
+    s_local = -(-S // tp)
+    g, b = torch.from_numpy(a["g"]), torch.from_numpy(a["b"])
+    dg = db = 0.0
+    for rank in range(tp):
+        s0, n = rank * s_local, min(s_local, S - rank * s_local)
+
+        def rows(name):
+            t = torch.zeros(B, s_local, H)
+            t[:, :n] = torch.from_numpy(a[name]).reshape(B, S, H)[:, s0:s0 + n]
+            return t.reshape(B * s_local, H)
+
+        layout = (s_local, S, s0)
+        mask = hash_dropout.keep_mask((B * s_local, H), rate, 41, layout=layout)
+        assert torch.equal(mask.reshape(B, s_local, H)[:, :n], whole_mask[:, s0:s0 + n])
+        out = kln.residual_dropout_layernorm_fwd(rows("x"), rows("y"), g, b, seed, rate, eps,
+                                                 layout)
+        np.testing.assert_allclose(out.reshape(B, s_local, H)[:, :n].numpy(),
+                                   want[:, s0:s0 + n], **TOL)
+        dx, dy, g_r, b_r = kln.residual_dropout_layernorm_bwd(
+            rows("x"), rows("y"), g, rows("dout"), seed, rate, eps, layout)
+        for got, w in ((dx, wdx), (dy, wdy)):
+            np.testing.assert_allclose(got.reshape(B, s_local, H)[:, :n].numpy(),
+                                       w.reshape(B, S, H)[:, s0:s0 + n], **GRAD_TOL)
+        dg, db = dg + g_r, db + b_r
+    np.testing.assert_allclose(dg.numpy(), wdg, **GRAD_TOL)
+    np.testing.assert_allclose(db.numpy(), wdb, **GRAD_TOL)
+    x, y = torch.from_numpy(a["x"]), torch.from_numpy(a["y"])
+    N = B * S
+    assert torch.equal(kln.residual_dropout_layernorm_fwd(x, y, g, b, seed, rate, eps, (N, N, 0)),
+                       kln.residual_dropout_layernorm_fwd(x, y, g, b, seed, rate, eps))
+    with pytest.raises(ValueError, match="row layout"):
+        kln.residual_dropout_layernorm_fwd(x, y, g, b, seed, rate, eps, (5, S, 0))
+
+
 def test_backward_matches_autograd_through_the_plain_forward():
     a = _inputs(50, 24, seed=3)
     t = {k: torch.from_numpy(v).requires_grad_(k != "dout") for k, v in a.items()}

@@ -364,15 +364,18 @@ def test_misa_step_gradients_match_jax_grad():
 
 
 def test_trainer_rejects_bad_moe_configs(tmp_path):
-    """The JAX trainer's own errors (no BERT tower; pipelined encoder), and
-    tensor parallelism, which the port does not have."""
+    """The JAX trainer's own errors (no BERT tower; pipelined encoder; tp
+    not dividing the experts); at tp = 2 MoE is no longer refused (expert
+    parallelism, tests/test_torch_ep.py) and needs its process group."""
     data = {k: _split() for k in ("train", "dev", "test")}
     base = {**KW, "ckpt_dir": str(tmp_path), "device": "cpu"}
     with pytest.raises(ValueError, match="use_bert"):
         Trainer(Config(**{**base, "use_bert": False}), data)
     with pytest.raises(ValueError, match="pp_size"):
         Trainer(Config(**base, pp_size=2), data)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="divisible by tp_size=3"):
+        Trainer(Config(**base, tp_size=3), data)
+    with pytest.raises(ValueError, match="process group"):
         Trainer(Config(**base, tp_size=2), data)
 
 

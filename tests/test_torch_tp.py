@@ -407,14 +407,18 @@ def test_tp_step_with_dropout_draws_the_one_process_masks(step_runs):
 
 def test_tp_must_divide_the_heads_and_the_ffn():
     """tp not dividing num_heads (4) or intermediate_size raises, naming
-    them; MoE BERT under tp > 1 raises (ROADMAP Queue 1 item 3)."""
+    them; MoE BERT at tp > 1 shards its experts, and tp not dividing them
+    raises the JAX trainer's message."""
     model = MISA(Config(device="cpu", **SMALL), bert_cfg=dp_workers.tp_bert_cfg())
     with pytest.raises(ValueError, match="num_heads=4 and intermediate_size=64"):
         pmesh.shard_params(model, pmesh.Mesh(dp=1, rank=0, device=torch.device("cpu"), tp=3))
     moe = MISA(Config(device="cpu", **SMALL),
                bert_cfg=dp_workers.tp_bert_cfg(moe_experts=2))
-    with pytest.raises(ValueError, match="item 3"):
-        pmesh.shard_params(moe, pmesh.Mesh(dp=1, rank=0, device=torch.device("cpu"), tp=2))
+    with pytest.raises(ValueError, match="moe_experts=2 must be divisible by tp_size=4"):
+        pmesh.shard_params(moe, pmesh.Mesh(dp=1, rank=0, device=torch.device("cpu"), tp=4))
+    pmesh.shard_params(moe, pmesh.Mesh(dp=1, rank=1, device=torch.device("cpu"), tp=2))
+    assert moe.bert.layers[0].moe.w_in.shape == (1, 32, 64)
+    assert moe.bert.layers[0].moe.gate.shape == (32, 2)
 
 
 @pytest.mark.parametrize("option,item", [
@@ -422,10 +426,24 @@ def test_tp_must_divide_the_heads_and_the_ffn():
     (dict(fsdp=True), "item 4"), (dict(pp_size=2), "item 5"),
     (dict(ckpt_backend="orbax"), "item 6")])
 def test_the_other_modes_stay_refused_at_tp_2(option, item):
-    """At tp_size = 2 tensor parallelism itself is no longer refused, and
-    each mode still to come is, by name and ROADMAP item."""
+    """At tp_size = 2 tensor parallelism itself is no longer refused, nor
+    are item 3's sequence parallelism and MoE (their checks instead: sp
+    needs tp_size > 1, tp must divide the experts); each mode still to come
+    is refused, by name and ROADMAP item."""
     assert unsupported(Config(device="cpu", tp_size=2), dp=1) == []
     cfg = Config(device="cpu", tp_size=2, **option)
+    if item == "item 3":
+        assert unsupported(cfg, dp=1) == unsupported(cfg, dp=2) == []
+        if "sp" in option:
+            with pytest.raises(ValueError, match="sp=True needs tp_size > 1"):
+                cfg.replace(tp_size=1)
+        else:
+            with pytest.raises(ValueError, match="moe_experts=4 must be divisible by "
+                                                 "tp_size=3"):
+                Trainer(cfg.replace(tp_size=3), {})
+        with pytest.raises(ValueError, match="process group"):
+            Trainer(cfg, {})
+        return
     (msg,) = unsupported(cfg, dp=1)
     assert f"ROADMAP Queue 1 {item}" in msg and next(iter(option)) in msg
     with pytest.raises(ValueError, match=f"not ported yet: .*{item}"):

@@ -275,7 +275,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, option):
     """Each mode not ported names its ROADMAP item; data and tensor
     parallelism (dp_size > 1, tp_size > 1) are ported, and without a process
     group of as many ranks they are refused too, instead of running as one
-    process."""
+    process; sequence parallelism is ported and needs tp_size > 1 (the JAX
+    trainer's message), so at tp_size = 2 it too needs the process group."""
+    if "sp" in option:
+        with pytest.raises(ValueError, match="sp=True needs tp_size > 1"):
+            _tiny_cfg(tmp_path, **option)
+        option = dict(option, tp_size=2)
     cfg = _tiny_cfg(tmp_path, **option)
     ported = "dp_size" in option or "tp_size" in option
     with pytest.raises(ValueError, match="process group" if ported else "ROADMAP"):
